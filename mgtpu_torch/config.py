@@ -1,0 +1,50 @@
+"""Dtype helpers and the device rule of the PyTorch port.
+
+Counterpart of mgtpu/config.py.  The port keeps the reference's value types
+on the host (numpy dtypes in ``MGConfig``) and maps them to torch dtypes at
+the device boundary.
+
+Device rule: entry points take ``device=`` and default to ``"cuda"``.  A
+CUDA device that is not present raises; nothing carries on silently on the
+CPU.  Callers (the CPU tests) ask for the CPU by passing ``device="cpu"``.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+DEFAULT_DEVICE = "cuda"
+
+_TORCH_DTYPES = {
+    np.dtype(np.float32): torch.float32,
+    np.dtype(np.float64): torch.float64,
+    np.dtype(np.complex64): torch.complex64,
+    np.dtype(np.complex128): torch.complex128,
+}
+
+
+def real_dtype(dtype) -> np.dtype:
+    return np.zeros((), dtype=dtype).real.dtype
+
+
+def is_complex(dtype) -> bool:
+    return np.issubdtype(np.dtype(dtype), np.complexfloating)
+
+
+def torch_dtype(dtype) -> torch.dtype:
+    """numpy dtype (or type) -> torch dtype; torch dtypes pass through."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    return _TORCH_DTYPES[np.dtype(dtype)]
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: ``"cuda"`` unless the caller says
+    otherwise.  Raises when a CUDA device is asked for and none is present."""
+    dev = torch.device(DEFAULT_DEVICE if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device found; pass device='cpu' to run on the CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev

@@ -1,0 +1,107 @@
+"""Build the port's CUDA sources with nvcc at first use; load them with ctypes.
+
+Each ``mgtpu_torch/csrc/<name>.cu`` becomes one shared library with a plain C
+interface, compiled for Hopper (``sm_90a``) into ``mgtpu_torch/_build/``
+(listed in .gitignore).  The library name carries a digest of the sources
+and flags, so an edited source is rebuilt and a stale library is never
+loaded.  Independent sources compile in parallel, one nvcc process each.
+No build step runs at import time: the CPU tests import every module.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+PKG = Path(__file__).resolve().parents[2]
+CSRC = PKG / "csrc"
+BUILD_DIR = PKG / "_build"
+SOURCES = ("const3d", "fused3d")
+FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+         "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+_LOGS: dict[str, str] = {}
+_LOCK = threading.Lock()
+
+
+def nvcc() -> str:
+    """Path of nvcc: on PATH, under $CUDA_HOME, or the toolkit's default."""
+    cands = [shutil.which("nvcc")]
+    if os.environ.get("CUDA_HOME"):
+        cands.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
+    cands.append("/usr/local/cuda/bin/nvcc")
+    for c in cands:
+        if c and os.path.isfile(c):
+            return c
+    raise RuntimeError("nvcc not found: the CUDA kernels are built from "
+                       "mgtpu_torch/csrc with the CUDA toolkit")
+
+
+def _digest(name: str) -> str:
+    h = hashlib.sha1(" ".join(FLAGS).encode())
+    for src in [CSRC / f"{name}.cu"] + sorted(CSRC.glob("*.cuh")):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:12]
+
+
+def lib_path(name: str) -> Path:
+    return BUILD_DIR / f"lib{name}-{_digest(name)}.so"
+
+
+def build(names=SOURCES) -> dict[str, str]:
+    """Compile every named source that has no up-to-date library, all nvcc
+    processes started together.  Returns the compiler output (with ptxas's
+    register, shared-memory and spill lines) of each source built by this
+    process.  Raises on the first failed compile, after stopping the rest."""
+    BUILD_DIR.mkdir(exist_ok=True)
+    procs = {}
+    try:
+        for name in names:
+            out = lib_path(name)
+            if out.exists():
+                continue
+            tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+            cmd = [nvcc(), *FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+            procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT,
+                                            text=True), tmp, out)
+        for name, (proc, tmp, out) in procs.items():
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {name}.cu:\n{log}")
+            os.replace(tmp, out)
+            _LOGS[name] = log
+    finally:
+        for proc, tmp, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if tmp.exists():
+                tmp.unlink()
+    return {n: _LOGS[n] for n in names if n in _LOGS}
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of `name`, built first if needed."""
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            build([name])
+            lib = ctypes.CDLL(str(lib_path(name)))
+            lib.mgt_error_string.argtypes = [ctypes.c_int]
+            lib.mgt_error_string.restype = ctypes.c_char_p
+            _LIBS[name] = lib
+        return lib
+
+
+def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    """Raise when a C entry returned a CUDA error code."""
+    if rc != 0:
+        msg = lib.mgt_error_string(rc).decode()
+        raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")

@@ -34,3 +34,7 @@ def pytest_configure(config):
         "markers",
         "slow: long-running convergence tests (> ~7s); the quick gate is "
         "`pytest -m 'not slow'` (< 3 min), full suite for release checks")
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA card; skips without one (run on the card with "
+        "`pytest -m gpu tests/test_torch_gpu.py`)")

@@ -1,0 +1,174 @@
+"""The PyTorch port's 3D stencil ops (mgtpu_torch/ops/cuda/const3d.py,
+fused3d.py) against mgtpu's Pallas kernels in interpret mode and against
+scipy's float64 L x, on the CPU.  Here the port's wrappers take their plain
+versions (the tensors lie on the CPU); the CUDA kernels are held against
+those plain versions on the card (tests/test_torch_gpu.py, chip_smoke.py).
+"""
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import scipy.sparse as sp
+import torch
+
+import mgtpu
+import mgtpu.ops.pallas.const3d as c3
+from mgtpu.models.operators import nodal_laplacian_matrix
+from mgtpu.ops.grid_stencil import make_grid_stencil as make_ref
+from mgtpu.ops.pallas import fused3d as f3_ref
+
+from mgtpu_torch.ops.cuda import const3d as port_c3
+from mgtpu_torch.ops.cuda import fused3d as port_f3
+from mgtpu_torch.ops.grid_stencil import make_grid_stencil as make_port
+
+KERNELS = ["matvec", "residual", "jacobi", "jacobi_corr", "jacobi_residual"]
+DIMS = [(16, 16, 16), (24, 24, 24), (18, 24, 30)]
+
+
+@pytest.fixture()
+def small_kernels(monkeypatch):
+    """Lower mgtpu's size floor so test-size grids build the kernels' face
+    arrays, and route its matvec through the Pallas interpreter."""
+    def sc(offsets, grid, dtype):
+        return (len(grid) == 3
+                and all(abs(d) <= 1 for off in offsets for d in off)
+                and all(n >= 16 for n in grid)
+                and np.dtype(dtype) == np.float32)
+    monkeypatch.setattr(c3, "supports_const3d", sc)
+    monkeypatch.setenv("MGTPU_PALLAS3D", "interpret")
+    yield
+
+
+def _operator(dims):
+    M = mgtpu.get_regular_mesh([0.0, 1.0] * 3, list(dims))
+    L = nodal_laplacian_matrix(M)
+    L = (L + 1e-4 * abs(L).sum(0).max() * sp.identity(L.shape[0])
+         ).tocsr().astype(np.float32)
+    return L, [d + 1 for d in dims]
+
+
+def _inputs(grid, m, seed):
+    rng = np.random.RandomState(seed)
+    x, b, p = (rng.rand(m, *grid).astype(np.float32) for _ in range(3))
+    d = rng.rand(*grid).astype(np.float32)
+    return x, b, d, p
+
+
+def _reference_pallas(kernel, A, x, b, d, p):
+    X, B, D, P = (jnp.asarray(v) for v in (x, b, d, p))
+    if kernel == "matvec":
+        out = c3.const3d_matvec_pallas(A.const, A.faces, A.offsets, X,
+                                       A.boxes[0][1][0], interpret=True)
+    elif kernel == "residual":
+        out = f3_ref.residual3d(A, B, X, interpret=True)
+    elif kernel == "jacobi":
+        out = f3_ref.jacobi3d(A, D, B, X, interpret=True)
+    elif kernel == "jacobi_corr":
+        out = f3_ref.jacobi_corr3d(A, D, B, X, P, interpret=True)
+    else:
+        out = f3_ref.jacobi_residual3d(A, D, B, X, interpret=True)
+    return [np.asarray(o) for o in (out if isinstance(out, tuple) else (out,))]
+
+
+def _port(kernel, A, x, b, d, p):
+    X, B, D, P = (torch.from_numpy(v) for v in (x, b, d, p))
+    if kernel == "jacobi_residual":
+        out = port_f3.jacobi_residual3d(A, D, B, X)
+    else:
+        out = port_c3.stencil3d_apply(A, kernel, X, b=B, d=D, p=P)
+    return [o.numpy() for o in (out if isinstance(out, tuple) else (out,))]
+
+
+def _scipy_f64(kernel, L, x, b, d, p):
+    """The same op in float64 on the assembled operator (fields are
+    (m, *grid); flat columns are grid fields raveled in C order)."""
+    m = x.shape[0]
+    shape = x.shape
+    L64 = L.astype(np.float64)
+
+    def mv(v):
+        return (L64 @ v.reshape(m, -1).T).T.reshape(shape)
+    x, b, d, p = (v.astype(np.float64) for v in (x, b, d, p))
+    if kernel == "matvec":
+        return [mv(x)]
+    if kernel == "residual":
+        return [b - mv(x)]
+    if kernel == "jacobi":
+        return [x + d * (b - mv(x))]
+    if kernel == "jacobi_corr":
+        s = x + p
+        return [s + d * (b - mv(s))]
+    x1 = x + d * (b - mv(x))
+    return [x1, b - mv(x1)]
+
+
+def _rel(a, ref):
+    return float(np.abs(a.astype(np.float64) - ref).max()
+                 / np.abs(ref).max())
+
+
+@pytest.mark.parametrize("kernel", KERNELS)
+@pytest.mark.parametrize("m", [1, 2])
+@pytest.mark.parametrize("dims", DIMS)
+def test_port_matches_pallas_and_scipy(small_kernels, dims, m, kernel):
+    L, nodes = _operator(dims)
+    A_ref = make_ref(L, nodes)
+    assert A_ref.faces is not None          # the Pallas path is taken
+    A = make_port(L, nodes, device="cpu")
+    assert type(A).__name__ == "ConstGridStencil"
+    x, b, d, p = _inputs(A.grid, m, seed=sum(dims) + m)
+    calls = dict(port_c3.PLAIN_CALLS, **port_f3.PLAIN_CALLS)
+    got = _port(kernel, A, x, b, d, p)
+    # on the CPU the wrapper took the plain version (and counted it)
+    after = dict(port_c3.PLAIN_CALLS, **port_f3.PLAIN_CALLS)
+    key = "jacobi_residual3d" if kernel == "jacobi_residual" else kernel
+    assert after[key] == calls[key] + 1
+    want = _reference_pallas(kernel, A_ref, x, b, d, p)
+    exact = _scipy_f64(kernel, L, x, b, d, p)
+    assert len(got) == len(want) == len(exact)
+    for j, (g, w, e) in enumerate(zip(got, want, exact)):
+        tol = 1e-4 if j == 1 else 2e-5      # r' of the double apply
+        assert g.shape == w.shape == e.shape
+        assert _rel(g, w.astype(np.float64)) < tol
+        assert _rel(g, e) < tol
+
+
+def test_kernel_meta_layout():
+    """The int32 description the C entries read (csrc/stencil3d.cuh)."""
+    L, nodes = _operator((6, 8, 10))
+    A = make_port(L, nodes, device="cpu")
+    meta = port_c3.kernel_meta(A.offsets, A.grid, A.boxes)
+    nd = len(A.offsets)
+    assert meta.dtype == np.int32
+    assert list(meta[:5]) == [nd, *A.grid, 2]
+    off = np.asarray(A.offsets)
+    assert np.array_equal(meta[5:5 + 3 * nd].reshape(3, nd), off.T)
+    boxes = meta[5 + 3 * nd:].reshape(2, 6, 3)
+    assert [tuple(v) for v in boxes[0]] == [st for st, _ in A.boxes]
+    assert [tuple(v) for v in boxes[1]] == [sz for _, sz in A.boxes]
+    # the band packs the boxes in order: its size is nd * sum of box sizes
+    assert A.band.numel() == nd * sum(int(np.prod(sz)) for _, sz in A.boxes)
+
+
+def test_wrappers_refuse_other_devices():
+    """A wrapper launches its kernel on CUDA, takes the plain version on the
+    CPU, and raises for any other device rather than guessing."""
+    L, nodes = _operator((6, 8, 10))
+    A = make_port(L, nodes, device="cpu")
+    x = torch.zeros((1,) + A.grid, device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        port_c3.stencil3d_apply(A, "matvec", x)
+    with pytest.raises(ValueError, match="no kernel"):
+        port_f3.jacobi_residual3d(A, x[0], x, x)
+    with pytest.raises(ValueError, match="needs b"):
+        port_c3.stencil3d_apply(A, "residual", x)
+
+
+def test_dispatch_rule_is_static():
+    """3D radius-1 float32 stencils go to the kernels; float64 and 2D take
+    the plain strip assembly (no kernel exists for them)."""
+    sc = port_c3.supports_const3d
+    off3 = [(0, 0, 1), (1, 0, 0)]
+    assert sc(off3, (5, 5, 5), torch.float32)
+    assert not sc(off3, (5, 5, 5), torch.float64)
+    assert not sc([(0, 1), (1, 0)], (5, 5), torch.float32)
+    assert not sc([(0, 0, 2)], (5, 5, 5), torch.float32)
