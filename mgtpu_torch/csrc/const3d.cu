@@ -59,7 +59,7 @@ __global__ void __launch_bounds__(256) stencil3d_apply_kernel(
     if constexpr (MODE == 3) v += __ldg(pc + o);
     return v;
   };
-  const float ax = mgt_apply_node<NT>(s, sc, band, ix, iy, iz, load);
+  const float ax = mgt_apply_node<NT, true>(s, sc, band, ix, iy, iz, load);
   if constexpr (MODE == 0) {
     out[moff + i] = ax;
   } else if constexpr (MODE == 1) {

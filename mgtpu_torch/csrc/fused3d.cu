@@ -13,17 +13,18 @@
 // worth fusing, since r' needs x' on the neighbours of every node.
 //
 // What the design does about it: each block owns a (TY, TZ) column tile
-// and marches along x over CX planes.  For each plane it computes x' on
-// the next plane (tile plus a one-node y/z halo) into a ring of three x'
-// planes in shared memory, then writes this plane's x' and r' = b - A x'
-// with every tap read from the ring, so x' never makes a round trip
-// through device memory.  x is read through L1/L2 (its x-neighbour planes
-// were touched one step earlier).  The halo and the two planes before the
-// chunk are recomputed by neighbouring blocks: about 1.33x the first
-// apply's arithmetic, no extra device-memory bytes.  Interior nodes take
-// the constants from shared memory; band nodes read their box's
-// coefficients with bounds-checked taps (zero outside the grid), so every
-// node is exact and no separate band-row pass is needed.
+// and marches along x over CX planes.  Two rings live in shared memory:
+// three x planes with a two-node y/z halo and three x' planes with a
+// one-node halo.  Per plane it computes x' on the next plane from the x
+// ring, then writes this plane's x' and r' = b - A x' from the x' ring;
+// meanwhile the x plane after next is loaded from global memory, so every
+// tap of both applies is a shared-memory read and each x value is fetched
+// once per block.  x' never makes a round trip through device memory.
+// The halos and the two planes before each chunk are recomputed by
+// neighbouring blocks (more arithmetic, no extra device-memory bytes).
+// Interior nodes take the constants from shared memory; band nodes read
+// their box's coefficients, with taps that count zero off the grid, so
+// every node is exact and no separate band-row pass is needed.
 #include "stencil3d.cuh"
 
 extern "C" const char* mgt_error_string(int e) {
@@ -32,77 +33,134 @@ extern "C" const char* mgt_error_string(int e) {
 
 namespace {
 constexpr int TZ = 32, TY = 8, CX = 8;    // tile (z, y); x planes per block
-constexpr int EZ = TZ + 2, EY = TY + 2;
-constexpr int EP = EZ * EY;               // one ring plane with its halo
+constexpr int NTH = TZ * TY;
+constexpr int EZ = TZ + 2, EP = EZ * (TY + 2);   // x' plane, one-node halo
+constexpr int QZ = TZ + 4, QP = QZ * (TY + 4);   // x plane, two-node halo
+constexpr int EPER = (EP + NTH - 1) / NTH;       // x' nodes per thread
+constexpr int QPER = (QP + NTH - 1) / NTH;       // x loads per thread
 }  // namespace
 
 template <int NT>
-__global__ void __launch_bounds__(TZ * TY, 4) jacobi_residual3d_kernel(
+__global__ void __launch_bounds__(NTH, 4) jacobi_residual3d_kernel(
     Stencil3D s, const float* __restrict__ cst,
     const float* __restrict__ band, const float* __restrict__ x,
     const float* __restrict__ b, const float* __restrict__ d,
     float* __restrict__ x1, float* __restrict__ r1) {
   __shared__ float sc[MGT_MAX_TAPS];
-  __shared__ float ring[3][EP];
+  __shared__ float xr[3][QP];             // x planes q, q+1, q+2 (rotating)
+  __shared__ float yr[3][EP];             // x' planes q-1, q, q+1 (rotating)
   const int tid = threadIdx.y * TZ + threadIdx.x;
   mgt_load_consts<NT>(s, cst, sc, tid);
   const int ncx = (s.X + CX - 1) / CX;
   const int z0 = blockIdx.x * TZ, y0 = blockIdx.y * TY;
   const int x0 = (blockIdx.z % ncx) * CX;
+  const int xend = min(x0 + CX, s.X);
   const int plane = s.Y * s.Z;
   const int moff = (blockIdx.z / ncx) * plane * s.X;
   const float* xm = x + moff;
   const float* bm = b + moff;
-  __syncthreads();
+  const int gz = z0 + threadIdx.x, gy = y0 + threadIdx.y;
+  const bool mine = gz < s.Z && gy < s.Y;
 
-  // x' on plane gx over the tile and its one-node halo (zero off the grid)
-  auto smooth_plane = [&](int gx, float* dst) {
-    for (int e = tid; e < EP; e += TZ * TY) {
+  // loads run one plane ahead of their use, in registers: the x plane
+  // (two-node halo), b and d on the next x' plane, b on the next output
+  float px[QPER], pb[EPER], pd[EPER], pbo = 0.0f;
+  auto fetch_x = [&](int gx) {
+#pragma unroll
+    for (int j = 0; j < QPER; ++j) {
+      const int e = tid + j * NTH;
+      const int qy = e / QZ, qz = e - qy * QZ;
+      const int ny = y0 - 2 + qy, nz = z0 - 2 + qz;
+      const bool in = e < QP && gx >= 0 && gx < s.X && ny >= 0 &&
+                      ny < s.Y && nz >= 0 && nz < s.Z;
+      px[j] = in ? __ldg(xm + gx * plane + ny * s.Z + nz) : 0.0f;
+    }
+  };
+  auto store_x = [&](float* dst) {
+#pragma unroll
+    for (int j = 0; j < QPER; ++j)
+      if (tid + j * NTH < QP) dst[tid + j * NTH] = px[j];
+  };
+  auto fetch_bd = [&](int gx) {          // x' plane gx, output plane gx-1
+#pragma unroll
+    for (int j = 0; j < EPER; ++j) {
+      const int e = tid + j * NTH;
       const int ey = e / EZ, ez = e - ey * EZ;
-      const int gy = y0 - 1 + ey, gz = z0 - 1 + ez;
+      const int ny = y0 - 1 + ey, nz = z0 - 1 + ez;
+      const bool in = e < EP && gx >= 0 && gx < s.X && ny >= 0 &&
+                      ny < s.Y && nz >= 0 && nz < s.Z;
+      const int i = gx * plane + ny * s.Z + nz;
+      pb[j] = in ? __ldg(bm + i) : 0.0f;
+      pd[j] = in ? __ldg(d + i) : 0.0f;
+    }
+    const bool in = mine && gx >= 1 && gx <= s.X;
+    pbo = in ? __ldg(bm + (gx - 1) * plane + gy * s.Z + gz) : 0.0f;
+  };
+  // x' on plane gx over the tile and its one-node halo, from the x planes
+  // gx-1, gx, gx+1 and the prefetched b, d (zero off the grid)
+  auto smooth = [&](int gx, const float* xa, const float* xb,
+                    const float* xc, float* dst) {
+#pragma unroll
+    for (int j = 0; j < EPER; ++j) {
+      const int e = tid + j * NTH;
+      if (e >= EP) break;
+      const int ey = e / EZ, ez = e - ey * EZ;
+      const int ny = y0 - 1 + ey, nz = z0 - 1 + ez;
       float v = 0.0f;
-      if (gx >= 0 && gx < s.X && gy >= 0 && gy < s.Y && gz >= 0 &&
-          gz < s.Z) {
-        const int i = gx * plane + gy * s.Z + gz;
-        const float* xc = xm + i;
-        auto gload = [&](int dx, int dy, int dz) {
-          return __ldg(xc + dx * plane + dy * s.Z + dz);
+      if (gx >= 0 && gx < s.X && ny >= 0 && ny < s.Y && nz >= 0 &&
+          nz < s.Z) {
+        const int c = (ey + 1) * QZ + ez + 1;
+        auto xload = [&](int dx, int dy, int dz) {
+          const float* pl = dx < 0 ? xa : (dx > 0 ? xc : xb);
+          return pl[c + dy * QZ + dz];
         };
-        const float ax = mgt_apply_node<NT>(s, sc, band, gx, gy, gz, gload);
-        v = __ldg(xc) + __ldg(d + i) * (__ldg(bm + i) - ax);
+        const float ax = mgt_apply_node<NT, false>(s, sc, band, gx, ny, nz, xload);
+        v = xb[c] + pd[j] * (pb[j] - ax);
       }
       dst[e] = v;
     }
   };
 
-  int sm = 0, s0 = 1, sp = 2;            // ring slots of planes ix-1, ix, ix+1
-  smooth_plane(x0 - 1, ring[sm]);
-  smooth_plane(x0, ring[s0]);
-  const int gz = z0 + threadIdx.x, gy = y0 + threadIdx.y;
-  const bool mine = gz < s.Z && gy < s.Y;
-  const int c = (threadIdx.y + 1) * EZ + threadIdx.x + 1;   // node in a plane
-  const int xend = min(x0 + CX, s.X);
-  for (int ix = x0; ix < xend; ++ix) {
-    smooth_plane(ix + 1, ring[sp]);
+  fetch_x(x0 - 2);
+  store_x(xr[0]);
+  fetch_x(x0 - 1);
+  store_x(xr[1]);
+  fetch_x(x0);
+  store_x(xr[2]);
+  fetch_bd(x0 - 1);
+  __syncthreads();
+  const int c = (threadIdx.y + 1) * EZ + threadIdx.x + 1;   // node in yr
+  int xa = 0, xb = 1, xc = 2;            // x-ring slots of planes q, q+1, q+2
+  int y0s = 0, y1s = 1, y2s = 2;         // x'-ring slots of q-1, q, q+1
+  for (int q = x0 - 2; q < xend; ++q) {
+    smooth(q + 1, xr[xa], xr[xb], xr[xc], yr[y2s]);
     __syncthreads();
-    if (mine) {
-      const float* pm = ring[sm];
-      const float* p0 = ring[s0];
-      const float* pp = ring[sp];
-      auto sload = [&](int dx, int dy, int dz) {
+    const float bo = pbo;                // b on output plane q
+    fetch_x(q + 3);                      // in flight during the second apply
+    fetch_bd(q + 2);
+    if (q >= x0 && mine) {
+      const float* pm = yr[y0s];
+      const float* p0 = yr[y1s];
+      const float* pp = yr[y2s];
+      auto yload = [&](int dx, int dy, int dz) {
         const float* pl = dx < 0 ? pm : (dx > 0 ? pp : p0);
         return pl[c + dy * EZ + dz];
       };
-      const float ax = mgt_apply_node<NT>(s, sc, band, ix, gy, gz, sload);
-      const int i = ix * plane + gy * s.Z + gz;
+      const float ax = mgt_apply_node<NT, false>(s, sc, band, q, gy, gz, yload);
+      const int i = q * plane + gy * s.Z + gz;
       x1[moff + i] = p0[c];
-      r1[moff + i] = __ldg(bm + i) - ax;
+      r1[moff + i] = bo - ax;
     }
-    __syncthreads();                     // the ring slot of ix-1 is reused
-    const int t = sm;
-    sm = s0;
-    s0 = sp;
-    sp = t;
+    store_x(xr[xa]);                     // plane q+3 replaces plane q
+    __syncthreads();
+    const int t = xa;
+    xa = xb;
+    xb = xc;
+    xc = t;
+    const int u = y0s;
+    y0s = y1s;
+    y1s = y2s;
+    y2s = u;
   }
 }
 

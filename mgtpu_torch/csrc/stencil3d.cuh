@@ -77,8 +77,12 @@ __device__ __forceinline__ void mgt_load_consts(const Stencil3D& s,
 
 // sum_k coeff[k, node] * f(node + off_k) at node (ix, iy, iz), with
 // f(.) = 0 outside the grid.  `load(dx, dy, dz)` returns the source value
-// at the in-grid node (ix+dx, iy+dy, iz+dz); `sc` holds the constants.
-template <int NT, typename Load>
+// at the neighbour (ix+dx, iy+dy, iz+dz); `sc` holds the constants.
+// CHECK: the source has no zero halo (global memory), so off-grid taps of
+// band nodes are redirected to the node itself; without CHECK the source
+// must read zero off the grid (the shared-memory rings of kernel B).  The
+// true band coefficient of an off-grid tap is zero either way.
+template <int NT, bool CHECK, typename Load>
 __device__ __forceinline__ float mgt_apply_node(
     const Stencil3D& s, const float* sc, const float* __restrict__ band,
     int ix, int iy, int iz, const Load& load) {
@@ -106,16 +110,18 @@ __device__ __forceinline__ float mgt_apply_node(
                  s.bn[b][2] + (iz - s.bs[b][2]);
     }
   }
-  // off-grid taps read the node itself (a valid address) and count zero
 #pragma unroll
   for (int k = 0; k < NT; ++k) {
-    const int jx = ix + s.dx[k], jy = iy + s.dy[k], jz = iz + s.dz[k];
-    const bool inx = jx >= 0 && jx < s.X, iny = jy >= 0 && jy < s.Y,
-               inz = jz >= 0 && jz < s.Z;
     float a = __ldg(base + (k < s.nd ? k : 0) * kstride);
-    a = (k < s.nd && inx && iny && inz) ? a : 0.0f;
-    acc = fmaf(a, load(inx ? s.dx[k] : 0, iny ? s.dy[k] : 0,
-                       inz ? s.dz[k] : 0), acc);
+    a = k < s.nd ? a : 0.0f;
+    int dx = s.dx[k], dy = s.dy[k], dz = s.dz[k];
+    if (CHECK) {
+      const int jx = ix + dx, jy = iy + dy, jz = iz + dz;
+      dx = jx >= 0 && jx < s.X ? dx : 0;
+      dy = jy >= 0 && jy < s.Y ? dy : 0;
+      dz = jz >= 0 && jz < s.Z ? dz : 0;
+    }
+    acc = fmaf(a, load(dx, dy, dz), acc);
   }
   return acc;
 }
