@@ -12,19 +12,19 @@
 // and x', r' written once (5 fields); the second apply is what makes it
 // worth fusing, since r' needs x' on the neighbours of every node.
 //
-// What the design does about it: each block owns a (TY, TZ) column tile
-// and marches along x over CX planes.  Two rings live in shared memory:
-// three x planes with a two-node y/z halo and three x' planes with a
-// one-node halo.  Per plane it computes x' on the next plane from the x
-// ring, then writes this plane's x' and r' = b - A x' from the x' ring;
-// meanwhile the x plane after next is loaded from global memory, so every
-// tap of both applies is a shared-memory read and each x value is fetched
-// once per block.  x' never makes a round trip through device memory.
-// The halos and the two planes before each chunk are recomputed by
-// neighbouring blocks (more arithmetic, no extra device-memory bytes).
-// Interior nodes take the constants from shared memory; band nodes read
-// their box's coefficients, with taps that count zero off the grid, so
-// every node is exact and no separate band-row pass is needed.
+// What the design does about it: each block owns a (TX, TY, TZ) tile of
+// outputs.  One load stage brings x with a two-node halo, and b and d with
+// a one-node halo, into shared memory, every load issued together (zero
+// off the grid).  The first apply computes x' on the tile plus a one-node
+// halo from shared memory; the second writes the tile's x' and
+// r' = b - A x', again from shared memory, so x' never makes a round trip
+// through device memory.  Each block has two barriers and no chain of
+// dependent steps, which keeps the latency of a block to about one round
+// trip to memory.  The halos are recomputed by neighbouring blocks (about
+// 2x the first apply's arithmetic, extra reads served by L2, no extra
+// device-memory bytes).  Interior nodes take the constants from shared
+// memory; band nodes read their box's coefficients (zero for off-grid
+// taps), so every node is exact and no separate band-row pass is needed.
 #include "stencil3d.cuh"
 
 extern "C" const char* mgt_error_string(int e) {
@@ -32,12 +32,12 @@ extern "C" const char* mgt_error_string(int e) {
 }
 
 namespace {
-constexpr int TZ = 32, TY = 8, CX = 8;    // tile (z, y); x planes per block
+constexpr int TZ = 32, TY = 8, TX = 4;    // output tile (z, y, x)
 constexpr int NTH = TZ * TY;
-constexpr int EZ = TZ + 2, EP = EZ * (TY + 2);   // x' plane, one-node halo
-constexpr int QZ = TZ + 4, QP = QZ * (TY + 4);   // x plane, two-node halo
-constexpr int EPER = (EP + NTH - 1) / NTH;       // x' nodes per thread
-constexpr int QPER = (QP + NTH - 1) / NTH;       // x loads per thread
+constexpr int EZ = TZ + 2, EY = TY + 2, EX = TX + 2;
+constexpr int EN = EX * EY * EZ;          // x' tile, one-node halo
+constexpr int QZ = TZ + 4, QY = TY + 4, QX = TX + 4;
+constexpr int QN = QX * QY * QZ;          // x tile, two-node halo
 }  // namespace
 
 template <int NT>
@@ -47,120 +47,74 @@ __global__ void __launch_bounds__(NTH, 4) jacobi_residual3d_kernel(
     const float* __restrict__ b, const float* __restrict__ d,
     float* __restrict__ x1, float* __restrict__ r1) {
   __shared__ float sc[MGT_MAX_TAPS];
-  __shared__ float xr[3][QP];             // x planes q, q+1, q+2 (rotating)
-  __shared__ float yr[3][EP];             // x' planes q-1, q, q+1 (rotating)
+  __shared__ float xs[QN];
+  __shared__ float ys[EN];
+  __shared__ float bs[EN];
+  __shared__ float ds[EN];
   const int tid = threadIdx.y * TZ + threadIdx.x;
   mgt_load_consts<NT>(s, cst, sc, tid);
-  const int ncx = (s.X + CX - 1) / CX;
+  const int ntx = (s.X + TX - 1) / TX;
   const int z0 = blockIdx.x * TZ, y0 = blockIdx.y * TY;
-  const int x0 = (blockIdx.z % ncx) * CX;
-  const int xend = min(x0 + CX, s.X);
+  const int x0 = (blockIdx.z % ntx) * TX;
   const int plane = s.Y * s.Z;
-  const int moff = (blockIdx.z / ncx) * plane * s.X;
+  const int moff = (blockIdx.z / ntx) * plane * s.X;
   const float* xm = x + moff;
   const float* bm = b + moff;
-  const int gz = z0 + threadIdx.x, gy = y0 + threadIdx.y;
-  const bool mine = gz < s.Z && gy < s.Y;
-
-  // loads run one plane ahead of their use, in registers: the x plane
-  // (two-node halo), b and d on the next x' plane, b on the next output
-  float px[QPER], pb[EPER], pd[EPER], pbo = 0.0f;
-  auto fetch_x = [&](int gx) {
 #pragma unroll
-    for (int j = 0; j < QPER; ++j) {
-      const int e = tid + j * NTH;
-      const int qy = e / QZ, qz = e - qy * QZ;
-      const int ny = y0 - 2 + qy, nz = z0 - 2 + qz;
-      const bool in = e < QP && gx >= 0 && gx < s.X && ny >= 0 &&
-                      ny < s.Y && nz >= 0 && nz < s.Z;
-      px[j] = in ? __ldg(xm + gx * plane + ny * s.Z + nz) : 0.0f;
+  for (int j = 0; j < (QN + NTH - 1) / NTH; ++j) {
+    const int e = tid + j * NTH;
+    const int qz = e % QZ, qy = (e / QZ) % QY, qx = e / (QZ * QY);
+    const int gx = x0 - 2 + qx, gy = y0 - 2 + qy, gz = z0 - 2 + qz;
+    const bool in = e < QN && gx >= 0 && gx < s.X && gy >= 0 && gy < s.Y &&
+                    gz >= 0 && gz < s.Z;
+    const float v = in ? __ldg(xm + gx * plane + gy * s.Z + gz) : 0.0f;
+    if (e < QN) xs[e] = v;
+  }
+#pragma unroll
+  for (int j = 0; j < (EN + NTH - 1) / NTH; ++j) {
+    const int e = tid + j * NTH;
+    const int ez = e % EZ, ey = (e / EZ) % EY, ex = e / (EZ * EY);
+    const int gx = x0 - 1 + ex, gy = y0 - 1 + ey, gz = z0 - 1 + ez;
+    const bool in = e < EN && gx >= 0 && gx < s.X && gy >= 0 && gy < s.Y &&
+                    gz >= 0 && gz < s.Z;
+    const int i = gx * plane + gy * s.Z + gz;
+    const float bv = in ? __ldg(bm + i) : 0.0f;
+    const float dv = in ? __ldg(d + i) : 0.0f;
+    if (e < EN) {
+      bs[e] = bv;
+      ds[e] = dv;
     }
-  };
-  auto store_x = [&](float* dst) {
-#pragma unroll
-    for (int j = 0; j < QPER; ++j)
-      if (tid + j * NTH < QP) dst[tid + j * NTH] = px[j];
-  };
-  auto fetch_bd = [&](int gx) {          // x' plane gx, output plane gx-1
-#pragma unroll
-    for (int j = 0; j < EPER; ++j) {
-      const int e = tid + j * NTH;
-      const int ey = e / EZ, ez = e - ey * EZ;
-      const int ny = y0 - 1 + ey, nz = z0 - 1 + ez;
-      const bool in = e < EP && gx >= 0 && gx < s.X && ny >= 0 &&
-                      ny < s.Y && nz >= 0 && nz < s.Z;
-      const int i = gx * plane + ny * s.Z + nz;
-      pb[j] = in ? __ldg(bm + i) : 0.0f;
-      pd[j] = in ? __ldg(d + i) : 0.0f;
-    }
-    const bool in = mine && gx >= 1 && gx <= s.X;
-    pbo = in ? __ldg(bm + (gx - 1) * plane + gy * s.Z + gz) : 0.0f;
-  };
-  // x' on plane gx over the tile and its one-node halo, from the x planes
-  // gx-1, gx, gx+1 and the prefetched b, d (zero off the grid)
-  auto smooth = [&](int gx, const float* xa, const float* xb,
-                    const float* xc, float* dst) {
-#pragma unroll
-    for (int j = 0; j < EPER; ++j) {
-      const int e = tid + j * NTH;
-      if (e >= EP) break;
-      const int ey = e / EZ, ez = e - ey * EZ;
-      const int ny = y0 - 1 + ey, nz = z0 - 1 + ez;
-      float v = 0.0f;
-      if (gx >= 0 && gx < s.X && ny >= 0 && ny < s.Y && nz >= 0 &&
-          nz < s.Z) {
-        const int c = (ey + 1) * QZ + ez + 1;
-        auto xload = [&](int dx, int dy, int dz) {
-          const float* pl = dx < 0 ? xa : (dx > 0 ? xc : xb);
-          return pl[c + dy * QZ + dz];
-        };
-        const float ax = mgt_apply_node<NT, false>(s, sc, band, gx, ny, nz, xload);
-        v = xb[c] + pd[j] * (pb[j] - ax);
-      }
-      dst[e] = v;
-    }
-  };
-
-  fetch_x(x0 - 2);
-  store_x(xr[0]);
-  fetch_x(x0 - 1);
-  store_x(xr[1]);
-  fetch_x(x0);
-  store_x(xr[2]);
-  fetch_bd(x0 - 1);
+  }
   __syncthreads();
-  const int c = (threadIdx.y + 1) * EZ + threadIdx.x + 1;   // node in yr
-  int xa = 0, xb = 1, xc = 2;            // x-ring slots of planes q, q+1, q+2
-  int y0s = 0, y1s = 1, y2s = 2;         // x'-ring slots of q-1, q, q+1
-  for (int q = x0 - 2; q < xend; ++q) {
-    smooth(q + 1, xr[xa], xr[xb], xr[xc], yr[y2s]);
-    __syncthreads();
-    const float bo = pbo;                // b on output plane q
-    fetch_x(q + 3);                      // in flight during the second apply
-    fetch_bd(q + 2);
-    if (q >= x0 && mine) {
-      const float* pm = yr[y0s];
-      const float* p0 = yr[y1s];
-      const float* pp = yr[y2s];
-      auto yload = [&](int dx, int dy, int dz) {
-        const float* pl = dx < 0 ? pm : (dx > 0 ? pp : p0);
-        return pl[c + dy * EZ + dz];
+  for (int e = tid; e < EN; e += NTH) {
+    const int ez = e % EZ, ey = (e / EZ) % EY, ex = e / (EZ * EY);
+    const int gx = x0 - 1 + ex, gy = y0 - 1 + ey, gz = z0 - 1 + ez;
+    float v = 0.0f;
+    if (gx >= 0 && gx < s.X && gy >= 0 && gy < s.Y && gz >= 0 && gz < s.Z) {
+      const int c = ((ex + 1) * QY + ey + 1) * QZ + ez + 1;
+      auto xload = [&](int dx, int dy, int dz) {
+        return xs[c + (dx * QY + dy) * QZ + dz];
       };
-      const float ax = mgt_apply_node<NT, false>(s, sc, band, q, gy, gz, yload);
-      const int i = q * plane + gy * s.Z + gz;
-      x1[moff + i] = p0[c];
-      r1[moff + i] = bo - ax;
+      const float ax = mgt_apply_node<NT, false>(s, sc, band, gx, gy, gz,
+                                                 xload);
+      v = xs[c] + ds[e] * (bs[e] - ax);
     }
-    store_x(xr[xa]);                     // plane q+3 replaces plane q
-    __syncthreads();
-    const int t = xa;
-    xa = xb;
-    xb = xc;
-    xc = t;
-    const int u = y0s;
-    y0s = y1s;
-    y1s = y2s;
-    y2s = u;
+    ys[e] = v;
+  }
+  __syncthreads();
+  const int gz = z0 + threadIdx.x, gy = y0 + threadIdx.y;
+  if (gz >= s.Z || gy >= s.Y) return;
+  for (int lx = 0; lx < TX; ++lx) {
+    const int gx = x0 + lx;
+    if (gx >= s.X) break;
+    const int c = ((lx + 1) * EY + threadIdx.y + 1) * EZ + threadIdx.x + 1;
+    auto yload = [&](int dx, int dy, int dz) {
+      return ys[c + (dx * EY + dy) * EZ + dz];
+    };
+    const float ax = mgt_apply_node<NT, false>(s, sc, band, gx, gy, gz, yload);
+    const int i = gx * plane + gy * s.Z + gz;
+    x1[moff + i] = ys[c];
+    r1[moff + i] = bs[c] - ax;
   }
 }
 
@@ -174,7 +128,7 @@ extern "C" int mgt_jacobi_residual3d(const int* meta, int m, const void* cst,
   if (mgt_stencil_from_meta(meta, &s) != 0 || m < 1 ||
       (long long)m * s.X * s.Y * s.Z >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
-  const long long nz = ((long long)s.X + CX - 1) / CX * m;
+  const long long nz = ((long long)s.X + TX - 1) / TX * m;
   const long long ny = ((long long)s.Y + TY - 1) / TY;
   if (nz > 65535 || ny > 65535) return (int)cudaErrorInvalidValue;
   dim3 block(TZ, TY);

@@ -224,23 +224,12 @@ def _checked_inverse(Ad: np.ndarray) -> np.ndarray:
 
 
 def build_grid_hierarchy(state, relax_states, device) -> GridHierarchy:
-    """Build the grid engine for an MGState on `device`.  Raises ValueError
-    when the hierarchy is not a scalar full-weighting one and
-    NotImplementedError for options this port does not have yet."""
+    """Build the grid engine on `device` for an MGState that mg_setup made
+    (scalar full-weighting, pointwise smoothing; it checks the options).
+    Raises NotImplementedError for levels this port cannot run yet."""
     from ..setup import transfers as tr
     from ..setup.hierarchy import _resolve_relax
     cfg = state.config
-    if cfg.transfer_type != "full-weighting":
-        raise ValueError("grid engine needs scalar full-weighting transfers")
-    if cfg.relax_type not in GRID_RELAX:
-        raise NotImplementedError(
-            f"relax_type {cfg.relax_type!r} not yet ported")
-    if not state.meshes or len(state.meshes) < state.num_levels:
-        raise ValueError("grid engine needs per-level meshes")
-    if cfg.coarse_solve != "lu":
-        raise NotImplementedError(
-            f"coarse_solve {cfg.coarse_solve!r} not yet ported")
-
     dt = torch_dtype(cfg.dtype)
     gs_cache = getattr(state, "_gs_cache", None) or {}
     levels = []

@@ -36,10 +36,6 @@ class RegularMesh:
         return len(self.n)
 
     @property
-    def num_cells(self) -> int:
-        return int(np.prod(self.n))
-
-    @property
     def num_nodes(self) -> int:
         return int(np.prod([ni + 1 for ni in self.n]))
 
@@ -49,10 +45,3 @@ def get_regular_mesh(domain, n) -> RegularMesh:
     return RegularMesh(tuple(int(v) for v in np.asarray(n).ravel()),
                        tuple(float(v) for v in np.asarray(domain).ravel()))
 
-
-def get_nodal_grid(mesh: RegularMesh) -> np.ndarray:
-    """(num_nodes, dim) coordinates of mesh nodes, dim-0 fastest."""
-    axes = [mesh.domain[2 * i] + np.arange(mesh.n[i] + 1) * mesh.h[i]
-            for i in range(mesh.dim)]
-    grids = np.meshgrid(*axes, indexing="ij")
-    return np.stack([g.ravel(order="F") for g in grids], axis=1)

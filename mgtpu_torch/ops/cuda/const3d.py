@@ -11,8 +11,9 @@ modes, mgtpu/ops/pallas/fused3d.py ``_fused_kernel`` (K3-K5):
     jacobi_corr  x' = s + d .* (b - A s),  s = x + p
 
 The kernel is bound by device memory (a few flops per byte of field); it
-reads each field about once, takes one thread per output node with
-bounds-checked taps, and so is exact on the whole grid in one launch.
+reads each field about once with one thread per output node, and handles
+the boundary band in the same launch (each band node reads its box's true
+coefficients), so it is exact on the whole grid.
 
 Dispatch: `stencil3d_apply` launches the kernel for a CUDA tensor (or
 raises on anything the kernel does not take) and takes the plain version
@@ -40,9 +41,10 @@ MAX_TAPS = 27
 
 
 def supports_const3d(offsets, grid, dtype) -> bool:
-    """The kernels cover 3D radius-1 stencils in float32 (any grid size:
-    the TPU's 2M-node floor was a crossover against XLA fusion and does not
-    carry over).  f64 and 2D stencils take the plain torch versions."""
+    """The kernels cover 3D radius-1 stencils in float32, at any grid size
+    (the reference's node floor was a crossover against XLA fusion on its
+    own hardware and does not carry over).  f64 and 2D stencils take the
+    plain torch versions."""
     return (len(grid) == 3
             and len(offsets) <= MAX_TAPS
             and all(abs(d) <= 1 for off in offsets for d in off)

@@ -65,15 +65,6 @@ class GridStencil:
     def dtype(self):
         return self.coeff.dtype
 
-    @property
-    def shape(self) -> tuple[int, int]:
-        n = int(np.prod(self.grid))
-        return (n, n)
-
-    @property
-    def nnz(self) -> int:
-        return int(np.prod(self.coeff.shape))
-
     def to(self, device) -> "GridStencil":
         return GridStencil(torch.as_tensor(self.coeff, device=device),
                            self.offsets, self.grid)
@@ -320,11 +311,11 @@ class ConstGridStencil:
     boxes: tuple
 
     @classmethod
-    def from_arrays(cls, const, strips, offsets, grid, boxes, dtype=None,
+    def from_arrays(cls, const, strips, offsets, grid, boxes,
                     device="cpu") -> "ConstGridStencil":
         """Pack host (or device) const/strips into a stencil on `device`."""
         const = _np(const)
-        dt = torch_dtype(const.dtype if dtype is None else dtype)
+        dt = torch_dtype(const.dtype)
         band = np.concatenate([_np(s).reshape(-1) for s in strips])
         return cls(torch.tensor(const, dtype=dt, device=device),
                    torch.tensor(band, dtype=dt, device=device),
@@ -336,24 +327,6 @@ class ConstGridStencil:
     @property
     def dtype(self):
         return self.const.dtype
-
-    @property
-    def device(self):
-        return self.const.device
-
-    @property
-    def shape(self) -> tuple[int, int]:
-        n = int(np.prod(self.grid))
-        return (n, n)
-
-    @property
-    def nnz(self) -> int:
-        # logical stencil size (for operator-complexity accounting)
-        return int(len(self.offsets) * np.prod(self.grid))
-
-    @property
-    def width(self) -> int:
-        return self.boxes[0][1][0]
 
     @property
     def strips(self) -> tuple:
@@ -378,19 +351,6 @@ class ConstGridStencil:
         return const_grid_stencil_matvec(self.const, self.strips,
                                          self.offsets, self.grid, self.boxes,
                                          x)
-
-    def to_dense_stencil(self) -> GridStencil:
-        nd = len(self.offsets)
-        coeff = np.tile(_np(self.const).reshape(
-            (nd,) + (1,) * len(self.grid)), (1,) + self.grid)
-        for (start, size), strip in zip(self.boxes, self.strips):
-            sl = tuple(slice(s, s + z) for s, z in zip(start, size))
-            coeff[(slice(None),) + sl] = _np(strip)
-        return GridStencil(torch.as_tensor(coeff, device=self.device),
-                           self.offsets, self.grid)
-
-    def to_scipy(self) -> sp.csr_matrix:
-        return self.to_dense_stencil().to_scipy()
 
 
 def compress_grid_stencil(gs: GridStencil, width: int = 2,

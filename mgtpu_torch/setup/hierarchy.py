@@ -63,13 +63,8 @@ class MGConfig:
     nu_post: tuple[int, ...] = ()
     cycle_type: str = "V"
     coarse_solve: str = "lu"
-    strong_conn_param: float = 0.4
-    filtering_param: float = 0.0
     transfer_type: str = "full-weighting"
     dtype: Any = np.float64
-    kcycle_inner: int = 2
-    gmres_coarse_inner: int = 10
-    engine: str = "auto"             # "auto" | "grid"
     cheby_degree: int = 3            # polynomial degree per chebyshev sweep
     cheby_frac: float = 0.25         # smoothing interval [frac*lam, lam]
 
@@ -77,13 +72,12 @@ class MGConfig:
 def get_mg_param(levels: int = 3, max_outer_iter: int = 20,
                  relative_tol: float = 1e-6, relax_type: str = "spai",
                  relax_param=1.0, nu_pre=2, nu_post=2, cycle_type: str = "V",
-                 coarse_solve: str = "lu", strong_conn_param: float = 0.4,
-                 filtering_param: float = 0.0,
+                 coarse_solve: str = "lu",
                  transfer_type: str = "full-weighting",
-                 dtype=np.float64, engine: str = "auto",
-                 cheby_degree: int = 3,
+                 dtype=np.float64, cheby_degree: int = 3,
                  cheby_frac: float = 0.25) -> tuple[MGConfig, Any]:
-    """Configuration constructor mirroring getMGparam.
+    """Configuration constructor mirroring getMGparam (the parameters this
+    port reads so far).
 
     Returns (config, relax_param); sweep counts may be ints or per-level
     sequences/callables."""
@@ -102,11 +96,8 @@ def get_mg_param(levels: int = 3, max_outer_iter: int = 20,
                    relative_tol=relative_tol, relax_type=relax_type,
                    nu_pre=to_tuple(nu_pre), nu_post=to_tuple(nu_post),
                    cycle_type=cycle_type, coarse_solve=coarse_solve,
-                   strong_conn_param=strong_conn_param,
-                   filtering_param=filtering_param,
                    transfer_type=transfer_type, dtype=np.dtype(dtype).type,
-                   engine=engine, cheby_degree=cheby_degree,
-                   cheby_frac=cheby_frac)
+                   cheby_degree=cheby_degree, cheby_frac=cheby_frac)
     return cfg, relax_param
 
 
@@ -129,9 +120,6 @@ class MGState:
     @property
     def num_levels(self) -> int:
         return len(self.As)
-
-    def operator_complexity(self) -> float:
-        return sum(a.nnz for a in self.As) / max(self.As[0].nnz, 1)
 
 
 # ---------------------------------------------------------------------------
@@ -184,7 +172,6 @@ def _check_ported(cfg: MGConfig) -> None:
         (cfg.relax_type in GRID_RELAX, f"relax_type {cfg.relax_type!r}"),
         (cfg.cycle_type in ("V", "W", "F"), f"cycle_type {cfg.cycle_type!r}"),
         (cfg.coarse_solve == "lu", f"coarse_solve {cfg.coarse_solve!r}"),
-        (cfg.engine in ("auto", "grid"), f"engine {cfg.engine!r}"),
         (not is_complex(cfg.dtype), f"dtype {np.dtype(cfg.dtype)}"),
     ]
     for ok, what in checks:

@@ -88,3 +88,45 @@ def test_x_zero_matches_explicit_zero_start():
     y0 = cycle_port(cfg, gh, b, torch.zeros_like(b))
     y1 = cycle_port(cfg, gh, b, torch.zeros_like(b), x_zero=True)
     assert float((y0 - y1).abs().max() / y0.abs().max()) < 1e-5
+
+
+@pytest.mark.parametrize("fn", ["relax_diag", "chebyshev_smooth",
+                                "chebyshev4_smooth"])
+def test_relax_functions_match_reference(fn):
+    """The smoother kernels of cycle/relax.py on flat (n, m) columns with an
+    SPD matrix, against mgtpu.cycle.relax on the same inputs (float32)."""
+    import mgtpu.cycle.relax as ref
+    import mgtpu_torch.cycle.relax as port
+    rng = np.random.RandomState(5)
+    n, m = 40, 2
+    B = rng.rand(n, n).astype(np.float32)
+    A = (B @ B.T / n + np.eye(n, dtype=np.float32)).astype(np.float32)
+    b, x = rng.rand(n, m).astype(np.float32), rng.rand(n, m).astype(np.float32)
+    dvec = (0.8 / np.diag(A)).astype(np.float32)
+    lam = float(np.abs(np.linalg.eigvals(dvec[:, None] * A)).max()) * 1.05
+    Aj, At = jnp.asarray(A), torch.from_numpy(A)
+    r = b - A @ x
+    if fn == "relax_diag":
+        want = ref.relax_diag(lambda v: Aj @ v, jnp.asarray(r), jnp.asarray(x),
+                              jnp.asarray(b), jnp.asarray(dvec), 3)
+        got = port.relax_diag(lambda v: At @ v, torch.from_numpy(r),
+                              torch.from_numpy(x), torch.from_numpy(b),
+                              torch.from_numpy(dvec), 3)
+    elif fn == "chebyshev_smooth":
+        d2 = dvec[:, None]
+        want = ref.chebyshev_smooth(lambda v: Aj @ v, jnp.asarray(d2), lam, 3,
+                                    0.25, jnp.asarray(r), jnp.asarray(x),
+                                    jnp.asarray(b))
+        got = port.chebyshev_smooth(lambda v: At @ v, torch.from_numpy(d2),
+                                    lam, 3, 0.25, torch.from_numpy(r),
+                                    torch.from_numpy(x), torch.from_numpy(b))
+    else:
+        d2 = dvec[:, None]
+        want = ref.chebyshev4_smooth(lambda v: Aj @ v, jnp.asarray(d2), lam, 4,
+                                     jnp.asarray(r), jnp.asarray(x))
+        got = port.chebyshev4_smooth(lambda v: At @ v, torch.from_numpy(d2),
+                                     lam, 4, torch.from_numpy(r),
+                                     torch.from_numpy(x))
+    want = np.asarray(want)
+    assert got.dtype == torch.float32
+    assert np.abs(got.numpy() - want).max() / np.abs(want).max() < 1e-5

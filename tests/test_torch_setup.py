@@ -38,6 +38,15 @@ def test_fw_interp_1d_bitwise(n, geometric):
     assert np.array_equal(Pr.toarray(), Pp.toarray())
 
 
+def test_fw_interp_tensor_product_bitwise():
+    from mgtpu.setup.transfers import fw_interp as fwn_ref
+    from mgtpu_torch.setup.transfers import fw_interp as fwn_port
+    Pr, ncr = fwn_ref([9, 6, 5])
+    Pp, ncp = fwn_port([9, 6, 5])
+    assert np.array_equal(ncr, ncp)
+    assert (Pr != Pp).nnz == 0
+
+
 def _problem(dims):
     M = mgtpu.get_regular_mesh([0.0, 1.0] * len(dims), dims)
     L = lap_ref(M)
@@ -51,9 +60,11 @@ def _rel(a, b):
     return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
 
 
-@pytest.mark.parametrize("dims,levels", [([32, 32], 4), ([16, 16, 16], 3)])
+@pytest.mark.parametrize("dims,levels", [([32, 32], 4), ([16, 16, 16], 3),
+                                         ([16, 17], 3)])
 @pytest.mark.parametrize("relax", ["jacobi", "chebyshev"])
 def test_mg_setup_matches_reference(dims, levels, relax):
+    """[16, 17] cells: an even node count takes the triple-product RAP."""
     dims, L = _problem(dims)
     kw = dict(levels=levels, relax_type=relax, relax_param=0.8, nu_pre=1,
               nu_post=1, dtype=np.float32)
@@ -99,7 +110,7 @@ def test_mg_setup_matches_reference(dims, levels, relax):
 @pytest.mark.parametrize("kw", [
     dict(relax_type="jac-gmres"), dict(relax_type="VankaFaces"),
     dict(cycle_type="K"), dict(coarse_solve="GMRES"),
-    dict(transfer_type="SemiCoarsening"), dict(engine="flat"),
+    dict(transfer_type="SemiCoarsening"), dict(relax_type="LineJac"),
 ])
 def test_unported_options_raise(kw):
     dims, L = _problem([8, 8])
