@@ -21,7 +21,22 @@ Phases, each of which raises on failure:
             host; launch counters prove the kernels ran and no plain version
             did;
 5. path 2D — the 1024^2 problem, refined Jacobi to 1e-8 (16 +- 1), plain
-            torch on the card (no kernel on 2D levels).
+            torch on the card (no kernel on 2D levels);
+6. line kernel — the tridiagonal line kernel (solve and correct) against its
+            plain version on every line axis of 1025^2 and 129^3 (m = 1, 2),
+            on a (19, 25, 31) grid, in float32 and float64, with the line_prec
+            coefficients of configurations (a) and (d); then its device time
+            on the strided and the contiguous axis;
+7. path aniso — the anisotropic configurations, f32, refined to 1e-8:
+            (a) 2D eps = 100 line Jacobi 0.8 (11 +- 1 iterations),
+            (b) 2D eps = 0.01 semicoarsening + line Jacobi 0.9, 7 levels (6),
+            (c) 2D mixed strength, alternating lines 0.9 (21),
+            (d) 3D eps = 50 on grid axis 0, line Jacobi 0.8 (11),
+            (e) the same on grid axis 2 (11);
+            launch counters prove the line kernel (both modes) and kernel A's
+            matvec ran and no plain version did;
+8. path 2D FMG — the 1024^2 problem, Chebyshev(3) V(1,0) refined from a
+            full-multigrid start (6 +- 1).
 
 The last lines are one JSON object with a row per kernel, the card's name and
 power limit, and {"ok": true, "device": {...}}.  Without a CUDA device, or
@@ -102,6 +117,46 @@ def galerkin_coeff(n: int):
             + m0[:, None, None] * m1[None, :, None] * l2[None, None, :]
             + s * m0[:, None, None] * m1[None, :, None] * m2[None, None, :])
     return coeff, tuple(offsets), (nc,) * 3
+
+
+def aniso2d(n: int, eps: float):
+    """(a), (b): eps*u_xx + u_yy on the (n+1)^2 node grid, 5-point
+    (tests/test_line_smoother.py::_aniso)."""
+    from mgtpu_torch import get_regular_mesh
+    N = n + 1
+    T = sp.diags([-1.0, 2.0, -1.0], [-1, 0, 1], shape=(N, N)) * (n ** 2)
+    I = sp.identity(N)
+    A = eps * sp.kron(I, T) + sp.kron(T, I)
+    return get_regular_mesh([0.0, 1.0, 0.0, 1.0], [n, n]), sp.csr_matrix(A)
+
+
+def mixed_strength(n: int):
+    """(c): a(x)*u_xx + u_yy with a = 100 on the left half, 0.01 on the
+    right, plus a 1e-6 shift (tests/test_line_smoother.py::_mixed_strength)."""
+    from mgtpu_torch import get_regular_mesh
+    N = n + 1
+    a_edge = np.where(np.arange(N - 1) < (N - 1) // 2, 100.0, 0.01)
+    D = sp.diags([-1.0, 1.0], [0, 1], shape=(N - 1, N))
+    Tx = (D.T @ sp.diags(a_edge) @ D) * (n ** 2)
+    Ty = sp.diags([-1.0, 2.0, -1.0], [-1, 0, 1], shape=(N, N)) * (n ** 2)
+    A = sp.kron(sp.identity(N), Tx) + sp.kron(Ty, sp.identity(N))
+    A = A + 1e-6 * abs(A).sum(0).max() * sp.identity(A.shape[0])
+    return get_regular_mesh([0.0, 1.0, 0.0, 1.0], [n, n]), sp.csr_matrix(A)
+
+
+def aniso3d(dims, strong: int, eps: float = 50.0):
+    """(d), (e): a 3D 7-point operator with eps on grid axis `strong`
+    (tests/test_line_smoother.py::test_line_jacobi_3d); dims per mesh axis."""
+    from mgtpu_torch import get_regular_mesh
+    Ts = [sp.diags([-1.0, 2.0, -1.0], [-1, 0, 1], shape=(d + 1, d + 1))
+          * (d ** 2) for d in reversed(dims)]          # grid axes (z, y, x)
+    A = 0
+    for k in range(3):
+        mats = [sp.identity(d + 1) for d in reversed(dims)]
+        mats[k] = Ts[k]
+        w = eps if k == strong else 1.0
+        A = A + w * sp.kron(sp.kron(mats[0], mats[1]), mats[2])
+    return get_regular_mesh([0.0, 1.0] * 3, list(dims)), sp.csr_matrix(A)
 
 
 def galerkin_stencil(n: int, device):
@@ -210,7 +265,15 @@ KERNELS = {
     "jacobi_residual3d": (
         "mgtpu/ops/pallas/fused3d.py:196 _jacres_kernel (K6) + "
         "const3d.py:573 (K2)", "mgtpu_torch/csrc/fused3d.cu", 5),
+    # fields moved per right-hand side (r, out; + x), plus 3 coefficients
+    "tridiag.solve": (
+        "mgtpu/ops/pallas/tridiag.py:71 _fwd_kernel + :85 _bwd_kernel (K7) "
+        "as line_solve_pallas", "mgtpu_torch/csrc/tridiag.cu", 2),
+    "tridiag.correct": (
+        "mgtpu/ops/pallas/tridiag.py:71 _fwd_kernel + :85 _bwd_kernel (K7) "
+        "as line_correct_pallas", "mgtpu_torch/csrc/tridiag.cu", 3),
 }
+STENCIL_KERNELS = [k for k in KERNELS if not k.startswith("tridiag")]
 
 
 def run_kernel(name, A, x, b, d, p, plain: bool):
@@ -260,7 +323,7 @@ def phase_kernels(st, rows):
     for label, A, ms in cases:
         for m in ms:
             x, b, d, p = fields(A.grid, m, SEED)
-            for name in KERNELS:
+            for name in STENCIL_KERNELS:
                 out = run_kernel(name, A, x, b, d, p, plain=False)
                 ref = run_kernel(name, A, x, b, d, p, plain=True)
                 outs = out if isinstance(out, tuple) else (out,)
@@ -298,7 +361,8 @@ def phase_timing(timed_levels, rows):
         nodes = int(np.prod(A.grid))
         band_bytes = 4 * int(A.band.numel())
         conv_ms, _ = timer([conv3d_yardstick(A, x) for x, _, _, _ in sets])
-        for name, (_, _, nfields) in KERNELS.items():
+        for name in STENCIL_KERNELS:
+            nfields = KERNELS[name][2]
             ms, host_ms = timer([
                 lambda f=f: run_kernel(name, A, *f, plain=False)
                 for f in sets])
@@ -327,9 +391,9 @@ def phase_timing(timed_levels, rows):
 
 
 def reset_counters():
-    from mgtpu_torch.ops.cuda import const3d, fused3d
+    from mgtpu_torch.ops.cuda import const3d, fused3d, tridiag
     for dct in (const3d.LAUNCHES, const3d.PLAIN_CALLS, fused3d.LAUNCHES,
-                fused3d.PLAIN_CALLS):
+                fused3d.PLAIN_CALLS, tridiag.LAUNCHES, tridiag.PLAIN_CALLS):
         for k in dct:
             dct[k] = 0
 
@@ -342,6 +406,13 @@ def counters():
     return launches, plain
 
 
+def line_counters():
+    """Launches and plain calls of the line kernel, per mode."""
+    from mgtpu_torch.ops.cuda import tridiag
+    return ({f"tridiag.{k}": v for k, v in tridiag.LAUNCHES.items()},
+            {f"tridiag.{k}": v for k, v in tridiag.PLAIN_CALLS.items()})
+
+
 def true_relres(L, b, x) -> float:
     xh = x.detach().cpu().numpy().astype(np.float64)
     require(xh.shape == b.shape and np.isfinite(xh).all(),
@@ -349,12 +420,12 @@ def true_relres(L, b, x) -> float:
     return float(np.linalg.norm(b - L @ xh) / np.linalg.norm(b))
 
 
-def refined(st, L, b, want, label, card):
+def refined(st, L, b, want, label, card, max_iter=40, fmg=False):
     """Certified refined solve: iteration count and host f64 residual."""
     from mgtpu_torch import solve_mg_refined
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    x, info = solve_mg_refined(st, b, tol=1e-8, max_iter=40)
+    x, info = solve_mg_refined(st, b, tol=1e-8, max_iter=max_iter, fmg=fmg)
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3
     rr = true_relres(L, b, x)
@@ -367,7 +438,7 @@ def refined(st, L, b, want, label, card):
     return info["iters"], rr, wall
 
 
-def vcycle_ms(st, b, card):
+def vcycle_ms(st, b, card, label="129^3, 5 levels"):
     """One V-cycle from a zero guess on the fine grid: CUDA events and the
     synchronised host clock (the eager cycle is launch-bound at depth)."""
     from mgtpu_torch.cycle.grid_cycle import grid_cycle
@@ -391,7 +462,7 @@ def vcycle_ms(st, b, card):
         host.append((time.perf_counter() - t0) * 1e3)
         ev.append(e0.elapsed_time(e1))
     ev_ms, host_ms = sorted(ev)[5], sorted(host)[5]
-    log(f"[path] V-cycle ({st.config.relax_type}, 129^3, 5 levels): "
+    log(f"[path] V-cycle ({st.config.relax_type}, {label}): "
         f"{ev_ms:.3f} ms CUDA events, {host_ms:.3f} ms host clock ({card})")
     return ev_ms, host_ms
 
@@ -498,6 +569,182 @@ def phase_path2d(card):
     require(counters() == before, "2D levels launched a 3D kernel")
 
 
+# ---------------------------------------------------------------------------
+# the line kernel and the anisotropic paths
+# ---------------------------------------------------------------------------
+
+def line_states(M, A, dtype):
+    """line_prec states (omega 0.8) on every grid axis, as tensors on the
+    card; host pivots in f64 once per axis, cast as line_prec casts."""
+    from mgtpu_torch.cycle.grid_cycle import line_state_to
+    from mgtpu_torch.setup.smoothers import line_prec
+    g = len(np.asarray(M.n).ravel())
+    return [line_state_to(line_prec(A, M, 0.8, axis=a), dtype, "cuda")
+            for a in range(g)]
+
+
+def run_line(name, lr, r, x, plain: bool):
+    from mgtpu_torch.ops.cuda import tridiag
+    fn = tridiag.line_plain if plain else tridiag.line_apply
+    mode = name.split(".")[1]
+    args = (mode, lr.alpha, lr.pivot, lr.cprime, lr.axis, r)
+    if mode == "solve":
+        return fn(*args, omega=lr.omega)
+    return fn(*args, x=x, omega=lr.omega)
+
+
+def phase_line_kernels(ops, rows):
+    """The line kernel against its plain version on every axis, m = 1, 2,
+    float32 (2e-4 relative) and float64 (1e-10); returns the f32 states of
+    the timed shapes."""
+    timed = {}
+    for label, (M, A) in ops.items():
+        for dtype, tol in ((torch.float32, 2e-4), (torch.float64, 1e-10)):
+            states = line_states(M, A, dtype)
+            if dtype == torch.float32:
+                timed[label] = states
+            for lr in states:
+                for m in (1, 2):
+                    rng = np.random.RandomState(SEED + m)
+                    r, x = (torch.tensor(rng.rand(m, *lr.alpha.shape),
+                                         dtype=dtype, device="cuda")
+                            for _ in range(2))
+                    for name in ("tridiag.solve", "tridiag.correct"):
+                        o = run_line(name, lr, r, x, plain=False)
+                        ref = run_line(name, lr, r, x, plain=True)
+                        torch.cuda.synchronize()
+                        require(o.shape == ref.shape and o.dtype == ref.dtype
+                                and bool(torch.isfinite(o).all()),
+                                f"{name}: bad output")
+                        ae = float((o - ref).abs().max())
+                        re = ae / float(ref.abs().max())
+                        row = rows[name]
+                        row["max_abs_err"] = max(row["max_abs_err"], ae)
+                        row["max_rel_err"] = max(row["max_rel_err"], re)
+                        require(re < tol, f"{name} {label} axis {lr.axis} "
+                                f"m={m} {dtype}: relative error {re:.3e} "
+                                f">= {tol}")
+            log(f"[kernel] line kernel, {label} grid "
+                f"{tuple(states[0].alpha.shape)} {dtype}: solve and correct "
+                "match their plain versions on every axis, m = 1, 2")
+    return timed
+
+
+def phase_line_timing(timed, rows):
+    """Device time of the line kernel (m = 1, f32, four input sets so the
+    inputs come from device memory) beside its byte bound and plain time."""
+    timer = Timer()
+    cases = [("1025^2", 0), ("1025^2", 1), ("129^3", 0), ("129^3", 2)]
+    for label, axis in cases:
+        lr = timed[label][axis]
+        nodes = lr.alpha.numel()
+        sets = [tuple(torch.tensor(np.random.RandomState(SEED + 10 + j).rand(
+            1, *lr.alpha.shape), dtype=torch.float32, device="cuda")
+            for _ in range(2)) for j in range(4)]
+        for name in ("tridiag.solve", "tridiag.correct"):
+            ms, host_ms = timer([lambda s=s: run_line(name, lr, *s, False)
+                                 for s in sets])
+            plain_ms, _ = timer([lambda s=s: run_line(name, lr, *s, True)
+                                 for s in sets])
+            fbytes = (KERNELS[name][2] + 3) * 4 * nodes
+            flops = (7 if name.endswith("correct") else 6) * nodes
+            bound = max(fbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS) * 1e3
+            log(f"[time] line {label} axis {axis} "
+                f"({'contiguous' if axis == len(lr.alpha.shape) - 1 else 'strided'}) "
+                f"{name:16s} kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
+                f"bound {bound:.4f} ms ({fbytes / 1e6:.1f} MB)  "
+                f"kernel/bound {ms / bound:.1f}x  host per call "
+                f"{host_ms:.3f} ms")
+            rows[name].setdefault("times", {})[f"{label} axis {axis}"] = dict(
+                ms=ms, plain_ms=plain_ms, bound_ms=bound)
+            if (label, axis) == ("1025^2", 1):     # configuration (a)'s lines
+                rows[name].update(
+                    ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                    bound_by="bytes" if fbytes / HBM_BYTES_PER_S
+                    >= flops / FP32_FLOPS else "operations",
+                    library_ms=None, host_ms=host_ms,
+                    timed_shape="1025^2 f32 m=1, lines on grid axis 1")
+
+
+ANISO = [
+    # key, label, operator, options, refined iterations
+    ("a", "(a) 2D eps=100, line Jacobi 0.8 V(1,1), 6 levels",
+     lambda: aniso2d(1024, 100.0),
+     dict(levels=6, relax_type="line-jacobi", relax_param=0.8), 11),
+    ("b", "(b) 2D eps=0.01, semicoarsening + line Jacobi 0.9, 7 levels",
+     lambda: aniso2d(1024, 0.01),
+     dict(levels=7, relax_type="line-jacobi", relax_param=0.9,
+          transfer_type="semicoarsening"), 6),
+    ("c", "(c) 2D mixed strength, alternating lines 0.9, 6 levels",
+     lambda: mixed_strength(1024),
+     dict(levels=6, relax_type="line-jacobi",
+          relax_param={"axis": "alt", "omega": 0.9}), 21),
+    ("d", "(d) 3D eps=50 on grid axis 0, line Jacobi 0.8, 5 levels",
+     lambda: aniso3d([128] * 3, 0),
+     dict(levels=5, relax_type="line-jacobi", relax_param=0.8), 11),
+    ("e", "(e) 3D eps=50 on grid axis 2, line Jacobi 0.8, 5 levels",
+     lambda: aniso3d([128] * 3, 2),
+     dict(levels=5, relax_type="line-jacobi", relax_param=0.8), 11),
+]
+SEMI_GRIDS = [(1025, 1025), (513, 1025), (257, 1025), (129, 1025),
+              (65, 513), (33, 257), (17, 129)]
+
+
+def phase_aniso(ops, card):
+    """Configurations (a)-(e) through mg_setup + solve_mg_refined on the
+    card; returns the launches of the window."""
+    from mgtpu_torch import get_mg_param, mg_setup
+    runs = []
+    for key, label, make, opts, want in ANISO:
+        M, A = ops[key] if key in ops else make()
+        cfg, rp = get_mg_param(nu_pre=1, nu_post=1, dtype=np.float32, **opts)
+        t0 = time.perf_counter()
+        st = mg_setup(A, M, cfg, rp)
+        grids = [tuple(lv.A.grid) for lv in st.hier.levels]
+        log(f"[path] {label}: setup {time.perf_counter() - t0:.1f} s, "
+            f"grids {grids}")
+        if key == "b":
+            require(grids == SEMI_GRIDS, f"(b) level grids {grids}, want "
+                    f"{SEMI_GRIDS}")
+        b = A @ np.random.RandomState(SEED).rand(A.shape[0])
+        runs.append((key, label, st, A, b / np.linalg.norm(b), want))
+
+    reset_counters()                       # ---- main path window ----
+    for key, label, st, A, b, want in runs:
+        refined(st, A, b, want, label, card, max_iter=60)
+    launches, plain = counters()           # ---- end of window ----
+    line_l, line_p = line_counters()
+    launches.update(line_l)
+    plain.update(line_p)
+    log(f"[path] aniso kernel launches: {launches}")
+    log(f"[path] aniso plain-version calls on the card: {plain}")
+    for k in ("tridiag.solve", "tridiag.correct", "stencil3d_apply.matvec"):
+        require(launches[k] > 0, f"{k} was never launched on the aniso path")
+    require(not any(plain.values()), f"plain versions ran: {plain}")
+
+    for key, label, st, A, b, want in runs:
+        if key in ("a", "d"):
+            refined(st, A, b, want, label + " (warm)", card, max_iter=60)
+            vcycle_ms(st, b, card, label=label)
+    return launches
+
+
+def phase_fmg(card):
+    """The 2D 1024^2 bench operator, Chebyshev(3) V(1,0), 6 levels, refined
+    from a full-multigrid start (6 +- 1)."""
+    from mgtpu_torch import get_mg_param, mg_setup
+    M, L = shifted_laplacian((1024, 1024))
+    cfg, rp = get_mg_param(levels=6, relax_type="chebyshev", cheby_degree=3,
+                           nu_pre=1, nu_post=0, dtype=np.float32)
+    st = mg_setup(L, M, cfg, rp)
+    b = L @ np.random.RandomState(SEED).rand(L.shape[0])
+    b /= np.linalg.norm(b)
+    refined(st, L, b, 6, "2D 1024^2 Chebyshev(3) V(1,0), FMG start", card,
+            fmg=True)
+    refined(st, L, b, 6, "2D 1024^2 Chebyshev(3) V(1,0), FMG start (warm)",
+            card, fmg=True)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     smi, name = phase_card()
@@ -522,8 +769,21 @@ def main() -> int:
     phase_timing(timed, rows)
     launches, _, _ = phase_path3d(M3, L3, st_jac, card)
     phase_path2d(card)
+
+    t0 = time.perf_counter()
+    line_ops = {"a": aniso2d(1024, 100.0), "d": aniso3d([128] * 3, 0)}
+    log(f"[kernel] line operators built in {time.perf_counter() - t0:.1f} s")
+    timed_lines = phase_line_kernels(
+        {"1025^2": line_ops["a"], "129^3": line_ops["d"],
+         "(19,25,31)": aniso3d([30, 24, 18], 0)}, rows)
+    phase_line_timing(timed_lines, rows)
+    aniso = phase_aniso(line_ops, card)
+    phase_fmg(card)
     for k, row in rows.items():
-        row["launches"] = launches[k]
+        # each kernel's launches from the window of its own path
+        row["launches"] = aniso[k] if k.startswith("tridiag") else launches[k]
+    rows["stencil3d_apply.matvec"]["launches_aniso"] = \
+        aniso["stencil3d_apply.matvec"]
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -3,14 +3,16 @@
 A hierarchy exported as numpy arrays — for example the leaves of an mgtpu
 `GridHierarchy`, taken with ``np.asarray`` — becomes a `GridHierarchy` of
 this package, so a cycle can run on exactly the reference's operators,
-diagonals and transfers and be compared node for node.
+diagonals, line states and transfers and be compared node for node.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from .cycle.grid_cycle import DenseInverse, GridHierarchy, GridLevel
+from .cycle.grid_cycle import (DenseInverse, GridHierarchy, GridLevel,
+                               line_state_to)
+from .cycle.relax import AltLineRelax, LineRelax
 from .ops.grid_stencil import ConstGridStencil, GridStencil
 
 __all__ = ["grid_hierarchy_from_arrays"]
@@ -20,14 +22,26 @@ def _as_tensor(a, device):
     return None if a is None else torch.tensor(np.asarray(a), device=device)
 
 
+def _line_state(spec):
+    """A mapping {alpha, pivot, cprime, axis, omega}, or a tuple of them
+    (alternating lines), as a host LineRelax / AltLineRelax."""
+    if isinstance(spec, (tuple, list)):
+        return AltLineRelax(tuple(_line_state(s) for s in spec))
+    return LineRelax(*(np.asarray(spec[k]) for k in
+                       ("alpha", "pivot", "cprime")),
+                     int(spec["axis"]), float(spec["omega"]))
+
+
 def grid_hierarchy_from_arrays(levels, coarse_inv, coarse_grid, *,
                                device) -> GridHierarchy:
     """levels: one mapping per level with
          ``offsets``, ``grid`` and either ``const``, ``strips``, ``boxes``
          (a constant-interior stencil) or ``coeff`` (a dense stencil);
-         ``d`` (grid-shaped diagonal), ``P1`` (per-grid-axis 1D
-         prolongation factors) and ``lam`` (spectral bound) — None on the
-         coarsest level.
+         ``d`` (grid-shaped diagonal) or ``line`` (a line-Jacobi state:
+         a mapping of alpha, pivot, cprime, axis, omega, or a tuple of
+         them for alternating lines), ``P1`` (per-grid-axis 1D
+         prolongation factors, None for an axis that does not coarsen) and
+         ``lam`` (spectral bound) — None on the coarsest level.
     coarse_inv: (nc, nc) dense inverse of the coarsest operator;
     coarse_grid: its node grid."""
     out = []
@@ -44,7 +58,10 @@ def grid_hierarchy_from_arrays(levels, coarse_inv, coarse_grid, *,
         if P1 is not None:
             P1 = tuple(_as_tensor(p, device) for p in P1)
         lam = lv.get("lam")
+        line = lv.get("line")
+        if line is not None:
+            line = line_state_to(_line_state(line), A.dtype, device)
         out.append(GridLevel(A, _as_tensor(lv.get("d"), device), P1,
-                             None if lam is None else float(lam)))
+                             None if lam is None else float(lam), line))
     return GridHierarchy(tuple(out), DenseInverse(
         _as_tensor(coarse_inv, device), tuple(int(v) for v in coarse_grid)))

@@ -6,16 +6,21 @@ the node grid:
  * level operators are `GridStencil`s / `ConstGridStencil`s;
  * P/R are separable [0.5, 1, 0.5] full-weighting transfers applied as one
    small dense matmul per grid axis (exactly the fw_interp factors, boundary
-   rows included);
+   rows included); under semicoarsening an axis that does not coarsen has
+   no factor;
  * the coarsest solve is one dense matmul with a host-computed f64 inverse.
 
 Fields are (m, *grid) with the fastest mesh axis last.  On a 3D radius-1
 float32 level the Jacobi/SPAI branch runs the fused ops of
-ops/cuda/fused3d.py: kernels on the card, their plain versions on the CPU.
+ops/cuda/fused3d.py, and line-Jacobi levels run the line kernel of
+ops/cuda/tridiag.py: kernels on the card, their plain versions on the CPU.
+`grid_fmg` is the full-multigrid start of the refined solve.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
+
+import functools
 
 import numpy as np
 import scipy.sparse as sp
@@ -26,18 +31,21 @@ from ..ops.grid_stencil import (ConstGridStencil, GridStencil,
                                 compress_grid_stencil, make_grid_stencil)
 from ..ops.cuda.const3d import supports_const3d
 from ..ops.cuda import fused3d as f3k
-from .relax import chebyshev_smooth, chebyshev4_smooth
+from .relax import (AltLineRelax, LineRelax, chebyshev_smooth,
+                    chebyshev4_smooth, line_smooth)
 
 __all__ = ["GridLevel", "GridHierarchy", "DenseInverse", "grid_restrict",
-           "grid_prolong", "grid_cycle", "build_grid_hierarchy"]
+           "grid_prolong", "grid_cycle", "grid_fmg", "build_grid_hierarchy"]
 
 
 @dataclass(frozen=True, eq=False)
 class GridLevel:
     A: GridStencil | ConstGridStencil
     d: torch.Tensor | None      # pointwise relax diagonal, grid-shaped
-    P1: tuple | None            # per-grid-axis dense 1D prolongation (f_a, c_a)
+    P1: tuple | None            # per-grid-axis dense 1D prolongation (f_a, c_a),
+                                # None for an axis that does not coarsen
     lam: float | None = None    # spec(D^-1 A) bound (chebyshev smoothing)
+    line: LineRelax | AltLineRelax | None = None   # line-jacobi state
 
 
 @dataclass(frozen=True, eq=False)
@@ -73,17 +81,24 @@ def _axis_matmul(x: torch.Tensor, W: torch.Tensor, axis: int) -> torch.Tensor:
 
 
 def grid_restrict(rg: torch.Tensor, P1) -> torch.Tensor:
-    """R r = 0.5^dim P^T r; rg is (m, *fine_grid)."""
+    """R r = 0.5^c P^T r, c the number of coarsened axes; rg is
+    (m, *fine_grid).  A None factor (semicoarsening) leaves its axis as is."""
     y = rg
+    nc = 0
     for a, W in enumerate(P1):
+        if W is None:
+            continue
+        nc += 1
         y = _axis_matmul(y, W, 1 + a)
-    return ((0.5 ** len(P1)) * y).contiguous()
+    return ((0.5 ** nc) * y).contiguous()
 
 
 def grid_prolong(xc: torch.Tensor, P1) -> torch.Tensor:
     """P xc; xc is (m, *coarse_grid)."""
     y = xc
     for a, W in enumerate(P1):
+        if W is None:
+            continue
         y = _axis_matmul(y, W.T, 1 + a)
     return y.contiguous()
 
@@ -103,7 +118,8 @@ def _fused3d(cfg, lvl: GridLevel) -> bool:
             and tuple(lvl.d.shape) == tuple(A.grid))
 
 
-def _grid_smooth(cfg, lvl: GridLevel, r, x, b, nu: int):
+def _grid_smooth(cfg, lvl: GridLevel, r, x, b, nu: int,
+                 x_zero: bool = False):
     if nu <= 0:
         return x
     if cfg.relax_type == "chebyshev":
@@ -113,6 +129,8 @@ def _grid_smooth(cfg, lvl: GridLevel, r, x, b, nu: int):
     if cfg.relax_type == "chebyshev4":
         return chebyshev4_smooth(lvl.A.matvec, lvl.d, lvl.lam,
                                  cfg.cheby_degree * nu, r, x)
+    if cfg.relax_type == "line-jacobi":
+        return line_smooth(lvl.A.matvec, lvl.line, r, x, b, nu, x_zero)
     # jacobi / spai: x += d .* r with the residual refreshed between sweeps
     for _ in range(nu - 1):
         x = x + lvl.d * r
@@ -161,7 +179,7 @@ def grid_cycle(cfg, gh: GridHierarchy, b, x, level: int = 0,
             r = b
     else:
         r = b if x_zero else b - matvec(x)
-        x = _grid_smooth(cfg, lvl, r, x, b, cfg.nu_pre[level])
+        x = _grid_smooth(cfg, lvl, r, x, b, cfg.nu_pre[level], x_zero)
         r = b - matvec(x) if cfg.nu_pre[level] > 0 or not x_zero else b
     bc = grid_restrict(r, lvl.P1)
     if level == nlev - 2:
@@ -190,11 +208,68 @@ def grid_cycle(cfg, gh: GridHierarchy, b, x, level: int = 0,
     return x
 
 
+@functools.lru_cache(maxsize=None)
+def _cubic_factor_np(nf: int) -> np.ndarray:
+    """1D cubic solution-prolongation factor (nf x nc) on an odd node grid.
+
+    Coarse nodes inject; midpoints interpolate cubically through the four
+    nearest coarse nodes ([-1, 9, 9, -1]/16 inside, one-sided
+    [5, 15, -5, 1]/16 at the ends; linear when there are fewer than four
+    coarse nodes).  FMG moves the SOLUTION at higher order than the
+    correction transfers."""
+    assert nf % 2 == 1 and nf >= 3
+    nc = (nf - 1) // 2 + 1
+    P = np.zeros((nf, nc), dtype=np.float64)
+    P[np.arange(0, nf, 2), np.arange(nc)] = 1.0
+    w_int = np.array([-1.0, 9.0, 9.0, -1.0]) / 16.0
+    w_lo = np.array([5.0, 15.0, -5.0, 1.0]) / 16.0
+    for m in range(nc - 1):               # midpoint between coarse m, m+1
+        r = 2 * m + 1
+        if nc < 4:
+            P[r, m:m + 2] = 0.5
+        elif m == 0:
+            P[r, 0:4] = w_lo
+        elif m == nc - 2:
+            P[r, nc - 4:nc] = w_lo[::-1]
+        else:
+            P[r, m - 1:m + 3] = w_int
+    return P
+
+
+def _cubic_prolong(xc: torch.Tensor, fine_grid) -> torch.Tensor:
+    """Per-axis cubic solution prolongation (m, *coarse) -> (m, *fine); an
+    axis that did not coarsen (semicoarsening) is left as is."""
+    y = xc
+    for a, nf in enumerate(fine_grid):
+        if y.shape[1 + a] == nf:
+            continue
+        W = torch.as_tensor(_cubic_factor_np(int(nf)), dtype=xc.dtype,
+                            device=xc.device)
+        y = _axis_matmul(y, W.T, 1 + a)
+    return y.contiguous()
+
+
+def grid_fmg(cfg, gh: GridHierarchy, b, n_cycles: int = 1):
+    """Full multigrid (nested iteration): solve on the coarsest level, then
+    on each finer level start from the cubic prolongation of the coarser
+    solution and polish with `n_cycles` cycles.  b is (m, *fine_grid)."""
+    nlev = len(gh.levels)
+    bs = [b]
+    for l in range(nlev - 1):
+        bs.append(grid_restrict(bs[-1], gh.levels[l].P1))
+    x = gh.coarse.solve(bs[-1])
+    for l in range(nlev - 2, -1, -1):
+        x = _cubic_prolong(x, gh.levels[l].A.grid)
+        for _ in range(n_cycles):
+            x = grid_cycle(cfg, gh, bs[l], x, level=l)
+    return x
+
+
 # ---------------------------------------------------------------------------
 # construction from a host hierarchy
 # ---------------------------------------------------------------------------
 
-GRID_RELAX = ("jacobi", "spai", "chebyshev", "chebyshev4")
+GRID_RELAX = ("jacobi", "spai", "chebyshev", "chebyshev4", "line-jacobi")
 HOST_INV_MAX = 4096       # host f64 inverse below this many coarsest dofs
 
 
@@ -223,10 +298,21 @@ def _checked_inverse(Ad: np.ndarray) -> np.ndarray:
     return np.linalg.pinv(Ad, rcond=1e-12)
 
 
+def line_state_to(rs, dtype, device):
+    """A host LineRelax / AltLineRelax with its arrays as tensors."""
+    if isinstance(rs, AltLineRelax):
+        return AltLineRelax(tuple(line_state_to(c, dtype, device)
+                                  for c in rs.lines))
+    t = lambda a: torch.tensor(np.asarray(a), dtype=dtype, device=device)
+    return LineRelax(t(rs.alpha), t(rs.pivot), t(rs.cprime), int(rs.axis),
+                     float(rs.omega))
+
+
 def build_grid_hierarchy(state, relax_states, device) -> GridHierarchy:
     """Build the grid engine on `device` for an MGState that mg_setup made
-    (scalar full-weighting, pointwise smoothing; it checks the options).
-    Raises NotImplementedError for levels this port cannot run yet."""
+    (scalar full-weighting or semicoarsening transfers, pointwise or line
+    smoothing; mg_setup checks the options).  Raises NotImplementedError
+    for levels this port cannot run yet."""
     from ..setup import transfers as tr
     from ..setup.hierarchy import _resolve_relax
     cfg = state.config
@@ -247,23 +333,25 @@ def build_grid_hierarchy(state, relax_states, device) -> GridHierarchy:
         else:
             A = make_grid_stencil(state.As[l], nodes, dtype=cfg.dtype,
                                   device=device)
-        d = P1 = lam = None
+        d = P1 = lam = line = None
         if l < state.num_levels - 1:
             rs = _resolve_relax(relax_states[l])
-            d = torch.as_tensor(np.asarray(rs.d).reshape(A.grid),
-                                dtype=dt, device=device)
-            # dense per-axis 1D transfer factors; mg_setup's full-weighting
-            # transfers are these factors by construction
+            if isinstance(rs, (LineRelax, AltLineRelax)):
+                line = line_state_to(rs, dt, device)
+            else:
+                d = torch.as_tensor(np.asarray(rs.d).reshape(A.grid),
+                                    dtype=dt, device=device)
+            # dense per-axis 1D transfer factors (mg_setup's transfers are
+            # these factors by construction); an axis whose extent does not
+            # shrink (semicoarsening) has none
             nodes_c = [int(v) + 1
                        for v in np.asarray(state.meshes[l + 1].n).ravel()]
-            if any(nn == ncn for nn, ncn in zip(nodes, nodes_c)):
-                raise NotImplementedError(
-                    "semicoarsened levels not yet ported")
-            P1 = tuple(torch.as_tensor(
+            P1 = tuple(None if nn == ncn else torch.as_tensor(
                 np.asarray(tr.fw_interp_1d(nn)[0].todense(), dtype=cfg.dtype),
-                device=device) for nn in reversed(nodes))
+                device=device)
+                for nn, ncn in zip(reversed(nodes), reversed(nodes_c)))
             lam = getattr(rs, "lam_max", None)
-        levels.append(GridLevel(A, d, P1, lam))
+        levels.append(GridLevel(A, d, P1, lam, line))
 
     A_c = state.As[-1]
     grid_c = levels[-1].A.grid

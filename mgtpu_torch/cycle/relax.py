@@ -1,18 +1,23 @@
-"""Pointwise relaxation states and polynomial smoothers (torch).
+"""Relaxation states and smoothers (torch).
 
-Counterpart of the pointwise part of mgtpu/cycle/relax.py: damped Jacobi /
-SPAI(0) diagonal relaxation and the first- and fourth-kind Chebyshev
-smoothers.  The smoothers work on any tensor shape `d` broadcasts against
-(grid fields (m, *grid) with a grid-shaped `d`).  FGMRES smoothing and line
-relaxation wait for later slices.
+Counterpart of mgtpu/cycle/relax.py without FGMRES smoothing: damped Jacobi
+/ SPAI(0) diagonal relaxation, the first- and fourth-kind Chebyshev
+smoothers, and damped line Jacobi (single-axis and alternating-direction).
+The pointwise smoothers work on any tensor shape `d` broadcasts against
+(grid fields (m, *grid) with a grid-shaped `d`).  Line corrections run the
+tridiagonal line kernel of ops/cuda/tridiag.py (its plain version on the
+CPU).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Any
 
-__all__ = ["DiagRelax", "ChebyshevRelax", "chebyshev_smooth",
-           "chebyshev4_smooth", "relax_diag"]
+from ..ops.cuda import tridiag
+
+__all__ = ["DiagRelax", "ChebyshevRelax", "LineRelax", "AltLineRelax",
+           "chebyshev_smooth", "chebyshev4_smooth", "relax_diag",
+           "line_solve", "line_correct", "line_smooth"]
 
 
 @dataclass(frozen=True, eq=False)
@@ -77,3 +82,67 @@ def relax_diag(matvec, r, x, b, d, num_it: int):
         x = x + dcol * r
         r = b - matvec(x)
     return x + dcol * r
+
+
+@dataclass(frozen=True, eq=False)
+class LineRelax:
+    """Damped line-Jacobi smoother state: x += omega * T^-1 r, with T the
+    tridiagonal part of A along one grid axis.
+
+    The Thomas pivots depend only on the matrix and are computed on the host
+    at setup (setup/smoothers.py::line_prec); each application runs two
+    first-order linear recurrences along the line axis:
+        forward:  y_i = alpha_i y_{i-1} + pivot_i r_i
+        backward: s_i = y_i - cprime_i s_{i+1}
+
+    alpha  = -pivot * sub   (grid-shaped, zero at line starts)
+    pivot  = 1 / (diag - sub * cprime_{i-1})
+    cprime = super * pivot  (zero at line ends)
+    axis   = grid axis of the lines; omega = damping.
+    The arrays are host numpy at setup and tensors in a device hierarchy."""
+    alpha: Any
+    pivot: Any
+    cprime: Any
+    axis: int
+    omega: float
+
+
+@dataclass(frozen=True, eq=False)
+class AltLineRelax:
+    """Alternating-direction line Jacobi: one damped T_axis^-1 correction per
+    grid axis per smoothing step, the residual refreshed between directions.
+    For operators whose strong axis varies over the domain, where one line
+    axis stalls."""
+    lines: tuple  # one LineRelax per grid axis
+
+
+def line_solve(lr: LineRelax, r, omega: float = 1.0):
+    """omega * T^-1 r for grid fields r of shape (..., *grid)."""
+    return tridiag.line_apply("solve", lr.alpha, lr.pivot, lr.cprime,
+                              lr.axis, r, omega=omega)
+
+
+def line_correct(lr: LineRelax, r, x):
+    """x + lr.omega * T^-1 r, the damped add folded into the kernel's
+    backward pass."""
+    return tridiag.line_apply("correct", lr.alpha, lr.pivot, lr.cprime,
+                              lr.axis, r, x=x, omega=lr.omega)
+
+
+def line_smooth(matvec, lr, r, x, b, nu: int, x_zero: bool = False):
+    """nu sweeps of x += omega * T^-1 r with refreshed residuals.
+
+    `lr` is a LineRelax (one axis) or an AltLineRelax (every axis in turn
+    each sweep).  The residual is NOT refreshed after the final correction
+    (callers recompute), as in relax_diag; nu == 0 returns x.  `x_zero`
+    declares x to be exactly zero: the first correction is then
+    omega * T^-1 r, which does not read x (0 + v == v, so the result is
+    the same)."""
+    corrs = lr.lines if isinstance(lr, AltLineRelax) else (lr,)
+    steps = [c for _ in range(nu) for c in corrs]
+    for k, c in enumerate(steps):
+        if k:
+            r = b - matvec(x)
+        x = (line_solve(c, r, c.omega) if k == 0 and x_zero
+             else line_correct(c, r, x))
+    return x

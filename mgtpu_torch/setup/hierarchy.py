@@ -1,15 +1,16 @@
 """Multigrid configuration and geometric setup.
 
 Counterpart of mgtpu/setup/hierarchy.py on the matrix path with
-full-weighting transfers:
+full-weighting or semicoarsening transfers:
 
  * `MGConfig` — immutable solver configuration (levels, cycle type,
    relaxation, per-level sweep counts, transfer family, coarse solver).
  * `get_mg_param` — the configuration constructor, with the reference's
    spellings accepted as aliases.
  * `mg_setup` — Galerkin hierarchy built on the host (structured
-   full-weighting RAP on the stencil coefficients), then moved to the
-   device as a grid hierarchy (cycle/grid_cycle.py).
+   full-weighting RAP on the stencil coefficients; under semicoarsening
+   only the strongly coupled axes coarsen), then moved to the device as a
+   grid hierarchy (cycle/grid_cycle.py).
 
 Options the port does not have yet raise NotImplementedError("... not yet
 ported"); nothing falls back to another engine.
@@ -134,6 +135,8 @@ def _setup_relax(A: sp.spmatrix, cfg: MGConfig, relax_param, mesh):
         return sm.spai_prec(A, relax_param, dtype=cfg.dtype)
     if rt in ("chebyshev", "chebyshev4"):
         return sm.chebyshev_prec(A, relax_param, dtype=cfg.dtype)
+    if rt == "line-jacobi":
+        return sm.line_prec(A, mesh, relax_param, dtype=cfg.dtype)
     raise NotImplementedError(f"relax_type {rt!r} not yet ported")
 
 
@@ -167,7 +170,7 @@ def _check_ported(cfg: MGConfig) -> None:
     """Raise for configuration options this port does not have yet."""
     from ..cycle.grid_cycle import GRID_RELAX
     checks = [
-        (cfg.transfer_type == "full-weighting",
+        (cfg.transfer_type in ("full-weighting", "semicoarsening"),
          f"transfer_type {cfg.transfer_type!r}"),
         (cfg.relax_type in GRID_RELAX, f"relax_type {cfg.relax_type!r}"),
         (cfg.cycle_type in ("V", "W", "F"), f"cycle_type {cfg.cycle_type!r}"),
@@ -177,6 +180,23 @@ def _check_ported(cfg: MGConfig) -> None:
     for ok, what in checks:
         if not ok:
             raise NotImplementedError(f"{what} not yet ported")
+
+
+def _semicoarsen_axes(gs, theta: float = 0.25) -> list:
+    """Per-MESH-axis coarsening flags: coarsen the axes whose pure-axis
+    coupling is within `theta` of the strongest (the robust-MG
+    semicoarsening rule).  gs: host grid stencil of the level operator."""
+    coeff = np.asarray(gs.coeff)
+    dim = len(gs.grid)
+    strength = np.zeros(dim)
+    for k, off in enumerate(gs.offsets):
+        nz = [a for a, d in enumerate(off) if d != 0]
+        if len(nz) == 1 and abs(off[nz[0]]) == 1:
+            ga = nz[0]
+            strength[dim - 1 - ga] = max(strength[dim - 1 - ga],
+                                         float(np.abs(coeff[k]).mean()))
+    smax = strength.max() if dim else 0.0
+    return [bool(sv >= theta * smax and sv > 0) for sv in strength]
 
 
 def build_device_hierarchy(state: MGState, relax_states: list):
@@ -192,9 +212,10 @@ def build_device_hierarchy(state: MGState, relax_states: list):
 
 def mg_setup(A, mesh: RegularMesh, cfg: MGConfig, relax_param=None,
              verbose: bool = False, device=None) -> MGState:
-    """Build a Galerkin full-weighting hierarchy for the scipy matrix `A` on
-    `mesh` and move it to `device` ("cuda" unless the caller asks for the
-    CPU; raises when no card is present)."""
+    """Build a Galerkin hierarchy (full-weighting or semicoarsening
+    transfers) for the scipy matrix `A` on `mesh` and move it to `device`
+    ("cuda" unless the caller asks for the CPU; raises when no card is
+    present)."""
     t_all = time.perf_counter()
     dev = resolve_device(device)
     if not sp.issparse(A):
@@ -215,12 +236,42 @@ def mg_setup(A, mesh: RegularMesh, cfg: MGConfig, relax_param=None,
     levels = cfg.levels
     gs_cache: dict = {}
 
+    def host_stencil(l):
+        gs = gs_cache.get(l)
+        if gs is None:
+            gs = gs_cache[l] = grid_stencil_from_csr(As[l], list(n + 1))
+        return gs
+
     for l in range(cfg.levels - 1):
         t0 = time.perf_counter()
         A_l = As[l]
-        p1s, nc1s = zip(*(tr.fw_interp_1d(int(nd)) for nd in (n + 1)))
+        sc_axes = None                   # mesh-axis coarsening flags (semi)
+        if cfg.transfer_type == "semicoarsening":
+            # coarsen only the strongly coupled axes
+            try:
+                sc_axes = _semicoarsen_axes(host_stencil(l))
+            except ValueError as e:
+                raise ValueError(
+                    "transfer_type='semicoarsening' needs a grid-stencil "
+                    f"operator (strong-axis detection): {e}") from e
+            p1s, nc1s = [], []
+            for a, nd in enumerate(n + 1):
+                nd = int(nd)
+                if sc_axes[a] and nd % 2 == 1 and nd >= 5:
+                    P1, c1 = tr.fw_interp_1d(nd)
+                else:
+                    sc_axes[a] = False
+                    P1, c1 = sp.identity(nd, format="csr"), nd
+                p1s.append(P1)
+                nc1s.append(c1)
+            stop = not any(sc_axes)
+            d_c = int(sum(sc_axes))
+        else:
+            p1s, nc1s = zip(*(tr.fw_interp_1d(int(nd)) for nd in (n + 1)))
+            stop = all(m.shape[0] == m.shape[1] for m in p1s)
+            d_c = mesh.dim
         nc = np.asarray(nc1s, dtype=np.int64) - 1
-        if all(m.shape[0] == m.shape[1] for m in p1s):
+        if stop:
             if verbose:
                 print(f"mg_setup: stopped coarsening at level {l}")
             levels = l + 1
@@ -231,17 +282,18 @@ def mg_setup(A, mesh: RegularMesh, cfg: MGConfig, relax_param=None,
         # grid engine reuses via the cache); scipy's triple product where
         # the operator is not a +-1 stencil on odd grids
         try:
-            gs_f = gs_cache.get(l)
-            if gs_f is None:
-                gs_f = grid_stencil_from_csr(A_l, list(n + 1))
-                gs_cache[l] = gs_f
-            gs_c = structured_fw_rap(gs_f)
+            gs_f = host_stencil(l)
+            dim_g = len(gs_f.grid)
+            rap_axes = (None if sc_axes is None else
+                        tuple(dim_g - 1 - a
+                              for a, c in enumerate(sc_axes) if c))
+            gs_c = structured_fw_rap(gs_f, axes=rap_axes)
             gs_cache[l + 1] = gs_c
             A_c = gs_c.to_scipy().tocsr()
             A_c.eliminate_zeros()   # boundary non-entries
         except ValueError:
             P = tr._kron_nd(list(p1s))
-            R = ((0.5 ** mesh.dim) * P.T).tocsr()
+            R = ((0.5 ** d_c) * P.T).tocsr()
             A_c = (R @ A_l @ P).tocsr()
         As.append(A_c.astype(cfg.dtype))
         if verbose:

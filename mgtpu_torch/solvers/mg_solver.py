@@ -7,7 +7,8 @@ mgtpu/solvers/mg_solver.py, on the grid engine:
    cycle, a divergence stop at 1e3 * res0, and the residual history.
  * `solve_mg_refined` is mixed-precision iterative refinement: the residual
    b - A x in native float64 against the ORIGINAL operator (`A_input`), the
-   correction one cycle of the (float32) hierarchy from a zero guess.
+   correction one cycle of the (float32) hierarchy from a zero guess;
+   `fmg=True` starts from one full-multigrid pass instead of zero.
 
 Both run on the state's device and return torch tensors there.
 """
@@ -19,7 +20,7 @@ import numpy as np
 import torch
 
 from ..config import torch_dtype
-from ..cycle.grid_cycle import grid_cycle
+from ..cycle.grid_cycle import grid_cycle, grid_fmg
 from ..ops.grid_stencil import flat_to_grid, grid_to_flat, make_grid_stencil
 from ..setup.hierarchy import MGState
 
@@ -89,15 +90,18 @@ def _high_precision_fine_op(state: MGState):
 
 
 def solve_mg_refined(state: MGState, b, x=None, tol: float = 1e-8,
-                     max_iter: int | None = None, verbose: bool = False):
+                     max_iter: int | None = None, fmg: bool = False,
+                     verbose: bool = False):
     """Iterative refinement x += Cycle(b - A x) to a float64 relative
     residual below `tol`.
 
     The residual is computed in native float64 against `A_input`; each
     correction is one cycle of the hierarchy (its own dtype) from a zero
-    guess.  The loop stops at `tol`, at `max_iter` (default
-    max_outer_iter), or once the residual exceeds 1e3 * ||b||.  Returns
-    (x, info) with x a float64 tensor on the state's device."""
+    guess.  With `fmg` and no `x`, the iterate starts from one full
+    multigrid pass on b (grid_fmg) instead of zero.  The loop stops at
+    `tol`, at `max_iter` (default max_outer_iter), or once the residual
+    exceeds 1e3 * ||b||.  Returns (x, info) with x a float64 tensor on the
+    state's device."""
     t0 = time.perf_counter()
     cfg, gh, dev = state.config, state.hier, state.device
     cd = torch_dtype(cfg.dtype)
@@ -109,6 +113,8 @@ def solve_mg_refined(state: MGState, b, x=None, tol: float = 1e-8,
     matvec_hi = _high_precision_fine_op(state)
     grid = gh.fine_grid
     bv, xv = flat_to_grid(b2, grid), flat_to_grid(x2, grid)
+    if fmg and x is None:
+        xv = grid_fmg(cfg, gh, bv.to(cd)).to(torch.float64)
 
     res0 = max(_norm(bv), 1e-300)
     r = bv - matvec_hi(xv)

@@ -99,3 +99,65 @@ def test_small_solve_runs_through_the_kernels():
     assert const3d.LAUNCHES["jacobi_corr"] > before[0]["jacobi_corr"]
     assert const3d.PLAIN_CALLS == before[2]
     assert fused3d.PLAIN_CALLS == before[3]
+
+
+def _line_states(dims, dtype):
+    """line_prec states on every grid axis of an anisotropic operator."""
+    import mgtpu_torch as mt
+    from mgtpu_torch.cycle.grid_cycle import line_state_to
+    from mgtpu_torch.setup.smoothers import line_prec
+    Ts = [sp.diags([-1.0, 2.0, -1.0], [-1, 0, 1], shape=(d + 1, d + 1))
+          * (d ** 2) for d in reversed(dims)]
+    A = 0
+    for k in range(len(dims)):
+        mats = [sp.identity(d + 1) for d in reversed(dims)]
+        mats[k] = (20.0 if k == 0 else 1.0) * Ts[k]
+        term = mats[0]
+        for mm in mats[1:]:
+            term = sp.kron(term, mm)
+        A = A + term
+    M = mt.get_regular_mesh([0.0, 1.0] * len(dims), list(dims))
+    tdt = torch.float32 if dtype == np.float32 else torch.float64
+    return [line_state_to(line_prec(sp.csr_matrix(A), M, 0.8, dtype=dtype,
+                                    axis=a), tdt, "cuda")
+            for a in range(len(dims))]
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("dims", [(18, 24, 30), (64, 64), (40, 40, 40)])
+def test_tridiag_matches_plain_on_every_axis(dims, dtype):
+    _need_card()
+    from mgtpu_torch.ops.cuda import tridiag
+    tol = 2e-4 if dtype == np.float32 else 1e-10
+    for lr in _line_states(dims, dtype):
+        for m in (1, 2):
+            rng = np.random.RandomState(m)
+            r, x = (torch.tensor(rng.rand(m, *lr.alpha.shape).astype(dtype),
+                                 device="cuda") for _ in range(2))
+            args = (lr.alpha, lr.pivot, lr.cprime, lr.axis)
+            for mode, kw in (("solve", {}),
+                             ("correct", dict(x=x, omega=lr.omega))):
+                n0 = tridiag.LAUNCHES[mode]
+                y = tridiag.line_apply(mode, *args, r, **kw)
+                ref = tridiag.line_plain(mode, *args, r, **kw)
+                torch.cuda.synchronize()
+                assert tridiag.LAUNCHES[mode] == n0 + 1
+                assert y.dtype == r.dtype and y.shape == r.shape
+                err = float((y - ref).abs().max() / ref.abs().max())
+                assert err < tol, (mode, lr.axis, m, err)
+
+
+def test_tridiag_rejects_what_the_kernel_does_not_take():
+    _need_card()
+    from mgtpu_torch.ops.cuda import tridiag
+    lr = _line_states((8, 8), np.float32)[1]
+    args = (lr.alpha, lr.pivot, lr.cprime, lr.axis)
+    r = torch.zeros((1, 9, 9), device="cuda")
+    with pytest.raises(TypeError):
+        tridiag.line_apply("solve", *args, r.double())
+    with pytest.raises(TypeError):
+        tridiag.line_apply("solve", *args, r.half())
+    with pytest.raises(ValueError):
+        tridiag.line_apply("solve", *args, r.transpose(1, 2))
+    with pytest.raises(ValueError):
+        tridiag.line_apply("correct", *args, r, x=r[:, :-1], omega=0.8)
