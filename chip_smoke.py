@@ -467,7 +467,7 @@ def vcycle_ms(st, b, card, label="129^3, 5 levels"):
     return ev_ms, host_ms
 
 
-def vcycle_profile(st, b, cycle_ms, card):
+def vcycle_profile(st, b, cycle_ms, card, label="129^3"):
     """Device time of one V-cycle by torch.profiler (sum of kernel times
     over five cycles) against its CUDA-event time: the busy share."""
     from torch.profiler import ProfilerActivity, profile
@@ -488,7 +488,8 @@ def vcycle_profile(st, b, cycle_ms, card):
     if busy == 0:
         log("[path] V-cycle device time: not measured (no device events)")
         return
-    log(f"[path] V-cycle device time {busy:.3f} ms of {cycle_ms:.3f} ms "
+    log(f"[path] V-cycle ({label}) device time {busy:.3f} ms of "
+        f"{cycle_ms:.3f} ms "
         f"(busy share {busy / cycle_ms:.2f}; {card}); largest:")
     for key, ms in sorted(events, key=lambda e: -e[1])[:6]:
         log(f"[path]   {ms:.4f} ms  {key[:70]}")
@@ -711,7 +712,10 @@ def phase_aniso(ops, card):
 
     reset_counters()                       # ---- main path window ----
     for key, label, st, A, b, want in runs:
+        before = line_counters()[0]
         refined(st, A, b, want, label, card, max_iter=60)
+        log(f"[path] {key}: line kernel launches in this solve: " + str(
+            {k: v - before[k] for k, v in line_counters()[0].items()}))
     launches, plain = counters()           # ---- end of window ----
     line_l, line_p = line_counters()
     launches.update(line_l)
@@ -725,7 +729,8 @@ def phase_aniso(ops, card):
     for key, label, st, A, b, want in runs:
         if key in ("a", "d"):
             refined(st, A, b, want, label + " (warm)", card, max_iter=60)
-            vcycle_ms(st, b, card, label=label)
+            ev_ms, _ = vcycle_ms(st, b, card, label=label)
+            vcycle_profile(st, b, ev_ms, card, label=f"({key})")
     return launches
 
 

@@ -58,7 +58,7 @@ __global__ void __launch_bounds__(kThreads) tridiag_strided(
   const int c = tid / tl;
   const int o = blockIdx.x / ntiles;
   const int j = (blockIdx.x - o * ntiles) * tl + lane;
-  const bool valid = j < inner && c < nchunk;
+  const bool valid = j < inner;
   const int fb = o * n * inner + j;                  // field: node (o, 0, j)
   const int cb = (o % outer_c) * n * inner + j;      // coefficients
   const int len = (n + nchunk - 1) / nchunk;

@@ -18,9 +18,8 @@ ops/cuda/tridiag.py: kernels on the card, their plain versions on the CPU.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
-
 import functools
+from dataclasses import dataclass
 
 import numpy as np
 import scipy.sparse as sp
@@ -249,10 +248,10 @@ def _cubic_prolong(xc: torch.Tensor, fine_grid) -> torch.Tensor:
     return y.contiguous()
 
 
-def grid_fmg(cfg, gh: GridHierarchy, b, n_cycles: int = 1):
+def grid_fmg(cfg, gh: GridHierarchy, b):
     """Full multigrid (nested iteration): solve on the coarsest level, then
     on each finer level start from the cubic prolongation of the coarser
-    solution and polish with `n_cycles` cycles.  b is (m, *fine_grid)."""
+    solution and polish it with one cycle.  b is (m, *fine_grid)."""
     nlev = len(gh.levels)
     bs = [b]
     for l in range(nlev - 1):
@@ -260,8 +259,7 @@ def grid_fmg(cfg, gh: GridHierarchy, b, n_cycles: int = 1):
     x = gh.coarse.solve(bs[-1])
     for l in range(nlev - 2, -1, -1):
         x = _cubic_prolong(x, gh.levels[l].A.grid)
-        for _ in range(n_cycles):
-            x = grid_cycle(cfg, gh, bs[l], x, level=l)
+        x = grid_cycle(cfg, gh, bs[l], x, level=l)
     return x
 
 

@@ -110,7 +110,8 @@ def test_mg_setup_matches_reference(dims, levels, relax):
 @pytest.mark.parametrize("kw", [
     dict(relax_type="jac-gmres"), dict(relax_type="VankaFaces"),
     dict(cycle_type="K"), dict(coarse_solve="GMRES"),
-    dict(transfer_type="SemiCoarsening"), dict(relax_type="LineJac"),
+    dict(transfer_type="SystemsFacesLinear"),
+    dict(relax_type="hybridKaczmarzNodal"),
 ])
 def test_unported_options_raise(kw):
     dims, L = _problem([8, 8])
@@ -118,6 +119,20 @@ def test_unported_options_raise(kw):
     with pytest.raises(NotImplementedError, match="not yet ported"):
         mt.mg_setup(L, mt.get_regular_mesh([0.0, 1.0] * 2, dims), cfg, rp,
                     device="cpu")
+
+
+def test_anisotropy_aliases_set_up():
+    """The reference spellings of semicoarsening and line Jacobi set up a
+    line-smoothed hierarchy with a non-coarsened axis or a line state."""
+    dims, L = _problem([8, 8])
+    cfg, rp = mt.get_mg_param(levels=2, transfer_type="SemiCoarsening",
+                              relax_type="LineJac", relax_param=0.9)
+    assert (cfg.transfer_type, cfg.relax_type) == ("semicoarsening",
+                                                   "line-jacobi")
+    st = mt.mg_setup(L, mt.get_regular_mesh([0.0, 1.0] * 2, dims), cfg, rp,
+                     device="cpu")
+    lv = st.hier.levels[0]
+    assert lv.d is None and lv.line.omega == 0.9
 
 
 def test_get_mg_param_aliases_match_reference():
