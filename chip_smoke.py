@@ -744,8 +744,15 @@ def phase_fmg(card):
     st = mg_setup(L, M, cfg, rp)
     b = L @ np.random.RandomState(SEED).rand(L.shape[0])
     b /= np.linalg.norm(b)
+    reset_counters()                       # ---- path window ----
     refined(st, L, b, 6, "2D 1024^2 Chebyshev(3) V(1,0), FMG start", card,
             fmg=True)
+    launches, plain = counters()           # ---- end of window ----
+    line_l, line_p = line_counters()
+    plain.update(line_p)
+    require(not any(plain.values()), f"plain versions ran: {plain}")
+    require(not any(launches.values()) and not any(line_l.values()),
+            "the 2D FMG path launched a 3D or line kernel")
     refined(st, L, b, 6, "2D 1024^2 Chebyshev(3) V(1,0), FMG start (warm)",
             card, fmg=True)
 

@@ -35,7 +35,7 @@
 //  * contiguous lines (inner == 1): one warp per line, 32 consecutive nodes
 //    per step (coalesced), a warp-shuffle scan of the affine maps in each
 //    segment and the carry passed from segment to segment; the next
-//    segment's loads are issued before the current one is scanned.
+//    segment's loads start before the current one is scanned.
 // Both are templated on float and double.
 #include <cuda_runtime.h>
 
