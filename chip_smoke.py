@@ -36,7 +36,25 @@ Phases, each of which raises on failure:
             launch counters prove the line kernel (both modes) and kernel A's
             matvec ran and no plain version did;
 8. path 2D FMG — the 1024^2 problem, Chebyshev(3) V(1,0) refined from a
-            full-multigrid start (6 +- 1).
+            full-multigrid start (6 +- 1);
+9. stencil kernel — kernel D (the variable-coefficient stencil apply)
+            against its plain version on every level of the rough-sigma
+            DivSigGrad hierarchies (f) 1025^2 and (h) 129^3 (nd = 5, 7, 9,
+            27), on (25, 41) and (19, 25, 31) grids and the slab form, at
+            m = 1, 2, 4, in float32 (2e-5) and float64 (1e-12); then its
+            device time per level beside its byte bound, its plain version
+            and torch.sparse.mm of the operator's CSR form;
+10. path Krylov — the rough-sigma DivSigGrad solves, f32 hierarchies with
+            float64 right-hand sides, to a true f64 relres below 1e-8:
+            (f) solve_cg_mg 19 +- 1 iterations, f-bicg solve_bicgstab_mg 12,
+            f-block solve_cg_mg(block=True) on 4 right-hand sides 19 (up
+            to 22: its count moves with rounding),
+            (g) Jac-GMRES K-cycles under solve_gmres_mg 4 restarts,
+            (h) 3D 128^3 solve_cg_mg 16; launch counters prove kernel D ran
+            in float32 and float64 and its plain version did not; one CG
+            iteration's time by CUDA events and the host clock, and the
+            device busy share; f-block's count under cycles that differ
+            only in rounding.
 
 The last lines are one JSON object with a row per kernel, the card's name and
 power limit, and {"ok": true, "device": {...}}.  Without a CUDA device, or
@@ -56,6 +74,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory (data sheet)
 FP32_FLOPS = 67e12               # H100 SXM float32 outside the tensor cores
+FP64_FLOPS = 34e12               # H100 SXM float64 outside the tensor cores
 SEED = 0
 
 
@@ -272,8 +291,16 @@ KERNELS = {
     "tridiag.correct": (
         "mgtpu/ops/pallas/tridiag.py:71 _fwd_kernel + :85 _bwd_kernel (K7) "
         "as line_correct_pallas", "mgtpu_torch/csrc/tridiag.cu", 3),
+    # fields moved per right-hand side (x, y), plus nd coefficients
+    "stencil.float32": (
+        "mgtpu/ops/pallas/stencil_kernel.py:31 _stencil_kernel (K8), "
+        "pallas_call at :76", "mgtpu_torch/csrc/stencil.cu", 2),
+    "stencil.float64": (
+        "mgtpu/ops/pallas/stencil_kernel.py:31 _stencil_kernel (K8), "
+        "pallas_call at :76", "mgtpu_torch/csrc/stencil.cu", 2),
 }
-STENCIL_KERNELS = [k for k in KERNELS if not k.startswith("tridiag")]
+STENCIL_KERNELS = [k for k in KERNELS
+                   if not k.startswith(("tridiag", "stencil."))]
 
 
 def run_kernel(name, A, x, b, d, p, plain: bool):
@@ -391,9 +418,10 @@ def phase_timing(timed_levels, rows):
 
 
 def reset_counters():
-    from mgtpu_torch.ops.cuda import const3d, fused3d, tridiag
+    from mgtpu_torch.ops.cuda import const3d, fused3d, stencil, tridiag
     for dct in (const3d.LAUNCHES, const3d.PLAIN_CALLS, fused3d.LAUNCHES,
-                fused3d.PLAIN_CALLS, tridiag.LAUNCHES, tridiag.PLAIN_CALLS):
+                fused3d.PLAIN_CALLS, tridiag.LAUNCHES, tridiag.PLAIN_CALLS,
+                stencil.LAUNCHES, stencil.PLAIN_CALLS):
         for k in dct:
             dct[k] = 0
 
@@ -411,6 +439,13 @@ def line_counters():
     from mgtpu_torch.ops.cuda import tridiag
     return ({f"tridiag.{k}": v for k, v in tridiag.LAUNCHES.items()},
             {f"tridiag.{k}": v for k, v in tridiag.PLAIN_CALLS.items()})
+
+
+def stencil_counters():
+    """Launches and plain calls of kernel D, per float type."""
+    from mgtpu_torch.ops.cuda import stencil
+    return ({f"stencil.{k}": v for k, v in stencil.LAUNCHES.items()},
+            {f"stencil.{k}": v for k, v in stencil.PLAIN_CALLS.items()})
 
 
 def true_relres(L, b, x) -> float:
@@ -712,17 +747,20 @@ def phase_aniso(ops, card):
 
     reset_counters()                       # ---- main path window ----
     for key, label, st, A, b, want in runs:
-        before = line_counters()[0]
+        before = dict(line_counters()[0], **stencil_counters()[0])
         refined(st, A, b, want, label, card, max_iter=60)
-        log(f"[path] {key}: line kernel launches in this solve: " + str(
-            {k: v - before[k] for k, v in line_counters()[0].items()}))
+        after = dict(line_counters()[0], **stencil_counters()[0])
+        log(f"[path] {key}: line kernel and kernel D launches in this "
+            f"solve: {({k: v - before[k] for k, v in after.items()})}")
     launches, plain = counters()           # ---- end of window ----
-    line_l, line_p = line_counters()
-    launches.update(line_l)
-    plain.update(line_p)
+    for more in (line_counters(), stencil_counters()):
+        launches.update(more[0])
+        plain.update(more[1])
     log(f"[path] aniso kernel launches: {launches}")
     log(f"[path] aniso plain-version calls on the card: {plain}")
-    for k in ("tridiag.solve", "tridiag.correct", "stencil3d_apply.matvec"):
+    # (c) is a variable-coefficient operator: kernel D in f32 and f64
+    for k in ("tridiag.solve", "tridiag.correct", "stencil3d_apply.matvec",
+              "stencil.float32", "stencil.float64"):
         require(launches[k] > 0, f"{k} was never launched on the aniso path")
     require(not any(plain.values()), f"plain versions ran: {plain}")
 
@@ -749,13 +787,373 @@ def phase_fmg(card):
             fmg=True)
     launches, plain = counters()           # ---- end of window ----
     line_l, line_p = line_counters()
-    plain.update(line_p)
+    d_l, d_p = stencil_counters()
+    plain.update(line_p, **d_p)
     require(not any(plain.values()), f"plain versions ran: {plain}")
-    require(not any(launches.values()) and not any(line_l.values()),
-            "the 2D FMG path launched a 3D or line kernel")
+    require(not any(launches.values()) and not any(line_l.values())
+            and not any(d_l.values()),
+            "the constant-coefficient 2D FMG path launched a 3D, line or "
+            "variable-coefficient kernel")
     refined(st, L, b, 6, "2D 1024^2 Chebyshev(3) V(1,0), FMG start (warm)",
             card, fmg=True)
 
+
+# ---------------------------------------------------------------------------
+# kernel D and the variable-coefficient (Krylov) paths
+# ---------------------------------------------------------------------------
+
+def divsig(dims, shift=1e-8):
+    """Rough-sigma DivSigGrad, sigma = exp(RandomState(3).randn(cells)),
+    + shift * (max column sum) I (bench.py:540-544's operator)."""
+    from mgtpu_torch import get_regular_mesh
+    from mgtpu_torch.models.operators import nodal_div_sig_grad_matrix
+    M = get_regular_mesh([0.0, 1.0] * len(dims), list(dims))
+    sig = np.exp(np.random.RandomState(3).randn(M.num_cells))
+    A = nodal_div_sig_grad_matrix(M, sig)
+    A = (A + shift * abs(A).sum(axis=0).max()
+         * sp.identity(A.shape[0])).tocsr()
+    return M, A
+
+
+def stencil_cases(states):
+    """(label, GridStencil) of every level of the (f) and (h) hierarchies,
+    in f32 and as f64 casts, plus the f64 fine operators and the small
+    non-square / non-cubic fine and Galerkin levels."""
+    from mgtpu_torch.ops.grid_stencil import (GridStencil,
+                                              grid_stencil_from_csr,
+                                              structured_fw_rap)
+    from mgtpu_torch.solvers.mg_solver import high_precision_fine_operator
+    cases = []
+    for key, st in states.items():
+        for l, lv in enumerate(st.hier.levels):
+            A = lv.A
+            require(isinstance(A, GridStencil),
+                    f"({key}) level {l} is a {type(A).__name__}, want a "
+                    "variable GridStencil")
+            cases.append((f"({key}) level {l}", A))
+            cases.append((f"({key}) level {l} f64", GridStencil(
+                A.coeff.double(), A.offsets, A.grid)))
+        cases.append((f"({key}) f64 fine operator",
+                      high_precision_fine_operator(st)))
+    for dims in ((24, 40), (18, 24, 30)):
+        _, A = divsig(dims)
+        gs = grid_stencil_from_csr(A, [d + 1 for d in dims])
+        for dt in (np.float32, np.float64):
+            g = GridStencil(gs.coeff.astype(dt), gs.offsets, gs.grid)
+            cases.append((f"{g.grid} fine {np.dtype(dt).name}",
+                          g.to("cuda")))
+            r = structured_fw_rap(g)
+            cases.append((f"{r.grid} Galerkin {np.dtype(dt).name}",
+                          r.to("cuda")))
+    return cases
+
+
+def phase_stencil_kernels(states, rows):
+    """Kernel D against its plain version on every case, m = 1, 2, 4;
+    the slab entry on a 2D and a folded 3D operator."""
+    from mgtpu_torch.ops.cuda import stencil
+    from mgtpu_torch.ops.grid_stencil import grid_stencil_matvec
+    from mgtpu_torch.parallel.stencil import stencil_from_banded
+    tols = {torch.float32: 2e-5, torch.float64: 1e-12}
+
+    def check(label, m, out, ref):
+        torch.cuda.synchronize()
+        require(out.shape == ref.shape and out.dtype == ref.dtype
+                and bool(torch.isfinite(out).all()), f"D {label}: bad output")
+        ae = float((out - ref).abs().max())
+        re = ae / float(ref.abs().max())
+        row = rows[f"stencil.{str(ref.dtype).split('.')[-1]}"]
+        row["max_abs_err"] = max(row["max_abs_err"], ae)
+        row["max_rel_err"] = max(row["max_rel_err"], re)
+        require(re < tols[ref.dtype], f"kernel D {label} m={m}: relative "
+                f"error {re:.3e} >= {tols[ref.dtype]}")
+
+    for label, A in stencil_cases(states):
+        for m in (1, 2, 4):
+            x = torch.tensor(np.random.RandomState(SEED + m).rand(
+                m, *A.grid), dtype=A.coeff.dtype, device="cuda")
+            check(label, m, stencil.grid_apply(A.coeff, A.offsets, x),
+                  grid_stencil_matvec(A.coeff, A.offsets, x))
+        log(f"[kernel] D {label}: grid {A.grid} nd={len(A.offsets)} "
+            f"{A.coeff.dtype}: matches its plain version, m = 1, 2, 4")
+    for dims in ((24, 40), (18, 24, 30)):
+        _, A = divsig(dims)
+        for dt in (np.float32, np.float64):
+            sl = stencil_from_banded(A, [d + 1 for d in dims], 0.8, dtype=dt)
+            coeff = torch.tensor(sl.coeff, device="cuda")
+            for m in (1, 2, 4):
+                x = torch.tensor(np.random.RandomState(m).rand(m, *sl.shape),
+                                 dtype=coeff.dtype, device="cuda")
+                check(f"slab {sl.shape}", m,
+                      stencil.stencil_matvec(coeff, sl.di, sl.dj, x),
+                      stencil.stencil_matvec_plain(coeff, sl.di, sl.dj, x))
+        log(f"[kernel] D slab form of {dims} ({len(sl.di)} taps, NI = "
+            f"{sl.shape[1]}): matches its plain version, f32 and f64")
+
+
+def sparse_mm_yardstick(C, dtype):
+    """The level's host CSR matrix as a torch CSR tensor on the card (the
+    operand of the torch.sparse.mm yardstick)."""
+    C = sp.csr_matrix(C)
+    return torch.sparse_csr_tensor(
+        torch.tensor(C.indptr, dtype=torch.int64),
+        torch.tensor(C.indices, dtype=torch.int64),
+        torch.tensor(C.data), size=C.shape, dtype=dtype, device="cuda")
+
+
+def phase_stencil_timing(states, rows, card):
+    """Kernel D, plain and torch.sparse.mm device times on every level of
+    (f) and (h) (m = 1, four input sets so that the large levels come from
+    device memory) and on the f64 fine operator of (f)."""
+    from mgtpu_torch.ops.cuda import stencil
+    from mgtpu_torch.ops.grid_stencil import grid_stencil_matvec
+    from mgtpu_torch.solvers.mg_solver import high_precision_fine_operator
+    timer = Timer()
+    timed = []
+    for key, st in states.items():
+        for l, lv in enumerate(st.hier.levels):
+            timed.append((f"({key}) level {l}", lv.A, st.As[l]))
+        if key == "f":
+            timed.append(("(f) f64 fine", high_precision_fine_operator(st),
+                          st.A_input))
+    for label, A, csr in timed:
+        dt = A.coeff.dtype
+        itemsize = A.coeff.element_size()
+        nodes = int(np.prod(A.grid))
+        nd = len(A.offsets)
+        sets = [torch.tensor(np.random.RandomState(SEED + 20 + j).rand(
+            1, *A.grid), dtype=dt, device="cuda") for j in range(4)]
+        ms, host_ms = timer([lambda x=x: stencil.grid_apply(
+            A.coeff, A.offsets, x) for x in sets])
+        plain_ms, _ = timer([lambda x=x: grid_stencil_matvec(
+            A.coeff, A.offsets, x) for x in sets])
+        T = sparse_mm_yardstick(csr, dt)
+        cols = [x.reshape(-1, 1) for x in sets]
+        lib_ms, _ = timer([lambda c=c: torch.sparse.mm(T, c) for c in cols])
+        fbytes = (nd + 2) * itemsize * nodes
+        flops = 2 * nd * nodes
+        peak = FP32_FLOPS if dt == torch.float32 else FP64_FLOPS
+        bound = max(fbytes / HBM_BYTES_PER_S, flops / peak) * 1e3
+        log(f"[time] D {label:18s} grid {str(A.grid):16s} nd={nd:2d} {dt}: "
+            f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  sparse.mm "
+            f"{lib_ms:.4f} ms  bound {bound:.4f} ms ({fbytes / 1e6:.1f} MB)"
+            f"  kernel/bound {ms / bound:.1f}x  host per call {host_ms:.3f}"
+            f" ms ({card})")
+        name = f"stencil.{str(dt).split('.')[-1]}"
+        rows[name].setdefault("times", {})[label] = dict(
+            grid=list(A.grid), nd=nd, ms=ms, plain_ms=plain_ms,
+            library_ms=lib_ms, bound_ms=bound)
+        if label in ("(f) level 0", "(f) f64 fine"):
+            rows[name].update(
+                ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by="bytes" if fbytes / HBM_BYTES_PER_S
+                >= flops / peak else "operations",
+                library_ms=lib_ms, host_ms=host_ms,
+                timed_shape=f"{label}: {A.grid} nd={nd} m=1",
+                library_call="torch.sparse.mm(CSR, x)")
+
+
+KRYLOV = [
+    # key, label, state, solve, keywords, right-hand sides, mgtpu's count,
+    # allowed excess over it
+    ("f", "(f) 2D 1025^2 rough sigma, solve_cg_mg, Jacobi 0.8 V(1,1)",
+     "f", "solve_cg_mg", {}, "b", 19, 1),
+    ("f-bicg", "(f-bicg) the same, solve_bicgstab_mg", "f",
+     "solve_bicgstab_mg", {}, "b", 12, 1),
+    # block CG on four nearly parallel right-hand sides amplifies rounding
+    # through its 4x4 Gram solves (block_cg_rounding prints the count under
+    # solves that differ only in rounding); tests/test_torch_krylov.py
+    # holds it to mgtpu +- 1 at 64^2
+    ("f-block", "(f-block) the same, 4 RHS, solve_cg_mg(block=True)", "f",
+     "solve_cg_mg", dict(block=True), "B", 19, 3),
+    ("g", "(g) the same operator, Jac-GMRES 1.0 K-cycles, "
+     "solve_gmres_mg(inner=5)", "g", "solve_gmres_mg", dict(inner=5), "b",
+     4, 1),
+    ("h", "(h) 3D 129^3 rough sigma, solve_cg_mg, Jacobi 0.8 V(1,1)", "h",
+     "solve_cg_mg", {}, "b", 16, 1),
+]
+
+
+def krylov_states():
+    """(f)/(g) on the 1024^2-cell operator (6 levels) and (h) on the
+    128^3-cell one (5 levels), f32 hierarchies; right-hand sides as in the
+    reference counts: b = A RandomState(4).rand(n) normalised, and
+    RandomState(4).rand(n, 4) with normalised columns."""
+    from mgtpu_torch import get_mg_param, mg_setup
+    base = dict(max_outer_iter=100, relative_tol=1e-8, nu_pre=1, nu_post=1,
+                dtype=np.float32)
+    ops, states = {}, {}
+    for key, dims, levels, opts in (
+            ("f", (1024, 1024), 6, dict(relax_type="jacobi",
+                                        relax_param=0.8)),
+            ("g", None, 6, dict(relax_type="jac-gmres", relax_param=1.0,
+                                cycle_type="K")),
+            ("h", (128, 128, 128), 5, dict(relax_type="jacobi",
+                                           relax_param=0.8))):
+        t0 = time.perf_counter()
+        # (g) runs on (f)'s operator
+        M, A = ops[key] = ops["f"] if dims is None else divsig(dims)
+        cfg, rp = get_mg_param(levels=levels, **base, **opts)
+        states[key] = mg_setup(A, M, cfg, rp)
+        log(f"[path] ({key}) operator + setup {time.perf_counter() - t0:.1f}"
+            f" s, grids {[lv.A.grid for lv in states[key].hier.levels]}, "
+            f"taps {[len(lv.A.offsets) for lv in states[key].hier.levels]}")
+    rhs = {}
+    for key in ("f", "h"):
+        A = ops[key][1]
+        b = A @ np.random.RandomState(4).rand(A.shape[0])
+        B = np.random.RandomState(4).rand(A.shape[0], 4)
+        rhs[key] = dict(b=b / np.linalg.norm(b),
+                        B=B / np.linalg.norm(B, axis=0))
+    rhs["g"] = rhs["f"]
+    return ops, states, rhs
+
+
+def phase_krylov(ops, states, rhs, card):
+    """The Krylov solves inside one launch-counter window; returns kernel
+    D's launches in the window."""
+    import mgtpu_torch
+    reset_counters()                       # ---- main path window ----
+    for key, label, skey, fn, kw, which, want, excess in KRYLOV:
+        A, rh = ops[skey][1], rhs[skey][which]
+        before = stencil_counters()[0]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x, info = getattr(mgtpu_torch, fn)(states[skey], rh, **kw)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        xh = x.detach().cpu().numpy()
+        require(xh.shape == rh.shape and xh.dtype == np.float64
+                and np.isfinite(xh).all(), f"{key}: bad solution")
+        rr = np.linalg.norm(rh - A @ xh, axis=0) / np.linalg.norm(rh, axis=0)
+        iters = int(info["iters"])
+        d_l = {k: v - before[k] for k, v in stencil_counters()[0].items()}
+        log(f"[path] {label}: {iters} iterations (mgtpu {want}, allowed "
+            f"{want - 1}..{want + excess}), true "
+            f"f64 relres {np.array2string(np.atleast_1d(rr), precision=3)}, "
+            f"time to 1e-8 {wall:.1f} ms (host clock, synchronised; {card})"
+            f"; kernel D launches {d_l}")
+        require(want - 1 <= iters <= want + excess,
+                f"{key}: {iters} iterations, want {want - 1}..{want + excess}")
+        require(bool(np.all(rr < 1e-8)), f"{key}: true relres {rr} >= 1e-8")
+    launches, plain = stencil_counters()   # ---- end of window ----
+    more_l, more_p = counters()
+    plain.update(more_p)
+    log(f"[path] Krylov window kernel D launches: {launches}; other "
+        f"kernels {more_l}")
+    log(f"[path] Krylov window plain-version calls on the card: {plain}")
+    for k in ("stencil.float32", "stencil.float64"):
+        require(launches[k] > 0, f"{k} was never launched on the Krylov "
+                "path")
+    require(not any(plain.values()), f"plain versions ran: {plain}")
+    return launches
+
+
+def cg_iteration(st, b, card):
+    """One CG iteration of (f) by CUDA events and the host clock, as the
+    slope between a 2- and a 12-iteration solve (tol 0), and the device
+    busy share of the 12-iteration solve (torch.profiler)."""
+    from dataclasses import replace
+    from torch.profiler import ProfilerActivity, profile
+    from mgtpu_torch import solve_cg_mg
+    cfg = st.config
+
+    def run(k):
+        st.config = replace(cfg, max_outer_iter=k, relative_tol=0.0)
+        try:
+            torch.cuda.synchronize()
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            e0.record()
+            _, info = solve_cg_mg(st, b)
+            e1.record()
+            torch.cuda.synchronize()
+            require(int(info["iters"]) == k, "fixed-count CG stopped early")
+            return e0.elapsed_time(e1), (time.perf_counter() - t0) * 1e3
+        finally:
+            st.config = cfg
+
+    run(2)
+    ev, host = [], []
+    for _ in range(3):
+        e12, h12 = run(12)
+        e2, h2 = run(2)
+        ev.append((e12 - e2) / 10)
+        host.append((h12 - h2) / 10)
+    ev_ms, host_ms = sorted(ev)[1], sorted(host)[1]
+    log(f"[path] one CG iteration of (f) (V-cycle + f64 matvec + dots): "
+        f"{ev_ms:.3f} ms CUDA events, {host_ms:.3f} ms host clock ({card})")
+    st.config = replace(cfg, max_outer_iter=12, relative_tol=0.0)
+    try:
+        torch.cuda.synchronize()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            e0.record()
+            solve_cg_mg(st, b)
+            e1.record()
+            torch.cuda.synchronize()
+    finally:
+        st.config = cfg
+    total = e0.elapsed_time(e1)
+    device = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    events = [(e.key, e.self_device_time_total / 1e3) for e in device]
+    busy = sum(ms for _, ms in events)
+    if busy == 0:
+        log("[path] CG device time: not measured (no device events)")
+        return ev_ms, host_ms
+    log(f"[path] 12-iteration CG solve of (f): device time {busy:.3f} ms of "
+        f"{total:.3f} ms (busy share {busy / total:.2f}; {card}), "
+        f"{sum(e.count for e in device)} device kernels; largest:")
+    for key, ms in sorted(events, key=lambda e: -e[1])[:8]:
+        log(f"[path]   {ms:.4f} ms  {key[:70]}")
+    return ev_ms, host_ms
+
+
+
+def block_cg_rounding(ops, states, rhs, card):
+    """f-block's block-CG count under solves that differ only in rounding:
+    the batched f32 cycle of the path, the same f32 cycle applied one
+    right-hand side at a time, an f64 hierarchy, and the f32 hierarchy on
+    the host CPU (torch's CPU kernels, the summation orders of mgtpu's CPU
+    run rather than the card's)."""
+    from mgtpu_torch import get_mg_param, mg_setup, solve_cg_mg
+    from mgtpu_torch.cycle.grid_cycle import grid_cycle
+    from mgtpu_torch.krylov import block_pcg
+    from mgtpu_torch.ops.grid_stencil import flat_to_grid
+    from mgtpu_torch.solvers.mg_solver import high_precision_fine_operator
+    st = states["f"]
+    cfg, gh = st.config, st.hier
+    M, A = ops["f"]
+    B = rhs["f"]["B"]
+    Bg = flat_to_grid(torch.as_tensor(B, device="cuda"), gh.fine_grid)
+
+    def per_column(r):
+        out = []
+        for j in range(r.shape[0]):
+            rl = r[j:j + 1].float()
+            out.append(grid_cycle(cfg, gh, rl, torch.zeros_like(rl),
+                                  x_zero=True).double())
+        return torch.cat(out)
+
+    _, info_c = block_pcg(high_precision_fine_operator(st).matvec, Bg,
+                          prec=per_column, tol=cfg.relative_tol,
+                          max_iter=cfg.max_outer_iter)
+    cfg64, rp = get_mg_param(levels=6, max_outer_iter=100,
+                             relative_tol=1e-8, nu_pre=1, nu_post=1,
+                             relax_type="jacobi", relax_param=0.8,
+                             dtype=np.float64)
+    _, info_64 = solve_cg_mg(mg_setup(A, M, cfg64, rp), B, block=True)
+    _, info_b = solve_cg_mg(st, B, block=True)
+    t0 = time.perf_counter()
+    _, info_h = solve_cg_mg(mg_setup(A, M, cfg, st.relax_param,
+                                     device="cpu"), B, block=True)
+    log(f"[path] f-block block-CG iterations by rounding: batched f32 cycle "
+        f"{int(info_b['iters'])}, per-column f32 cycle "
+        f"{int(info_c['iters'])}, f64 hierarchy {int(info_64['iters'])} "
+        f"({card}); f32 hierarchy on the host CPU {int(info_h['iters'])} "
+        f"({time.perf_counter() - t0:.1f} s); mgtpu's count 19")
 
 def main() -> int:
     t_start = time.perf_counter()
@@ -791,11 +1189,21 @@ def main() -> int:
     phase_line_timing(timed_lines, rows)
     aniso = phase_aniso(line_ops, card)
     phase_fmg(card)
+
+    ops, kstates, rhs = krylov_states()
+    timed_states = {"f": kstates["f"], "h": kstates["h"]}
+    phase_stencil_kernels(timed_states, rows)
+    phase_stencil_timing(timed_states, rows, card)
+    krylov = phase_krylov(ops, kstates, rhs, card)
+    cg_iteration(kstates["f"], rhs["f"]["b"], card)
+    block_cg_rounding(ops, kstates, rhs, card)
     for k, row in rows.items():
         # each kernel's launches from the window of its own path
-        row["launches"] = aniso[k] if k.startswith("tridiag") else launches[k]
-    rows["stencil3d_apply.matvec"]["launches_aniso"] = \
-        aniso["stencil3d_apply.matvec"]
+        row["launches"] = (aniso[k] if k.startswith("tridiag") else
+                           krylov[k] if k.startswith("stencil.") else
+                           launches[k])
+    for k in ("stencil3d_apply.matvec", "stencil.float32", "stencil.float64"):
+        rows[k]["launches_aniso"] = aniso[k]
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

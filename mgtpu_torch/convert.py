@@ -3,15 +3,16 @@
 A hierarchy exported as numpy arrays — for example the leaves of an mgtpu
 `GridHierarchy`, taken with ``np.asarray`` — becomes a `GridHierarchy` of
 this package, so a cycle can run on exactly the reference's operators,
-diagonals, line states and transfers and be compared node for node.
+diagonals (Jacobi, SPAI and Jac-GMRES levels), line states, transfers and
+coarsest solve (dense inverse or FGMRES) and be compared node for node.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from .cycle.grid_cycle import (DenseInverse, GridHierarchy, GridLevel,
-                               line_state_to)
+from .cycle.grid_cycle import (DenseInverse, GridHierarchy,
+                               GridIterativeCoarse, GridLevel, line_state_to)
 from .cycle.relax import AltLineRelax, LineRelax
 from .ops.grid_stencil import ConstGridStencil, GridStencil
 
@@ -42,7 +43,10 @@ def grid_hierarchy_from_arrays(levels, coarse_inv, coarse_grid, *,
          them for alternating lines), ``P1`` (per-grid-axis 1D
          prolongation factors, None for an axis that does not coarsen) and
          ``lam`` (spectral bound) — None on the coarsest level.
-    coarse_inv: (nc, nc) dense inverse of the coarsest operator;
+    coarse_inv: (nc, nc) dense inverse of the coarsest operator, or a
+         mapping {``d``, ``inner``} for the FGMRES coarsest solve
+         (`GridIterativeCoarse` on the last level's operator: grid-shaped
+         damped inverse diagonal, projection steps);
     coarse_grid: its node grid."""
     out = []
     for lv in levels:
@@ -63,5 +67,11 @@ def grid_hierarchy_from_arrays(levels, coarse_inv, coarse_grid, *,
             line = line_state_to(_line_state(line), A.dtype, device)
         out.append(GridLevel(A, _as_tensor(lv.get("d"), device), P1,
                              None if lam is None else float(lam), line))
-    return GridHierarchy(tuple(out), DenseInverse(
-        _as_tensor(coarse_inv, device), tuple(int(v) for v in coarse_grid)))
+    if isinstance(coarse_inv, dict):
+        coarse = GridIterativeCoarse(out[-1].A,
+                                     _as_tensor(coarse_inv["d"], device),
+                                     int(coarse_inv["inner"]))
+    else:
+        coarse = DenseInverse(_as_tensor(coarse_inv, device),
+                              tuple(int(v) for v in coarse_grid))
+    return GridHierarchy(tuple(out), coarse)

@@ -8,12 +8,15 @@ the node grid:
    small dense matmul per grid axis (exactly the fw_interp factors, boundary
    rows included); under semicoarsening an axis that does not coarsen has
    no factor;
- * the coarsest solve is one dense matmul with a host-computed f64 inverse.
+ * the coarsest solve is one dense matmul with a host-computed f64 inverse,
+   or a Jacobi-preconditioned FGMRES projection (`GridIterativeCoarse`).
 
 Fields are (m, *grid) with the fastest mesh axis last.  On a 3D radius-1
 float32 level the Jacobi/SPAI branch runs the fused ops of
 ops/cuda/fused3d.py, and line-Jacobi levels run the line kernel of
-ops/cuda/tridiag.py: kernels on the card, their plain versions on the CPU.
+ops/cuda/tridiag.py; variable-coefficient levels apply through kernel D
+(ops/cuda/stencil.py): kernels on the card, their plain versions on the
+CPU.  Cycle types V, W, F and K (FGMRES-accelerated coarse corrections);
 `grid_fmg` is the full-multigrid start of the refined solve.
 """
 from __future__ import annotations
@@ -31,10 +34,11 @@ from ..ops.grid_stencil import (ConstGridStencil, GridStencil,
 from ..ops.cuda.const3d import supports_const3d
 from ..ops.cuda import fused3d as f3k
 from .relax import (AltLineRelax, LineRelax, chebyshev_smooth,
-                    chebyshev4_smooth, line_smooth)
+                    chebyshev4_smooth, fgmres_relaxation, line_smooth)
 
-__all__ = ["GridLevel", "GridHierarchy", "DenseInverse", "grid_restrict",
-           "grid_prolong", "grid_cycle", "grid_fmg", "build_grid_hierarchy"]
+__all__ = ["GridLevel", "GridHierarchy", "DenseInverse",
+           "GridIterativeCoarse", "grid_restrict", "grid_prolong",
+           "grid_cycle", "grid_fmg", "build_grid_hierarchy"]
 
 
 @dataclass(frozen=True, eq=False)
@@ -61,9 +65,22 @@ class DenseInverse:
 
 
 @dataclass(frozen=True, eq=False)
+class GridIterativeCoarse:
+    """Jacobi-preconditioned one-shot FGMRES coarsest solve (the reference's
+    MGcycle.jl:152-168 escape hatch): `inner` projection steps from zero."""
+    A: GridStencil | ConstGridStencil
+    d: torch.Tensor             # grid-shaped damped inverse diagonal
+    inner: int
+
+    def solve(self, bg: torch.Tensor) -> torch.Tensor:
+        return fgmres_relaxation(self.A.matvec, lambda r: self.d * r,
+                                 bg, torch.zeros_like(bg), self.inner)
+
+
+@dataclass(frozen=True, eq=False)
 class GridHierarchy:
     levels: tuple               # GridLevel per level (coarsest included)
-    coarse: DenseInverse
+    coarse: DenseInverse | GridIterativeCoarse
 
     @property
     def fine_grid(self) -> tuple[int, ...]:
@@ -130,6 +147,8 @@ def _grid_smooth(cfg, lvl: GridLevel, r, x, b, nu: int,
                                  cfg.cheby_degree * nu, r, x)
     if cfg.relax_type == "line-jacobi":
         return line_smooth(lvl.A.matvec, lvl.line, r, x, b, nu, x_zero)
+    if cfg.relax_type == "jac-gmres":
+        return fgmres_relaxation(lvl.A.matvec, lambda v: lvl.d * v, r, x, nu)
     # jacobi / spai: x += d .* r with the residual refreshed between sweeps
     for _ in range(nu - 1):
         x = x + lvl.d * r
@@ -139,8 +158,10 @@ def _grid_smooth(cfg, lvl: GridLevel, r, x, b, nu: int,
 
 def grid_cycle(cfg, gh: GridHierarchy, b, x, level: int = 0,
                ctype: str | None = None, x_zero: bool = False):
-    """One multigrid cycle (V, W or F) on grid fields b, x of shape
-    (m, *grid_level).
+    """One multigrid cycle (V, W, F or K) on grid fields b, x of shape
+    (m, *grid_level).  The K-cycle replaces the coarse-level cycle by a
+    `kcycle_inner`-step FGMRES projection preconditioned with K-cycles on
+    the next level.
 
     `x_zero` declares the incoming iterate to be exactly zero — true for
     every coarse-level entry inside a cycle and for the correction cycles of
@@ -148,7 +169,7 @@ def grid_cycle(cfg, gh: GridHierarchy, b, x, level: int = 0,
     r = b - A*0 matvec is skipped.  On the fused 3D path the pre-smooth
     collapses to d*b plus one residual apply."""
     ctype = cfg.cycle_type if ctype is None else ctype
-    if ctype not in ("V", "W", "F"):
+    if ctype not in ("V", "W", "F", "K"):
         raise NotImplementedError(f"cycle type {ctype!r} not yet ported")
     nlev = len(gh.levels)
     if level == nlev - 1:
@@ -183,6 +204,11 @@ def grid_cycle(cfg, gh: GridHierarchy, b, x, level: int = 0,
     bc = grid_restrict(r, lvl.P1)
     if level == nlev - 2:
         xc = gh.coarse.solve(bc)
+    elif ctype == "K":
+        prec = lambda v: grid_cycle(cfg, gh, v, torch.zeros_like(v),
+                                    level + 1, "K", x_zero=True)
+        xc = fgmres_relaxation(gh.levels[level + 1].A.matvec, prec, bc,
+                               torch.zeros_like(bc), cfg.kcycle_inner)
     else:
         xc = grid_cycle(cfg, gh, bc, torch.zeros_like(bc), level + 1,
                         ctype, x_zero=True)
@@ -267,7 +293,8 @@ def grid_fmg(cfg, gh: GridHierarchy, b):
 # construction from a host hierarchy
 # ---------------------------------------------------------------------------
 
-GRID_RELAX = ("jacobi", "spai", "chebyshev", "chebyshev4", "line-jacobi")
+GRID_RELAX = ("jacobi", "spai", "jac-gmres", "chebyshev", "chebyshev4",
+              "line-jacobi")
 HOST_INV_MAX = 4096       # host f64 inverse below this many coarsest dofs
 
 
@@ -308,8 +335,9 @@ def line_state_to(rs, dtype, device):
 
 def build_grid_hierarchy(state, relax_states, device) -> GridHierarchy:
     """Build the grid engine on `device` for an MGState that mg_setup made
-    (scalar full-weighting or semicoarsening transfers, pointwise or line
-    smoothing; mg_setup checks the options).  Raises NotImplementedError
+    (scalar full-weighting or semicoarsening transfers, pointwise, line or
+    Jac-GMRES smoothing, a dense-inverse or FGMRES coarsest; mg_setup checks
+    the options).  Raises NotImplementedError
     for levels this port cannot run yet."""
     from ..setup import transfers as tr
     from ..setup.hierarchy import _resolve_relax
@@ -353,6 +381,14 @@ def build_grid_hierarchy(state, relax_states, device) -> GridHierarchy:
 
     A_c = state.As[-1]
     grid_c = levels[-1].A.grid
+    if cfg.coarse_solve == "gmres":
+        rp = state.relax_param
+        omega = rp if np.isscalar(rp) else 1.0
+        d_c = torch.as_tensor(
+            np.asarray(omega / A_c.diagonal()).astype(cfg.dtype)
+            .reshape(grid_c), device=device)
+        return GridHierarchy(tuple(levels), GridIterativeCoarse(
+            levels[-1].A, d_c, cfg.gmres_coarse_inner))
     if A_c.shape[0] > HOST_INV_MAX:
         raise NotImplementedError(
             f"coarsest level of {A_c.shape[0]} dofs: only the host dense "

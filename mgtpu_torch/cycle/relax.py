@@ -1,8 +1,9 @@
 """Relaxation states and smoothers (torch).
 
-Counterpart of mgtpu/cycle/relax.py without FGMRES smoothing: damped Jacobi
-/ SPAI(0) diagonal relaxation, the first- and fourth-kind Chebyshev
-smoothers, and damped line Jacobi (single-axis and alternating-direction).
+Counterpart of mgtpu/cycle/relax.py: damped Jacobi / SPAI(0) diagonal
+relaxation, the first- and fourth-kind Chebyshev smoothers, damped line
+Jacobi (single-axis and alternating-direction), and the FGMRES projection
+that is both the Jac-GMRES smoother and the K-cycle accelerator.
 The pointwise smoothers work on any tensor shape `d` broadcasts against
 (grid fields (m, *grid) with a grid-shaped `d`).  Line corrections run the
 tridiagonal line kernel of ops/cuda/tridiag.py (its plain version on the
@@ -13,10 +14,13 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Any
 
+import torch
+
 from ..ops.cuda import tridiag
 
 __all__ = ["DiagRelax", "ChebyshevRelax", "LineRelax", "AltLineRelax",
            "chebyshev_smooth", "chebyshev4_smooth", "relax_diag",
+           "fgmres_relaxation",
            "line_solve", "line_correct", "line_smooth"]
 
 
@@ -82,6 +86,34 @@ def relax_diag(matvec, r, x, b, d, num_it: int):
         x = x + dcol * r
         r = b - matvec(x)
     return x + dcol * r
+
+
+def fgmres_relaxation(matvec, prec, r0, x0, inner: int):
+    """Minimal-residual correction over the preconditioned Krylov subspace
+    (the reference's FGMRES_relaxation, FGMRES.jl:40-126).
+
+    Returns x0 + Z t with Z = [M r0, M A M r0, ...] (`inner` vectors) and
+    t = argmin ||r0 - (A Z) t||_2 over the flattened block system: the m
+    right-hand sides share one subspace (FGMRES.jl:51-53).  The projection
+    is a Tikhonov-regularised solve of the normal equations, the form mgtpu
+    uses in place of the reference's pinv."""
+    zs, azs = [], []
+    w = r0
+    for j in range(inner):
+        z = prec(r0 if j == 0 else w)
+        w = matvec(z)
+        zs.append(z.reshape(-1))
+        azs.append(w.reshape(-1))
+    Z = torch.stack(zs, dim=1)          # (n*m, inner)
+    AZ = torch.stack(azs, dim=1)
+    G = AZ.conj().T @ AZ                # (inner, inner) normal equations
+    c = AZ.conj().T @ r0.reshape(-1)
+    k = G.shape[0]
+    reg = (8 * k) * torch.finfo(G.dtype).eps * (
+        torch.diagonal(G).sum().real / k + 1e-30)
+    t = torch.linalg.solve_ex(
+        G + reg * torch.eye(k, dtype=G.dtype, device=G.device), c)[0]
+    return x0 + (Z @ t).reshape(x0.shape)
 
 
 @dataclass(frozen=True, eq=False)

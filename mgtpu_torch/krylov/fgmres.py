@@ -1,0 +1,106 @@
+"""(Flexible) restarted GMRES (batched right-hand sides).
+
+Counterpart of mgtpu/krylov/fgmres.py on (m, *space) fields.  Each restart
+runs `restart` Arnoldi steps with modified Gram-Schmidt per right-hand side
+and solves the small least-squares problem through the regularised normal
+equations (a pinv, which tolerates the rank-deficient H of a happy
+breakdown); the host checks the stop once per restart.  Right
+preconditioning: flexible stores Z_i = M(v_i) and corrects with Z y;
+non-flexible corrects with M(V y).
+
+ * `fgmres`: independent per-RHS Arnoldi recurrences.
+ * `block_fgmres`: the reference's block-diagonal trick (FGMRES.jl:51-53) —
+   the whole (m, *space) field is one Krylov vector, so all right-hand
+   sides share one space.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ._layout import Layout
+
+__all__ = ["fgmres", "block_fgmres"]
+
+
+def _fgmres_cycle(matvec, prec, restart: int, X, B):
+    """One restart cycle for all right-hand sides; returns the updated X
+    and the per-RHS residual norms."""
+    lay = Layout(B)
+    m = lay.nbatch
+    R = B - matvec(X)
+    beta = lay.norm(R)
+    inv_beta = 1.0 / torch.where(beta == 0, torch.ones_like(beta), beta)
+    V = [lay.scale(R, inv_beta.to(B.dtype))]
+    Z = []
+    H = torch.zeros((restart + 1, restart, m), dtype=B.dtype, device=B.device)
+    for i in range(restart):
+        z = prec(V[i])
+        Z.append(z)
+        w = matvec(z)
+        for l in range(i + 1):               # modified Gram-Schmidt
+            h = lay.dot(V[l], w)
+            H[l, i] = h
+            w = w - lay.scale(V[l], h)
+        hnorm = lay.norm(w)
+        H[i + 1, i] = hnorm.to(B.dtype)
+        inv_h = (1.0 / torch.where(hnorm == 0, torch.ones_like(hnorm),
+                                   hnorm)).to(B.dtype)
+        V.append(lay.scale(w, inv_h))
+    # min || beta e1 - H y || per RHS on the normal equations, pinv-solved
+    Hb = H.permute(2, 0, 1)                                 # (m, k+1, k)
+    e1 = torch.zeros((m, restart + 1), dtype=B.dtype, device=B.device)
+    e1[:, 0] = beta.to(B.dtype)
+    G = torch.einsum("mki,mkj->mij", Hb.conj(), Hb)
+    c = torch.einsum("mki,mk->mi", Hb.conj(), e1)
+    y = torch.einsum("mij,mj->mi", torch.linalg.pinv(G, rtol=1e-12), c)
+    X = X + torch.einsum("m...k,mk->m...", torch.stack(Z, dim=-1), y)
+    return X, lay.norm(B - matvec(X))
+
+
+def fgmres(matvec, b, restart: int = 5, prec=None, x0=None,
+           tol: float = 1e-6, max_iter: int = 10, flexible: bool = True,
+           verbose: bool = False):
+    """Restarted (F)GMRES on b (m, *space): at most max_iter restarts of
+    `restart` inner steps; stops once max over RHS of ||r|| / max ||b||
+    falls below tol."""
+    M = (lambda r: r) if prec is None else prec
+    X = torch.zeros_like(b) if x0 is None else x0
+    lay = Layout(b)
+    if not flexible:
+        # right-preconditioned standard GMRES: solve (A M) u = r, x += M u
+        prec_mv = lambda v: matvec(M(v))
+        identity = lambda v: v
+    bnorm = max(float(torch.max(lay.norm(b))), 1e-300)
+    resvec = [lay.norm(b - matvec(X)).cpu().numpy()]
+    iters = 0
+    rel = float("inf")
+    for outer in range(max_iter):
+        if flexible:
+            X, rn = _fgmres_cycle(matvec, M, restart, X, b)
+        else:
+            Xp, _ = _fgmres_cycle(prec_mv, identity, restart,
+                                  torch.zeros_like(X), b - matvec(X))
+            X = X + M(Xp)
+            rn = lay.norm(b - matvec(X))
+        iters += 1
+        resvec.append(rn.cpu().numpy())
+        rel = float(torch.max(rn)) / bnorm
+        if verbose:
+            print(f"fgmres restart {outer + 1}: relres {rel:.3e}")
+        if rel < tol:
+            break
+    return X, {"iters": iters, "relres": rel, "resvec": np.array(resvec)}
+
+
+def block_fgmres(matvec, b, restart: int = 5, prec=None, x0=None,
+                 tol: float = 1e-6, max_iter: int = 10, flexible: bool = True,
+                 verbose: bool = False):
+    """Block FGMRES (FGMRES.jl:51-53): the whole (m, *space) field is ONE
+    Krylov vector, so every right-hand side shares a single space."""
+    blk_mv = lambda v: matvec(v[0])[None]
+    blk_prec = None if prec is None else (lambda v: prec(v[0])[None])
+    x0b = None if x0 is None else x0[None]
+    xb, info = fgmres(blk_mv, b[None], restart, blk_prec, x0b, tol,
+                      max_iter, flexible, verbose)
+    return xb[0], info

@@ -36,6 +36,10 @@ class RegularMesh:
         return len(self.n)
 
     @property
+    def num_cells(self) -> int:
+        return int(np.prod(self.n))
+
+    @property
     def num_nodes(self) -> int:
         return int(np.prod([ni + 1 for ni in self.n]))
 
@@ -45,3 +49,11 @@ def get_regular_mesh(domain, n) -> RegularMesh:
     return RegularMesh(tuple(int(v) for v in np.asarray(n).ravel()),
                        tuple(float(v) for v in np.asarray(domain).ravel()))
 
+
+def get_cell_centered_grid(mesh: RegularMesh) -> np.ndarray:
+    """(num_cells, dim) coordinates of cell centers, dim-0 fastest (jInv's
+    getCellCenteredGrid)."""
+    axes = [mesh.domain[2 * i] + (np.arange(mesh.n[i]) + 0.5) * mesh.h[i]
+            for i in range(mesh.dim)]
+    grids = np.meshgrid(*axes, indexing="ij")
+    return np.stack([g.ravel(order="F") for g in grids], axis=1)

@@ -13,8 +13,9 @@ right-hand sides lead: fields are (m, *grid), contiguous in torch.
 Host analysis (CSR extraction, structured RAP, constant-interior
 compression) runs in numpy; the results move to the device once.  A 3D
 radius-1 float32 `ConstGridStencil` applies through the hand-written CUDA
-kernel (ops/cuda/const3d.py); every other stencil applies through the plain
-torch versions here.
+kernel A (ops/cuda/const3d.py) and a radius-1 float32/float64
+`GridStencil` through kernel D (ops/cuda/stencil.py); every other stencil
+applies through the plain torch versions here.
 """
 from __future__ import annotations
 
@@ -70,13 +71,20 @@ class GridStencil:
                            self.offsets, self.grid)
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
-        """y = A @ x on grid fields (m, *grid) or flat (n,) / (n, m)."""
+        """y = A @ x on grid fields (m, *grid) or flat (n,) / (n, m).
+
+        A radius-1 stencil whose coefficients and x share float32 or float64
+        applies through kernel D (ops/cuda/stencil.py); any other stencil
+        through the plain `grid_stencil_matvec`."""
         if _is_flat(x, self.grid):
             squeeze = x.ndim == 1
             x2 = x[:, None] if squeeze else x
-            y = grid_to_flat(grid_stencil_matvec(
-                self.coeff, self.offsets, flat_to_grid(x2, self.grid)))
+            y = grid_to_flat(self.matvec(flat_to_grid(x2, self.grid)))
             return y[:, 0] if squeeze else y
+        from .cuda.stencil import grid_apply, supports_stencil
+        if self.coeff.dtype == x.dtype and supports_stencil(
+                self.offsets, self.grid, x.dtype):
+            return grid_apply(self.coeff, self.offsets, x)
         return grid_stencil_matvec(self.coeff, self.offsets, x)
 
     def to_scipy(self) -> sp.csr_matrix:

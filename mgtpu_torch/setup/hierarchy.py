@@ -3,8 +3,9 @@
 Counterpart of mgtpu/setup/hierarchy.py on the matrix path with
 full-weighting or semicoarsening transfers:
 
- * `MGConfig` — immutable solver configuration (levels, cycle type,
-   relaxation, per-level sweep counts, transfer family, coarse solver).
+ * `MGConfig` — immutable solver configuration (levels, cycle type
+   including the K-cycle, relaxation including Jac-GMRES, per-level sweep
+   counts, transfer family, coarse solver: dense inverse or FGMRES).
  * `get_mg_param` — the configuration constructor, with the reference's
    spellings accepted as aliases.
  * `mg_setup` — Galerkin hierarchy built on the host (structured
@@ -68,6 +69,8 @@ class MGConfig:
     dtype: Any = np.float64
     cheby_degree: int = 3            # polynomial degree per chebyshev sweep
     cheby_frac: float = 0.25         # smoothing interval [frac*lam, lam]
+    kcycle_inner: int = 2            # FGMRES steps per K-cycle level
+    gmres_coarse_inner: int = 10     # FGMRES steps of the iterative coarsest
 
 
 def get_mg_param(levels: int = 3, max_outer_iter: int = 20,
@@ -129,7 +132,7 @@ class MGState:
 
 def _setup_relax(A: sp.spmatrix, cfg: MGConfig, relax_param, mesh):
     rt = cfg.relax_type
-    if rt == "jacobi":
+    if rt in ("jacobi", "jac-gmres"):
         return sm.jacobi_prec(A, relax_param, dtype=cfg.dtype)
     if rt == "spai":
         return sm.spai_prec(A, relax_param, dtype=cfg.dtype)
@@ -173,8 +176,10 @@ def _check_ported(cfg: MGConfig) -> None:
         (cfg.transfer_type in ("full-weighting", "semicoarsening"),
          f"transfer_type {cfg.transfer_type!r}"),
         (cfg.relax_type in GRID_RELAX, f"relax_type {cfg.relax_type!r}"),
-        (cfg.cycle_type in ("V", "W", "F"), f"cycle_type {cfg.cycle_type!r}"),
-        (cfg.coarse_solve == "lu", f"coarse_solve {cfg.coarse_solve!r}"),
+        (cfg.cycle_type in ("V", "W", "F", "K"),
+         f"cycle_type {cfg.cycle_type!r}"),
+        (cfg.coarse_solve in ("lu", "gmres"),
+         f"coarse_solve {cfg.coarse_solve!r}"),
         (not is_complex(cfg.dtype), f"dtype {np.dtype(cfg.dtype)}"),
     ]
     for ok, what in checks:

@@ -1,7 +1,7 @@
-"""Stand-alone multigrid solve drivers.
+"""Stand-alone multigrid solves and Krylov-wrapped solves.
 
-Counterpart of `solve_mg` and `solve_mg_refined` in
-mgtpu/solvers/mg_solver.py, on the grid engine:
+Counterpart of mgtpu/solvers/mg_solver.py on the grid engine (less
+`solve_mg_jit`):
 
  * `solve_mg` iterates cycles with a relative-tolerance stop checked every
    cycle, a divergence stop at 1e3 * res0, and the residual history.
@@ -9,8 +9,17 @@ mgtpu/solvers/mg_solver.py, on the grid engine:
    b - A x in native float64 against the ORIGINAL operator (`A_input`), the
    correction one cycle of the (float32) hierarchy from a zero guess;
    `fmg=True` starts from one full-multigrid pass instead of zero.
+ * `solve_cg_mg`, `solve_bicgstab_mg`, `solve_gmres_mg` run the Krylov
+   methods of krylov/ on (m, *grid) fields with one cycle from zero as the
+   preconditioner (reference SolveFuncs.jl:74-133); `block=True` shares one
+   Krylov space between the right-hand sides.  A float64 b over a lower-
+   precision hierarchy runs the Krylov iteration in float64 against the
+   original operator and the cycle in the hierarchy's precision (the
+   mixed-precision shim, SolveFuncs.jl:52-58).
+ * `get_mg_preconditioner` and `get_afun` are the closures the reference
+   hands to Krylov methods (SolveFuncs.jl:43-71).
 
-Both run on the state's device and return torch tensors there.
+All run on the state's device and return torch tensors there.
 """
 from __future__ import annotations
 
@@ -21,10 +30,14 @@ import torch
 
 from ..config import torch_dtype
 from ..cycle.grid_cycle import grid_cycle, grid_fmg
+from ..krylov import (bicgstab, block_bicgstab, block_fgmres, block_pcg,
+                      fgmres, pcg)
 from ..ops.grid_stencil import flat_to_grid, grid_to_flat, make_grid_stencil
 from ..setup.hierarchy import MGState
 
-__all__ = ["solve_mg", "solve_mg_refined"]
+__all__ = ["solve_mg", "solve_mg_refined", "get_afun",
+           "get_mg_preconditioner", "solve_cg_mg", "solve_bicgstab_mg",
+           "solve_gmres_mg"]
 
 
 def _as_2d(v: torch.Tensor):
@@ -76,8 +89,8 @@ def solve_mg(state: MGState, b, x=None, verbose: bool = False):
         "resvec": np.array(resvec)}
 
 
-def _high_precision_fine_op(state: MGState):
-    """Float64 fine-level matvec of the ORIGINAL operator, cached on the
+def high_precision_fine_operator(state: MGState):
+    """Float64 grid stencil of the ORIGINAL fine operator, cached on the
     state (the hierarchy's fine matrix was cast to the cycle dtype)."""
     if state._hi_op_cache is None:
         A_host = state.A_input if state.A_input is not None else state.As[0]
@@ -85,8 +98,9 @@ def _high_precision_fine_op(state: MGState):
         state._hi_op_cache = make_grid_stencil(
             A_host, list(reversed(grid)), dtype=np.float64,
             max_shift=(min(grid) - 1) // 2 if min(grid) < 7 else 3,
-            device=state.device).matvec
+            device=state.device)
     return state._hi_op_cache
+
 
 
 def solve_mg_refined(state: MGState, b, x=None, tol: float = 1e-8,
@@ -110,7 +124,7 @@ def solve_mg_refined(state: MGState, b, x=None, tol: float = 1e-8,
     b2, squeeze = _as_2d(torch.as_tensor(b, dtype=torch.float64, device=dev))
     x2 = (torch.zeros_like(b2) if x is None
           else _as_2d(torch.as_tensor(x, dtype=torch.float64, device=dev))[0])
-    matvec_hi = _high_precision_fine_op(state)
+    matvec_hi = high_precision_fine_operator(state).matvec
     grid = gh.fine_grid
     bv, xv = flat_to_grid(b2, grid), flat_to_grid(x2, grid)
     if fmg and x is None:
@@ -137,3 +151,106 @@ def solve_mg_refined(state: MGState, b, x=None, tol: float = 1e-8,
     x2 = grid_to_flat(xv)
     return (x2[:, 0] if squeeze else x2), {
         "iters": iters, "relres": res / res0, "resvec": np.array(resvec)}
+
+
+def get_afun(A):
+    """Matvec closure over a device operator (reference getAfun,
+    SolveFuncs.jl:65-71)."""
+    return A.matvec
+
+
+def get_mg_preconditioner(state: MGState):
+    """One cycle from a zero guess as an operator on flat (n,) / (n, m)
+    tensors (reference getMGPreconditioner, SolveFuncs.jl:43-63).  The cycle
+    runs in the hierarchy's precision; the correction comes back in r's."""
+    cfg, gh = state.config, state.hier
+    cd = torch_dtype(cfg.dtype)
+
+    def prec(r):
+        r2, squeeze = _as_2d(r)
+        rg = flat_to_grid(r2.to(cd), gh.fine_grid)
+        z = grid_to_flat(grid_cycle(cfg, gh, rg, torch.zeros_like(rg),
+                                    x_zero=True)).to(r.dtype)
+        return z[:, 0] if squeeze else z
+
+    return prec
+
+
+def _krylov_setup(state: MGState, b, x0):
+    """Krylov operands on (m, *grid) fields: b and x0 as fields, the fine
+    matvec, the one-cycle preconditioner and the map back to flat.
+
+    A float64 b over a lower-precision hierarchy makes the outer iteration
+    float64: its matvec is the float64 operator of `A_input` and each cycle
+    runs on the residual cast to the hierarchy's precision."""
+    cfg, gh, dev = state.config, state.hier, state.device
+    cd = torch_dtype(cfg.dtype)
+    bt = torch.as_tensor(b, device=dev)
+    outer = torch.float64 if bt.dtype == torch.float64 else cd
+    b2, squeeze = _as_2d(bt.to(outer))
+    x2 = (torch.zeros_like(b2) if x0 is None
+          else _as_2d(torch.as_tensor(x0, dtype=outer, device=dev))[0])
+    grid = gh.fine_grid
+    mixed = outer != cd
+    matvec = (high_precision_fine_operator(state) if mixed
+              else gh.levels[0].A).matvec
+
+    def prec(r):
+        rl = r.to(cd) if mixed else r
+        z = grid_cycle(cfg, gh, rl, torch.zeros_like(rl), x_zero=True)
+        return z.to(r.dtype) if mixed else z
+
+    def to_flat(Xv):
+        X2 = grid_to_flat(Xv)
+        return X2[:, 0] if squeeze else X2
+
+    return (flat_to_grid(b2, grid), flat_to_grid(x2, grid), matvec, prec,
+            to_flat)
+
+
+def _krylov_solve(state: MGState, name: str, fn, block_fn, block: bool, b,
+                  x0, report: bool, **kw):
+    """Run `fn` (or `block_fn` for block=True with several right-hand
+    sides) on the Krylov operands of `_krylov_setup`."""
+    t0 = time.perf_counter()
+    bv, xv, matvec, prec, to_flat = _krylov_setup(state, b, x0)
+    cfg = state.config
+    if block and bv.shape[0] > 1:
+        fn = block_fn
+    x, info = fn(matvec, bv, prec=prec, x0=xv, tol=cfg.relative_tol,
+                 max_iter=cfg.max_outer_iter, **kw)
+    if report:
+        rel = float(torch.as_tensor(info["relres"]).max())
+        print(f"{name}: {int(info['iters'])} iters, relres {rel:.3e}")
+    state.n_iter += int(info["iters"]) * bv.shape[0]
+    state.time_solve += time.perf_counter() - t0
+    return to_flat(x), info
+
+
+def solve_cg_mg(state: MGState, b, x0=None, verbose: bool = False,
+                block: bool = False):
+    """MG-preconditioned CG (reference solveCG_MG, SolveFuncs.jl:103-116);
+    block=True with several right-hand sides uses the shared-space block CG
+    (SolveFuncs.jl:109-114).  b: (n,) or (n, m)."""
+    return _krylov_solve(state, "solve_cg_mg", pcg, block_pcg, block, b, x0,
+                         verbose)
+
+
+def solve_bicgstab_mg(state: MGState, b, x0=None, verbose: bool = False,
+                      block: bool = False):
+    """MG-preconditioned BiCGSTAB (reference solveBiCGSTAB_MG,
+    SolveFuncs.jl:85-99); block=True uses the shared-space Bl-BiCGSTAB
+    (SolveFuncs.jl:91-96)."""
+    return _krylov_solve(state, "solve_bicgstab_mg", bicgstab,
+                         block_bicgstab, block, b, x0, verbose)
+
+
+def solve_gmres_mg(state: MGState, b, x0=None, flexible: bool = True,
+                   inner: int = 5, verbose: bool = False,
+                   block: bool = False):
+    """MG-preconditioned restarted (F)GMRES (reference solveGMRES_MG,
+    SolveFuncs.jl:120-133): max_outer_iter restarts of `inner` steps;
+    block=True shares one Krylov space between the right-hand sides."""
+    return _krylov_solve(state, "solve_gmres_mg", fgmres, block_fgmres,
+                         block, b, x0, False, restart=inner,
+                         flexible=flexible, verbose=verbose)

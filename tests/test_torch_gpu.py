@@ -161,3 +161,109 @@ def test_tridiag_rejects_what_the_kernel_does_not_take():
         tridiag.line_apply("solve", *args, r.transpose(1, 2))
     with pytest.raises(ValueError):
         tridiag.line_apply("correct", *args, r, x=r[:, :-1], omega=0.8)
+
+
+def _divsig_stencils(dims, dtype):
+    """The rough-sigma DivSigGrad operator (5 or 7 taps) and its Galerkin
+    coarsening (9 or 27 taps) as GridStencils on the card."""
+    import mgtpu_torch as mt
+    from mgtpu_torch.models.operators import nodal_div_sig_grad_matrix
+    from mgtpu_torch.ops.grid_stencil import (grid_stencil_from_csr,
+                                              structured_fw_rap)
+    M = mt.get_regular_mesh([0.0, 1.0] * len(dims), list(dims))
+    sig = np.exp(np.random.RandomState(3).randn(M.num_cells))
+    A = nodal_div_sig_grad_matrix(M, sig)
+    gs = grid_stencil_from_csr(A, [d + 1 for d in dims], dtype=dtype)
+    return A, [gs.to("cuda"), structured_fw_rap(gs).to("cuda")]
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("dims", [(24, 40), (18, 24, 30)])
+def test_stencil_kernel_matches_plain(dims, dtype):
+    _need_card()
+    from mgtpu_torch.ops.cuda import stencil
+    from mgtpu_torch.ops.grid_stencil import grid_stencil_matvec
+    tol = 2e-5 if dtype == np.float32 else 1e-12
+    key = np.dtype(dtype).name
+    _, ops = _divsig_stencils(dims, dtype)
+    for A in ops:
+        for m in (1, 2, 3, 4, 9):
+            x = torch.tensor(np.random.RandomState(m).rand(m, *A.grid),
+                             dtype=A.coeff.dtype, device="cuda")
+            n0, p0 = stencil.LAUNCHES[key], stencil.PLAIN_CALLS[key]
+            y = A.matvec(x)
+            ref = grid_stencil_matvec(A.coeff, A.offsets, x)
+            torch.cuda.synchronize()
+            assert stencil.LAUNCHES[key] == n0 + 1
+            assert stencil.PLAIN_CALLS[key] == p0
+            assert y.dtype == x.dtype and y.shape == x.shape
+            err = float((y - ref).abs().max() / ref.abs().max())
+            assert err < tol, (len(A.offsets), m, err)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_stencil_slab_form_matches_plain(dtype):
+    """The slab entry (stencil_matvec, K8's counterpart) on a 3D operator
+    whose two fast axes fold into NI."""
+    _need_card()
+    from mgtpu_torch.ops.cuda import stencil
+    from mgtpu_torch.parallel.stencil import stencil_from_banded
+    A, _ = _divsig_stencils((8, 8, 8), dtype)
+    st = stencil_from_banded(A, [9, 9, 9], 0.8, dtype=dtype)
+    coeff = torch.tensor(st.coeff, device="cuda")
+    x = torch.tensor(np.random.RandomState(0).rand(*st.shape).astype(dtype),
+                     device="cuda")
+    y = stencil.stencil_matvec(coeff, st.di, st.dj, x)
+    ref = stencil.stencil_matvec_plain(coeff, st.di, st.dj, x)
+    want = (A @ x.cpu().numpy().astype(np.float64).reshape(-1)).reshape(
+        st.shape)
+    torch.cuda.synchronize()
+    tol = 2e-5 if dtype == np.float32 else 1e-12
+    assert float((y - ref).abs().max() / ref.abs().max()) < tol
+    assert np.abs(y.cpu().numpy() - want).max() / np.abs(want).max() < tol
+
+
+def test_stencil_rejects_what_the_kernel_does_not_take():
+    _need_card()
+    from mgtpu_torch.ops.cuda import stencil
+    _, (A, _) = _divsig_stencils((8, 8), np.float32)
+    x = torch.zeros((1,) + A.grid, device="cuda")
+    with pytest.raises(TypeError):
+        stencil.grid_apply(A.coeff, A.offsets, x.double())
+    with pytest.raises(TypeError):
+        stencil.grid_apply(A.coeff.half(), A.offsets, x.half())
+    with pytest.raises(ValueError):
+        stencil.grid_apply(A.coeff, A.offsets, x.transpose(1, 2))
+    with pytest.raises(ValueError):
+        stencil.grid_apply(A.coeff, A.offsets, x[:, :-1])
+    with pytest.raises(ValueError):
+        stencil.grid_apply(A.coeff, tuple((2 * a, b) for a, b in A.offsets),
+                           x)
+
+
+def test_small_krylov_solve_runs_through_kernel_d():
+    """A 64^2 rough-sigma CG and K-cycle GMRES solve on the card: f32
+    cycles and the f64 outer operator both launch kernel D, its plain
+    version never runs, and the true residual reaches 1e-8."""
+    _need_card()
+    import mgtpu_torch as mt
+    from mgtpu_torch.ops.cuda import stencil
+    A, _ = _divsig_stencils((64, 64), np.float64)
+    A = (A + 1e-8 * abs(A).sum(0).max() * sp.identity(A.shape[0])).tocsr()
+    M = mt.get_regular_mesh([0.0, 1.0, 0.0, 1.0], [64, 64])
+    b = A @ np.random.RandomState(4).rand(A.shape[0])
+    b /= np.linalg.norm(b)
+    for kw, solve in ((dict(relax_type="jacobi", relax_param=0.8),
+                       mt.solve_cg_mg),
+                      (dict(relax_type="jac-gmres", relax_param=1.0,
+                            cycle_type="K"), mt.solve_gmres_mg)):
+        cfg, rp = mt.get_mg_param(levels=4, max_outer_iter=100,
+                                  relative_tol=1e-8, nu_pre=1, nu_post=1,
+                                  dtype=np.float32, **kw)
+        st = mt.mg_setup(A, M, cfg, rp)
+        before = (dict(stencil.LAUNCHES), dict(stencil.PLAIN_CALLS))
+        x, _ = solve(st, b)
+        assert np.linalg.norm(b - A @ x.cpu().numpy()) < 1e-8
+        assert stencil.LAUNCHES["float32"] > before[0]["float32"]
+        assert stencil.LAUNCHES["float64"] > before[0]["float64"]
+        assert stencil.PLAIN_CALLS == before[1]

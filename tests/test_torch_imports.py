@@ -17,6 +17,8 @@ CHECK = """
 import sys
 import mgtpu_torch, mgtpu_torch.convert, mgtpu_torch.ops.cuda.fused3d
 import mgtpu_torch.cycle.grid_cycle, mgtpu_torch.solvers.mg_solver
+import mgtpu_torch.ops.cuda.stencil, mgtpu_torch.ops.cuda.tridiag
+import mgtpu_torch.krylov, mgtpu_torch.parallel.stencil
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "mgtpu" or m.startswith("mgtpu."))

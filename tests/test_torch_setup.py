@@ -108,10 +108,10 @@ def test_mg_setup_matches_reference(dims, levels, relax):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(relax_type="jac-gmres"), dict(relax_type="VankaFaces"),
-    dict(cycle_type="K"), dict(coarse_solve="GMRES"),
+    dict(relax_type="VankaFaces"), dict(relax_type="EconVankaFaces"),
     dict(transfer_type="SystemsFacesLinear"),
-    dict(relax_type="hybridKaczmarzNodal"),
+    dict(transfer_type="SystemsFacesMixedLinear"),
+    dict(relax_type="hybridKaczmarzNodal"), dict(dtype=np.complex128),
 ])
 def test_unported_options_raise(kw):
     dims, L = _problem([8, 8])
