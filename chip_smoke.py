@@ -47,14 +47,12 @@ Phases, each of which raises on failure:
 10. path Krylov — the rough-sigma DivSigGrad solves, f32 hierarchies with
             float64 right-hand sides, to a true f64 relres below 1e-8:
             (f) solve_cg_mg 19 +- 1 iterations, f-bicg solve_bicgstab_mg 12,
-            f-block solve_cg_mg(block=True) on 4 right-hand sides 19 (up
-            to 22: its count moves with rounding),
+            f-block solve_cg_mg(block=True) on 4 right-hand sides 22,
             (g) Jac-GMRES K-cycles under solve_gmres_mg 4 restarts,
             (h) 3D 128^3 solve_cg_mg 16; launch counters prove kernel D ran
             in float32 and float64 and its plain version did not; one CG
             iteration's time by CUDA events and the host clock, and the
-            device busy share; f-block's count under cycles that differ
-            only in rounding.
+            device busy share.
 
 The last lines are one JSON object with a row per kernel, the card's name and
 power limit, and {"ok": true, "device": {...}}.  Without a CUDA device, or
@@ -954,23 +952,19 @@ def phase_stencil_timing(states, rows, card):
 
 
 KRYLOV = [
-    # key, label, state, solve, keywords, right-hand sides, mgtpu's count,
-    # allowed excess over it
+    # key, label, state, solve, keywords, right-hand sides, mgtpu's count
+    # on the CPU (f-block's from scripts/fblock_reference.py)
     ("f", "(f) 2D 1025^2 rough sigma, solve_cg_mg, Jacobi 0.8 V(1,1)",
-     "f", "solve_cg_mg", {}, "b", 19, 1),
+     "f", "solve_cg_mg", {}, "b", 19),
     ("f-bicg", "(f-bicg) the same, solve_bicgstab_mg", "f",
-     "solve_bicgstab_mg", {}, "b", 12, 1),
-    # block CG on four nearly parallel right-hand sides amplifies rounding
-    # through its 4x4 Gram solves (block_cg_rounding prints the count under
-    # solves that differ only in rounding); tests/test_torch_krylov.py
-    # holds it to mgtpu +- 1 at 64^2
+     "solve_bicgstab_mg", {}, "b", 12),
     ("f-block", "(f-block) the same, 4 RHS, solve_cg_mg(block=True)", "f",
-     "solve_cg_mg", dict(block=True), "B", 19, 3),
+     "solve_cg_mg", dict(block=True), "B", 22),
     ("g", "(g) the same operator, Jac-GMRES 1.0 K-cycles, "
      "solve_gmres_mg(inner=5)", "g", "solve_gmres_mg", dict(inner=5), "b",
-     4, 1),
+     4),
     ("h", "(h) 3D 129^3 rough sigma, solve_cg_mg, Jacobi 0.8 V(1,1)", "h",
-     "solve_cg_mg", {}, "b", 16, 1),
+     "solve_cg_mg", {}, "b", 16),
 ]
 
 
@@ -1014,7 +1008,7 @@ def phase_krylov(ops, states, rhs, card):
     D's launches in the window."""
     import mgtpu_torch
     reset_counters()                       # ---- main path window ----
-    for key, label, skey, fn, kw, which, want, excess in KRYLOV:
+    for key, label, skey, fn, kw, which, want in KRYLOV:
         A, rh = ops[skey][1], rhs[skey][which]
         before = stencil_counters()[0]
         torch.cuda.synchronize()
@@ -1028,13 +1022,12 @@ def phase_krylov(ops, states, rhs, card):
         rr = np.linalg.norm(rh - A @ xh, axis=0) / np.linalg.norm(rh, axis=0)
         iters = int(info["iters"])
         d_l = {k: v - before[k] for k, v in stencil_counters()[0].items()}
-        log(f"[path] {label}: {iters} iterations (mgtpu {want}, allowed "
-            f"{want - 1}..{want + excess}), true "
+        log(f"[path] {label}: {iters} iterations (mgtpu {want}), true "
             f"f64 relres {np.array2string(np.atleast_1d(rr), precision=3)}, "
             f"time to 1e-8 {wall:.1f} ms (host clock, synchronised; {card})"
             f"; kernel D launches {d_l}")
-        require(want - 1 <= iters <= want + excess,
-                f"{key}: {iters} iterations, want {want - 1}..{want + excess}")
+        require(abs(iters - want) <= 1,
+                f"{key}: {iters} iterations, want {want} +- 1")
         require(bool(np.all(rr < 1e-8)), f"{key}: true relres {rr} >= 1e-8")
     launches, plain = stencil_counters()   # ---- end of window ----
     more_l, more_p = counters()
@@ -1111,50 +1104,6 @@ def cg_iteration(st, b, card):
     return ev_ms, host_ms
 
 
-
-def block_cg_rounding(ops, states, rhs, card):
-    """f-block's block-CG count under solves that differ only in rounding:
-    the batched f32 cycle of the path, the same f32 cycle applied one
-    right-hand side at a time, an f64 hierarchy, and the f32 hierarchy on
-    the host CPU (torch's CPU kernels, the summation orders of mgtpu's CPU
-    run rather than the card's)."""
-    from mgtpu_torch import get_mg_param, mg_setup, solve_cg_mg
-    from mgtpu_torch.cycle.grid_cycle import grid_cycle
-    from mgtpu_torch.krylov import block_pcg
-    from mgtpu_torch.ops.grid_stencil import flat_to_grid
-    from mgtpu_torch.solvers.mg_solver import high_precision_fine_operator
-    st = states["f"]
-    cfg, gh = st.config, st.hier
-    M, A = ops["f"]
-    B = rhs["f"]["B"]
-    Bg = flat_to_grid(torch.as_tensor(B, device="cuda"), gh.fine_grid)
-
-    def per_column(r):
-        out = []
-        for j in range(r.shape[0]):
-            rl = r[j:j + 1].float()
-            out.append(grid_cycle(cfg, gh, rl, torch.zeros_like(rl),
-                                  x_zero=True).double())
-        return torch.cat(out)
-
-    _, info_c = block_pcg(high_precision_fine_operator(st).matvec, Bg,
-                          prec=per_column, tol=cfg.relative_tol,
-                          max_iter=cfg.max_outer_iter)
-    cfg64, rp = get_mg_param(levels=6, max_outer_iter=100,
-                             relative_tol=1e-8, nu_pre=1, nu_post=1,
-                             relax_type="jacobi", relax_param=0.8,
-                             dtype=np.float64)
-    _, info_64 = solve_cg_mg(mg_setup(A, M, cfg64, rp), B, block=True)
-    _, info_b = solve_cg_mg(st, B, block=True)
-    t0 = time.perf_counter()
-    _, info_h = solve_cg_mg(mg_setup(A, M, cfg, st.relax_param,
-                                     device="cpu"), B, block=True)
-    log(f"[path] f-block block-CG iterations by rounding: batched f32 cycle "
-        f"{int(info_b['iters'])}, per-column f32 cycle "
-        f"{int(info_c['iters'])}, f64 hierarchy {int(info_64['iters'])} "
-        f"({card}); f32 hierarchy on the host CPU {int(info_h['iters'])} "
-        f"({time.perf_counter() - t0:.1f} s); mgtpu's count 19")
-
 def main() -> int:
     t_start = time.perf_counter()
     smi, name = phase_card()
@@ -1196,7 +1145,6 @@ def main() -> int:
     phase_stencil_timing(timed_states, rows, card)
     krylov = phase_krylov(ops, kstates, rhs, card)
     cg_iteration(kstates["f"], rhs["f"]["b"], card)
-    block_cg_rounding(ops, kstates, rhs, card)
     for k, row in rows.items():
         # each kernel's launches from the window of its own path
         row["launches"] = (aniso[k] if k.startswith("tridiag") else

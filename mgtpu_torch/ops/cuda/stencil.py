@@ -22,8 +22,10 @@ zero-filled shifts.
 
 Dispatch: both entry points launch the kernel for a CUDA tensor (or raise on
 anything it does not take) and take the plain version only for a tensor on
-the CPU.  `LAUNCHES` counts kernel launches, `PLAIN_CALLS` calls of the
-plain version, per float type.
+the CPU.  `GridStencil.matvec` sends a stencil the kernel does not cover
+(`supports_stencil` false) to `grid_apply_plain` on any device.
+`LAUNCHES` counts kernel launches, `PLAIN_CALLS` calls of the plain
+version, per float type of x.
 """
 from __future__ import annotations
 
@@ -37,7 +39,7 @@ from ..grid_stencil import grid_stencil_matvec
 from . import _build
 
 __all__ = ["LAUNCHES", "PLAIN_CALLS", "supports_stencil", "grid_apply",
-           "stencil_matvec", "stencil_matvec_plain"]
+           "grid_apply_plain", "stencil_matvec", "stencil_matvec_plain"]
 
 _DTYPES = {torch.float32: 0, torch.float64: 1}
 LAUNCHES = {"float32": 0, "float64": 0}
@@ -59,10 +61,21 @@ def supports_stencil(offsets, grid, dtype) -> bool:
             and dtype in _DTYPES)
 
 
+def _count_plain(dtype) -> None:
+    k = _key(dtype)
+    PLAIN_CALLS[k] = PLAIN_CALLS.get(k, 0) + 1
+
+
+def grid_apply_plain(coeff, offsets, x):
+    """Counted plain grid apply: `grid_stencil_matvec` on any device."""
+    _count_plain(x.dtype)
+    return grid_stencil_matvec(coeff, offsets, x)
+
+
 def stencil_matvec_plain(coeff, di, dj, x):
     """Plain torch version of the slab apply: per tap, x shifted by dj rows
     and di columns with zero fill, times the tap's coefficients, summed."""
-    PLAIN_CALLS[_key(x.dtype)] += 1
+    _count_plain(x.dtype)
     return grid_stencil_matvec(coeff, tuple(zip(dj, di)), x)
 
 
@@ -131,8 +144,7 @@ def grid_apply(coeff, offsets, x):
     offsets its per-tap per-axis shifts (slowest axis first)."""
     grid = tuple(coeff.shape[1:])
     if x.device.type == "cpu":
-        PLAIN_CALLS[_key(x.dtype)] += 1
-        return grid_stencil_matvec(coeff, offsets, x)
+        return grid_apply_plain(coeff, offsets, x)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
     if x.dtype not in _DTYPES:

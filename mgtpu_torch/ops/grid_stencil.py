@@ -73,19 +73,20 @@ class GridStencil:
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
         """y = A @ x on grid fields (m, *grid) or flat (n,) / (n, m).
 
-        A radius-1 stencil whose coefficients and x share float32 or float64
-        applies through kernel D (ops/cuda/stencil.py); any other stencil
-        through the plain `grid_stencil_matvec`."""
+        A radius-1 stencil applied to a float32 or float64 x goes through
+        kernel D's wrapper (ops/cuda/stencil.py), which raises on a CUDA x
+        whose dtype is not the coefficients'; any other stencil through the
+        counted plain `grid_apply_plain`."""
         if _is_flat(x, self.grid):
             squeeze = x.ndim == 1
             x2 = x[:, None] if squeeze else x
             y = grid_to_flat(self.matvec(flat_to_grid(x2, self.grid)))
             return y[:, 0] if squeeze else y
-        from .cuda.stencil import grid_apply, supports_stencil
-        if self.coeff.dtype == x.dtype and supports_stencil(
-                self.offsets, self.grid, x.dtype):
+        from .cuda.stencil import (grid_apply, grid_apply_plain,
+                                   supports_stencil)
+        if supports_stencil(self.offsets, self.grid, x.dtype):
             return grid_apply(self.coeff, self.offsets, x)
-        return grid_stencil_matvec(self.coeff, self.offsets, x)
+        return grid_apply_plain(self.coeff, self.offsets, x)
 
     def to_scipy(self) -> sp.csr_matrix:
         """Stencil -> CSR via scipy's DIA container (one linear diagonal per

@@ -102,7 +102,6 @@ def high_precision_fine_operator(state: MGState):
     return state._hi_op_cache
 
 
-
 def solve_mg_refined(state: MGState, b, x=None, tol: float = 1e-8,
                      max_iter: int | None = None, fmg: bool = False,
                      verbose: bool = False):
@@ -159,21 +158,32 @@ def get_afun(A):
     return A.matvec
 
 
-def get_mg_preconditioner(state: MGState):
-    """One cycle from a zero guess as an operator on flat (n,) / (n, m)
-    tensors (reference getMGPreconditioner, SolveFuncs.jl:43-63).  The cycle
-    runs in the hierarchy's precision; the correction comes back in r's."""
+def _grid_preconditioner(state: MGState):
+    """One cycle from a zero guess on (m, *grid) fields.  The cycle runs in
+    the hierarchy's precision; the correction comes back in r's (the
+    mixed-precision shim, SolveFuncs.jl:52-58)."""
     cfg, gh = state.config, state.hier
     cd = torch_dtype(cfg.dtype)
 
     def prec(r):
-        r2, squeeze = _as_2d(r)
-        rg = flat_to_grid(r2.to(cd), gh.fine_grid)
-        z = grid_to_flat(grid_cycle(cfg, gh, rg, torch.zeros_like(rg),
-                                    x_zero=True)).to(r.dtype)
-        return z[:, 0] if squeeze else z
+        rl = r.to(cd)
+        return grid_cycle(cfg, gh, rl, torch.zeros_like(rl),
+                          x_zero=True).to(r.dtype)
 
     return prec
+
+
+def get_mg_preconditioner(state: MGState):
+    """The one-cycle preconditioner as an operator on flat (n,) / (n, m)
+    tensors (reference getMGPreconditioner, SolveFuncs.jl:43-63)."""
+    prec, grid = _grid_preconditioner(state), state.hier.fine_grid
+
+    def flat_prec(r):
+        r2, squeeze = _as_2d(r)
+        z = grid_to_flat(prec(flat_to_grid(r2, grid)))
+        return z[:, 0] if squeeze else z
+
+    return flat_prec
 
 
 def _krylov_setup(state: MGState, b, x0):
@@ -191,21 +201,15 @@ def _krylov_setup(state: MGState, b, x0):
     x2 = (torch.zeros_like(b2) if x0 is None
           else _as_2d(torch.as_tensor(x0, dtype=outer, device=dev))[0])
     grid = gh.fine_grid
-    mixed = outer != cd
-    matvec = (high_precision_fine_operator(state) if mixed
+    matvec = (high_precision_fine_operator(state) if outer != cd
               else gh.levels[0].A).matvec
-
-    def prec(r):
-        rl = r.to(cd) if mixed else r
-        z = grid_cycle(cfg, gh, rl, torch.zeros_like(rl), x_zero=True)
-        return z.to(r.dtype) if mixed else z
 
     def to_flat(Xv):
         X2 = grid_to_flat(Xv)
         return X2[:, 0] if squeeze else X2
 
-    return (flat_to_grid(b2, grid), flat_to_grid(x2, grid), matvec, prec,
-            to_flat)
+    return (flat_to_grid(b2, grid), flat_to_grid(x2, grid), matvec,
+            _grid_preconditioner(state), to_flat)
 
 
 def _krylov_solve(state: MGState, name: str, fn, block_fn, block: bool, b,

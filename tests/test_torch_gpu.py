@@ -241,6 +241,27 @@ def test_stencil_rejects_what_the_kernel_does_not_take():
                            x)
 
 
+def test_grid_stencil_dispatch_on_the_card():
+    """On the card, GridStencil.matvec raises on a mixed pair (f32
+    coefficients, f64 x) and counts every plain call: a radius-2 stencil
+    and a float16 field take the plain version, counted."""
+    _need_card()
+    from mgtpu_torch.ops.cuda import stencil
+    from mgtpu_torch.ops.grid_stencil import GridStencil
+    _, (A, _) = _divsig_stencils((8, 8), np.float32)
+    x = torch.ones((1,) + A.grid, device="cuda")
+    with pytest.raises(TypeError):
+        A.matvec(x.double())
+    p0 = dict(stencil.PLAIN_CALLS)
+    A2 = GridStencil(torch.ones((2, 5, 6), device="cuda"),
+                     ((0, 0), (0, 2)), (5, 6))
+    y = A2.matvec(torch.ones((1, 5, 6), device="cuda"))
+    assert stencil.PLAIN_CALLS["float32"] == p0["float32"] + 1
+    assert float(y[0, 2, 2]) == 2.0
+    GridStencil(A.coeff.half(), A.offsets, A.grid).matvec(x.half())
+    assert stencil.PLAIN_CALLS.get("float16", 0) == p0.get("float16", 0) + 1
+
+
 def test_small_krylov_solve_runs_through_kernel_d():
     """A 64^2 rough-sigma CG and K-cycle GMRES solve on the card: f32
     cycles and the f64 outer operator both launch kernel D, its plain

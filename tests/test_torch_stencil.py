@@ -117,8 +117,10 @@ def test_flat_matvec_goes_through_the_wrapper():
 
 
 def test_dispatch_rule():
-    """Radius-1 float32/float64 stencils of 1D-3D grids take kernel D's
-    wrapper; a radius-2 tap, another dtype or a mixed pair does not."""
+    """Radius-1 stencils of 1D-3D grids applied to float32/float64 x take
+    kernel D's wrapper (which raises on a CUDA x whose dtype is not the
+    coefficients'); a radius-2 tap or another dtype takes the plain
+    version.  Every plain call is counted under x's dtype."""
     off2 = ((0, -1), (0, 0), (0, 1))
     assert stencil.supports_stencil(off2, (5, 6), torch.float32)
     assert stencil.supports_stencil(off2, (5, 6), torch.float64)
@@ -130,8 +132,13 @@ def test_dispatch_rule():
     A = GridStencil(torch.ones((3, 5, 6), dtype=torch.float64), off2, (5, 6))
     n0 = dict(stencil.PLAIN_CALLS)
     y = A.matvec(torch.ones((1, 5, 6), dtype=torch.float32))
-    assert stencil.PLAIN_CALLS == n0           # mixed pair: plain, uncounted
+    assert stencil.PLAIN_CALLS["float32"] == n0["float32"] + 1
+    assert stencil.PLAIN_CALLS["float64"] == n0["float64"]
     assert float(y[0, 2, 2]) == 3.0
+    A2 = GridStencil(torch.ones((2, 5, 6)), ((0, 0), (0, 2)), (5, 6))
+    y = A2.matvec(torch.ones((1, 5, 6)))
+    assert stencil.PLAIN_CALLS["float32"] == n0["float32"] + 2
+    assert float(y[0, 2, 2]) == 2.0 and float(y[0, 2, 4]) == 1.0
 
 
 @pytest.mark.parametrize("dims", [[7, 5], [4, 6, 3]])
