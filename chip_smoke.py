@@ -9,11 +9,12 @@ Phases, each of which raises on failure:
 2. build  — compile every kernel from mgtpu_torch/csrc with nvcc (sm_90a),
             print ptxas's register, shared-memory and spill lines;
 3. kernel — every kernel against its plain torch version on the card, on the
-            3D bench operators (fine nd=7, Galerkin nd=27) at 129^3 (m=1, 2),
-            on the hierarchy's coarser levels and on a non-cubic grid; then
-            each kernel's device time (CUDA events, L2 cold at 129^3) per
-            level beside its byte bound, its plain version and a conv3d
-            yardstick;
+            3D bench operators (fine nd=7, Galerkin nd=27) at 129^3 (m=1-3),
+            on the hierarchy's coarser levels, on non-cubic grids and at
+            kernel A's plan edges (X = 16, ragged tiles, the wide tile);
+            then each kernel's device time (CUDA events, L2 cold at 129^3)
+            at 129^3 nd 7 and 27, 65^3, 33^3 and 17^3 beside its byte bound,
+            its plain version and a conv3d yardstick, with kernel A's plan;
 4. path 3D — the 128^3 shifted nodal Laplacian (5 levels, float32):
             mg_setup + solve_mg, refined Jacobi 0.8 V(1,1) to 1e-8 (23 +- 1
             iterations), refined Chebyshev(3) V(1,0) (11 +- 1), and the
@@ -23,10 +24,13 @@ Phases, each of which raises on failure:
 5. path 2D — the 1024^2 problem, refined Jacobi to 1e-8 (16 +- 1), plain
             torch on the card (no kernel on 2D levels);
 6. line kernel — the tridiagonal line kernel (solve and correct) against its
-            plain version on every line axis of 1025^2 and 129^3 (m = 1, 2),
+            plain version on every line axis of 1025^2 and 129^3 (m = 1-3),
             on a (19, 25, 31) grid, in float32 and float64, with the line_prec
-            coefficients of configurations (a) and (d); then its device time
-            on the strided and the contiguous axis;
+            coefficients of configurations (a) and (d), and at its plan's
+            edges (2- and 3-node lines, ragged strided tiles, the streamed
+            variant on (4097, 40) and (40, 8193)); then its device time on
+            the strided and the contiguous axes of 1025^2 and 129^3, with
+            the plan;
 7. path aniso — the anisotropic configurations, f32, refined to 1e-8:
             (a) 2D eps = 100 line Jacobi 0.8 (11 +- 1 iterations),
             (b) 2D eps = 0.01 semicoarsening + line Jacobi 0.9, 7 levels (6),
@@ -339,12 +343,27 @@ def phase_kernels(st, rows):
     A129_27 = galerkin_stencil(256, "cuda")
     log(f"[kernel] 129^3 Galerkin (nd=27) operator built in "
         f"{time.perf_counter() - t0:.1f} s")
-    cases = [("129^3 fine", levels[0], (1, 2)),
+    # kernel A's plan edges: X = 16 planes (one x-run) with y and z one node
+    # past the narrow (16, 32) tile; the wide (4, 128) tile at its narrowest
+    # interior, ragged in y, and with a Galerkin level
+    edge = {}
+    for dims in ((32, 16, 15), (99, 22, 15), (124, 24, 16)):   # mesh axes
+        nodes = [d + 1 for d in dims]
+        L = shifted_laplacian(dims)[1].astype(np.float32)
+        edge[tuple(nodes)] = make_grid_stencil(L, nodes, device="cuda")
+        if all(n % 2 for n in nodes):
+            edge[tuple(nodes) + ("G",)] = compress_grid_stencil(
+                structured_fw_rap(grid_stencil_from_csr(L, nodes)),
+                device="cuda")
+    cases = [("129^3 fine", levels[0], (1, 2, 3)),
              ("129^3 Galerkin", A129_27, (1, 2)),
              ("65^3 Galerkin", levels[1], (1, 2)),
              ("33^3", levels[2], (1,)), ("17^3", levels[3], (1,)),
-             ("mesh (18,24,30)", An7, (1, 2)),
-             ("mesh (18,24,30) Galerkin", An27, (1, 2))]
+             ("mesh (18,24,30)", An7, (1, 2, 3)),
+             ("mesh (18,24,30) Galerkin", An27, (1, 2))] + [
+        (f"edge {k[:3]}{' Galerkin' if len(k) > 3 else ''}", A, (1, 3))
+        for k, A in edge.items()]
+    from mgtpu_torch.ops.cuda import const3d
     for label, A, ms in cases:
         for m in ms:
             x, b, d, p = fields(A.grid, m, SEED)
@@ -364,9 +383,12 @@ def phase_kernels(st, rows):
                     row["max_rel_err"] = max(row["max_rel_err"], re)
                     require(re < tol, f"{name} {label} m={m}: relative "
                             f"error {re:.3e} >= {tol}")
+            plan = const3d.apply_plan(tuple(A.grid), A.boxes, "matvec")
             log(f"[kernel] {label} grid {A.grid} nd={len(A.offsets)} m={m}: "
-                "all kernels match their plain versions")
-    return [(lbl, A) for lbl, A, _ in cases[:1] + cases[2:5]]
+                f"all kernels match their plain versions (kernel A tile "
+                f"{plan.ty}x{plan.tz}, x-run {plan.xrun}, {plan.ntiles} x "
+                f"{plan.nruns} interior + {plan.nband} band blocks)")
+    return [(lbl, A) for lbl, A, _ in cases[:5]]
 
 
 def conv3d_yardstick(A, x):
@@ -380,6 +402,7 @@ def conv3d_yardstick(A, x):
 
 def phase_timing(timed_levels, rows):
     """Kernel, plain and yardstick device times per level (m = 1)."""
+    from mgtpu_torch.ops.cuda import const3d
     timer = Timer()
     for label, A in timed_levels:
         sets = [fields(A.grid, 1, SEED + 1 + j) for j in range(4)]
@@ -399,13 +422,23 @@ def phase_timing(timed_levels, rows):
                 2 if name == "jacobi_residual3d" else 1)
             bound = max(fbytes / HBM_BYTES_PER_S,
                         flops / FP32_FLOPS) * 1e3
-            log(f"[time] {label:9s} nd={len(A.offsets):2d} {name:28s} "
+            rows[name].setdefault("times", {})[
+                f"{label} nd={len(A.offsets)}"] = dict(
+                ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                library_ms=conv_ms if name.endswith("matvec") else None)
+            if name.startswith("stencil3d_apply."):
+                plan = const3d.apply_plan(tuple(A.grid), A.boxes,
+                                          name.split(".")[1])
+                tile = f"  tile {plan.ty}x{plan.tz} x-run {plan.xrun}"
+            else:
+                tile = ""
+            log(f"[time] {label:14s} nd={len(A.offsets):2d} {name:28s} "
                 f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
                 f"bound {bound:.4f} ms ({fbytes / 1e6:.1f} MB fields, "
                 f"+{band_bytes / 1e6:.2f} MB band)  conv3d {conv_ms:.4f} ms"
                 f"  kernel/bound {ms / bound:.1f}x  host per call: kernel "
-                f"{host_ms:.3f} ms, plain {plain_host_ms:.3f} ms")
-            if label.startswith("129"):
+                f"{host_ms:.3f} ms, plain {plain_host_ms:.3f} ms{tile}")
+            if label == "129^3 fine":
                 rows[name].update(
                     ms=ms, plain_ms=plain_ms, bound_ms=bound,
                     bound_by="bytes" if fbytes / HBM_BYTES_PER_S
@@ -520,12 +553,13 @@ def vcycle_profile(st, b, cycle_ms, card, label="129^3"):
     busy = sum(ms for _, ms in events)
     if busy == 0:
         log("[path] V-cycle device time: not measured (no device events)")
-        return
+        return None
     log(f"[path] V-cycle ({label}) device time {busy:.3f} ms of "
         f"{cycle_ms:.3f} ms "
         f"(busy share {busy / cycle_ms:.2f}; {card}); largest:")
     for key, ms in sorted(events, key=lambda e: -e[1])[:6]:
         log(f"[path]   {ms:.4f} ms  {key[:70]}")
+    return busy
 
 
 def per_cycle_launches(st, b):
@@ -638,7 +672,7 @@ def phase_line_kernels(ops, rows):
             if dtype == torch.float32:
                 timed[label] = states
             for lr in states:
-                for m in (1, 2):
+                for m in (1, 2, 3):
                     rng = np.random.RandomState(SEED + m)
                     r, x = (torch.tensor(rng.rand(m, *lr.alpha.shape),
                                          dtype=dtype, device="cuda")
@@ -660,35 +694,116 @@ def phase_line_kernels(ops, rows):
                                 f">= {tol}")
             log(f"[kernel] line kernel, {label} grid "
                 f"{tuple(states[0].alpha.shape)} {dtype}: solve and correct "
-                "match their plain versions on every axis, m = 1, 2")
+                "match their plain versions on every axis, m = 1, 2, 3")
     return timed
 
 
+def thomas_coeffs(grid, axis, dtype, seed=0):
+    """Thomas coefficients of a random diagonally dominant tridiagonal
+    operator along `axis` of `grid`, in line_prec's form (alpha zero at
+    line starts, cprime zero at line ends), on the card."""
+    rng = np.random.RandomState(seed)
+    sub, sup = (-rng.uniform(0.5, 1.0, grid) for _ in range(2))
+    diag = 2.5 + rng.rand(*grid)
+    sub, sup, diag = (np.moveaxis(v, axis, 0) for v in (sub, sup, diag))
+    sub[0] = 0.0
+    sup[-1] = 0.0
+    piv, cp = np.empty_like(diag), np.empty_like(diag)
+    for i in range(diag.shape[0]):
+        piv[i] = 1.0 / (diag[i] - sub[i] * (cp[i - 1] if i else 0.0))
+        cp[i] = sup[i] * piv[i]
+    return [torch.tensor(np.ascontiguousarray(np.moveaxis(v, 0, axis)),
+                         dtype=dtype, device="cuda")
+            for v in (-piv * sub, piv, cp)]
+
+
+# kernel C's plan edges: 2- and 3-node lines, a strided inner extent that
+# is not a multiple of the tile, the long lines of a (4097, 40) grid on both
+# axes (streamed strided, staged contiguous) and of (40, 8193) (a staged
+# contiguous line past 48 KB in f32, a streamed one in f64)
+LINE_EDGES = [((2, 37), 0), ((3, 37), 0), ((37, 2), 1), ((37, 3), 1),
+              ((4097, 40), 0), ((4097, 40), 1), ((40, 8193), 1)]
+
+
+def phase_line_edges(rows):
+    """The line kernel against its plain version at its plan's edges, both
+    variants, float32 (2e-4) and float64 (1e-10), m = 1 and 3."""
+    from mgtpu_torch.ops.cuda import tridiag
+    seen = set()
+    for grid, axis in LINE_EDGES:
+        inner = int(np.prod(grid[axis + 1:]))
+        len_outer = int(np.prod(grid[:axis]))
+        for dtype, tol in ((torch.float32, 2e-4), (torch.float64, 1e-10)):
+            alpha, piv, cp = thomas_coeffs(grid, axis, dtype)
+            for m in (1, 3):
+                rng = np.random.RandomState(SEED + m)
+                r, x = (torch.tensor(rng.rand(m, *grid), dtype=dtype,
+                                     device="cuda") for _ in range(2))
+                for mode in tridiag.MODES:
+                    kw = dict(omega=0.8, x=x if mode == "correct" else None)
+                    plan = tridiag.line_plan(
+                        r.numel() // (grid[axis] * inner), grid[axis], inner,
+                        r.element_size(), mode)
+                    seen.add((mode, plan.variant))
+                    o = tridiag.line_apply(mode, alpha, piv, cp, axis, r, **kw)
+                    ref = tridiag.line_plain(mode, alpha, piv, cp, axis, r,
+                                             **kw)
+                    torch.cuda.synchronize()
+                    require(o.shape == ref.shape and bool(
+                        torch.isfinite(o).all()), f"line {grid}: bad output")
+                    ae = float((o - ref).abs().max())
+                    re = ae / float(ref.abs().max())
+                    row = rows[f"tridiag.{mode}"]
+                    row["max_abs_err"] = max(row["max_abs_err"], ae)
+                    row["max_rel_err"] = max(row["max_rel_err"], re)
+                    require(re < tol, f"line {grid} axis {axis} m={m} {mode} "
+                            f"{dtype} ({plan.variant}): relative error "
+                            f"{re:.3e} >= {tol}")
+            plans = {md: tridiag.line_plan(
+                len_outer, grid[axis], inner, r.element_size(), md)[:2]
+                for md in tridiag.MODES}
+            log(f"[kernel] line kernel edge {grid} axis {axis} {dtype}: "
+                f"matches its plain version, m = 1, 3 (m = 1 plans: "
+                f"{plans})")
+    want = {(m, v) for m in tridiag.MODES for v in ("staged", "streamed")}
+    require(seen == want, f"line edges reached {sorted(seen)}, want both "
+            "variants in both modes")
+
+
 def phase_line_timing(timed, rows):
-    """Device time of the line kernel (m = 1, f32, four input sets so the
-    inputs come from device memory) beside its byte bound and plain time."""
+    """Device time of the line kernel (m = 1, f32, four input sets with
+    their own copies of the coefficients, so that every call reads its
+    inputs from device memory) beside its byte bound and plain time."""
+    from mgtpu_torch.cycle.relax import LineRelax
+    from mgtpu_torch.ops.cuda import tridiag
     timer = Timer()
     cases = [("1025^2", 0), ("1025^2", 1), ("129^3", 0), ("129^3", 2)]
     for label, axis in cases:
         lr = timed[label][axis]
         nodes = lr.alpha.numel()
-        sets = [tuple(torch.tensor(np.random.RandomState(SEED + 10 + j).rand(
-            1, *lr.alpha.shape), dtype=torch.float32, device="cuda")
-            for _ in range(2)) for j in range(4)]
+        sets = [(LineRelax(lr.alpha.clone(), lr.pivot.clone(),
+                           lr.cprime.clone(), lr.axis, lr.omega),
+                 *(torch.tensor(np.random.RandomState(SEED + 10 + j).rand(
+                     1, *lr.alpha.shape), dtype=torch.float32, device="cuda")
+                   for _ in range(2))) for j in range(4)]
         for name in ("tridiag.solve", "tridiag.correct"):
-            ms, host_ms = timer([lambda s=s: run_line(name, lr, *s, False)
+            ms, host_ms = timer([lambda s=s: run_line(name, *s, False)
                                  for s in sets])
-            plain_ms, _ = timer([lambda s=s: run_line(name, lr, *s, True)
+            plain_ms, _ = timer([lambda s=s: run_line(name, *s, True)
                                  for s in sets])
             fbytes = (KERNELS[name][2] + 3) * 4 * nodes
             flops = (7 if name.endswith("correct") else 6) * nodes
             bound = max(fbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS) * 1e3
+            grid = tuple(lr.alpha.shape)
+            inner = int(np.prod(grid[axis + 1:]))
+            plan = tridiag.line_plan(nodes // (grid[axis] * inner),
+                                     grid[axis], inner, 4, name[8:])
             log(f"[time] line {label} axis {axis} "
-                f"({'contiguous' if axis == len(lr.alpha.shape) - 1 else 'strided'}) "
+                f"({'contiguous' if inner == 1 else 'strided'}) "
                 f"{name:16s} kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
                 f"bound {bound:.4f} ms ({fbytes / 1e6:.1f} MB)  "
                 f"kernel/bound {ms / bound:.1f}x  host per call "
-                f"{host_ms:.3f} ms")
+                f"{host_ms:.3f} ms  plan {tuple(plan)}")
             rows[name].setdefault("times", {})[f"{label} axis {axis}"] = dict(
                 ms=ms, plain_ms=plain_ms, bound_ms=bound)
             if (label, axis) == ("1025^2", 1):     # configuration (a)'s lines
@@ -1135,6 +1250,7 @@ def main() -> int:
     timed_lines = phase_line_kernels(
         {"1025^2": line_ops["a"], "129^3": line_ops["d"],
          "(19,25,31)": aniso3d([30, 24, 18], 0)}, rows)
+    phase_line_edges(rows)
     phase_line_timing(timed_lines, rows)
     aniso = phase_aniso(line_ops, card)
     phase_fmg(card)

@@ -80,8 +80,9 @@ __device__ __forceinline__ void mgt_load_consts(const Stencil3D& s,
 // at the neighbour (ix+dx, iy+dy, iz+dz); `sc` holds the constants.
 // CHECK: the source has no zero halo (global memory), so off-grid taps of
 // band nodes are redirected to the node itself; without CHECK the source
-// must read zero off the grid (the shared-memory rings of kernel B).  The
-// true band coefficient of an off-grid tap is zero either way.
+// must read zero off the grid (the shared-memory tiles and rings of kernels
+// A and B).  The true band coefficient of an off-grid tap is zero either
+// way.
 template <int NT, bool CHECK, typename Load>
 __device__ __forceinline__ float mgt_apply_node(
     const Stencil3D& s, const float* sc, const float* __restrict__ band,

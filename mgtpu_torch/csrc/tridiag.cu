@@ -19,31 +19,279 @@
 // line reads past its ends.
 //
 // What bounds it: device memory.  Per node it reads r, alpha, pivot,
-// cprime (and x) and writes out, with a handful of flops.  y goes through
-// the output buffer (written in the forward pass, read back by the same
-// thread in the backward pass), so the design moves 2 field passes more
-// than the least traffic; at the main path's sizes y mostly stays in L2.
+// cprime (and x) and writes out, with a handful of flops: the least
+// traffic is 5 field passes in solve mode and 6 in correct mode.
 //
-// What the design does about it:
-//  * strided lines (inner > 1): neighbouring threads take neighbouring
-//    lines (coalesced along inner).  A block owns a tile of `tl` lines and
-//    splits each line into `nchunk` chunks, one thread per (line, chunk),
-//    so a few long lines (1025 at 1025^2) still fill the card.  Each pass
-//    walks its chunk once to get the chunk's affine map (A = prod a, B),
-//    composes the maps of the earlier chunks from shared memory into its
-//    carry, and walks again with the carry applied.
-//  * contiguous lines (inner == 1): one warp per line, 32 consecutive nodes
-//    per step (coalesced), a warp-shuffle scan of the affine maps in each
-//    segment and the carry passed from segment to segment; the next
-//    segment's loads start before the current one is scanned.
+// The design (two variants, chosen by the host from the shape alone; the
+// launch plan is computed in mgtpu_torch/ops/cuda/tridiag.py::line_plan and
+// checked here):
+//  * staged (every line whose tile fits in shared memory; every line of the
+//    main path): a block stages a tile of lines -- alpha, pivot, cprime, r
+//    -- in shared memory with every load in flight at once (cp.async, 4 or
+//    8 bytes each: rows of the odd grid widths are not 16-byte aligned),
+//    and in correct mode x as a second group that arrives meanwhile.
+//    One warp per strided line, one to four per contiguous line (about 8
+//    nodes a lane), then run both
+//    recurrences out of shared memory: each lane walks a chunk of odd
+//    length (so the 32 lanes hit 32 banks), the chunks' affine maps
+//    (A = prod a, B) are composed by a warp-shuffle scan and across the
+//    line's warps, and a second walk applies the carry.  y overwrites r's
+//    slot and s overwrites y's, so y never leaves the chip.  The block then
+//    writes out once, coalesced.  Tiles:
+//      - contiguous lines (inner == 1): `tile` consecutive lines, one after
+//        the other in shared memory;
+//      - strided lines: `32 / sizeof(T)` lines neighbouring along inner, so
+//        each row of the tile is one whole 32-byte sector; rows are padded
+//        by one element so a warp's chunk starts fall in distinct banks.
+//    Above 48 KB a block needs the opt-in to (nearly) 227 KB of dynamic
+//    shared memory, set once per instantiation.
+//  * streamed (lines too long for a tile): the PR 2 kernels.  On a strided
+//    axis a block owns `tl` lines split into chunks, one thread each, and
+//    walks each chunk twice per recurrence from device memory; on the
+//    contiguous axis one warp walks a line 32 nodes at a time with a
+//    shuffle scan.  y goes through the output buffer (two extra passes).
 // Both are templated on float and double.
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 extern "C" const char* mgt_error_string(int e) {
   return cudaGetErrorString(static_cast<cudaError_t>(e));
 }
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;        // streamed variant
+// shared memory a block may opt into, less the staged kernel's static
+// cross-warp slots (ta, ty: 2 x 32 values, at most double)
+constexpr int kMaxSmem = 232448 - 2 * 32 * static_cast<int>(sizeof(double));
+constexpr int kStaged = 0, kStreamed = 1;
+
+// lines of a strided staged tile: one 32-byte sector per row
+template <typename T>
+__host__ __device__ constexpr int strided_tile() {
+  return 32 / static_cast<int>(sizeof(T));
+}
+
+// warps that share one staged line: on a contiguous axis enough that a
+// lane walks about 8 nodes; on a strided axis one (four did not pay on an
+// H100: 1025^2 axis 0 went from 16.0 to 17.1 us in solve mode)
+__host__ __device__ inline int staged_warps(int n, bool strided) {
+  return strided ? 1 : n >= 1024 ? 4 : n >= 512 ? 2 : 1;
+}
+
+// chunk length of a staged line of W warps: odd, so the chunk starts of
+// the 32 lanes of a warp fall in 32 distinct banks
+__host__ __device__ inline int staged_chunk(int n, int W) {
+  const int chunks = 32 * W;
+  return ((n + chunks - 1) / chunks) | 1;
+}
+
+// Both recurrences of one line held in shared memory, by the W warps of
+// the line (wl: this warp's rank among them).  Element i of the line is at
+// i * st in sa (alpha), sp (pivot), sc (cprime) and sy (r on entry, s on
+// exit).  Lane chunks are walked once for their affine map, the maps
+// composed by a warp-shuffle scan and, across the W warps, through ta/ty
+// (this line's W slots), and walked again with the carry.  n = 0 (a warp
+// of a line past the tile's end) walks nothing but takes part in the
+// barriers, which every thread of the block reaches (W is the block's).
+template <typename T>
+__device__ __forceinline__ void line_in_smem(int n, int st, const T* sa,
+                                             const T* sp, const T* sc, T* sy,
+                                             int W, int wl, int lane, T* ta,
+                                             T* ty) {
+  const unsigned full = 0xffffffffu;
+  const int len = staged_chunk(n, W);
+  const int i0 = min(n, (wl * 32 + lane) * len);
+  const int i1 = min(n, i0 + len);
+  // forward, walk 1: the chunk's map y_end = a * y_in + y
+  T a = T(1), y = T(0);
+#pragma unroll 8
+  for (int i = i0; i < i1; ++i) {
+    const T al = sa[i * st];
+    y = al * y + sp[i * st] * sy[i * st];
+    a *= al;
+  }
+#pragma unroll
+  for (int d = 1; d < 32; d *= 2) {
+    const T ap = __shfl_up_sync(full, a, d);
+    const T yp = __shfl_up_sync(full, y, d);
+    if (lane >= d) {
+      y = a * yp + y;
+      a = a * ap;
+    }
+  }
+  T carry = T(0);                                    // y before this warp
+  if (W > 1) {                                       // block-uniform
+    if (lane == 31) {
+      ta[wl] = a;
+      ty[wl] = y;
+    }
+    __syncthreads();
+    for (int q = 0; q < wl; ++q) carry = ta[q] * carry + ty[q];
+    __syncthreads();                                 // ta/ty reused below
+  }
+  T ap = __shfl_up_sync(full, a, 1);
+  T yp = __shfl_up_sync(full, y, 1);
+  // forward, walk 2: y with the carry, over r's slot (each lane touches
+  // only its own chunk, so no barrier is needed between the walks)
+  y = lane == 0 ? carry : ap * carry + yp;
+#pragma unroll 8
+  for (int i = i0; i < i1; ++i) {
+    y = sa[i * st] * y + sp[i * st] * sy[i * st];
+    sy[i * st] = y;
+  }
+  // backward, walk 1: s_start = a * s_in + s over the chunk, high to low
+  a = T(1);
+  T s = T(0);
+#pragma unroll 8
+  for (int i = i1 - 1; i >= i0; --i) {
+    const T cm = -sc[i * st];
+    s = cm * s + sy[i * st];
+    a *= cm;
+  }
+#pragma unroll
+  for (int d = 1; d < 32; d *= 2) {
+    const T an = __shfl_down_sync(full, a, d);
+    const T sn = __shfl_down_sync(full, s, d);
+    if (lane + d < 32) {
+      s = a * sn + s;
+      a = a * an;
+    }
+  }
+  carry = T(0);                                      // s after this warp
+  if (W > 1) {
+    if (lane == 0) {
+      ta[wl] = a;
+      ty[wl] = s;
+    }
+    __syncthreads();
+    for (int q = W - 1; q > wl; --q) carry = ta[q] * carry + ty[q];
+  }
+  ap = __shfl_down_sync(full, a, 1);
+  yp = __shfl_down_sync(full, s, 1);
+  // backward, walk 2: the solution, over y's slot
+  s = lane == 31 ? carry : ap * carry + yp;
+#pragma unroll 8
+  for (int i = i1 - 1; i >= i0; --i) {
+    s = -sc[i * st] * s + sy[i * st];
+    sy[i * st] = s;
+  }
+}
+
+// Staged variant.  STRIDED: block = (o, tile of strided_tile<T>() lines
+// from j0 along inner); else block = `tile` consecutive lines from line0.
+// staged_warps warps per line; blockDim.x = 32 * that * tile.  Shared
+// memory: alpha, pivot, cprime, r (then y, then s) and, with HAS_X, x.
+template <typename T, bool HAS_X, bool STRIDED>
+__global__ void __launch_bounds__(1024) tridiag_staged(
+    int n, int inner, int outer, int outer_c, int tile, int ntiles,
+    const T* __restrict__ alpha, const T* __restrict__ pivot,
+    const T* __restrict__ cprime, const T* __restrict__ r,
+    const T* __restrict__ x, T omega, T* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sm = reinterpret_cast<T*>(smem_raw);
+  constexpr int TL = strided_tile<T>();
+  const int ld = TL + 1;                               // strided row stride
+  const int per = STRIDED ? n * ld : tile * n;         // elements per array
+  T* sa = sm;
+  T* sp = sm + per;
+  T* sc = sm + 2 * per;
+  T* sy = sm + 3 * per;
+  T* sx = sm + 4 * per;                                // correct mode
+  const int tid = threadIdx.x;
+  const int nth = blockDim.x;
+
+  // the tile: nl valid lines; element (l, i) of the tile lies at field
+  // index fb + f(l, i), coefficient index cb + f(l, i) (strided) and at
+  // shared index g(l, i)
+  int nl, fb, cb, line0 = 0;
+  if constexpr (STRIDED) {
+    const int o = blockIdx.x / ntiles;
+    const int j0 = (blockIdx.x - o * ntiles) * TL;
+    nl = min(TL, inner - j0);
+    fb = o * n * inner + j0;
+    cb = (o % outer_c) * n * inner + j0;
+  } else {
+    line0 = blockIdx.x * tile;
+    nl = min(tile, outer - line0);
+    fb = line0 * n;
+    cb = 0;
+  }
+  const int nel = STRIDED ? n * TL : nl * n;
+
+  // stage: every load of the tile in flight together
+  for (int e = tid; e < nel; e += nth) {
+    int gf, gc, s;
+    if constexpr (STRIDED) {
+      const int i = e / TL, l = e - i * TL;
+      if (l >= nl) continue;
+      gf = fb + i * inner + l;
+      gc = cb + i * inner + l;
+      s = i * ld + l;
+    } else {
+      const int l = e / n, i = e - l * n;
+      gf = fb + e;
+      gc = ((line0 + l) % outer_c) * n + i;
+      s = e;
+    }
+    __pipeline_memcpy_async(sa + s, alpha + gc, sizeof(T));
+    __pipeline_memcpy_async(sp + s, pivot + gc, sizeof(T));
+    __pipeline_memcpy_async(sc + s, cprime + gc, sizeof(T));
+    __pipeline_memcpy_async(sy + s, r + gf, sizeof(T));
+  }
+  __pipeline_commit();
+  if constexpr (HAS_X) {                               // arrives meanwhile
+    for (int e = tid; e < nel; e += nth) {
+      int gf, s;
+      if constexpr (STRIDED) {
+        const int i = e / TL, l = e - i * TL;
+        if (l >= nl) continue;
+        gf = fb + i * inner + l;
+        s = i * ld + l;
+      } else {
+        gf = fb + e;
+        s = e;
+      }
+      __pipeline_memcpy_async(sx + s, x + gf, sizeof(T));
+    }
+    __pipeline_commit();
+  }
+  __pipeline_wait_prior(HAS_X ? 1 : 0);
+  __syncthreads();
+
+  // W warps per line; every warp runs the line code (a line past the
+  // tile's end with n = 0) so that all reach its barriers
+  __shared__ T ta[32], ty[32];
+  const int W = staged_warps(n, STRIDED);
+  const int warp = tid >> 5;
+  const int line = warp / W, wl = warp - line * W;
+  const int nn = line < nl ? n : 0;
+  if constexpr (STRIDED)
+    line_in_smem<T>(nn, ld, sa + line, sp + line, sc + line, sy + line, W,
+                    wl, tid & 31, ta + line * W, ty + line * W);
+  else
+    line_in_smem<T>(nn, 1, sa + line * n, sp + line * n, sc + line * n,
+                    sy + line * n, W, wl, tid & 31, ta + line * W,
+                    ty + line * W);
+  __pipeline_wait_prior(0);
+  __syncthreads();
+
+  // write out once, coalesced
+  for (int e = tid; e < nel; e += nth) {
+    int gf, s;
+    if constexpr (STRIDED) {
+      const int i = e / TL, l = e - i * TL;
+      if (l >= nl) continue;
+      gf = fb + i * inner + l;
+      s = i * ld + l;
+    } else {
+      gf = fb + e;
+      s = e;
+    }
+    if constexpr (HAS_X)
+      out[gf] = sx[s] + omega * sy[s];
+    else
+      out[gf] = omega * sy[s];
+  }
+}
 
 template <typename T, bool HAS_X>
 __global__ void __launch_bounds__(kThreads) tridiag_strided(
@@ -192,62 +440,130 @@ __global__ void __launch_bounds__(kThreads) tridiag_contiguous(
   }
 }
 
+// The launch plan (line_plan in ops/cuda/tridiag.py):
+//   plan = [variant, tile, nchunk, threads, blocks, smem]
+// Returns true when it is the plan of this shape: the derived numbers are
+// recomputed here, so a plan that disagrees is refused, not launched.
+static bool plan_ok(const int* plan, int itemsize, int has_x, int outer,
+                    int n, int inner) {
+  const int arrays = has_x ? 5 : 4;                    // + x in correct mode
+  const int variant = plan[0], tile = plan[1], nchunk = plan[2];
+  const int threads = plan[3], blocks = plan[4], smem = plan[5];
+  long long want_blocks, want_smem, want_threads;
+  int want_nchunk;
+  if (variant == kStaged) {
+    if (inner > 1) {
+      if (tile != 32 / itemsize) return false;
+      want_blocks = (long long)outer * ((inner + tile - 1) / tile);
+      want_smem = (long long)arrays * n * (tile + 1) * itemsize;
+    } else {
+      if (tile < 1 || tile > 32) return false;
+      want_blocks = ((long long)outer + tile - 1) / tile;
+      want_smem = (long long)arrays * tile * n * itemsize;
+    }
+    want_nchunk = 32 * staged_warps(n, inner > 1);
+    want_threads = (long long)want_nchunk * tile;
+    if (want_smem > kMaxSmem || want_threads > 1024) return false;
+  } else if (variant == kStreamed) {
+    if (inner > 1) {
+      if (tile != 8 && tile != 32) return false;
+      want_blocks = (long long)outer * ((inner + tile - 1) / tile);
+      want_nchunk = kThreads / tile;
+    } else {
+      if (tile != kThreads / 32) return false;
+      want_blocks = ((long long)outer + tile - 1) / tile;
+      want_nchunk = 32;
+    }
+    want_threads = kThreads;
+    want_smem = 0;
+  } else {
+    return false;
+  }
+  return nchunk == want_nchunk && threads == want_threads &&
+         blocks == want_blocks && smem == want_smem &&
+         want_blocks < (1LL << 31);
+}
+
+template <typename K>
+static cudaError_t allow_smem(K* kernel) {
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              kMaxSmem);
+}
+
+template <typename T, bool HAS_X, bool STRIDED>
+static cudaError_t launch_staged(const int* plan, int outer, int outer_c,
+                                 int n, int inner, const T* a, const T* p,
+                                 const T* c, const T* rr, const T* xx,
+                                 T omega, T* o, cudaStream_t st) {
+  auto* kernel = tridiag_staged<T, HAS_X, STRIDED>;
+  static const cudaError_t opt_in = allow_smem(kernel);  // once per kernel
+  if (opt_in != cudaSuccess) return opt_in;
+  const int ntiles = STRIDED ? (inner + plan[1] - 1) / plan[1] : 0;
+  kernel<<<plan[4], plan[3], plan[5], st>>>(n, inner, outer, outer_c,
+                                            plan[1], ntiles, a, p, c, rr, xx,
+                                            omega, o);
+  return cudaSuccess;
+}
+
 template <typename T, bool HAS_X>
-static void launch(int outer, int outer_c, int n, int inner,
-                   const void* alpha, const void* pivot, const void* cprime,
-                   const void* r, const void* x, double omega, void* out,
-                   cudaStream_t st) {
+static cudaError_t launch(const int* plan, int outer, int outer_c, int n,
+                          int inner, const void* alpha, const void* pivot,
+                          const void* cprime, const void* r, const void* x,
+                          double omega, void* out, cudaStream_t st) {
   const T* a = static_cast<const T*>(alpha);
   const T* p = static_cast<const T*>(pivot);
   const T* c = static_cast<const T*>(cprime);
   const T* rr = static_cast<const T*>(r);
   const T* xx = static_cast<const T*>(x);
   T* o = static_cast<T*>(out);
-  if (inner == 1) {
-    const int blocks = (outer + kThreads / 32 - 1) / (kThreads / 32);
-    tridiag_contiguous<T, HAS_X><<<blocks, kThreads, 0, st>>>(
-        n, outer, outer_c, a, p, c, rr, xx, static_cast<T>(omega), o);
-    return;
+  const T w = static_cast<T>(omega);
+  if (plan[0] == kStaged) {
+    if (inner > 1)
+      return launch_staged<T, HAS_X, true>(plan, outer, outer_c, n, inner, a,
+                                           p, c, rr, xx, w, o, st);
+    return launch_staged<T, HAS_X, false>(plan, outer, outer_c, n, inner, a,
+                                          p, c, rr, xx, w, o, st);
   }
-  // wide tiles (32 lines) when there are enough of them to fill the card,
-  // else narrow tiles (8 lines, still whole 32-byte sectors) and more chunks
-  int tl = 32;
-  if ((long long)outer * ((inner + 31) / 32) < 264) tl = 8;
-  const int ntiles = (inner + tl - 1) / tl;
-  const int nchunk = kThreads / tl;
-  tridiag_strided<T, HAS_X><<<outer * ntiles, kThreads, 0, st>>>(
-      n, inner, outer_c, tl, nchunk, ntiles, a, p, c, rr, xx,
-      static_cast<T>(omega), o);
+  if (inner == 1) {
+    tridiag_contiguous<T, HAS_X><<<plan[4], kThreads, 0, st>>>(
+        n, outer, outer_c, a, p, c, rr, xx, w, o);
+    return cudaSuccess;
+  }
+  const int tl = plan[1];
+  tridiag_strided<T, HAS_X><<<plan[4], kThreads, 0, st>>>(
+      n, inner, outer_c, tl, plan[2], (inner + tl - 1) / tl, a, p, c, rr, xx,
+      w, o);
+  return cudaSuccess;
 }
 
 // dtype: 0 float32, 1 float64.  has_x: correct mode (x + omega s) when
-// nonzero, else solve mode (omega s).  Launches on `stream` and returns
-// cudaGetLastError() (cudaErrorInvalidValue for bad sizes).
+// nonzero, else solve mode (omega s).  plan: the host's launch plan (see
+// plan_ok).  Launches on `stream` and returns cudaGetLastError()
+// (cudaErrorInvalidValue for bad sizes or a plan that does not fit them).
 extern "C" int mgt_tridiag(int dtype, int has_x, int outer, int outer_c,
                            int n, int inner, const void* alpha,
                            const void* pivot, const void* cprime,
                            const void* r, const void* x, double omega,
-                           void* out, void* stream) {
+                           void* out, void* stream, const int* plan) {
   if (dtype < 0 || dtype > 1 || outer < 1 || outer_c < 1 ||
       outer % outer_c != 0 || n < 1 || inner < 1 || (has_x && !x) ||
-      (long long)outer * n * inner >= (1LL << 31) ||
-      (long long)outer * ((inner + 7) / 8) >= (1LL << 31))
+      !plan || (long long)outer * n * inner >= (1LL << 31) ||
+      !plan_ok(plan, dtype == 0 ? 4 : 8, has_x, outer, n, inner))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
   if (dtype == 0) {
-    if (has_x)
-      launch<float, true>(outer, outer_c, n, inner, alpha, pivot, cprime, r,
-                          x, omega, out, st);
-    else
-      launch<float, false>(outer, outer_c, n, inner, alpha, pivot, cprime, r,
-                           x, omega, out, st);
+    e = has_x ? launch<float, true>(plan, outer, outer_c, n, inner, alpha,
+                                    pivot, cprime, r, x, omega, out, st)
+              : launch<float, false>(plan, outer, outer_c, n, inner, alpha,
+                                     pivot, cprime, r, x, omega, out, st);
   } else {
-    if (has_x)
-      launch<double, true>(outer, outer_c, n, inner, alpha, pivot, cprime,
-                           r, x, omega, out, st);
-    else
-      launch<double, false>(outer, outer_c, n, inner, alpha, pivot, cprime,
-                            r, x, omega, out, st);
+    e = has_x ? launch<double, true>(plan, outer, outer_c, n, inner, alpha,
+                                     pivot, cprime, r, x, omega, out, st)
+              : launch<double, false>(plan, outer, outer_c, n, inner, alpha,
+                                      pivot, cprime, r, x, omega, out, st);
   }
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

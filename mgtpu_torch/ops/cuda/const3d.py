@@ -10,10 +10,15 @@ modes, mgtpu/ops/pallas/fused3d.py ``_fused_kernel`` (K3-K5):
     jacobi       x' = x + d .* (b - A x)
     jacobi_corr  x' = s + d .* (b - A s),  s = x + p
 
-The kernel is bound by device memory (a few flops per byte of field); it
-reads each field about once with one thread per output node, and handles
-the boundary band in the same launch (each band node reads its box's true
-coefficients), so it is exact on the whole grid.
+The kernel is bound by device memory (a few flops per byte of field).  One
+launch has two kinds of block.  An interior block owns a (16, 32) or
+(4, 128) tile of the interior (y, z) plane and marches along a run of
+x-planes, holding the planes x-1, x, x+1 (and those in flight ahead) of
+x, and the tile's b and d, in rings in shared memory, so each byte of x
+leaves device memory about once.  A band block gives one thread to each
+node of the six band boxes, which reads its box's true coefficients.  So
+the kernel is exact on the whole grid.  `apply_plan` computes the launch (tile, x-run, band blocks,
+shared memory) on the host; the C entry refuses a plan that does not fit.
 
 Dispatch: `stencil3d_apply` launches the kernel for a CUDA tensor (or
 raises on anything the kernel does not take) and takes the plain version
@@ -24,6 +29,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -31,13 +37,80 @@ import torch
 from ..grid_stencil import const_grid_stencil_matvec
 from . import _build
 
-__all__ = ["MODES", "LAUNCHES", "PLAIN_CALLS", "supports_const3d",
-           "stencil3d_apply", "apply_plain", "const3d_matvec"]
+__all__ = ["MODES", "LAUNCHES", "PLAIN_CALLS", "ApplyPlan", "apply_plan",
+           "supports_const3d", "stencil3d_apply", "apply_plain",
+           "const3d_matvec"]
 
 MODES = ("matvec", "residual", "jacobi", "jacobi_corr")
 LAUNCHES = dict.fromkeys(MODES, 0)
 PLAIN_CALLS = dict.fromkeys(MODES, 0)
 MAX_TAPS = 27
+TILES = ((16, 32), (4, 128))   # (y, z) nodes of an interior tile: narrow, wide
+THREADS = 256              # each thread computes two nodes of a tile
+NSLOT, NBD = 6, 5          # x (p) and b (d) ring slots
+BLOCKS_WANTED = 264        # interior blocks per right-hand side: 2 per SM
+XRUN_MIN = 4               # fewest planes an interior block walks
+
+
+class ApplyPlan(NamedTuple):
+    """How kernel A is launched on one grid (csrc/const3d.cu, plan_ok).
+
+    Interior block (t, r) computes tile t (ty x tz) of the interior (y, z)
+    plane on the x-planes [w + r * xrun, min(X - w, w + (r + 1) * xrun));
+    nband band blocks follow, one thread per band node; every block is
+    launched once per right-hand side.  smem: dynamic shared memory in bytes (the x ring,
+    the b and d rings by mode, the p ring in jacobi_corr)."""
+    ty: int
+    tz: int
+    threads: int
+    xrun: int
+    nruns: int
+    ntiles: int
+    nband: int
+    smem: int
+
+    def runs(self, X: int, w: int) -> list[tuple[int, int]]:
+        """The x-ranges of the interior runs."""
+        return [(w + r * self.xrun, min(X - w, w + (r + 1) * self.xrun))
+                for r in range(self.nruns)]
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=256)
+def apply_plan(grid, boxes, mode: str) -> ApplyPlan:
+    """The launch plan of kernel A on an (X, Y, Z) grid with its six band
+    boxes ((start, size) each; box 0 is the low x-slab, w planes deep).
+
+    The wide tile where the interior's z extent fills at least 3/4 of it
+    (129^3), else the narrow one.  The interior's x range is split into
+    balanced runs, as many as give about BLOCKS_WANTED interior blocks but
+    none shorter than XRUN_MIN planes: at 129^3 (w = 2) 32 wide tiles x 9
+    runs of 14 planes."""
+    X, Y, Z = grid
+    w = boxes[0][1][0]
+    xi, yi, zi = (max(0, v - 2 * w) for v in grid)
+    ty, tz = TILES[1] if 4 * zi >= 3 * TILES[1][1] else TILES[0]
+    nband = _cdiv(sum(int(np.prod(sz)) for _, sz in boxes), THREADS)
+    mi = MODES.index(mode)
+    smem = 4 * (NSLOT * (ty + 2) * (tz + 2) * (2 if mi == 3 else 1)
+                + NBD * ty * tz * min(mi, 2))
+    if not (xi and yi and zi):
+        return ApplyPlan(ty, tz, THREADS, 0, 0, 0, nband, smem)
+    ntiles = _cdiv(yi, ty) * _cdiv(zi, tz)
+    nruns = min(_cdiv(xi, XRUN_MIN), max(1, _cdiv(BLOCKS_WANTED, ntiles)))
+    xrun = _cdiv(xi, nruns)
+    return ApplyPlan(ty, tz, THREADS, xrun, _cdiv(xi, xrun), ntiles, nband,
+                     smem)
+
+
+@functools.lru_cache(maxsize=256)
+def _plan_array(grid, boxes, mode: str) -> np.ndarray:
+    out = np.asarray(apply_plan(grid, boxes, mode), dtype=np.int32)
+    out.setflags(write=False)
+    return out
 
 
 def supports_const3d(offsets, grid, dtype) -> bool:
@@ -76,7 +149,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.library("const3d")
     fn = lib.mgt_stencil3d_apply
     fn.argtypes = ([ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
-                   + [ctypes.c_void_p] * 8)
+                   + [ctypes.c_void_p] * 9)
     fn.restype = ctypes.c_int
     return lib
 
@@ -155,7 +228,8 @@ def stencil3d_apply(A, mode: str, x, b=None, d=None, p=None):
         MODES.index(mode), meta.ctypes.data, xr.shape[0],
         A.const.data_ptr(), A.band.data_ptr(), xr.data_ptr(), _ptr(br),
         _ptr(d), _ptr(pr), out.data_ptr(),
-        torch.cuda.current_stream(x.device).cuda_stream)
+        torch.cuda.current_stream(x.device).cuda_stream,
+        _plan_array(tuple(A.grid), A.boxes, mode).ctypes.data)
     _build.check(lib, rc, f"stencil3d_apply[{mode}]")
     LAUNCHES[mode] += 1
     return out.reshape(shape)

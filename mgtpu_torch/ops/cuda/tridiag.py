@@ -14,6 +14,12 @@ The coefficients are grid-shaped and shared by the leading right-hand
 sides.  The kernel is bound by device memory: per node it reads r (and x),
 three coefficients, and writes one output.
 
+`line_plan` chooses, from the shape alone, how the kernel is launched: the
+staged variant (a tile of lines held in shared memory, y kept on chip) for
+every line whose tile fits in a block's 227 KB, else the streamed variant
+(chunks walked from device memory).  The C entry recomputes the plan's
+derived numbers and refuses a plan that disagrees.
+
 The plain version is mgtpu's CPU form (cycle/relax.py::_scan_linear): a
 Hillis-Steele doubling scan of each recurrence with zero-filled shifts, the
 same operations in the same order.
@@ -27,18 +33,90 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from . import _build
 
-__all__ = ["MODES", "LAUNCHES", "PLAIN_CALLS", "line_apply", "line_plain",
-           "scan_linear"]
+__all__ = ["MODES", "LAUNCHES", "PLAIN_CALLS", "LinePlan", "line_plan",
+           "line_apply", "line_plain", "scan_linear"]
 
 MODES = ("solve", "correct")
 LAUNCHES = dict.fromkeys(MODES, 0)
 PLAIN_CALLS = dict.fromkeys(MODES, 0)
 _DTYPES = {torch.float32: 0, torch.float64: 1}
+# dynamic shared memory a staged block may opt into: sm_90's 232 448 bytes
+# less the kernel's static cross-warp slots (2 x 32 doubles)
+MAX_SMEM = 232_448 - 512
+SMALL_SMEM = 48 * 1024     # what a block gets without the opt-in
+STAGED, STREAMED = "staged", "streamed"
+_VARIANTS = (STAGED, STREAMED)
+_STREAMED_THREADS = 256
+
+
+class LinePlan(NamedTuple):
+    """How kernel C is launched on one shape (csrc/tridiag.cu, plan_ok).
+
+    tile: lines per block (a strided tile's lines lie side by side along
+    inner; a contiguous tile's one after another); nchunk: chunks per line,
+    one per thread; smem: dynamic shared memory in bytes."""
+    variant: str
+    tile: int
+    nchunk: int
+    threads: int
+    blocks: int
+    smem: int
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=256)
+def line_plan(outer: int, n: int, inner: int, itemsize: int,
+              mode: str) -> LinePlan:
+    """The launch plan of `outer` x `inner` lines of n nodes.
+
+    Staged when a tile fits in shared memory: strided lines take tiles of
+    32 / itemsize lines (each tile row one 32-byte sector, padded by one
+    element against bank conflicts), contiguous lines the most of 8, 4, 2
+    lines that fit in 48 KB (one line when none does).  Each holds four
+    arrays (alpha, pivot, cprime, r), and x in correct mode; one warp per
+    strided line, and per contiguous line one warp, two from 512 nodes and
+    four from 1024, so that a lane walks about 8 nodes (nchunk = 32 per
+    warp).  Otherwise streamed: the PR 2 tiles (32 strided lines when that
+    still gives two blocks per SM, else 8), or one warp per contiguous
+    line."""
+    arrays = 5 if mode == "correct" else 4
+    if inner > 1:
+        tile = 32 // itemsize
+        smem = arrays * n * (tile + 1) * itemsize
+        if smem <= MAX_SMEM:
+            return LinePlan(STAGED, tile, 32, 32 * tile,
+                            outer * _cdiv(inner, tile), smem)
+        tl = 32 if outer * _cdiv(inner, 32) >= 264 else 8
+        return LinePlan(STREAMED, tl, _STREAMED_THREADS // tl,
+                        _STREAMED_THREADS, outer * _cdiv(inner, tl), 0)
+    line = arrays * n * itemsize
+    chunks = 32 * (4 if n >= 1024 else 2 if n >= 512 else 1)  # lanes per line
+    if line <= MAX_SMEM:
+        tile = next((t for t in (8, 4, 2) if t * line <= SMALL_SMEM), 1)
+        return LinePlan(STAGED, tile, chunks, chunks * tile,
+                        _cdiv(outer, tile), tile * line)
+    warps = _STREAMED_THREADS // 32
+    return LinePlan(STREAMED, warps, 32, _STREAMED_THREADS,
+                    _cdiv(outer, warps), 0)
+
+
+@functools.lru_cache(maxsize=256)
+def _plan_array(outer: int, n: int, inner: int, itemsize: int,
+                mode: str) -> np.ndarray:
+    p = line_plan(outer, n, inner, itemsize, mode)
+    out = np.asarray([_VARIANTS.index(p.variant), *p[1:]], dtype=np.int32)
+    out.setflags(write=False)
+    return out
 
 
 def _shifted(v, d: int, axis: int, reverse: bool, fill: float):
@@ -89,7 +167,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.library("tridiag")
     fn = lib.mgt_tridiag
     fn.argtypes = ([ctypes.c_int] * 6 + [ctypes.c_void_p] * 5
-                   + [ctypes.c_double, ctypes.c_void_p, ctypes.c_void_p])
+                   + [ctypes.c_double] + [ctypes.c_void_p] * 3)
     fn.restype = ctypes.c_int
     return lib
 
@@ -157,13 +235,14 @@ def line_apply(mode: str, alpha, pivot, cprime, axis: int, r, x=None,
     outer_c = alpha.numel() // (n * inner)
     outer = r.numel() // (n * inner)
     out = torch.empty_like(r)
+    plan = _plan_array(outer, n, inner, r.element_size(), mode)
     lib = _lib()
     rc = lib.mgt_tridiag(
         _DTYPES[r.dtype], x is not None, outer, outer_c, n, inner,
         alpha.data_ptr(), pivot.data_ptr(), cprime.data_ptr(), r.data_ptr(),
         None if x is None else x.data_ptr(),
         float(omega), out.data_ptr(),
-        torch.cuda.current_stream(r.device).cuda_stream)
+        torch.cuda.current_stream(r.device).cuda_stream, plan.ctypes.data)
     _build.check(lib, rc, f"tridiag[{mode}]")
     LAUNCHES[mode] += 1
     return out

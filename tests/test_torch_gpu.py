@@ -12,7 +12,14 @@ import torch
 
 pytestmark = pytest.mark.gpu
 
-DIMS = [(16, 16, 16), (18, 24, 30)]
+# mesh dims; node grids 17^3, (19, 25, 31), and three at kernel A's plan
+# edges: (16, 17, 33) has X = 16 planes, one x-run, and y, z one node past
+# the (16, 32) tile; (12, 41, 71) fewer planes than one run, ragged tiles;
+# (17, 33, 35) the same with odd extents, so that it has a Galerkin level;
+# (16, 23, 100), (12, 19, 131) and (17, 25, 125) take the wide (4, 128)
+# tile at the narrowest and widest interiors it takes, ragged in y
+DIMS = [(16, 16, 16), (18, 24, 30), (32, 16, 15), (70, 40, 11),
+        (34, 32, 16), (99, 22, 15), (130, 18, 11), (124, 24, 16)]
 
 
 def _need_card():
@@ -21,8 +28,8 @@ def _need_card():
 
 
 def _operators(dims):
-    """The shifted nodal Laplacian (nd=7) and its Galerkin coarsening
-    (nd=27) on the card."""
+    """The shifted nodal Laplacian (nd=7) and, where every node extent is
+    odd, its Galerkin coarsening (nd=27) on the card."""
     import mgtpu_torch as mt
     from mgtpu_torch.models.operators import nodal_laplacian_matrix
     from mgtpu_torch.ops.grid_stencil import (compress_grid_stencil,
@@ -35,12 +42,14 @@ def _operators(dims):
          ).tocsr().astype(np.float32)
     nodes = [d + 1 for d in dims]
     A7 = make_grid_stencil(L, nodes, device="cuda")
+    if any(n % 2 == 0 for n in nodes):
+        return [A7]
     A27 = compress_grid_stencil(structured_fw_rap(
         grid_stencil_from_csr(L, nodes)), device="cuda")
-    return A7, A27
+    return [A7, A27]
 
 
-@pytest.mark.parametrize("m", [1, 2])
+@pytest.mark.parametrize("m", [1, 2, 3])
 @pytest.mark.parametrize("dims", DIMS)
 def test_kernels_match_plain_versions(dims, m):
     _need_card()
@@ -64,10 +73,42 @@ def test_kernels_match_plain_versions(dims, m):
         assert float((r1 - r1p).abs().max() / r1p.abs().max()) < 1e-4
 
 
+@pytest.mark.parametrize("dims", [(16, 16, 16), (124, 24, 16)])
+def test_kernel_a_any_tap_order(dims):
+    """Kernel A takes its tap offsets from the stencil description when
+    they are not the sorted 7- or 27-point set: the same operators with
+    their taps listed in reverse order, narrow and wide tiles."""
+    _need_card()
+    from mgtpu_torch.ops.cuda import const3d
+    from mgtpu_torch.ops.grid_stencil import (GridStencil,
+                                              compress_grid_stencil,
+                                              grid_stencil_from_csr)
+    import mgtpu_torch as mt
+    from mgtpu_torch.models.operators import nodal_laplacian_matrix
+    M = mt.get_regular_mesh([0.0, 1.0] * 3, list(dims))
+    L = nodal_laplacian_matrix(M)
+    L = (L + 1e-4 * abs(L).sum(0).max() * sp.identity(L.shape[0])
+         ).tocsr().astype(np.float32)
+    gs = grid_stencil_from_csr(L, [d + 1 for d in dims])
+    rev = GridStencil(np.ascontiguousarray(np.asarray(gs.coeff)[::-1]),
+                      tuple(reversed(gs.offsets)), gs.grid)
+    A = compress_grid_stencil(rev, device="cuda")
+    assert A.offsets[0] == (1, 0, 0)
+    rng = np.random.RandomState(5)
+    x, b, p = (torch.tensor(rng.rand(2, *A.grid).astype(np.float32),
+                            device="cuda") for _ in range(3))
+    d = torch.tensor(rng.rand(*A.grid).astype(np.float32), device="cuda")
+    for mode in const3d.MODES:
+        y = const3d.stencil3d_apply(A, mode, x, b=b, d=d, p=p)
+        ref = const3d.apply_plain(A, mode, x, b=b, d=d, p=p)
+        torch.cuda.synchronize()
+        assert float((y - ref).abs().max() / ref.abs().max()) < 2e-5, mode
+
+
 def test_wrappers_reject_what_kernels_do_not_take():
     _need_card()
     from mgtpu_torch.ops.cuda import const3d
-    A, _ = _operators((8, 8, 8))
+    A, _ = _operators((8, 8, 8))  # 9^3 nodes: both operators
     x = torch.zeros((1,) + A.grid, device="cuda")
     with pytest.raises(TypeError):
         const3d.stencil3d_apply(A, "matvec", x.double())
@@ -75,6 +116,20 @@ def test_wrappers_reject_what_kernels_do_not_take():
         const3d.stencil3d_apply(A, "matvec", x.transpose(1, 3))
     with pytest.raises(ValueError):
         const3d.stencil3d_apply(A, "residual", x, b=x[:, :-1])
+    # the C entry refuses a launch plan that does not fit the grid
+    lib = const3d._lib()
+    out = torch.empty_like(x)
+    meta = const3d.kernel_meta(A.offsets, A.grid, A.boxes)
+    good = np.asarray(const3d._plan_array(tuple(A.grid), A.boxes,
+                                         "matvec"))
+    for k in range(len(good)):
+        bad = good.copy()
+        bad[k] += 1
+        rc = lib.mgt_stencil3d_apply(
+            0, meta.ctypes.data, 1, A.const.data_ptr(), A.band.data_ptr(),
+            x.data_ptr(), None, None, None, out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream, bad.ctypes.data)
+        assert rc != 0, k
 
 
 def test_small_solve_runs_through_the_kernels():
@@ -147,6 +202,99 @@ def test_tridiag_matches_plain_on_every_axis(dims, dtype):
                 assert err < tol, (mode, lr.axis, m, err)
 
 
+def _thomas(grid, axis, dtype, seed=0):
+    """Thomas coefficients of a random diagonally dominant tridiagonal
+    operator along `axis` of `grid` (line_prec's form: alpha zero at line
+    starts, cprime zero at line ends), as tensors on the card."""
+    rng = np.random.RandomState(seed)
+    sub = -rng.uniform(0.5, 1.0, grid)
+    sup = -rng.uniform(0.5, 1.0, grid)
+    diag = 2.5 + rng.rand(*grid)
+    sub, sup, diag = (np.moveaxis(v, axis, 0) for v in (sub, sup, diag))
+    sub[0] = 0.0
+    sup[-1] = 0.0
+    piv = np.empty_like(diag)
+    cp = np.empty_like(diag)
+    for i in range(diag.shape[0]):
+        prev = cp[i - 1] if i else 0.0
+        piv[i] = 1.0 / (diag[i] - sub[i] * prev)
+        cp[i] = sup[i] * piv[i]
+    alpha = -piv * sub
+    return [torch.tensor(np.ascontiguousarray(np.moveaxis(v, 0, axis)),
+                         dtype=dtype, device="cuda")
+            for v in (alpha, piv, cp)]
+
+
+# (grid, axis, dtype): each side of the staged tile's limits (a strided
+# f32 tile fits up to n = 1610 in solve mode and 1288 in correct mode, a
+# contiguous f32 line up to 14496 and 11596 nodes, f64 half as many), 2-
+# and 3-node lines, an inner extent that is not a multiple of the tile,
+# and the long lines of a (4097, 40) grid
+VARIANT_CASES = [
+    ((1288, 9), 0, torch.float32), ((1289, 9), 0, torch.float32),
+    ((1610, 9), 0, torch.float32), ((1611, 9), 0, torch.float32),
+    ((2, 11596), 1, torch.float32), ((2, 11597), 1, torch.float32),
+    ((2, 14496), 1, torch.float32), ((2, 14497), 1, torch.float32),
+    ((2, 5798), 1, torch.float64), ((2, 5799), 1, torch.float64),
+    ((2, 7248), 1, torch.float64), ((2, 7249), 1, torch.float64),
+    ((2, 37), 0, torch.float32), ((3, 37), 0, torch.float64),
+    ((37, 2), 1, torch.float32), ((37, 3), 1, torch.float64),
+    ((4097, 40), 0, torch.float32), ((4097, 40), 1, torch.float32),
+    ((4097, 40), 0, torch.float64), ((40, 8193), 1, torch.float32),
+    ((40, 8193), 1, torch.float64), ((9, 11, 13), 1, torch.float64),
+]
+
+
+def test_variant_cases_reach_both_variants_in_both_modes():
+    """The cases above hold each variant of kernel C in each mode (a plan
+    is computed on the host, so this runs without a card)."""
+    from mgtpu_torch.ops.cuda import tridiag
+    seen = set()
+    for grid, axis, dtype in VARIANT_CASES:
+        inner = int(np.prod(grid[axis + 1:], dtype=np.int64))
+        for mode in tridiag.MODES:
+            p = tridiag.line_plan(int(np.prod(grid[:axis], dtype=np.int64)),
+                                  grid[axis], inner,
+                                  torch.tensor([], dtype=dtype).element_size(),
+                                  mode)
+            seen.add((mode, p.variant))
+    assert seen == {(m, v) for m in tridiag.MODES
+                    for v in ("staged", "streamed")}
+
+
+@pytest.mark.parametrize("case", VARIANT_CASES,
+                         ids=lambda c: f"{c[0]}-{c[1]}-{str(c[2])[6:]}")
+def test_tridiag_variant_boundaries(case):
+    """Both variants of kernel C on each side of the plan's boundary, at
+    m = 1 and m = 3 (coefficients repeated over the right-hand sides)."""
+    _need_card()
+    from mgtpu_torch.ops.cuda import tridiag
+    grid, axis, dtype = case
+    inner = int(np.prod(grid[axis + 1:], dtype=np.int64))
+    n = grid[axis]
+    tol = 2e-4 if dtype == torch.float32 else 1e-10
+    alpha, piv, cp = _thomas(grid, axis, dtype)
+    for m in (1, 3):
+        rng = np.random.RandomState(m)
+        r, x = (torch.tensor(rng.rand(m, *grid), dtype=dtype, device="cuda")
+                for _ in range(2))
+        for mode, kw in (("solve", dict(omega=0.8)),
+                         ("correct", dict(x=x, omega=0.8))):
+            plan = tridiag.line_plan(m * alpha.numel() // (n * inner), n,
+                                     inner, alpha.element_size(), mode)
+            row = (5 if mode == "correct" else 4) * alpha.element_size() * (
+                32 // alpha.element_size() + 1 if inner > 1 else 1)
+            assert plan.variant == ("staged" if n * row <= tridiag.MAX_SMEM
+                                    else "streamed")
+            n0 = tridiag.LAUNCHES[mode]
+            y = tridiag.line_apply(mode, alpha, piv, cp, axis, r, **kw)
+            ref = tridiag.line_plain(mode, alpha, piv, cp, axis, r, **kw)
+            torch.cuda.synchronize()
+            assert tridiag.LAUNCHES[mode] == n0 + 1
+            err = float((y - ref).abs().max() / ref.abs().max())
+            assert err < tol, (mode, m, plan.variant, err)
+
+
 def test_tridiag_rejects_what_the_kernel_does_not_take():
     _need_card()
     from mgtpu_torch.ops.cuda import tridiag
@@ -161,6 +309,19 @@ def test_tridiag_rejects_what_the_kernel_does_not_take():
         tridiag.line_apply("solve", *args, r.transpose(1, 2))
     with pytest.raises(ValueError):
         tridiag.line_apply("correct", *args, r, x=r[:, :-1], omega=0.8)
+    # the C entry refuses a launch plan that does not fit the shape
+    lib = tridiag._lib()
+    out = torch.empty_like(r)
+    good = np.asarray(tridiag._plan_array(9, 9, 1, 4, "solve"))
+    for k in range(len(good)):
+        bad = good.copy()
+        bad[k] += 1
+        rc = lib.mgt_tridiag(0, 0, 9, 9, 9, 1, lr.alpha.data_ptr(),
+                             lr.pivot.data_ptr(), lr.cprime.data_ptr(),
+                             r.data_ptr(), None, 1.0, out.data_ptr(),
+                             torch.cuda.current_stream().cuda_stream,
+                             bad.ctypes.data)
+        assert rc != 0, k
 
 
 def _divsig_stencils(dims, dtype):

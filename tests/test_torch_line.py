@@ -225,6 +225,77 @@ def test_line_smooth_sweeps_and_zero_sweeps():
     assert float((y - z).abs().max()) < 1e-13
 
 
+# ---------------------------------------------------------------------------
+# the kernel's launch plan (ops/cuda/tridiag.py::line_plan)
+# ---------------------------------------------------------------------------
+
+# every grid whose lines the main path solves: (a)/(c)/(f) 1025^2 and its
+# coarse levels, (d)/(e) 129^3 and its coarse levels, the semicoarsened
+# levels of (b)
+MAIN_LINE_GRIDS = [(1025, 1025), (513, 513), (257, 257), (129, 129),
+                   (65, 65), (33, 33), (513, 1025), (257, 1025),
+                   (129, 1025), (65, 513), (33, 257), (17, 129),
+                   (129, 129, 129), (65, 65, 65), (33, 33, 33), (17, 17, 17)]
+
+
+def _line_shape(grid, axis, m):
+    inner = int(np.prod(grid[axis + 1:], dtype=np.int64))
+    outer = m * int(np.prod(grid[:axis], dtype=np.int64))
+    return outer, grid[axis], inner
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("m", [1, 2, 4])
+@pytest.mark.parametrize("grid", MAIN_LINE_GRIDS,
+                         ids=lambda g: "x".join(map(str, g)))
+def test_line_plan_on_main_path_shapes(grid, m, itemsize):
+    """On every axis of every main-path grid, in both modes, the lines are
+    staged: the tile fits in a block's shared memory, a strided tile's rows
+    are whole 32-byte sectors, and the blocks cover every line once."""
+    for axis in range(len(grid)):
+        outer, n, inner = _line_shape(grid, axis, m)
+        for mode, arrays in (("solve", 4), ("correct", 5)):
+            plan = tridiag.line_plan(outer, n, inner, itemsize, mode)
+            assert plan.variant == "staged", (axis, mode, plan)
+            assert 0 < plan.smem <= tridiag.MAX_SMEM
+            warps = 1 if inner > 1 else 4 if n >= 1024 else 2 if n >= 512 \
+                else 1
+            assert plan.nchunk == 32 * warps
+            assert plan.threads == plan.nchunk * plan.tile <= 1024
+            if inner > 1:
+                assert plan.tile * itemsize >= 32
+                assert plan.smem == arrays * n * (plan.tile + 1) * itemsize
+                assert plan.blocks == outer * -(-inner // plan.tile)
+            else:
+                assert plan.smem == arrays * plan.tile * n * itemsize
+                assert (plan.blocks - 1) * plan.tile < outer <= \
+                    plan.blocks * plan.tile
+
+
+@pytest.mark.parametrize("mode", tridiag.MODES)
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("strided", [False, True])
+def test_line_plan_streams_exactly_when_a_tile_does_not_fit(strided,
+                                                            itemsize, mode):
+    """The streamed variant is chosen exactly for the line lengths whose
+    smallest staged tile (one contiguous line, or 32 / itemsize strided
+    lines with a padded row; four arrays, five in correct mode) exceeds
+    the 227 KB a block may hold."""
+    tile = 32 // itemsize if strided else 1
+    arrays = 5 if mode == "correct" else 4
+    row = arrays * ((tile + 1) if strided else 1) * itemsize
+    edge = tridiag.MAX_SMEM // row              # the longest staged line
+    for n in (2, 3, 1025, 4097, edge - 1, edge, edge + 1, 2 * edge):
+        inner = 40 if strided else 1
+        plan = tridiag.line_plan(3, n, inner, itemsize, mode)
+        fits = n * row <= tridiag.MAX_SMEM
+        assert plan.variant == ("staged" if fits else "streamed"), n
+        if not fits:
+            assert plan.smem == 0 and plan.threads == 256
+            assert plan.tile * plan.nchunk == 256 if strided else \
+                plan.tile == 8
+
+
 def test_wrapper_rejects_bad_calls():
     M, A = aniso2d(8, 5.0)
     lr = line_prec(A, M, 0.9, dtype=np.float32, axis=1)

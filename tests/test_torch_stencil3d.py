@@ -172,3 +172,67 @@ def test_dispatch_rule_is_static():
     assert not sc(off3, (5, 5, 5), torch.float64)
     assert not sc([(0, 1), (1, 0)], (5, 5), torch.float32)
     assert not sc([(0, 0, 2)], (5, 5, 5), torch.float32)
+
+
+# the grids kernel A runs on: the 3D main path's levels (129^3 nd 7, 65^3,
+# 33^3, 17^3 nd 27, and the 129^3 Galerkin operator nd 27), the card's
+# non-cubic checks and the plan's edges (X = 16 and 12 planes, y and z one
+# node past the tile, and the narrowest and widest interiors of the wide
+# tile)
+PLAN_GRIDS = [(129, 129, 129), (65, 65, 65), (33, 33, 33), (17, 17, 17),
+              (19, 25, 31), (37, 49, 61), (16, 17, 33), (12, 41, 71),
+              (16, 23, 100), (12, 19, 131)]
+
+
+def _band_boxes(grid, w=2):
+    """The disjoint band cover of compress_grid_stencil (band width w, 2 on
+    every level of the main path)."""
+    boxes = []
+    for a in range(3):
+        start = [w if p < a else 0 for p in range(3)]
+        size = [grid[p] - 2 * w if p < a else grid[p] for p in range(3)]
+        for s0 in (0, grid[a] - w):
+            st, sz = list(start), list(size)
+            st[a], sz[a] = s0, w
+            boxes.append((tuple(st), tuple(sz)))
+    return tuple(boxes)
+
+
+def test_band_boxes_helper_is_the_ports_cover():
+    L, nodes = _operator((18, 24, 30))
+    A = make_port(L, nodes, device="cpu")
+    assert _band_boxes(A.grid, A.boxes[0][1][0]) == tuple(A.boxes)
+
+
+@pytest.mark.parametrize("mode", port_c3.MODES)
+@pytest.mark.parametrize("grid", PLAN_GRIDS,
+                         ids=lambda g: "x".join(map(str, g)))
+def test_apply_plan(grid, mode):
+    """The interior x-runs cover [w, X-w) once, each nonempty and balanced;
+    the tiles cover the interior (y, z) plane; the band blocks hold every
+    band node; the rings fit in shared memory; the launch grid is legal for
+    m = 1, 2, 4 (the plan depends on neither m nor the tap count, nd 7 or
+    27)."""
+    w = 2
+    boxes = _band_boxes(grid, w)
+    plan = port_c3.apply_plan(grid, boxes, mode)
+    X, Y, Z = grid
+    runs = plan.runs(X, w)
+    assert len(runs) == plan.nruns
+    covered = [x for a, b in runs for x in range(a, b)]
+    assert covered == list(range(w, X - w))
+    assert all(b > a for a, b in runs)
+    assert max(b - a for a, b in runs) == plan.xrun
+    assert plan.xrun >= min(port_c3.XRUN_MIN, X - 2 * w)
+    wide = 4 * (Z - 2 * w) >= 3 * port_c3.TILES[1][1]
+    assert (plan.ty, plan.tz) == port_c3.TILES[wide]
+    assert plan.ntiles == -(-(Y - 2 * w) // plan.ty) * -(-(Z - 2 * w)
+                                                         // plan.tz)
+    assert plan.threads == plan.tz * plan.ty // 2
+    band = sum(int(np.prod(sz)) for _, sz in boxes)
+    assert band + (X - 2 * w) * (Y - 2 * w) * (Z - 2 * w) == X * Y * Z
+    assert (plan.nband - 1) * plan.threads < band <= plan.nband * plan.threads
+    assert plan.smem <= 232_448
+    for m in (1, 2, 4):
+        assert (plan.ntiles * plan.nruns + plan.nband) < 2 ** 31
+        assert m * X * Y * Z < 2 ** 31
