@@ -12,15 +12,18 @@ Phases, each of which raises on failure:
             3D bench operators (fine nd=7, Galerkin nd=27) at 129^3 (m=1-3),
             on the hierarchy's coarser levels, on non-cubic grids and at
             kernel A's plan edges (X = 16, ragged tiles, the wide tile);
+            kernel B also against kernel A's jacobi followed by its
+            residual (bit for bit, else 2e-5 / 1e-4), with its plan;
             then each kernel's device time (CUDA events, L2 cold at 129^3)
             at 129^3 nd 7 and 27, 65^3, 33^3 and 17^3 beside its byte bound,
-            its plain version and a conv3d yardstick, with kernel A's plan;
+            its plain version and a conv3d yardstick, with kernel A's and
+            kernel B's plans;
 4. path 3D — the 128^3 shifted nodal Laplacian (5 levels, float32):
             mg_setup + solve_mg, refined Jacobi 0.8 V(1,1) to 1e-8 (23 +- 1
             iterations), refined Chebyshev(3) V(1,0) (11 +- 1), and the
             library's default SPAI V(2,2) solve; true f64 residuals on the
             host; launch counters prove the kernels ran and no plain version
-            did;
+            did, and count kernel B's calls by grid;
 5. path 2D — the 1024^2 problem, refined Jacobi to 1e-8 (16 +- 1), plain
             torch on the card (no kernel on 2D levels);
 6. line kernel — the tridiagonal line kernel (solve and correct) against its
@@ -363,7 +366,7 @@ def phase_kernels(st, rows):
              ("mesh (18,24,30) Galerkin", An27, (1, 2))] + [
         (f"edge {k[:3]}{' Galerkin' if len(k) > 3 else ''}", A, (1, 3))
         for k, A in edge.items()]
-    from mgtpu_torch.ops.cuda import const3d
+    from mgtpu_torch.ops.cuda import const3d, fused3d
     for label, A, ms in cases:
         for m in ms:
             x, b, d, p = fields(A.grid, m, SEED)
@@ -383,11 +386,33 @@ def phase_kernels(st, rows):
                     row["max_rel_err"] = max(row["max_rel_err"], re)
                     require(re < tol, f"{name} {label} m={m}: relative "
                             f"error {re:.3e} >= {tol}")
+            # kernel B is kernel A's jacobi followed by its residual, node
+            # by node the same arithmetic: bit for bit, else within 2e-5
+            # (x') / 1e-4 (r')
+            x1, r1 = run_kernel("jacobi_residual3d", A, x, b, d, p,
+                                plain=False)
+            xa = run_kernel("stencil3d_apply.jacobi", A, x, b, d, p,
+                            plain=False)
+            ra = run_kernel("stencil3d_apply.residual", A, xa, b, d, p,
+                            plain=False)
+            same = bool(torch.equal(x1, xa) and torch.equal(r1, ra))
+            row = rows["jacobi_residual3d"]
+            row["bitwise_kernel_a"] = row.get("bitwise_kernel_a", True) and same
+            for o, r, tol in ((x1, xa, 2e-5), (r1, ra, 1e-4)):
+                re = float((o - r).abs().max() / r.abs().max())
+                require(re < tol, f"kernel B {label} m={m}: {re:.3e} from "
+                        f"kernel A's jacobi + residual (>= {tol})")
             plan = const3d.apply_plan(tuple(A.grid), A.boxes, "matvec")
+            bplan = fused3d.jacres_plan(tuple(A.grid), A.boxes)
             log(f"[kernel] {label} grid {A.grid} nd={len(A.offsets)} m={m}: "
                 f"all kernels match their plain versions (kernel A tile "
                 f"{plan.ty}x{plan.tz}, x-run {plan.xrun}, {plan.ntiles} x "
-                f"{plan.nruns} interior + {plan.nband} band blocks)")
+                f"{plan.nruns} interior + {plan.nband} band blocks); kernel B "
+                f"{'equals' if same else 'is within tolerance of'} kernel "
+                f"A's jacobi + residual (plan: {bplan.launches} launch(es), "
+                f"tile {bplan.ty}x{bplan.tz}, x-run {bplan.xrun}, "
+                f"{bplan.ntiles} x {bplan.nruns} interior + {bplan.nband} "
+                f"band + {bplan.nshell} shell blocks)")
     return [(lbl, A) for lbl, A, _ in cases[:5]]
 
 
@@ -402,7 +427,7 @@ def conv3d_yardstick(A, x):
 
 def phase_timing(timed_levels, rows):
     """Kernel, plain and yardstick device times per level (m = 1)."""
-    from mgtpu_torch.ops.cuda import const3d
+    from mgtpu_torch.ops.cuda import const3d, fused3d
     timer = Timer()
     for label, A in timed_levels:
         sets = [fields(A.grid, 1, SEED + 1 + j) for j in range(4)]
@@ -431,7 +456,9 @@ def phase_timing(timed_levels, rows):
                                           name.split(".")[1])
                 tile = f"  tile {plan.ty}x{plan.tz} x-run {plan.xrun}"
             else:
-                tile = ""
+                plan = fused3d.jacres_plan(tuple(A.grid), A.boxes)
+                tile = (f"  {plan.launches} launch(es), tile "
+                        f"{plan.ty}x{plan.tz} x-run {plan.xrun}")
             log(f"[time] {label:14s} nd={len(A.offsets):2d} {name:28s} "
                 f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
                 f"bound {bound:.4f} ms ({fbytes / 1e6:.1f} MB fields, "
@@ -455,6 +482,7 @@ def reset_counters():
                 stencil.LAUNCHES, stencil.PLAIN_CALLS):
         for k in dct:
             dct[k] = 0
+    fused3d.GRID_LAUNCHES.clear()
 
 
 def counters():
@@ -604,10 +632,16 @@ def phase_path3d(M3, L3, st_jac, card):
         f"(true f64 {rr_s:.3e})")
     require(info_s["relres"] < 1e-6, "3D SPAI solve_mg did not reach 1e-6")
     launches, plain = counters()           # ---- end of window ----
+    from mgtpu_torch.ops.cuda import fused3d
+    by_grid = {"x".join(map(str, g)): n
+               for g, n in sorted(fused3d.GRID_LAUNCHES.items())}
     log(f"[path] kernel launches: {launches}")
+    log(f"[path] kernel B calls by grid: {by_grid}")
     log(f"[path] plain-version calls on the card: {plain}")
     require(all(v > 0 for v in launches.values()),
             f"a kernel of the path was never launched: {launches}")
+    require(sum(by_grid.values()) == launches["jacobi_residual3d"],
+            f"kernel B calls by grid {by_grid} do not add up")
     require(not any(plain.values()), f"plain versions ran: {plain}")
 
     # timings after the window (they do not count toward the launches)
@@ -617,7 +651,7 @@ def phase_path3d(M3, L3, st_jac, card):
     vcycle_profile(st_jac, b, jac_ms, card)
     vcycle_ms(st_cheb, bc, card)
     per_cycle_launches(st_jac, b)
-    return launches, jac, cheb
+    return launches, by_grid
 
 
 def phase_path2d(card):
@@ -1241,7 +1275,8 @@ def main() -> int:
             for k, (rep, src, _) in KERNELS.items()}
     timed = phase_kernels(st_jac, rows)
     phase_timing(timed, rows)
-    launches, _, _ = phase_path3d(M3, L3, st_jac, card)
+    launches, b_by_grid = phase_path3d(M3, L3, st_jac, card)
+    rows["jacobi_residual3d"]["launches_by_grid"] = b_by_grid
     phase_path2d(card)
 
     t0 = time.perf_counter()

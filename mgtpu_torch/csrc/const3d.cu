@@ -84,47 +84,6 @@ struct Tile {
 using Narrow = Tile<16, 32>;              // any grid
 using Wide = Tile<4, 128>;                // interior z of 96 .. 128 nodes
 
-// Interior box extents (0 when empty).
-struct Interior {
-  int X, Y, Z;
-};
-__host__ __device__ inline Interior interior_of(const Stencil3D& s) {
-  Interior in;
-  in.X = s.X - 2 * s.w > 0 ? s.X - 2 * s.w : 0;
-  in.Y = s.Y - 2 * s.w > 0 ? s.Y - 2 * s.w : 0;
-  in.Z = s.Z - 2 * s.w > 0 ? s.Z - 2 * s.w : 0;
-  return in;
-}
-
-// The port's 7- and 27-point stencils list their offsets in sorted order
-// (make_grid_stencil, structured_fw_rap); for those the tap loop takes its
-// offsets from these tables at compile time (one shared-memory load with
-// an immediate offset per tap) instead of from the stencil description.
-template <int NT>
-struct StdTap;
-template <>
-struct StdTap<7> {   // (-1,0,0) (0,-1,0) (0,0,-1) (0,0,0) (0,0,1) (0,1,0) (1,0,0)
-  __host__ __device__ static constexpr int dx(int k) { return k == 0 ? -1 : k == 6 ? 1 : 0; }
-  __host__ __device__ static constexpr int dy(int k) { return k == 1 ? -1 : k == 5 ? 1 : 0; }
-  __host__ __device__ static constexpr int dz(int k) { return k == 2 ? -1 : k == 4 ? 1 : 0; }
-};
-template <>
-struct StdTap<27> {  // every offset of the cube, in sorted order
-  __host__ __device__ static constexpr int dx(int k) { return k / 9 - 1; }
-  __host__ __device__ static constexpr int dy(int k) { return k / 3 % 3 - 1; }
-  __host__ __device__ static constexpr int dz(int k) { return k % 3 - 1; }
-};
-
-template <int NT>
-static bool standard_taps(const Stencil3D& s) {
-  if (s.nd != NT) return false;
-  for (int k = 0; k < NT; ++k)
-    if (s.dx[k] != StdTap<NT>::dx(k) || s.dy[k] != StdTap<NT>::dy(k) ||
-        s.dz[k] != StdTap<NT>::dz(k))
-      return false;
-  return true;
-}
-
 template <int MODE, int NT, bool STD, typename TL>
 __device__ __forceinline__ void interior_block(
     const Stencil3D& s, const float* sc, int tile, int run, int ntz,
@@ -260,52 +219,6 @@ __device__ __forceinline__ void interior_block(
   }
 }
 
-// One thread per band node: box b of the disjoint cover holds
-// bn[b][0] * bn[b][1] * bn[b][2] nodes, numbered in C order after the
-// boxes before it.
-template <int MODE, int NT>
-__device__ __forceinline__ void band_block(
-    const Stencil3D& s, const float* sc, int bblock,
-    const float* __restrict__ band, const float* __restrict__ xm,
-    const float* __restrict__ bm, const float* __restrict__ d,
-    const float* __restrict__ pm, float* __restrict__ om) {
-  int e = bblock * NTH + threadIdx.y * blockDim.x + threadIdx.x;
-  int ix = -1, iy = 0, iz = 0;
-#pragma unroll
-  for (int b = 0; b < 6; ++b) {
-    const int nz = s.bn[b][2], nyz = s.bn[b][1] * nz;
-    const int cnt = s.bn[b][0] * nyz;
-    if (ix < 0 && e < cnt) {
-      const int lx = e / nyz, r = e - lx * nyz, ly = r / nz;
-      ix = s.bs[b][0] + lx;
-      iy = s.bs[b][1] + ly;
-      iz = s.bs[b][2] + (r - ly * nz);
-    }
-    e -= cnt;
-  }
-  if (ix < 0) return;                                 // past the band
-  const int plane = s.Y * s.Z;
-  const int i = ix * plane + iy * s.Z + iz;
-  const float* xc = xm + i;
-  const float* pc = MODE == 3 ? pm + i : nullptr;     // s = x + p
-  auto load = [&](int dx, int dy, int dz) {
-    const int o = dx * plane + dy * s.Z + dz;
-    float v = __ldg(xc + o);
-    if constexpr (MODE == 3) v += __ldg(pc + o);
-    return v;
-  };
-  const float ax = mgt_apply_node<NT, true>(s, sc, band, ix, iy, iz, load);
-  if constexpr (MODE == 0) {
-    om[i] = ax;
-  } else if constexpr (MODE == 1) {
-    om[i] = __ldg(bm + i) - ax;
-  } else {
-    float xi = __ldg(xc);
-    if constexpr (MODE == 3) xi += __ldg(pc);
-    om[i] = xi + __ldg(d + i) * (__ldg(bm + i) - ax);
-  }
-}
-
 // blockIdx.x < nint: interior block (tile, run); else band block.
 // blockIdx.y: right-hand side.  STD: the taps are StdTap<NT>'s.
 template <int MODE, int NT, bool STD, typename TL>
@@ -329,7 +242,9 @@ __global__ void __launch_bounds__(NTH, 3) stencil3d_apply_kernel(
     interior_block<MODE, NT, STD, TL>(s, sc, blk / nruns, blk % nruns, ntz,
                                       xrun, xm, bm, d, pm, om, ring);
   else
-    band_block<MODE, NT>(s, sc, blk - nint, band, xm, bm, d, pm, om);
+    mgt_band_node<MODE, NT>(
+        s, sc, (blk - nint) * NTH + threadIdx.y * blockDim.x + threadIdx.x,
+        band, xm, bm, d, pm, om);
 }
 
 template <int MODE, int NT, bool STD, typename TL>
@@ -398,9 +313,7 @@ static bool plan_ok(const int* plan, int mode, const Stencil3D& s) {
       smem != (wide ? Wide::bytes(mode) : Narrow::bytes(mode)))
     return false;
   const Interior in = interior_of(s);
-  long long band_nodes = 0;
-  for (int b = 0; b < 6; ++b)
-    band_nodes += (long long)s.bn[b][0] * s.bn[b][1] * s.bn[b][2];
+  const long long band_nodes = mgt_band_nodes(s);
   // the boxes and the interior cover the grid once
   if (band_nodes + (long long)in.X * in.Y * in.Z !=
       (long long)s.X * s.Y * s.Z)

@@ -1,6 +1,5 @@
 // Kernel B: double apply of a 3D constant-interior radius-1 stencil — the
-// pre-smoothing Jacobi sweep and the residual that restriction needs, in
-// one pass over the fields:
+// pre-smoothing Jacobi sweep and the residual that restriction needs:
 //   x' = x + d * (b - A x),   r' = b - A x'.
 //
 // Replaces the Pallas TPU kernel
@@ -12,19 +11,46 @@
 // and x', r' written once (5 fields); the second apply is what makes it
 // worth fusing, since r' needs x' on the neighbours of every node.
 //
-// What the design does about it: each block owns a (TX, TY, TZ) tile of
-// outputs.  One load stage brings x with a two-node halo, and b and d with
-// a one-node halo, into shared memory, every load issued together (zero
-// off the grid).  The first apply computes x' on the tile plus a one-node
-// halo from shared memory; the second writes the tile's x' and
-// r' = b - A x', again from shared memory, so x' never makes a round trip
-// through device memory.  Each block has two barriers and no chain of
-// dependent steps, which keeps the latency of a block to about one round
-// trip to memory.  The halos are recomputed by neighbouring blocks (about
-// 2x the first apply's arithmetic, extra reads served by L2, no extra
-// device-memory bytes).  Interior nodes take the constants from shared
-// memory; band nodes read their box's coefficients (zero for off-grid
-// taps), so every node is exact and no separate band-row pass is needed.
+// What the design does about it (the x-march of kernel A, const3d.cu, with
+// a second stage):
+//  * Interior blocks.  The interior box [w, X-w) x [w, Y-w) x [w, Z-w) is
+//    cut into (TY, TZ) tiles of the (y, z) plane and its x range into
+//    balanced runs; a block owns one tile and walks one run.  Planes of x
+//    with a two-node (y, z) halo, and of b and d with a one-node halo, come
+//    through cp.async rings in shared memory, DEPTH planes ahead (4-byte
+//    copies: rows of odd widths break the 16-byte rule of TMA and of
+//    16-byte cp.async).  At step t the block computes, after one barrier,
+//    x'(t) on the tile and its one-node halo from x planes t-1..t+1
+//    (stage 1) into a three-plane x' ring, and, after a second barrier,
+//    r'(t-1) on the tile from x' planes t-2..t (stage 2).  So x' never
+//    leaves the chip between the two applies: each halo cell of x' is
+//    recomputed by the neighbouring tile (1.2x the first apply's
+//    arithmetic on a 16 x 32 tile) instead of making a trip through device
+//    memory, and x, b, d leave device memory about once.  An interior block
+//    writes x' on its interior nodes and r' on the core [w+1, N-w-1).
+//  * The band.  Band nodes read per-node coefficients, and r' next to the
+//    band needs x' on band nodes; coefficient loads inside the march's
+//    barriers made kernel A 2x slower.  So the band stays out of the
+//    march, in one of two forms chosen by the launch plan:
+//      split (two launches): band blocks of the first launch compute x' on
+//      the band, one thread per node; a second launch computes r' on the
+//      shell (the band plus the interior's first layer) from the x' just
+//      written, which is still in L2.  The second launch is a programmatic
+//      dependent launch: its blocks are placed while the first launch
+//      drains and wait for it in griddepcontrol.wait.
+//      fused (one launch): shell blocks of the one launch compute x' on
+//      their node if it is a band node and r' with the x' of every
+//      neighbour recomputed from x (nd x nd taps a node).
+// Every node sums the same fmaf chain over k = 0..NT-1 as kernel A
+// (constants on the interior, band coefficients on the band), and forms
+// x + d (b - ax) and b - ax as kernel A's jacobi and residual do, so the
+// outputs are bitwise kernel A's jacobi followed by its residual.  For the
+// sorted 7- and 27-point stencils the tap offsets are compile-time
+// constants; other tap orders take them from the stencil description.
+// The launch plan (form, tile, x-run, blocks, shared memory) comes from
+// ops/cuda/fused3d.py::jacres_plan.
+#include <cuda_pipeline.h>
+
 #include "stencil3d.cuh"
 
 extern "C" const char* mgt_error_string(int e) {
@@ -32,113 +58,510 @@ extern "C" const char* mgt_error_string(int e) {
 }
 
 namespace {
-constexpr int TZ = 32, TY = 8, TX = 4;    // output tile (z, y, x)
-constexpr int NTH = TZ * TY;
-constexpr int EZ = TZ + 2, EY = TY + 2, EX = TX + 2;
-constexpr int EN = EX * EY * EZ;          // x' tile, one-node halo
-constexpr int QZ = TZ + 4, QY = TY + 4, QX = TX + 4;
-constexpr int QN = QX * QY * QZ;          // x tile, two-node halo
+constexpr int NTH = 256;                  // threads of every block
+constexpr int DEPTH = 2;                  // planes in flight ahead
+constexpr int NSX = DEPTH + 3;            // x ring: t-1, t, t+1, ahead
+constexpr int NSB = DEPTH + 3;            // b ring: t-2 (stage 2 of t-1), ...
+constexpr int NSD = DEPTH + 1;            // d ring: t, ahead
+constexpr int NSY = 3;                    // x' ring: t-2, t-1, t
+constexpr int kSmemDefault = 48 * 1024;
 }  // namespace
 
-template <int NT>
-__global__ void __launch_bounds__(NTH, 4) jacobi_residual3d_kernel(
-    Stencil3D s, const float* __restrict__ cst,
-    const float* __restrict__ band, const float* __restrict__ x,
-    const float* __restrict__ b, const float* __restrict__ d,
-    float* __restrict__ x1, float* __restrict__ r1) {
-  __shared__ float sc[MGT_MAX_TAPS];
-  __shared__ float xs[QN];
-  __shared__ float ys[EN];
-  __shared__ float bs[EN];
-  __shared__ float ds[EN];
+// An interior tile of TY x TZ nodes of the (y, z) plane: blockDim is
+// (TZ, BY), each thread computing TY / BY rows in stage 2.
+template <int TY_, int TZ_>
+struct Tile {
+  static constexpr int TY = TY_, TZ = TZ_;
+  static constexpr int BY = NTH / TZ;
+  static constexpr int QZ = TZ + 4, QY = TY + 4;
+  static constexpr int QN = QY * QZ;      // x plane, two-node halo
+  static constexpr int EZ = TZ + 2, EY = TY + 2;
+  static constexpr int EN = EY * EZ;      // b, d, x' plane, one-node halo
+  // bytes of dynamic shared memory (the plan's `smem`)
+  __host__ __device__ static constexpr int bytes() {
+    return static_cast<int>(sizeof(float)) *
+           (NSX * QN + (NSB + NSD + NSY) * EN);
+  }
+};
+using Narrow = Tile<16, 32>;              // any grid
+using Wide = Tile<4, 128>;                // interior z of 96 .. 128 nodes
+
+// Six boxes (start, size) of a disjoint cover.
+struct Boxes6 {
+  int bs[6][3];
+  int bn[6][3];
+};
+
+// The interior's first layer (the interior less the core [w+1, N-w-1)),
+// covered like the band: two x-slabs of the full interior, two y-slabs
+// trimmed to the core's x range, two z-slabs trimmed to the core's x and y
+// ranges.  A side of one node has one slab, of none no slab.
+static Boxes6 layer_of(const Stencil3D& s) {
+  const Interior in = interior_of(s);
+  const int n[3] = {in.X, in.Y, in.Z};
+  const int N[3] = {s.X, s.Y, s.Z};
+  int core[3];
+  for (int a = 0; a < 3; ++a) core[a] = n[a] > 2 ? n[a] - 2 : 0;
+  Boxes6 l;
+  for (int a = 0; a < 3; ++a) {
+    for (int hi = 0; hi < 2; ++hi) {
+      int* st = l.bs[2 * a + hi];
+      int* sz = l.bn[2 * a + hi];
+      for (int p = 0; p < 3; ++p) {
+        st[p] = p < a ? s.w + 1 : s.w;
+        sz[p] = p < a ? core[p] : n[p];
+      }
+      st[a] = hi ? N[a] - s.w - 1 : s.w;
+      sz[a] = hi ? (n[a] >= 2 ? 1 : 0) : (n[a] >= 1 ? 1 : 0);
+    }
+  }
+  return l;
+}
+
+static long long box_nodes(const Boxes6& b) {
+  long long n = 0;
+  for (int k = 0; k < 6; ++k) n += (long long)b.bn[k][0] * b.bn[k][1] * b.bn[k][2];
+  return n;
+}
+
+// sum_k cr[k] * pl[dx_k + 1][c + dy_k * RZ + dz_k]: the interior tap loop on
+// three planes of a ring whose rows are RZ floats apart.
+template <int NT, bool STD, int RZ>
+__device__ __forceinline__ float tap_sum(const Stencil3D& s,
+                                         const float (&cr)[NT],
+                                         const float* const (&pl)[3], int c) {
+  float ax = 0.0f;
+#pragma unroll
+  for (int k = 0; k < NT; ++k) {
+    if constexpr (STD) {
+      const float* p = pl[StdTap<NT>::dx(k) + 1];
+      ax = fmaf(cr[k], p[c + StdTap<NT>::dy(k) * RZ + StdTap<NT>::dz(k)], ax);
+    } else {
+      const int dx = s.dx[k];
+      const float* p = dx < 0 ? pl[0] : dx > 0 ? pl[2] : pl[1];
+      ax = fmaf(cr[k], p[c + s.dy[k] * RZ + s.dz[k]], ax);
+    }
+  }
+  return ax;
+}
+
+template <int NT, bool STD, typename TL>
+__device__ __forceinline__ void interior_block(
+    const Stencil3D& s, const float* sc, int tile, int run, int ntz,
+    int xrun, const float* __restrict__ xm, const float* __restrict__ bm,
+    const float* __restrict__ d, float* __restrict__ x1m,
+    float* __restrict__ r1m, float* ring) {
+  constexpr int TY = TL::TY, TZ = TL::TZ, BY = TL::BY;
+  constexpr int QZ = TL::QZ, QN = TL::QN, EZ = TL::EZ, EN = TL::EN;
+  constexpr int NXL = (QN + NTH - 1) / NTH;  // x cells a thread loads
+  constexpr int NEL = (EN + NTH - 1) / NTH;  // b, d, x' cells a thread owns
+  float* xr = ring;                          // NSX x planes
+  float* br = xr + NSX * QN;                 // NSB b planes
+  float* dr = br + NSB * EN;                 // NSD d planes
+  float* yr = dr + NSD * EN;                 // NSY x' planes
   const int tid = threadIdx.y * TZ + threadIdx.x;
-  mgt_load_consts<NT>(s, cst, sc, tid);
-  const int ntx = (s.X + TX - 1) / TX;
-  const int z0 = blockIdx.x * TZ, y0 = blockIdx.y * TY;
-  const int x0 = (blockIdx.z % ntx) * TX;
+  const int w = s.w;
+  const int ty = tile / ntz;
+  const int y0 = w + ty * TY, z0 = w + (tile - ty * ntz) * TZ;
+  const int xa = w + run * xrun;
+  const int xb = min(s.X - w, xa + xrun);
+  const int pa = max(xa - 1, w), pb = min(xb + 1, s.X - w);   // x' planes
+  const int qa = max(xa, w + 1), qb = min(xb, s.X - w - 1);   // r' planes
   const int plane = s.Y * s.Z;
-  const int moff = (blockIdx.z / ntx) * plane * s.X;
-  const float* xm = x + moff;
-  const float* bm = b + moff;
+  float cr[NT];
 #pragma unroll
-  for (int j = 0; j < (QN + NTH - 1) / NTH; ++j) {
+  for (int k = 0; k < NT; ++k) cr[k] = sc[k];
+  // this thread's x cells of a plane (offsets within the plane; -1 off the
+  // grid, where no interior node reads)
+  int xo[NXL];
+#pragma unroll
+  for (int j = 0; j < NXL; ++j) {
     const int e = tid + j * NTH;
-    const int qz = e % QZ, qy = (e / QZ) % QY, qx = e / (QZ * QY);
-    const int gx = x0 - 2 + qx, gy = y0 - 2 + qy, gz = z0 - 2 + qz;
-    const bool in = e < QN && gx >= 0 && gx < s.X && gy >= 0 && gy < s.Y &&
-                    gz >= 0 && gz < s.Z;
-    const float v = in ? __ldg(xm + gx * plane + gy * s.Z + gz) : 0.0f;
-    if (e < QN) xs[e] = v;
+    const int qy = e / QZ, qz = e - qy * QZ;
+    const int gy = y0 - 2 + qy, gz = z0 - 2 + qz;
+    xo[j] = e < QN && gy >= 0 && gy < s.Y && gz >= 0 && gz < s.Z
+                ? gy * s.Z + gz : -1;
   }
+  // this thread's cells of the tile with its one-node halo: b and d are
+  // loaded, x' computed and the tile's x' written by the same thread.
+  // inner: bit j set when cell j is an interior node; own: and in the tile.
+  int eo[NEL], xc[NEL];
+  unsigned inner = 0, own = 0;
 #pragma unroll
-  for (int j = 0; j < (EN + NTH - 1) / NTH; ++j) {
+  for (int j = 0; j < NEL; ++j) {
     const int e = tid + j * NTH;
-    const int ez = e % EZ, ey = (e / EZ) % EY, ex = e / (EZ * EY);
-    const int gx = x0 - 1 + ex, gy = y0 - 1 + ey, gz = z0 - 1 + ez;
-    const bool in = e < EN && gx >= 0 && gx < s.X && gy >= 0 && gy < s.Y &&
-                    gz >= 0 && gz < s.Z;
-    const int i = gx * plane + gy * s.Z + gz;
-    const float bv = in ? __ldg(bm + i) : 0.0f;
-    const float dv = in ? __ldg(d + i) : 0.0f;
-    if (e < EN) {
-      bs[e] = bv;
-      ds[e] = dv;
+    const int ey = e / EZ, ez = e - ey * EZ;
+    const int gy = y0 - 1 + ey, gz = z0 - 1 + ez;   // >= w - 1 >= 0
+    const bool on = e < EN && gy < s.Y && gz < s.Z;
+    eo[j] = on ? gy * s.Z + gz : -1;
+    xc[j] = (ey + 1) * QZ + ez + 1;
+    if (on && gy >= w && gy < s.Y - w && gz >= w && gz < s.Z - w) {
+      inner |= 1u << j;
+      if (ey >= 1 && ey <= TY && ez >= 1 && ez <= TZ) own |= 1u << j;
     }
   }
-  __syncthreads();
-  for (int e = tid; e < EN; e += NTH) {
-    const int ez = e % EZ, ey = (e / EZ) % EY, ex = e / (EZ * EY);
-    const int gx = x0 - 1 + ex, gy = y0 - 1 + ey, gz = z0 - 1 + ez;
-    float v = 0.0f;
-    if (gx >= 0 && gx < s.X && gy >= 0 && gy < s.Y && gz >= 0 && gz < s.Z) {
-      const int c = ((ex + 1) * QY + ey + 1) * QZ + ez + 1;
-      auto xload = [&](int dx, int dy, int dz) {
-        return xs[c + (dx * QY + dy) * QZ + dz];
-      };
-      const float ax = mgt_apply_node<NT, false>(s, sc, band, gx, gy, gz,
-                                                 xload);
-      v = xs[c] + ds[e] * (bs[e] - ax);
+  // ring slots by plane, counted from pa - 1
+  const int base = pa - 1;
+  auto xs = [&](int gx) { return xr + ((gx - base) % NSX) * QN; };
+  auto bs = [&](int gx) { return br + ((gx - base) % NSB) * EN; };
+  auto ds = [&](int gx) { return dr + ((gx - base) % NSD) * EN; };
+  auto ys = [&](int gx) { return yr + ((gx - base) % NSY) * EN; };
+  auto issue_x = [&](int gx) {
+    const float* src = xm + gx * plane;
+    float* dst = xs(gx);
+#pragma unroll
+    for (int j = 0; j < NXL; ++j)
+      if (xo[j] >= 0)
+        __pipeline_memcpy_async(dst + tid + j * NTH, src + xo[j],
+                                sizeof(float));
+  };
+  // group t: x plane t+1, b and d planes t (empty past the last x' plane)
+  auto issue = [&](int t) {
+    if (t < pb) {
+      issue_x(t + 1);
+      const int o = t * plane;
+      float* bd = bs(t);
+      float* dd = ds(t);
+#pragma unroll
+      for (int j = 0; j < NEL; ++j) {
+        if (eo[j] < 0) continue;
+        __pipeline_memcpy_async(bd + tid + j * NTH, bm + o + eo[j],
+                                sizeof(float));
+        __pipeline_memcpy_async(dd + tid + j * NTH, d + o + eo[j],
+                                sizeof(float));
+      }
     }
-    ys[e] = v;
-  }
-  __syncthreads();
-  const int gz = z0 + threadIdx.x, gy = y0 + threadIdx.y;
-  if (gz >= s.Z || gy >= s.Y) return;
-  for (int lx = 0; lx < TX; ++lx) {
-    const int gx = x0 + lx;
-    if (gx >= s.X) break;
-    const int c = ((lx + 1) * EY + threadIdx.y + 1) * EZ + threadIdx.x + 1;
-    auto yload = [&](int dx, int dy, int dz) {
-      return ys[c + (dx * EY + dy) * EZ + dz];
-    };
-    const float ax = mgt_apply_node<NT, false>(s, sc, band, gx, gy, gz, yload);
-    const int i = gx * plane + gy * s.Z + gz;
-    x1[moff + i] = ys[c];
-    r1[moff + i] = bs[c] - ax;
+    __pipeline_commit();
+  };
+
+  issue_x(pa - 1);                                    // prologue
+  issue_x(pa);
+  __pipeline_commit();
+  for (int q = 0; q < DEPTH; ++q) issue(pa + q);
+  const int gz = z0 + threadIdx.x;
+  for (int t = pa; t < pb; ++t) {
+    // the slots written here were last read before the second barrier of
+    // step t-1 (x, d) or in its stage 2 (b: NSB keeps plane t-2)
+    issue(t + DEPTH);
+    __pipeline_wait_prior(DEPTH);                     // group t is here
+    __syncthreads();
+    {                                                 // stage 1: x'(t)
+      const float* const pl[3] = {xs(t - 1), xs(t), xs(t + 1)};
+      const float* bp = bs(t);
+      const float* dp = ds(t);
+      float* yp = ys(t);
+      const bool write = t >= xa && t < xb;
+      const int o = t * plane;
+#pragma unroll
+      for (int j = 0; j < NEL; ++j) {
+        if (!(inner >> j & 1u)) continue;
+        const int e = tid + j * NTH;
+        const float ax = tap_sum<NT, STD, QZ>(s, cr, pl, xc[j]);
+        const float v = pl[1][xc[j]] + dp[e] * (bp[e] - ax);
+        yp[e] = v;
+        if (write && (own >> j & 1u)) x1m[o + eo[j]] = v;
+      }
+    }
+    __syncthreads();
+    const int q = t - 1;                              // stage 2: r'(t-1)
+    if (q >= qa && q < qb) {
+      const float* const yl[3] = {ys(q - 1), ys(q), ys(q + 1)};
+      const float* bp = bs(q);
+#pragma unroll
+      for (int h = 0; h < TY / BY; ++h) {
+        const int ly = threadIdx.y + h * BY;
+        const int gy = y0 + ly;
+        if (gy < w + 1 || gy >= s.Y - w - 1 || gz < w + 1 ||
+            gz >= s.Z - w - 1)
+          continue;
+        const int c = (ly + 1) * EZ + threadIdx.x + 1;
+        const float ax = tap_sum<NT, STD, EZ>(s, cr, yl, c);
+        r1m[q * plane + gy * s.Z + gz] = bp[c] - ax;
+      }
+    }
   }
 }
 
+// Node e of the shell: the band boxes, then the layer boxes.
+__device__ __forceinline__ bool shell_node(const Stencil3D& s,
+                                           const Boxes6& layer,
+                                           int nband_nodes, int e, int& ix,
+                                           int& iy, int& iz) {
+  return e < nband_nodes
+             ? mgt_box_node(s.bs, s.bn, e, ix, iy, iz)
+             : mgt_box_node(layer.bs, layer.bn, e - nband_nodes, ix, iy, iz);
+}
+
+// The fused form's shell node e: x' on it if it is a band node, and
+// r' = b - A x' with the x' of each neighbour recomputed from x.  The
+// outer tap loop is mgt_apply_node<NT, true>'s, not unrolled.
+template <int NT>
+__device__ __forceinline__ void fused_shell_node(
+    const Stencil3D& s, const Boxes6& layer, int nband_nodes,
+    const float* sc, int e, const float* __restrict__ band,
+    const float* __restrict__ xm, const float* __restrict__ bm,
+    const float* __restrict__ d, float* __restrict__ x1m,
+    float* __restrict__ r1m) {
+  int ix, iy, iz;
+  if (!shell_node(s, layer, nband_nodes, e, ix, iy, iz)) return;
+  const int plane = s.Y * s.Z;
+  auto xprime = [&](int jx, int jy, int jz) {        // x' at a grid node
+    const int j = jx * plane + jy * s.Z + jz;
+    const float* xc = xm + j;
+    auto load = [&](int dx, int dy, int dz) {
+      return __ldg(xc + dx * plane + dy * s.Z + dz);
+    };
+    const float ax = mgt_apply_node<NT, true>(s, sc, band, jx, jy, jz, load);
+    return __ldg(xc) + __ldg(d + j) * (__ldg(bm + j) - ax);
+  };
+  const int i = ix * plane + iy * s.Z + iz;
+  const int w = s.w;
+  const bool in = ix >= w && ix < s.X - w && iy >= w && iy < s.Y - w &&
+                  iz >= w && iz < s.Z - w;
+  const float* base = band;
+  int kstride = 0;
+  if (in) {
+    // a layer node: constants, neighbours on the grid
+  } else {
+    x1m[i] = xprime(ix, iy, iz);
+    const int box = ix < w ? 0 : ix >= s.X - w ? 1 : iy < w ? 2
+                  : iy >= s.Y - w ? 3 : iz < w ? 4 : 5;
+#pragma unroll
+    for (int b = 0; b < 6; ++b) {
+      if (b == box) {
+        kstride = s.bn[b][0] * s.bn[b][1] * s.bn[b][2];
+        base = band + s.boff[b] +
+               ((ix - s.bs[b][0]) * s.bn[b][1] + (iy - s.bs[b][1])) *
+                   s.bn[b][2] + (iz - s.bs[b][2]);
+      }
+    }
+  }
+  float acc = 0.0f;
+#pragma unroll 1
+  for (int k = 0; k < NT; ++k) {
+    float a;
+    int jx = ix + s.dx[k], jy = iy + s.dy[k], jz = iz + s.dz[k];
+    if (in) {
+      a = sc[k];
+    } else {
+      a = __ldg(base + (k < s.nd ? k : 0) * kstride);
+      a = k < s.nd ? a : 0.0f;
+      jx = jx >= 0 && jx < s.X ? jx : ix;
+      jy = jy >= 0 && jy < s.Y ? jy : iy;
+      jz = jz >= 0 && jz < s.Z ? jz : iz;
+    }
+    acc = fmaf(a, xprime(jx, jy, jz), acc);
+  }
+  r1m[i] = __ldg(bm + i) - acc;
+}
+
+// First launch.  blockIdx.x < nint: interior block (tile, run); else a
+// band block (split: x' on the band) or a shell block (fused).
+// blockIdx.y: right-hand side.  STD: the taps are StdTap<NT>'s.
+template <int NT, bool STD, typename TL, bool FUSED>
+__global__ void __launch_bounds__(NTH, 3) jacres_kernel(
+    Stencil3D s, Boxes6 layer, int nband_nodes, int ntz, int nruns,
+    int xrun, int nint, const float* __restrict__ cst,
+    const float* __restrict__ band, const float* __restrict__ x,
+    const float* __restrict__ b, const float* __restrict__ d,
+    float* __restrict__ x1, float* __restrict__ r1) {
+  extern __shared__ __align__(16) float ring[];
+  __shared__ float sc[MGT_MAX_TAPS];
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  mgt_load_consts<NT>(s, cst, sc, tid);
+  __syncthreads();
+  // the shell launch (split form) may place its blocks from here on
+  asm volatile("griddepcontrol.launch_dependents;");
+  const int moff = blockIdx.y * s.X * s.Y * s.Z;
+  const float* xm = x + moff;
+  const float* bm = b + moff;
+  float* x1m = x1 + moff;
+  float* r1m = r1 + moff;
+  const int blk = blockIdx.x;
+  if (blk < nint) {                                   // block-uniform
+    interior_block<NT, STD, TL>(s, sc, blk / nruns, blk % nruns, ntz, xrun,
+                                xm, bm, d, x1m, r1m, ring);
+  } else if constexpr (FUSED) {
+    fused_shell_node<NT>(s, layer, nband_nodes, sc, (blk - nint) * NTH + tid,
+                         band, xm, bm, d, x1m, r1m);
+  } else {
+    mgt_band_node<2, NT>(s, sc, (blk - nint) * NTH + tid, band, xm, bm, d,
+                         nullptr, x1m);
+  }
+}
+
+// Second launch of the split form: r' = b - A x' on the shell, one thread
+// a node, x' read at L2 (ld.global.cg: written by the first launch).
+template <int NT>
+__global__ void __launch_bounds__(NTH) shell_residual_kernel(
+    Stencil3D s, Boxes6 layer, int nband_nodes,
+    const float* __restrict__ cst, const float* __restrict__ band,
+    const float* __restrict__ x1, const float* __restrict__ b,
+    float* __restrict__ r1) {
+  __shared__ float sc[MGT_MAX_TAPS];
+  mgt_load_consts<NT>(s, cst, sc, threadIdx.x);
+  __syncthreads();
+  asm volatile("griddepcontrol.wait;" ::: "memory");  // the first launch
+  int ix, iy, iz;
+  if (!shell_node(s, layer, nband_nodes, blockIdx.x * NTH + threadIdx.x, ix,
+                  iy, iz))
+    return;
+  const int moff = blockIdx.y * s.X * s.Y * s.Z;
+  const int plane = s.Y * s.Z;
+  const int i = ix * plane + iy * s.Z + iz;
+  const float* yc = x1 + moff + i;
+  auto load = [&](int dx, int dy, int dz) {
+    return __ldcg(yc + dx * plane + dy * s.Z + dz);
+  };
+  const float ax = mgt_apply_node<NT, true>(s, sc, band, ix, iy, iz, load);
+  r1[moff + i] = __ldg(b + moff + i) - ax;
+}
+
+// The launch plan (jacres_plan in ops/cuda/fused3d.py):
+//   plan = [ty, tz, threads, xrun, nruns, ntiles, nband, nshell, launches,
+//           smem]
+// ntiles x nruns interior blocks; launches 2 (split): nband band blocks
+// beside them and nshell blocks in the second launch; launches 1 (fused):
+// nshell shell blocks beside them and nband = 0.
+namespace {
+struct Plan {
+  int ty, tz, threads, xrun, nruns, ntiles, nband, nshell, launches, smem;
+};
+}  // namespace
+
+// True when `plan` is the plan of this grid in one of the forms: the
+// derived numbers are recomputed here, so a plan that disagrees is refused.
+static bool plan_ok(const Plan& p, const Stencil3D& s, const Boxes6& layer) {
+  const bool wide = p.ty == Wide::TY && p.tz == Wide::TZ;
+  if (!(wide || (p.ty == Narrow::TY && p.tz == Narrow::TZ)) ||
+      p.threads != NTH ||
+      p.smem != (wide ? Wide::bytes() : Narrow::bytes()) ||
+      (p.launches != 1 && p.launches != 2))
+    return false;
+  const Interior in = interior_of(s);
+  const long long band_nodes = mgt_band_nodes(s);
+  const long long inner = (long long)in.X * in.Y * in.Z;
+  // the boxes and the interior cover the grid once; the layer and the
+  // core cover the interior once
+  if (band_nodes + inner != (long long)s.X * s.Y * s.Z) return false;
+  const long long core = (long long)(in.X > 2 ? in.X - 2 : 0) *
+                         (in.Y > 2 ? in.Y - 2 : 0) * (in.Z > 2 ? in.Z - 2 : 0);
+  if (box_nodes(layer) + core != inner) return false;
+  const long long shell = band_nodes + box_nodes(layer);
+  if (p.nshell != (shell + NTH - 1) / NTH) return false;
+  if (p.nband != (p.launches == 2 ? (band_nodes + NTH - 1) / NTH : 0))
+    return false;
+  const long long side = p.launches == 2 ? p.nband : p.nshell;
+  if (inner == 0)
+    return p.xrun == 0 && p.nruns == 0 && p.ntiles == 0;
+  const long long want_tiles = (long long)((in.Y + p.ty - 1) / p.ty) *
+                               ((in.Z + p.tz - 1) / p.tz);
+  // the runs cover [w, X-w) once, balanced: every run holds a plane and
+  // xrun is the least length for nruns runs
+  return p.xrun >= 1 && p.nruns >= 1 &&
+         p.nruns == (in.X + p.xrun - 1) / p.xrun &&
+         p.xrun == (in.X + p.nruns - 1) / p.nruns && p.ntiles == want_tiles &&
+         want_tiles * p.nruns + side < (1LL << 31);
+}
+
+template <int NT, bool STD, typename TL, bool FUSED>
+static cudaError_t launch_first(const Plan& p, int m, cudaStream_t st,
+                                const Stencil3D& s, const Boxes6& layer,
+                                int nband_nodes, const float* c,
+                                const float* bd, const float* x,
+                                const float* b, const float* d, float* x1,
+                                float* r1) {
+  auto* kernel = jacres_kernel<NT, STD, TL, FUSED>;
+  if (TL::bytes() > kSmemDefault) {
+    // what the tile needs: the block also holds static shared memory
+    static const cudaError_t opt_in = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, TL::bytes());
+    if (opt_in != cudaSuccess) return opt_in;
+  }
+  const int ntz = (interior_of(s).Z + TL::TZ - 1) / TL::TZ;
+  const int nint = p.ntiles * p.nruns;
+  dim3 grid((unsigned)(nint + (FUSED ? p.nshell : p.nband)), (unsigned)m);
+  kernel<<<grid, dim3(TL::TZ, TL::BY), p.smem, st>>>(
+      s, layer, nband_nodes, ntz, p.nruns, p.xrun, nint, c, bd, x, b, d, x1,
+      r1);
+  return cudaGetLastError();
+}
+
+template <int NT, bool FUSED>
+static cudaError_t launch_tile(const Plan& p, int m, cudaStream_t st,
+                               const Stencil3D& s, const Boxes6& layer,
+                               int nband_nodes, const float* c,
+                               const float* bd, const float* x,
+                               const float* b, const float* d, float* x1,
+                               float* r1) {
+  const bool std_taps = standard_taps<NT>(s);
+  const bool wide = p.tz == Wide::TZ;
+  if (wide)
+    return std_taps ? launch_first<NT, true, Wide, FUSED>(
+                          p, m, st, s, layer, nband_nodes, c, bd, x, b, d, x1, r1)
+                    : launch_first<NT, false, Wide, FUSED>(
+                          p, m, st, s, layer, nband_nodes, c, bd, x, b, d, x1, r1);
+  return std_taps ? launch_first<NT, true, Narrow, FUSED>(
+                        p, m, st, s, layer, nband_nodes, c, bd, x, b, d, x1, r1)
+                  : launch_first<NT, false, Narrow, FUSED>(
+                        p, m, st, s, layer, nband_nodes, c, bd, x, b, d, x1, r1);
+}
+
+template <int NT>
+static cudaError_t launch_all(const Plan& p, int m, cudaStream_t st,
+                              const Stencil3D& s, const float* c,
+                              const float* bd, const float* x,
+                              const float* b, const float* d, float* x1,
+                              float* r1) {
+  const Boxes6 layer = layer_of(s);
+  const int nband_nodes = (int)mgt_band_nodes(s);
+  if (p.launches == 1)
+    return launch_tile<NT, true>(p, m, st, s, layer, nband_nodes, c, bd, x,
+                                 b, d, x1, r1);
+  cudaError_t e = launch_tile<NT, false>(p, m, st, s, layer, nband_nodes, c,
+                                         bd, x, b, d, x1, r1);
+  if (e != cudaSuccess) return e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)p.nshell, (unsigned)m);
+  cfg.blockDim = dim3(NTH);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, shell_residual_kernel<NT>, s, layer,
+                            nband_nodes, c, bd, (const float*)x1, b, r1);
+}
+
 // meta: host int32 stencil description (see stencil3d.cuh); m right-hand
-// sides share d.  Launches on `stream`; returns cudaGetLastError().
+// sides share d; plan: the host's launch plan (see plan_ok).  Launches on
+// `stream` and returns cudaGetLastError() (cudaErrorInvalidValue for a bad
+// description or plan).
 extern "C" int mgt_jacobi_residual3d(const int* meta, int m, const void* cst,
                                      const void* band, const void* x,
                                      const void* b, const void* d, void* x1,
-                                     void* r1, void* stream) {
+                                     void* r1, void* stream,
+                                     const int* plan) {
   Stencil3D s;
-  if (mgt_stencil_from_meta(meta, &s) != 0 || m < 1 ||
+  if (mgt_stencil_from_meta(meta, &s) != 0 || m < 1 || m > 65535 ||
+      s.X < 1 || s.Y < 1 || s.Z < 1 || !plan ||
       (long long)m * s.X * s.Y * s.Z >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
-  const long long nz = ((long long)s.X + TX - 1) / TX * m;
-  const long long ny = ((long long)s.Y + TY - 1) / TY;
-  if (nz > 65535 || ny > 65535) return (int)cudaErrorInvalidValue;
-  dim3 block(TZ, TY);
-  dim3 grid((unsigned)((s.Z + TZ - 1) / TZ), (unsigned)ny, (unsigned)nz);
-  auto kernel = mgt_tap_count(s.nd) == 7 ? jacobi_residual3d_kernel<7>
-                                         : jacobi_residual3d_kernel<27>;
-  kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      s, static_cast<const float*>(cst), static_cast<const float*>(band),
-      static_cast<const float*>(x), static_cast<const float*>(b),
-      static_cast<const float*>(d), static_cast<float*>(x1),
-      static_cast<float*>(r1));
+  const Plan p = {plan[0], plan[1], plan[2], plan[3], plan[4],
+                  plan[5], plan[6], plan[7], plan[8], plan[9]};
+  if (!plan_ok(p, s, layer_of(s))) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto args = [&](auto launch) {
+    return launch(p, m, st, s, static_cast<const float*>(cst),
+                  static_cast<const float*>(band),
+                  static_cast<const float*>(x), static_cast<const float*>(b),
+                  static_cast<const float*>(d), static_cast<float*>(x1),
+                  static_cast<float*>(r1));
+  };
+  const cudaError_t e = mgt_tap_count(s.nd) == 7 ? args(launch_all<7>)
+                                                 : args(launch_all<27>);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

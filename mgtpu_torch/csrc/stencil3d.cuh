@@ -1,6 +1,7 @@
 // Shared pieces of the 3D constant-interior stencil kernels (const3d.cu,
-// fused3d.cu): the stencil description passed by value and the per-node
-// tap loop.
+// fused3d.cu): the stencil description passed by value, the interior box,
+// the compile-time tap tables of the sorted 7- and 27-point stencils, the
+// walk over a disjoint cover of six boxes, and the per-node tap loops.
 //
 // Operator convention (mgtpu_torch/ops/grid_stencil.py):
 //   y[i] = sum_k coeff[k, i] * x[i + off_k]
@@ -58,6 +59,78 @@ static inline int mgt_stencil_from_meta(const int* meta, Stencil3D* s) {
   long long n = (long long)s->X * s->Y * s->Z;
   if (off >= (1LL << 31) || n >= (1LL << 31)) return -1;
   return 0;
+}
+
+// Interior box extents (0 when empty).
+struct Interior {
+  int X, Y, Z;
+};
+__host__ __device__ inline Interior interior_of(const Stencil3D& s) {
+  Interior in;
+  in.X = s.X - 2 * s.w > 0 ? s.X - 2 * s.w : 0;
+  in.Y = s.Y - 2 * s.w > 0 ? s.Y - 2 * s.w : 0;
+  in.Z = s.Z - 2 * s.w > 0 ? s.Z - 2 * s.w : 0;
+  return in;
+}
+
+// Node counts of the band boxes.
+static inline long long mgt_band_nodes(const Stencil3D& s) {
+  long long n = 0;
+  for (int b = 0; b < 6; ++b)
+    n += (long long)s.bn[b][0] * s.bn[b][1] * s.bn[b][2];
+  return n;
+}
+
+// The port's 7- and 27-point stencils list their offsets in sorted order
+// (make_grid_stencil, structured_fw_rap); for those the tap loops take
+// their offsets from these tables at compile time (one shared-memory load
+// with an immediate offset per tap) instead of from the stencil
+// description.
+template <int NT>
+struct StdTap;
+template <>
+struct StdTap<7> {   // (-1,0,0) (0,-1,0) (0,0,-1) (0,0,0) (0,0,1) (0,1,0) (1,0,0)
+  __host__ __device__ static constexpr int dx(int k) { return k == 0 ? -1 : k == 6 ? 1 : 0; }
+  __host__ __device__ static constexpr int dy(int k) { return k == 1 ? -1 : k == 5 ? 1 : 0; }
+  __host__ __device__ static constexpr int dz(int k) { return k == 2 ? -1 : k == 4 ? 1 : 0; }
+};
+template <>
+struct StdTap<27> {  // every offset of the cube, in sorted order
+  __host__ __device__ static constexpr int dx(int k) { return k / 9 - 1; }
+  __host__ __device__ static constexpr int dy(int k) { return k / 3 % 3 - 1; }
+  __host__ __device__ static constexpr int dz(int k) { return k % 3 - 1; }
+};
+
+template <int NT>
+static bool standard_taps(const Stencil3D& s) {
+  if (s.nd != NT) return false;
+  for (int k = 0; k < NT; ++k)
+    if (s.dx[k] != StdTap<NT>::dx(k) || s.dy[k] != StdTap<NT>::dy(k) ||
+        s.dz[k] != StdTap<NT>::dz(k))
+      return false;
+  return true;
+}
+
+// Node e of a disjoint cover of six boxes: box b holds
+// bn[b][0] * bn[b][1] * bn[b][2] nodes, numbered in C order after the
+// boxes before it.  Returns false past the last box.
+__device__ __forceinline__ bool mgt_box_node(const int (&bs)[6][3],
+                                             const int (&bn)[6][3], int e,
+                                             int& ix, int& iy, int& iz) {
+  ix = -1;
+#pragma unroll
+  for (int b = 0; b < 6; ++b) {
+    const int nz = bn[b][2], nyz = bn[b][1] * nz;
+    const int cnt = bn[b][0] * nyz;
+    if (ix < 0 && e < cnt) {
+      const int lx = e / nyz, r = e - lx * nyz, ly = r / nz;
+      ix = bs[b][0] + lx;
+      iy = bs[b][1] + ly;
+      iz = bs[b][2] + (r - ly * nz);
+    }
+    e -= cnt;
+  }
+  return ix >= 0;
 }
 
 // The tap loops run a compile-time count NT (7 or 27, the smallest that
@@ -125,4 +198,39 @@ __device__ __forceinline__ float mgt_apply_node(
     acc = fmaf(a, load(dx, dy, dz), acc);
   }
   return acc;
+}
+
+// One band node e (numbered over the band boxes) of kernel A's modes, its
+// taps and coefficients read from global memory:
+//   0 out = A x, 1 out = b - A x, 2 out = x + d (b - A x),
+//   3 out = s + d (b - A s) with s = x + p.
+// Kernel B's band blocks run mode 2 (x' on the band).
+template <int MODE, int NT>
+__device__ __forceinline__ void mgt_band_node(
+    const Stencil3D& s, const float* sc, int e,
+    const float* __restrict__ band, const float* __restrict__ xm,
+    const float* __restrict__ bm, const float* __restrict__ d,
+    const float* __restrict__ pm, float* __restrict__ om) {
+  int ix, iy, iz;
+  if (!mgt_box_node(s.bs, s.bn, e, ix, iy, iz)) return;   // past the band
+  const int plane = s.Y * s.Z;
+  const int i = ix * plane + iy * s.Z + iz;
+  const float* xc = xm + i;
+  const float* pc = MODE == 3 ? pm + i : nullptr;          // s = x + p
+  auto load = [&](int dx, int dy, int dz) {
+    const int o = dx * plane + dy * s.Z + dz;
+    float v = __ldg(xc + o);
+    if constexpr (MODE == 3) v += __ldg(pc + o);
+    return v;
+  };
+  const float ax = mgt_apply_node<NT, true>(s, sc, band, ix, iy, iz, load);
+  if constexpr (MODE == 0) {
+    om[i] = ax;
+  } else if constexpr (MODE == 1) {
+    om[i] = __ldg(bm + i) - ax;
+  } else {
+    float xi = __ldg(xc);
+    if constexpr (MODE == 3) xi += __ldg(pc);
+    om[i] = xi + __ldg(d + i) * (__ldg(bm + i) - ax);
+  }
 }

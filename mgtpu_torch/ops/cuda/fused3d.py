@@ -9,29 +9,48 @@ Counterpart of mgtpu/ops/pallas/fused3d.py:
 
 Kernel B (mgtpu_torch/csrc/fused3d.cu) replaces the Pallas TPU kernel
 mgtpu/ops/pallas/fused3d.py ``_jacres_kernel`` (K6) and its two x-band
-fixes: the pre-smoothing sweep and the restrict-feed residual in one pass,
-with x' kept in shared memory between the two applies.  It is bound by
-device memory (x, b, d read and x', r' written once).
+fixes: the pre-smoothing sweep and the restrict-feed residual.  It is bound
+by device memory (x, b, d read and x', r' written once).  Interior blocks
+march along x over (y, z) tiles of the interior, as kernel A does, and keep
+x' in a three-plane shared-memory ring between the two applies; they write
+x' on the interior and r' on the core [w+1, N-w-1).  The shell (the band
+and the interior's first layer) is done in one of two forms: split, band
+blocks computing x' on the band beside the interior blocks and a second
+launch computing r' on the shell; or fused, shell blocks in the one launch
+recomputing the x' of their neighbours.  `jacres_plan` computes the launch
+(form, tile, x-run, blocks, shared memory) on the host; the C entry
+refuses a plan that does not fit.
 
 As in ops/cuda/const3d.py, a CUDA tensor launches the kernel or raises and a
-CPU tensor takes the plain version; `LAUNCHES` and `PLAIN_CALLS` count both.
+CPU tensor takes the plain version; `LAUNCHES` and `PLAIN_CALLS` count both
+(one launch count per call, whatever the form's number of launches), and
+`GRID_LAUNCHES` counts kernel B's calls by grid.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..grid_stencil import const_grid_stencil_matvec
 from . import _build
 from .const3d import check_fields, kernel_meta, stencil3d_apply
 
-__all__ = ["LAUNCHES", "PLAIN_CALLS", "residual3d", "jacobi3d",
+__all__ = ["LAUNCHES", "PLAIN_CALLS", "GRID_LAUNCHES", "JacresPlan",
+           "jacres_plan", "layer_boxes", "residual3d", "jacobi3d",
            "jacobi_corr3d", "jacobi_residual3d", "jacobi_residual_plain"]
 
 LAUNCHES = {"jacobi_residual3d": 0}
 PLAIN_CALLS = {"jacobi_residual3d": 0}
+GRID_LAUNCHES: dict[tuple[int, ...], int] = {}   # kernel B calls by grid
+TILES = ((16, 32), (4, 128))   # (y, z) nodes of an interior tile: narrow, wide
+THREADS = 256
+NSX, NEP = 5, 11           # ring slots: x planes; b, d and x' planes
+BLOCKS_WANTED = 264        # interior blocks per right-hand side: 2 per SM
+XRUN_MIN = 4               # fewest planes an interior block walks
 
 
 def residual3d(A, b, x):
@@ -50,12 +69,109 @@ def jacobi_corr3d(A, d, b, x, p):
     return stencil3d_apply(A, "jacobi_corr", x, b=b, d=d, p=p)
 
 
+class JacresPlan(NamedTuple):
+    """How kernel B is launched on one grid (csrc/fused3d.cu, plan_ok).
+
+    Interior block (t, r) computes tile t (ty x tz) of the interior (y, z)
+    plane on the x-planes [w + r * xrun, min(X - w, w + (r + 1) * xrun)).
+    launches 2 (split): nband band blocks follow in the first launch, one
+    thread per band node, and nshell blocks, one thread per shell node, make
+    the second.  launches 1 (fused): nshell shell blocks follow in the one
+    launch and nband is 0.  Every block is launched once per right-hand
+    side.  smem: dynamic shared memory in bytes (the x, b, d and x' rings)."""
+    ty: int
+    tz: int
+    threads: int
+    xrun: int
+    nruns: int
+    ntiles: int
+    nband: int
+    nshell: int
+    launches: int
+    smem: int
+
+    def runs(self, X: int, w: int) -> list[tuple[int, int]]:
+        """The x-ranges of the interior runs."""
+        return [(w + r * self.xrun, min(X - w, w + (r + 1) * self.xrun))
+                for r in range(self.nruns)]
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def layer_boxes(grid, w: int):
+    """The interior's first layer (the interior [w, N-w) less the core
+    [w+1, N-w-1)) as six disjoint (start, size) boxes, covered like the band
+    (csrc/fused3d.cu, layer_of): two x-slabs of the full interior, two
+    y-slabs trimmed to the core's x range, two z-slabs trimmed to the core's
+    x and y ranges; a side of one node has one slab, of none no slab."""
+    n = [max(0, v - 2 * w) for v in grid]
+    core = [max(0, v - 2) for v in n]
+    boxes = []
+    for a in range(3):
+        for hi in (0, 1):
+            st = [w + 1 if p < a else w for p in range(3)]
+            sz = [core[p] if p < a else n[p] for p in range(3)]
+            st[a] = grid[a] - w - 1 if hi else w
+            sz[a] = int(n[a] >= 2) if hi else int(n[a] >= 1)
+            boxes.append((tuple(st), tuple(sz)))
+    return tuple(boxes)
+
+
+@functools.lru_cache(maxsize=256)
+def jacres_plan(grid, boxes, launches: int | None = None,
+                tile: tuple[int, int] | None = None) -> JacresPlan:
+    """The launch plan of kernel B on an (X, Y, Z) grid with its six band
+    boxes ((start, size) each; box 0 is the low x-slab, w planes deep).
+
+    The form: split (2 launches) unless `launches` says otherwise.  The
+    wide tile where the interior's z extent fills at least 3/4 of it
+    (129^3), else the narrow one, unless `tile` names one.  The interior's
+    x range is split into balanced runs, as many as give about
+    BLOCKS_WANTED interior blocks but none shorter than XRUN_MIN planes.
+    `launches` and `tile` pick another valid plan of the same grid, for
+    timing the forms against each other."""
+    X, Y, Z = grid
+    w = boxes[0][1][0]
+    xi, yi, zi = (max(0, v - 2 * w) for v in grid)
+    if tile is None:
+        tile = TILES[1] if 4 * zi >= 3 * TILES[1][1] else TILES[0]
+    if tile not in TILES:
+        raise ValueError(f"no kernel B tile {tile}; tiles are {TILES}")
+    ty, tz = tile
+    launches = 2 if launches is None else launches
+    if launches not in (1, 2):
+        raise ValueError(f"kernel B runs in 1 or 2 launches, not {launches}")
+    band = sum(int(np.prod(sz)) for _, sz in boxes)
+    shell = band + sum(int(np.prod(sz)) for _, sz in layer_boxes(grid, w))
+    nband = _cdiv(band, THREADS) if launches == 2 else 0
+    nshell = _cdiv(shell, THREADS)
+    smem = 4 * (NSX * (ty + 4) * (tz + 4) + NEP * (ty + 2) * (tz + 2))
+    if not (xi and yi and zi):
+        return JacresPlan(ty, tz, THREADS, 0, 0, 0, nband, nshell, launches,
+                          smem)
+    ntiles = _cdiv(yi, ty) * _cdiv(zi, tz)
+    nruns = min(_cdiv(xi, XRUN_MIN), max(1, _cdiv(BLOCKS_WANTED, ntiles)))
+    xrun = _cdiv(xi, nruns)
+    return JacresPlan(ty, tz, THREADS, xrun, _cdiv(xi, xrun), ntiles, nband,
+                      nshell, launches, smem)
+
+
+@functools.lru_cache(maxsize=256)
+def _plan_array(grid, boxes, launches=None, tile=None) -> np.ndarray:
+    out = np.asarray(jacres_plan(grid, boxes, launches, tile),
+                     dtype=np.int32)
+    out.setflags(write=False)
+    return out
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.library("fused3d")
     fn = lib.mgt_jacobi_residual3d
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_int]
-                   + [ctypes.c_void_p] * 8)
+                   + [ctypes.c_void_p] * 9)
     fn.restype = ctypes.c_int
     return lib
 
@@ -65,6 +181,11 @@ def jacobi_residual3d(A, d, b, x):
     tensor, the plain version on a CPU tensor."""
     if x.device.type == "cpu":
         return jacobi_residual_plain(A, d, b, x)
+    return _launch(A, d, b, x, _plan_array(tuple(A.grid), A.boxes))
+
+
+def _launch(A, d, b, x, plan: np.ndarray):
+    """Kernel B with a given plan (an int32 JacresPlan array)."""
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
     if b.shape != x.shape:
@@ -81,9 +202,11 @@ def jacobi_residual3d(A, d, b, x):
         kernel_meta(A.offsets, A.grid, A.boxes).ctypes.data, xr.shape[0],
         A.const.data_ptr(), A.band.data_ptr(), xr.data_ptr(), br.data_ptr(),
         d.data_ptr(), x1.data_ptr(), r1.data_ptr(),
-        torch.cuda.current_stream(x.device).cuda_stream)
+        torch.cuda.current_stream(x.device).cuda_stream, plan.ctypes.data)
     _build.check(lib, rc, "jacobi_residual3d")
     LAUNCHES["jacobi_residual3d"] += 1
+    grid = tuple(A.grid)
+    GRID_LAUNCHES[grid] = GRID_LAUNCHES.get(grid, 0) + 1
     return x1.reshape(shape), r1.reshape(shape)
 
 

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Device times of kernels A and C on one CUDA card, at every shape of the
-PERF.md kernel tables, and the event time and busy share of three cycles.
+"""Device times of kernels A, B and C on one CUDA card, at every shape of the
+PERF.md kernel tables, and the event time and busy share of four cycles.
 
     python3 scripts/kernel_times.py [--root DIR] [--label NAME] [--out FILE]
 
@@ -17,7 +17,12 @@ checkout's chip_smoke.py, so both versions are timed the same way:
   operator (nd 7), the 129^3 Galerkin operator (nd 27) and the 65^3, 33^3
   and 17^3 levels of the 3D hierarchy; beside each, the bytes bound, the
   plain version and, for matvec, conv3d of the interior constants;
-* one V-cycle of the 3D Jacobi V(1,1) hierarchy and of (a) and (d): CUDA
+* kernel B (jacobi_residual3d, m = 1) on the same five operators, beside
+  its bytes bound, its plain version and kernel A's jacobi followed by its
+  residual (the same function in two launches); where the checkout has
+  jacres_plan, also each form (split, fused) with each tile;
+* one V-cycle of the 3D Jacobi V(1,1) hierarchy, of the default SPAI
+  V(2,2) hierarchy (kernel B on every level) and of (a) and (d): CUDA
   events and torch.profiler's device time (busy share).
 
 Each kernel time is 40 calls back to back by CUDA events, rotating over four
@@ -108,18 +113,22 @@ def line_rows(cs, timer, card):
     return rows
 
 
-def stencil_rows(cs, timer, st, card):
-    """Kernel A in its four modes on the 3D levels and the 129^3 Galerkin
-    operator."""
-    from mgtpu_torch.ops.cuda import const3d
+def stencil_cases(cs, st):
+    """The five operators of the kernel A and B tables."""
     levels = [lv.A for lv in st.hier.levels[:-1]]
     t0 = time.perf_counter()
     g129 = cs.galerkin_stencil(256, "cuda")
     cs.log(f"[A] 129^3 Galerkin operator built in "
            f"{time.perf_counter() - t0:.1f} s")
-    cases = [("129^3 nd 7", levels[0]), ("129^3 nd 27", g129),
-             ("65^3 nd 27", levels[1]), ("33^3 nd 27", levels[2]),
-             ("17^3 nd 27", levels[3])]
+    return [("129^3 nd 7", levels[0]), ("129^3 nd 27", g129),
+            ("65^3 nd 27", levels[1]), ("33^3 nd 27", levels[2]),
+            ("17^3 nd 27", levels[3])]
+
+
+def stencil_rows(cs, timer, cases, card):
+    """Kernel A in its four modes on the 3D levels and the 129^3 Galerkin
+    operator."""
+    from mgtpu_torch.ops.cuda import const3d
     rows = []
     for label, A in cases:
         sets = [cs.fields(A.grid, 1, 1 + j) for j in range(4)]
@@ -154,11 +163,73 @@ def stencil_rows(cs, timer, st, card):
     return rows
 
 
-def cycle_rows(cs, st3, L3, card):
-    """One V-cycle: 3D Jacobi V(1,1), (a) and (d)."""
+def jacres_rows(cs, timer, cases, card):
+    """Kernel B on the five operators: its plan, the plain version, kernel
+    A's jacobi + residual, and (where jacres_plan exists) every form."""
+    from mgtpu_torch.ops.cuda import fused3d
+    planner = getattr(fused3d, "jacres_plan", None)
+    rows = []
+    for label, A in cases:
+        sets = [cs.fields(A.grid, 1, 1 + j) for j in range(4)]
+        nodes = int(np.prod(A.grid))
+        name = "jacobi_residual3d"
+        calls = [lambda f=f: cs.run_kernel(name, A, *f, plain=False)
+                 for f in sets]
+        ms, host_ms = timer(calls)
+        plain_ms, _ = timer([lambda f=f: cs.run_kernel(name, A, *f,
+                                                       plain=True)
+                             for f in sets])
+
+        def a_pair(f):
+            x, b, d, p = f
+            x1 = cs.run_kernel("stencil3d_apply.jacobi", A, x, b, d, p,
+                               plain=False)
+            return x1, cs.run_kernel("stencil3d_apply.residual", A, x1, b,
+                                     d, p, plain=False)
+        pair_ms, _ = timer([lambda f=f: a_pair(f) for f in sets])
+        fbytes = cs.KERNELS[name][2] * 4 * nodes
+        flops = 4 * len(A.offsets) * nodes
+        bound = max(fbytes / cs.HBM_BYTES_PER_S,
+                    flops / cs.FP32_FLOPS) * 1e3
+        x1, r1 = calls[0]()
+        xa, ra = a_pair(sets[0])
+        row = dict(kernel=name, shape=label, ms=ms, bound_ms=bound,
+                   plain_ms=plain_ms, host_ms=host_ms, share=bound / ms,
+                   a_jacobi_residual_ms=pair_ms, sha1_x=digest(x1),
+                   sha1_r=digest(r1),
+                   equals_a=bool(torch.equal(x1, xa) and torch.equal(r1, ra)),
+                   plan=None, forms=None)
+        if planner is not None:
+            grid = tuple(A.grid)
+            row["plan"] = planner(grid, A.boxes)._asdict()
+            row["forms"] = {}
+            for launches in (1, 2):
+                for tile in fused3d.TILES:
+                    plan = fused3d._plan_array(grid, A.boxes, launches, tile)
+                    fms, _ = timer([
+                        lambda f=f, plan=plan: fused3d._launch(
+                            A, f[2], f[1], f[0], plan) for f in sets])
+                    row["forms"][f"{launches} launch, {tile[0]}x{tile[1]}"] \
+                        = fms
+        rows.append(row)
+        forms = "" if row["forms"] is None else "  forms " + ", ".join(
+            f"{k} {v * 1e3:.2f}" for k, v in row["forms"].items())
+        cs.log(f"[B] {label:11s} {ms * 1e3:8.2f} us  bound "
+               f"{bound * 1e3:6.2f} us  share {bound / ms:5.1%}  A jacobi + "
+               f"residual {pair_ms * 1e3:7.2f} us  plain {plain_ms * 1e3:8.1f}"
+               f" us  bitwise A {row['equals_a']}  plan {row['plan']}{forms}"
+               f"  ({card})")
+    return rows
+
+
+def cycle_rows(cs, st3, L3, M3, card):
+    """One V-cycle: 3D Jacobi V(1,1), 3D SPAI V(2,2), (a) and (d)."""
     from mgtpu_torch import get_mg_param, mg_setup
     b3 = L3 @ np.random.RandomState(cs.SEED).rand(L3.shape[0])
-    runs = [("3D Jacobi V(1,1) 129^3", st3, b3 / np.linalg.norm(b3))]
+    b3 = b3 / np.linalg.norm(b3)
+    cfg, rp = get_mg_param(levels=5, dtype=np.float32)   # SPAI 1.0 V(2,2)
+    runs = [("3D Jacobi V(1,1) 129^3", st3, b3),
+            ("3D SPAI V(2,2) 129^3", mg_setup(L3, M3, cfg, rp), b3)]
     for key, label, make, opts, _ in cs.ANISO:
         if key not in ("a", "d"):
             continue
@@ -206,11 +277,13 @@ def main() -> int:
                            nu_pre=1, nu_post=1, dtype=np.float32)
     st3 = mg_setup(L3, M3, cfg, rp)
     timer = cs.Timer(reps=40)
+    cases = stencil_cases(cs, st3)
     out = dict(label=args.label, root=str(root), card=smi,
                kind=name, torch=torch.__version__,
                line=line_rows(cs, timer, card),
-               stencil=stencil_rows(cs, timer, st3, card),
-               cycles=cycle_rows(cs, st3, L3, card))
+               stencil=stencil_rows(cs, timer, cases, card),
+               jacres=jacres_rows(cs, timer, cases, card),
+               cycles=cycle_rows(cs, st3, L3, M3, card))
     if args.out:
         path = Path(args.out)
         path.parent.mkdir(parents=True, exist_ok=True)

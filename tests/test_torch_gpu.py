@@ -27,20 +27,25 @@ def _need_card():
         pytest.skip("needs a CUDA card (the kernels have no CPU form)")
 
 
-def _operators(dims):
-    """The shifted nodal Laplacian (nd=7) and, where every node extent is
-    odd, its Galerkin coarsening (nd=27) on the card."""
+def _shifted_laplacian(dims):
+    """The shifted nodal Laplacian (float32 CSR) and its node extents."""
     import mgtpu_torch as mt
     from mgtpu_torch.models.operators import nodal_laplacian_matrix
-    from mgtpu_torch.ops.grid_stencil import (compress_grid_stencil,
-                                              grid_stencil_from_csr,
-                                              make_grid_stencil,
-                                              structured_fw_rap)
     M = mt.get_regular_mesh([0.0, 1.0] * 3, list(dims))
     L = nodal_laplacian_matrix(M)
     L = (L + 1e-4 * abs(L).sum(0).max() * sp.identity(L.shape[0])
          ).tocsr().astype(np.float32)
-    nodes = [d + 1 for d in dims]
+    return L, [d + 1 for d in dims]
+
+
+def _operators(dims):
+    """The shifted nodal Laplacian (nd=7) and, where every node extent is
+    odd, its Galerkin coarsening (nd=27) on the card."""
+    from mgtpu_torch.ops.grid_stencil import (compress_grid_stencil,
+                                              grid_stencil_from_csr,
+                                              make_grid_stencil,
+                                              structured_fw_rap)
+    L, nodes = _shifted_laplacian(dims)
     A7 = make_grid_stencil(L, nodes, device="cuda")
     if any(n % 2 == 0 for n in nodes):
         return [A7]
@@ -103,6 +108,118 @@ def test_kernel_a_any_tap_order(dims):
         ref = const3d.apply_plain(A, mode, x, b=b, d=d, p=p)
         torch.cuda.synchronize()
         assert float((y - ref).abs().max() / ref.abs().max()) < 2e-5, mode
+
+
+def _kernel_b_forms(A):
+    """Kernel B's plans on A's grid: split and fused, each tile."""
+    from mgtpu_torch.ops.cuda import fused3d
+    return [(launches, tile, fused3d._plan_array(tuple(A.grid), A.boxes,
+                                                 launches, tile))
+            for launches in (1, 2) for tile in fused3d.TILES]
+
+
+def _check_kernel_b(A, m, seed):
+    """Every form of kernel B on A equals kernel A's jacobi followed by its
+    residual bit for bit (the same fmaf chain and elementwise expressions
+    node by node), and its plain version within 2e-5 (x') / 1e-4 (r')."""
+    from mgtpu_torch.ops.cuda import const3d, fused3d
+    rng = np.random.RandomState(seed)
+    x, b = (torch.tensor(rng.rand(m, *A.grid).astype(np.float32),
+                         device="cuda") for _ in range(2))
+    d = torch.tensor(rng.rand(*A.grid).astype(np.float32), device="cuda")
+    xa = const3d.stencil3d_apply(A, "jacobi", x, b=b, d=d)
+    ra = const3d.stencil3d_apply(A, "residual", xa, b=b)
+    x1p, r1p = fused3d.jacobi_residual_plain(A, d, b, x)
+    for launches, tile, plan in _kernel_b_forms(A):
+        n0 = fused3d.LAUNCHES["jacobi_residual3d"]
+        x1, r1 = fused3d._launch(A, d, b, x, plan)
+        torch.cuda.synchronize()
+        assert fused3d.LAUNCHES["jacobi_residual3d"] == n0 + 1
+        form = (launches, tile, m)
+        assert torch.equal(x1, xa), form
+        assert torch.equal(r1, ra), form
+        assert float((x1 - x1p).abs().max() / x1p.abs().max()) < 2e-5, form
+        assert float((r1 - r1p).abs().max() / r1p.abs().max()) < 1e-4, form
+
+
+@pytest.mark.parametrize("dims", DIMS + [(5, 16, 16)])
+def test_kernel_b_is_kernel_a_jacobi_then_residual(dims):
+    """Both forms and both tiles of kernel B on the plan-edge grids and on
+    6 x 17 x 17 nodes (a two-plane interior: no core plane), m = 1, 3."""
+    _need_card()
+    for A in _operators(dims):
+        for m in (1, 3):
+            _check_kernel_b(A, m, seed=m)
+
+
+@pytest.mark.parametrize("dims", [(2, 8, 40), (14, 15, 16)])
+def test_kernel_b_band_width_one(dims):
+    """Kernel B on one-node bands (w = 1: the x ring's two-node halo
+    reaches past the grid): 3 x 9 x 41 nodes has X < 2w + 2, a one-plane
+    interior and no core plane."""
+    _need_card()
+    from mgtpu_torch.ops.grid_stencil import (compress_grid_stencil,
+                                              grid_stencil_from_csr)
+    L, nodes = _shifted_laplacian(dims)
+    A = compress_grid_stencil(grid_stencil_from_csr(L, nodes), width=1,
+                              device="cuda")
+    assert A.boxes[0][1][0] == 1
+    for m in (1, 2):
+        _check_kernel_b(A, m, seed=m)
+
+
+@pytest.mark.parametrize("dims", [(16, 16, 16), (124, 24, 16)])
+def test_kernel_b_any_tap_order(dims):
+    """Kernel B with the tap offsets from the stencil description: the
+    reversed-tap operators of test_kernel_a_any_tap_order."""
+    _need_card()
+    from mgtpu_torch.ops.grid_stencil import (GridStencil,
+                                              compress_grid_stencil,
+                                              grid_stencil_from_csr)
+    import mgtpu_torch as mt
+    from mgtpu_torch.models.operators import nodal_laplacian_matrix
+    M = mt.get_regular_mesh([0.0, 1.0] * 3, list(dims))
+    L = nodal_laplacian_matrix(M)
+    L = (L + 1e-4 * abs(L).sum(0).max() * sp.identity(L.shape[0])
+         ).tocsr().astype(np.float32)
+    gs = grid_stencil_from_csr(L, [d + 1 for d in dims])
+    rev = GridStencil(np.ascontiguousarray(np.asarray(gs.coeff)[::-1]),
+                      tuple(reversed(gs.offsets)), gs.grid)
+    A = compress_grid_stencil(rev, device="cuda")
+    assert A.offsets[0] == (1, 0, 0)
+    _check_kernel_b(A, 2, seed=5)
+
+
+def test_kernel_b_refuses_a_plan_that_does_not_fit():
+    """The C entry of kernel B recomputes its plan: any field off by one, or
+    a fused plan that keeps band blocks, is refused; so is a float64 x."""
+    _need_card()
+    from mgtpu_torch.ops.cuda import const3d, fused3d
+    A, _ = _operators((8, 8, 8))
+    x = torch.zeros((1,) + A.grid, device="cuda")
+    with pytest.raises(TypeError):
+        fused3d.jacobi_residual3d(A, x[0], x.double(), x.double())
+    lib = fused3d._lib()
+    x1, r1 = torch.empty_like(x), torch.empty_like(x)
+    meta = const3d.kernel_meta(A.offsets, A.grid, A.boxes)
+    bads = []
+    for launches in (1, 2):
+        good = np.asarray(fused3d._plan_array(tuple(A.grid), A.boxes,
+                                              launches))
+        for k in range(len(good)):
+            bad = good.copy()
+            bad[k] += 1
+            bads.append(bad)
+        bad = good.copy()
+        bad[8] = 3 - launches                 # the other form's count
+        bads.append(bad)
+    for bad in bads:
+        rc = lib.mgt_jacobi_residual3d(
+            meta.ctypes.data, 1, A.const.data_ptr(), A.band.data_ptr(),
+            x.data_ptr(), x.data_ptr(), x[0].data_ptr(), x1.data_ptr(),
+            r1.data_ptr(), torch.cuda.current_stream().cuda_stream,
+            bad.ctypes.data)
+        assert rc != 0, bad
 
 
 def test_wrappers_reject_what_kernels_do_not_take():
