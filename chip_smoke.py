@@ -409,8 +409,8 @@ def phase_kernels(st, rows):
                 f"{plan.ty}x{plan.tz}, x-run {plan.xrun}, {plan.ntiles} x "
                 f"{plan.nruns} interior + {plan.nband} band blocks); kernel B "
                 f"{'equals' if same else 'is within tolerance of'} kernel "
-                f"A's jacobi + residual (plan: {bplan.launches} launch(es), "
-                f"tile {bplan.ty}x{bplan.tz}, x-run {bplan.xrun}, "
+                f"A's jacobi + residual (plan: tile {bplan.ty}x{bplan.tz}, "
+                f"x-run {bplan.xrun}, "
                 f"{bplan.ntiles} x {bplan.nruns} interior + {bplan.nband} "
                 f"band + {bplan.nshell} shell blocks)")
     return [(lbl, A) for lbl, A, _ in cases[:5]]
@@ -454,11 +454,9 @@ def phase_timing(timed_levels, rows):
             if name.startswith("stencil3d_apply."):
                 plan = const3d.apply_plan(tuple(A.grid), A.boxes,
                                           name.split(".")[1])
-                tile = f"  tile {plan.ty}x{plan.tz} x-run {plan.xrun}"
             else:
                 plan = fused3d.jacres_plan(tuple(A.grid), A.boxes)
-                tile = (f"  {plan.launches} launch(es), tile "
-                        f"{plan.ty}x{plan.tz} x-run {plan.xrun}")
+            tile = f"  tile {plan.ty}x{plan.tz} x-run {plan.xrun}"
             log(f"[time] {label:14s} nd={len(A.offsets):2d} {name:28s} "
                 f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
                 f"bound {bound:.4f} ms ({fbytes / 1e6:.1f} MB fields, "

@@ -19,35 +19,39 @@
 //    with a two-node (y, z) halo, and of b and d with a one-node halo, come
 //    through cp.async rings in shared memory, DEPTH planes ahead (4-byte
 //    copies: rows of odd widths break the 16-byte rule of TMA and of
-//    16-byte cp.async).  At step t the block computes, after one barrier,
-//    x'(t) on the tile and its one-node halo from x planes t-1..t+1
-//    (stage 1) into a three-plane x' ring, and, after a second barrier,
-//    r'(t-1) on the tile from x' planes t-2..t (stage 2).  So x' never
-//    leaves the chip between the two applies: each halo cell of x' is
-//    recomputed by the neighbouring tile (1.2x the first apply's
-//    arithmetic on a 16 x 32 tile) instead of making a trip through device
-//    memory, and x, b, d leave device memory about once.  An interior block
-//    writes x' on its interior nodes and r' on the core [w+1, N-w-1).
+//    16-byte cp.async).  Step t, after one barrier, computes x'(t) on the
+//    tile and its one-node halo from x planes t-1..t+1 (stage 1) into a
+//    four-plane x' ring, and r'(t-2) on the tile from x' planes t-3..t-1
+//    (stage 2): stage 2 trails stage 1 by two planes, so one barrier a
+//    step orders both.  A thread owns a few cells of the tile with its
+//    halo for both stages and keeps the values of their own column (x at
+//    t-1 and t, x' at t-3..t-1, b at t-2) in registers: of the 7 taps of a
+//    7-point node only the 4 in its plane come from shared memory, which
+//    is where the march spends its time.  x' never leaves the chip between
+//    the two applies:
+//    each halo cell of x' is recomputed by the neighbouring tile (1.2x the
+//    first apply's arithmetic on a 16 x 32 tile) instead of making a trip
+//    through device memory, and x, b, d leave device memory about once.
+//    An interior block writes x' on its interior nodes and r' on the core
+//    [w+1, N-w-1).
 //  * The band.  Band nodes read per-node coefficients, and r' next to the
 //    band needs x' on band nodes; coefficient loads inside the march's
 //    barriers made kernel A 2x slower.  So the band stays out of the
-//    march, in one of two forms chosen by the launch plan:
-//      split (two launches): band blocks of the first launch compute x' on
-//      the band, one thread per node; a second launch computes r' on the
-//      shell (the band plus the interior's first layer) from the x' just
-//      written, which is still in L2.  The second launch is a programmatic
-//      dependent launch: its blocks are placed while the first launch
-//      drains and wait for it in griddepcontrol.wait.
-//      fused (one launch): shell blocks of the one launch compute x' on
-//      their node if it is a band node and r' with the x' of every
-//      neighbour recomputed from x (nd x nd taps a node).
+//    march: band blocks of the first launch compute x' on the band, one
+//    thread per node (kernel A's band blocks in jacobi mode), and a second
+//    launch computes r' on the shell (the band plus the interior's first
+//    layer) from the x' just written, which is still in L2.  The second
+//    launch is a programmatic dependent launch: its blocks are placed
+//    while the first launch drains and wait for it in griddepcontrol.wait.
+//    (One launch whose shell threads recompute the x' of their neighbours,
+//    nd x nd taps a node, was 1.3-5x slower at every shape.)
 // Every node sums the same fmaf chain over k = 0..NT-1 as kernel A
 // (constants on the interior, band coefficients on the band), and forms
 // x + d (b - ax) and b - ax as kernel A's jacobi and residual do, so the
 // outputs are bitwise kernel A's jacobi followed by its residual.  For the
 // sorted 7- and 27-point stencils the tap offsets are compile-time
 // constants; other tap orders take them from the stencil description.
-// The launch plan (form, tile, x-run, blocks, shared memory) comes from
+// The launch plan (tile, x-run, blocks, shared memory) comes from
 // ops/cuda/fused3d.py::jacres_plan.
 #include <cuda_pipeline.h>
 
@@ -60,31 +64,25 @@ extern "C" const char* mgt_error_string(int e) {
 namespace {
 constexpr int NTH = 256;                  // threads of every block
 constexpr int DEPTH = 2;                  // planes in flight ahead
-constexpr int NSX = DEPTH + 3;            // x ring: t-1, t, t+1, ahead
-constexpr int NSB = DEPTH + 3;            // b ring: t-2 (stage 2 of t-1), ...
-constexpr int NSD = DEPTH + 1;            // d ring: t, ahead
-constexpr int NSY = 3;                    // x' ring: t-2, t-1, t
-constexpr int kSmemDefault = 48 * 1024;
-}  // namespace
+// Ring slots.  A thread issues step t+1's loads while others may still be
+// in step t (stage 1 reads x t-1..t+1, b and d t, and writes x' t; stage 2
+// reads x' t-3..t-1).
+constexpr int NSX = DEPTH + 4;            // x: t-1 .. t+DEPTH+2
+constexpr int NSB = DEPTH + 2;            // b: t .. t+DEPTH+1
+constexpr int NSD = DEPTH + 2;            // d: t .. t+DEPTH+1
+constexpr int NSY = 4;                    // x': t-3 .. t
 
-// An interior tile of TY x TZ nodes of the (y, z) plane: blockDim is
-// (TZ, BY), each thread computing TY / BY rows in stage 2.
-template <int TY_, int TZ_>
-struct Tile {
-  static constexpr int TY = TY_, TZ = TZ_;
-  static constexpr int BY = NTH / TZ;
-  static constexpr int QZ = TZ + 4, QY = TY + 4;
-  static constexpr int QN = QY * QZ;      // x plane, two-node halo
-  static constexpr int EZ = TZ + 2, EY = TY + 2;
-  static constexpr int EN = EY * EZ;      // b, d, x' plane, one-node halo
-  // bytes of dynamic shared memory (the plan's `smem`)
-  __host__ __device__ static constexpr int bytes() {
-    return static_cast<int>(sizeof(float)) *
-           (NSX * QN + (NSB + NSD + NSY) * EN);
-  }
-};
-using Narrow = Tile<16, 32>;              // any grid
-using Wide = Tile<4, 128>;                // interior z of 96 .. 128 nodes
+// The interior tile: TY x TZ nodes of the (y, z) plane (a 4 x 128 tile,
+// kernel A's best at 129^3, was 1.1-1.2x slower here: its halo is larger).
+constexpr int TY = 16, TZ = 32;
+constexpr int QZ = TZ + 4, QY = TY + 4;
+constexpr int QN = QY * QZ;               // x plane, two-node halo
+constexpr int EZ = TZ + 2, EY = TY + 2;
+constexpr int EN = EY * EZ;               // b, d, x' plane, one-node halo
+// bytes of dynamic shared memory (the plan's `smem`)
+constexpr int SMEM = static_cast<int>(sizeof(float)) *
+                     (NSX * QN + (NSB + NSD + NSY) * EN);
+}  // namespace
 
 // Six boxes (start, size) of a disjoint cover.
 struct Boxes6 {
@@ -124,18 +122,24 @@ static long long box_nodes(const Boxes6& b) {
   return n;
 }
 
-// sum_k cr[k] * pl[dx_k + 1][c + dy_k * RZ + dz_k]: the interior tap loop on
-// three planes of a ring whose rows are RZ floats apart.
+// sum_k cr[k] * v_k, v_k the source at tap k of the node at offset c of
+// three ring planes pl[0..2] (planes t-1, t, t+1) whose rows are RZ floats
+// apart.  With STD the taps of the node's own column, (-1,0,0), (0,0,0) and
+// (1,0,0), come from the registers col[0..2] instead of shared memory.
 template <int NT, bool STD, int RZ>
 __device__ __forceinline__ float tap_sum(const Stencil3D& s,
                                          const float (&cr)[NT],
-                                         const float* const (&pl)[3], int c) {
+                                         const float* const (&pl)[3], int c,
+                                         const float (&col)[3]) {
   float ax = 0.0f;
 #pragma unroll
   for (int k = 0; k < NT; ++k) {
     if constexpr (STD) {
-      const float* p = pl[StdTap<NT>::dx(k) + 1];
-      ax = fmaf(cr[k], p[c + StdTap<NT>::dy(k) * RZ + StdTap<NT>::dz(k)], ax);
+      const int dx = StdTap<NT>::dx(k), dy = StdTap<NT>::dy(k),
+                dz = StdTap<NT>::dz(k);           // constants once unrolled
+      const float v = dy == 0 && dz == 0 ? col[dx + 1]
+                                         : pl[dx + 1][c + dy * RZ + dz];
+      ax = fmaf(cr[k], v, ax);
     } else {
       const int dx = s.dx[k];
       const float* p = dx < 0 ? pl[0] : dx > 0 ? pl[2] : pl[1];
@@ -145,21 +149,19 @@ __device__ __forceinline__ float tap_sum(const Stencil3D& s,
   return ax;
 }
 
-template <int NT, bool STD, typename TL>
+template <int NT, bool STD>
 __device__ __forceinline__ void interior_block(
     const Stencil3D& s, const float* sc, int tile, int run, int ntz,
     int xrun, const float* __restrict__ xm, const float* __restrict__ bm,
     const float* __restrict__ d, float* __restrict__ x1m,
     float* __restrict__ r1m, float* ring) {
-  constexpr int TY = TL::TY, TZ = TL::TZ, BY = TL::BY;
-  constexpr int QZ = TL::QZ, QN = TL::QN, EZ = TL::EZ, EN = TL::EN;
   constexpr int NXL = (QN + NTH - 1) / NTH;  // x cells a thread loads
-  constexpr int NEL = (EN + NTH - 1) / NTH;  // b, d, x' cells a thread owns
+  constexpr int NEL = (EN + NTH - 1) / NTH;  // cells a thread owns
   float* xr = ring;                          // NSX x planes
   float* br = xr + NSX * QN;                 // NSB b planes
   float* dr = br + NSB * EN;                 // NSD d planes
   float* yr = dr + NSD * EN;                 // NSY x' planes
-  const int tid = threadIdx.y * TZ + threadIdx.x;
+  const int tid = threadIdx.x;
   const int w = s.w;
   const int ty = tile / ntz;
   const int y0 = w + ty * TY, z0 = w + (tile - ty * ntz) * TZ;
@@ -182,11 +184,14 @@ __device__ __forceinline__ void interior_block(
     xo[j] = e < QN && gy >= 0 && gy < s.Y && gz >= 0 && gz < s.Z
                 ? gy * s.Z + gz : -1;
   }
-  // this thread's cells of the tile with its one-node halo: b and d are
-  // loaded, x' computed and the tile's x' written by the same thread.
-  // inner: bit j set when cell j is an interior node; own: and in the tile.
+  // The cells this thread owns, of the tile with its one-node halo: it
+  // loads their b and d, computes their x' (stage 1) and, where they are
+  // core nodes of the tile, their r' (stage 2), keeping the values of their
+  // own column (x at t-1, t; x' at t-3..t-1; b at t-2, t-1) in registers.
+  // inner: bit j set when cell j is an interior node; own: and in the
+  // tile; core: and in the core.
   int eo[NEL], xc[NEL];
-  unsigned inner = 0, own = 0;
+  unsigned inner = 0, own = 0, core = 0;
 #pragma unroll
   for (int j = 0; j < NEL; ++j) {
     const int e = tid + j * NTH;
@@ -197,9 +202,16 @@ __device__ __forceinline__ void interior_block(
     xc[j] = (ey + 1) * QZ + ez + 1;
     if (on && gy >= w && gy < s.Y - w && gz >= w && gz < s.Z - w) {
       inner |= 1u << j;
-      if (ey >= 1 && ey <= TY && ez >= 1 && ez <= TZ) own |= 1u << j;
+      if (ey >= 1 && ey <= TY && ez >= 1 && ez <= TZ) {
+        own |= 1u << j;
+        if (gy > w && gy < s.Y - w - 1 && gz > w && gz < s.Z - w - 1)
+          core |= 1u << j;
+      }
     }
   }
+  float xm1[NEL], x0[NEL];                   // x at t-1, t
+  float y1[NEL], y2[NEL], y3[NEL];           // x' at t-1, t-2, t-3
+  float b1[NEL], b2[NEL];                    // b at t-1, t-2
   // ring slots by plane, counted from pa - 1
   const int base = pa - 1;
   auto xs = [&](int gx) { return xr + ((gx - base) % NSX) * QN; };
@@ -238,14 +250,36 @@ __device__ __forceinline__ void interior_block(
   issue_x(pa);
   __pipeline_commit();
   for (int q = 0; q < DEPTH; ++q) issue(pa + q);
-  const int gz = z0 + threadIdx.x;
-  for (int t = pa; t < pb; ++t) {
-    // the slots written here were last read before the second barrier of
-    // step t-1 (x, d) or in its stage 2 (b: NSB keeps plane t-2)
+  for (int t = pa; t <= pb; ++t) {
     issue(t + DEPTH);
     __pipeline_wait_prior(DEPTH);                     // group t is here
     __syncthreads();
-    {                                                 // stage 1: x'(t)
+    if (t == pa) {                                    // the first column
+#pragma unroll
+      for (int j = 0; j < NEL; ++j) {
+        if (!(inner >> j & 1u)) continue;
+        xm1[j] = xs(pa - 1)[xc[j]];
+        x0[j] = xs(pa)[xc[j]];
+      }
+    }
+    // stage 2: r'(t-2) on the core cells, from x' planes t-3..t-1 (written
+    // before this step's barrier); first in program order, so that its
+    // loads and chains interleave with stage 1's
+    const int q = t - 2;
+    if (q >= qa && q < qb) {
+      const float* const yl[3] = {ys(q - 1), ys(q), ys(q + 1)};
+      const int o = q * plane;
+#pragma unroll
+      for (int j = 0; j < NEL; ++j) {
+        if (!(core >> j & 1u)) continue;
+        const float col[3] = {y3[j], y2[j], y1[j]};
+        const float ax =
+            tap_sum<NT, STD, EZ>(s, cr, yl, tid + j * NTH, col);
+        r1m[o + eo[j]] = b2[j] - ax;
+      }
+    }
+    // stage 1: x'(t) on the inner cells, from x planes t-1..t+1
+    if (t < pb) {
       const float* const pl[3] = {xs(t - 1), xs(t), xs(t + 1)};
       const float* bp = bs(t);
       const float* dp = ds(t);
@@ -254,144 +288,64 @@ __device__ __forceinline__ void interior_block(
       const int o = t * plane;
 #pragma unroll
       for (int j = 0; j < NEL; ++j) {
-        if (!(inner >> j & 1u)) continue;
         const int e = tid + j * NTH;
-        const float ax = tap_sum<NT, STD, QZ>(s, cr, pl, xc[j]);
-        const float v = pl[1][xc[j]] + dp[e] * (bp[e] - ax);
-        yp[e] = v;
-        if (write && (own >> j & 1u)) x1m[o + eo[j]] = v;
-      }
-    }
-    __syncthreads();
-    const int q = t - 1;                              // stage 2: r'(t-1)
-    if (q >= qa && q < qb) {
-      const float* const yl[3] = {ys(q - 1), ys(q), ys(q + 1)};
-      const float* bp = bs(q);
-#pragma unroll
-      for (int h = 0; h < TY / BY; ++h) {
-        const int ly = threadIdx.y + h * BY;
-        const int gy = y0 + ly;
-        if (gy < w + 1 || gy >= s.Y - w - 1 || gz < w + 1 ||
-            gz >= s.Z - w - 1)
-          continue;
-        const int c = (ly + 1) * EZ + threadIdx.x + 1;
-        const float ax = tap_sum<NT, STD, EZ>(s, cr, yl, c);
-        r1m[q * plane + gy * s.Z + gz] = bp[c] - ax;
+        float v = 0.0f, bv = 0.0f, xp = 0.0f;
+        if (inner >> j & 1u) {
+          xp = pl[2][xc[j]];
+          const float col[3] = {xm1[j], x0[j], xp};
+          const float ax = tap_sum<NT, STD, QZ>(s, cr, pl, xc[j], col);
+          bv = bp[e];
+          v = x0[j] + dp[e] * (bv - ax);
+          yp[e] = v;
+          if (write && (own >> j & 1u)) x1m[o + eo[j]] = v;
+        }
+        xm1[j] = x0[j];
+        x0[j] = xp;
+        y3[j] = y2[j];
+        y2[j] = y1[j];
+        y1[j] = v;
+        b2[j] = b1[j];
+        b1[j] = bv;
       }
     }
   }
-}
-
-// Node e of the shell: the band boxes, then the layer boxes.
-__device__ __forceinline__ bool shell_node(const Stencil3D& s,
-                                           const Boxes6& layer,
-                                           int nband_nodes, int e, int& ix,
-                                           int& iy, int& iz) {
-  return e < nband_nodes
-             ? mgt_box_node(s.bs, s.bn, e, ix, iy, iz)
-             : mgt_box_node(layer.bs, layer.bn, e - nband_nodes, ix, iy, iz);
-}
-
-// The fused form's shell node e: x' on it if it is a band node, and
-// r' = b - A x' with the x' of each neighbour recomputed from x.  The
-// outer tap loop is mgt_apply_node<NT, true>'s, not unrolled.
-template <int NT>
-__device__ __forceinline__ void fused_shell_node(
-    const Stencil3D& s, const Boxes6& layer, int nband_nodes,
-    const float* sc, int e, const float* __restrict__ band,
-    const float* __restrict__ xm, const float* __restrict__ bm,
-    const float* __restrict__ d, float* __restrict__ x1m,
-    float* __restrict__ r1m) {
-  int ix, iy, iz;
-  if (!shell_node(s, layer, nband_nodes, e, ix, iy, iz)) return;
-  const int plane = s.Y * s.Z;
-  auto xprime = [&](int jx, int jy, int jz) {        // x' at a grid node
-    const int j = jx * plane + jy * s.Z + jz;
-    const float* xc = xm + j;
-    auto load = [&](int dx, int dy, int dz) {
-      return __ldg(xc + dx * plane + dy * s.Z + dz);
-    };
-    const float ax = mgt_apply_node<NT, true>(s, sc, band, jx, jy, jz, load);
-    return __ldg(xc) + __ldg(d + j) * (__ldg(bm + j) - ax);
-  };
-  const int i = ix * plane + iy * s.Z + iz;
-  const int w = s.w;
-  const bool in = ix >= w && ix < s.X - w && iy >= w && iy < s.Y - w &&
-                  iz >= w && iz < s.Z - w;
-  const float* base = band;
-  int kstride = 0;
-  if (in) {
-    // a layer node: constants, neighbours on the grid
-  } else {
-    x1m[i] = xprime(ix, iy, iz);
-    const int box = ix < w ? 0 : ix >= s.X - w ? 1 : iy < w ? 2
-                  : iy >= s.Y - w ? 3 : iz < w ? 4 : 5;
-#pragma unroll
-    for (int b = 0; b < 6; ++b) {
-      if (b == box) {
-        kstride = s.bn[b][0] * s.bn[b][1] * s.bn[b][2];
-        base = band + s.boff[b] +
-               ((ix - s.bs[b][0]) * s.bn[b][1] + (iy - s.bs[b][1])) *
-                   s.bn[b][2] + (iz - s.bs[b][2]);
-      }
-    }
-  }
-  float acc = 0.0f;
-#pragma unroll 1
-  for (int k = 0; k < NT; ++k) {
-    float a;
-    int jx = ix + s.dx[k], jy = iy + s.dy[k], jz = iz + s.dz[k];
-    if (in) {
-      a = sc[k];
-    } else {
-      a = __ldg(base + (k < s.nd ? k : 0) * kstride);
-      a = k < s.nd ? a : 0.0f;
-      jx = jx >= 0 && jx < s.X ? jx : ix;
-      jy = jy >= 0 && jy < s.Y ? jy : iy;
-      jz = jz >= 0 && jz < s.Z ? jz : iz;
-    }
-    acc = fmaf(a, xprime(jx, jy, jz), acc);
-  }
-  r1m[i] = __ldg(bm + i) - acc;
 }
 
 // First launch.  blockIdx.x < nint: interior block (tile, run); else a
-// band block (split: x' on the band) or a shell block (fused).
-// blockIdx.y: right-hand side.  STD: the taps are StdTap<NT>'s.
-template <int NT, bool STD, typename TL, bool FUSED>
+// band block (x' on the band).  blockIdx.y: right-hand side.  STD: the
+// taps are StdTap<NT>'s.
+template <int NT, bool STD>
 __global__ void __launch_bounds__(NTH, 3) jacres_kernel(
-    Stencil3D s, Boxes6 layer, int nband_nodes, int ntz, int nruns,
-    int xrun, int nint, const float* __restrict__ cst,
-    const float* __restrict__ band, const float* __restrict__ x,
-    const float* __restrict__ b, const float* __restrict__ d,
-    float* __restrict__ x1, float* __restrict__ r1) {
+    Stencil3D s, int ntz, int nruns, int xrun, int nint,
+    const float* __restrict__ cst, const float* __restrict__ band,
+    const float* __restrict__ x, const float* __restrict__ b,
+    const float* __restrict__ d, float* __restrict__ x1,
+    float* __restrict__ r1) {
   extern __shared__ __align__(16) float ring[];
   __shared__ float sc[MGT_MAX_TAPS];
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int tid = threadIdx.x;
   mgt_load_consts<NT>(s, cst, sc, tid);
   __syncthreads();
-  // the shell launch (split form) may place its blocks from here on
+  // the shell launch may place its blocks from here on
   asm volatile("griddepcontrol.launch_dependents;");
   const int moff = blockIdx.y * s.X * s.Y * s.Z;
   const float* xm = x + moff;
   const float* bm = b + moff;
   float* x1m = x1 + moff;
-  float* r1m = r1 + moff;
   const int blk = blockIdx.x;
-  if (blk < nint) {                                   // block-uniform
-    interior_block<NT, STD, TL>(s, sc, blk / nruns, blk % nruns, ntz, xrun,
-                                xm, bm, d, x1m, r1m, ring);
-  } else if constexpr (FUSED) {
-    fused_shell_node<NT>(s, layer, nband_nodes, sc, (blk - nint) * NTH + tid,
-                         band, xm, bm, d, x1m, r1m);
-  } else {
+  if (blk < nint)                                     // block-uniform
+    interior_block<NT, STD>(s, sc, blk / nruns, blk % nruns, ntz, xrun,
+                                xm, bm, d, x1m, r1 + moff, ring);
+  else
     mgt_band_node<2, NT>(s, sc, (blk - nint) * NTH + tid, band, xm, bm, d,
                          nullptr, x1m);
-  }
 }
 
-// Second launch of the split form: r' = b - A x' on the shell, one thread
-// a node, x' read at L2 (ld.global.cg: written by the first launch).
+// Second launch: r' = b - A x' on the shell (the band boxes, then the
+// layer boxes), one thread a node.  x' is read through L1 (ld.global.ca):
+// the first launch wrote it, and this one reads it only after
+// griddepcontrol.wait, which makes those writes visible; no block of this
+// launch touched it before.
 template <int NT>
 __global__ void __launch_bounds__(NTH) shell_residual_kernel(
     Stencil3D s, Boxes6 layer, int nband_nodes,
@@ -402,41 +356,37 @@ __global__ void __launch_bounds__(NTH) shell_residual_kernel(
   mgt_load_consts<NT>(s, cst, sc, threadIdx.x);
   __syncthreads();
   asm volatile("griddepcontrol.wait;" ::: "memory");  // the first launch
+  const int e = blockIdx.x * NTH + threadIdx.x;
   int ix, iy, iz;
-  if (!shell_node(s, layer, nband_nodes, blockIdx.x * NTH + threadIdx.x, ix,
-                  iy, iz))
+  if (!(e < nband_nodes
+            ? mgt_box_node(s.bs, s.bn, e, ix, iy, iz)
+            : mgt_box_node(layer.bs, layer.bn, e - nband_nodes, ix, iy, iz)))
     return;
   const int moff = blockIdx.y * s.X * s.Y * s.Z;
   const int plane = s.Y * s.Z;
   const int i = ix * plane + iy * s.Z + iz;
   const float* yc = x1 + moff + i;
   auto load = [&](int dx, int dy, int dz) {
-    return __ldcg(yc + dx * plane + dy * s.Z + dz);
+    return __ldca(yc + dx * plane + dy * s.Z + dz);
   };
   const float ax = mgt_apply_node<NT, true>(s, sc, band, ix, iy, iz, load);
   r1[moff + i] = __ldg(b + moff + i) - ax;
 }
 
 // The launch plan (jacres_plan in ops/cuda/fused3d.py):
-//   plan = [ty, tz, threads, xrun, nruns, ntiles, nband, nshell, launches,
-//           smem]
-// ntiles x nruns interior blocks; launches 2 (split): nband band blocks
-// beside them and nshell blocks in the second launch; launches 1 (fused):
-// nshell shell blocks beside them and nband = 0.
+//   plan = [ty, tz, threads, xrun, nruns, ntiles, nband, nshell, smem]
+// ntiles x nruns interior blocks and nband band blocks make the first
+// launch, nshell shell blocks the second.
 namespace {
 struct Plan {
-  int ty, tz, threads, xrun, nruns, ntiles, nband, nshell, launches, smem;
+  int ty, tz, threads, xrun, nruns, ntiles, nband, nshell, smem;
 };
 }  // namespace
 
-// True when `plan` is the plan of this grid in one of the forms: the
-// derived numbers are recomputed here, so a plan that disagrees is refused.
+// True when `plan` is the plan of this grid: the derived numbers are
+// recomputed here, so a plan that disagrees is refused.
 static bool plan_ok(const Plan& p, const Stencil3D& s, const Boxes6& layer) {
-  const bool wide = p.ty == Wide::TY && p.tz == Wide::TZ;
-  if (!(wide || (p.ty == Narrow::TY && p.tz == Narrow::TZ)) ||
-      p.threads != NTH ||
-      p.smem != (wide ? Wide::bytes() : Narrow::bytes()) ||
-      (p.launches != 1 && p.launches != 2))
+  if (p.ty != TY || p.tz != TZ || p.threads != NTH || p.smem != SMEM)
     return false;
   const Interior in = interior_of(s);
   const long long band_nodes = mgt_band_nodes(s);
@@ -447,11 +397,9 @@ static bool plan_ok(const Plan& p, const Stencil3D& s, const Boxes6& layer) {
   const long long core = (long long)(in.X > 2 ? in.X - 2 : 0) *
                          (in.Y > 2 ? in.Y - 2 : 0) * (in.Z > 2 ? in.Z - 2 : 0);
   if (box_nodes(layer) + core != inner) return false;
-  const long long shell = band_nodes + box_nodes(layer);
-  if (p.nshell != (shell + NTH - 1) / NTH) return false;
-  if (p.nband != (p.launches == 2 ? (band_nodes + NTH - 1) / NTH : 0))
+  if (p.nband != (band_nodes + NTH - 1) / NTH ||
+      p.nshell != (band_nodes + box_nodes(layer) + NTH - 1) / NTH)
     return false;
-  const long long side = p.launches == 2 ? p.nband : p.nshell;
   if (inner == 0)
     return p.xrun == 0 && p.nruns == 0 && p.ntiles == 0;
   const long long want_tiles = (long long)((in.Y + p.ty - 1) / p.ty) *
@@ -461,50 +409,26 @@ static bool plan_ok(const Plan& p, const Stencil3D& s, const Boxes6& layer) {
   return p.xrun >= 1 && p.nruns >= 1 &&
          p.nruns == (in.X + p.xrun - 1) / p.xrun &&
          p.xrun == (in.X + p.nruns - 1) / p.nruns && p.ntiles == want_tiles &&
-         want_tiles * p.nruns + side < (1LL << 31);
+         want_tiles * p.nruns + p.nband < (1LL << 31);
 }
 
-template <int NT, bool STD, typename TL, bool FUSED>
+template <int NT, bool STD>
 static cudaError_t launch_first(const Plan& p, int m, cudaStream_t st,
-                                const Stencil3D& s, const Boxes6& layer,
-                                int nband_nodes, const float* c,
+                                const Stencil3D& s, const float* c,
                                 const float* bd, const float* x,
                                 const float* b, const float* d, float* x1,
                                 float* r1) {
-  auto* kernel = jacres_kernel<NT, STD, TL, FUSED>;
-  if (TL::bytes() > kSmemDefault) {
-    // what the tile needs: the block also holds static shared memory
-    static const cudaError_t opt_in = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, TL::bytes());
-    if (opt_in != cudaSuccess) return opt_in;
-  }
-  const int ntz = (interior_of(s).Z + TL::TZ - 1) / TL::TZ;
+  auto* kernel = jacres_kernel<NT, STD>;
+  // the rings need more than the default 48 KB of shared memory
+  static const cudaError_t opt_in = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  if (opt_in != cudaSuccess) return opt_in;
+  const int ntz = (interior_of(s).Z + TZ - 1) / TZ;
   const int nint = p.ntiles * p.nruns;
-  dim3 grid((unsigned)(nint + (FUSED ? p.nshell : p.nband)), (unsigned)m);
-  kernel<<<grid, dim3(TL::TZ, TL::BY), p.smem, st>>>(
-      s, layer, nband_nodes, ntz, p.nruns, p.xrun, nint, c, bd, x, b, d, x1,
-      r1);
+  dim3 grid((unsigned)(nint + p.nband), (unsigned)m);
+  kernel<<<grid, NTH, p.smem, st>>>(s, ntz, p.nruns, p.xrun, nint, c, bd, x,
+                                    b, d, x1, r1);
   return cudaGetLastError();
-}
-
-template <int NT, bool FUSED>
-static cudaError_t launch_tile(const Plan& p, int m, cudaStream_t st,
-                               const Stencil3D& s, const Boxes6& layer,
-                               int nband_nodes, const float* c,
-                               const float* bd, const float* x,
-                               const float* b, const float* d, float* x1,
-                               float* r1) {
-  const bool std_taps = standard_taps<NT>(s);
-  const bool wide = p.tz == Wide::TZ;
-  if (wide)
-    return std_taps ? launch_first<NT, true, Wide, FUSED>(
-                          p, m, st, s, layer, nband_nodes, c, bd, x, b, d, x1, r1)
-                    : launch_first<NT, false, Wide, FUSED>(
-                          p, m, st, s, layer, nband_nodes, c, bd, x, b, d, x1, r1);
-  return std_taps ? launch_first<NT, true, Narrow, FUSED>(
-                        p, m, st, s, layer, nband_nodes, c, bd, x, b, d, x1, r1)
-                  : launch_first<NT, false, Narrow, FUSED>(
-                        p, m, st, s, layer, nband_nodes, c, bd, x, b, d, x1, r1);
 }
 
 template <int NT>
@@ -513,13 +437,10 @@ static cudaError_t launch_all(const Plan& p, int m, cudaStream_t st,
                               const float* bd, const float* x,
                               const float* b, const float* d, float* x1,
                               float* r1) {
-  const Boxes6 layer = layer_of(s);
-  const int nband_nodes = (int)mgt_band_nodes(s);
-  if (p.launches == 1)
-    return launch_tile<NT, true>(p, m, st, s, layer, nband_nodes, c, bd, x,
-                                 b, d, x1, r1);
-  cudaError_t e = launch_tile<NT, false>(p, m, st, s, layer, nband_nodes, c,
-                                         bd, x, b, d, x1, r1);
+  const cudaError_t e =
+      standard_taps<NT>(s)
+          ? launch_first<NT, true>(p, m, st, s, c, bd, x, b, d, x1, r1)
+          : launch_first<NT, false>(p, m, st, s, c, bd, x, b, d, x1, r1);
   if (e != cudaSuccess) return e;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)p.nshell, (unsigned)m);
@@ -531,8 +452,9 @@ static cudaError_t launch_all(const Plan& p, int m, cudaStream_t st,
   attr[0].val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, shell_residual_kernel<NT>, s, layer,
-                            nband_nodes, c, bd, (const float*)x1, b, r1);
+  return cudaLaunchKernelEx(&cfg, shell_residual_kernel<NT>, s, layer_of(s),
+                            (int)mgt_band_nodes(s), c, bd, (const float*)x1,
+                            b, r1);
 }
 
 // meta: host int32 stencil description (see stencil3d.cuh); m right-hand
@@ -550,7 +472,7 @@ extern "C" int mgt_jacobi_residual3d(const int* meta, int m, const void* cst,
       (long long)m * s.X * s.Y * s.Z >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
   const Plan p = {plan[0], plan[1], plan[2], plan[3], plan[4],
-                  plan[5], plan[6], plan[7], plan[8], plan[9]};
+                  plan[5], plan[6], plan[7], plan[8]};
   if (!plan_ok(p, s, layer_of(s))) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto args = [&](auto launch) {

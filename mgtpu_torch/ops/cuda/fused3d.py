@@ -11,19 +11,17 @@ Kernel B (mgtpu_torch/csrc/fused3d.cu) replaces the Pallas TPU kernel
 mgtpu/ops/pallas/fused3d.py ``_jacres_kernel`` (K6) and its two x-band
 fixes: the pre-smoothing sweep and the restrict-feed residual.  It is bound
 by device memory (x, b, d read and x', r' written once).  Interior blocks
-march along x over (y, z) tiles of the interior, as kernel A does, and keep
-x' in a three-plane shared-memory ring between the two applies; they write
-x' on the interior and r' on the core [w+1, N-w-1).  The shell (the band
-and the interior's first layer) is done in one of two forms: split, band
-blocks computing x' on the band beside the interior blocks and a second
-launch computing r' on the shell; or fused, shell blocks in the one launch
-recomputing the x' of their neighbours.  `jacres_plan` computes the launch
-(form, tile, x-run, blocks, shared memory) on the host; the C entry
-refuses a plan that does not fit.
+march along x over 16 x 32 (y, z) tiles of the interior, as kernel A does,
+and keep x' in a four-plane shared-memory ring between the two applies; they
+write x' on the interior and r' on the core [w+1, N-w-1).  Band blocks
+beside them compute x' on the band, and a second launch computes r' on the
+shell (the band and the interior's first layer).  `jacres_plan` computes
+the launch (x-runs, blocks, shared memory) on the host; the C entry refuses
+a plan that does not fit.
 
 As in ops/cuda/const3d.py, a CUDA tensor launches the kernel or raises and a
 CPU tensor takes the plain version; `LAUNCHES` and `PLAIN_CALLS` count both
-(one launch count per call, whatever the form's number of launches), and
+(one launch count per call, though a call is two launches), and
 `GRID_LAUNCHES` counts kernel B's calls by grid.
 """
 from __future__ import annotations
@@ -46,11 +44,11 @@ __all__ = ["LAUNCHES", "PLAIN_CALLS", "GRID_LAUNCHES", "JacresPlan",
 LAUNCHES = {"jacobi_residual3d": 0}
 PLAIN_CALLS = {"jacobi_residual3d": 0}
 GRID_LAUNCHES: dict[tuple[int, ...], int] = {}   # kernel B calls by grid
-TILES = ((16, 32), (4, 128))   # (y, z) nodes of an interior tile: narrow, wide
+TILE = (16, 32)            # (y, z) nodes of an interior tile
 THREADS = 256
-NSX, NEP = 5, 11           # ring slots: x planes; b, d and x' planes
-BLOCKS_WANTED = 264        # interior blocks per right-hand side: 2 per SM
-XRUN_MIN = 4               # fewest planes an interior block walks
+NSX, NEP = 6, 12           # ring slots: x planes; b, d and x' planes
+BLOCKS_WANTED = 384        # interior blocks per right-hand side: 3 per SM
+XRUN_MIN = 1               # fewest planes an interior block walks
 
 
 def residual3d(A, b, x):
@@ -73,12 +71,11 @@ class JacresPlan(NamedTuple):
     """How kernel B is launched on one grid (csrc/fused3d.cu, plan_ok).
 
     Interior block (t, r) computes tile t (ty x tz) of the interior (y, z)
-    plane on the x-planes [w + r * xrun, min(X - w, w + (r + 1) * xrun)).
-    launches 2 (split): nband band blocks follow in the first launch, one
-    thread per band node, and nshell blocks, one thread per shell node, make
-    the second.  launches 1 (fused): nshell shell blocks follow in the one
-    launch and nband is 0.  Every block is launched once per right-hand
-    side.  smem: dynamic shared memory in bytes (the x, b, d and x' rings)."""
+    plane on the x-planes [w + r * xrun, min(X - w, w + (r + 1) * xrun));
+    nband band blocks follow in the first launch, one thread per band node,
+    and nshell blocks, one thread per shell node, make the second.  Every
+    block is launched once per right-hand side.  smem: dynamic shared memory
+    in bytes (the x, b, d and x' rings)."""
     ty: int
     tz: int
     threads: int
@@ -87,7 +84,6 @@ class JacresPlan(NamedTuple):
     ntiles: int
     nband: int
     nshell: int
-    launches: int
     smem: int
 
     def runs(self, X: int, w: int) -> list[tuple[int, int]]:
@@ -120,48 +116,36 @@ def layer_boxes(grid, w: int):
 
 
 @functools.lru_cache(maxsize=256)
-def jacres_plan(grid, boxes, launches: int | None = None,
-                tile: tuple[int, int] | None = None) -> JacresPlan:
+def jacres_plan(grid, boxes, nruns: int | None = None) -> JacresPlan:
     """The launch plan of kernel B on an (X, Y, Z) grid with its six band
     boxes ((start, size) each; box 0 is the low x-slab, w planes deep).
 
-    The form: split (2 launches) unless `launches` says otherwise.  The
-    wide tile where the interior's z extent fills at least 3/4 of it
-    (129^3), else the narrow one, unless `tile` names one.  The interior's
-    x range is split into balanced runs, as many as give about
-    BLOCKS_WANTED interior blocks but none shorter than XRUN_MIN planes.
-    `launches` and `tile` pick another valid plan of the same grid, for
-    timing the forms against each other."""
+    The interior's x range is split into balanced runs, as many as give
+    about BLOCKS_WANTED interior blocks (at 129^3, w = 2: 32 tiles x 12
+    runs of 11 planes; below 65^3 runs of one or two planes, the fastest
+    there on an H100).  `nruns` asks for another number of runs, for timing
+    plans against each other."""
     X, Y, Z = grid
     w = boxes[0][1][0]
     xi, yi, zi = (max(0, v - 2 * w) for v in grid)
-    if tile is None:
-        tile = TILES[1] if 4 * zi >= 3 * TILES[1][1] else TILES[0]
-    if tile not in TILES:
-        raise ValueError(f"no kernel B tile {tile}; tiles are {TILES}")
-    ty, tz = tile
-    launches = 2 if launches is None else launches
-    if launches not in (1, 2):
-        raise ValueError(f"kernel B runs in 1 or 2 launches, not {launches}")
+    ty, tz = TILE
     band = sum(int(np.prod(sz)) for _, sz in boxes)
     shell = band + sum(int(np.prod(sz)) for _, sz in layer_boxes(grid, w))
-    nband = _cdiv(band, THREADS) if launches == 2 else 0
-    nshell = _cdiv(shell, THREADS)
+    nband, nshell = _cdiv(band, THREADS), _cdiv(shell, THREADS)
     smem = 4 * (NSX * (ty + 4) * (tz + 4) + NEP * (ty + 2) * (tz + 2))
     if not (xi and yi and zi):
-        return JacresPlan(ty, tz, THREADS, 0, 0, 0, nband, nshell, launches,
-                          smem)
+        return JacresPlan(ty, tz, THREADS, 0, 0, 0, nband, nshell, smem)
     ntiles = _cdiv(yi, ty) * _cdiv(zi, tz)
-    nruns = min(_cdiv(xi, XRUN_MIN), max(1, _cdiv(BLOCKS_WANTED, ntiles)))
-    xrun = _cdiv(xi, nruns)
+    if nruns is None:
+        nruns = min(_cdiv(xi, XRUN_MIN), max(1, _cdiv(BLOCKS_WANTED, ntiles)))
+    xrun = _cdiv(xi, min(max(1, nruns), xi))
     return JacresPlan(ty, tz, THREADS, xrun, _cdiv(xi, xrun), ntiles, nband,
-                      nshell, launches, smem)
+                      nshell, smem)
 
 
 @functools.lru_cache(maxsize=256)
-def _plan_array(grid, boxes, launches=None, tile=None) -> np.ndarray:
-    out = np.asarray(jacres_plan(grid, boxes, launches, tile),
-                     dtype=np.int32)
+def _plan_array(grid, boxes, nruns=None) -> np.ndarray:
+    out = np.asarray(jacres_plan(grid, boxes, nruns), dtype=np.int32)
     out.setflags(write=False)
     return out
 

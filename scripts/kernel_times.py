@@ -19,8 +19,9 @@ checkout's chip_smoke.py, so both versions are timed the same way:
   plain version and, for matvec, conv3d of the interior constants;
 * kernel B (jacobi_residual3d, m = 1) on the same five operators, beside
   its bytes bound, its plain version and kernel A's jacobi followed by its
-  residual (the same function in two launches); where the checkout has
-  jacres_plan, also each form (split, fused) with each tile;
+  residual (the same function in two launches), with the device time of
+  each of its launches (torch.profiler); where the checkout has
+  jacres_plan and with --sweep, also with x-runs of 1 to 32 planes;
 * one V-cycle of the 3D Jacobi V(1,1) hierarchy, of the default SPAI
   V(2,2) hierarchy (kernel B on every level) and of (a) and (d): CUDA
   events and torch.profiler's device time (busy share).
@@ -163,9 +164,25 @@ def stencil_rows(cs, timer, cases, card):
     return rows
 
 
-def jacres_rows(cs, timer, cases, card):
-    """Kernel B on the five operators: its plan, the plain version, kernel
-    A's jacobi + residual, and (where jacres_plan exists) every form."""
+def launch_times(calls, reps=20):
+    """Device time per call of each kernel the calls launch (torch.profiler
+    over `reps` calls), by kernel name; None without device events."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(reps):
+            calls[i % len(calls)]()
+        torch.cuda.synchronize()
+    out = {e.key.split("<")[0].split("(")[0]: e.self_device_time_total
+           / reps / 1e3 for e in prof.key_averages()
+           if e.self_device_time_total > 0}
+    return out or None
+
+
+def jacres_rows(cs, timer, cases, card, sweep=False):
+    """Kernel B on the five operators: its plan, its launches, the plain
+    version, kernel A's jacobi + residual, and (where jacres_plan exists,
+    with `sweep`) each x-run."""
     from mgtpu_torch.ops.cuda import fused3d
     planner = getattr(fused3d, "jacres_plan", None)
     rows = []
@@ -198,27 +215,28 @@ def jacres_rows(cs, timer, cases, card):
                    a_jacobi_residual_ms=pair_ms, sha1_x=digest(x1),
                    sha1_r=digest(r1),
                    equals_a=bool(torch.equal(x1, xa) and torch.equal(r1, ra)),
-                   plan=None, forms=None)
+                   launch_ms=launch_times(calls), plan=None, sweep=None)
         if planner is not None:
             grid = tuple(A.grid)
             row["plan"] = planner(grid, A.boxes)._asdict()
-            row["forms"] = {}
-            for launches in (1, 2):
-                for tile in fused3d.TILES:
-                    plan = fused3d._plan_array(grid, A.boxes, launches, tile)
-                    fms, _ = timer([
+            if sweep:
+                row["sweep"] = {}
+                xi = row["plan"]["xrun"] * row["plan"]["nruns"]
+                for xrun in (1, 2, 3, 4, 6, 8, 11, 14, 20, 32):
+                    plan = fused3d._plan_array(grid, A.boxes, -(-xi // xrun))
+                    row["sweep"][f"x-run {plan[3]}"] = timer([
                         lambda f=f, plan=plan: fused3d._launch(
-                            A, f[2], f[1], f[0], plan) for f in sets])
-                    row["forms"][f"{launches} launch, {tile[0]}x{tile[1]}"] \
-                        = fms
+                            A, f[2], f[1], f[0], plan) for f in sets])[0]
         rows.append(row)
-        forms = "" if row["forms"] is None else "  forms " + ", ".join(
-            f"{k} {v * 1e3:.2f}" for k, v in row["forms"].items())
         cs.log(f"[B] {label:11s} {ms * 1e3:8.2f} us  bound "
                f"{bound * 1e3:6.2f} us  share {bound / ms:5.1%}  A jacobi + "
                f"residual {pair_ms * 1e3:7.2f} us  plain {plain_ms * 1e3:8.1f}"
-               f" us  bitwise A {row['equals_a']}  plan {row['plan']}{forms}"
-               f"  ({card})")
+               f" us  bitwise A {row['equals_a']}  launches (us) "
+               f"{ {k: round(v * 1e3, 2) for k, v in (row['launch_ms'] or {}).items()} }"
+               f"  plan {row['plan']}  ({card})")
+        if row["sweep"]:
+            cs.log(f"[B] {label:11s} sweep (us): " + ", ".join(
+                f"{k} {v * 1e3:.2f}" for k, v in row["sweep"].items()))
     return rows
 
 
@@ -254,6 +272,8 @@ def main() -> int:
                     help="checkout whose mgtpu_torch is timed")
     ap.add_argument("--label", default="change")
     ap.add_argument("--out", default=None, help="JSON file to write")
+    ap.add_argument("--sweep", action="store_true",
+                    help="also time kernel B at x-runs of 1 to 32 planes")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("kernel_times: no CUDA device; this script runs on the card",
@@ -282,7 +302,7 @@ def main() -> int:
                kind=name, torch=torch.__version__,
                line=line_rows(cs, timer, card),
                stencil=stencil_rows(cs, timer, cases, card),
-               jacres=jacres_rows(cs, timer, cases, card),
+               jacres=jacres_rows(cs, timer, cases, card, args.sweep),
                cycles=cycle_rows(cs, st3, L3, M3, card))
     if args.out:
         path = Path(args.out)

@@ -110,18 +110,11 @@ def test_kernel_a_any_tap_order(dims):
         assert float((y - ref).abs().max() / ref.abs().max()) < 2e-5, mode
 
 
-def _kernel_b_forms(A):
-    """Kernel B's plans on A's grid: split and fused, each tile."""
-    from mgtpu_torch.ops.cuda import fused3d
-    return [(launches, tile, fused3d._plan_array(tuple(A.grid), A.boxes,
-                                                 launches, tile))
-            for launches in (1, 2) for tile in fused3d.TILES]
-
-
 def _check_kernel_b(A, m, seed):
-    """Every form of kernel B on A equals kernel A's jacobi followed by its
-    residual bit for bit (the same fmaf chain and elementwise expressions
-    node by node), and its plain version within 2e-5 (x') / 1e-4 (r')."""
+    """Kernel B on A, with one-plane and default x-runs,
+    equals kernel A's jacobi followed by its residual bit for bit (the same
+    fmaf chain and elementwise expressions node by node), and its plain
+    version within 2e-5 (x') / 1e-4 (r')."""
     from mgtpu_torch.ops.cuda import const3d, fused3d
     rng = np.random.RandomState(seed)
     x, b = (torch.tensor(rng.rand(m, *A.grid).astype(np.float32),
@@ -130,12 +123,13 @@ def _check_kernel_b(A, m, seed):
     xa = const3d.stencil3d_apply(A, "jacobi", x, b=b, d=d)
     ra = const3d.stencil3d_apply(A, "residual", xa, b=b)
     x1p, r1p = fused3d.jacobi_residual_plain(A, d, b, x)
-    for launches, tile, plan in _kernel_b_forms(A):
+    for nruns in (None, 10 ** 6):
+        plan = fused3d._plan_array(tuple(A.grid), A.boxes, nruns)
         n0 = fused3d.LAUNCHES["jacobi_residual3d"]
         x1, r1 = fused3d._launch(A, d, b, x, plan)
         torch.cuda.synchronize()
         assert fused3d.LAUNCHES["jacobi_residual3d"] == n0 + 1
-        form = (launches, tile, m)
+        form = (tuple(plan), m)
         assert torch.equal(x1, xa), form
         assert torch.equal(r1, ra), form
         assert float((x1 - x1p).abs().max() / x1p.abs().max()) < 2e-5, form
@@ -144,8 +138,8 @@ def _check_kernel_b(A, m, seed):
 
 @pytest.mark.parametrize("dims", DIMS + [(5, 16, 16)])
 def test_kernel_b_is_kernel_a_jacobi_then_residual(dims):
-    """Both forms and both tiles of kernel B on the plan-edge grids and on
-    6 x 17 x 17 nodes (a two-plane interior: no core plane), m = 1, 3."""
+    """Kernel B on the plan-edge grids and on 6 x 17 x 17 nodes (a
+    two-plane interior: no core plane), m = 1, 3."""
     _need_card()
     for A in _operators(dims):
         for m in (1, 3):
@@ -191,8 +185,8 @@ def test_kernel_b_any_tap_order(dims):
 
 
 def test_kernel_b_refuses_a_plan_that_does_not_fit():
-    """The C entry of kernel B recomputes its plan: any field off by one, or
-    a fused plan that keeps band blocks, is refused; so is a float64 x."""
+    """The C entry of kernel B recomputes its plan: any field off by one is
+    refused; so is a float64 x."""
     _need_card()
     from mgtpu_torch.ops.cuda import const3d, fused3d
     A, _ = _operators((8, 8, 8))
@@ -202,18 +196,10 @@ def test_kernel_b_refuses_a_plan_that_does_not_fit():
     lib = fused3d._lib()
     x1, r1 = torch.empty_like(x), torch.empty_like(x)
     meta = const3d.kernel_meta(A.offsets, A.grid, A.boxes)
-    bads = []
-    for launches in (1, 2):
-        good = np.asarray(fused3d._plan_array(tuple(A.grid), A.boxes,
-                                              launches))
-        for k in range(len(good)):
-            bad = good.copy()
-            bad[k] += 1
-            bads.append(bad)
+    good = np.asarray(fused3d._plan_array(tuple(A.grid), A.boxes))
+    for k in range(len(good)):
         bad = good.copy()
-        bad[8] = 3 - launches                 # the other form's count
-        bads.append(bad)
-    for bad in bads:
+        bad[k] += 1
         rc = lib.mgt_jacobi_residual3d(
             meta.ctypes.data, 1, A.const.data_ptr(), A.band.data_ptr(),
             x.data_ptr(), x.data_ptr(), x[0].data_ptr(), x1.data_ptr(),

@@ -236,3 +236,79 @@ def test_apply_plan(grid, mode):
     for m in (1, 2, 4):
         assert (plan.ntiles * plan.nruns + plan.nband) < 2 ** 31
         assert m * X * Y * Z < 2 ** 31
+
+
+# the grids kernel B runs on: the 3D main path's levels, the card's
+# non-cubic checks, chip_smoke's plan-edge grids (X = 33 with y, z one node
+# past the tile; ragged tiles), grids with no core plane (X = 6 and 5, w =
+# 2; X = 3, w = 1: X < 2w + 2), and w = 1 bands
+JACRES_GRIDS = [((129, 129, 129), 2), ((65, 65, 65), 2), ((33, 33, 33), 2),
+                ((17, 17, 17), 2), ((19, 25, 31), 2), ((37, 49, 61), 2),
+                ((33, 17, 16), 2), ((100, 23, 16), 2), ((125, 25, 17), 2),
+                ((6, 17, 17), 2), ((5, 9, 9), 2), ((3, 9, 41), 1),
+                ((15, 16, 17), 1)]
+
+
+def _cover(boxes, grid):
+    """How many boxes cover each node of the grid."""
+    n = np.zeros(grid, dtype=int)
+    for st, sz in boxes:
+        n[tuple(slice(a, a + z) for a, z in zip(st, sz))] += 1
+    return n
+
+
+@pytest.mark.parametrize("nruns", [None, 1, 10 ** 6])
+@pytest.mark.parametrize("grid,w", JACRES_GRIDS,
+                         ids=lambda g: "x".join(map(str, g))
+                         if isinstance(g, tuple) else f"w{g}")
+def test_jacres_plan(grid, w, nruns):
+    """Kernel B's plan: the interior x-runs cover [w, X-w) once, each
+    nonempty and balanced; the tiles cover the interior (y, z) plane; the
+    band and layer boxes with the core cover the grid once, the band blocks
+    hold every band node and the shell blocks every band and layer node;
+    the rings fit in shared memory; the launch grid is legal for m = 1..3
+    (the plan depends on neither m nor the tap count)."""
+    boxes = _band_boxes(grid, w)
+    plan = port_f3.jacres_plan(grid, boxes, nruns)
+    X, Y, Z = grid
+    xi, yi, zi = (max(0, v - 2 * w) for v in grid)
+    assert (plan.ty, plan.tz, plan.threads) == (16, 32, 256)
+    runs = plan.runs(X, w)
+    assert len(runs) == plan.nruns
+    assert [x for a, b in runs for x in range(a, b)] == list(range(w, X - w))
+    assert all(b > a for a, b in runs)
+    if xi and yi and zi:
+        assert max(b - a for a, b in runs) == plan.xrun
+        assert plan.xrun == -(-xi // plan.nruns)
+        assert plan.ntiles == -(-yi // 16) * -(-zi // 32)
+    else:
+        assert plan.xrun == plan.nruns == plan.ntiles == 0
+    # the band, the interior's first layer and the core cover the grid once
+    layer = port_f3.layer_boxes(grid, w)
+    core = tuple(slice(w + 1, v - w - 1) for v in grid)
+    cover = _cover(boxes, grid) + _cover(layer, grid)
+    cover[core] += 1
+    assert (cover == 1).all()
+    interior = np.zeros(grid, dtype=bool)
+    interior[tuple(slice(w, v - w) for v in grid)] = True
+    assert (_cover(layer, grid)[~interior] == 0).all()
+    band = int(_cover(boxes, grid).sum())
+    shell = band + int(_cover(layer, grid).sum())
+    assert (plan.nband - 1) * 256 < band <= plan.nband * 256
+    assert (plan.nshell - 1) * 256 < shell <= plan.nshell * 256
+    assert plan.smem == 4 * (6 * 20 * 36 + 12 * 18 * 34) <= 232_448
+    for m in (1, 2, 3):
+        assert m * X * Y * Z < 2 ** 31
+        assert plan.ntiles * plan.nruns + plan.nband < 2 ** 31
+
+
+def test_jacres_plan_at_129():
+    """The documented plan of the 129^3 fine level (w = 2): 32 tiles x 12
+    runs of 11 planes, 757 band blocks, 1117 shell blocks, 46656 bytes of
+    rings; below 65^3 runs of one or two planes."""
+    grid = (129, 129, 129)
+    plan = port_f3.jacres_plan(grid, _band_boxes(grid))
+    assert tuple(plan) == (16, 32, 256, 11, 12, 32, 757, 1117, 46656)
+    for n, xrun in ((65, 2), (33, 1), (17, 1)):
+        assert port_f3.jacres_plan((n,) * 3, _band_boxes((n,) * 3)).xrun \
+            == xrun
