@@ -621,8 +621,8 @@ def phase_path3d(M3, L3, st_jac, card):
     log(f"[path] 3D Jacobi V(1,1) solve_mg: {info['iters']} cycles, relres "
         f"{info['relres']:.3e} (true f64 {rr:.3e})")
     require(info["relres"] < 1e-6, "3D solve_mg did not reach 1e-6")
-    jac = refined(st_jac, L3, b, 23, "3D Jacobi 0.8 V(1,1)", card)
-    cheb = refined(st_cheb, L3, bc, 11, "3D Chebyshev(3) V(1,0)", card)
+    refined(st_jac, L3, b, 23, "3D Jacobi 0.8 V(1,1)", card)
+    refined(st_cheb, L3, bc, 11, "3D Chebyshev(3) V(1,0)", card)
     xs, info_s = solve_mg(st_spai, b)
     rr_s = true_relres(L3, b, xs)
     log(f"[path] 3D default config (SPAI 1.0 V(2,2)) solve_mg: "

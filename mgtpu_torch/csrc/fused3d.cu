@@ -44,7 +44,7 @@
 //    launch is a programmatic dependent launch: its blocks are placed
 //    while the first launch drains and wait for it in griddepcontrol.wait.
 //    (One launch whose shell threads recompute the x' of their neighbours,
-//    nd x nd taps a node, was 1.3-5x slower at every shape.)
+//    nd x nd taps a node, was 1.4-5x slower at every shape on an H100.)
 // Every node sums the same fmaf chain over k = 0..NT-1 as kernel A
 // (constants on the interior, band coefficients on the band), and forms
 // x + d (b - ax) and b - ax as kernel A's jacobi and residual do, so the
@@ -73,7 +73,7 @@ constexpr int NSD = DEPTH + 2;            // d: t .. t+DEPTH+1
 constexpr int NSY = 4;                    // x': t-3 .. t
 
 // The interior tile: TY x TZ nodes of the (y, z) plane (a 4 x 128 tile,
-// kernel A's best at 129^3, was 1.1-1.2x slower here: its halo is larger).
+// kernel A's best at 129^3, was 1.1-1.25x slower here: its halo is larger).
 constexpr int TY = 16, TZ = 32;
 constexpr int QZ = TZ + 4, QY = TY + 4;
 constexpr int QN = QY * QZ;               // x plane, two-node halo

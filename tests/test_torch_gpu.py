@@ -78,27 +78,27 @@ def test_kernels_match_plain_versions(dims, m):
         assert float((r1 - r1p).abs().max() / r1p.abs().max()) < 1e-4
 
 
-@pytest.mark.parametrize("dims", [(16, 16, 16), (124, 24, 16)])
-def test_kernel_a_any_tap_order(dims):
-    """Kernel A takes its tap offsets from the stencil description when
-    they are not the sorted 7- or 27-point set: the same operators with
-    their taps listed in reverse order, narrow and wide tiles."""
-    _need_card()
-    from mgtpu_torch.ops.cuda import const3d
+def _reversed_taps(dims):
+    """The shifted nodal Laplacian with its taps listed in reverse order, on
+    the card: not the sorted 7-point set, so the kernels take their tap
+    offsets from the stencil description."""
     from mgtpu_torch.ops.grid_stencil import (GridStencil,
                                               compress_grid_stencil,
                                               grid_stencil_from_csr)
-    import mgtpu_torch as mt
-    from mgtpu_torch.models.operators import nodal_laplacian_matrix
-    M = mt.get_regular_mesh([0.0, 1.0] * 3, list(dims))
-    L = nodal_laplacian_matrix(M)
-    L = (L + 1e-4 * abs(L).sum(0).max() * sp.identity(L.shape[0])
-         ).tocsr().astype(np.float32)
-    gs = grid_stencil_from_csr(L, [d + 1 for d in dims])
+    gs = grid_stencil_from_csr(*_shifted_laplacian(dims))
     rev = GridStencil(np.ascontiguousarray(np.asarray(gs.coeff)[::-1]),
                       tuple(reversed(gs.offsets)), gs.grid)
     A = compress_grid_stencil(rev, device="cuda")
     assert A.offsets[0] == (1, 0, 0)
+    return A
+
+
+@pytest.mark.parametrize("dims", [(16, 16, 16), (124, 24, 16)])
+def test_kernel_a_any_tap_order(dims):
+    """Kernel A on the reversed-tap operators, narrow and wide tiles."""
+    _need_card()
+    from mgtpu_torch.ops.cuda import const3d
+    A = _reversed_taps(dims)
     rng = np.random.RandomState(5)
     x, b, p = (torch.tensor(rng.rand(2, *A.grid).astype(np.float32),
                             device="cuda") for _ in range(3))
@@ -111,7 +111,8 @@ def test_kernel_a_any_tap_order(dims):
 
 
 def _check_kernel_b(A, m, seed):
-    """Kernel B on A, with one-plane and default x-runs,
+    """Kernel B on A, with the default x-runs and with one and three runs
+    (the default is one-plane runs on small grids),
     equals kernel A's jacobi followed by its residual bit for bit (the same
     fmaf chain and elementwise expressions node by node), and its plain
     version within 2e-5 (x') / 1e-4 (r')."""
@@ -123,7 +124,7 @@ def _check_kernel_b(A, m, seed):
     xa = const3d.stencil3d_apply(A, "jacobi", x, b=b, d=d)
     ra = const3d.stencil3d_apply(A, "residual", xa, b=b)
     x1p, r1p = fused3d.jacobi_residual_plain(A, d, b, x)
-    for nruns in (None, 10 ** 6):
+    for nruns in (None, 1, 3):
         plan = fused3d._plan_array(tuple(A.grid), A.boxes, nruns)
         n0 = fused3d.LAUNCHES["jacobi_residual3d"]
         x1, r1 = fused3d._launch(A, d, b, x, plan)
@@ -164,24 +165,9 @@ def test_kernel_b_band_width_one(dims):
 
 @pytest.mark.parametrize("dims", [(16, 16, 16), (124, 24, 16)])
 def test_kernel_b_any_tap_order(dims):
-    """Kernel B with the tap offsets from the stencil description: the
-    reversed-tap operators of test_kernel_a_any_tap_order."""
+    """Kernel B on the reversed-tap operators."""
     _need_card()
-    from mgtpu_torch.ops.grid_stencil import (GridStencil,
-                                              compress_grid_stencil,
-                                              grid_stencil_from_csr)
-    import mgtpu_torch as mt
-    from mgtpu_torch.models.operators import nodal_laplacian_matrix
-    M = mt.get_regular_mesh([0.0, 1.0] * 3, list(dims))
-    L = nodal_laplacian_matrix(M)
-    L = (L + 1e-4 * abs(L).sum(0).max() * sp.identity(L.shape[0])
-         ).tocsr().astype(np.float32)
-    gs = grid_stencil_from_csr(L, [d + 1 for d in dims])
-    rev = GridStencil(np.ascontiguousarray(np.asarray(gs.coeff)[::-1]),
-                      tuple(reversed(gs.offsets)), gs.grid)
-    A = compress_grid_stencil(rev, device="cuda")
-    assert A.offsets[0] == (1, 0, 0)
-    _check_kernel_b(A, 2, seed=5)
+    _check_kernel_b(_reversed_taps(dims), 2, seed=5)
 
 
 def test_kernel_b_refuses_a_plan_that_does_not_fit():
