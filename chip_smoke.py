@@ -37,6 +37,8 @@ Phases, each of which raises on failure:
 7. path aniso — the anisotropic configurations, f32, refined to 1e-8:
             (a) 2D eps = 100 line Jacobi 0.8 (11 +- 1 iterations),
             (b) 2D eps = 0.01 semicoarsening + line Jacobi 0.9, 7 levels (6),
+            (b6) the same at 6 levels, on a 33 x 257 coarsest whose dense
+            inverse is built on the card (6),
             (c) 2D mixed strength, alternating lines 0.9 (21),
             (d) 3D eps = 50 on grid axis 0, line Jacobi 0.8 (11),
             (e) the same on grid axis 2 (11);
@@ -59,7 +61,23 @@ Phases, each of which raises on failure:
             (h) 3D 128^3 solve_cg_mg 16; launch counters prove kernel D ran
             in float32 and float64 and its plain version did not; one CG
             iteration's time by CUDA events and the host clock, and the
-            device busy share.
+            device busy share;
+11. AMG   — smoothed aggregation on the 512^2 rough-sigma operator, f32,
+            4 levels: kernel D against its plain version on every SA-s
+            level (5 / 13 / 37 / 97 taps), the 3D SA levels of a 32^3
+            hierarchy (7 / 33 / 179), the DIA form of SA-f's fine level and
+            both stride-2 transfer applies (against P @ x, P^T @ r), f32
+            (2e-5) and f64 (1e-12), m = 1, 3, and a 257-tap stencil
+            refused; its device time at those shapes beside its byte bound,
+            its plain version and torch.sparse.mm; then (SA-s) structured
+            SA, SPAI V(2,2) (38 +- 1 refined iterations), (SA-K) the same
+            operator with Jac-GMRES K-cycles (48), (SA-f) greedy SA on the
+            flat engine (50), each to a true f64 relres below 1e-8, with
+            setup time, hierarchy, coarsest solver (a 4225-dof inverse
+            built on the card; DenseLU of 964) and operator complexity
+            (2.40 / 1.63); launch counters prove kernel D ran in float32
+            and float64 in each solve and no plain version did; one cycle's
+            time by CUDA events and the host clock, and the busy share.
 
 The last lines are one JSON object with a row per kernel, the card's name and
 power limit, and {"ok": true, "device": {...}}.  Without a CUDA device, or
@@ -530,17 +548,24 @@ def refined(st, L, b, want, label, card, max_iter=40, fmg=False):
     return info["iters"], rr, wall
 
 
-def vcycle_ms(st, b, card, label="129^3, 5 levels"):
-    """One V-cycle from a zero guess on the fine grid: CUDA events and the
-    synchronised host clock (the eager cycle is launch-bound at depth)."""
-    from mgtpu_torch.cycle.grid_cycle import grid_cycle
-    from mgtpu_torch.ops.grid_stencil import flat_to_grid
-    bg = flat_to_grid(torch.as_tensor(b, dtype=torch.float32,
-                                      device="cuda")[:, None],
-                      st.hier.fine_grid)
+def one_cycle(st, b):
+    """A call running one cycle of the state's hierarchy (either engine)
+    from a zero guess on b, in the hierarchy's precision."""
+    from mgtpu_torch.config import torch_dtype
+    from mgtpu_torch.solvers.mg_solver import _runtime
+    to_field, _, cycle, _ = _runtime(st)
+    bg = to_field(torch.as_tensor(b, dtype=torch_dtype(st.config.dtype),
+                                  device="cuda")[:, None])
     x0 = torch.zeros_like(bg)
+    return lambda: cycle(bg, x0)
+
+
+def vcycle_ms(st, b, card, label="129^3, 5 levels"):
+    """One cycle from a zero guess on the fine grid: CUDA events and the
+    synchronised host clock (the eager cycle is launch-bound at depth)."""
+    run = one_cycle(st, b)
     for _ in range(3):
-        grid_cycle(st.config, st.hier, bg, x0)
+        run()
     ev, host = [], []
     for _ in range(10):
         torch.cuda.synchronize()
@@ -548,31 +573,27 @@ def vcycle_ms(st, b, card, label="129^3, 5 levels"):
         e1 = torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
         e0.record()
-        grid_cycle(st.config, st.hier, bg, x0)
+        run()
         e1.record()
         torch.cuda.synchronize()
         host.append((time.perf_counter() - t0) * 1e3)
         ev.append(e0.elapsed_time(e1))
     ev_ms, host_ms = sorted(ev)[5], sorted(host)[5]
-    log(f"[path] V-cycle ({st.config.relax_type}, {label}): "
-        f"{ev_ms:.3f} ms CUDA events, {host_ms:.3f} ms host clock ({card})")
+    log(f"[path] {st.config.cycle_type}-cycle ({st.config.relax_type}, "
+        f"{label}): {ev_ms:.3f} ms CUDA events, {host_ms:.3f} ms host clock "
+        f"({card})")
     return ev_ms, host_ms
 
 
 def vcycle_profile(st, b, cycle_ms, card, label="129^3"):
-    """Device time of one V-cycle by torch.profiler (sum of kernel times
+    """Device time of one cycle by torch.profiler (sum of kernel times
     over five cycles) against its CUDA-event time: the busy share."""
     from torch.profiler import ProfilerActivity, profile
-    from mgtpu_torch.cycle.grid_cycle import grid_cycle
-    from mgtpu_torch.ops.grid_stencil import flat_to_grid
-    bg = flat_to_grid(torch.as_tensor(b, dtype=torch.float32,
-                                      device="cuda")[:, None],
-                      st.hier.fine_grid)
-    x0 = torch.zeros_like(bg)
+    run = one_cycle(st, b)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(5):
-            grid_cycle(st.config, st.hier, bg, x0)
+            run()
         torch.cuda.synchronize()
     events = [(e.key, e.self_device_time_total / 5e3)
               for e in prof.key_averages() if e.self_device_time_total > 0]
@@ -580,8 +601,8 @@ def vcycle_profile(st, b, cycle_ms, card, label="129^3"):
     if busy == 0:
         log("[path] V-cycle device time: not measured (no device events)")
         return None
-    log(f"[path] V-cycle ({label}) device time {busy:.3f} ms of "
-        f"{cycle_ms:.3f} ms "
+    log(f"[path] {st.config.cycle_type}-cycle ({label}) device time "
+        f"{busy:.3f} ms of {cycle_ms:.3f} ms "
         f"(busy share {busy / cycle_ms:.2f}; {card}); largest:")
     for key, ms in sorted(events, key=lambda e: -e[1])[:6]:
         log(f"[path]   {ms:.4f} ms  {key[:70]}")
@@ -856,6 +877,10 @@ ANISO = [
      lambda: aniso2d(1024, 0.01),
      dict(levels=7, relax_type="line-jacobi", relax_param=0.9,
           transfer_type="semicoarsening"), 6),
+    ("b6", "(b6) the same at 6 levels: a 33 x 257 coarsest, device-built "
+     "inverse", lambda: aniso2d(1024, 0.01),
+     dict(levels=6, relax_type="line-jacobi", relax_param=0.9,
+          transfer_type="semicoarsening"), 6),
     ("c", "(c) 2D mixed strength, alternating lines 0.9, 6 levels",
      lambda: mixed_strength(1024),
      dict(levels=6, relax_type="line-jacobi",
@@ -884,9 +909,14 @@ def phase_aniso(ops, card):
         grids = [tuple(lv.A.grid) for lv in st.hier.levels]
         log(f"[path] {label}: setup {time.perf_counter() - t0:.1f} s, "
             f"grids {grids}")
-        if key == "b":
-            require(grids == SEMI_GRIDS, f"(b) level grids {grids}, want "
-                    f"{SEMI_GRIDS}")
+        if key in ("b", "b6"):
+            want_grids = SEMI_GRIDS[:cfg.levels]
+            require(grids == want_grids, f"({key}) level grids {grids}, "
+                    f"want {want_grids}")
+        if key == "b6":
+            from mgtpu_torch.cycle.grid_cycle import DenseInverse
+            require(isinstance(st.hier.coarse, DenseInverse),
+                    "(b6): want the device-built dense inverse")
         b = A @ np.random.RandomState(SEED).rand(A.shape[0])
         runs.append((key, label, st, A, b / np.linalg.norm(b), want))
 
@@ -947,13 +977,13 @@ def phase_fmg(card):
 # kernel D and the variable-coefficient (Krylov) paths
 # ---------------------------------------------------------------------------
 
-def divsig(dims, shift=1e-8):
-    """Rough-sigma DivSigGrad, sigma = exp(RandomState(3).randn(cells)),
+def divsig(dims, shift=1e-8, seed=3):
+    """Rough-sigma DivSigGrad, sigma = exp(RandomState(seed).randn(cells)),
     + shift * (max column sum) I (bench.py:540-544's operator)."""
     from mgtpu_torch import get_regular_mesh
     from mgtpu_torch.models.operators import nodal_div_sig_grad_matrix
     M = get_regular_mesh([0.0, 1.0] * len(dims), list(dims))
-    sig = np.exp(np.random.RandomState(3).randn(M.num_cells))
+    sig = np.exp(np.random.RandomState(seed).randn(M.num_cells))
     A = nodal_div_sig_grad_matrix(M, sig)
     A = (A + shift * abs(A).sum(axis=0).max()
          * sp.identity(A.shape[0])).tocsr()
@@ -1251,6 +1281,268 @@ def cg_iteration(st, b, card):
     return ev_ms, host_ms
 
 
+# ---------------------------------------------------------------------------
+# smoothed-aggregation AMG
+# ---------------------------------------------------------------------------
+
+AMG_CELLS = 512
+AMG = [
+    # key, label, sigma seed (b's is seed + 1), structured (mesh), options,
+    # max_iter, mgtpu's refined count and operator complexity on the CPU
+    # (scripts/amg_reference.py)
+    ("SA-s", "(SA-s) 512^2 rough sigma, structured SA, SPAI V(2,2), "
+     "4 levels", 3, True, dict(relax_type="spai"), 60, 38, 2.40),
+    ("SA-K", "(SA-K) the same operator, structured SA, Jac-GMRES 1.0 "
+     "K-cycles", 3, True, dict(relax_type="jac-gmres", relax_param=1.0,
+                              nu_pre=1, nu_post=1, cycle_type="K"), 70, 48,
+     2.40),
+    ("SA-f", "(SA-f) 512^2 rough sigma (seed 5), greedy SA on the flat "
+     "engine, SPAI V(2,2)", 5, False, dict(relax_type="spai"), 60, 50, 1.63),
+]
+
+
+def amg_states():
+    """The SA-s, SA-K and SA-f hierarchies (f32, 4 levels) on the card, with
+    their operators and right-hand sides; SA-s and SA-K share the
+    operator.  Checks each hierarchy's engine, coarsest solver and
+    operator complexity."""
+    from mgtpu_torch import get_mg_param, sa_amg_setup
+    from mgtpu_torch.cycle.grid_cycle import DenseInverse, GridHierarchy
+    from mgtpu_torch.cycle.coarse import DenseLU
+    ops, runs = {}, []
+    for key, label, seed, structured, opts, max_iter, want, opc in AMG:
+        if seed not in ops:
+            M, A = divsig((AMG_CELLS, AMG_CELLS), seed=seed)
+            b = A @ np.random.RandomState(seed + 1).rand(A.shape[0])
+            ops[seed] = (M, A, b / np.linalg.norm(b))
+        M, A, b = ops[seed]
+        cfg, rp = get_mg_param(levels=4, dtype=np.float32, **opts)
+        t0 = time.perf_counter()
+        st = sa_amg_setup(A, cfg, rp, mesh=M if structured else None)
+        torch.cuda.synchronize()
+        setup = time.perf_counter() - t0
+        h = st.hier
+        kinds = [type(lv.A).__name__ for lv in h.levels]
+        taps = [len(lv.A.offsets) if hasattr(lv.A, "offsets") else None
+                for lv in h.levels]
+        sizes = [a.shape[0] for a in st.As]
+        log(f"[amg] {label}: setup {setup:.1f} s (host clock), "
+            f"{type(h).__name__}, levels {sizes}, operators {kinds}, taps "
+            f"{taps}, coarsest {type(h.coarse).__name__} of {sizes[-1]} "
+            f"dofs, operator complexity {st.operator_complexity():.4f} "
+            f"(want {opc:.2f})")
+        require(abs(st.operator_complexity() - opc) <= 0.01,
+                f"{key}: operator complexity {st.operator_complexity():.4f}")
+        if structured:
+            require(isinstance(h, GridHierarchy)
+                    and isinstance(h.coarse, DenseInverse)
+                    and sizes[-1] == 4225,
+                    f"{key}: want a grid hierarchy with a 4225-dof "
+                    "device-built inverse")
+        else:
+            require(not isinstance(h, GridHierarchy)
+                    and kinds[0] == "DIA" and set(kinds[1:]) == {"ELL"}
+                    and isinstance(h.coarse, DenseLU),
+                    f"{key}: want DIA + ELL levels and a DenseLU coarsest")
+        runs.append((key, label, st, A, b, max_iter, want))
+    return runs
+
+
+def sa3d_levels():
+    """The 3D smoothed-aggregation stencils: structured SA of the rough-sigma
+    DivSigGrad at 32^3 cells, 4 levels, f32 (grids 33^3, 17^3, 9^3)."""
+    from mgtpu_torch import get_mg_param, sa_amg_setup
+    M, A = divsig((32, 32, 32))
+    cfg, rp = get_mg_param(levels=4, relax_type="spai", dtype=np.float32)
+    st = sa_amg_setup(A, cfg, rp, mesh=M)
+    levels = [lv.A for lv in st.hier.levels if lv.A is not None]
+    log(f"[amg] 3D SA 32^3: grids {[A.grid for A in levels]}, taps "
+        f"{[len(A.offsets) for A in levels]}")
+    return st, levels
+
+
+def phase_amg_kernels(runs, st3, levels3, rows):
+    """Kernel D against its plain version at the SA shapes: every level of
+    SA-s (5 / 13 / 37 / 97 taps) and of the 3D hierarchy (7 / 33 / 179),
+    the DIA form of SA-f's fine level (5 taps, offsets +-1, +-513), and
+    both applies of every Stride2Transfer of SA-s against P @ x and
+    P^T @ r of the CSR matrices; m = 1 and 3, f32 (2e-5) and f64 (1e-12).
+    A 257-tap stencil must raise."""
+    from mgtpu_torch.ops.cuda import stencil
+    from mgtpu_torch.ops.grid_stencil import (grid_stencil_matvec,
+                                              stride2_transfer_from_scipy)
+    from mgtpu_torch.solvers.mg_solver import high_precision_fine_operator
+    tols = {torch.float32: 2e-5, torch.float64: 1e-12}
+
+    def check(label, out, ref):
+        torch.cuda.synchronize()
+        require(out.shape == ref.shape and out.dtype == ref.dtype
+                and bool(torch.isfinite(out).all()), f"D {label}: bad output")
+        ae = float((out - ref).abs().max())
+        re = ae / float(ref.abs().max())
+        row = rows[f"stencil.{str(ref.dtype).split('.')[-1]}"]
+        row["max_abs_err"] = max(row["max_abs_err"], ae)
+        row["max_rel_err"] = max(row["max_rel_err"], re)
+        require(re < tols[ref.dtype], f"kernel D {label}: relative error "
+                f"{re:.3e} >= {tols[ref.dtype]}")
+
+    st_s = runs[0][2]
+    grids = [("SA-s", l, lv.A) for l, lv in enumerate(st_s.hier.levels)
+             if lv.A is not None] + [
+        ("3D SA", l, A) for l, A in enumerate(levels3)]
+    for name, l, A in grids:
+        for dt in (torch.float32, torch.float64):
+            coeff = A.coeff.to(dt)
+            for m in (1, 3):
+                x = torch.tensor(np.random.RandomState(SEED + m).rand(
+                    m, *A.grid), dtype=dt, device="cuda")
+                check(f"{name} level {l} m={m}",
+                      stencil.grid_apply(coeff, A.offsets, x),
+                      grid_stencil_matvec(coeff, A.offsets, x))
+        log(f"[kernel] D {name} level {l}: grid {A.grid} nd="
+            f"{len(A.offsets)}: matches its plain version, f32 and f64, "
+            "m = 1, 3")
+    st_f = runs[2][2]
+    for D in (st_f.hier.levels[0].A, high_precision_fine_operator(st_f)):
+        for m in (1, 3):
+            x = torch.tensor(np.random.RandomState(SEED + m).rand(
+                D.shape[0], m), dtype=D.dtype, device="cuda")
+            check(f"SA-f DIA m={m}", stencil.dia_apply(D.data, D.offsets, x),
+                  stencil.dia_apply_plain(D.data, D.offsets, x))
+        log(f"[kernel] D DIA form of SA-f level 0 ({D.dtype}, offsets "
+            f"{D.offsets}): matches its plain version, m = 1, 3")
+    for l, lv in enumerate(st_s.hier.levels[:-1]):
+        P = st_s.Ps[l].astype(np.float64)
+        P_dev = sparse_mm_yardstick(P, torch.float64)
+        PT_dev = sparse_mm_yardstick(P.T, torch.float64)
+        for dt, T in ((torch.float32, lv.P1), (torch.float64,
+                      stride2_transfer_from_scipy(
+                          P, list(reversed(lv.P1.fine_grid)),
+                          list(reversed(lv.P1.coarse_grid)),
+                          dtype=np.float64, max_delta=7, device="cuda"))):
+            for m in (1, 3):
+                rng = np.random.RandomState(SEED + m)
+                xc = torch.tensor(rng.rand(m, *T.coarse_grid), dtype=dt,
+                                  device="cuda")
+                r = torch.tensor(rng.rand(m, *T.fine_grid), dtype=dt,
+                                 device="cuda")
+                y_ref = torch.sparse.mm(P_dev, xc.double().reshape(m, -1).T)
+                rc_ref = torch.sparse.mm(PT_dev, r.double().reshape(m, -1).T)
+                check(f"SA-s prolong {l} m={m}",
+                      T.prolong(xc).reshape(m, -1).T, y_ref.to(dt))
+                check(f"SA-s restrict {l} m={m}",
+                      T.restrict(r).reshape(m, -1).T, rc_ref.to(dt))
+        log(f"[kernel] D as SA-s Stride2Transfer {l} ({len(lv.P1.offsets)} "
+            f"taps on {lv.P1.fine_grid}): prolong and restrict match P @ x "
+            "and P^T @ r, f32 and f64, m = 1, 3")
+    coeff = torch.ones((257, 9, 9), device="cuda")
+    offs = tuple((i // 17 - 8, i % 17 - 8) for i in range(257))
+    try:
+        stencil.grid_apply(coeff, offs, torch.ones((1, 9, 9), device="cuda"))
+    except ValueError as e:
+        log(f"[kernel] D refuses a 257-tap stencil: {e}")
+    else:
+        raise RuntimeError("kernel D took a 257-tap stencil")
+
+
+def phase_amg_timing(runs, levels3, rows, card):
+    """Kernel D, plain and torch.sparse.mm device times (m = 1, four input
+    sets) at the SA shapes: SA-s's levels and transfers, the 3D SA levels,
+    SA-f's DIA level in f32 and f64."""
+    from mgtpu_torch.ops.cuda import stencil
+    from mgtpu_torch.ops.grid_stencil import grid_stencil_matvec
+    from mgtpu_torch.solvers.mg_solver import high_precision_fine_operator
+    timer = Timer()
+    st_s, st_f = runs[0][2], runs[2][2]
+    cases = []
+    for l, lv in enumerate(st_s.hier.levels):
+        if lv.A is not None:
+            cases.append((f"SA-s level {l}", lv.A.coeff, lv.A.offsets,
+                          lv.A.grid, st_s.As[l], "grid"))
+        if lv.P1 is not None:
+            T = lv.P1
+            cases.append((f"SA-s prolong {l}", T.coeff, tuple(
+                tuple(-d for d in o) for o in T.offsets), T.fine_grid,
+                st_s.Ps[l], "prolong"))
+    for l, A in enumerate(levels3):
+        cases.append((f"3D SA level {l}", A.coeff, A.offsets, A.grid, None,
+                      "grid"))
+    for D in (st_f.hier.levels[0].A, high_precision_fine_operator(st_f)):
+        cases.append((f"SA-f DIA {str(D.dtype).split('.')[-1]}", D.data,
+                      D.offsets, (D.shape[0],),
+                      st_f.A_input if D.dtype == torch.float64
+                      else st_f.As[0], "dia"))
+    for label, coeff, offsets, grid, csr, form in cases:
+        dt = coeff.dtype
+        nodes = int(np.prod(grid))
+        nd = len(offsets)
+        if form == "dia":
+            sets = [torch.tensor(np.random.RandomState(SEED + 30 + j).rand(
+                nodes, 1), dtype=dt, device="cuda") for j in range(4)]
+            ms, host_ms = timer([lambda x=x: stencil.dia_apply(
+                coeff, offsets, x) for x in sets])
+            plain_ms, _ = timer([lambda x=x: stencil.dia_apply_plain(
+                coeff, offsets, x) for x in sets])
+            cols = sets
+        else:
+            sets = [torch.tensor(np.random.RandomState(SEED + 30 + j).rand(
+                1, *grid), dtype=dt, device="cuda") for j in range(4)]
+            ms, host_ms = timer([lambda x=x: stencil.grid_apply(
+                coeff, offsets, x) for x in sets])
+            plain_ms, _ = timer([lambda x=x: grid_stencil_matvec(
+                coeff, offsets, x) for x in sets])
+            cols = [x.reshape(-1, 1) for x in sets]
+        lib_ms = None
+        if csr is not None:
+            Tm = sparse_mm_yardstick(csr, dt)
+            if form == "prolong":
+                cols = [torch.zeros((csr.shape[1], 1), dtype=dt,
+                                    device="cuda") + 1 for _ in range(4)]
+            lib_ms, _ = timer([lambda c=c: torch.sparse.mm(Tm, c)
+                               for c in cols])
+        itemsize = coeff.element_size()
+        fbytes = (nd + 2) * itemsize * nodes
+        flops = 2 * nd * nodes
+        peak = FP32_FLOPS if dt == torch.float32 else FP64_FLOPS
+        bound = max(fbytes / HBM_BYTES_PER_S, flops / peak) * 1e3
+        lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
+        log(f"[time] D {label:18s} grid {str(grid):16s} nd={nd:3d} {dt}: "
+            f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  sparse.mm {lib}"
+            f"  bound {bound:.4f} ms ({fbytes / 1e6:.2f} MB)  kernel/bound "
+            f"{ms / bound:.1f}x  host per call {host_ms:.3f} ms ({card})")
+        name = f"stencil.{str(dt).split('.')[-1]}"
+        rows[name].setdefault("times_amg", {})[label] = dict(
+            grid=list(grid), nd=nd, ms=ms, plain_ms=plain_ms,
+            library_ms=lib_ms, bound_ms=bound)
+
+
+def phase_amg(runs, card):
+    """SA-s, SA-K and SA-f through solve_mg_refined to a true f64 relres
+    below 1e-8 inside one launch-counter window: kernel D in f32 and f64 in
+    each solve, no plain version anywhere.  Returns D's launches."""
+    reset_counters()                       # ---- main path window ----
+    for key, label, st, A, b, max_iter, want in runs:
+        before = stencil_counters()[0]
+        refined(st, A, b, want, label, card, max_iter=max_iter)
+        d_l = {k: v - before[k] for k, v in stencil_counters()[0].items()}
+        log(f"[path] {key}: kernel D launches in this solve: {d_l}")
+        for k in ("stencil.float32", "stencil.float64"):
+            require(d_l[k] > 0, f"{key}: {k} was never launched")
+    launches, plain = stencil_counters()   # ---- end of window ----
+    more_l, more_p = counters()
+    line_l, line_p = line_counters()
+    plain.update(more_p, **line_p)
+    log(f"[path] AMG window kernel D launches: {launches}; other kernels "
+        f"{dict(more_l, **line_l)}")
+    log(f"[path] AMG window plain-version calls on the card: {plain}")
+    require(not any(plain.values()), f"plain versions ran: {plain}")
+    for key, label, st, A, b, max_iter, want in runs:
+        refined(st, A, b, want, label + " (warm)", card, max_iter=max_iter)
+        ev_ms, _ = vcycle_ms(st, b, card, label=key)
+        vcycle_profile(st, b, ev_ms, card, label=key)
+    return launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
     smi, name = phase_card()
@@ -1294,6 +1586,13 @@ def main() -> int:
     phase_stencil_timing(timed_states, rows, card)
     krylov = phase_krylov(ops, kstates, rhs, card)
     cg_iteration(kstates["f"], rhs["f"]["b"], card)
+    del ops, kstates, rhs, timed_states
+
+    runs = amg_states()
+    st3, levels3 = sa3d_levels()
+    phase_amg_kernels(runs, st3, levels3, rows)
+    phase_amg_timing(runs, levels3, rows, card)
+    amg = phase_amg(runs, card)
     for k, row in rows.items():
         # each kernel's launches from the window of its own path
         row["launches"] = (aniso[k] if k.startswith("tridiag") else
@@ -1301,6 +1600,8 @@ def main() -> int:
                            launches[k])
     for k in ("stencil3d_apply.matvec", "stencil.float32", "stencil.float64"):
         rows[k]["launches_aniso"] = aniso[k]
+    for k in ("stencil.float32", "stencil.float64"):
+        rows[k]["launches_amg"] = amg[k]
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -10,6 +10,8 @@ CPU.  Callers (the CPU tests) ask for the CPU by passing ``device="cpu"``.
 """
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
@@ -48,3 +50,17 @@ def resolve_device(device=None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+@contextlib.contextmanager
+def full_fp32():
+    """Float32 matrix products in full float32 inside the block, whatever
+    the caller set: the coarsest solves (a dense inverse or LU applied to a
+    residual) lose the digits the refined solves need in TF32, which keeps
+    about three."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev

@@ -1,5 +1,5 @@
 // Kernel D: variable-coefficient stencil apply y = A x, float32 or float64,
-// for any stencil whose taps shift each axis by at most one node.
+// for any stencil of up to kMaxTaps taps with any shift along each axis.
 //
 // Replaces the Pallas TPU kernel
 //   mgtpu/ops/pallas/stencil_kernel.py::_stencil_kernel  (K8)
@@ -10,7 +10,10 @@
 //
 // The field is addressed as a box (Z, Y, X), X contiguous, with taps
 // (dz, dy, dx).  The grid stencil's 3D grid maps onto it as it is, a 2D grid
-// as (1, Y, X), and K8's slab form as (NJ, 1, NI) with taps (dj, 0, di).
+// as (1, Y, X), K8's slab form as (NJ, 1, NI) with taps (dj, 0, di), and a
+// DIA matrix (diagonal offsets off_d) as (1, 1, n) with taps (0, 0, off_d).
+// Smoothed-aggregation levels reach 97 taps in 2D and 179 in 3D, and the
+// stride-2 transfers of those hierarchies run here as stencils too.
 //   y[r, z, y, x] = sum_k coeff[k, z, y, x] * x[r, z + dz_k, y + dy_k, x + dx_k]
 // for every right-hand side r < m.  A tap whose neighbour lies outside the
 // box on any axis reads zero: it is masked, not multiplied by a zero
@@ -35,7 +38,9 @@ extern "C" const char* mgt_error_string(int e) {
   return cudaGetErrorString(static_cast<cudaError_t>(e));
 }
 
-constexpr int kMaxTaps = 27;
+// The offsets travel in the kernel's parameter space (constant bank):
+// 4 + 3 * 256 * 4 = 3076 bytes, under the 4 KB of a classic launch.
+constexpr int kMaxTaps = 256;
 constexpr int kThreads = 256;
 
 struct Taps {
@@ -113,7 +118,11 @@ extern "C" int mgt_stencil(int dtype, int nd, const int* offs, int Z, int Y,
     t.dz[k] = offs[3 * k];
     t.dy[k] = offs[3 * k + 1];
     t.dx[k] = offs[3 * k + 2];
-    if (t.dz[k] < -1 || t.dz[k] > 1 || t.dy[k] < -1 || t.dy[k] > 1)
+    // any shift is taken (one longer than its axis is always masked); the
+    // bound only keeps i + d inside int
+    const int big = 1 << 30;
+    if (t.dz[k] <= -big || t.dz[k] >= big || t.dy[k] <= -big ||
+        t.dy[k] >= big || t.dx[k] <= -big || t.dx[k] >= big)
       return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);

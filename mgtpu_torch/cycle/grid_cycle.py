@@ -11,13 +11,24 @@ the node grid:
  * the coarsest solve is one dense matmul with a host-computed f64 inverse,
    or a Jacobi-preconditioned FGMRES projection (`GridIterativeCoarse`).
 
+Smoothed-aggregation hierarchies on a grid (setup/sa_amg.py) carry a
+`Stride2Transfer` in place of the per-axis factors: a matrix-dependent P
+applied as a stencil on the upsampled field, and R = P^T.
+
+The coarsest solve depends on its size: up to 4096 dofs a host f64
+inverse; up to 20480 a dense inverse built on the device (COO assembled on
+the card, LU, solve against I, a sampled identity residual deciding
+whether the coarsest needs the reference's regularising shift); beyond,
+host SuperLU (`GridSparseLU`), a host round trip per solve.
+
 Fields are (m, *grid) with the fastest mesh axis last.  On a 3D radius-1
 float32 level the Jacobi/SPAI branch runs the fused ops of
 ops/cuda/fused3d.py, and line-Jacobi levels run the line kernel of
-ops/cuda/tridiag.py; variable-coefficient levels apply through kernel D
-(ops/cuda/stencil.py): kernels on the card, their plain versions on the
-CPU.  Cycle types V, W, F and K (FGMRES-accelerated coarse corrections);
-`grid_fmg` is the full-multigrid start of the refined solve.
+ops/cuda/tridiag.py; variable-coefficient levels and the stride-2
+transfers apply through kernel D (ops/cuda/stencil.py): kernels on the
+card, their plain versions on the CPU.  Cycle types V, W, F and K
+(FGMRES-accelerated coarse corrections); `grid_fmg` is the full-multigrid
+start of the refined solve.
 """
 from __future__ import annotations
 
@@ -28,25 +39,29 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
-from ..config import torch_dtype
+from ..config import full_fp32, torch_dtype
 from ..ops.grid_stencil import (ConstGridStencil, GridStencil,
-                                compress_grid_stencil, make_grid_stencil)
+                                Stride2Transfer, compress_grid_stencil,
+                                flat_to_grid, grid_to_flat, make_grid_stencil)
 from ..ops.cuda.const3d import supports_const3d
 from ..ops.cuda import fused3d as f3k
 from .relax import (AltLineRelax, LineRelax, chebyshev_smooth,
                     chebyshev4_smooth, fgmres_relaxation, line_smooth)
 
-__all__ = ["GridLevel", "GridHierarchy", "DenseInverse",
-           "GridIterativeCoarse", "grid_restrict", "grid_prolong",
-           "grid_cycle", "grid_fmg", "build_grid_hierarchy"]
+__all__ = ["GridLevel", "GridHierarchy", "DenseInverse", "GridSparseLU",
+           "GridIterativeCoarse", "grid_dense_inverse_from_scipy",
+           "grid_restrict", "grid_prolong", "grid_cycle", "grid_cycle_flat",
+           "grid_fmg", "build_grid_hierarchy"]
 
 
 @dataclass(frozen=True, eq=False)
 class GridLevel:
-    A: GridStencil | ConstGridStencil
+    A: GridStencil | ConstGridStencil | None   # None: an SA coarsest that
+                                               # only its solver reads
     d: torch.Tensor | None      # pointwise relax diagonal, grid-shaped
-    P1: tuple | None            # per-grid-axis dense 1D prolongation (f_a, c_a),
-                                # None for an axis that does not coarsen
+    P1: tuple | Stride2Transfer | None  # per-grid-axis dense 1D
+                                # prolongation (f_a, c_a), None for an axis
+                                # that does not coarsen; or a stride-2 P
     lam: float | None = None    # spec(D^-1 A) bound (chebyshev smoothing)
     line: LineRelax | AltLineRelax | None = None   # line-jacobi state
 
@@ -58,10 +73,69 @@ class DenseInverse:
     grid: tuple[int, ...]
 
     def solve(self, bg: torch.Tensor) -> torch.Tensor:
-        """bg: (m, *grid) -> (m, *grid)."""
+        """bg: (m, *grid) -> (m, *grid), in full float32 (no TF32)."""
         m = bg.shape[0]
-        xf = bg.reshape(m, -1) @ self.inv.T
+        with full_fp32():
+            xf = bg.reshape(m, -1) @ self.inv.T
         return xf.reshape((m,) + tuple(self.grid))
+
+
+def _dense_inverse_device(rows, cols, data, n: int, shift_rel: float):
+    """COO -> dense (+ a relative diagonal shift) -> LU -> inverse, on the
+    device of `data`.  Returns (inv, err): err is the largest entry of
+    |A inv - I| over a stride sample of 256 columns."""
+    with full_fp32():
+        Ad = torch.zeros((n, n), dtype=data.dtype, device=data.device)
+        Ad.index_put_((rows, cols), data, accumulate=True)
+        eye = torch.eye(n, dtype=data.dtype, device=data.device)
+        if shift_rel:
+            Ad = Ad + (shift_rel * Ad.abs().sum(dim=0).max()) * eye
+        lu, piv = torch.linalg.lu_factor(Ad)
+        inv = torch.linalg.lu_solve(lu, piv, eye)
+        cols_s = torch.arange(0, n, max(1, n // 256), device=data.device)
+        err = (Ad @ inv[:, cols_s] - eye[:, cols_s]).abs().max()
+    return inv, float(err)
+
+
+def grid_dense_inverse_from_scipy(A_c: sp.spmatrix, grid_c, dtype,
+                                  device="cpu") -> DenseInverse:
+    """Dense inverse of a large coarsest operator, built on `device` in
+    `dtype`: no O(nc^3) host inversion.
+
+    The plain inverse comes first; only if its sampled identity residual is
+    not finite or above 1e-2 (f32) / 1e-6 (f64) — a near-singular coarsest,
+    such as a Neumann constant nullspace — is the reference's coarsest
+    regularisation applied (SA-AMG.jl:63), 1e-6 x the largest column sum in
+    float32 (where 1e-8 is lost in the addition) and 1e-8 in float64.  A
+    float32 inverse is good to about eps * cond(A_c)."""
+    Ac = A_c.tocoo()
+    dt = torch_dtype(dtype)
+    args = (torch.as_tensor(Ac.row.astype(np.int64), device=device),
+            torch.as_tensor(Ac.col.astype(np.int64), device=device),
+            torch.as_tensor(Ac.data, device=device).to(dt))
+    n = int(A_c.shape[0])
+    inv, err = _dense_inverse_device(*args, n, 0.0)
+    single = np.finfo(np.dtype(dtype)).eps > 1e-10
+    if not np.isfinite(err) or err > (1e-2 if single else 1e-6):
+        inv, _ = _dense_inverse_device(*args, n, 1e-6 if single else 1e-8)
+    return DenseInverse(inv, tuple(int(v) for v in grid_c))
+
+
+@dataclass(frozen=True, eq=False)
+class GridSparseLU:
+    """Host SuperLU coarsest solve on grid fields: (m, *grid) goes to the
+    host, is solved in float64 and comes back in its own type (the
+    reference's UMFPACK design point for coarsest levels beyond the
+    replicated-dense budget, MGsetup.jl:350)."""
+    factor: object          # scipy SuperLU (float64)
+    grid: tuple[int, ...]
+
+    def solve(self, bg: torch.Tensor) -> torch.Tensor:
+        m = bg.shape[0]
+        bh = bg.reshape(m, -1).detach().cpu().numpy().astype(np.float64)
+        xh = self.factor.solve(bh.T).T
+        return torch.as_tensor(np.ascontiguousarray(xh), device=bg.device
+                               ).to(bg.dtype).reshape((m,) + self.grid)
 
 
 @dataclass(frozen=True, eq=False)
@@ -97,8 +171,12 @@ def _axis_matmul(x: torch.Tensor, W: torch.Tensor, axis: int) -> torch.Tensor:
 
 
 def grid_restrict(rg: torch.Tensor, P1) -> torch.Tensor:
-    """R r = 0.5^c P^T r, c the number of coarsened axes; rg is
-    (m, *fine_grid).  A None factor (semicoarsening) leaves its axis as is."""
+    """R r; rg is (m, *fine_grid).  Per-axis factors give full weighting,
+    R = 0.5^c P^T with c the number of coarsened axes (a None factor,
+    under semicoarsening, leaves its axis as is); a Stride2Transfer gives
+    R = P^T, the SA convention."""
+    if isinstance(P1, Stride2Transfer):
+        return P1.restrict(rg)
     y = rg
     nc = 0
     for a, W in enumerate(P1):
@@ -111,6 +189,8 @@ def grid_restrict(rg: torch.Tensor, P1) -> torch.Tensor:
 
 def grid_prolong(xc: torch.Tensor, P1) -> torch.Tensor:
     """P xc; xc is (m, *coarse_grid)."""
+    if isinstance(P1, Stride2Transfer):
+        return P1.prolong(xc)
     y = xc
     for a, W in enumerate(P1):
         if W is None:
@@ -284,9 +364,22 @@ def grid_fmg(cfg, gh: GridHierarchy, b):
         bs.append(grid_restrict(bs[-1], gh.levels[l].P1))
     x = gh.coarse.solve(bs[-1])
     for l in range(nlev - 2, -1, -1):
-        x = _cubic_prolong(x, gh.levels[l].A.grid)
+        P1 = gh.levels[l].P1
+        if isinstance(P1, Stride2Transfer):
+            x = grid_prolong(x, P1)       # matrix-dependent P: kept as is
+        else:
+            x = _cubic_prolong(x, gh.levels[l].A.grid)
         x = grid_cycle(cfg, gh, bs[l], x, level=l)
     return x
+
+
+def grid_cycle_flat(cfg, gh: GridHierarchy, b2, x2, ctype: str | None = None,
+                    x_zero: bool = False):
+    """grid_cycle on flat (n, m) columns: the flat engine's form."""
+    grid = gh.fine_grid
+    xg = grid_cycle(cfg, gh, flat_to_grid(b2, grid), flat_to_grid(x2, grid),
+                    0, ctype, x_zero=x_zero)
+    return grid_to_flat(xg)
 
 
 # ---------------------------------------------------------------------------
@@ -295,7 +388,9 @@ def grid_fmg(cfg, gh: GridHierarchy, b):
 
 GRID_RELAX = ("jacobi", "spai", "jac-gmres", "chebyshev", "chebyshev4",
               "line-jacobi")
-HOST_INV_MAX = 4096       # host f64 inverse below this many coarsest dofs
+HOST_INV_MAX = 4096       # host f64 inverse up to this many coarsest dofs
+DENSE_LU_MAX = 20480      # device-built inverse up to this many (20480^2
+                          # f32 = 1.7 GB); host SuperLU beyond
 
 
 def _checked_inverse(Ad: np.ndarray) -> np.ndarray:
@@ -336,12 +431,23 @@ def line_state_to(rs, dtype, device):
 def build_grid_hierarchy(state, relax_states, device) -> GridHierarchy:
     """Build the grid engine on `device` for an MGState that mg_setup made
     (scalar full-weighting or semicoarsening transfers, pointwise, line or
-    Jac-GMRES smoothing, a dense-inverse or FGMRES coarsest; mg_setup checks
-    the options).  Raises NotImplementedError
-    for levels this port cannot run yet."""
+    Jac-GMRES smoothing, a dense-inverse, LU or FGMRES coarsest).  Raises
+    ValueError where the hierarchy is not a grid one (the caller may hand
+    it to the flat engine) and NotImplementedError for options this port
+    cannot run yet."""
     from ..setup import transfers as tr
     from ..setup.hierarchy import _resolve_relax
     cfg = state.config
+    if cfg.transfer_type not in ("full-weighting", "semicoarsening"):
+        raise ValueError("grid engine needs scalar full-weighting or "
+                         "semicoarsening transfers")
+    if cfg.relax_type not in GRID_RELAX:
+        raise ValueError("grid engine supports pointwise relaxations only")
+    if not state.meshes or len(state.meshes) < state.num_levels:
+        raise ValueError("grid engine needs per-level meshes")
+    if (cfg.coarse_solve not in ("lu", "gmres")
+            or state.coarse_solver is not None):
+        raise ValueError("grid engine supports lu/gmres coarsest solves")
     dt = torch_dtype(cfg.dtype)
     gs_cache = getattr(state, "_gs_cache", None) or {}
     levels = []
@@ -382,21 +488,36 @@ def build_grid_hierarchy(state, relax_states, device) -> GridHierarchy:
     A_c = state.As[-1]
     grid_c = levels[-1].A.grid
     if cfg.coarse_solve == "gmres":
-        rp = state.relax_param
-        omega = rp if np.isscalar(rp) else 1.0
-        d_c = torch.as_tensor(
-            np.asarray(omega / A_c.diagonal()).astype(cfg.dtype)
-            .reshape(grid_c), device=device)
-        return GridHierarchy(tuple(levels), GridIterativeCoarse(
-            levels[-1].A, d_c, cfg.gmres_coarse_inner))
-    if A_c.shape[0] > HOST_INV_MAX:
-        raise NotImplementedError(
-            f"coarsest level of {A_c.shape[0]} dofs: only the host dense "
-            f"inverse (<= {HOST_INV_MAX} dofs) is ported yet")
-    # invert at float64 on the host, then cast (the f64 factorization error
-    # is far below the f32 storage rounding)
-    Ad = np.asarray(sp.csr_matrix(A_c).astype(np.float64).todense())
-    inv = _checked_inverse(Ad)
-    coarse = DenseInverse(torch.as_tensor(inv.astype(cfg.dtype),
-                                          device=device), tuple(grid_c))
+        return GridHierarchy(tuple(levels), grid_iterative_coarse(
+            state, levels[-1].A, grid_c, device))
+    if A_c.shape[0] <= HOST_INV_MAX:
+        # invert at float64 on the host, then cast (the f64 factorization
+        # error is far below the f32 storage rounding)
+        Ad = np.asarray(sp.csr_matrix(A_c).astype(np.float64).todense())
+        coarse = DenseInverse(torch.as_tensor(
+            _checked_inverse(Ad).astype(cfg.dtype), device=device),
+            tuple(grid_c))
+    else:
+        coarse = large_grid_coarse(A_c, grid_c, cfg.dtype, device)
     return GridHierarchy(tuple(levels), coarse)
+
+
+def grid_iterative_coarse(state, A, grid_c, device) -> GridIterativeCoarse:
+    """The FGMRES coarsest on the last level's stencil A."""
+    rp = state.relax_param
+    omega = rp if np.isscalar(rp) else 1.0
+    d_c = torch.as_tensor(
+        np.asarray(omega / state.As[-1].diagonal()).astype(
+            state.config.dtype).reshape(grid_c), device=device)
+    return GridIterativeCoarse(A, d_c, state.config.gmres_coarse_inner)
+
+
+def large_grid_coarse(A_c, grid_c, dtype, device):
+    """The coarsest solver above HOST_INV_MAX dofs: the device-built inverse
+    up to DENSE_LU_MAX, host SuperLU beyond (its O(nnz) factor instead of an
+    O(nc^2) one on the card)."""
+    if A_c.shape[0] > DENSE_LU_MAX:
+        from scipy.sparse.linalg import splu
+        return GridSparseLU(splu(A_c.tocsc().astype(np.float64)),
+                            tuple(int(v) for v in grid_c))
+    return grid_dense_inverse_from_scipy(A_c, grid_c, dtype, device)

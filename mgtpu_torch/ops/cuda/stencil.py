@@ -6,25 +6,31 @@ replaces the Pallas TPU kernel mgtpu/ops/pallas/stencil_kernel.py
 one read of the coefficients and of x, one write of y, in float32 or
 float64, for any number of leading right-hand sides.
 
-Two entry points:
+Three entry points:
 
  * `grid_apply(coeff, offsets, x)` — `GridStencil.matvec`'s apply on grid
-   fields (..., *grid) of a 1D, 2D or 3D grid whose offsets shift each axis
-   by at most one node; taps that leave the grid read zero on every axis.
+   fields (..., *grid) of a 1D, 2D or 3D grid, any per-axis shifts, at most
+   `MAX_TAPS` taps; taps that leave the grid read zero on every axis.  The
+   stride-2 transfers of ops/grid_stencil.py apply through it too.
  * `stencil_matvec(coeff, di, dj, x)` — the counterpart of
    ``stencil_matvec_pallas`` on the slab form G[j, i] = x[i + j NI]:
    coeff (nd, NJ, NI), x (..., NJ, NI), |dj| <= 1, any in-plane shift di;
    taps that leave [0, NJ) x [0, NI) read zero.
+ * `dia_apply(data, offsets, x)` — the DIA matrix y_i = sum_d
+   data[d, i] x[i + off_d] (ops/dia.py) on flat columns x (n,) or (n, m):
+   the kernel on a (1, 1, n) box with taps (0, 0, off_d), zero outside
+   [0, n).
 
-The plain versions are `grid_stencil_matvec` (ops/grid_stencil.py) and the
-slab `stencil_matvec_plain`, the same shift-multiply-accumulate with
-zero-filled shifts.
+The plain versions are `grid_stencil_matvec` (ops/grid_stencil.py), the
+slab `stencil_matvec_plain` and `dia_apply_plain`, the same
+shift-multiply-accumulate with zero-filled shifts.
 
-Dispatch: both entry points launch the kernel for a CUDA tensor (or raise on
-anything it does not take) and take the plain version only for a tensor on
-the CPU.  `GridStencil.matvec` sends a stencil the kernel does not cover
-(`supports_stencil` false) to `grid_apply_plain` on any device.
-`LAUNCHES` counts kernel launches, `PLAIN_CALLS` calls of the plain
+Dispatch: every entry point launches the kernel for a CUDA tensor (or raises
+on anything it does not take, a stencil of more than `MAX_TAPS` taps
+included) and takes the plain version only for a tensor on the CPU.
+`GridStencil.matvec` sends a field the kernel has no type for
+(`supports_stencil` false: float16, complex) to `grid_apply_plain` on any
+device.  `LAUNCHES` counts kernel launches, `PLAIN_CALLS` calls of the plain
 version, per float type of x.
 """
 from __future__ import annotations
@@ -38,13 +44,14 @@ import torch
 from ..grid_stencil import grid_stencil_matvec
 from . import _build
 
-__all__ = ["LAUNCHES", "PLAIN_CALLS", "supports_stencil", "grid_apply",
-           "grid_apply_plain", "stencil_matvec", "stencil_matvec_plain"]
+__all__ = ["LAUNCHES", "PLAIN_CALLS", "MAX_TAPS", "supports_stencil",
+           "grid_apply", "grid_apply_plain", "stencil_matvec",
+           "stencil_matvec_plain", "dia_apply", "dia_apply_plain"]
 
 _DTYPES = {torch.float32: 0, torch.float64: 1}
 LAUNCHES = {"float32": 0, "float64": 0}
 PLAIN_CALLS = {"float32": 0, "float64": 0}
-MAX_TAPS = 27
+MAX_TAPS = 256                   # kMaxTaps of csrc/stencil.cu
 
 
 def _key(dtype) -> str:
@@ -52,13 +59,19 @@ def _key(dtype) -> str:
 
 
 def supports_stencil(offsets, grid, dtype) -> bool:
-    """Kernel D covers 1D-3D grid stencils of radius 1 per axis (up to 27
-    taps) in float32 and float64; anything else takes the plain version."""
-    return (1 <= len(grid) <= 3
-            and 1 <= len(offsets) <= MAX_TAPS
-            and all(len(off) == len(grid) and all(abs(d) <= 1 for d in off)
-                    for off in offsets)
+    """Kernel D covers 1D-3D grid stencils with any per-axis shifts in
+    float32 and float64; other types take the plain version.  A stencil of
+    more than MAX_TAPS taps is covered too: `grid_apply` raises for it on
+    the card rather than run it plain."""
+    return (1 <= len(grid) <= 3 and len(offsets) >= 1
+            and all(len(off) == len(grid) for off in offsets)
             and dtype in _DTYPES)
+
+
+def _check_taps(n: int) -> None:
+    if not 1 <= n <= MAX_TAPS:
+        raise ValueError(f"kernel D takes 1 to {MAX_TAPS} taps, the stencil "
+                         f"has {n}")
 
 
 def _count_plain(dtype) -> None:
@@ -110,9 +123,10 @@ def _launch(coeff, box, taps, x):
             raise TypeError(f"{name} is {t.dtype}, x is {x.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if coeff.shape[0] != len(taps) or not 1 <= len(taps) <= MAX_TAPS:
+    _check_taps(len(taps))
+    if coeff.shape[0] != len(taps):
         raise ValueError(f"coeff has {coeff.shape[0]} taps, the stencil "
-                         f"{len(taps)} (at most {MAX_TAPS})")
+                         f"{len(taps)}")
     if x.ndim < len(space) or tuple(x.shape[x.ndim - len(space):]) != space:
         raise ValueError(f"x must be (..., *{space}), got {tuple(x.shape)}")
     n = int(np.prod(space))
@@ -151,8 +165,9 @@ def grid_apply(coeff, offsets, x):
         raise TypeError(f"kernel D takes float32 or float64, got {x.dtype}")
     offsets = tuple(tuple(int(d) for d in off) for off in offsets)
     if not supports_stencil(offsets, grid, x.dtype):
-        raise ValueError(f"kernel D takes 1D-3D radius-1 stencils in "
-                         f"float32/float64 (got {len(grid)}D, {x.dtype})")
+        raise ValueError(f"kernel D takes 1D-3D stencils in float32/float64 "
+                         f"(got {len(grid)}D, {x.dtype})")
+    _check_taps(len(offsets))
     pad = 3 - len(grid)
     box = (1,) * pad + grid
     taps = tuple((0,) * pad + off for off in offsets)
@@ -177,3 +192,38 @@ def stencil_matvec(coeff, di, dj, x):
     NJ, NI = coeff.shape[1:]
     taps = tuple((int(j), 0, int(i)) for i, j in zip(di, dj))
     return _launch(coeff, (NJ, 1, NI), taps, x)
+
+
+def dia_apply_plain(data, offsets, x):
+    """Counted plain DIA apply (mgtpu's dia_matvec): x zero-padded, then
+    one shifted slice times its diagonal per offset, summed."""
+    _count_plain(x.dtype)
+    n = data.shape[1]
+    squeeze = x.ndim == 1
+    x2 = x[:, None] if squeeze else x
+    lo, hi = max(0, -min(offsets)), max(0, max(offsets))
+    xp = torch.cat([x2.new_zeros((lo, x2.shape[1])), x2,
+                    x2.new_zeros((hi, x2.shape[1]))])
+    y = None
+    for d, off in enumerate(offsets):
+        t = data[d][:, None] * xp[lo + off:lo + off + n]
+        y = t if y is None else y + t
+    return y[:, 0] if squeeze else y
+
+
+def dia_apply(data, offsets, x):
+    """y = A x for the DIA matrix data (nd, n) with diagonal offsets
+    `offsets` on flat columns x (n,) or (n, m): kernel D on a CUDA tensor,
+    `dia_apply_plain` on a CPU one."""
+    if x.device.type == "cpu":
+        return dia_apply_plain(data, offsets, x)
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    n = data.shape[1]
+    if x.shape[0] != n or x.ndim not in (1, 2):
+        raise ValueError(f"x must be ({n},) or ({n}, m), got "
+                         f"{tuple(x.shape)}")
+    xt = x[None] if x.ndim == 1 else x.T.contiguous()
+    taps = tuple((0, 0, int(o)) for o in offsets)
+    y = _launch(data, (1, 1, n), taps, xt)
+    return y[0] if x.ndim == 1 else y.T

@@ -11,11 +11,12 @@ Grid axis order: the flat vector has mesh dim 0 fastest, so the grid view is
 right-hand sides lead: fields are (m, *grid), contiguous in torch.
 
 Host analysis (CSR extraction, structured RAP, constant-interior
-compression) runs in numpy; the results move to the device once.  A 3D
-radius-1 float32 `ConstGridStencil` applies through the hand-written CUDA
-kernel A (ops/cuda/const3d.py) and a radius-1 float32/float64
-`GridStencil` through kernel D (ops/cuda/stencil.py); every other stencil
-applies through the plain torch versions here.
+compression, stride-2 transfer extraction) runs in numpy; the results move
+to the device once.  A 3D radius-1 float32 `ConstGridStencil` applies
+through the hand-written CUDA kernel A (ops/cuda/const3d.py); a float32 or
+float64 `GridStencil` of any radius, and both applies of a
+`Stride2Transfer`, through kernel D (ops/cuda/stencil.py); every other
+stencil applies through the plain torch versions here.
 """
 from __future__ import annotations
 
@@ -33,6 +34,7 @@ __all__ = [
     "GridStencil", "ConstGridStencil", "flat_to_grid", "grid_to_flat",
     "make_grid_stencil", "grid_stencil_from_csr", "grid_stencil_matvec",
     "structured_fw_rap", "compress_grid_stencil", "const_grid_stencil_matvec",
+    "Stride2Transfer", "stride2_transfer_from_scipy",
 ]
 
 
@@ -73,10 +75,10 @@ class GridStencil:
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
         """y = A @ x on grid fields (m, *grid) or flat (n,) / (n, m).
 
-        A radius-1 stencil applied to a float32 or float64 x goes through
-        kernel D's wrapper (ops/cuda/stencil.py), which raises on a CUDA x
-        whose dtype is not the coefficients'; any other stencil through the
-        counted plain `grid_apply_plain`."""
+        A float32 or float64 x goes through kernel D's wrapper
+        (ops/cuda/stencil.py), which raises on a CUDA x whose dtype is not
+        the coefficients' or for more taps than the kernel takes; any other
+        type through the counted plain `grid_apply_plain`."""
         if _is_flat(x, self.grid):
             squeeze = x.ndim == 1
             x2 = x[:, None] if squeeze else x
@@ -290,6 +292,106 @@ def structured_fw_rap(gs: GridStencil, axes=None) -> GridStencil:
         grid[a] = C
         coeff = np.stack([out[o] for o in offsets], axis=0)
     return GridStencil(coeff, tuple(offsets), tuple(grid))
+
+
+# ---------------------------------------------------------------------------
+# stride-2 grid transfers (matrix-dependent prolongators: smoothed
+# aggregation with block-2^dim aggregates on a grid)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True, eq=False)
+class Stride2Transfer:
+    """Prolongation whose column of fine node f is the coarse node c with
+    f = 2c + off for a small static set of per-axis offsets:
+    ``coeff[k, *f] = P[flat(f), flat((f - offsets[k]) / 2)]``.
+
+    prolong:  y = sum_k coeff_k * shift(up(xc), -offsets[k]), up placing
+              xc on the even nodes (zero elsewhere) — a stencil with taps
+              -offsets[k] on up(xc);
+    restrict: rc = even nodes of sum_k shift(coeff_k * r, offsets[k]) = P^T r
+              (the SA convention R = P', reference SA-AMG.jl:49) — a
+              stencil with taps +offsets[k] on r, whose coefficients
+              `coeff_r[k, f] = coeff[k, f + offsets[k]]` (zero outside) are
+              shifted once at setup.
+
+    Both stencils apply through kernel D on a CUDA tensor (its plain
+    version on a CPU one).  mgtpu's per-axis selection matmuls (`E`, a TPU
+    choice) become strided assignment and slicing here."""
+    coeff: torch.Tensor                    # (ndiags, *fine_grid)
+    coeff_r: torch.Tensor                  # (ndiags, *fine_grid), shifted
+    offsets: tuple[tuple[int, ...], ...]
+    fine_grid: tuple[int, ...]
+    coarse_grid: tuple[int, ...]
+
+    @property
+    def dtype(self):
+        return self.coeff.dtype
+
+    @property
+    def shape(self) -> tuple[int, int]:
+        return (int(np.prod(self.fine_grid)), int(np.prod(self.coarse_grid)))
+
+    def _even(self, nb: int):
+        return (slice(None),) * nb + (slice(None, None, 2),) * len(
+            self.fine_grid)
+
+    def prolong(self, xc: torch.Tensor) -> torch.Tensor:
+        """xc: (..., *coarse_grid) -> (..., *fine_grid)."""
+        from .cuda.stencil import grid_apply
+        nb = xc.ndim - len(self.coarse_grid)
+        up = xc.new_zeros(xc.shape[:nb] + self.fine_grid)
+        up[self._even(nb)] = xc
+        return grid_apply(self.coeff, tuple(tuple(-d for d in o)
+                                            for o in self.offsets), up)
+
+    def restrict(self, r: torch.Tensor) -> torch.Tensor:
+        """P^T r: (..., *fine_grid) -> (..., *coarse_grid)."""
+        from .cuda.stencil import grid_apply
+        s = grid_apply(self.coeff_r, self.offsets, r.contiguous())
+        return s[self._even(r.ndim - len(self.fine_grid))].contiguous()
+
+
+def _shift_np(c: np.ndarray, off) -> np.ndarray:
+    """out[f] = c[f + off] with zero fill, over every axis of c."""
+    out = np.zeros_like(c)
+    src = tuple(slice(max(0, d), n - max(0, -d)) for n, d in zip(c.shape, off))
+    dst = tuple(slice(max(0, -d), n - max(0, d)) for n, d in zip(c.shape, off))
+    out[dst] = c[src]
+    return out
+
+
+def stride2_transfer_from_scipy(P: sp.spmatrix, fine_nodes, coarse_nodes,
+                                dtype=None, max_delta: int = 3,
+                                device="cpu") -> Stride2Transfer:
+    """A Stride2Transfer on `device` from an assembled prolongation.
+
+    fine_nodes/coarse_nodes: per-mesh-dim extents (dim 0 fastest).  Raises
+    ValueError when some entry's delta = f - 2c exceeds max_delta on an
+    axis."""
+    fine_nodes = [int(v) for v in np.asarray(fine_nodes).ravel()]
+    coarse_nodes = [int(v) for v in np.asarray(coarse_nodes).ravel()]
+    nf, nc = int(np.prod(fine_nodes)), int(np.prod(coarse_nodes))
+    if P.shape != (nf, nc):
+        raise ValueError("prolongation size does not match the node grids")
+    fg = tuple(reversed(fine_nodes))
+    cg = tuple(reversed(coarse_nodes))
+    Pc = P.tocoo()
+    fcoord = np.stack(np.unravel_index(Pc.row, fg), axis=1)
+    ccoord = np.stack(np.unravel_index(Pc.col, cg), axis=1)
+    d = fcoord - 2 * ccoord
+    if d.size and int(np.abs(d).max()) > max_delta:
+        raise ValueError("prolongation entry outside the stride-2 stencil")
+    offs, pos = np.unique(d, axis=0, return_inverse=True)
+    dt = dtype if dtype is not None else Pc.dtype
+    coeff = np.zeros((len(offs), nf), dtype=dt)
+    np.add.at(coeff, (pos.ravel(), Pc.row), Pc.data.astype(dt))
+    coeff = coeff.reshape((-1,) + fg)
+    offsets = tuple(tuple(int(v) for v in o) for o in offs)
+    coeff_r = np.stack([_shift_np(coeff[k], o)
+                        for k, o in enumerate(offsets)])
+    return Stride2Transfer(torch.as_tensor(coeff, device=device),
+                           torch.as_tensor(coeff_r, device=device),
+                           offsets, fg, cg)
 
 
 # ---------------------------------------------------------------------------

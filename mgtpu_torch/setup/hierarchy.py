@@ -1,20 +1,27 @@
-"""Multigrid configuration and geometric setup.
+"""Multigrid configuration, geometric setup and the device hierarchy.
 
 Counterpart of mgtpu/setup/hierarchy.py on the matrix path with
 full-weighting or semicoarsening transfers:
 
  * `MGConfig` — immutable solver configuration (levels, cycle type
    including the K-cycle, relaxation including Jac-GMRES, per-level sweep
-   counts, transfer family, coarse solver: dense inverse or FGMRES).
+   counts, transfer family, coarse solver: dense inverse, LU or FGMRES,
+   the AMG strength and filtering parameters, the engine).
  * `get_mg_param` — the configuration constructor, with the reference's
    spellings accepted as aliases.
  * `mg_setup` — Galerkin hierarchy built on the host (structured
    full-weighting RAP on the stencil coefficients; under semicoarsening
-   only the strongly coupled axes coarsen), then moved to the device as a
-   grid hierarchy (cycle/grid_cycle.py).
+   only the strongly coupled axes coarsen).
+ * `build_device_hierarchy` — the engine choice: the structured grid
+   engine (cycle/grid_cycle.py) where the hierarchy is a grid one, else
+   the flat ELL/DIA engine (`Hierarchy`, cycle/cycle.py).  Under
+   ``engine="auto"`` a `ValueError` of the grid engine (a matrix that is
+   no grid stencil, say) hands the hierarchy to the flat engine;
+   ``engine="grid"`` re-raises it and ``engine="flat"`` skips the grid
+   engine.
 
 Options the port does not have yet raise NotImplementedError("... not yet
-ported"); nothing falls back to another engine.
+ported"), which no engine choice catches.
 """
 from __future__ import annotations
 
@@ -24,14 +31,19 @@ from typing import Any
 
 import numpy as np
 import scipy.sparse as sp
+import torch
 
-from ..config import is_complex, resolve_device
+from ..config import is_complex, resolve_device, torch_dtype
 from ..models.mesh import RegularMesh, get_regular_mesh
 from . import smoothers as sm
 from . import transfers as tr
 
-__all__ = ["MGConfig", "get_mg_param", "MGState", "mg_setup",
-           "build_device_hierarchy"]
+__all__ = ["MGConfig", "get_mg_param", "Level", "Hierarchy", "MGState",
+           "mg_setup", "build_device_hierarchy"]
+
+# Replicated-dense coarsest budget of the flat engine: beyond it the host
+# SuperLU coarsest (cycle/coarse.py) takes over.
+_DENSE_COARSE_MAX = 20480
 
 # reference relaxType spellings accepted as aliases
 _RELAX_ALIASES = {
@@ -65,20 +77,25 @@ class MGConfig:
     nu_post: tuple[int, ...] = ()
     cycle_type: str = "V"
     coarse_solve: str = "lu"
+    strong_conn_param: float = 0.4   # AMG strength-of-connection threshold
+    filtering_param: float = 0.0     # non-Galerkin SA magnitude filter
     transfer_type: str = "full-weighting"
     dtype: Any = np.float64
-    cheby_degree: int = 3            # polynomial degree per chebyshev sweep
-    cheby_frac: float = 0.25         # smoothing interval [frac*lam, lam]
     kcycle_inner: int = 2            # FGMRES steps per K-cycle level
     gmres_coarse_inner: int = 10     # FGMRES steps of the iterative coarsest
+    engine: str = "auto"             # "auto" | "grid" | "flat"
+    cheby_degree: int = 3            # polynomial degree per chebyshev sweep
+    cheby_frac: float = 0.25         # smoothing interval [frac*lam, lam]
 
 
 def get_mg_param(levels: int = 3, max_outer_iter: int = 20,
                  relative_tol: float = 1e-6, relax_type: str = "spai",
                  relax_param=1.0, nu_pre=2, nu_post=2, cycle_type: str = "V",
-                 coarse_solve: str = "lu",
+                 coarse_solve: str = "lu", strong_conn_param: float = 0.4,
+                 filtering_param: float = 0.0,
                  transfer_type: str = "full-weighting",
-                 dtype=np.float64, cheby_degree: int = 3,
+                 dtype=np.float64, engine: str = "auto",
+                 cheby_degree: int = 3,
                  cheby_frac: float = 0.25) -> tuple[MGConfig, Any]:
     """Configuration constructor mirroring getMGparam (the parameters this
     port reads so far).
@@ -100,9 +117,55 @@ def get_mg_param(levels: int = 3, max_outer_iter: int = 20,
                    relative_tol=relative_tol, relax_type=relax_type,
                    nu_pre=to_tuple(nu_pre), nu_post=to_tuple(nu_post),
                    cycle_type=cycle_type, coarse_solve=coarse_solve,
+                   strong_conn_param=strong_conn_param,
+                   filtering_param=filtering_param,
                    transfer_type=transfer_type, dtype=np.dtype(dtype).type,
-                   cheby_degree=cheby_degree, cheby_frac=cheby_frac)
+                   engine=engine, cheby_degree=cheby_degree,
+                   cheby_frac=cheby_frac)
     return cfg, relax_param
+
+
+@dataclass(frozen=True, eq=False)
+class Level:
+    """A flat-engine level: operator, transfers and smoother state on the
+    device (P, R and relax are None on the coarsest level)."""
+    A: Any                 # ELL | DIA
+    P: Any                 # ELL | None
+    R: Any                 # ELL | None
+    relax: Any             # DiagRelax | ChebyshevRelax | None
+
+
+@dataclass(frozen=True, eq=False)
+class Hierarchy:
+    """The flat engine's device hierarchy."""
+    levels: tuple          # Level per level, coarsest included
+    coarse: Any            # DenseLU | IterativeCoarse | SparseLUCoarse | ...
+
+
+class _LazySparseList:
+    """Per-level transfer matrices, made on first access.
+
+    The flat P/R (a kron of the 1D factors) are read only by the flat
+    engine and by tests: the grid engine applies the transfers from the 1D
+    factors.  Entries are sparse matrices or 0-argument thunks making one."""
+
+    def __init__(self):
+        self._items = []
+
+    def append(self, item):
+        self._items.append(item)
+
+    def __getitem__(self, i):
+        it = self._items[i]
+        if callable(it):
+            it = self._items[i] = it()
+        return it
+
+    def __len__(self):
+        return len(self._items)
+
+    def __iter__(self):
+        return (self[i] for i in range(len(self._items)))
 
 
 @dataclass(eq=False)
@@ -111,10 +174,13 @@ class MGState:
     config: MGConfig
     relax_param: Any
     As: list            # host CSR per level
+    Ps: Any             # host CSR prolongations (coarse -> fine)
+    Rs: Any             # host CSR restrictions (fine -> coarse)
     meshes: list
     device: Any = None             # torch.device the hierarchy lives on
-    hier: Any = None               # GridHierarchy
+    hier: Any = None               # GridHierarchy | Hierarchy
     A_input: Any = None            # fine operator at its ORIGINAL precision
+    coarse_solver: Any = None      # external coarse solver template, if any
     time_setup: float = 0.0
     time_solve: float = 0.0
     n_iter: int = 0
@@ -124,6 +190,13 @@ class MGState:
     @property
     def num_levels(self) -> int:
         return len(self.As)
+
+    @property
+    def nnz_per_level(self) -> list:
+        return [int(a.nnz) for a in self.As]
+
+    def operator_complexity(self) -> float:
+        return sum(a.nnz for a in self.As) / max(self.As[0].nnz, 1)
 
 
 # ---------------------------------------------------------------------------
@@ -204,11 +277,93 @@ def _semicoarsen_axes(gs, theta: float = 0.25) -> list:
     return [bool(sv >= theta * smax and sv > 0) for sv in strength]
 
 
-def build_device_hierarchy(state: MGState, relax_states: list):
-    """The device hierarchy: the structured grid engine (the only engine
-    this port has so far)."""
-    from ..cycle.grid_cycle import build_grid_hierarchy
-    return build_grid_hierarchy(state, relax_states, state.device)
+def _to_device_matrix(A: sp.spmatrix, dtype, prefer_dia: bool = True,
+                      device="cpu"):
+    """DIA where its stored size stays within 3x the nonzeros (at most 40
+    diagonals), else ELL."""
+    from ..ops.dia import dia_from_scipy
+    from ..ops.ell import ell_from_scipy
+    if prefer_dia:
+        D = dia_from_scipy(A, dtype=dtype, max_diags=40, device=device)
+        if D is not None and D.data.numel() <= 3 * A.nnz:
+            return D
+    return ell_from_scipy(A.tocsr(), dtype=dtype, device=device)
+
+
+def _relax_to(rs, dtype, device):
+    """A host smoother state with its diagonal as a tensor on `device`."""
+    from ..cycle.relax import ChebyshevRelax, DiagRelax
+    d = torch.as_tensor(np.asarray(rs.d), device=device).to(dtype)
+    if isinstance(rs, ChebyshevRelax):
+        return ChebyshevRelax(d, rs.lam_max)
+    if isinstance(rs, DiagRelax):
+        return DiagRelax(d)
+    raise ValueError(f"the flat engine takes diagonal smoothers, got "
+                     f"{type(rs).__name__}")
+
+
+def _setup_coarse(state: MGState, verbose: bool = False):
+    """The flat engine's coarsest solver (reference defineCoarsestAinv,
+    MGsetup.jl:323-355)."""
+    from ..cycle import coarse as co
+    cfg, dev = state.config, state.device
+    A_c = state.As[-1]
+    if state.coarse_solver is not None:
+        mesh_c = state.meshes[-1] if state.meshes else None
+        return state.coarse_solver.setup_coarse(A_c, mesh_c)
+    if cfg.coarse_solve == "gmres":
+        rp = _per_level_relax_param(state.relax_param, cfg.levels)[-1]
+        omega = rp if np.isscalar(rp) else 1.0
+        return co.iterative_coarse_from_scipy(
+            A_c, omega, inner=cfg.gmres_coarse_inner, dtype=cfg.dtype,
+            device=dev)
+    if A_c.shape[0] > _DENSE_COARSE_MAX:
+        if verbose:
+            print(f"_setup_coarse: nc={A_c.shape[0]} > {_DENSE_COARSE_MAX}, "
+                  "using the host SuperLU coarsest (a host round trip per "
+                  "solve)")
+        return co.sparse_lu_from_scipy(A_c, dtype=cfg.dtype)
+    return co.dense_lu_from_scipy(A_c, dtype=cfg.dtype, device=dev)
+
+
+def build_device_hierarchy(state: MGState, relax_states: list,
+                           verbose: bool = False):
+    """The device hierarchy on `state.device`: the grid engine when the
+    configuration allows it and the hierarchy is a grid one, else the flat
+    ELL/DIA engine (see the module docstring for ``engine``)."""
+    cfg = state.config
+    if cfg.engine not in ("auto", "grid", "flat"):
+        raise ValueError(f"unknown engine {cfg.engine!r}")
+    if cfg.engine in ("auto", "grid"):
+        from ..cycle.grid_cycle import build_grid_hierarchy
+        try:
+            gh = build_grid_hierarchy(state, relax_states, state.device)
+            if verbose:
+                print("build_device_hierarchy: using the grid stencil engine")
+            return gh
+        except ValueError as e:
+            if cfg.engine == "grid":
+                raise ValueError(f"engine='grid' not applicable: {e}") from e
+    from ..ops.ell import ell_from_scipy
+    dev, dt = state.device, torch_dtype(cfg.dtype)
+    # DIA for the pointwise smoothers; the other states read rows
+    prefer_dia = cfg.relax_type in ("jacobi", "jac-gmres", "spai")
+    nlev = state.num_levels
+    levels = []
+    for l in range(nlev):
+        A_dev = _to_device_matrix(state.As[l], cfg.dtype, prefer_dia, dev)
+        if l < nlev - 1:
+            P_dev = ell_from_scipy(state.Ps[l].tocsr(), dtype=cfg.dtype,
+                                   device=dev)
+            R_dev = ell_from_scipy(state.Rs[l].tocsr(), dtype=cfg.dtype,
+                                   device=dev)
+            levels.append(Level(A_dev, P_dev, R_dev, _relax_to(
+                _resolve_relax(relax_states[l]), dt, dev)))
+        else:
+            levels.append(Level(A_dev, None, None, None))
+    if verbose:
+        print("build_device_hierarchy: using the flat ELL/DIA engine")
+    return Hierarchy(tuple(levels), _setup_coarse(state, verbose))
 
 
 # ---------------------------------------------------------------------------
@@ -216,11 +371,12 @@ def build_device_hierarchy(state: MGState, relax_states: list):
 # ---------------------------------------------------------------------------
 
 def mg_setup(A, mesh: RegularMesh, cfg: MGConfig, relax_param=None,
-             verbose: bool = False, device=None) -> MGState:
+             coarse_solver=None, verbose: bool = False,
+             device=None) -> MGState:
     """Build a Galerkin hierarchy (full-weighting or semicoarsening
     transfers) for the scipy matrix `A` on `mesh` and move it to `device`
     ("cuda" unless the caller asks for the CPU; raises when no card is
-    present)."""
+    present) on the engine `cfg.engine` selects."""
     t_all = time.perf_counter()
     dev = resolve_device(device)
     if not sp.issparse(A):
@@ -237,6 +393,7 @@ def mg_setup(A, mesh: RegularMesh, cfg: MGConfig, relax_param=None,
     from ..ops.grid_stencil import grid_stencil_from_csr, structured_fw_rap
     rp_arr = _per_level_relax_param(relax_param, cfg.levels)
     As, meshes, relax_states = [A], [mesh], []
+    Ps, Rs = _LazySparseList(), _LazySparseList()
     n = np.asarray(mesh.n)
     levels = cfg.levels
     gs_cache: dict = {}
@@ -282,6 +439,10 @@ def mg_setup(A, mesh: RegularMesh, cfg: MGConfig, relax_param=None,
             levels = l + 1
             break
         relax_states.append(_RelaxThunk(A_l, cfg, rp_arr[l], meshes[l]))
+        # the flat P and R = 0.5^c P^T, made only when read
+        Ps.append(lambda ms=tuple(p1s): tr._kron_nd(list(ms)))
+        Rs.append(lambda ms=tuple(p1s), d=d_c:
+                  ((0.5 ** d) * tr._kron_nd(list(ms)).T).tocsr())
         meshes.append(get_regular_mesh(meshes[l].domain, nc))
         # structured stencil RAP on the grid-form coefficients (which the
         # grid engine reuses via the cache); scipy's triple product where
@@ -297,9 +458,7 @@ def mg_setup(A, mesh: RegularMesh, cfg: MGConfig, relax_param=None,
             A_c = gs_c.to_scipy().tocsr()
             A_c.eliminate_zeros()   # boundary non-entries
         except ValueError:
-            P = tr._kron_nd(list(p1s))
-            R = ((0.5 ** d_c) * P.T).tocsr()
-            A_c = (R @ A_l @ P).tocsr()
+            A_c = (Rs[l] @ A_l @ Ps[l]).tocsr()
         As.append(A_c.astype(cfg.dtype))
         if verbose:
             print(f"mg_setup: level {l} ({int(np.prod(n))} cells) took "
@@ -308,10 +467,10 @@ def mg_setup(A, mesh: RegularMesh, cfg: MGConfig, relax_param=None,
 
     cfg = replace(cfg, levels=levels,
                   nu_pre=cfg.nu_pre[:levels], nu_post=cfg.nu_post[:levels])
-    state = MGState(cfg, relax_param, As, meshes, device=dev,
-                    A_input=A_input)
+    state = MGState(cfg, relax_param, As, Ps, Rs, meshes, device=dev,
+                    A_input=A_input, coarse_solver=coarse_solver)
     state._gs_cache = {k: v for k, v in gs_cache.items()
                        if v.coeff.dtype == np.dtype(cfg.dtype)}
-    state.hier = build_device_hierarchy(state, relax_states)
+    state.hier = build_device_hierarchy(state, relax_states, verbose)
     state.time_setup += time.perf_counter() - t_all
     return state

@@ -1,7 +1,9 @@
 """Stand-alone multigrid solves and Krylov-wrapped solves.
 
-Counterpart of mgtpu/solvers/mg_solver.py on the grid engine (less
-`solve_mg_jit`):
+Counterpart of mgtpu/solvers/mg_solver.py (less `solve_mg_jit`), on either
+engine: the solve loops keep their iterates as the engine's fields — (m, *grid)
+on the grid engine, (m, n) on the flat one (`_runtime`, mgtpu's
+`_cycle_runtime`):
 
  * `solve_mg` iterates cycles with a relative-tolerance stop checked every
    cycle, a divergence stop at 1e3 * res0, and the residual history.
@@ -10,7 +12,7 @@ Counterpart of mgtpu/solvers/mg_solver.py on the grid engine (less
    correction one cycle of the (float32) hierarchy from a zero guess;
    `fmg=True` starts from one full-multigrid pass instead of zero.
  * `solve_cg_mg`, `solve_bicgstab_mg`, `solve_gmres_mg` run the Krylov
-   methods of krylov/ on (m, *grid) fields with one cycle from zero as the
+   methods of krylov/ on those fields with one cycle from zero as the
    preconditioner (reference SolveFuncs.jl:74-133); `block=True` shares one
    Krylov space between the right-hand sides.  A float64 b over a lower-
    precision hierarchy runs the Krylov iteration in float64 against the
@@ -29,11 +31,12 @@ import numpy as np
 import torch
 
 from ..config import torch_dtype
-from ..cycle.grid_cycle import grid_cycle, grid_fmg
+from ..cycle.cycle import recursive_cycle
+from ..cycle.grid_cycle import GridHierarchy, grid_cycle, grid_fmg
 from ..krylov import (bicgstab, block_bicgstab, block_fgmres, block_pcg,
                       fgmres, pcg)
 from ..ops.grid_stencil import flat_to_grid, grid_to_flat, make_grid_stencil
-from ..setup.hierarchy import MGState
+from ..setup.hierarchy import MGState, _to_device_matrix
 
 __all__ = ["solve_mg", "solve_mg_refined", "get_afun",
            "get_mg_preconditioner", "solve_cg_mg", "solve_bicgstab_mg",
@@ -48,6 +51,31 @@ def _norm(v: torch.Tensor) -> float:
     return float(torch.linalg.vector_norm(v))
 
 
+def _rows(matvec):
+    """A flat operator's apply on (m, n) fields."""
+    return lambda v: matvec(v.T).T
+
+
+def _runtime(state: MGState):
+    """The engine's field form: (to_field, to_flat, cycle, matvec).
+
+    to_field takes flat (n, m) columns to a field, to_flat back;
+    cycle(b, x, x_zero) is one cycle of the hierarchy on fields and matvec
+    the fine operator on fields.  Grid fields are (m, *grid); the flat
+    engine's are (m, n), whose transposes are the (n, m) columns its cycle
+    takes."""
+    cfg, h = state.config, state.hier
+    if isinstance(h, GridHierarchy):
+        grid = h.fine_grid
+        return (lambda v: flat_to_grid(v, grid), grid_to_flat,
+                lambda b, x, xz=False: grid_cycle(cfg, h, b, x, x_zero=xz),
+                h.levels[0].A.matvec)
+    return (lambda v: v.T.contiguous(), lambda v: v.T,
+            lambda b, x, xz=False: recursive_cycle(cfg, h, b.T, x.T,
+                                                   x_zero=xz).T,
+            _rows(h.levels[0].A.matvec))
+
+
 def solve_mg(state: MGState, b, x=None, verbose: bool = False):
     """Iterate cycles until ||r||/||r0|| < relative_tol or max_outer_iter.
 
@@ -55,21 +83,20 @@ def solve_mg(state: MGState, b, x=None, verbose: bool = False):
     tensor on the state's device and info = {"iters", "relres", "resvec"}.
     """
     t0 = time.perf_counter()
-    cfg, gh, dev = state.config, state.hier, state.device
+    cfg, dev = state.config, state.device
     dt = torch_dtype(cfg.dtype)
     b2, squeeze = _as_2d(torch.as_tensor(b, dtype=dt, device=dev))
     x2 = (torch.zeros_like(b2) if x is None
           else _as_2d(torch.as_tensor(x, dtype=dt, device=dev))[0])
-    grid = gh.fine_grid
-    matvec = gh.levels[0].A.matvec
-    bv, xv = flat_to_grid(b2, grid), flat_to_grid(x2, grid)
+    to_field, to_flat, cycle, matvec = _runtime(state)
+    bv, xv = to_field(b2), to_field(x2)
 
     res0 = _norm(bv - matvec(xv)) if _norm(xv) > 0 else _norm(bv)
     res = res0
     resvec = [res0]
     iters = 0
     for count in range(cfg.max_outer_iter):
-        xv = grid_cycle(cfg, gh, bv, xv)
+        xv = cycle(bv, xv)
         res_prev = res
         res = _norm(bv - matvec(xv))
         resvec.append(res)
@@ -83,23 +110,36 @@ def solve_mg(state: MGState, b, x=None, verbose: bool = False):
             break              # diverging
     state.n_iter += iters * b2.shape[1]
     state.time_solve += time.perf_counter() - t0
-    x2 = grid_to_flat(xv)
+    x2 = to_flat(xv)
     return (x2[:, 0] if squeeze else x2), {
         "iters": iters, "relres": res / max(res0, 1e-300),
         "resvec": np.array(resvec)}
 
 
 def high_precision_fine_operator(state: MGState):
-    """Float64 grid stencil of the ORIGINAL fine operator, cached on the
-    state (the hierarchy's fine matrix was cast to the cycle dtype)."""
+    """Float64 form of the ORIGINAL fine operator, cached on the state (the
+    hierarchy's fine matrix was cast to the cycle dtype): a grid stencil on
+    the grid engine, DIA or ELL (`_to_device_matrix`) on the flat one.
+    On the grid engine its matvec takes fields, on the flat engine (n, m)
+    columns; `_hi_matvec` is the apply on fields for both."""
     if state._hi_op_cache is None:
         A_host = state.A_input if state.A_input is not None else state.As[0]
-        grid = state.hier.fine_grid
-        state._hi_op_cache = make_grid_stencil(
-            A_host, list(reversed(grid)), dtype=np.float64,
-            max_shift=(min(grid) - 1) // 2 if min(grid) < 7 else 3,
-            device=state.device)
+        if isinstance(state.hier, GridHierarchy):
+            grid = state.hier.fine_grid
+            state._hi_op_cache = make_grid_stencil(
+                A_host, list(reversed(grid)), dtype=np.float64,
+                max_shift=(min(grid) - 1) // 2 if min(grid) < 7 else 3,
+                device=state.device)
+        else:
+            state._hi_op_cache = _to_device_matrix(
+                A_host, np.float64, device=state.device)
     return state._hi_op_cache
+
+
+def _hi_matvec(state: MGState):
+    """The float64 fine operator's apply on the engine's fields."""
+    mv = high_precision_fine_operator(state).matvec
+    return mv if isinstance(state.hier, GridHierarchy) else _rows(mv)
 
 
 def solve_mg_refined(state: MGState, b, x=None, tol: float = 1e-8,
@@ -123,10 +163,12 @@ def solve_mg_refined(state: MGState, b, x=None, tol: float = 1e-8,
     b2, squeeze = _as_2d(torch.as_tensor(b, dtype=torch.float64, device=dev))
     x2 = (torch.zeros_like(b2) if x is None
           else _as_2d(torch.as_tensor(x, dtype=torch.float64, device=dev))[0])
-    matvec_hi = high_precision_fine_operator(state).matvec
-    grid = gh.fine_grid
-    bv, xv = flat_to_grid(b2, grid), flat_to_grid(x2, grid)
+    matvec_hi = _hi_matvec(state)
+    to_field, to_flat, cycle, _ = _runtime(state)
+    bv, xv = to_field(b2), to_field(x2)
     if fmg and x is None:
+        if not isinstance(gh, GridHierarchy):
+            raise ValueError("the FMG start needs the grid engine")
         xv = grid_fmg(cfg, gh, bv.to(cd)).to(torch.float64)
 
     res0 = max(_norm(bv), 1e-300)
@@ -136,7 +178,7 @@ def solve_mg_refined(state: MGState, b, x=None, tol: float = 1e-8,
     iters = 0
     while iters < max_iter and tol * res0 <= res < 1e3 * res0:
         rl = r.to(cd)
-        z = grid_cycle(cfg, gh, rl, torch.zeros_like(rl), x_zero=True)
+        z = cycle(rl, torch.zeros_like(rl), True)
         xv = xv + z.to(torch.float64)
         r = bv - matvec_hi(xv)
         res_prev, res = res, _norm(r)
@@ -147,7 +189,7 @@ def solve_mg_refined(state: MGState, b, x=None, tol: float = 1e-8,
                   f"Factor: {res / max(res_prev, 1e-300):.3f}")
     state.n_iter += iters * b2.shape[1]
     state.time_solve += time.perf_counter() - t0
-    x2 = grid_to_flat(xv)
+    x2 = to_flat(xv)
     return (x2[:, 0] if squeeze else x2), {
         "iters": iters, "relres": res / res0, "resvec": np.array(resvec)}
 
@@ -158,17 +200,16 @@ def get_afun(A):
     return A.matvec
 
 
-def _grid_preconditioner(state: MGState):
-    """One cycle from a zero guess on (m, *grid) fields.  The cycle runs in
-    the hierarchy's precision; the correction comes back in r's (the
+def _field_preconditioner(state: MGState):
+    """One cycle from a zero guess on the engine's fields.  The cycle runs
+    in the hierarchy's precision; the correction comes back in r's (the
     mixed-precision shim, SolveFuncs.jl:52-58)."""
-    cfg, gh = state.config, state.hier
-    cd = torch_dtype(cfg.dtype)
+    cd = torch_dtype(state.config.dtype)
+    cycle = _runtime(state)[2]
 
     def prec(r):
         rl = r.to(cd)
-        return grid_cycle(cfg, gh, rl, torch.zeros_like(rl),
-                          x_zero=True).to(r.dtype)
+        return cycle(rl, torch.zeros_like(rl), True).to(r.dtype)
 
     return prec
 
@@ -176,40 +217,41 @@ def _grid_preconditioner(state: MGState):
 def get_mg_preconditioner(state: MGState):
     """The one-cycle preconditioner as an operator on flat (n,) / (n, m)
     tensors (reference getMGPreconditioner, SolveFuncs.jl:43-63)."""
-    prec, grid = _grid_preconditioner(state), state.hier.fine_grid
+    prec = _field_preconditioner(state)
+    to_field, to_flat = _runtime(state)[:2]
 
     def flat_prec(r):
         r2, squeeze = _as_2d(r)
-        z = grid_to_flat(prec(flat_to_grid(r2, grid)))
+        z = to_flat(prec(to_field(r2)))
         return z[:, 0] if squeeze else z
 
     return flat_prec
 
 
 def _krylov_setup(state: MGState, b, x0):
-    """Krylov operands on (m, *grid) fields: b and x0 as fields, the fine
+    """Krylov operands on the engine's fields: b and x0 as fields, the fine
     matvec, the one-cycle preconditioner and the map back to flat.
 
     A float64 b over a lower-precision hierarchy makes the outer iteration
     float64: its matvec is the float64 operator of `A_input` and each cycle
     runs on the residual cast to the hierarchy's precision."""
-    cfg, gh, dev = state.config, state.hier, state.device
+    cfg, dev = state.config, state.device
     cd = torch_dtype(cfg.dtype)
     bt = torch.as_tensor(b, device=dev)
     outer = torch.float64 if bt.dtype == torch.float64 else cd
     b2, squeeze = _as_2d(bt.to(outer))
     x2 = (torch.zeros_like(b2) if x0 is None
           else _as_2d(torch.as_tensor(x0, dtype=outer, device=dev))[0])
-    grid = gh.fine_grid
-    matvec = (high_precision_fine_operator(state) if outer != cd
-              else gh.levels[0].A).matvec
+    to_field, to_flat2, _, matvec = _runtime(state)
+    if outer != cd:
+        matvec = _hi_matvec(state)
 
     def to_flat(Xv):
-        X2 = grid_to_flat(Xv)
+        X2 = to_flat2(Xv)
         return X2[:, 0] if squeeze else X2
 
-    return (flat_to_grid(b2, grid), flat_to_grid(x2, grid), matvec,
-            _grid_preconditioner(state), to_flat)
+    return (to_field(b2), to_field(x2), matvec,
+            _field_preconditioner(state), to_flat)
 
 
 def _krylov_solve(state: MGState, name: str, fn, block_fn, block: bool, b,

@@ -5,6 +5,8 @@ and skips with a reason when there is none.  On the card:
 
     python -m pytest -m gpu tests/test_torch_gpu.py
 """
+import itertools
+
 import numpy as np
 import pytest
 import scipy.sparse as sp
@@ -487,14 +489,16 @@ def test_stencil_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError):
         stencil.grid_apply(A.coeff, A.offsets, x[:, :-1])
     with pytest.raises(ValueError):
-        stencil.grid_apply(A.coeff, tuple((2 * a, b) for a, b in A.offsets),
-                           x)
+        stencil.grid_apply(A.coeff, A.offsets[:-1], x)
+    coeff, offsets = _wide_stencil(257, 2, A.grid, np.float32)
+    with pytest.raises(ValueError, match="256"):
+        stencil.grid_apply(coeff, offsets, x)
 
 
 def test_grid_stencil_dispatch_on_the_card():
     """On the card, GridStencil.matvec raises on a mixed pair (f32
-    coefficients, f64 x) and counts every plain call: a radius-2 stencil
-    and a float16 field take the plain version, counted."""
+    coefficients, f64 x) and on more than 256 taps; a radius-2 stencil
+    launches kernel D; a float16 field takes the plain version, counted."""
     _need_card()
     from mgtpu_torch.ops.cuda import stencil
     from mgtpu_torch.ops.grid_stencil import GridStencil
@@ -502,14 +506,174 @@ def test_grid_stencil_dispatch_on_the_card():
     x = torch.ones((1,) + A.grid, device="cuda")
     with pytest.raises(TypeError):
         A.matvec(x.double())
-    p0 = dict(stencil.PLAIN_CALLS)
+    p0, n0 = dict(stencil.PLAIN_CALLS), dict(stencil.LAUNCHES)
     A2 = GridStencil(torch.ones((2, 5, 6), device="cuda"),
                      ((0, 0), (0, 2)), (5, 6))
     y = A2.matvec(torch.ones((1, 5, 6), device="cuda"))
-    assert stencil.PLAIN_CALLS["float32"] == p0["float32"] + 1
-    assert float(y[0, 2, 2]) == 2.0
+    torch.cuda.synchronize()
+    assert stencil.LAUNCHES["float32"] == n0["float32"] + 1
+    assert stencil.PLAIN_CALLS["float32"] == p0["float32"]
+    assert float(y[0, 2, 2]) == 2.0 and float(y[0, 2, 4]) == 1.0
+    coeff, offsets = _wide_stencil(257, 2, A.grid, np.float32)
+    with pytest.raises(ValueError, match="256"):
+        GridStencil(coeff, offsets, A.grid).matvec(x)
     GridStencil(A.coeff.half(), A.offsets, A.grid).matvec(x.half())
     assert stencil.PLAIN_CALLS.get("float16", 0) == p0.get("float16", 0) + 1
+
+
+def _wide_stencil(ntaps, dim, grid, dtype, seed=0):
+    """Random coefficients (on the card) of a stencil whose taps are the
+    `ntaps` offsets nearest the centre of a radius-8 box (ties in order)."""
+    r = range(-8, 9)
+    offs = sorted(itertools.product(*[r] * dim),
+                  key=lambda o: (sum(d * d for d in o), o))[:ntaps]
+    coeff = np.random.RandomState(seed).rand(ntaps, *grid).astype(dtype)
+    return torch.tensor(coeff, device="cuda"), tuple(offs)
+
+
+@pytest.mark.parametrize("ntaps,dim", [(13, 2), (37, 2), (97, 2), (179, 3),
+                                       (256, 3)])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_stencil_kernel_wide_stencils(ntaps, dim, dtype):
+    """Kernel D at the smoothed-aggregation stencils' widths (13 / 37 / 97
+    taps in 2D, 179 in 3D) and at its cap of 256, against its plain
+    version: 2e-5 (f32) / 1e-12 (f64), m = 1 and 3."""
+    _need_card()
+    from mgtpu_torch.ops.cuda import stencil
+    from mgtpu_torch.ops.grid_stencil import grid_stencil_matvec
+    grid = (37, 41) if dim == 2 else (13, 15, 17)
+    coeff, offsets = _wide_stencil(ntaps, dim, grid, dtype)
+    key = np.dtype(dtype).name
+    tol = 2e-5 if dtype == np.float32 else 1e-12
+    for m in (1, 3):
+        x = torch.tensor(np.random.RandomState(m).rand(m, *grid),
+                         dtype=coeff.dtype, device="cuda")
+        n0, p0 = stencil.LAUNCHES[key], stencil.PLAIN_CALLS[key]
+        y = stencil.grid_apply(coeff, offsets, x)
+        ref = grid_stencil_matvec(coeff, offsets, x)
+        torch.cuda.synchronize()
+        assert stencil.LAUNCHES[key] == n0 + 1
+        assert stencil.PLAIN_CALLS[key] == p0
+        err = float((y - ref).abs().max() / ref.abs().max())
+        assert err < tol, (ntaps, m, err)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_stencil_kernel_dia_form(dtype):
+    """Kernel D on a (1, 1, n) box: the DIA form of the 2D 5-point
+    operator on a 33 x 41 grid (offsets +-1 and +-41, beyond a grid row)
+    and a diagonal past the matrix (always masked), against dia_apply_plain
+    and scipy, m = 1 and 3."""
+    _need_card()
+    from mgtpu_torch.ops.cuda import stencil
+    from mgtpu_torch.ops.dia import dia_from_scipy
+    T = lambda k: sp.diags([-1.0, 2.0, -1.0], [-1, 0, 1], shape=(k, k))
+    A = (sp.kron(sp.identity(33), T(41)) + sp.kron(T(33), sp.identity(41))
+         ).tocsr()
+    D = dia_from_scipy(A, dtype=dtype, device="cuda")
+    assert D.offsets == (-41, -1, 0, 1, 41)
+    n = A.shape[0]
+    offsets = D.offsets + (n + 5,)
+    data = torch.cat([D.data, torch.ones_like(D.data[:1])])
+    key = np.dtype(dtype).name
+    tol = 2e-5 if dtype == np.float32 else 1e-12
+    for m in (1, 3):
+        xh = np.random.RandomState(m).rand(n, m)
+        x = torch.tensor(xh, dtype=D.data.dtype, device="cuda")
+        n0 = stencil.LAUNCHES[key]
+        y = stencil.dia_apply(data, offsets, x[:, 0] if m == 1 else x)
+        ref = stencil.dia_apply_plain(data, offsets, x)
+        torch.cuda.synchronize()
+        assert stencil.LAUNCHES[key] == n0 + 1
+        y2 = y[:, None] if m == 1 else y
+        assert float((y2 - ref).abs().max() / ref.abs().max()) < tol
+        want = A @ x.cpu().numpy().astype(np.float64)
+        assert np.abs(y2.cpu().numpy() - want).max() / np.abs(want).max() \
+            < tol
+
+
+def _rough_sigma(n, dim=2, shift=1e-8, seed=3):
+    import mgtpu_torch as mt
+    from mgtpu_torch.models.operators import nodal_div_sig_grad_matrix
+    M = mt.get_regular_mesh([0.0, 1.0] * dim, [n] * dim)
+    sig = np.exp(np.random.RandomState(seed).randn(M.num_cells))
+    A = nodal_div_sig_grad_matrix(M, sig)
+    A = (A + shift * abs(A).sum(0).max() * sp.identity(A.shape[0])).tocsr()
+    return M, A
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_stride2_transfers_through_kernel_d(dtype):
+    """Both applies of every Stride2Transfer of a structured SA hierarchy
+    (64^2 rough sigma) launch kernel D and equal P @ x / P^T @ r of the
+    assembled matrices."""
+    _need_card()
+    import mgtpu_torch as mt
+    from mgtpu_torch.ops.cuda import stencil
+    from mgtpu_torch.ops.grid_stencil import Stride2Transfer
+    M, A = _rough_sigma(64)
+    cfg, rp = mt.get_mg_param(levels=4, relax_type="spai", dtype=dtype)
+    st = mt.sa_amg_setup(A, cfg, rp, mesh=M)
+    key = np.dtype(dtype).name
+    tol = 2e-5 if dtype == np.float32 else 1e-12
+    for l, lv in enumerate(st.hier.levels[:-1]):
+        T = lv.P1
+        assert isinstance(T, Stride2Transfer)
+        P = st.Ps[l].astype(np.float64)
+        for m in (1, 3):
+            rng = np.random.RandomState(m)
+            xc = rng.rand(P.shape[1], m)
+            r = rng.rand(P.shape[0], m)
+            n0 = stencil.LAUNCHES[key]
+            y = T.prolong(torch.tensor(xc.T.reshape((m,) + T.coarse_grid),
+                                       dtype=T.dtype, device="cuda"))
+            rc = T.restrict(torch.tensor(r.T.reshape((m,) + T.fine_grid),
+                                         dtype=T.dtype, device="cuda"))
+            torch.cuda.synchronize()
+            assert stencil.LAUNCHES[key] == n0 + 2
+            for got, want in ((y, P @ xc), (rc, P.T @ r)):
+                got = got.cpu().numpy().reshape(m, -1).T
+                err = np.abs(got - want).max() / np.abs(want).max()
+                assert err < tol, (l, m, err)
+
+
+def test_device_built_coarsest_inverse():
+    """The dense inverse of a 65^2 (4225-dof) coarsest built on the card:
+    A inv is the identity to 10 eps * cond_1(A) in float32 and float64."""
+    _need_card()
+    from mgtpu_torch.cycle.grid_cycle import grid_dense_inverse_from_scipy
+    _, A = _rough_sigma(64, shift=1e-2)
+    Ad = A.toarray()
+    cond = np.linalg.cond(Ad, 1)
+    for dtype in (np.float32, np.float64):
+        D = grid_dense_inverse_from_scipy(A, (65, 65), dtype, "cuda")
+        err = np.abs(Ad @ D.inv.double().cpu().numpy() - np.eye(65 * 65))
+        assert err.max() < 10 * np.finfo(dtype).eps * cond, (dtype, err.max())
+
+
+def test_small_amg_solves_run_through_kernel_d():
+    """64^2 rough-sigma SA on the card — structured (grid engine), its
+    K-cycle form, and greedy (flat engine, DIA fine level) — to a true
+    relres of 1e-8: kernel D runs in float32 and float64 in each solve and
+    its plain version never does."""
+    _need_card()
+    import mgtpu_torch as mt
+    from mgtpu_torch.ops.cuda import stencil
+    M, A = _rough_sigma(64)
+    b = A @ np.random.RandomState(4).rand(A.shape[0])
+    b /= np.linalg.norm(b)
+    for kw, mesh in ((dict(relax_type="spai"), M),
+                     (dict(relax_type="jac-gmres", relax_param=1.0,
+                           nu_pre=1, nu_post=1, cycle_type="K"), M),
+                     (dict(relax_type="spai"), None)):
+        cfg, rp = mt.get_mg_param(levels=4, dtype=np.float32, **kw)
+        st = mt.sa_amg_setup(A, cfg, rp, mesh=mesh)
+        before = (dict(stencil.LAUNCHES), dict(stencil.PLAIN_CALLS))
+        x, info = mt.solve_mg_refined(st, b, tol=1e-8, max_iter=80)
+        assert np.linalg.norm(b - A @ x.cpu().numpy()) < 1e-8, info["iters"]
+        assert stencil.LAUNCHES["float32"] > before[0]["float32"]
+        assert stencil.LAUNCHES["float64"] > before[0]["float64"]
+        assert stencil.PLAIN_CALLS == before[1]
 
 
 def test_small_krylov_solve_runs_through_kernel_d():

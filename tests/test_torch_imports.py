@@ -6,6 +6,7 @@ import sys
 
 import numpy as np
 import pytest
+import scipy.sparse as sp
 import torch
 
 import mgtpu_torch as mt
@@ -19,6 +20,8 @@ import mgtpu_torch, mgtpu_torch.convert, mgtpu_torch.ops.cuda.fused3d
 import mgtpu_torch.cycle.grid_cycle, mgtpu_torch.solvers.mg_solver
 import mgtpu_torch.ops.cuda.stencil, mgtpu_torch.ops.cuda.tridiag
 import mgtpu_torch.krylov, mgtpu_torch.parallel.stencil
+import mgtpu_torch.setup.sa_amg, mgtpu_torch.cycle.cycle
+import mgtpu_torch.cycle.coarse, mgtpu_torch.ops.ell, mgtpu_torch.ops.dia
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "mgtpu" or m.startswith("mgtpu."))
@@ -51,6 +54,26 @@ def test_mg_setup_defaults_to_cuda():
     else:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             mt.mg_setup(L, M, cfg, rp)
+
+
+def test_sa_amg_setup_defaults_to_cuda():
+    """sa_amg_setup, with a mesh (grid engine) or without (flat engine),
+    targets the card unless asked for the CPU."""
+    M = mt.get_regular_mesh([0.0, 1.0, 0.0, 1.0], [16, 16])
+    L = nodal_laplacian_matrix(M)
+    L = (L + 1e-2 * sp.identity(L.shape[0])).tocsr()
+    cfg, rp = mt.get_mg_param(levels=2, relax_type="spai")
+    for mesh in (M, None):
+        if torch.cuda.is_available():
+            st = mt.sa_amg_setup(L, cfg, rp, mesh=mesh)
+            assert st.device.type == "cuda"
+        else:
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                mt.sa_amg_setup(L, cfg, rp, mesh=mesh)
+        st = mt.sa_amg_setup(L, cfg, rp, mesh=mesh, device="cpu")
+        assert st.device == torch.device("cpu")
+        assert type(st.hier).__name__ == ("GridHierarchy" if mesh is not None
+                                          else "Hierarchy")
 
 
 def test_cpu_on_request_and_solves_stay_on_the_state_device():

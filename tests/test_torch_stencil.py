@@ -117,16 +117,18 @@ def test_flat_matvec_goes_through_the_wrapper():
 
 
 def test_dispatch_rule():
-    """Radius-1 stencils of 1D-3D grids applied to float32/float64 x take
-    kernel D's wrapper (which raises on a CUDA x whose dtype is not the
-    coefficients'); a radius-2 tap or another dtype takes the plain
-    version.  Every plain call is counted under x's dtype."""
+    """Stencils of 1D-3D grids with any per-axis shifts applied to
+    float32/float64 x take kernel D's wrapper (which raises on a CUDA x
+    whose dtype is not the coefficients', or for more than MAX_TAPS taps);
+    another dtype takes the plain version.  On the CPU the wrapper runs the
+    plain version.  Every plain call is counted under x's dtype."""
     off2 = ((0, -1), (0, 0), (0, 1))
     assert stencil.supports_stencil(off2, (5, 6), torch.float32)
     assert stencil.supports_stencil(off2, (5, 6), torch.float64)
     assert stencil.supports_stencil(((0,), (1,)), (7,), torch.float64)
-    assert not stencil.supports_stencil(((0, 2), (0, 0)), (5, 6),
-                                        torch.float32)
+    assert stencil.supports_stencil(((0, 2), (0, 0)), (5, 6), torch.float32)
+    assert stencil.supports_stencil(((-3, 5), (0, 0)), (5, 6), torch.float64)
+    assert stencil.MAX_TAPS == 256
     assert not stencil.supports_stencil(off2, (5, 6), torch.float16)
     assert not stencil.supports_stencil(off2, (5, 6), torch.complex128)
     A = GridStencil(torch.ones((3, 5, 6), dtype=torch.float64), off2, (5, 6))
