@@ -1511,9 +1511,18 @@ def phase_amg_timing(runs, levels3, rows, card):
             f"  bound {bound:.4f} ms ({fbytes / 1e6:.2f} MB)  kernel/bound "
             f"{ms / bound:.1f}x  host per call {host_ms:.3f} ms ({card})")
         name = f"stencil.{str(dt).split('.')[-1]}"
-        rows[name].setdefault("times_amg", {})[label] = dict(
+        entry = rows[name].setdefault("times_amg", {})[label] = dict(
             grid=list(grid), nd=nd, ms=ms, plain_ms=plain_ms,
             library_ms=lib_ms, bound_ms=bound)
+        if form == "prolong":
+            # the stride-2 stencil form is at least 3/4 zeros; the transfer
+            # itself needs P's nonzeros, x_c and y: (nnz + nc + nf) values
+            pbytes = (csr.nnz + csr.shape[1] + csr.shape[0]) * itemsize
+            entry["bound_csr_ms"] = pbytes / HBM_BYTES_PER_S * 1e3
+            log(f"[time] D {label}: bound from P's nonzeros "
+                f"{entry['bound_csr_ms']:.4f} ms ({pbytes / 1e6:.2f} MB: "
+                f"nnz {csr.nnz}, nc {csr.shape[1]}, nf {csr.shape[0]}); "
+                f"kernel/bound {ms / entry['bound_csr_ms']:.1f}x ({card})")
 
 
 def phase_amg(runs, card):

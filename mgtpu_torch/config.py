@@ -57,10 +57,12 @@ def full_fp32():
     """Float32 matrix products in full float32 inside the block, whatever
     the caller set: the coarsest solves (a dense inverse or LU applied to a
     residual) lose the digits the refined solves need in TF32, which keeps
-    about three."""
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
+    about three.  The caller's matmul precision ("high", "medium", ...) is
+    restored on exit.  The setting is process-wide, so matmuls that other
+    threads run inside the block also run in full float32."""
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
     try:
         yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
+        torch.set_float32_matmul_precision(prev)

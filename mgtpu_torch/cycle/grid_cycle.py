@@ -389,8 +389,8 @@ def grid_cycle_flat(cfg, gh: GridHierarchy, b2, x2, ctype: str | None = None,
 GRID_RELAX = ("jacobi", "spai", "jac-gmres", "chebyshev", "chebyshev4",
               "line-jacobi")
 HOST_INV_MAX = 4096       # host f64 inverse up to this many coarsest dofs
-DENSE_LU_MAX = 20480      # device-built inverse up to this many (20480^2
-                          # f32 = 1.7 GB); host SuperLU beyond
+DENSE_LU_MAX = 20480      # dense coarsest up to this many (20480^2 f32 =
+                          # 1.7 GB), on either engine; host SuperLU beyond
 
 
 def _checked_inverse(Ad: np.ndarray) -> np.ndarray:
@@ -445,8 +445,7 @@ def build_grid_hierarchy(state, relax_states, device) -> GridHierarchy:
         raise ValueError("grid engine supports pointwise relaxations only")
     if not state.meshes or len(state.meshes) < state.num_levels:
         raise ValueError("grid engine needs per-level meshes")
-    if (cfg.coarse_solve not in ("lu", "gmres")
-            or state.coarse_solver is not None):
+    if cfg.coarse_solve not in ("lu", "gmres"):
         raise ValueError("grid engine supports lu/gmres coarsest solves")
     dt = torch_dtype(cfg.dtype)
     gs_cache = getattr(state, "_gs_cache", None) or {}
@@ -485,21 +484,30 @@ def build_grid_hierarchy(state, relax_states, device) -> GridHierarchy:
             lam = getattr(rs, "lam_max", None)
         levels.append(GridLevel(A, d, P1, lam, line))
 
+    return GridHierarchy(tuple(levels), grid_coarsest(
+        state, levels[-1].A, levels[-1].A.grid, device))
+
+
+def grid_coarsest(state, A, grid_c, device, host_inverse=_checked_inverse):
+    """The grid engine's coarsest solver, in mgtpu's order: FGMRES on the
+    last level's stencil A under coarse_solve="gmres"; else a dense inverse
+    made at float64 on the host by `host_inverse` up to HOST_INV_MAX dofs
+    (then cast: the f64 factorization error is far below the f32 storage
+    rounding), the device-built inverse up to DENSE_LU_MAX, host SuperLU
+    beyond (its O(nnz) factor instead of an O(nc^2) one on the card)."""
+    cfg = state.config
     A_c = state.As[-1]
-    grid_c = levels[-1].A.grid
+    grid_c = tuple(int(v) for v in grid_c)
     if cfg.coarse_solve == "gmres":
-        return GridHierarchy(tuple(levels), grid_iterative_coarse(
-            state, levels[-1].A, grid_c, device))
+        return grid_iterative_coarse(state, A, grid_c, device)
     if A_c.shape[0] <= HOST_INV_MAX:
-        # invert at float64 on the host, then cast (the f64 factorization
-        # error is far below the f32 storage rounding)
         Ad = np.asarray(sp.csr_matrix(A_c).astype(np.float64).todense())
-        coarse = DenseInverse(torch.as_tensor(
-            _checked_inverse(Ad).astype(cfg.dtype), device=device),
-            tuple(grid_c))
-    else:
-        coarse = large_grid_coarse(A_c, grid_c, cfg.dtype, device)
-    return GridHierarchy(tuple(levels), coarse)
+        return DenseInverse(torch.as_tensor(
+            host_inverse(Ad).astype(cfg.dtype), device=device), grid_c)
+    if A_c.shape[0] > DENSE_LU_MAX:
+        from scipy.sparse.linalg import splu
+        return GridSparseLU(splu(A_c.tocsc().astype(np.float64)), grid_c)
+    return grid_dense_inverse_from_scipy(A_c, grid_c, cfg.dtype, device)
 
 
 def grid_iterative_coarse(state, A, grid_c, device) -> GridIterativeCoarse:
@@ -511,13 +519,3 @@ def grid_iterative_coarse(state, A, grid_c, device) -> GridIterativeCoarse:
             state.config.dtype).reshape(grid_c), device=device)
     return GridIterativeCoarse(A, d_c, state.config.gmres_coarse_inner)
 
-
-def large_grid_coarse(A_c, grid_c, dtype, device):
-    """The coarsest solver above HOST_INV_MAX dofs: the device-built inverse
-    up to DENSE_LU_MAX, host SuperLU beyond (its O(nnz) factor instead of an
-    O(nc^2) one on the card)."""
-    if A_c.shape[0] > DENSE_LU_MAX:
-        from scipy.sparse.linalg import splu
-        return GridSparseLU(splu(A_c.tocsc().astype(np.float64)),
-                            tuple(int(v) for v in grid_c))
-    return grid_dense_inverse_from_scipy(A_c, grid_c, dtype, device)

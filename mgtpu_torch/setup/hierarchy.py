@@ -41,10 +41,6 @@ from . import transfers as tr
 __all__ = ["MGConfig", "get_mg_param", "Level", "Hierarchy", "MGState",
            "mg_setup", "build_device_hierarchy"]
 
-# Replicated-dense coarsest budget of the flat engine: beyond it the host
-# SuperLU coarsest (cycle/coarse.py) takes over.
-_DENSE_COARSE_MAX = 20480
-
 # reference relaxType spellings accepted as aliases
 _RELAX_ALIASES = {
     "Jac": "jacobi", "Jac-GMRES": "jac-gmres", "SPAI": "spai",
@@ -180,7 +176,6 @@ class MGState:
     device: Any = None             # torch.device the hierarchy lives on
     hier: Any = None               # GridHierarchy | Hierarchy
     A_input: Any = None            # fine operator at its ORIGINAL precision
-    coarse_solver: Any = None      # external coarse solver template, if any
     time_setup: float = 0.0
     time_solve: float = 0.0
     n_iter: int = 0
@@ -306,20 +301,18 @@ def _setup_coarse(state: MGState, verbose: bool = False):
     """The flat engine's coarsest solver (reference defineCoarsestAinv,
     MGsetup.jl:323-355)."""
     from ..cycle import coarse as co
+    from ..cycle import grid_cycle as gc
     cfg, dev = state.config, state.device
     A_c = state.As[-1]
-    if state.coarse_solver is not None:
-        mesh_c = state.meshes[-1] if state.meshes else None
-        return state.coarse_solver.setup_coarse(A_c, mesh_c)
     if cfg.coarse_solve == "gmres":
         rp = _per_level_relax_param(state.relax_param, cfg.levels)[-1]
         omega = rp if np.isscalar(rp) else 1.0
         return co.iterative_coarse_from_scipy(
             A_c, omega, inner=cfg.gmres_coarse_inner, dtype=cfg.dtype,
             device=dev)
-    if A_c.shape[0] > _DENSE_COARSE_MAX:
+    if A_c.shape[0] > gc.DENSE_LU_MAX:
         if verbose:
-            print(f"_setup_coarse: nc={A_c.shape[0]} > {_DENSE_COARSE_MAX}, "
+            print(f"_setup_coarse: nc={A_c.shape[0]} > {gc.DENSE_LU_MAX}, "
                   "using the host SuperLU coarsest (a host round trip per "
                   "solve)")
         return co.sparse_lu_from_scipy(A_c, dtype=cfg.dtype)
@@ -371,8 +364,7 @@ def build_device_hierarchy(state: MGState, relax_states: list,
 # ---------------------------------------------------------------------------
 
 def mg_setup(A, mesh: RegularMesh, cfg: MGConfig, relax_param=None,
-             coarse_solver=None, verbose: bool = False,
-             device=None) -> MGState:
+             verbose: bool = False, device=None) -> MGState:
     """Build a Galerkin hierarchy (full-weighting or semicoarsening
     transfers) for the scipy matrix `A` on `mesh` and move it to `device`
     ("cuda" unless the caller asks for the CPU; raises when no card is
@@ -468,7 +460,7 @@ def mg_setup(A, mesh: RegularMesh, cfg: MGConfig, relax_param=None,
     cfg = replace(cfg, levels=levels,
                   nu_pre=cfg.nu_pre[:levels], nu_post=cfg.nu_post[:levels])
     state = MGState(cfg, relax_param, As, Ps, Rs, meshes, device=dev,
-                    A_input=A_input, coarse_solver=coarse_solver)
+                    A_input=A_input)
     state._gs_cache = {k: v for k, v in gs_cache.items()
                        if v.coeff.dtype == np.dtype(cfg.dtype)}
     state.hier = build_device_hierarchy(state, relax_states, verbose)

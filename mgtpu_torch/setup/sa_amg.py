@@ -209,9 +209,8 @@ def sparsify_non_galerkin(A_g: sp.csr_matrix, A_fine: sp.csr_matrix,
 
 
 def sa_amg_setup(A: sp.spmatrix, cfg: MGConfig, relax_param=1.0,
-                 coarse_solver=None, verbose: bool = False,
-                 non_galerkin: bool = False, mesh=None,
-                 device=None) -> MGState:
+                 verbose: bool = False, non_galerkin: bool = False,
+                 mesh=None, device=None) -> MGState:
     """Build a smoothed-aggregation hierarchy (reference SA_AMGsetup,
     SA-AMG.jl:8-76) on `device` ("cuda" unless the caller asks for the
     CPU; raises when no card is present).
@@ -295,7 +294,7 @@ def sa_amg_setup(A: sp.spmatrix, cfg: MGConfig, relax_param=1.0,
 
     state = MGState(cfg, relax_param, As, Ps, Rs,
                     meshes=([mesh] if mesh is not None else []), device=dev,
-                    A_input=A_orig, coarse_solver=coarse_solver)
+                    A_input=A_orig)
     state.hier = None
     if structured_nodes is not None:
         try:
@@ -320,8 +319,7 @@ def _structured_sa_hierarchy(state: MGState, nn_levels, relax_states,
     Chebyshev level carries its undamped diagonal and spectral bound;
     mgtpu's structured path gives it the damped Jacobi diagonal and no
     bound, and its cycle then fails (ROADMAP, queue 3, F7)."""
-    from ..cycle.grid_cycle import (DenseInverse, GridHierarchy, GridLevel,
-                                    grid_iterative_coarse, large_grid_coarse)
+    from ..cycle.grid_cycle import GridHierarchy, GridLevel, grid_coarsest
     from ..ops.grid_stencil import (make_grid_stencil,
                                     stride2_transfer_from_scipy)
     from .hierarchy import _resolve_relax
@@ -355,17 +353,11 @@ def _structured_sa_hierarchy(state: MGState, nn_levels, relax_states,
                 state.Ps[l], nn_levels[l], nn_levels[l + 1], dtype=cfg.dtype,
                 max_delta=max(radius + 1, 3), device=dev)
         levels.append(GridLevel(A_st, d, P1, lam))
-    A_c = state.As[-1]
     grid_c = tuple(reversed([int(v) for v in nn_levels[nlev - 1]]))
-    if cfg.coarse_solve == "gmres":
-        coarse = grid_iterative_coarse(state, levels[-1].A, grid_c, dev)
-    elif A_c.shape[0] <= 4096:
-        Ad = np.asarray(A_c.astype(np.float64).todense())
-        inv = np.linalg.pinv(Ad, rcond=1e-12)
-        coarse = DenseInverse(torch.as_tensor(inv.astype(cfg.dtype),
-                                              device=dev), grid_c)
-    else:
-        coarse = large_grid_coarse(A_c, grid_c, cfg.dtype, dev)
+    # mgtpu's SA path inverts a small coarsest with pinv outright
+    coarse = grid_coarsest(state, levels[-1].A, grid_c, dev,
+                           host_inverse=lambda Ad: np.linalg.pinv(
+                               Ad, rcond=1e-12))
     if verbose:
         print("sa_amg_setup: structured aggregation on the grid engine")
     return GridHierarchy(tuple(levels), coarse)

@@ -283,6 +283,32 @@ def test_dense_lu_matches_reference():
         assert _rel(p.solve(torch.from_numpy(b[:, 0])), want[:, 0]) < tol
 
 
+
+@pytest.mark.parametrize("solver", ["DenseLU", "DenseInverse"])
+def test_coarsest_solve_keeps_the_callers_matmul_precision(solver):
+    """A coarsest solve runs its products in full float32 and leaves the
+    caller's matmul precision ("medium" here) as it found it."""
+    from mgtpu_torch.cycle.coarse import dense_lu_from_scipy
+    from mgtpu_torch.cycle.grid_cycle import DenseInverse
+    A = (_random_sparse(16, 16) + 4 * sp.identity(16)).tocsr()
+    b = np.random.RandomState(1).rand(16, 2).astype(np.float32)
+    if solver == "DenseLU":
+        run = lambda: dense_lu_from_scipy(A, dtype=np.float32).solve(
+            torch.from_numpy(b))
+    else:
+        inv = torch.from_numpy(np.linalg.inv(A.toarray()).astype(np.float32))
+        run = lambda: DenseInverse(inv, (4, 4)).solve(
+            torch.from_numpy(b.T.reshape(2, 4, 4).copy())).reshape(2, 16).T
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("medium")
+    try:
+        y = run()
+        assert torch.get_float32_matmul_precision() == "medium"
+    finally:
+        torch.set_float32_matmul_precision(prev)
+    want = np.linalg.solve(A.toarray(), b.astype(np.float64))
+    assert _rel(y, want) < 1e-5
+
 def test_iterative_and_sparse_lu_coarse_match_reference():
     from mgtpu.cycle import coarse as co_ref
     from mgtpu_torch.convert import flat_hierarchy_from_arrays
@@ -316,7 +342,7 @@ def test_flat_coarsest_choice_matches_reference(monkeypatch):
     """gmres -> IterativeCoarse, small -> DenseLU, above the dense budget ->
     SparseLUCoarse, as in mgtpu."""
     import mgtpu.setup.hierarchy as h_ref
-    import mgtpu_torch.setup.hierarchy as h_port
+    import mgtpu_torch.cycle.grid_cycle as gc
     dims, A = _divsig(16)
     for kw, want in ((dict(coarse_solve="gmres"), "IterativeCoarse"),
                      ({}, "DenseLU")):
@@ -324,7 +350,7 @@ def test_flat_coarsest_choice_matches_reference(monkeypatch):
         assert type(st_r.hier.coarse).__name__ == \
             type(st_p.hier.coarse).__name__ == want
     monkeypatch.setattr(h_ref, "_DENSE_COARSE_MAX", 16)
-    monkeypatch.setattr(h_port, "_DENSE_COARSE_MAX", 16)
+    monkeypatch.setattr(gc, "DENSE_LU_MAX", 16)
     st_r, st_p = _states(A, dims, "flat", levels=2)
     assert type(st_r.hier.coarse).__name__ == \
         type(st_p.hier.coarse).__name__ == "SparseLUCoarse"
