@@ -52,7 +52,8 @@ Phases, each of which raises on failure:
             27), on (25, 41) and (19, 25, 31) grids and the slab form, at
             m = 1, 2, 4, in float32 (2e-5) and float64 (1e-12); then its
             device time per level beside its byte bound, its plain version
-            and torch.sparse.mm of the operator's CSR form;
+            and torch.sparse.mm of the operator's CSR form, with its launch
+            plan (stream or split);
 10. path Krylov — the rough-sigma DivSigGrad solves, f32 hierarchies with
             float64 right-hand sides, to a true f64 relres below 1e-8:
             (f) solve_cg_mg 19 +- 1 iterations, f-bicg solve_bicgstab_mg 12,
@@ -68,8 +69,13 @@ Phases, each of which raises on failure:
             hierarchy (7 / 33 / 179), the DIA form of SA-f's fine level and
             both stride-2 transfer applies (against P @ x, P^T @ r), f32
             (2e-5) and f64 (1e-12), m = 1, 3, and a 257-tap stencil
-            refused; its device time at those shapes beside its byte bound,
-            its plain version and torch.sparse.mm; then (SA-s) structured
+            refused; at its plan's edges (1, 9 and 256 taps, m = 1, 3, 8,
+            9, splits 1, 2, 16, both sides of the stream/split boundary,
+            the parity-form transfers on odd and even extents in 2D and
+            3D); its device time and plan at those shapes beside its byte
+            bound (P's own for the transfers), its plain version and
+            torch.sparse.mm (of P^T for the restricts, of the 3D levels'
+            CSR); then (SA-s) structured
             SA, SPAI V(2,2) (38 +- 1 refined iterations), (SA-K) the same
             operator with Jac-GMRES K-cycles (48), (SA-f) greedy SA on the
             flat engine (50), each to a true f64 relres below 1e-8, with
@@ -601,9 +607,11 @@ def vcycle_profile(st, b, cycle_ms, card, label="129^3"):
     if busy == 0:
         log("[path] V-cycle device time: not measured (no device events)")
         return None
+    d_ms = sum(ms for key, ms in events if "stencil_kernel" in key)
     log(f"[path] {st.config.cycle_type}-cycle ({label}) device time "
         f"{busy:.3f} ms of {cycle_ms:.3f} ms "
-        f"(busy share {busy / cycle_ms:.2f}; {card}); largest:")
+        f"(busy share {busy / cycle_ms:.2f}; kernel D {d_ms:.4f} ms; "
+        f"{card}); largest:")
     for key, ms in sorted(events, key=lambda e: -e[1])[:6]:
         log(f"[path]   {ms:.4f} ms  {key[:70]}")
     return busy
@@ -1023,25 +1031,33 @@ def stencil_cases(states):
     return cases
 
 
+D_TOLS = {torch.float32: 2e-5, torch.float64: 1e-12}
+
+
+def check_d(rows, label, out, ref):
+    """Kernel D's output against its reference: same shape and type,
+    finite, relative error below 2e-5 (f32) / 1e-12 (f64); the row of its
+    type keeps the largest errors."""
+    torch.cuda.synchronize()
+    require(out.shape == ref.shape and out.dtype == ref.dtype
+            and bool(torch.isfinite(out).all()), f"D {label}: bad output")
+    ae = float((out - ref).abs().max())
+    re = ae / float(ref.abs().max())
+    row = rows[f"stencil.{str(ref.dtype).split('.')[-1]}"]
+    row["max_abs_err"] = max(row["max_abs_err"], ae)
+    row["max_rel_err"] = max(row["max_rel_err"], re)
+    require(re < D_TOLS[ref.dtype], f"kernel D {label}: relative error "
+            f"{re:.3e} >= {D_TOLS[ref.dtype]}")
+
+
 def phase_stencil_kernels(states, rows):
     """Kernel D against its plain version on every case, m = 1, 2, 4;
     the slab entry on a 2D and a folded 3D operator."""
     from mgtpu_torch.ops.cuda import stencil
     from mgtpu_torch.ops.grid_stencil import grid_stencil_matvec
     from mgtpu_torch.parallel.stencil import stencil_from_banded
-    tols = {torch.float32: 2e-5, torch.float64: 1e-12}
-
     def check(label, m, out, ref):
-        torch.cuda.synchronize()
-        require(out.shape == ref.shape and out.dtype == ref.dtype
-                and bool(torch.isfinite(out).all()), f"D {label}: bad output")
-        ae = float((out - ref).abs().max())
-        re = ae / float(ref.abs().max())
-        row = rows[f"stencil.{str(ref.dtype).split('.')[-1]}"]
-        row["max_abs_err"] = max(row["max_abs_err"], ae)
-        row["max_rel_err"] = max(row["max_rel_err"], re)
-        require(re < tols[ref.dtype], f"kernel D {label} m={m}: relative "
-                f"error {re:.3e} >= {tols[ref.dtype]}")
+        check_d(rows, f"{label} m={m}", out, ref)
 
     for label, A in stencil_cases(states):
         for m in (1, 2, 4):
@@ -1076,55 +1092,125 @@ def sparse_mm_yardstick(C, dtype):
         torch.tensor(C.data), size=C.shape, dtype=dtype, device="cuda")
 
 
+def d_plan(box, nd, dtype, form="apply", m=1):
+    """Kernel D's launch plan (ops/cuda/stencil.py::stencil_plan) as a dict
+    with its schedule; None for a checkout whose kernel D has no plan."""
+    from mgtpu_torch.ops.cuda import stencil
+    planner = getattr(stencil, "stencil_plan", None)
+    if planner is None:
+        return None
+    p = planner(tuple(int(v) for v in box), int(nd), m, dtype, form)
+    return dict(p._asdict(), schedule=p.schedule)
+
+
+def box3(grid):
+    return (1,) * (3 - len(grid)) + tuple(int(v) for v in grid)
+
+
+def d_case(kind, op, csr):
+    """What timing one kernel-D case needs: (dtype, input shape, kernel
+    call, plain call, plan, least bytes, flops, shape note).  kind: "grid"
+    (a GridStencil), "dia" (a DIA matrix), "prolong" / "restrict" (a
+    Stride2Transfer, whose least bytes are P's own: nnz + nc + nf values
+    of csr, P or P^T)."""
+    from mgtpu_torch.ops.cuda import stencil
+    from mgtpu_torch.ops.grid_stencil import grid_stencil_matvec
+    dt = op.dtype
+    item = torch.empty((), dtype=dt).element_size()
+    if kind == "grid":
+        n, nd = int(np.prod(op.grid)), len(op.offsets)
+        return (dt, (1,) + tuple(op.grid),
+                lambda x: stencil.grid_apply(op.coeff, op.offsets, x),
+                lambda x: grid_stencil_matvec(op.coeff, op.offsets, x),
+                d_plan(box3(op.grid), nd, dt), (nd + 2) * n * item,
+                2 * nd * n, f"grid {op.grid} nd={nd}")
+    if kind == "dia":
+        n, nd = op.shape[0], len(op.offsets)
+        return (dt, (n, 1),
+                lambda x: stencil.dia_apply(op.data, op.offsets, x),
+                lambda x: stencil.dia_apply_plain(op.data, op.offsets, x),
+                d_plan((1, 1, n), nd, dt), (nd + 2) * n * item, 2 * nd * n,
+                f"DIA n={n} nd={nd}")
+    pbytes = (csr.nnz + csr.shape[0] + csr.shape[1]) * item
+    packed = hasattr(op, "pcoeff")
+    if kind == "prolong":
+        return (dt, (1,) + tuple(op.coarse_grid), op.prolong,
+                getattr(stencil, "stride2_prolong_plain", None)
+                and (lambda x: stencil.stride2_prolong_plain(op, x)),
+                d_plan(box3(op.fine_grid), op.pcoeff.shape[0], dt,
+                       "prolong") if packed else None, pbytes, 2 * csr.nnz,
+                f"{op.coarse_grid} -> {op.fine_grid} "
+                f"taps {len(op.offsets)}")
+    return (dt, (1,) + tuple(op.fine_grid), op.restrict,
+            getattr(stencil, "stride2_restrict_plain", None)
+            and (lambda x: stencil.stride2_restrict_plain(op, x)),
+            d_plan(box3(op.coarse_grid), len(op.offsets), dt, "restrict")
+            if packed else None, pbytes, 2 * csr.nnz,
+            f"{op.fine_grid} -> {op.coarse_grid} taps {len(op.offsets)}")
+
+
+def time_d(label, kind, op, csr, timer, card, plain=True, seed=30):
+    """Kernel D's device time on one case (m = 1, four input sets), beside
+    its least time, its plain version (if `plain`) and torch.sparse.mm of
+    `csr`; returns the entry and the kernel's output on the first set."""
+    dt, shape, run, plain_fn, plan, fbytes, flops, note = d_case(kind, op,
+                                                                 csr)
+    sets = [torch.tensor(np.random.RandomState(SEED + seed + j).rand(*shape),
+                         dtype=dt, device="cuda") for j in range(4)]
+    ms, host_ms = timer([lambda x=x: run(x) for x in sets])
+    plain_ms = (timer([lambda x=x: plain_fn(x) for x in sets])[0]
+                if plain and plain_fn else None)
+    lib_ms = None
+    if csr is not None:
+        Tm = sparse_mm_yardstick(csr, dt)
+        lib_ms = timer([lambda c=x.reshape(-1, 1): torch.sparse.mm(Tm, c)
+                        for x in sets])[0]
+    peak = FP32_FLOPS if dt == torch.float32 else FP64_FLOPS
+    bound = max(fbytes / HBM_BYTES_PER_S, flops / peak) * 1e3
+    fmt = lambda v: "none" if v is None else f"{v:.4f} ms"
+    sched = "no plan" if plan is None else (
+        f"plan {plan['schedule']} split {plan['split']} group "
+        f"{plan['group']} blocks {plan['blocks']}")
+    log(f"[time] D {label:18s} {note} {dt}: kernel {ms:.4f} ms  plain "
+        f"{fmt(plain_ms)}  sparse.mm {fmt(lib_ms)}  bound {bound:.4f} ms "
+        f"({fbytes / 1e6:.2f} MB)  kernel/bound {ms / bound:.1f}x  {sched}"
+        f"  host per call {host_ms:.3f} ms ({card})")
+    entry = dict(shape=note, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                 bound_ms=bound, host_ms=host_ms, plan=plan,
+                 bound_by="bytes" if fbytes / HBM_BYTES_PER_S
+                 >= flops / peak else "operations")
+    return entry, run(sets[0])
+
+
+def fh_cases(states):
+    """(label, kind, op, csr) of every level of (f) and (h) and of (f)'s
+    f64 fine operator."""
+    from mgtpu_torch.solvers.mg_solver import high_precision_fine_operator
+    out = []
+    for key, st in states.items():
+        for l, lv in enumerate(st.hier.levels):
+            out.append((f"({key}) level {l}", "grid", lv.A, st.As[l]))
+        if key == "f":
+            out.append(("(f) f64 fine", "grid",
+                        high_precision_fine_operator(st), st.A_input))
+    return out
+
+
 def phase_stencil_timing(states, rows, card):
     """Kernel D, plain and torch.sparse.mm device times on every level of
     (f) and (h) (m = 1, four input sets so that the large levels come from
-    device memory) and on the f64 fine operator of (f)."""
-    from mgtpu_torch.ops.cuda import stencil
-    from mgtpu_torch.ops.grid_stencil import grid_stencil_matvec
-    from mgtpu_torch.solvers.mg_solver import high_precision_fine_operator
+    device memory) and on the f64 fine operator of (f), with D's plan."""
     timer = Timer()
-    timed = []
-    for key, st in states.items():
-        for l, lv in enumerate(st.hier.levels):
-            timed.append((f"({key}) level {l}", lv.A, st.As[l]))
-        if key == "f":
-            timed.append(("(f) f64 fine", high_precision_fine_operator(st),
-                          st.A_input))
-    for label, A, csr in timed:
-        dt = A.coeff.dtype
-        itemsize = A.coeff.element_size()
-        nodes = int(np.prod(A.grid))
-        nd = len(A.offsets)
-        sets = [torch.tensor(np.random.RandomState(SEED + 20 + j).rand(
-            1, *A.grid), dtype=dt, device="cuda") for j in range(4)]
-        ms, host_ms = timer([lambda x=x: stencil.grid_apply(
-            A.coeff, A.offsets, x) for x in sets])
-        plain_ms, _ = timer([lambda x=x: grid_stencil_matvec(
-            A.coeff, A.offsets, x) for x in sets])
-        T = sparse_mm_yardstick(csr, dt)
-        cols = [x.reshape(-1, 1) for x in sets]
-        lib_ms, _ = timer([lambda c=c: torch.sparse.mm(T, c) for c in cols])
-        fbytes = (nd + 2) * itemsize * nodes
-        flops = 2 * nd * nodes
-        peak = FP32_FLOPS if dt == torch.float32 else FP64_FLOPS
-        bound = max(fbytes / HBM_BYTES_PER_S, flops / peak) * 1e3
-        log(f"[time] D {label:18s} grid {str(A.grid):16s} nd={nd:2d} {dt}: "
-            f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  sparse.mm "
-            f"{lib_ms:.4f} ms  bound {bound:.4f} ms ({fbytes / 1e6:.1f} MB)"
-            f"  kernel/bound {ms / bound:.1f}x  host per call {host_ms:.3f}"
-            f" ms ({card})")
-        name = f"stencil.{str(dt).split('.')[-1]}"
-        rows[name].setdefault("times", {})[label] = dict(
-            grid=list(A.grid), nd=nd, ms=ms, plain_ms=plain_ms,
-            library_ms=lib_ms, bound_ms=bound)
+    for label, kind, op, csr in fh_cases(states):
+        entry, _ = time_d(label, kind, op, csr, timer, card)
+        name = f"stencil.{str(op.dtype).split('.')[-1]}"
+        rows[name].setdefault("times", {})[label] = entry
         if label in ("(f) level 0", "(f) f64 fine"):
             rows[name].update(
-                ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                bound_by="bytes" if fbytes / HBM_BYTES_PER_S
-                >= flops / peak else "operations",
-                library_ms=lib_ms, host_ms=host_ms,
-                timed_shape=f"{label}: {A.grid} nd={nd} m=1",
+                {k: entry[k] for k in ("ms", "plain_ms", "bound_ms",
+                                       "bound_by", "library_ms", "host_ms",
+                                       "plan")},
+                timed_shape=f"{label}: {entry['shape']} m=1",
                 library_call="torch.sparse.mm(CSR, x)")
 
 
@@ -1372,19 +1458,8 @@ def phase_amg_kernels(runs, st3, levels3, rows):
     from mgtpu_torch.ops.grid_stencil import (grid_stencil_matvec,
                                               stride2_transfer_from_scipy)
     from mgtpu_torch.solvers.mg_solver import high_precision_fine_operator
-    tols = {torch.float32: 2e-5, torch.float64: 1e-12}
-
     def check(label, out, ref):
-        torch.cuda.synchronize()
-        require(out.shape == ref.shape and out.dtype == ref.dtype
-                and bool(torch.isfinite(out).all()), f"D {label}: bad output")
-        ae = float((out - ref).abs().max())
-        re = ae / float(ref.abs().max())
-        row = rows[f"stencil.{str(ref.dtype).split('.')[-1]}"]
-        row["max_abs_err"] = max(row["max_abs_err"], ae)
-        row["max_rel_err"] = max(row["max_rel_err"], re)
-        require(re < tols[ref.dtype], f"kernel D {label}: relative error "
-                f"{re:.3e} >= {tols[ref.dtype]}")
+        check_d(rows, label, out, ref)
 
     st_s = runs[0][2]
     grids = [("SA-s", l, lv.A) for l, lv in enumerate(st_s.hier.levels)
@@ -1445,84 +1520,153 @@ def phase_amg_kernels(runs, st3, levels3, rows):
         raise RuntimeError("kernel D took a 257-tap stencil")
 
 
-def phase_amg_timing(runs, levels3, rows, card):
-    """Kernel D, plain and torch.sparse.mm device times (m = 1, four input
-    sets) at the SA shapes: SA-s's levels and transfers, the 3D SA levels,
-    SA-f's DIA level in f32 and f64."""
-    from mgtpu_torch.ops.cuda import stencil
-    from mgtpu_torch.ops.grid_stencil import grid_stencil_matvec
+def amg_cases(runs, st3):
+    """(label, kind, op, csr) at the SA shapes: every SA-s level, both
+    applies of each SA-s transfer (csr P for the prolong, P^T for the
+    restrict), the 3D SA levels and SA-f's DIA level in f32 and f64."""
     from mgtpu_torch.solvers.mg_solver import high_precision_fine_operator
-    timer = Timer()
     st_s, st_f = runs[0][2], runs[2][2]
-    cases = []
+    out = []
     for l, lv in enumerate(st_s.hier.levels):
         if lv.A is not None:
-            cases.append((f"SA-s level {l}", lv.A.coeff, lv.A.offsets,
-                          lv.A.grid, st_s.As[l], "grid"))
-        if lv.P1 is not None:
-            T = lv.P1
-            cases.append((f"SA-s prolong {l}", T.coeff, tuple(
-                tuple(-d for d in o) for o in T.offsets), T.fine_grid,
-                st_s.Ps[l], "prolong"))
-    for l, A in enumerate(levels3):
-        cases.append((f"3D SA level {l}", A.coeff, A.offsets, A.grid, None,
-                      "grid"))
+            out.append((f"SA-s level {l}", "grid", lv.A, st_s.As[l]))
+    for l, lv in enumerate(st_s.hier.levels[:-1]):
+        P = st_s.Ps[l].tocsr()
+        out.append((f"SA-s prolong {l}", "prolong", lv.P1, P))
+        out.append((f"SA-s restrict {l}", "restrict", lv.P1, P.T.tocsr()))
+    for l, lv in enumerate(st3.hier.levels):
+        if lv.A is not None:
+            out.append((f"3D SA level {l}", "grid", lv.A, st3.As[l]))
     for D in (st_f.hier.levels[0].A, high_precision_fine_operator(st_f)):
-        cases.append((f"SA-f DIA {str(D.dtype).split('.')[-1]}", D.data,
-                      D.offsets, (D.shape[0],),
-                      st_f.A_input if D.dtype == torch.float64
-                      else st_f.As[0], "dia"))
-    for label, coeff, offsets, grid, csr, form in cases:
-        dt = coeff.dtype
-        nodes = int(np.prod(grid))
-        nd = len(offsets)
-        if form == "dia":
-            sets = [torch.tensor(np.random.RandomState(SEED + 30 + j).rand(
-                nodes, 1), dtype=dt, device="cuda") for j in range(4)]
-            ms, host_ms = timer([lambda x=x: stencil.dia_apply(
-                coeff, offsets, x) for x in sets])
-            plain_ms, _ = timer([lambda x=x: stencil.dia_apply_plain(
-                coeff, offsets, x) for x in sets])
-            cols = sets
-        else:
-            sets = [torch.tensor(np.random.RandomState(SEED + 30 + j).rand(
-                1, *grid), dtype=dt, device="cuda") for j in range(4)]
-            ms, host_ms = timer([lambda x=x: stencil.grid_apply(
-                coeff, offsets, x) for x in sets])
-            plain_ms, _ = timer([lambda x=x: grid_stencil_matvec(
-                coeff, offsets, x) for x in sets])
-            cols = [x.reshape(-1, 1) for x in sets]
-        lib_ms = None
-        if csr is not None:
-            Tm = sparse_mm_yardstick(csr, dt)
-            if form == "prolong":
-                cols = [torch.zeros((csr.shape[1], 1), dtype=dt,
-                                    device="cuda") + 1 for _ in range(4)]
-            lib_ms, _ = timer([lambda c=c: torch.sparse.mm(Tm, c)
-                               for c in cols])
-        itemsize = coeff.element_size()
-        fbytes = (nd + 2) * itemsize * nodes
-        flops = 2 * nd * nodes
-        peak = FP32_FLOPS if dt == torch.float32 else FP64_FLOPS
-        bound = max(fbytes / HBM_BYTES_PER_S, flops / peak) * 1e3
-        lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
-        log(f"[time] D {label:18s} grid {str(grid):16s} nd={nd:3d} {dt}: "
-            f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  sparse.mm {lib}"
-            f"  bound {bound:.4f} ms ({fbytes / 1e6:.2f} MB)  kernel/bound "
-            f"{ms / bound:.1f}x  host per call {host_ms:.3f} ms ({card})")
-        name = f"stencil.{str(dt).split('.')[-1]}"
-        entry = rows[name].setdefault("times_amg", {})[label] = dict(
-            grid=list(grid), nd=nd, ms=ms, plain_ms=plain_ms,
-            library_ms=lib_ms, bound_ms=bound)
-        if form == "prolong":
-            # the stride-2 stencil form is at least 3/4 zeros; the transfer
-            # itself needs P's nonzeros, x_c and y: (nnz + nc + nf) values
-            pbytes = (csr.nnz + csr.shape[1] + csr.shape[0]) * itemsize
-            entry["bound_csr_ms"] = pbytes / HBM_BYTES_PER_S * 1e3
-            log(f"[time] D {label}: bound from P's nonzeros "
-                f"{entry['bound_csr_ms']:.4f} ms ({pbytes / 1e6:.2f} MB: "
-                f"nnz {csr.nnz}, nc {csr.shape[1]}, nf {csr.shape[0]}); "
-                f"kernel/bound {ms / entry['bound_csr_ms']:.1f}x ({card})")
+        out.append((f"SA-f DIA {str(D.dtype).split('.')[-1]}", "dia", D,
+                    st_f.A_input if D.dtype == torch.float64
+                    else st_f.As[0]))
+    return out
+
+
+def phase_amg_timing(runs, st3, rows, card):
+    """Kernel D, plain and torch.sparse.mm device times (m = 1, four input
+    sets) with D's plan at the SA shapes: SA-s's levels, prolongs and
+    restricts (whose bound is P's own bytes), the 3D SA levels, SA-f's DIA
+    level in f32 and f64."""
+    timer = Timer()
+    for label, kind, op, csr in amg_cases(runs, st3):
+        entry, _ = time_d(label, kind, op, csr, timer, card)
+        name = f"stencil.{str(op.dtype).split('.')[-1]}"
+        rows[name].setdefault("times_amg", {})[label] = entry
+
+
+def wide_stencil(ntaps, dim, grid, dtype, seed=0):
+    """Random coefficients (on the card) of a stencil whose taps are the
+    `ntaps` offsets nearest the centre of a radius-8 box (ties in order)."""
+    r = range(-8, 9)
+    offs = sorted(itertools.product(*[r] * dim),
+                  key=lambda o: (sum(d * d for d in o), o))[:ntaps]
+    coeff = np.random.RandomState(seed).rand(ntaps, *grid)
+    return torch.tensor(coeff, dtype=dtype, device="cuda"), tuple(offs)
+
+
+def random_stride2(fine, seed):
+    """A random stride-2 prolongation on a fine node grid (slowest axis
+    first) onto ceil(fine / 2): entries at f = 2c + d for a random half of
+    the offsets d in [-3, 3]^dim."""
+    rng = np.random.RandomState(seed)
+    coarse = tuple((f + 1) // 2 for f in fine)
+    offs = np.array([d for d in itertools.product(range(-3, 4),
+                                                  repeat=len(fine))
+                     if rng.rand() < 0.5])
+    cs = np.stack(np.meshgrid(*map(np.arange, coarse), indexing="ij"),
+                  -1).reshape(-1, len(fine))
+    f = 2 * cs[:, None, :] + offs[None]
+    ok = np.all((f >= 0) & (f < np.array(fine)), axis=-1)
+    rows = np.ravel_multi_index(tuple(f[ok].T), fine)
+    cols = np.broadcast_to(np.arange(len(cs))[:, None], ok.shape)[ok]
+    P = sp.csr_matrix((rng.rand(len(rows)) + 0.5, (rows, cols)),
+                      shape=(int(np.prod(fine)), len(cs)))
+    return P, coarse
+
+
+def phase_d_edges(rows):
+    """Kernel D against its plain version at its plan's edges, f32 (2e-5)
+    and f64 (1e-12): nd = 1, 9 (one past a group of 8) and 256 on 2D and
+    3D grids at m = 1, 3, 8, 9, at the default plan and at splits 1, 2 and
+    16; 97 taps on 1D fields of FILL - 1 nodes (split) and FILL (stream);
+    the parity-form transfers on odd and even fine extents in 2D and 3D
+    against P @ x and P^T @ r, m = 1 and 3, at the default plan and at
+    splits 2 and 16."""
+    from mgtpu_torch.ops.cuda import stencil
+    from mgtpu_torch.ops.grid_stencil import (grid_stencil_matvec,
+                                              stride2_transfer_from_scipy)
+    for dt in (torch.float32, torch.float64):
+        for ntaps, dim in ((1, 2), (9, 2), (256, 3)):
+            grid = (37, 41) if dim == 2 else (13, 15, 17)
+            coeff, offsets = wide_stencil(ntaps, dim, grid, dt)
+            taps = tuple((0,) * (3 - dim) + o for o in offsets)
+            for m in (1, 3, 8, 9):
+                x = torch.tensor(np.random.RandomState(m).rand(m, *grid),
+                                 dtype=dt, device="cuda")
+                ref = grid_stencil_matvec(coeff, offsets, x)
+                check_d(rows, f"{ntaps} taps on {grid} m={m}",
+                        stencil.grid_apply(coeff, offsets, x), ref)
+                for split in (1, 2, 16):
+                    plan = stencil.stencil_plan(box3(grid), ntaps, m, dt,
+                                                split=split)
+                    check_d(rows, f"{ntaps} taps on {grid} m={m} split "
+                            f"{split}", stencil._launch(
+                                coeff, box3(grid), taps, x, plan=plan), ref)
+        for n in (stencil.FILL - 1, stencil.FILL):
+            coeff = torch.tensor(np.random.RandomState(n).rand(97, n),
+                                 dtype=dt, device="cuda")
+            offsets = tuple((k - 48,) for k in range(97))
+            x = torch.tensor(np.random.RandomState(1).rand(1, n), dtype=dt,
+                             device="cuda")
+            plan = stencil.stencil_plan((1, 1, n), 97, 1, dt)
+            require(plan.schedule == ("split" if n < stencil.FILL
+                                      else "stream"),
+                    f"kernel D plan on {n} nodes: {plan}")
+            check_d(rows, f"97 taps on {n} nodes ({plan.schedule})",
+                    stencil.grid_apply(coeff, offsets, x),
+                    grid_stencil_matvec(coeff, offsets, x))
+        for fine in ((37, 40), (40, 37), (17, 18, 19), (20, 15, 16)):
+            P, coarse = random_stride2(fine, seed=sum(fine))
+            T = stride2_transfer_from_scipy(
+                P, list(reversed(fine)), list(reversed(coarse)),
+                dtype=np.float32 if dt == torch.float32 else np.float64,
+                device="cuda")
+            fb, cb = box3(fine), box3(coarse)
+            taps = tuple((0,) * (3 - len(fine)) + o for o in T.offsets)
+            for m in (1, 3):
+                rng = np.random.RandomState(m)
+                xc, r = rng.rand(m, P.shape[1]), rng.rand(m, P.shape[0])
+                xd = torch.tensor(xc.reshape((m,) + coarse), dtype=dt,
+                                  device="cuda")
+                rd = torch.tensor(r.reshape((m,) + fine), dtype=dt,
+                                  device="cuda")
+                y_ref = torch.tensor((P @ xc.T).T.reshape((m,) + fine),
+                                     dtype=dt, device="cuda")
+                rc_ref = torch.tensor((P.T @ r.T).T.reshape((m,) + coarse),
+                                      dtype=dt, device="cuda")
+                outs = [("prolong", T.prolong(xd), y_ref),
+                        ("restrict", T.restrict(rd), rc_ref)]
+                for split in (2, 16):
+                    outs.append((f"prolong split {split}", stencil._launch(
+                        T.pcoeff, fb, taps, xd, form="prolong", in_box=cb,
+                        in_space=coarse, ptab=T.ptab,
+                        plan=stencil.stencil_plan(
+                            fb, T.pcoeff.shape[0], m, dt, "prolong",
+                            split=split)), y_ref))
+                    outs.append((f"restrict split {split}", stencil._launch(
+                        T.rcoeff, cb, taps, rd, form="restrict", in_box=fb,
+                        in_space=fine, plan=stencil.stencil_plan(
+                            cb, len(taps), m, dt, "restrict",
+                            split=split)), rc_ref))
+                for what, out, ref in outs:
+                    check_d(rows, f"random stride-2 {fine} {what} m={m}",
+                            out, ref)
+    log("[kernel] D at its plan's edges (1 / 9 / 256 taps, m = 1, 3, 8, 9, "
+        "splits 1, 2, 16; 97 taps on FILL - 1 and FILL nodes; parity-form "
+        "transfers on (37, 40), (40, 37), (17, 18, 19), (20, 15, 16) "
+        "against P @ x and P^T @ r): matches, f32 and f64")
 
 
 def phase_amg(runs, card):
@@ -1600,7 +1744,8 @@ def main() -> int:
     runs = amg_states()
     st3, levels3 = sa3d_levels()
     phase_amg_kernels(runs, st3, levels3, rows)
-    phase_amg_timing(runs, levels3, rows, card)
+    phase_d_edges(rows)
+    phase_amg_timing(runs, st3, rows, card)
     amg = phase_amg(runs, card)
     for k, row in rows.items():
         # each kernel's launches from the window of its own path

@@ -22,7 +22,7 @@ from .cycle.relax import AltLineRelax, ChebyshevRelax, DiagRelax, LineRelax
 from .ops.dia import DIA
 from .ops.ell import ELL
 from .ops.grid_stencil import (ConstGridStencil, GridStencil,
-                               Stride2Transfer, _shift_np)
+                               Stride2Transfer, pack_stride2)
 from .setup.hierarchy import Hierarchy, Level
 
 __all__ = ["grid_hierarchy_from_arrays", "flat_hierarchy_from_arrays",
@@ -47,15 +47,9 @@ def _line_state(spec):
 def stride2_from_arrays(spec, device) -> Stride2Transfer:
     """A mapping {``coeff``, ``offsets``, ``fine_grid``, ``coarse_grid``}
     (mgtpu's Stride2Transfer less its selection matrices) as a
-    Stride2Transfer on `device`."""
-    coeff = np.asarray(spec["coeff"])
-    offsets = tuple(tuple(int(v) for v in o) for o in spec["offsets"])
-    coeff_r = np.stack([_shift_np(coeff[k], o)
-                        for k, o in enumerate(offsets)])
-    return Stride2Transfer(torch.tensor(coeff, device=device),
-                           torch.tensor(coeff_r, device=device), offsets,
-                           tuple(int(v) for v in spec["fine_grid"]),
-                           tuple(int(v) for v in spec["coarse_grid"]))
+    Stride2Transfer on `device`, packed for kernel D (`pack_stride2`)."""
+    return pack_stride2(np.asarray(spec["coeff"]), spec["offsets"],
+                        spec["fine_grid"], spec["coarse_grid"], device)
 
 
 def matrix_from_arrays(spec, device):

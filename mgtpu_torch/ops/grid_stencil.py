@@ -34,7 +34,7 @@ __all__ = [
     "GridStencil", "ConstGridStencil", "flat_to_grid", "grid_to_flat",
     "make_grid_stencil", "grid_stencil_from_csr", "grid_stencil_matvec",
     "structured_fw_rap", "compress_grid_stencil", "const_grid_stencil_matvec",
-    "Stride2Transfer", "stride2_transfer_from_scipy",
+    "Stride2Transfer", "pack_stride2", "stride2_transfer_from_scipy",
 ]
 
 
@@ -302,53 +302,48 @@ def structured_fw_rap(gs: GridStencil, axes=None) -> GridStencil:
 @dataclass(frozen=True, eq=False)
 class Stride2Transfer:
     """Prolongation whose column of fine node f is the coarse node c with
-    f = 2c + off for a small static set of per-axis offsets:
-    ``coeff[k, *f] = P[flat(f), flat((f - offsets[k]) / 2)]``.
+    f = 2c + off for a small static set of per-axis offsets (mgtpu's
+    ``coeff[k, *f] = P[flat(f), flat((f - offsets[k]) / 2)]``), kept in the
+    two packed forms that kernel D applies (`pack_stride2`):
 
-    prolong:  y = sum_k coeff_k * shift(up(xc), -offsets[k]), up placing
-              xc on the even nodes (zero elsewhere) — a stencil with taps
-              -offsets[k] on up(xc);
-    restrict: rc = even nodes of sum_k shift(coeff_k * r, offsets[k]) = P^T r
-              (the SA convention R = P', reference SA-AMG.jl:49) — a
-              stencil with taps +offsets[k] on r, whose coefficients
-              `coeff_r[k, f] = coeff[k, f + offsets[k]]` (zero outside) are
-              shifted once at setup.
+    prolong:  y[f] = sum_t pcoeff[t, f] xc[(f - d) / 2] over the taps d of
+              f's parity class: an entry P[f, c] has f - 2c = d, so d has
+              f's parity on every axis, and a class keeps only its own taps
+              (`classes`, in tap order; `ptab` the same table on the
+              device with each tap's offset in the coarse box, padded with
+              an offset that reads nothing);
+    restrict: rc[c] = sum_k rcoeff[k, c] r[2c + offsets[k]] = P^T r (the
+              SA convention R = P', reference SA-AMG.jl:49), with
+              rcoeff[k, c] = coeff[k, 2c + offsets[k]] (zero outside).
 
-    Both stencils apply through kernel D on a CUDA tensor (its plain
-    version on a CPU one).  mgtpu's per-axis selection matmuls (`E`, a TPU
-    choice) become strided assignment and slicing here."""
-    coeff: torch.Tensor                    # (ndiags, *fine_grid)
-    coeff_r: torch.Tensor                  # (ndiags, *fine_grid), shifted
+    Neither reads the stencil form's zeros: no upsampled field, no outputs
+    on odd fine nodes.  Both apply through kernel D on a CUDA tensor (its
+    plain strided versions on a CPU one), one call each."""
+    pcoeff: torch.Tensor                   # (T, *fine_grid)
+    ptab: torch.Tensor                     # (T, 8, 4) int32
+    classes: tuple                         # 8 tuples of per-axis offsets
+    rcoeff: torch.Tensor                   # (ndiags, *coarse_grid)
     offsets: tuple[tuple[int, ...], ...]
     fine_grid: tuple[int, ...]
     coarse_grid: tuple[int, ...]
 
     @property
     def dtype(self):
-        return self.coeff.dtype
+        return self.pcoeff.dtype
 
     @property
     def shape(self) -> tuple[int, int]:
         return (int(np.prod(self.fine_grid)), int(np.prod(self.coarse_grid)))
 
-    def _even(self, nb: int):
-        return (slice(None),) * nb + (slice(None, None, 2),) * len(
-            self.fine_grid)
-
     def prolong(self, xc: torch.Tensor) -> torch.Tensor:
         """xc: (..., *coarse_grid) -> (..., *fine_grid)."""
-        from .cuda.stencil import grid_apply
-        nb = xc.ndim - len(self.coarse_grid)
-        up = xc.new_zeros(xc.shape[:nb] + self.fine_grid)
-        up[self._even(nb)] = xc
-        return grid_apply(self.coeff, tuple(tuple(-d for d in o)
-                                            for o in self.offsets), up)
+        from .cuda.stencil import stride2_prolong
+        return stride2_prolong(self, xc)
 
     def restrict(self, r: torch.Tensor) -> torch.Tensor:
         """P^T r: (..., *fine_grid) -> (..., *coarse_grid)."""
-        from .cuda.stencil import grid_apply
-        s = grid_apply(self.coeff_r, self.offsets, r.contiguous())
-        return s[self._even(r.ndim - len(self.fine_grid))].contiguous()
+        from .cuda.stencil import stride2_restrict
+        return stride2_restrict(self, r)
 
 
 def _shift_np(c: np.ndarray, off) -> np.ndarray:
@@ -358,6 +353,66 @@ def _shift_np(c: np.ndarray, off) -> np.ndarray:
     dst = tuple(slice(max(0, -d), n - max(0, d)) for n, d in zip(c.shape, off))
     out[dst] = c[src]
     return out
+
+
+# a class table's padding: f - d lands past every axis of the coarse box,
+# and its linear offset is INT_MIN
+_NO_TAP = -(1 << 30)
+_NO_LIN = -(1 << 31)
+
+
+def pack_stride2(coeff, offsets, fine_grid, coarse_grid,
+                 device="cpu") -> Stride2Transfer:
+    """A Stride2Transfer on `device` from the stencil form ``coeff[k, *f] =
+    P[f, (f - offsets[k]) / 2]`` (ndiags, *fine_grid), host numpy.
+
+    Parity classes are numbered over a (Z, Y, X) box, the grid's axes
+    last: bit 2 z, bit 1 y, bit 0 x.  Raises ValueError when coeff has a
+    nonzero off its parity class (not a stride-2 prolongation)."""
+    coeff = np.asarray(coeff)
+    offsets = tuple(tuple(int(v) for v in o) for o in offsets)
+    fine_grid = tuple(int(v) for v in fine_grid)
+    coarse_grid = tuple(int(v) for v in coarse_grid)
+    g = len(fine_grid)
+    if len(coarse_grid) != g or any(2 * c - 1 > f for f, c in
+                                    zip(fine_grid, coarse_grid)):
+        raise ValueError(f"coarse grid {coarse_grid} is not a stride-2 "
+                         f"subgrid of {fine_grid}")
+
+    def cls(par):
+        return sum((int(p) & 1) << (g - 1 - a) for a, p in enumerate(par))
+
+    classes = [[] for _ in range(8)]
+    for k, off in enumerate(offsets):
+        classes[cls(off)].append(k)
+    tmax = max(1, max(len(ks) for ks in classes))
+    pcoeff = np.zeros((tmax,) + fine_grid, dtype=coeff.dtype)
+    ptab = np.full((tmax, 8, 4), _NO_TAP, dtype=np.int32)
+    ptab[..., 3] = _NO_LIN
+    _, cy, cx = (1,) * (3 - g) + coarse_grid
+    for q, ks in enumerate(classes):
+        par = [(q >> (g - 1 - a)) & 1 for a in range(g)]
+        sl = tuple(slice(p, None, 2) for p in par)
+        for t, k in enumerate(ks):
+            pcoeff[(t,) + sl] = coeff[(k,) + sl]
+            # xc's index is f // 2 - (d - p) / 2 per axis: the kernel
+            # subtracts this offset from f // 2's linear index
+            hz, hy, hx = (0,) * (3 - g) + tuple(
+                (d - p) // 2 for d, p in zip(offsets[k], par))
+            ptab[t, q] = (0,) * (3 - g) + offsets[k] + (
+                (hz * cy + hy) * cx + hx,)
+    if np.count_nonzero(pcoeff) != np.count_nonzero(coeff):
+        raise ValueError("stride-2 coefficients off their parity class")
+    even = (slice(None),) + tuple(slice(None, 2 * c - 1, 2)
+                                  for c in coarse_grid)
+    rcoeff = np.stack([_shift_np(coeff[k], o)
+                       for k, o in enumerate(offsets)])[even]
+    return Stride2Transfer(
+        torch.as_tensor(pcoeff, device=device),
+        torch.as_tensor(ptab, device=device),
+        tuple(tuple(offsets[k] for k in ks) for ks in classes),
+        torch.as_tensor(np.ascontiguousarray(rcoeff), device=device),
+        offsets, fine_grid, coarse_grid)
 
 
 def stride2_transfer_from_scipy(P: sp.spmatrix, fine_nodes, coarse_nodes,
@@ -385,13 +440,7 @@ def stride2_transfer_from_scipy(P: sp.spmatrix, fine_nodes, coarse_nodes,
     dt = dtype if dtype is not None else Pc.dtype
     coeff = np.zeros((len(offs), nf), dtype=dt)
     np.add.at(coeff, (pos.ravel(), Pc.row), Pc.data.astype(dt))
-    coeff = coeff.reshape((-1,) + fg)
-    offsets = tuple(tuple(int(v) for v in o) for o in offs)
-    coeff_r = np.stack([_shift_np(coeff[k], o)
-                        for k, o in enumerate(offsets)])
-    return Stride2Transfer(torch.as_tensor(coeff, device=device),
-                           torch.as_tensor(coeff_r, device=device),
-                           offsets, fg, cg)
+    return pack_stride2(coeff.reshape((-1,) + fg), offs, fg, cg, device)
 
 
 # ---------------------------------------------------------------------------

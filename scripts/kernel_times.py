@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Device times of kernels A, B and C on one CUDA card, at every shape of the
-PERF.md kernel tables, and the event time and busy share of four cycles.
+"""Device times of kernels A, B, C and D on one CUDA card, at every shape of
+the PERF.md kernel tables, and the event time and busy share of five cycles.
 
     python3 scripts/kernel_times.py [--root DIR] [--label NAME] [--out FILE]
+        [--kernels ABCD] [--save FILE.npz] [--against FILE.npz] [--sweep]
 
 --root is the checkout whose mgtpu_torch is timed (default: this one), for
 example a parent commit unpacked with `git archive` under _chip/, so that two
@@ -24,14 +25,25 @@ checkout's chip_smoke.py, so both versions are timed the same way:
   jacres_plan and with --sweep, also with x-runs of 1 to 32 planes;
 * one V-cycle of the 3D Jacobi V(1,1) hierarchy, of the default SPAI
   V(2,2) hierarchy (kernel B on every level) and of (a) and (d): CUDA
-  events and torch.profiler's device time (busy share).
+  events and torch.profiler's device time (busy share);
+* kernel D (m = 1) at every shape of PERF.md's two kernel-D tables: every
+  level of (f) 1025^2 and (h) 129^3 and (f)'s f64 fine operator; the
+  SA-s levels, both applies of each SA-s transfer, the 3D SA levels and
+  SA-f's DIA level in f32 and f64 (chip_smoke.py's fh_cases and
+  amg_cases), beside its least time and torch.sparse.mm, with its plan
+  where the checkout has one; and one SA-s V(2,2) cycle (events, device
+  time, kernel D's share).
 
-Each kernel time is 40 calls back to back by CUDA events, rotating over four
-independent input sets (coefficients included) so that at the large shapes
-each call finds its inputs evicted from the 50 MB L2.  A SHA-1 of each
-kernel's output on fixed inputs lets two versions be compared bit for bit.
-Needs a card; prints one line per shape and, with --out, writes every
-number as JSON.
+--kernels picks the kernels (the first four items need A, B or C; the last
+needs D).  Each kernel time is 40 calls back to back by CUDA events,
+rotating over four independent input sets (coefficients included, for
+A-C) so that at the large shapes each call finds its inputs evicted from
+the 50 MB L2.  A SHA-1 of each A-C output on fixed inputs lets two versions
+be compared bit for bit; kernel D's summation order differs between
+versions, so --save writes its outputs on fixed inputs (about 40 MB) and
+--against reads an earlier run's and reports, per shape, the largest
+relative difference.  Needs a card; prints one line per shape and, with
+--out, writes every number as JSON.
 """
 from __future__ import annotations
 
@@ -173,9 +185,12 @@ def launch_times(calls, reps=20):
         for i in range(reps):
             calls[i % len(calls)]()
         torch.cuda.synchronize()
-    out = {e.key.split("<")[0].split("(")[0]: e.self_device_time_total
-           / reps / 1e3 for e in prof.key_averages()
-           if e.self_device_time_total > 0}
+    out = {}
+    for e in prof.key_averages():
+        if e.self_device_time_total > 0:
+            key = e.key.split("<")[0].split("(")[0]
+            out[key] = (out.get(key, 0.0)
+                        + e.self_device_time_total / reps / 1e3)
     return out or None
 
 
@@ -266,6 +281,57 @@ def cycle_rows(cs, st3, L3, M3, card):
     return rows
 
 
+def stencil_d_rows(cs, timer, card):
+    """Kernel D at every shape of the kernel-D tables; returns the rows and
+    each shape's output on fixed inputs (float64, host)."""
+    from mgtpu_torch import get_mg_param, mg_setup
+    base = dict(relax_type="jacobi", relax_param=0.8, nu_pre=1, nu_post=1,
+                dtype=np.float32)
+    states = {}
+    for key, dims, levels in (("f", (1024, 1024), 6),
+                              ("h", (128, 128, 128), 5)):
+        M, A = cs.divsig(dims)
+        states[key] = mg_setup(A, M, *get_mg_param(levels=levels, **base))
+    runs = cs.amg_states()
+    st3, _ = cs.sa3d_levels()
+    rows, outs = [], {}
+    for label, kind, op, csr in cs.fh_cases(states) + cs.amg_cases(runs,
+                                                                    st3):
+        entry, out = cs.time_d(label, kind, op, csr, timer, card,
+                               plain=False)
+        rows.append(dict(entry, kernel="stencil", label=label))
+        outs[label] = out.double().cpu().numpy()
+    return rows, outs, runs
+
+
+def sa_cycle_row(cs, runs, card):
+    """One SA-s V(2,2) cycle: CUDA events, host clock, device time and
+    kernel D's part of it (torch.profiler over five cycles)."""
+    _, label, st, _, b, _, _ = runs[0]
+    ev_ms, host_ms = cs.vcycle_ms(st, b, card, label="SA-s V(2,2)")
+    per = launch_times([cs.one_cycle(st, b)], reps=5) or {}
+    busy = sum(per.values()) if per else None
+    d_ms = sum(v for k, v in per.items() if "stencil_kernel" in k)
+    cs.log(f"[D] SA-s V(2,2) cycle: {ev_ms:.3f} ms events, {host_ms:.3f} ms"
+           f" host, device {busy} ms, kernel D {d_ms:.4f} ms ({card})")
+    return dict(cycle="SA-s V(2,2) 513^2", event_ms=ev_ms, host_ms=host_ms,
+                device_ms=busy, d_ms=d_ms,
+                busy_share=None if busy is None else busy / ev_ms)
+
+
+def compare_outputs(cs, rows, outs, against):
+    """Largest relative difference of each kernel-D output from the
+    outputs an earlier run saved in `against`."""
+    other = np.load(against)
+    for row in rows:
+        ref = other[row["label"]]
+        got = outs[row["label"]]
+        row["max_rel_diff"] = float(np.abs(got - ref).max()
+                                    / max(np.abs(ref).max(), 1e-300))
+        cs.log(f"[D] {row['label']:18s} largest relative difference from "
+               f"{against}: {row['max_rel_diff']:.3e}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=str(HERE),
@@ -274,6 +340,13 @@ def main() -> int:
     ap.add_argument("--out", default=None, help="JSON file to write")
     ap.add_argument("--sweep", action="store_true",
                     help="also time kernel B at x-runs of 1 to 32 planes")
+    ap.add_argument("--kernels", default="ABCD",
+                    help="which kernels to time (letters of ABCD)")
+    ap.add_argument("--save", default=None,
+                    help="write kernel D's outputs to this .npz")
+    ap.add_argument("--against", default=None,
+                    help="an earlier run's --save: compare kernel D's "
+                    "outputs with its")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("kernel_times: no CUDA device; this script runs on the card",
@@ -290,20 +363,32 @@ def main() -> int:
     card = f"{name}, {smi.split(',')[-1].strip()}"
     torch.backends.cudnn.allow_tf32 = False
     cs.phase_build()
-
-    from mgtpu_torch import get_mg_param, mg_setup
-    M3, L3 = cs.shifted_laplacian((128, 128, 128))
-    cfg, rp = get_mg_param(levels=5, relax_type="jacobi", relax_param=0.8,
-                           nu_pre=1, nu_post=1, dtype=np.float32)
-    st3 = mg_setup(L3, M3, cfg, rp)
     timer = cs.Timer(reps=40)
-    cases = stencil_cases(cs, st3)
     out = dict(label=args.label, root=str(root), card=smi,
-               kind=name, torch=torch.__version__,
-               line=line_rows(cs, timer, card),
-               stencil=stencil_rows(cs, timer, cases, card),
-               jacres=jacres_rows(cs, timer, cases, card, args.sweep),
-               cycles=cycle_rows(cs, st3, L3, M3, card))
+               kind=name, torch=torch.__version__)
+    if set(args.kernels) & set("ABC"):
+        from mgtpu_torch import get_mg_param, mg_setup
+        M3, L3 = cs.shifted_laplacian((128, 128, 128))
+        cfg, rp = get_mg_param(levels=5, relax_type="jacobi",
+                               relax_param=0.8, nu_pre=1, nu_post=1,
+                               dtype=np.float32)
+        st3 = mg_setup(L3, M3, cfg, rp)
+        cases = stencil_cases(cs, st3)
+        if "C" in args.kernels:
+            out["line"] = line_rows(cs, timer, card)
+        if "A" in args.kernels:
+            out["stencil"] = stencil_rows(cs, timer, cases, card)
+        if "B" in args.kernels:
+            out["jacres"] = jacres_rows(cs, timer, cases, card, args.sweep)
+        out["cycles"] = cycle_rows(cs, st3, L3, M3, card)
+    d_outs = None
+    if "D" in args.kernels:
+        out["stencil_d"], d_outs, runs = stencil_d_rows(cs, timer, card)
+        if args.against:
+            compare_outputs(cs, out["stencil_d"], d_outs, args.against)
+        out["sa_cycle"] = sa_cycle_row(cs, runs, card)
+    if args.save and d_outs is not None:
+        np.savez(args.save, **d_outs)
     if args.out:
         path = Path(args.out)
         path.parent.mkdir(parents=True, exist_ok=True)

@@ -3,6 +3,8 @@ mgtpu, on the CPU: host setup products equal mgtpu's exactly (both sides
 compute them in numpy/scipy), the stride-2 transfers equal P and P^T, SA
 cycles equal mgtpu's to 1e-9 in f64, and refined iteration counts at 64^2
 equal mgtpu's within one (tests/test_amg.py:186-273 are the models)."""
+import itertools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -12,12 +14,15 @@ import torch
 import mgtpu
 from mgtpu.cycle.cycle import recursive_cycle as cycle_ref
 from mgtpu.models.operators import nodal_div_sig_grad_matrix as dsg_ref
+from mgtpu.ops.grid_stencil import stride2_transfer_from_scipy as s2_ref
 from mgtpu.setup import sa_amg as sa_ref
 from mgtpu.solvers.mg_solver import solve_mg_refined as refined_ref
 
 import mgtpu_torch as mt
 from mgtpu_torch.cycle.cycle import recursive_cycle as cycle_port
 from mgtpu_torch.ops.cuda import stencil
+from mgtpu_torch.ops.grid_stencil import pack_stride2
+from mgtpu_torch.ops.grid_stencil import stride2_transfer_from_scipy as s2_port
 from mgtpu_torch.setup import sa_amg as sa_port
 
 
@@ -121,8 +126,10 @@ def test_greedy_sa_flat_hierarchy_matches_reference():
 
 @pytest.mark.parametrize("dim,n", [(2, 32), (3, 16)])
 def test_structured_sa_grid_hierarchy_matches_reference(dim, n):
-    """Level stencils (offsets, coefficients), diagonals, stride-2
-    transfers and the coarsest inverse equal mgtpu's."""
+    """Level stencils (offsets, coefficients), diagonals and the coarsest
+    inverse equal mgtpu's; each stride-2 transfer equals mgtpu's
+    stencil-form transfer packed for kernel D (prolong classes, class
+    table, restriction coefficients)."""
     _, st_r, st_p = _setups(n, True, dim=dim, levels=3)
     for lr, lp in zip(st_r.hier.levels, st_p.hier.levels):
         assert (lr.A is None) == (lp.A is None)
@@ -139,7 +146,11 @@ def test_structured_sa_grid_hierarchy_matches_reference(dim, n):
         Tr, Tp = lr.P1, lp.P1
         assert Tr.offsets == Tp.offsets and Tr.fine_grid == Tp.fine_grid
         assert Tr.coarse_grid == Tp.coarse_grid
-        assert np.array_equal(np.asarray(Tr.coeff), _np(Tp.coeff))
+        Tw = pack_stride2(np.asarray(Tr.coeff), Tr.offsets, Tr.fine_grid,
+                          Tr.coarse_grid)
+        assert Tw.classes == Tp.classes
+        for f in ("pcoeff", "ptab", "rcoeff"):
+            assert np.array_equal(_np(getattr(Tw, f)), _np(getattr(Tp, f)))
     assert np.array_equal(np.asarray(st_r.hier.coarse.inv),
                           _np(st_p.hier.coarse.inv))
 
@@ -182,6 +193,69 @@ def test_stride2_applies_equal_p_and_reference(dim, n):
             xc.reshape((2,) + Tp.coarse_grid)))) < 1e-13
         assert _rel(rc, Tr.restrict(jnp.asarray(
             r.reshape((2,) + Tp.fine_grid)))) < 1e-13
+
+
+def _random_stride2(fine, seed):
+    """A random stride-2 prolongation on a fine node grid (slowest axis
+    first) onto ceil(fine / 2): entries P[f, c] at f = 2c + d for a random
+    half of the offsets d in [-3, 3]^dim."""
+    rng = np.random.RandomState(seed)
+    coarse = tuple((f + 1) // 2 for f in fine)
+    offs = [d for d in itertools.product(range(-3, 4), repeat=len(fine))
+            if rng.rand() < 0.5]
+    rows, cols = [], []
+    for c in itertools.product(*map(range, coarse)):
+        for d in offs:
+            f = tuple(2 * ci + di for ci, di in zip(c, d))
+            if all(0 <= fi < F for fi, F in zip(f, fine)):
+                rows.append(np.ravel_multi_index(f, fine))
+                cols.append(np.ravel_multi_index(c, coarse))
+    P = sp.csr_matrix((rng.rand(len(rows)) + 0.5, (rows, cols)),
+                      shape=(int(np.prod(fine)), int(np.prod(coarse))))
+    return P, coarse
+
+
+@pytest.mark.parametrize("fine", [(9, 11), (10, 12), (7, 8, 9), (6, 5, 4)])
+def test_packed_stride2_on_odd_and_even_extents(fine):
+    """The packed prolong and restrict (kernel D's plain versions on the
+    CPU, one counted call each) equal P @ x, P^T @ r and mgtpu's
+    Stride2Transfer to 1e-12 (f64), odd and even extents, m = 1 and 2;
+    each parity class keeps only taps of its parity."""
+    P, coarse = _random_stride2(fine, seed=len(fine) + fine[0])
+    nodes = lambda g: list(reversed(g))
+    Tr = s2_ref(P, nodes(fine), nodes(coarse), dtype=np.float64)
+    Tp = s2_port(P, nodes(fine), nodes(coarse), dtype=np.float64)
+    g = len(fine)
+    for q, offs in enumerate(Tp.classes):
+        assert all(((d & 1) << (g - 1 - a)) == (q & (1 << (g - 1 - a)))
+                   for off in offs for a, d in enumerate(off))
+    assert sum(map(len, Tp.classes)) == len(Tp.offsets)
+    assert Tp.pcoeff.shape[0] == max(map(len, Tp.classes))
+    assert Tp.rcoeff.shape == (len(Tp.offsets),) + coarse
+    for m in (1, 2):
+        rng = np.random.RandomState(m)
+        xc, r = rng.rand(m, P.shape[1]), rng.rand(m, P.shape[0])
+        n0 = stencil.PLAIN_CALLS["float64"]
+        y = Tp.prolong(torch.from_numpy(xc.reshape((m,) + coarse)))
+        rc = Tp.restrict(torch.from_numpy(r.reshape((m,) + fine)))
+        assert stencil.PLAIN_CALLS["float64"] == n0 + 2
+        assert _rel(y.reshape(m, -1).T, P @ xc.T) < 1e-12
+        assert _rel(rc.reshape(m, -1).T, P.T @ r.T) < 1e-12
+        assert _rel(y, Tr.prolong(jnp.asarray(
+            xc.reshape((m,) + coarse)))) < 1e-12
+        assert _rel(rc, Tr.restrict(jnp.asarray(
+            r.reshape((m,) + fine)))) < 1e-12
+
+
+def test_pack_stride2_refuses_what_is_not_a_stride2_transfer():
+    """A nonzero off its parity class, or a coarse grid wider than the
+    fine grid's even nodes, raises."""
+    coeff = np.zeros((1, 5, 5))
+    coeff[0, 1, 2] = 1.0                 # odd y, even x: offset (0, 0)
+    with pytest.raises(ValueError, match="parity"):
+        pack_stride2(coeff, ((0, 0),), (5, 5), (3, 3))
+    with pytest.raises(ValueError, match="subgrid"):
+        pack_stride2(np.zeros((1, 5, 5)), ((0, 0),), (5, 5), (4, 3))
 
 
 SA = {"SA-s": dict(relax_type="spai"),
@@ -229,6 +303,13 @@ def test_convert_carries_an_sa_grid_hierarchy():
                 fine_grid=T.fine_grid, coarse_grid=T.coarse_grid)))
     gh = grid_hierarchy_from_arrays(levels, np.asarray(st_r.hier.coarse.inv),
                                     st_r.hier.coarse.grid, device="cpu")
+    # the converted transfers carry the packed forms of the port's own
+    for lv, lp in zip(gh.levels, st_p.hier.levels):
+        if lp.P1 is not None:
+            assert lv.P1.classes == lp.P1.classes
+            for f in ("pcoeff", "ptab", "rcoeff"):
+                assert np.array_equal(_np(getattr(lv.P1, f)),
+                                      _np(getattr(lp.P1, f)))
     bg = np.random.RandomState(2).rand(2, *gh.fine_grid)
     y_r = cycle_ref(st_r.config, st_r.hier,
                     jnp.asarray(bg.reshape(2, -1).T),

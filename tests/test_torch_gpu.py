@@ -592,6 +592,155 @@ def test_stencil_kernel_dia_form(dtype):
             < tol
 
 
+@pytest.mark.parametrize("split", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_stencil_schedules_match_plain(split, dtype):
+    """Kernel D with its schedule forced (split 1: "stream"; 2-16:
+    "split") at the plan's edges — 1 tap, 9 (one past a group), 97 and
+    256 — on 2D and 3D grids, m = 1, 3, 8 and 9, against its plain
+    version: 2e-5 (f32) / 1e-12 (f64)."""
+    _need_card()
+    from mgtpu_torch.ops.cuda import stencil
+    from mgtpu_torch.ops.grid_stencil import grid_stencil_matvec
+    tol = 2e-5 if dtype == np.float32 else 1e-12
+    for ntaps, dim in ((1, 2), (9, 2), (97, 2), (256, 3)):
+        grid = (37, 41) if dim == 2 else (13, 15, 17)
+        coeff, offsets = _wide_stencil(ntaps, dim, grid, dtype)
+        box = (1,) * (3 - dim) + grid
+        taps = tuple((0,) * (3 - dim) + o for o in offsets)
+        for m in (1, 3, 8, 9):
+            x = torch.tensor(np.random.RandomState(m).rand(m, *grid),
+                             dtype=coeff.dtype, device="cuda")
+            plan = stencil.stencil_plan(box, ntaps, m, x.dtype, split=split)
+            y = stencil._launch(coeff, box, taps, x, plan=plan)
+            ref = grid_stencil_matvec(coeff, offsets, x)
+            torch.cuda.synchronize()
+            err = float((y - ref).abs().max() / ref.abs().max())
+            assert err < tol, (ntaps, m, split, err)
+
+
+def test_stencil_masked_taps_read_nothing():
+    """A tap that leaves the grid loads nothing: x holds inf on the first
+    column and NaN on the first row, every coefficient is 1, and each node
+    whose taps stay off those lines is finite and equals the plain
+    version (a masked load multiplied by zero would give NaN)."""
+    _need_card()
+    from mgtpu_torch.ops.cuda import stencil
+    from mgtpu_torch.ops.grid_stencil import grid_stencil_matvec
+    offsets = ((-1, 0), (0, -1), (0, 0), (0, 1), (1, 0))
+    for split in (1, 4):
+        coeff = torch.ones((5, 9, 10), device="cuda")
+        x = torch.rand((1, 9, 10), device="cuda")
+        x[0, :, 0] = float("inf")
+        x[0, 0, :] = float("nan")
+        plan = stencil.stencil_plan((1, 9, 10), 5, 1, x.dtype, split=split)
+        y = stencil._launch(coeff, (1, 9, 10),
+                            tuple((0,) + o for o in offsets), x, plan=plan)
+        ref = grid_stencil_matvec(coeff, offsets, x)
+        torch.cuda.synchronize()
+        inner = (slice(None), slice(2, None), slice(2, None))
+        assert bool(torch.isfinite(y[inner]).all()), split
+        assert float((y[inner] - ref[inner]).abs().max()) < 1e-5
+
+
+def test_stencil_refuses_a_plan_that_does_not_fit():
+    """The C entry of kernel D checks its plan: any field off by one is
+    refused, in each form; so is an apply whose boxes differ."""
+    _need_card()
+    from mgtpu_torch.ops.cuda import stencil
+    lib = stencil._lib()
+    box, nd, m = (1, 65, 65), 97, 3
+    coeff = torch.zeros((nd,) + box[1:], device="cuda")
+    x = torch.zeros((m,) + box[1:], device="cuda")
+    y = torch.empty_like(x)
+    taps = stencil._taps(tuple((0, 0, k) for k in range(nd)))
+    ptab = torch.zeros((nd, 8, 4), dtype=torch.int32, device="cuda")
+    st = torch.cuda.current_stream().cuda_stream
+    for f, form in enumerate(stencil.FORMS):
+        good = np.asarray(stencil.stencil_plan(box, nd, m, torch.float32,
+                                               form), dtype=np.int32)
+        for k in range(len(good)):
+            bad = good.copy()
+            bad[k] += 1
+            rc = lib.mgt_stencil(0, f, nd, nd, taps.ctypes.data, *box, *box,
+                                 m, coeff.data_ptr(), x.data_ptr(),
+                                 y.data_ptr(), ptab.data_ptr(),
+                                 bad.ctypes.data, st)
+            assert rc != 0, (form, k)
+    good = np.asarray(stencil.stencil_plan(box, nd, m, torch.float32),
+                      dtype=np.int32)
+    rc = lib.mgt_stencil(0, 0, nd, nd, taps.ctypes.data, *box, 1, 65, 64, m,
+                         coeff.data_ptr(), x.data_ptr(), y.data_ptr(), None,
+                         good.ctypes.data, st)
+    assert rc != 0
+
+
+def _random_stride2(fine, seed):
+    """A random stride-2 prolongation on a fine node grid onto
+    ceil(fine / 2): entries at f = 2c + d for a random half of the offsets
+    d in [-3, 3]^dim (tests/test_torch_amg.py builds the same)."""
+    rng = np.random.RandomState(seed)
+    coarse = tuple((f + 1) // 2 for f in fine)
+    offs = [d for d in itertools.product(range(-3, 4), repeat=len(fine))
+            if rng.rand() < 0.5]
+    rows, cols = [], []
+    for c in itertools.product(*map(range, coarse)):
+        for d in offs:
+            f = tuple(2 * ci + di for ci, di in zip(c, d))
+            if all(0 <= fi < F for fi, F in zip(f, fine)):
+                rows.append(np.ravel_multi_index(f, fine))
+                cols.append(np.ravel_multi_index(c, coarse))
+    P = sp.csr_matrix((rng.rand(len(rows)) + 0.5, (rows, cols)),
+                      shape=(int(np.prod(fine)), int(np.prod(coarse))))
+    return P, coarse
+
+
+@pytest.mark.parametrize("fine", [(9, 11), (10, 12), (7, 8, 9), (6, 5, 4)])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_packed_stride2_transfers_match_p(fine, dtype):
+    """The parity-form prolong and the even-node restrict of kernel D, on
+    odd and even extents in 2D and 3D, at the default plan and at splits
+    2 and 16, equal P @ x and P^T @ r (2e-5 f32 / 1e-12 f64), m = 1 and 3;
+    each apply is one launch."""
+    _need_card()
+    from mgtpu_torch.ops.cuda import stencil
+    from mgtpu_torch.ops.grid_stencil import stride2_transfer_from_scipy
+    P, coarse = _random_stride2(fine, seed=len(fine) + fine[0])
+    T = stride2_transfer_from_scipy(P, list(reversed(fine)),
+                                    list(reversed(coarse)), dtype=dtype,
+                                    device="cuda")
+    key = np.dtype(dtype).name
+    tol = 2e-5 if dtype == np.float32 else 1e-12
+    fbox, cbox = ((1,) * (3 - len(fine)) + g for g in (fine, coarse))
+    taps = tuple((0,) * (3 - len(fine)) + o for o in T.offsets)
+    for m in (1, 3):
+        rng = np.random.RandomState(m)
+        xc, r = rng.rand(P.shape[1], m), rng.rand(P.shape[0], m)
+        xd = torch.tensor(xc.T.reshape((m,) + coarse), dtype=T.dtype,
+                          device="cuda").contiguous()
+        rd = torch.tensor(r.T.reshape((m,) + fine), dtype=T.dtype,
+                          device="cuda").contiguous()
+        n0 = stencil.LAUNCHES[key]
+        outs = [(T.prolong(xd), P @ xc), (T.restrict(rd), P.T @ r)]
+        assert stencil.LAUNCHES[key] == n0 + 2
+        for split in (2, 16):
+            pp = stencil.stencil_plan(fbox, T.pcoeff.shape[0], m, xd.dtype,
+                                      "prolong", split=split)
+            pr = stencil.stencil_plan(cbox, len(taps), m, xd.dtype,
+                                      "restrict", split=split)
+            outs.append((stencil._launch(
+                T.pcoeff, fbox, taps, xd, form="prolong", in_box=cbox,
+                in_space=coarse, ptab=T.ptab, plan=pp), P @ xc))
+            outs.append((stencil._launch(
+                T.rcoeff, cbox, taps, rd, form="restrict", in_box=fbox,
+                in_space=fine, plan=pr), P.T @ r))
+        torch.cuda.synchronize()
+        for i, (got, want) in enumerate(outs):
+            got = got.cpu().numpy().reshape(m, -1).T
+            err = np.abs(got - want).max() / np.abs(want).max()
+            assert err < tol, (m, i, err)
+
+
 def _rough_sigma(n, dim=2, shift=1e-8, seed=3):
     import mgtpu_torch as mt
     from mgtpu_torch.models.operators import nodal_div_sig_grad_matrix

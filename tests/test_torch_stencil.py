@@ -179,3 +179,96 @@ def test_rough_sigma_levels_are_grid_stencils_through_kernel_d(dims):
         n0 = stencil.PLAIN_CALLS["float32"]
         lp.A.matvec(torch.ones((1,) + lp.A.grid))
         assert stencil.PLAIN_CALLS["float32"] == n0 + 1
+
+
+# ---------------------------------------------------------------------------
+# kernel D's launch plan (ops/cuda/stencil.py::stencil_plan)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("m", [1, 3, 8, 9])
+@pytest.mark.parametrize("nd", [1, 8, 9, 37, 97, 179, 256])
+def test_stencil_plan_covers_every_tap_once(nd, m):
+    """At every split and in every form, the slices' groups take taps
+    0..nd-1 once each, in order, at most `group` a group (8 taps for one
+    or two right-hand sides, 16 / mb x-loads a tap beyond); the blocks
+    cover the output nodes; the plan fits its own launch."""
+    box = (1, 40, 41)
+    for split in (1, 2, 4, 8, 16):
+        for form in stencil.FORMS:
+            plan = stencil.stencil_plan(box, nd, m, torch.float64, form,
+                                        split=split)
+            # the kernel's loops: slice s takes [s per_slice, ...) in groups
+            groups = []
+            for s in range(plan.split):
+                k0 = min(nd, s * plan.per_slice)
+                k1 = min(nd, k0 + plan.per_slice)
+                groups += [range(kb, min(kb + plan.group, k1))
+                           for kb in range(k0, k1, plan.group)]
+            assert [k for g in groups for k in g] == list(range(nd))
+            assert all(0 < len(g) <= plan.group for g in groups)
+            assert plan.mb == min(8, 1 << (m - 1).bit_length())
+            assert plan.group == (8 if plan.mb <= 2 else 16 // plan.mb)
+            nb = stencil.THREADS // split
+            assert (plan.blocks - 1) * nb < 40 * 41 <= plan.blocks * nb
+            assert stencil.plan_fits(plan, box, nd, m, torch.float64, form)
+            assert plan.schedule == ("stream" if split == 1 else "split")
+
+
+# (box, taps, split) at PERF.md's kernel-D shapes: the fine levels of (f)
+# and (h), SA-s level 0 and SA-f's DIA level fill the card and stream; the
+# small and wide levels split
+PLAN_SHAPES = [
+    ((1, 1025, 1025), 5, 1), ((129, 129, 129), 7, 1), ((1, 513, 513), 5, 1),
+    ((1, 1, 263169), 5, 1), ((65, 65, 65), 27, 1), ((1, 257, 257), 13, 4),
+    ((1, 129, 129), 37, 8), ((1, 65, 65), 97, 16), ((33, 33, 33), 7, 2),
+    ((33, 33, 33), 27, 4), ((17, 17, 17), 33, 8), ((17, 17, 17), 27, 8),
+    ((9, 9, 9), 179, 16), ((9, 9, 9), 27, 8), ((1, 33, 33), 9, 2),
+]
+
+
+@pytest.mark.parametrize("box,nd,split", PLAN_SHAPES)
+def test_stencil_plan_schedule_at_the_measured_shapes(box, nd, split):
+    for dtype in (torch.float32, torch.float64):
+        plan = stencil.stencil_plan(box, nd, 1, dtype)
+        assert plan.split == split, plan
+        assert plan.schedule == ("stream" if split == 1 else "split")
+        # a split slice keeps MIN_SLICE taps or more
+        assert split == 1 or -(-nd // split) >= stencil.MIN_SLICE
+
+
+def test_stencil_plan_stream_split_boundary():
+    """Below FILL nodes a wide stencil splits; at FILL it streams; a
+    narrow one (two slices would take fewer than MIN_SLICE taps each)
+    never splits."""
+    F = stencil.FILL
+    assert stencil.stencil_plan((1, 1, F - 1), 97, 1, torch.float32).split \
+        == 2
+    assert stencil.stencil_plan((1, 1, F), 97, 1, torch.float32).split == 1
+    assert stencil.stencil_plan((1, 9, 9), 6, 1, torch.float32).split == 1
+    assert stencil.stencil_plan((1, 9, 9), 7, 1, torch.float32).split == 2
+
+
+def test_stencil_plan_refuses_a_plan_that_does_not_fit():
+    """Every field of a good plan off by one, a split that is not a power
+    of two or above MAX_SPLIT, or a plan made for another form, precision
+    or m: refused (the C entry's plan_ok applies the same rule)."""
+    box, nd, m = (1, 65, 65), 97, 3
+    for form in stencil.FORMS:
+        good = stencil.stencil_plan(box, nd, m, torch.float32, form)
+        assert stencil.plan_fits(good, box, nd, m, torch.float32, form)
+        for k in range(len(good)):
+            bad = list(good)
+            bad[k] += 1
+            assert not stencil.plan_fits(bad, box, nd, m, torch.float32,
+                                         form), (form, k)
+        for split in (0, 3, 32):
+            bad = good._replace(split=split)
+            assert not stencil.plan_fits(bad, box, nd, m, torch.float32,
+                                         form)
+        assert not stencil.plan_fits(good, box, nd, m, torch.float64, form)
+        assert not stencil.plan_fits(good, box, nd, 9, torch.float32, form)
+        assert not stencil.plan_fits(good, box, nd + 16, m, torch.float32,
+                                     form)
+    assert not stencil.plan_fits(
+        stencil.stencil_plan(box, nd, m, torch.float32, "apply"), box, nd,
+        m, torch.float32, "restrict")
