@@ -83,7 +83,23 @@ Phases, each of which raises on failure:
             built on the card; DenseLU of 964) and operator complexity
             (2.40 / 1.63); launch counters prove kernel D ran in float32
             and float64 in each solve and no plain version did; one cycle's
-            time by CUDA events and the host clock, and the busy share.
+            time by CUDA events and the host clock, and the busy share;
+12. classical — bench.py's agg_ab problem (SA-f's operator, 512^2, f32,
+            4 levels, SPAI V(2,2)), set up on the card and solved inside
+            one launch-counter window: (C-cc) classical AMG with the C++
+            common-C coloring and direct interpolation (13 +- 1 refined
+            iterations), (C-pmis) PMIS coloring on the card (13), (SA-dev)
+            SA with MIS-2 aggregation on the card (20), each to a true f64
+            relres below 1e-8 at its operator complexity (2.7356 / 3.1210 /
+            2.2391 +- 0.01), level sizes, formats and coarsest solver
+            (SuperLU / SuperLU / DenseLU), with the setup's host and device
+            seconds and the device loops' round counts; (C-cg) C-cc under
+            solve_cg_mg (8 +- 1, true relres <= 1e-7); counters prove the
+            C++ coloring ran, kernel D ran in f32 and f64 in each solve and
+            no plain version did; then kernel D against its plain version
+            on C-cc's two DIA levels (f32 2e-5, f64 1e-12) and its times
+            there; one cycle of each by CUDA events and the host clock, and
+            the busy share.
 
 The last lines are one JSON object with a row per kernel, the card's name and
 power limit, and {"ok": true, "device": {...}}.  Without a CUDA device, or
@@ -499,9 +515,11 @@ def phase_timing(timed_levels, rows):
 
 def reset_counters():
     from mgtpu_torch.ops.cuda import const3d, fused3d, stencil, tridiag
+    from mgtpu_torch.setup import native
     for dct in (const3d.LAUNCHES, const3d.PLAIN_CALLS, fused3d.LAUNCHES,
                 fused3d.PLAIN_CALLS, tridiag.LAUNCHES, tridiag.PLAIN_CALLS,
-                stencil.LAUNCHES, stencil.PLAIN_CALLS):
+                stencil.LAUNCHES, stencil.PLAIN_CALLS, native.CALLS,
+                native.PLAIN_CALLS):
         for k in dct:
             dct[k] = 0
     fused3d.GRID_LAUNCHES.clear()
@@ -1696,6 +1714,202 @@ def phase_amg(runs, card):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# classical AMG and the device-side AMG setup
+# ---------------------------------------------------------------------------
+
+CLASSICAL = [
+    # key, label, setup, options, mgtpu's refined count, operator
+    # complexity, level sizes, level formats and coarsest solver on the
+    # CPU (scripts/classical_reference.py)
+    ("C-cc", "(C-cc) classical AMG, common-C coloring (C++ kernels), "
+     "direct interpolation", "classical", {}, 13, 2.7356,
+     [263169, 131587, 50778, 23908], ["DIA", "DIA", "ELL", "ELL"],
+     "SparseLUCoarse"),
+    ("C-pmis", "(C-pmis) classical AMG, PMIS on the card + enforce_common_c",
+     "classical", dict(coarsening="pmis"), 13, 3.1210,
+     [263169, 153476, 70003, 31487], ["DIA", "ELL", "ELL", "ELL"],
+     "SparseLUCoarse"),
+    ("SA-dev", "(SA-dev) SA, MIS-2 aggregation on the card (MGTPU_AGG="
+     "device)", "sa", {}, 20, 2.2391, [263169, 69425, 13952, 2153],
+     ["DIA", "ELL", "ELL", "ELL"], "DenseLU"),
+]
+C_CG = 8        # (C-cg) C-cc's hierarchy under solve_cg_mg, mgtpu's count
+
+
+def setup_counters():
+    """Calls of the host C++ setup kernels and of their numpy versions."""
+    from mgtpu_torch.setup import native
+    return dict(native.CALLS), dict(native.PLAIN_CALLS)
+
+
+def classical_setup(key, setup, opts, A):
+    """One CLASSICAL setup on the card (f32, 4 levels, SPAI V(2,2)): the
+    state, its host seconds and its device seconds (torch.profiler's
+    device time over the setup)."""
+    import os
+    from torch.profiler import ProfilerActivity, profile
+    from mgtpu_torch import classical_amg_setup, get_mg_param, sa_amg_setup
+    cfg, rp = get_mg_param(levels=4, relax_type="spai", dtype=np.float32)
+    if setup == "sa":
+        os.environ["MGTPU_AGG"] = "device"
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            st = (sa_amg_setup(A, cfg, rp) if setup == "sa"
+                  else classical_amg_setup(A, cfg, rp, **opts))
+            torch.cuda.synchronize()
+        host = time.perf_counter() - t0
+    finally:
+        os.environ.pop("MGTPU_AGG", None)
+    dev = sum(e.self_device_time_total
+              for e in prof.key_averages()) / 1e6
+    return st, host, dev
+
+
+def phase_classical(agg_ab, rows, card):
+    """C-cc, C-pmis and SA-dev on bench.py's agg_ab problem (SA-f's: 512^2,
+    sigma seed 5, b seed 6), set up and solved inside one launch-counter
+    window: each to mgtpu's refined count +- 1 and a true f64 relres below
+    1e-8, at its operator complexity +- 0.01, with its level sizes, formats
+    and coarsest solver; (C-cg) C-cc's hierarchy under solve_cg_mg to 8 +-
+    1 iterations and a true relres <= 1e-7.  The C++ setup kernels ran (the
+    coloring on C-cc's levels, the greedy aggregation nowhere), kernel D
+    ran in f32 and f64 in each solve, and no plain version ran.  Then
+    kernel D against its plain version on C-cc's two DIA levels (f32 2e-5,
+    f64 1e-12, m = 1, 3) and its times there; one cycle of each by CUDA
+    events and the host clock, with the busy share.  Returns kernel D's
+    launches in the window."""
+    from dataclasses import replace
+    from mgtpu_torch import solve_cg_mg
+    from mgtpu_torch.ops.cuda import stencil
+    from mgtpu_torch.ops.dia import DIA
+    from mgtpu_torch.setup import device_agg
+    from mgtpu_torch.solvers.mg_solver import high_precision_fine_operator
+    _, _, _, A, b, _, _ = agg_ab
+    reset_counters()                       # ---- main path window ----
+    states = {}
+    for key, label, setup, opts, _, opc, sizes, kinds, coarse in CLASSICAL:
+        device_agg.ROUNDS.clear()
+        c0 = setup_counters()[0]
+        st, host_s, dev_s = classical_setup(key, setup, opts, A)
+        states[key] = st
+        got_sizes = [a.shape[0] for a in st.As]
+        got_kinds = [type(lv.A).__name__ for lv in st.hier.levels]
+        got_coarse = type(st.hier.coarse).__name__
+        calls = {k: v - c0[k] for k, v in setup_counters()[0].items()}
+        rounds = [{k: v for k, v in r.items() if k != "call"}
+                  for r in device_agg.ROUNDS]
+        log(f"[classical] {label}: setup {host_s:.2f} s host clock, "
+            f"{dev_s:.4f} s device time (torch.profiler; {card}); levels "
+            f"{got_sizes}, operators {got_kinds}, coarsest {got_coarse}, "
+            f"operator complexity {st.operator_complexity():.4f} (want "
+            f"{opc:.4f}); C++ kernel calls {calls}; device loops {rounds}")
+        require(abs(st.operator_complexity() - opc) <= 0.01,
+                f"{key}: operator complexity {st.operator_complexity():.4f}")
+        require(got_sizes == sizes and got_kinds == kinds
+                and got_coarse == coarse, f"{key}: want levels {sizes}, "
+                f"operators {kinds} and a {coarse} coarsest")
+        if key == "C-cc":
+            require(calls["cf_coloring"] == len(sizes) - 1,
+                    f"{key}: the C++ coloring ran {calls} times")
+        else:
+            require(len(rounds) == len(sizes) - 1
+                    and all(r["seconds"] > 0 for r in rounds),
+                    f"{key}: the device loops ran {len(rounds)} times")
+    for key, label, _, _, want, *_ in CLASSICAL:
+        st = states[key]
+        before = stencil_counters()[0]
+        refined(st, A, b, want, label, card, max_iter=60)
+        d_l = {k: v - before[k] for k, v in stencil_counters()[0].items()}
+        log(f"[path] {key}: kernel D launches in this solve: {d_l}")
+        for k in ("stencil.float32", "stencil.float64"):
+            require(d_l[k] > 0, f"{key}: {k} was never launched")
+    st = states["C-cc"]
+    cfg = st.config
+    st.config = replace(cfg, max_outer_iter=100, relative_tol=1e-8)
+    try:
+        before = stencil_counters()[0]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x, info = solve_cg_mg(st, b)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        st.config = cfg
+    rr, iters = true_relres(A, b, x), int(info["iters"])
+    d_l = {k: v - before[k] for k, v in stencil_counters()[0].items()}
+    log(f"[path] (C-cg) C-cc's hierarchy, solve_cg_mg: {iters} iterations "
+        f"(want {C_CG} +- 1), true f64 relres {rr:.3e}, time to 1e-8 "
+        f"{wall:.1f} ms (host clock, synchronised; {card}); kernel D "
+        f"launches {d_l}")
+    require(abs(iters - C_CG) <= 1, f"C-cg: {iters} iterations")
+    require(rr <= 1e-7, f"C-cg: true relres {rr:.3e} > 1e-7")
+    for k in ("stencil.float32", "stencil.float64"):
+        require(d_l[k] > 0, f"C-cg: {k} was never launched")
+    launches, plain = stencil_counters()   # ---- end of window ----
+    more_l, more_p = counters()
+    line_l, line_p = line_counters()
+    calls, setup_plain = setup_counters()
+    plain.update(more_p, **line_p, **{f"setup.{k}": v
+                                      for k, v in setup_plain.items()})
+    log(f"[path] classical window kernel D launches: {launches}; other "
+        f"kernels {dict(more_l, **line_l)}; C++ setup kernels {calls}")
+    log(f"[path] classical window plain-version calls: {plain}")
+    require(not any(plain.values()), f"plain versions ran: {plain}")
+    require(calls["aggregate"] == 0 and calls["cf_coloring"] > 0,
+            f"C++ setup kernel calls {calls}")
+
+    levels = [("C-cc DIA level 0", st.hier.levels[0].A, st.As[0],
+               high_precision_fine_operator(st), st.A_input)]
+    D1 = st.hier.levels[1].A
+    levels.append(("C-cc DIA level 1", D1, st.As[1],
+                   DIA(D1.data.double(), D1.offsets, D1.shape), st.As[1]))
+    timer = Timer()
+    for label, D32, csr32, D64, csr64 in levels:
+        for D in (D32, D64):
+            for m in (1, 3):
+                x = torch.tensor(np.random.RandomState(SEED + m).rand(
+                    D.shape[0], m), dtype=D.dtype, device="cuda")
+                check_d(rows, f"{label} m={m}",
+                        stencil.dia_apply(D.data, D.offsets, x),
+                        stencil.dia_apply_plain(D.data, D.offsets, x))
+        log(f"[kernel] D {label} ({D32.shape[0]} rows, {len(D32.offsets)} "
+            f"diagonals at offsets {D32.offsets}): matches its plain "
+            "version, f32 and f64, m = 1, 3")
+        for D, csr in ((D32, csr32), (D64, csr64)):
+            dt = str(D.dtype).split(".")[-1]
+            entry, _ = time_d(f"{label} {dt}", "dia", D, csr, timer, card)
+            rows[f"stencil.{dt}"].setdefault("times_classical", {})[
+                f"{label} {dt}"] = entry
+    for key, st in states.items():
+        ev_ms, _ = vcycle_ms(st, b, card, label=key)
+        vcycle_profile(st, b, ev_ms, card, label=key)
+        coarsest_ms(st, ev_ms, card, key)
+    return launches
+
+
+def coarsest_ms(st, cycle_ms, card, label):
+    """One coarsest solve of the cycle's type on the card, by the host
+    clock (synchronised; SparseLUCoarse is a round trip to the host's
+    SuperLU), the median of five."""
+    c = st.hier.coarse
+    bc = torch.tensor(np.random.RandomState(SEED).rand(st.As[-1].shape[0], 1),
+                      dtype=torch.float32, device="cuda")
+    times = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        c.solve(bc)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    ms = sorted(times[1:])[2]
+    log(f"[path] {label}: one coarsest solve ({type(c).__name__} of "
+        f"{st.As[-1].shape[0]} dofs) {ms:.3f} ms host clock, of the "
+        f"cycle's {cycle_ms:.3f} ms ({card})")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     smi, name = phase_card()
@@ -1747,6 +1961,7 @@ def main() -> int:
     phase_d_edges(rows)
     phase_amg_timing(runs, st3, rows, card)
     amg = phase_amg(runs, card)
+    classical = phase_classical(runs[2], rows, card)
     for k, row in rows.items():
         # each kernel's launches from the window of its own path
         row["launches"] = (aniso[k] if k.startswith("tridiag") else
@@ -1756,6 +1971,7 @@ def main() -> int:
         rows[k]["launches_aniso"] = aniso[k]
     for k in ("stencil.float32", "stencil.float64"):
         rows[k]["launches_amg"] = amg[k]
+        rows[k]["launches_classical"] = classical[k]
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

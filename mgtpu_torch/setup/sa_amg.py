@@ -7,8 +7,9 @@ smoothed aggregation with Galerkin RAP, after Treister & Yavneh SISC 37(1)
  * strength of connection: rows of -A scaled by their largest
    off-diagonal, unit diagonal, thresholded, symmetrised (SA-AMG.jl:88-116);
  * greedy neighborhood aggregation in three passes with hub-node deferral
-   and affinity-scored adoption of leftover nodes (SA-AMG.jl:119-211), in
-   numpy (mgtpu's optional C++ kernel gives the same aggregates);
+   and affinity-scored adoption of leftover nodes (SA-AMG.jl:119-211), by
+   the host C++ kernel (setup/native.py; numpy as its plain version), or
+   MIS-2 aggregation on the device (setup/device_agg.py, MGTPU_AGG=device);
  * with a regular `mesh`: structured block-2^dim aggregates instead, so
    every level stays a grid stencil and the smoothed transfers stay
    stride-2 stencils — the hierarchy runs on the grid engine;
@@ -22,6 +23,7 @@ asks for the CPU).
 """
 from __future__ import annotations
 
+import os
 import time
 from dataclasses import replace
 
@@ -30,7 +32,9 @@ import scipy.sparse as sp
 import torch
 
 from ..config import resolve_device
+from . import native
 from . import smoothers as sm
+from .device_agg import device_aggregation
 from .hierarchy import (MGConfig, MGState, _check_ported,
                         _per_level_relax_param, _RelaxThunk,
                         build_device_hierarchy)
@@ -61,7 +65,9 @@ def strength_matrix(A: sp.spmatrix, theta: float) -> sp.csr_matrix:
 
 def neighborhood_aggregation(S: sp.csr_matrix, tau: float = 3.0) -> np.ndarray:
     """Greedy neighborhood aggregation; returns aggr[i] = root node of i's
-    aggregate (SA-AMG.jl:119-211, 0-based)."""
+    aggregate (SA-AMG.jl:119-211, 0-based); the plain version of
+    `native.aggregate`."""
+    native.PLAIN_CALLS["aggregate"] += 1
     n = S.shape[0]
     indptr, indices, data = S.indptr, S.indices, S.data
     aggr = np.zeros(n, dtype=np.int64) - 1        # -1: unaggregated
@@ -126,21 +132,28 @@ def aggregation_to_tentative_p(aggr: np.ndarray) -> sp.csr_matrix:
                          shape=(n, len(roots)))
 
 
-def get_aggregation(A: sp.spmatrix, theta: float,
-                    method: str = "auto") -> sp.csr_matrix:
+def get_aggregation(A: sp.spmatrix, theta: float, method: str = "auto",
+                    device=None) -> sp.csr_matrix:
     """P0, or the identity when the level is too small to coarsen
-    (SA-AMG.jl:78-86: n <= 100 stops).  method "auto"/"greedy": the greedy
-    sweep; "device" (mgtpu's MIS-2 label propagation) is not yet ported."""
+    (SA-AMG.jl:78-86: n <= 100 stops).
+
+    method "auto"/"greedy": the greedy sweep, by the host C++ kernel
+    (`native.aggregate`, the same aggregates as `neighborhood_aggregation`);
+    "device": MIS-2 aggregation (`device_agg.device_aggregation`) on
+    `device` ("cuda" unless the caller asks for the CPU).  MGTPU_AGG in the
+    environment overrides `method`, as in mgtpu."""
     n = A.shape[0]
     if n <= 100:
         return sp.identity(n, format="csr")
-    if method == "device":
-        raise NotImplementedError("device aggregation (setup/device_agg.py) "
-                                  "not yet ported")
-    if method not in ("auto", "greedy"):
+    method = os.environ.get("MGTPU_AGG", method).lower()
+    if method not in ("auto", "greedy", "device"):
         raise ValueError(f"unknown aggregation method {method!r}")
-    return aggregation_to_tentative_p(
-        neighborhood_aggregation(strength_matrix(A, theta)))
+    S = strength_matrix(A, theta)
+    if method == "device":
+        aggr = device_aggregation(S, device=device)
+    else:
+        aggr = native.aggregate(S)
+    return aggregation_to_tentative_p(aggr)
 
 
 def structured_tentative_p(node_counts):
@@ -253,7 +266,7 @@ def sa_amg_setup(A: sp.spmatrix, cfg: MGConfig, relax_param=1.0,
             else:
                 P0, nc_nodes = structured_tentative_p(nn_levels[l])
         else:
-            P0 = get_aggregation(A_l, cfg.strong_conn_param)
+            P0 = get_aggregation(A_l, cfg.strong_conn_param, device=dev)
         if P0.shape[0] == P0.shape[1]:
             if verbose:
                 print(f"sa_amg_setup: stopped coarsening at level {l}")

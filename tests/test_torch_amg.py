@@ -368,8 +368,14 @@ def test_structured_sa_chebyshev_conforms_to_flat(relax):
 
 def test_sa_options():
     _, Mp, A = _divsig(16)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        sa_port.get_aggregation(A, 0.4, method="device")
+    # MIS-2 aggregation: every node in one aggregate, deterministic
+    P0 = sa_port.get_aggregation(A, 0.4, method="device", device="cpu")
+    assert P0.shape[0] == A.shape[0] and 1 < P0.shape[1] < A.shape[0]
+    assert np.array_equal(P0.sum(axis=1).A.ravel(), np.ones(A.shape[0]))
+    assert _same(P0, sa_port.get_aggregation(A, 0.4, method="device",
+                                             device="cpu"))
+    with pytest.raises(ValueError, match="unknown aggregation"):
+        sa_port.get_aggregation(A, 0.4, method="lex")
     cfg, rp = mt.get_mg_param(levels=3, relax_type="line-jacobi")
     with pytest.raises(ValueError, match="pointwise"):
         mt.sa_amg_setup(A, cfg, rp, mesh=Mp, device="cpu")

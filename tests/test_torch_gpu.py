@@ -851,3 +851,58 @@ def test_small_krylov_solve_runs_through_kernel_d():
         assert stencil.LAUNCHES["float32"] > before[0]["float32"]
         assert stencil.LAUNCHES["float64"] > before[0]["float64"]
         assert stencil.PLAIN_CALLS == before[1]
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+def test_device_setup_on_the_card_equals_cpu(dim):
+    """MIS-2 aggregation (hops 1 and 2) and PMIS coloring on the card give
+    their CPU results on every level of an SA hierarchy (64^2 / 16^3 rough
+    sigma; the coarse levels' wider K) and on the classical strength."""
+    _need_card()
+    import mgtpu_torch as mt
+    from mgtpu_torch.setup import classical_amg, device_agg, sa_amg
+    _, A = _rough_sigma(64 if dim == 2 else 16, dim=dim, shift=1e-4, seed=0)
+    cfg, rp = mt.get_mg_param(levels=4, relax_type="spai", dtype=np.float32)
+    st = mt.classical_amg_setup(A, cfg, rp, device="cpu")
+    for A_l in st.As[:-1]:
+        S = sa_amg.strength_matrix(A_l, 0.4)
+        for hops in (1, 2):
+            assert np.array_equal(
+                device_agg.device_aggregation(S, hops=hops),
+                device_agg.device_aggregation(S, hops=hops, device="cpu"))
+        Sc = classical_amg.strength_matrix_classical(A_l, 0.25)
+        assert np.array_equal(device_agg.pmis_coloring(Sc),
+                              device_agg.pmis_coloring(Sc, device="cpu"))
+
+
+@pytest.mark.parametrize("coarsening", ["common-c", "pmis"])
+def test_small_classical_solve_runs_through_kernel_d(coarsening):
+    """64^2 rough-sigma classical AMG set up on the card (f32, 4 levels,
+    SPAI V(2,2)) equals its CPU hierarchy and solves to a true relres of
+    1e-8: kernel D runs in float32 and float64 and no plain version does;
+    the common-C levels run the C++ coloring."""
+    _need_card()
+    import mgtpu_torch as mt
+    from mgtpu_torch.ops.cuda import stencil
+    from mgtpu_torch.setup import native
+    _, A = _rough_sigma(64, seed=5)
+    b = A @ np.random.RandomState(6).rand(A.shape[0])
+    b /= np.linalg.norm(b)
+    cfg, rp = mt.get_mg_param(levels=4, relax_type="spai", dtype=np.float32)
+    calls = dict(native.CALLS)
+    st = mt.classical_amg_setup(A, cfg, rp, coarsening=coarsening)
+    st_cpu = mt.classical_amg_setup(A, cfg, rp, coarsening=coarsening,
+                                    device="cpu")
+    assert native.CALLS["cf_coloring"] - calls["cf_coloring"] == (
+        2 * (st.num_levels - 1) if coarsening == "common-c" else 0)
+    for a, a_cpu in zip(st.As, st_cpu.As):
+        assert (a != a_cpu).nnz == 0
+    assert type(st.hier.levels[0].A).__name__ == "DIA"
+    before = (dict(stencil.LAUNCHES), dict(stencil.PLAIN_CALLS),
+              dict(native.PLAIN_CALLS))
+    x, info = mt.solve_mg_refined(st, b, tol=1e-8, max_iter=60)
+    assert np.linalg.norm(b - A @ x.cpu().numpy()) < 1e-8, info["iters"]
+    assert stencil.LAUNCHES["float32"] > before[0]["float32"]
+    assert stencil.LAUNCHES["float64"] > before[0]["float64"]
+    assert stencil.PLAIN_CALLS == before[1]
+    assert native.PLAIN_CALLS == before[2]

@@ -22,6 +22,8 @@ import mgtpu_torch.ops.cuda.stencil, mgtpu_torch.ops.cuda.tridiag
 import mgtpu_torch.krylov, mgtpu_torch.parallel.stencil
 import mgtpu_torch.setup.sa_amg, mgtpu_torch.cycle.cycle
 import mgtpu_torch.cycle.coarse, mgtpu_torch.ops.ell, mgtpu_torch.ops.dia
+import mgtpu_torch.setup.classical_amg, mgtpu_torch.setup.device_agg
+import mgtpu_torch.setup.native
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "mgtpu" or m.startswith("mgtpu."))
@@ -74,6 +76,29 @@ def test_sa_amg_setup_defaults_to_cuda():
         assert st.device == torch.device("cpu")
         assert type(st.hier).__name__ == ("GridHierarchy" if mesh is not None
                                           else "Hierarchy")
+
+
+@pytest.mark.parametrize("coarsening", ["common-c", "pmis"])
+def test_classical_amg_setup_defaults_to_cuda(coarsening):
+    """classical_amg_setup targets the card unless asked for the CPU; its
+    PMIS coloring runs on the state's device."""
+    from mgtpu_torch.setup import device_agg
+    M = mt.get_regular_mesh([0.0, 1.0, 0.0, 1.0], [16, 16])
+    L = nodal_laplacian_matrix(M)
+    L = (L + 1e-2 * sp.identity(L.shape[0])).tocsr()
+    cfg, rp = mt.get_mg_param(levels=2, relax_type="spai")
+    if torch.cuda.is_available():
+        st = mt.classical_amg_setup(L, cfg, rp, coarsening=coarsening)
+        assert st.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            mt.classical_amg_setup(L, cfg, rp, coarsening=coarsening)
+    device_agg.ROUNDS.clear()
+    st = mt.classical_amg_setup(L, cfg, rp, coarsening=coarsening,
+                                device="cpu")
+    assert st.device == torch.device("cpu")
+    assert type(st.hier).__name__ == "Hierarchy"
+    assert len(device_agg.ROUNDS) == (coarsening == "pmis")
 
 
 def test_cpu_on_request_and_solves_stay_on_the_state_device():
