@@ -101,12 +101,34 @@ Phases, each of which raises on failure:
             there; one cycle of each by CUDA events and the host clock, and
             the busy share.
 
+Every solve of phases 4, 5, 7, 8, 10, 11 and 12 runs through the recorded
+programs (mgtpu_torch/cycle/capture.py: CUDA graphs), the entry points'
+default, and is then held against its eager run (the captured phase, 13):
+
+13. captured — for each of the 23 paths (3D Jacobi, Chebyshev and SPAI
+            refined; 2D Jacobi; the FMG start; (a)-(e) and (b6); (f),
+            f-bicg, f-block, (g), (h); SA-s, SA-K, SA-f; C-cc, C-pmis,
+            SA-dev, C-cg): the recorded solve takes the eager loop's
+            iteration count (device_loop=False) and returns its x bit for
+            bit (or within a stated 1e-12 relative); one recorded
+            correction cycle (grid_cycle_jit / cycle_jit) launches what the
+            eager cycle launches, with no plain call; the solve's and the
+            cycle's times, recorded beside eager, by CUDA events and the
+            host clock, the busy shares, the recording's time and its graph
+            count (a host SuperLU coarsest splits it); the eager runs are
+            left out of the path windows' counts.  Then one CG iteration of
+            (f) recorded and eager, and the chunk sweep: time to 1e-8 of the
+            3D Jacobi refined solve and of (f)'s CG at 1, 2, 4, 8 and 16
+            iterations a program.  Kernel D's timings (9, 11, 12) add its
+            time per launch inside a CUDA graph of 40 launches.
+
 The last lines are one JSON object with a row per kernel, the card's name and
 power limit, and {"ok": true, "device": {...}}.  Without a CUDA device, or
 without the mgtpu_torch package beside it, the script fails.
 """
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
 import subprocess
@@ -280,6 +302,29 @@ class Timer:
         e1.record()
         torch.cuda.synchronize()
         return e0.elapsed_time(e1) / self.reps, host * 1e3
+
+
+def graph_ms(calls, reps: int = 40) -> float:
+    """Device time of one call inside a CUDA graph of `reps` back-to-back
+    calls (rotating over the input sets), by CUDA events over five
+    replays: a launch's cost once the host is out of the loop."""
+    for c in calls:
+        c()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for i in range(reps):
+            calls[i % len(calls)]()
+    g.replay()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(5):
+        g.replay()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / (5 * reps)
 
 
 # ---------------------------------------------------------------------------
@@ -554,8 +599,51 @@ def true_relres(L, b, x) -> float:
     return float(np.linalg.norm(b - L @ xh) / np.linalg.norm(b))
 
 
-def refined(st, L, b, want, label, card, max_iter=40, fmg=False):
-    """Certified refined solve: iteration count and host f64 residual."""
+def compare_krylov(st, A, rh, label, solve, kw, x, info, first_ms, card):
+    """A recorded Krylov solve just run (x, info, its first call's time)
+    against its eager loop (device_loop=False: eager iterations, eager
+    cycles): the same count, x bitwise; the warm recorded and the eager
+    times per iteration and the preconditioner's cycle pair.  Adds a row
+    to CAPTURED."""
+    iters = int(info["iters"])
+    with uncounted():
+        times = {}
+        for mode in (True, False):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            xm, im = solve(st, rh, device_loop=mode, **kw)
+            torch.cuda.synchronize()
+            times[mode] = (time.perf_counter() - t0) * 1e3
+            require(int(im["iters"]) == iters, f"{label}: {im['iters']} "
+                    f"iterations ({'recorded' if mode else 'eager'}), "
+                    f"first recorded run {iters}")
+            if mode:
+                require(torch.equal(xm, x), f"{label}: two recorded runs "
+                        "differ")
+            else:
+                x_rel = same_x(label, x, xm)
+    xh = x.detach().cpu().numpy()
+    rr = np.linalg.norm(rh - A @ xh, axis=0) / np.linalg.norm(rh, axis=0)
+    row = dict(label=label, iters=iters, x_rel=x_rel,
+               relres=float(np.max(rr)), first_ms=first_ms,
+               solve_ms=times[True], eager_ms=times[False],
+               iter_ms=times[True] / iters, eager_iter_ms=times[False] / iters,
+               **solve_profile(lambda: solve(st, rh, **kw), label, card),
+               **cycle_pair(st, rh if rh.ndim == 1 else rh[:, 0], card))
+    CAPTURED.append(row)
+    log_captured(row, card)
+    log(f"[captured] {label}: {row['iter_ms']:.3f} ms an iteration "
+        f"recorded, {row['eager_iter_ms']:.3f} eager (host clock over the "
+        f"warm solve; {card})")
+    return row
+
+
+def refined(st, L, b, want, label, card, max_iter=40, fmg=False,
+            compare=True):
+    """Certified refined solve through the recorded device loop (the
+    default): iteration count and host f64 residual; with `compare`, held
+    against the eager loop (compare_refined).  `want` None: no contract
+    count, the eager run's count alone."""
     from mgtpu_torch import solve_mg_refined
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -566,28 +654,30 @@ def refined(st, L, b, want, label, card, max_iter=40, fmg=False):
     log(f"[path] {label}: refined iters {info['iters']} (want {want} +- 1), "
         f"true f64 relres {rr:.3e}, time to 1e-8 {wall:.1f} ms "
         f"(host clock, synchronised; {card})")
-    require(abs(info["iters"] - want) <= 1,
+    require(want is None or abs(info["iters"] - want) <= 1,
             f"{label}: {info['iters']} refined iterations, want {want} +- 1")
     require(rr < 1e-8, f"{label}: true relres {rr:.3e} >= 1e-8")
+    if compare:
+        compare_refined(st, L, b, label, info, x, wall, card, max_iter, fmg)
     return info["iters"], rr, wall
 
 
-def one_cycle(st, b):
+def one_cycle(st, b, captured: bool = True):
     """A call running one cycle of the state's hierarchy (either engine)
-    from a zero guess on b, in the hierarchy's precision."""
+    from a zero guess on b, in the hierarchy's precision: the recorded
+    cycle (grid_cycle_jit / cycle_jit), or the eager one."""
     from mgtpu_torch.config import torch_dtype
     from mgtpu_torch.solvers.mg_solver import _runtime
-    to_field, _, cycle, _ = _runtime(st)
+    to_field, _, cycle, _ = _runtime(st, captured)
     bg = to_field(torch.as_tensor(b, dtype=torch_dtype(st.config.dtype),
                                   device="cuda")[:, None])
     x0 = torch.zeros_like(bg)
-    return lambda: cycle(bg, x0)
+    return lambda: cycle(bg, x0, True)
 
 
-def vcycle_ms(st, b, card, label="129^3, 5 levels"):
-    """One cycle from a zero guess on the fine grid: CUDA events and the
-    synchronised host clock (the eager cycle is launch-bound at depth)."""
-    run = one_cycle(st, b)
+def cycle_times(run):
+    """Median over ten calls of one cycle: CUDA events and the
+    synchronised host clock (ms)."""
     for _ in range(3):
         run()
     ev, host = [], []
@@ -602,26 +692,37 @@ def vcycle_ms(st, b, card, label="129^3, 5 levels"):
         torch.cuda.synchronize()
         host.append((time.perf_counter() - t0) * 1e3)
         ev.append(e0.elapsed_time(e1))
-    ev_ms, host_ms = sorted(ev)[5], sorted(host)[5]
+    return sorted(ev)[5], sorted(host)[5]
+
+
+def vcycle_ms(st, b, card, label="129^3, 5 levels", captured=True):
+    """One cycle from a zero guess on the fine grid: CUDA events and the
+    synchronised host clock (the eager cycle is launch-bound at depth)."""
+    ev_ms, host_ms = cycle_times(one_cycle(st, b, captured))
     log(f"[path] {st.config.cycle_type}-cycle ({st.config.relax_type}, "
-        f"{label}): {ev_ms:.3f} ms CUDA events, {host_ms:.3f} ms host clock "
-        f"({card})")
+        f"{label}, {'recorded' if captured else 'eager'}): {ev_ms:.3f} ms "
+        f"CUDA events, {host_ms:.3f} ms host clock ({card})")
     return ev_ms, host_ms
 
 
-def vcycle_profile(st, b, cycle_ms, card, label="129^3"):
-    """Device time of one cycle by torch.profiler (sum of kernel times
-    over five cycles) against its CUDA-event time: the busy share."""
+def device_ms(run, reps: int = 5):
+    """torch.profiler's kernel times of `reps` calls, per call: (total ms,
+    [(kernel, ms)]), total 0 when the profiler saw no device events."""
     from torch.profiler import ProfilerActivity, profile
-    run = one_cycle(st, b)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(5):
+        for _ in range(reps):
             run()
         torch.cuda.synchronize()
-    events = [(e.key, e.self_device_time_total / 5e3)
+    events = [(e.key, e.self_device_time_total / (reps * 1e3))
               for e in prof.key_averages() if e.self_device_time_total > 0]
-    busy = sum(ms for _, ms in events)
+    return sum(ms for _, ms in events), events
+
+
+def vcycle_profile(st, b, cycle_ms, card, label="129^3", captured=True):
+    """Device time of one cycle by torch.profiler (sum of kernel times
+    over five cycles) against its CUDA-event time: the busy share."""
+    busy, events = device_ms(one_cycle(st, b, captured))
     if busy == 0:
         log("[path] V-cycle device time: not measured (no device events)")
         return None
@@ -633,6 +734,174 @@ def vcycle_profile(st, b, cycle_ms, card, label="129^3"):
     for key, ms in sorted(events, key=lambda e: -e[1])[:6]:
         log(f"[path]   {ms:.4f} ms  {key[:70]}")
     return busy
+
+
+# ---------------------------------------------------------------------------
+# recorded programs against the eager runs (the captured phase)
+# ---------------------------------------------------------------------------
+
+CAPTURED = []           # one row per path: printed as JSON at the end
+CAPTURED_PATHS = 23     # 3D Jacobi, Chebyshev, SPAI; 2D Jacobi; FMG;
+                        # (a)-(e), (b6); (f), f-bicg, f-block, (g), (h);
+                        # SA-s, SA-K, SA-f; C-cc, C-pmis, SA-dev, C-cg
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Launches inside the block — the eager runs the recorded ones are
+    held against, and timing — are taken back out of the kernels'
+    counters, so a path window counts its recorded run alone."""
+    from mgtpu_torch.cycle.capture import kernel_counters
+    saved = [dict(d) for d in kernel_counters()]
+    try:
+        yield
+    finally:
+        for d, v in zip(kernel_counters(), saved):
+            d.clear()
+            d.update(v)
+
+
+def launches_of(run):
+    """Kernel launches and plain calls of one call of `run` (a dict by
+    counter), outside any window."""
+    from mgtpu_torch.ops.cuda import const3d, fused3d, stencil, tridiag
+    named = {"const3d": const3d.LAUNCHES, "fused3d": fused3d.LAUNCHES,
+             "tridiag": tridiag.LAUNCHES, "stencil": stencil.LAUNCHES}
+    plain = {"const3d": const3d.PLAIN_CALLS, "fused3d": fused3d.PLAIN_CALLS,
+             "tridiag": tridiag.PLAIN_CALLS, "stencil": stencil.PLAIN_CALLS}
+    with uncounted():
+        b_l = {k: dict(d) for k, d in named.items()}
+        b_p = {k: dict(d) for k, d in plain.items()}
+        run()
+        torch.cuda.synchronize()
+        got = {f"{k}.{m}": v - b_l[k][m] for k, d in named.items()
+               for m, v in d.items() if v != b_l[k][m]}
+        nplain = sum(v - b_p[k][m] for k, d in plain.items()
+                     for m, v in d.items())
+    return got, nplain
+
+
+def same_x(label, x_rec, x_eager):
+    """x of the recorded run against the eager run's: bit for bit, or the
+    stated 1e-12 relative bound (logged as such).  Returns the relative
+    difference (0 when bitwise)."""
+    if torch.equal(x_rec, x_eager):
+        return 0.0
+    rel = float((x_rec - x_eager).abs().max() / x_eager.abs().max())
+    log(f"[captured] {label}: x NOT bitwise the eager run's, "
+        f"{rel:.3e} relative")
+    require(rel <= 1e-12, f"{label}: recorded x differs from eager by "
+            f"{rel:.3e} relative (> 1e-12)")
+    return rel
+
+
+def cycle_pair(st, b, card):
+    """One correction cycle of the state's hierarchy, recorded beside
+    eager: launches per cycle (equal, no plain call), times by CUDA events
+    and the host clock, busy share, the recording's time and its graph
+    count."""
+    from mgtpu_torch.cycle import capture
+    with uncounted():
+        capture.forget(st.hier)         # so that the cycle records anew
+        table = capture.programs(st.hier).table
+        rec = one_cycle(st, b, True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rec()                                   # warm-up + recording
+        torch.cuda.synchronize()
+        rec_s = time.perf_counter() - t0
+        segs = [c.segments for c in table.values()]
+        require(len(segs) == 1, f"one cycle recorded {len(segs)} programs")
+        eager = one_cycle(st, b, False)
+        l_e, p_e = launches_of(eager)
+        l_c, p_c = launches_of(rec)
+        require(l_c == l_e and p_c == p_e == 0, f"launches per cycle: "
+                f"recorded {l_c} ({p_c} plain), eager {l_e} ({p_e} plain)")
+        ev_e, host_e = cycle_times(eager)
+        ev_c, host_c = cycle_times(rec)
+        dev_e, _ = device_ms(eager)
+        dev_c, _ = device_ms(rec)
+    return dict(cycle_launches=sum(l_c.values()), graphs=segs[0],
+                record_ms=rec_s * 1e3,
+                cycle_ev_ms=ev_c, cycle_host_ms=host_c, cycle_dev_ms=dev_c,
+                eager_cycle_ev_ms=ev_e, eager_cycle_host_ms=host_e,
+                eager_cycle_dev_ms=dev_e,
+                busy=dev_c / ev_c if dev_c else None,
+                eager_busy=dev_e / ev_e if dev_e else None)
+
+
+def solve_profile(run, label, card):
+    """The device time of one warm recorded solve (torch.profiler) against
+    its host-clock time: the solve's busy share, and its three largest
+    kernels."""
+    with uncounted():
+        run()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        dev, events = device_ms(run, reps=1)
+    top = sorted(events, key=lambda e: -e[1])[:3]
+    log(f"[captured] {label}: solve device time "
+        + (f"{dev:.3f} ms of {wall:.3f} ms host clock (busy share "
+           f"{dev / wall:.2f}); largest "
+           + "; ".join(f"{ms:.3f} ms {k[:48]}" for k, ms in top)
+           if dev else "not measured (no device events)") + f" ({card})")
+    return dict(solve_dev_ms=dev or None,
+                solve_busy=dev / wall if dev else None)
+
+
+def log_captured(row, card):
+    fmt = lambda v, f=".3f": "not measured" if v is None else format(v, f)
+    log(f"[captured] {row['label']}: {row['iters']} iterations recorded = "
+        f"eager, x {'bitwise' if row['x_rel'] == 0 else 'within 1e-12'}; "
+        f"solve {fmt(row['solve_ms'], '.1f')} ms recorded (first call, "
+        f"with recording {fmt(row['first_ms'], '.1f')}) vs "
+        f"{fmt(row['eager_ms'], '.1f')} eager; cycle "
+        f"{fmt(row['cycle_ev_ms'])} / {fmt(row['eager_cycle_ev_ms'])} ms by "
+        f"events, {fmt(row['cycle_host_ms'])} / "
+        f"{fmt(row['eager_cycle_host_ms'])} host, busy "
+        f"{fmt(row['busy'], '.2f')} / {fmt(row['eager_busy'], '.2f')}, "
+        f"{row['cycle_launches']} launches a cycle both ways, "
+        f"{row['graphs']} graph(s), recorded in "
+        f"{fmt(row['record_ms'], '.1f')} ms ({card})")
+
+
+def compare_refined(st, L, b, label, info, x, first_ms, card, max_iter,
+                    fmg=False):
+    """The recorded refined solve just run (x, info, its first call's
+    time) against the eager loop: the same count, x bitwise, a true f64
+    relres below 1e-8; then the warm recorded and the eager times and the
+    cycle pair.  Adds a row to CAPTURED."""
+    from mgtpu_torch import solve_mg_refined
+    with uncounted():
+        times = {}
+        for mode in (True, False):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            xm, im = solve_mg_refined(st, b, tol=1e-8, max_iter=max_iter,
+                                      fmg=fmg, device_loop=mode)
+            torch.cuda.synchronize()
+            times[mode] = (time.perf_counter() - t0) * 1e3
+            require(im["iters"] == info["iters"], f"{label}: "
+                    f"{im['iters']} iterations ({'recorded' if mode else 'eager'}"
+                    f"), first recorded run {info['iters']}")
+            if mode:
+                require(torch.equal(xm, x), f"{label}: two recorded runs "
+                        "differ")
+            else:
+                x_rel = same_x(label, x, xm)
+    row = dict(label=label, iters=info["iters"], x_rel=x_rel,
+               relres=true_relres(L, b, x), first_ms=first_ms,
+               solve_ms=times[True], eager_ms=times[False],
+               **solve_profile(lambda: solve_mg_refined(
+                   st, b, tol=1e-8, max_iter=max_iter, fmg=fmg), label,
+                   card),
+               **cycle_pair(st, b, card))
+    CAPTURED.append(row)
+    log_captured(row, card)
+    return row
 
 
 def per_cycle_launches(st, b):
@@ -676,6 +945,7 @@ def phase_path3d(M3, L3, st_jac, card):
         f"{info_s['iters']} cycles, relres {info_s['relres']:.3e} "
         f"(true f64 {rr_s:.3e})")
     require(info_s["relres"] < 1e-6, "3D SPAI solve_mg did not reach 1e-6")
+    refined(st_spai, L3, b, None, "3D SPAI 1.0 V(2,2)", card)
     launches, plain = counters()           # ---- end of window ----
     from mgtpu_torch.ops.cuda import fused3d
     by_grid = {"x".join(map(str, g)): n
@@ -690,8 +960,6 @@ def phase_path3d(M3, L3, st_jac, card):
     require(not any(plain.values()), f"plain versions ran: {plain}")
 
     # timings after the window (they do not count toward the launches)
-    refined(st_jac, L3, b, 23, "3D Jacobi 0.8 V(1,1) (warm)", card)
-    refined(st_cheb, L3, bc, 11, "3D Chebyshev(3) V(1,0) (warm)", card)
     jac_ms, _ = vcycle_ms(st_jac, b, card)
     vcycle_profile(st_jac, b, jac_ms, card)
     vcycle_ms(st_cheb, bc, card)
@@ -712,7 +980,6 @@ def phase_path2d(card):
     b /= np.linalg.norm(b)
     before = counters()
     refined(st, L, b, 16, "2D 1024^2 Jacobi 0.8 V(1,1)", card)
-    refined(st, L, b, 16, "2D 1024^2 Jacobi 0.8 V(1,1) (warm)", card)
     require(counters() == before, "2D levels launched a 3D kernel")
 
 
@@ -967,7 +1234,6 @@ def phase_aniso(ops, card):
 
     for key, label, st, A, b, want in runs:
         if key in ("a", "d"):
-            refined(st, A, b, want, label + " (warm)", card, max_iter=60)
             ev_ms, _ = vcycle_ms(st, b, card, label=label)
             vcycle_profile(st, b, ev_ms, card, label=f"({key})")
     return launches
@@ -995,8 +1261,6 @@ def phase_fmg(card):
             and not any(d_l.values()),
             "the constant-coefficient 2D FMG path launched a 3D, line or "
             "variable-coefficient kernel")
-    refined(st, L, b, 6, "2D 1024^2 Chebyshev(3) V(1,0), FMG start (warm)",
-            card, fmg=True)
 
 
 # ---------------------------------------------------------------------------
@@ -1176,6 +1440,7 @@ def time_d(label, kind, op, csr, timer, card, plain=True, seed=30):
     sets = [torch.tensor(np.random.RandomState(SEED + seed + j).rand(*shape),
                          dtype=dt, device="cuda") for j in range(4)]
     ms, host_ms = timer([lambda x=x: run(x) for x in sets])
+    g_ms = graph_ms([lambda x=x: run(x) for x in sets])
     plain_ms = (timer([lambda x=x: plain_fn(x) for x in sets])[0]
                 if plain and plain_fn else None)
     lib_ms = None
@@ -1192,8 +1457,10 @@ def time_d(label, kind, op, csr, timer, card, plain=True, seed=30):
     log(f"[time] D {label:18s} {note} {dt}: kernel {ms:.4f} ms  plain "
         f"{fmt(plain_ms)}  sparse.mm {fmt(lib_ms)}  bound {bound:.4f} ms "
         f"({fbytes / 1e6:.2f} MB)  kernel/bound {ms / bound:.1f}x  {sched}"
-        f"  host per call {host_ms:.3f} ms ({card})")
-    entry = dict(shape=note, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+        f"  host per call {host_ms:.3f} ms  in a CUDA graph {g_ms:.4f} ms "
+        f"({card})")
+    entry = dict(shape=note, ms=ms, graph_ms=g_ms, plain_ms=plain_ms,
+                 library_ms=lib_ms,
                  bound_ms=bound, host_ms=host_ms, plan=plan,
                  bound_by="bytes" if fbytes / HBM_BYTES_PER_S
                  >= flops / peak else "operations")
@@ -1310,6 +1577,8 @@ def phase_krylov(ops, states, rhs, card):
         require(abs(iters - want) <= 1,
                 f"{key}: {iters} iterations, want {want} +- 1")
         require(bool(np.all(rr < 1e-8)), f"{key}: true relres {rr} >= 1e-8")
+        compare_krylov(states[skey], A, rh, label, getattr(mgtpu_torch, fn),
+                       kw, x, info, wall, card)
     launches, plain = stencil_counters()   # ---- end of window ----
     more_l, more_p = counters()
     plain.update(more_p)
@@ -1324,15 +1593,18 @@ def phase_krylov(ops, states, rhs, card):
 
 
 def cg_iteration(st, b, card):
-    """One CG iteration of (f) by CUDA events and the host clock, as the
-    slope between a 2- and a 12-iteration solve (tol 0), and the device
-    busy share of the 12-iteration solve (torch.profiler)."""
+    """One CG iteration of (f), recorded (chunks of CHUNK iterations) and
+    eager, by CUDA events and the host clock, as the slope between a c-
+    and a 4c-iteration solve (c = CHUNK, tol 0, so that no chunk runs
+    masked iterations); and the device busy share of the 4c-iteration
+    solve (torch.profiler) both ways."""
     from dataclasses import replace
-    from torch.profiler import ProfilerActivity, profile
     from mgtpu_torch import solve_cg_mg
+    from mgtpu_torch.krylov import _loop
     cfg = st.config
+    k1, k2 = _loop.CHUNK, 4 * _loop.CHUNK
 
-    def run(k):
+    def run(k, mode):
         st.config = replace(cfg, max_outer_iter=k, relative_tol=0.0)
         try:
             torch.cuda.synchronize()
@@ -1340,7 +1612,7 @@ def cg_iteration(st, b, card):
             e1 = torch.cuda.Event(enable_timing=True)
             t0 = time.perf_counter()
             e0.record()
-            _, info = solve_cg_mg(st, b)
+            _, info = solve_cg_mg(st, b, device_loop=mode)
             e1.record()
             torch.cuda.synchronize()
             require(int(info["iters"]) == k, "fixed-count CG stopped early")
@@ -1348,41 +1620,31 @@ def cg_iteration(st, b, card):
         finally:
             st.config = cfg
 
-    run(2)
-    ev, host = [], []
-    for _ in range(3):
-        e12, h12 = run(12)
-        e2, h2 = run(2)
-        ev.append((e12 - e2) / 10)
-        host.append((h12 - h2) / 10)
-    ev_ms, host_ms = sorted(ev)[1], sorted(host)[1]
-    log(f"[path] one CG iteration of (f) (V-cycle + f64 matvec + dots): "
-        f"{ev_ms:.3f} ms CUDA events, {host_ms:.3f} ms host clock ({card})")
-    st.config = replace(cfg, max_outer_iter=12, relative_tol=0.0)
-    try:
-        torch.cuda.synchronize()
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            e0.record()
-            solve_cg_mg(st, b)
-            e1.record()
-            torch.cuda.synchronize()
-    finally:
-        st.config = cfg
-    total = e0.elapsed_time(e1)
-    device = [e for e in prof.key_averages() if e.self_device_time_total > 0]
-    events = [(e.key, e.self_device_time_total / 1e3) for e in device]
-    busy = sum(ms for _, ms in events)
-    if busy == 0:
-        log("[path] CG device time: not measured (no device events)")
-        return ev_ms, host_ms
-    log(f"[path] 12-iteration CG solve of (f): device time {busy:.3f} ms of "
-        f"{total:.3f} ms (busy share {busy / total:.2f}; {card}), "
-        f"{sum(e.count for e in device)} device kernels; largest:")
-    for key, ms in sorted(events, key=lambda e: -e[1])[:8]:
-        log(f"[path]   {ms:.4f} ms  {key[:70]}")
-    return ev_ms, host_ms
+    out = {}
+    with uncounted():
+        for mode in (True, False):
+            run(k1, mode)
+            run(k2, mode)
+            ev, host = [], []
+            for _ in range(3):
+                e2, h2 = run(k2, mode)
+                e1, h1 = run(k1, mode)
+                ev.append((e2 - e1) / (k2 - k1))
+                host.append((h2 - h1) / (k2 - k1))
+            busy, events = device_ms(lambda: run(k2, mode), reps=1)
+            total = run(k2, mode)[0]
+            out[mode] = (sorted(ev)[1], sorted(host)[1],
+                         busy / total if busy else None)
+            share = (f"busy share {busy / total:.2f}" if busy
+                     else "device time not measured (no device events)")
+            log(f"[path] one CG iteration of (f) (V-cycle + f64 matvec + "
+                f"dots), {'recorded' if mode else 'eager'}: "
+                f"{out[mode][0]:.3f} ms CUDA events, {out[mode][1]:.3f} ms "
+                f"host clock; {k2}-iteration solve: device time "
+                f"{busy:.3f} ms of {total:.3f} ({share}; {card}); largest:")
+            for key, ms in sorted(events, key=lambda e: -e[1])[:5]:
+                log(f"[path]   {ms:.4f} ms  {key[:70]}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1708,7 +1970,6 @@ def phase_amg(runs, card):
     log(f"[path] AMG window plain-version calls on the card: {plain}")
     require(not any(plain.values()), f"plain versions ran: {plain}")
     for key, label, st, A, b, max_iter, want in runs:
-        refined(st, A, b, want, label + " (warm)", card, max_iter=max_iter)
         ev_ms, _ = vcycle_ms(st, b, card, label=key)
         vcycle_profile(st, b, ev_ms, card, label=key)
     return launches
@@ -1846,6 +2107,12 @@ def phase_classical(agg_ab, rows, card):
         f"launches {d_l}")
     require(abs(iters - C_CG) <= 1, f"C-cg: {iters} iterations")
     require(rr <= 1e-7, f"C-cg: true relres {rr:.3e} > 1e-7")
+    st.config = replace(cfg, max_outer_iter=100, relative_tol=1e-8)
+    try:
+        compare_krylov(st, A, b, "(C-cg) C-cc's hierarchy, solve_cg_mg",
+                       solve_cg_mg, {}, x, info, wall, card)
+    finally:
+        st.config = cfg
     for k in ("stencil.float32", "stencil.float64"):
         require(d_l[k] > 0, f"C-cg: {k} was never launched")
     launches, plain = stencil_counters()   # ---- end of window ----
@@ -1890,6 +2157,46 @@ def phase_classical(agg_ab, rows, card):
     return launches
 
 
+def chunk_sweep(jac, f, card):
+    """Time to 1e-8 of the 3D Jacobi refined solve and of (f)'s CG, by the
+    host clock (synchronised), at 1, 2, 4, 8 and 16 iterations a recorded
+    program: the first call (with its recordings) and the best of two
+    warm ones; counts equal at every size."""
+    from mgtpu_torch import solve_cg_mg, solve_mg_refined
+    from mgtpu_torch.krylov import _loop
+    cases = (("3D Jacobi V(1,1) refined", jac,
+              lambda st, b: solve_mg_refined(st, b, tol=1e-8, max_iter=40)),
+             ("(f) CG", f, solve_cg_mg))
+    out = []
+    saved = _loop.CHUNK
+    try:
+        with uncounted():
+            for label, (st, b), solve in cases:
+                counts = set()
+                for c in (1, 2, 4, 8, 16):
+                    _loop.CHUNK = c
+                    t = []
+                    for _ in range(3):
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        _, info = solve(st, b)
+                        torch.cuda.synchronize()
+                        t.append((time.perf_counter() - t0) * 1e3)
+                    counts.add(int(info["iters"]))
+                    out.append(dict(path=label, chunk=c,
+                                    iters=int(info["iters"]), first_ms=t[0],
+                                    warm_ms=min(t[1:])))
+                    log(f"[chunk] {label}: {c:2d} iterations a program, "
+                        f"{int(info['iters'])} iterations, time to 1e-8 "
+                        f"{min(t[1:]):.2f} ms warm, {t[0]:.1f} ms first call "
+                        f"(host clock, synchronised; {card})")
+                require(len(counts) == 1, f"{label}: counts {counts} differ "
+                        "between chunk sizes")
+    finally:
+        _loop.CHUNK = saved
+    return out
+
+
 def coarsest_ms(st, cycle_ms, card, label):
     """One coarsest solve of the cycle's type on the card, by the host
     clock (synchronised; SparseLUCoarse is a round trip to the host's
@@ -1917,6 +2224,9 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase_build()
+    # the process's first profiler run can see no device events
+    # (CUPTI starting up): spend it here, not on a path's busy share
+    device_ms(lambda: torch.ones(8, device="cuda").sum())
 
     from mgtpu_torch import get_mg_param, mg_setup
     M3, L3 = shifted_laplacian((128, 128, 128))
@@ -1953,6 +2263,9 @@ def main() -> int:
     phase_stencil_timing(timed_states, rows, card)
     krylov = phase_krylov(ops, kstates, rhs, card)
     cg_iteration(kstates["f"], rhs["f"]["b"], card)
+    b3 = L3 @ np.random.RandomState(SEED).rand(L3.shape[0])
+    sweep = chunk_sweep((st_jac, b3 / np.linalg.norm(b3)),
+                        (kstates["f"], rhs["f"]["b"]), card)
     del ops, kstates, rhs, timed_states
 
     runs = amg_states()
@@ -1972,6 +2285,9 @@ def main() -> int:
     for k in ("stencil.float32", "stencil.float64"):
         rows[k]["launches_amg"] = amg[k]
         rows[k]["launches_classical"] = classical[k]
+    require(len(CAPTURED) == CAPTURED_PATHS, f"the captured phase "
+            f"compared {len(CAPTURED)} paths, want {CAPTURED_PATHS}")
+    log("[captured] " + json.dumps({"paths": CAPTURED, "chunks": sweep}))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

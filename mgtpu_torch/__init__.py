@@ -10,14 +10,17 @@ or PMIS on the device, direct or standard interpolation, on the flat
 engine), with hand-written CUDA kernels for Hopper (``sm_90a``) on the 3D
 constant-stencil levels, the variable-coefficient levels and transfers,
 the DIA levels and line-Jacobi smoothing; MG-preconditioned Krylov solves
-(CG, BiCGSTAB, FGMRES, their block forms) and K-cycles.  Imports torch,
+(CG, BiCGSTAB, FGMRES, their block forms) and K-cycles.  The cycles, the
+refinement loop and the Krylov iterations run as CUDA graphs on the card
+(``cycle/capture.py``: mgtpu's compiled programs).  Imports torch,
 numpy and scipy only — never JAX or ``mgtpu``.
 
 Entry points run on the card (``device="cuda"``) unless the caller asks for
 the CPU; without a card they raise.
 """
 
-from .cycle.cycle import recursive_cycle
+from .cycle.cycle import cycle_jit, make_cycle_fn, recursive_cycle
+from .cycle.grid_cycle import grid_cycle_jit
 from .krylov import bicgstab, block_fgmres, fgmres, pcg
 from .models.mesh import RegularMesh, get_cell_centered_grid, get_regular_mesh
 from .setup.hierarchy import (MGConfig, MGState, build_device_hierarchy,
@@ -26,13 +29,14 @@ from .setup.classical_amg import classical_amg_setup
 from .setup.sa_amg import sa_amg_setup
 from .solvers.mg_solver import (get_afun, get_mg_preconditioner,
                                 solve_bicgstab_mg, solve_cg_mg,
-                                solve_gmres_mg, solve_mg, solve_mg_refined)
+                                solve_gmres_mg, solve_mg, solve_mg_jit,
+                                solve_mg_refined)
 
 __all__ = ["RegularMesh", "get_regular_mesh", "get_cell_centered_grid",
            "MGConfig", "MGState", "get_mg_param", "mg_setup",
            "sa_amg_setup", "classical_amg_setup", "build_device_hierarchy",
-           "recursive_cycle", "solve_mg",
-           "solve_mg_refined", "get_afun", "get_mg_preconditioner",
+           "recursive_cycle", "cycle_jit", "make_cycle_fn", "grid_cycle_jit",
+           "solve_mg", "solve_mg_jit", "solve_mg_refined", "get_afun", "get_mg_preconditioner",
            "solve_cg_mg", "solve_bicgstab_mg", "solve_gmres_mg", "pcg",
            "fgmres", "block_fgmres", "bicgstab"]
 

@@ -14,7 +14,8 @@ Counterpart of mgtpu/cycle/coarse.py.  Vectors are flat columns, (n,) or
  * `SparseLUCoarse` — SuperLU on the host for coarsest levels beyond the
    replicated-dense budget: each solve takes b to the host, solves there
    and brings x back.  That round trip is mgtpu's own design point for
-   this case (a host callback there); setup says so when verbose.
+   this case (a host callback there); setup says so when verbose.  It is a
+   host step (capture.host_step): a recorded cycle splits around it.
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ import torch
 
 from ..config import full_fp32
 from ..ops.ell import ell_from_scipy, ell_matvec
+from .capture import host_step
 from .relax import fgmres_relaxation
 
 __all__ = ["DenseLU", "IterativeCoarse", "SparseLUCoarse",
@@ -83,16 +85,24 @@ class SparseLUCoarse:
     n: int
     dtype_name: str
 
-    def _call(self, b: torch.Tensor, trans: str) -> torch.Tensor:
-        bh = b.detach().cpu().numpy().astype(self.factor.U.dtype)
-        out = self.factor.solve(bh, trans=trans)
-        return torch.as_tensor(out, device=b.device).to(b.dtype)
+    def _host(self, bh: torch.Tensor, trans: str) -> torch.Tensor:
+        out = self.factor.solve(bh.numpy().astype(self.factor.U.dtype),
+                                trans=trans)
+        return torch.from_numpy(out).to(bh.dtype)
+
+    def _solve_n(self, bh):
+        return self._host(bh, "N")
+
+    def _solve_h(self, bh):
+        return self._host(bh, "H")
 
     def solve(self, b: torch.Tensor) -> torch.Tensor:
-        return self._call(b, "N")
+        """A host step (capture.host_step): inside a recorded program the
+        program splits around it."""
+        return host_step(self._solve_n, b)
 
     def solve_adjoint(self, b: torch.Tensor) -> torch.Tensor:
-        return self._call(b, "H")
+        return host_step(self._solve_h, b)
 
 
 def sparse_lu_from_scipy(A: sp.spmatrix, dtype=None) -> SparseLUCoarse:

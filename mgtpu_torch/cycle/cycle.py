@@ -1,11 +1,12 @@
 """Recursive multigrid cycle of the flat engine (ELL/DIA levels).
 
-Counterpart of mgtpu/cycle/cycle.py, eager: pre-smooth, restrict the
+Counterpart of mgtpu/cycle/cycle.py: pre-smooth, restrict the
 residual, solve or recurse on the coarse level (V once, W twice, F as F
 then V, K as a `kcycle_inner`-step FGMRES preconditioned by the coarser
 cycle), prolongate-correct, post-smooth.  Vectors are flat columns
 (n, m).  A `GridHierarchy` goes to the grid engine through its flat
-adapter (grid_cycle.grid_cycle_flat).
+adapter (grid_cycle.grid_cycle_flat).  `cycle_jit` / `make_cycle_fn` run
+one cycle as a recorded program (capture.py), mgtpu's jitted cycle.
 """
 from __future__ import annotations
 
@@ -13,10 +14,11 @@ import functools
 
 import torch
 
+from .capture import run, static_config
 from .relax import (chebyshev4_smooth, chebyshev_smooth, fgmres_relaxation,
                     relax_diag)
 
-__all__ = ["recursive_cycle", "make_cycle_fn"]
+__all__ = ["recursive_cycle", "cycle_jit", "make_cycle_fn"]
 
 _UNPORTED = ("vanka", "econ-vanka", "vanka-lex", "vanka-add",
              "kaczmarz-vanka", "hybrid-kaczmarz")
@@ -91,10 +93,22 @@ def recursive_cycle(cfg, hier, b, x, level: int = 0,
     return _smooth(cfg, lvl, r, x, b, cfg.nu_post[level], matvec)
 
 
-def _cycle(cfg, hier, b, x, x_zero: bool = False):
+def _cycle_program(ctx, b, x):
+    cfg, hier, x_zero = ctx
     return recursive_cycle(cfg, hier, b, x, x_zero=x_zero)
 
 
+def cycle_jit(cfg, hier, b, x, x_zero: bool = False):
+    """One cycle on (n, m) columns as a recorded program (mgtpu's jitted
+    cycle; capture.py): a CUDA graph replayed on the card, recorded on
+    first use per shape, dtype and `x_zero`; `recursive_cycle` itself on
+    the CPU."""
+    return run(hier, ("cycle", static_config(cfg), bool(x_zero)),
+               _cycle_program,
+               (cfg, hier, bool(x_zero)), b, x)
+
+
 def make_cycle_fn(cfg):
-    """One cycle closed over the configuration: fn(hier, b, x, x_zero)."""
-    return functools.partial(_cycle, cfg)
+    """One recorded cycle closed over the configuration:
+    fn(hier, b, x, x_zero)."""
+    return functools.partial(cycle_jit, cfg)

@@ -45,12 +45,14 @@ from ..ops.grid_stencil import (ConstGridStencil, GridStencil,
                                 flat_to_grid, grid_to_flat, make_grid_stencil)
 from ..ops.cuda.const3d import supports_const3d
 from ..ops.cuda import fused3d as f3k
+from .capture import host_step, run, static_config
 from .relax import (AltLineRelax, LineRelax, chebyshev_smooth,
                     chebyshev4_smooth, fgmres_relaxation, line_smooth)
 
 __all__ = ["GridLevel", "GridHierarchy", "DenseInverse", "GridSparseLU",
            "GridIterativeCoarse", "grid_dense_inverse_from_scipy",
-           "grid_restrict", "grid_prolong", "grid_cycle", "grid_cycle_flat",
+           "grid_restrict", "grid_prolong", "grid_cycle", "grid_cycle_jit",
+           "grid_cycle_flat",
            "grid_fmg", "build_grid_hierarchy"]
 
 
@@ -131,11 +133,15 @@ class GridSparseLU:
     grid: tuple[int, ...]
 
     def solve(self, bg: torch.Tensor) -> torch.Tensor:
-        m = bg.shape[0]
-        bh = bg.reshape(m, -1).detach().cpu().numpy().astype(np.float64)
-        xh = self.factor.solve(bh.T).T
-        return torch.as_tensor(np.ascontiguousarray(xh), device=bg.device
-                               ).to(bg.dtype).reshape((m,) + self.grid)
+        """A host step (capture.host_step): inside a recorded program the
+        program splits around it."""
+        return host_step(self._host_solve, bg)
+
+    def _host_solve(self, bh: torch.Tensor) -> torch.Tensor:
+        m = bh.shape[0]
+        xh = self.factor.solve(bh.reshape(m, -1).numpy().astype(np.float64).T)
+        return torch.from_numpy(np.ascontiguousarray(xh.T)).to(
+            bh.dtype).reshape(bh.shape)
 
 
 @dataclass(frozen=True, eq=False)
@@ -341,6 +347,13 @@ def _cubic_factor_np(nf: int) -> np.ndarray:
     return P
 
 
+@functools.lru_cache(maxsize=None)
+def _cubic_factor(nf: int, dtype: torch.dtype, device: torch.device):
+    """_cubic_factor_np on the device, made once: no host copy inside a
+    cycle, so `grid_fmg` records."""
+    return torch.as_tensor(_cubic_factor_np(nf), dtype=dtype, device=device)
+
+
 def _cubic_prolong(xc: torch.Tensor, fine_grid) -> torch.Tensor:
     """Per-axis cubic solution prolongation (m, *coarse) -> (m, *fine); an
     axis that did not coarsen (semicoarsening) is left as is."""
@@ -348,8 +361,7 @@ def _cubic_prolong(xc: torch.Tensor, fine_grid) -> torch.Tensor:
     for a, nf in enumerate(fine_grid):
         if y.shape[1 + a] == nf:
             continue
-        W = torch.as_tensor(_cubic_factor_np(int(nf)), dtype=xc.dtype,
-                            device=xc.device)
+        W = _cubic_factor(int(nf), xc.dtype, xc.device)
         y = _axis_matmul(y, W.T, 1 + a)
     return y.contiguous()
 
@@ -371,6 +383,20 @@ def grid_fmg(cfg, gh: GridHierarchy, b):
             x = _cubic_prolong(x, gh.levels[l].A.grid)
         x = grid_cycle(cfg, gh, bs[l], x, level=l)
     return x
+
+
+def _grid_cycle_program(ctx, b, x):
+    cfg, gh, x_zero = ctx
+    return grid_cycle(cfg, gh, b, x, x_zero=x_zero)
+
+
+def grid_cycle_jit(cfg, gh: GridHierarchy, b, x, x_zero: bool = False):
+    """One cycle on grid fields (m, *grid) as a recorded program (mgtpu's
+    jitted cycle): a CUDA graph replayed on the card, recorded on first use
+    per field shape, dtype and `x_zero`; `grid_cycle` itself on the CPU."""
+    return run(gh, ("grid_cycle", static_config(cfg), bool(x_zero)),
+               _grid_cycle_program,
+               (cfg, gh, bool(x_zero)), b, x)
 
 
 def grid_cycle_flat(cfg, gh: GridHierarchy, b2, x2, ctype: str | None = None,

@@ -11,13 +11,15 @@ make the Gram blocks singular.
  * block_bicgstab  — Bl-BiCGSTAB (El Guennouni, Jbilou, Sadok, ETNA 16,
                      2003), preconditioned in the same positions as
                      krylov.bicgstab.
-One device sync per iteration (the stop test).
+The stop test runs on the card, the iterations in recorded chunks
+(krylov/_loop.py).
 """
 from __future__ import annotations
 
 import torch
 
 from ._layout import Layout
+from ._loop import history, iterate, rows_where, scalars
 
 __all__ = ["block_pcg", "block_bicgstab"]
 
@@ -32,59 +34,73 @@ def _guarded_solve(G, Y):
     return torch.linalg.solve_ex(Gr, Y)[0]
 
 
-def _stopped(resvec, k, bnorm, tol) -> bool:
-    return bool(torch.max(resvec[k] / bnorm) < tol)
+def _go(s, k, cur, bnorm, tol, maxit):
+    """The block loops' condition: below max_iter and not every column
+    below tol."""
+    return (s[k] < s[maxit]) & ~(torch.max(s[cur] / s[bnorm]) < s[tol])
 
 
 def block_pcg(matvec, b, prec=None, x0=None, tol: float = 1e-6,
-              max_iter: int = 100):
+              max_iter: int = 100, *, device_loop: bool = True,
+              cache=None):
     """Block preconditioned CG: solve A X = B (A HPD) with one shared space.
 
     b: (m, *space).  Returns (x, info) with info = dict(iters, relres (m,),
-    resvec (max_iter+1, m))."""
+    resvec (max_iter+1, m)).  `device_loop` and `cache` are
+    krylov/_loop.py's `iterate` arguments."""
     M = (lambda r: r) if prec is None else prec
     lay = Layout(b)
     X = torch.zeros_like(b) if x0 is None else x0
-    bnorm = torch.clamp(lay.norm(b), min=1e-300)
-    R = b - matvec(X)
-    P = M(R)
-    S = lay.gram(R, P)
-    resvec = torch.zeros((max_iter + 1, lay.nbatch), dtype=bnorm.dtype,
-                         device=b.device)
-    resvec[0] = lay.norm(R)
-    k = 0
-    while k < max_iter and not _stopped(resvec, k, bnorm, tol):
+
+    def init(b, X, tol, maxit):
+        bnorm = torch.clamp(lay.norm(b), min=1e-300)
+        R = b - matvec(X)
+        P = M(R)
+        rn = lay.norm(R)
+        return (X, R, P, lay.gram(R, P), history(rn, max_iter), rn,
+                torch.zeros_like(maxit), bnorm, tol, maxit)
+
+    def step(s):
+        X, R, P, S, resvec, cur, k, bnorm, tol, maxit = s
         Q = matvec(P)
         alpha = _guarded_solve(lay.gram(P, Q), S)
         X = X + lay.mix(P, alpha)
         R = R - lay.mix(Q, alpha)
-        resvec[k + 1] = lay.norm(R)
+        cur = lay.norm(R)
+        resvec = rows_where(resvec, k, cur)
         Z = M(R)
         S_new = lay.gram(R, Z)
         beta = _guarded_solve(S, S_new)
         P = Z + lay.mix(P, beta)
-        S = S_new
-        k += 1
+        return X, R, P, S_new, resvec, cur, k + 1, bnorm, tol, maxit
+
+    s = iterate(init, step, lambda s: _go(s, 6, 5, 7, 8, 9), (0, 4, 5, 6),
+                scalars(b, X, tol, max_iter), device_loop=device_loop,
+                cache=cache, static=("block_pcg", max_iter))
+    X, resvec, k, bnorm = s[0], s[4], int(s[6]), s[7]
     return X, {"iters": k, "relres": resvec[k] / bnorm, "resvec": resvec}
 
 
 def block_bicgstab(matvec, b, prec=None, x0=None, tol: float = 1e-6,
-                   max_iter: int = 100):
+                   max_iter: int = 100, *, device_loop: bool = True,
+                   cache=None):
     """Bl-BiCGSTAB: solve A X = B (general A) with one shared block space;
     omega is the scalar trace-minimising stabilisation of the block
-    variant."""
+    variant.  `device_loop` and `cache` are krylov/_loop.py's `iterate`
+    arguments."""
     M = (lambda r: r) if prec is None else prec
     lay = Layout(b)
     X = torch.zeros_like(b) if x0 is None else x0
-    bnorm = torch.clamp(lay.norm(b), min=1e-300)
-    R = b - matvec(X)
-    Rhat = R
-    P = R
-    resvec = torch.zeros((max_iter + 1, lay.nbatch), dtype=bnorm.dtype,
-                         device=b.device)
-    resvec[0] = lay.norm(R)
-    k = 0
-    while k < max_iter and not _stopped(resvec, k, bnorm, tol):
+
+    def init(b, X, tol, maxit):
+        bnorm = torch.clamp(lay.norm(b), min=1e-300)
+        R = b - matvec(X)
+        rn = lay.norm(R)
+        return (X, R, R, R, history(rn, max_iter), rn,
+                torch.zeros_like(maxit), bnorm, tol, maxit)
+
+    def step(s):
+        X, R, Rhat, P, resvec, cur, k, bnorm, tol, maxit = s
         Ph = M(P)
         V = matvec(Ph)
         G = lay.gram(Rhat, V)
@@ -97,8 +113,14 @@ def block_bicgstab(matvec, b, prec=None, x0=None, tol: float = 1e-6,
         omega = ts / tt
         X = X + lay.mix(Ph, alpha) + omega * Sh
         R = S - omega * T
-        resvec[k + 1] = lay.norm(R)
+        cur = lay.norm(R)
+        resvec = rows_where(resvec, k, cur)
         beta = _guarded_solve(G, -lay.gram(Rhat, T))
         P = R + lay.mix(P - omega * V, beta)
-        k += 1
+        return X, R, Rhat, P, resvec, cur, k + 1, bnorm, tol, maxit
+
+    s = iterate(init, step, lambda s: _go(s, 6, 5, 7, 8, 9), (0, 4, 5, 6),
+                scalars(b, X, tol, max_iter), device_loop=device_loop,
+                cache=cache, static=("block_bicgstab", max_iter))
+    X, resvec, k, bnorm = s[0], s[4], int(s[6]), s[7]
     return X, {"iters": k, "relres": resvec[k] / bnorm, "resvec": resvec}

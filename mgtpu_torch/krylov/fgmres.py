@@ -3,8 +3,9 @@
 Counterpart of mgtpu/krylov/fgmres.py on (m, *space) fields.  Each restart
 runs `restart` Arnoldi steps with modified Gram-Schmidt per right-hand side
 and solves the small least-squares problem through the regularised normal
-equations (a pinv, which tolerates the rank-deficient H of a happy
-breakdown); the host checks the stop once per restart.  Right
+equations (`ridge_solve`, which tolerates the rank-deficient H of a happy
+breakdown); one restart is one recorded program (mgtpu's jitted
+`_fgmres_cycle`), and the host checks the stop once per restart.  Right
 preconditioning: flexible stores Z_i = M(v_i) and corrects with Z y;
 non-flexible corrects with M(V y).
 
@@ -18,6 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..cycle.capture import run
 from ._layout import Layout
 
 __all__ = ["fgmres", "block_fgmres"]
@@ -47,42 +49,68 @@ def _fgmres_cycle(matvec, prec, restart: int, X, B):
         inv_h = (1.0 / torch.where(hnorm == 0, torch.ones_like(hnorm),
                                    hnorm)).to(B.dtype)
         V.append(lay.scale(w, inv_h))
-    # min || beta e1 - H y || per RHS on the normal equations, pinv-solved
+    # min || beta e1 - H y || per RHS on the normal equations
     Hb = H.permute(2, 0, 1)                                 # (m, k+1, k)
     e1 = torch.zeros((m, restart + 1), dtype=B.dtype, device=B.device)
     e1[:, 0] = beta.to(B.dtype)
     G = torch.einsum("mki,mkj->mij", Hb.conj(), Hb)
     c = torch.einsum("mki,mk->mi", Hb.conj(), e1)
-    y = torch.einsum("mij,mj->mi", torch.linalg.pinv(G, rtol=1e-12), c)
+    y = ridge_solve(G, c)
     X = X + torch.einsum("m...k,mk->m...", torch.stack(Z, dim=-1), y)
     return X, lay.norm(B - matvec(X))
 
 
+def ridge_solve(G, c):
+    """y = (G + reg I)^-1 c for a batch of Hermitian positive semidefinite
+    normal-equation blocks G (m, k, k), reg = eps mean(diag G) / k + 1e-30.
+
+    It stands for mgtpu's pinv(G, rtol=1e-12), whose SVD checks its result
+    on the host and so cannot be recorded.  The ridge is below the LU's own
+    rounding (its backward error is about k eps ||G||), so a regular G
+    solves as without it; the singular G of an exact happy breakdown (zero
+    rows and columns, c zero there) gets y zero there, as from the pinv."""
+    k = G.shape[-1]
+    reg = torch.finfo(G.dtype).eps / k ** 2 * torch.diagonal(
+        G, dim1=-2, dim2=-1).sum(-1).real + 1e-30
+    eye = torch.eye(k, dtype=G.dtype, device=G.device)
+    return torch.linalg.solve_ex(G + reg[:, None, None] * eye,
+                                 c[..., None])[0][..., 0]
+
+
+def _restart_program(ctx, X, B):
+    """One restart: (F)GMRES on X, B; the updated X and its residual norms."""
+    matvec, M, restart, flexible = ctx
+    if flexible:
+        return _fgmres_cycle(matvec, M, restart, X, B)
+    # right-preconditioned standard GMRES: solve (A M) u = r, x += M u
+    Xp, _ = _fgmres_cycle(lambda v: matvec(M(v)), lambda v: v, restart,
+                          torch.zeros_like(X), B - matvec(X))
+    X = X + M(Xp)
+    return X, Layout(B).norm(B - matvec(X))
+
+
 def fgmres(matvec, b, restart: int = 5, prec=None, x0=None,
            tol: float = 1e-6, max_iter: int = 10, flexible: bool = True,
-           verbose: bool = False):
+           verbose: bool = False, *, device_loop: bool = True, cache=None):
     """Restarted (F)GMRES on b (m, *space): at most max_iter restarts of
     `restart` inner steps; stops once max over RHS of ||r|| / max ||b||
-    falls below tol."""
+    falls below tol.  Each restart is one recorded program (capture.run;
+    `cache` = (owner, key, keep) as in krylov/_loop.py's `iterate`, key
+    determining matvec and prec; `device_loop=False` runs it eagerly); the
+    host reads the residuals once a restart, as mgtpu does."""
     M = (lambda r: r) if prec is None else prec
     X = torch.zeros_like(b) if x0 is None else x0
     lay = Layout(b)
-    if not flexible:
-        # right-preconditioned standard GMRES: solve (A M) u = r, x += M u
-        prec_mv = lambda v: matvec(M(v))
-        identity = lambda v: v
+    owner, key, keep = cache if cache is not None else (None, (), ())
     bnorm = max(float(torch.max(lay.norm(b))), 1e-300)
     resvec = [lay.norm(b - matvec(X)).cpu().numpy()]
     iters = 0
     rel = float("inf")
+    ctx = (matvec, M, restart, flexible)
     for outer in range(max_iter):
-        if flexible:
-            X, rn = _fgmres_cycle(matvec, M, restart, X, b)
-        else:
-            Xp, _ = _fgmres_cycle(prec_mv, identity, restart,
-                                  torch.zeros_like(X), b - matvec(X))
-            X = X + M(Xp)
-            rn = lay.norm(b - matvec(X))
+        X, rn = (run(owner, (key, "fgmres", restart, flexible),
+                     _restart_program, ctx, X, b, keep=keep)
+                 if device_loop else _restart_program(ctx, X, b))
         iters += 1
         resvec.append(rn.cpu().numpy())
         rel = float(torch.max(rn)) / bnorm
@@ -95,12 +123,14 @@ def fgmres(matvec, b, restart: int = 5, prec=None, x0=None,
 
 def block_fgmres(matvec, b, restart: int = 5, prec=None, x0=None,
                  tol: float = 1e-6, max_iter: int = 10, flexible: bool = True,
-                 verbose: bool = False):
+                 verbose: bool = False, *, device_loop: bool = True,
+                 cache=None):
     """Block FGMRES (FGMRES.jl:51-53): the whole (m, *space) field is ONE
     Krylov vector, so every right-hand side shares a single space."""
     blk_mv = lambda v: matvec(v[0])[None]
     blk_prec = None if prec is None else (lambda v: prec(v[0])[None])
     x0b = None if x0 is None else x0[None]
     xb, info = fgmres(blk_mv, b[None], restart, blk_prec, x0b, tol,
-                      max_iter, flexible, verbose)
+                      max_iter, flexible, verbose, device_loop=device_loop,
+                      cache=cache)
     return xb[0], info

@@ -1,23 +1,31 @@
 """Stand-alone multigrid solves and Krylov-wrapped solves.
 
-Counterpart of mgtpu/solvers/mg_solver.py (less `solve_mg_jit`), on either
-engine: the solve loops keep their iterates as the engine's fields — (m, *grid)
-on the grid engine, (m, n) on the flat one (`_runtime`, mgtpu's
-`_cycle_runtime`):
+Counterpart of mgtpu/solvers/mg_solver.py, on either engine: the solve
+loops keep their iterates as the engine's fields — (m, *grid) on the grid
+engine, (m, n) on the flat one (`_runtime`, mgtpu's `_cycle_runtime`).
+What mgtpu compiles runs here as recorded programs (cycle/capture.py: CUDA
+graphs on the card, the plain functions on the CPU):
 
- * `solve_mg` iterates cycles with a relative-tolerance stop checked every
-   cycle, a divergence stop at 1e3 * res0, and the residual history.
+ * `solve_mg` iterates recorded cycles with a relative-tolerance stop
+   checked every cycle on the host, a divergence stop at 1e3 * res0, and
+   the residual history; `solve_mg_jit` runs a fixed number of cycles as
+   one program, with no host read.
  * `solve_mg_refined` is mixed-precision iterative refinement: the residual
    b - A x in native float64 against the ORIGINAL operator (`A_input`), the
    correction one cycle of the (float32) hierarchy from a zero guess;
-   `fmg=True` starts from one full-multigrid pass instead of zero.
+   `fmg=True` starts from one full-multigrid pass instead of zero.  With
+   `device_loop` (mgtpu's default) the loop runs as recorded chunks of
+   iterations masked by a device flag (mgtpu's `lax.while_loop`), else as
+   the eager host loop.
  * `solve_cg_mg`, `solve_bicgstab_mg`, `solve_gmres_mg` run the Krylov
    methods of krylov/ on those fields with one cycle from zero as the
    preconditioner (reference SolveFuncs.jl:74-133); `block=True` shares one
    Krylov space between the right-hand sides.  A float64 b over a lower-
    precision hierarchy runs the Krylov iteration in float64 against the
    original operator and the cycle in the hierarchy's precision (the
-   mixed-precision shim, SolveFuncs.jl:52-58).
+   mixed-precision shim, SolveFuncs.jl:52-58).  The iterations, matvec and
+   cycle included, run in recorded chunks with the stop test on the card
+   (`device_loop=False`: the eager loop, for comparison).
  * `get_mg_preconditioner` and `get_afun` are the closures the reference
    hands to Krylov methods (SolveFuncs.jl:43-71).
 
@@ -31,14 +39,17 @@ import numpy as np
 import torch
 
 from ..config import torch_dtype
-from ..cycle.cycle import recursive_cycle
-from ..cycle.grid_cycle import GridHierarchy, grid_cycle, grid_fmg
+from ..cycle.capture import gate, run, static_config
+from ..cycle.cycle import cycle_jit, recursive_cycle
+from ..cycle.grid_cycle import (GridHierarchy, grid_cycle, grid_cycle_jit,
+                                grid_fmg)
+from ..krylov import _loop
 from ..krylov import (bicgstab, block_bicgstab, block_fgmres, block_pcg,
                       fgmres, pcg)
 from ..ops.grid_stencil import flat_to_grid, grid_to_flat, make_grid_stencil
 from ..setup.hierarchy import MGState, _to_device_matrix
 
-__all__ = ["solve_mg", "solve_mg_refined", "get_afun",
+__all__ = ["solve_mg", "solve_mg_jit", "solve_mg_refined", "get_afun",
            "get_mg_preconditioner", "solve_cg_mg", "solve_bicgstab_mg",
            "solve_gmres_mg"]
 
@@ -56,23 +67,25 @@ def _rows(matvec):
     return lambda v: matvec(v.T).T
 
 
-def _runtime(state: MGState):
+def _runtime(state: MGState, captured: bool = True):
     """The engine's field form: (to_field, to_flat, cycle, matvec).
 
     to_field takes flat (n, m) columns to a field, to_flat back;
-    cycle(b, x, x_zero) is one cycle of the hierarchy on fields and matvec
-    the fine operator on fields.  Grid fields are (m, *grid); the flat
-    engine's are (m, n), whose transposes are the (n, m) columns its cycle
-    takes."""
+    cycle(b, x, x_zero) is one cycle of the hierarchy on fields — a
+    recorded program (grid_cycle_jit / cycle_jit) unless `captured` is
+    False — and matvec the fine operator on fields.  Grid fields are
+    (m, *grid); the flat engine's are (m, n), whose transposes are the
+    (n, m) columns its cycle takes."""
     cfg, h = state.config, state.hier
     if isinstance(h, GridHierarchy):
         grid = h.fine_grid
+        cyc = grid_cycle_jit if captured else grid_cycle
         return (lambda v: flat_to_grid(v, grid), grid_to_flat,
-                lambda b, x, xz=False: grid_cycle(cfg, h, b, x, x_zero=xz),
+                lambda b, x, xz=False: cyc(cfg, h, b, x, x_zero=xz),
                 h.levels[0].A.matvec)
+    cyc = cycle_jit if captured else recursive_cycle
     return (lambda v: v.T.contiguous(), lambda v: v.T,
-            lambda b, x, xz=False: recursive_cycle(cfg, h, b.T, x.T,
-                                                   x_zero=xz).T,
+            lambda b, x, xz=False: cyc(cfg, h, b.T, x.T, x_zero=xz).T,
             _rows(h.levels[0].A.matvec))
 
 
@@ -116,6 +129,31 @@ def solve_mg(state: MGState, b, x=None, verbose: bool = False):
         "resvec": np.array(resvec)}
 
 
+def _cycles_program(ctx, b2, x2):
+    to_field, to_flat, cycle, n = ctx
+    bv, xv = to_field(b2), to_field(x2)
+    for _ in range(n):
+        xv = cycle(bv, xv)
+    return to_flat(xv)
+
+
+def solve_mg_jit(state: MGState, b, x=None, num_cycles: int | None = None):
+    """A fixed number of cycles (default max_outer_iter) as one recorded
+    program, with no host read (mgtpu's solve_mg_jit, for benchmarking).
+    b, x: (n,) or (n, m).  Returns x on the state's device."""
+    cfg, dev = state.config, state.device
+    dt = torch_dtype(cfg.dtype)
+    b2, squeeze = _as_2d(torch.as_tensor(b, dtype=dt, device=dev))
+    x2 = (torch.zeros_like(b2) if x is None
+          else _as_2d(torch.as_tensor(x, dtype=dt, device=dev))[0])
+    n = cfg.max_outer_iter if num_cycles is None else int(num_cycles)
+    to_field, to_flat, cycle, _ = _runtime(state, captured=False)
+    x2 = run(state.hier, ("solve_mg_jit", static_config(cfg), n),
+             _cycles_program, (to_field, lambda v: to_flat(v).contiguous(),
+                               cycle, n), b2, x2)
+    return x2[:, 0] if squeeze else x2
+
+
 def high_precision_fine_operator(state: MGState):
     """Float64 form of the ORIGINAL fine operator, cached on the state (the
     hierarchy's fine matrix was cast to the cycle dtype): a grid stencil on
@@ -144,7 +182,7 @@ def _hi_matvec(state: MGState):
 
 def solve_mg_refined(state: MGState, b, x=None, tol: float = 1e-8,
                      max_iter: int | None = None, fmg: bool = False,
-                     verbose: bool = False):
+                     verbose: bool = False, device_loop: bool = True):
     """Iterative refinement x += Cycle(b - A x) to a float64 relative
     residual below `tol`.
 
@@ -153,8 +191,15 @@ def solve_mg_refined(state: MGState, b, x=None, tol: float = 1e-8,
     guess.  With `fmg` and no `x`, the iterate starts from one full
     multigrid pass on b (grid_fmg) instead of zero.  The loop stops at
     `tol`, at `max_iter` (default max_outer_iter), or once the residual
-    exceeds 1e3 * ||b||.  Returns (x, info) with x a float64 tensor on the
-    state's device."""
+    exceeds 1e3 * ||b||.
+
+    `device_loop` (mgtpu's default) runs it as recorded programs of
+    krylov/_loop.py's CHUNK iterations, each masked by the device flag of
+    mgtpu's `cond`; the FMG start and the first residual
+    run inside the first program, `tol` and `max_iter` are device scalars,
+    and the host reads the flag once a chunk.  `device_loop=False` is the
+    eager host loop, one host read an iteration.  Returns (x, info) with x
+    a float64 tensor on the state's device."""
     t0 = time.perf_counter()
     cfg, gh, dev = state.config, state.hier, state.device
     cd = torch_dtype(cfg.dtype)
@@ -164,34 +209,112 @@ def solve_mg_refined(state: MGState, b, x=None, tol: float = 1e-8,
     x2 = (torch.zeros_like(b2) if x is None
           else _as_2d(torch.as_tensor(x, dtype=torch.float64, device=dev))[0])
     matvec_hi = _hi_matvec(state)
-    to_field, to_flat, cycle, _ = _runtime(state)
+    to_field, to_flat, cycle, _ = _runtime(state, captured=False)
     bv, xv = to_field(b2), to_field(x2)
-    if fmg and x is None:
-        if not isinstance(gh, GridHierarchy):
-            raise ValueError("the FMG start needs the grid engine")
-        xv = grid_fmg(cfg, gh, bv.to(cd)).to(torch.float64)
-
-    res0 = max(_norm(bv), 1e-300)
-    r = bv - matvec_hi(xv)
-    res = _norm(r)
-    resvec = [res]
-    iters = 0
-    while iters < max_iter and tol * res0 <= res < 1e3 * res0:
-        rl = r.to(cd)
-        z = cycle(rl, torch.zeros_like(rl), True)
-        xv = xv + z.to(torch.float64)
-        r = bv - matvec_hi(xv)
-        res_prev, res = res, _norm(r)
-        resvec.append(res)
-        iters += 1
+    use_fmg = bool(fmg and x is None)
+    if use_fmg and not isinstance(gh, GridHierarchy):
+        raise ValueError("the FMG start needs the grid engine")
+    if device_loop:
+        xv, iters, res, res0, resvec = _refined_device_loop(
+            state, (cfg, gh, cycle, matvec_hi, cd, use_fmg, _loop.CHUNK),
+            bv, xv, tol, int(max_iter))
         if verbose:
-            print(f"Refined cycle {iters} relres: {res / res0:.3e}. "
-                  f"Factor: {res / max(res_prev, 1e-300):.3f}")
+            _print_resvec(resvec)
+    else:
+        if use_fmg:
+            xv = grid_fmg(cfg, gh, bv.to(cd)).to(torch.float64)
+        res0 = max(_norm(bv), 1e-300)
+        r = bv - matvec_hi(xv)
+        res = _norm(r)
+        resvec = [res]
+        iters = 0
+        while iters < max_iter and tol * res0 <= res < 1e3 * res0:
+            rl = r.to(cd)
+            z = cycle(rl, torch.zeros_like(rl), True)
+            xv = xv + z.to(torch.float64)
+            r = bv - matvec_hi(xv)
+            res_prev, res = res, _norm(r)
+            resvec.append(res)
+            iters += 1
+            if verbose:
+                print(f"Refined cycle {iters} relres: {res / res0:.3e}. "
+                      f"Factor: {res / max(res_prev, 1e-300):.3f}")
+        resvec = np.array(resvec)
     state.n_iter += iters * b2.shape[1]
     state.time_solve += time.perf_counter() - t0
     x2 = to_flat(xv)
     return (x2[:, 0] if squeeze else x2), {
-        "iters": iters, "relres": res / res0, "resvec": np.array(resvec)}
+        "iters": iters, "relres": res / res0, "resvec": resvec}
+
+
+def _refine_active(it, res, res0, tol, max_iter):
+    """mgtpu's `cond` of the refinement loop, on the card."""
+    return (it < max_iter) & (tol * res0 <= res) & (res < 1e3 * res0)
+
+
+def _refine_chunk(ctx, bv, xv, r, res, res0, it, resvec, tol, max_iter):
+    """CHUNK refinement iterations, each masked by the device flag: an
+    inactive one leaves x, res, it and resvec as they were (the residual r
+    is only read by active ones, and the flag never turns back on)."""
+    _, _, cycle, matvec_hi, cd, _, chunk = ctx
+    rows = torch.arange(resvec.shape[0], device=resvec.device)
+    for _ in range(chunk):
+        active = _refine_active(it, res, res0, tol, max_iter)
+        rl = r.to(cd)
+        with gate(active):              # a masked iteration skips host steps
+            z = cycle(rl, torch.zeros_like(rl), True)
+        xn = xv + z.to(torch.float64)
+        r = bv - matvec_hi(xn)
+        rn = torch.linalg.vector_norm(r)
+        xv = torch.where(active, xn, xv)
+        res = torch.where(active, rn, res)
+        resvec = torch.where(active & (rows == it + 1), rn, resvec)
+        it = it + active.to(it.dtype)
+    return (xv, r, res, res0, it, resvec,
+            _refine_active(it, res, res0, tol, max_iter))
+
+
+def _refine_first(ctx, bv, xv, resvec, tol, max_iter):
+    """The first program: the FMG start, the first residual, a chunk."""
+    cfg, gh, _, matvec_hi, cd, use_fmg, _ = ctx
+    if use_fmg:
+        xv = grid_fmg(cfg, gh, bv.to(cd)).to(torch.float64)
+    res0 = torch.clamp(torch.linalg.vector_norm(bv), min=1e-300)
+    r = bv - matvec_hi(xv)
+    res = torch.linalg.vector_norm(r)
+    resvec = torch.cat([res[None], resvec[1:]])
+    return _refine_chunk(ctx, bv, xv, r, res, res0,
+                         torch.zeros_like(max_iter), resvec, tol, max_iter)
+
+
+def _refined_device_loop(state, ctx, bv, xv, tol, max_iter):
+    """The refinement loop as recorded chunks (mgtpu's
+    `_refined_device_loop`): (x, iters, res, res0, resvec)."""
+    cfg, _, _, _, cd, use_fmg, chunk = ctx
+    hi = high_precision_fine_operator(state)
+    key = ("refine", static_config(cfg), cd, use_fmg, chunk, id(hi))
+    dev = bv.device
+    scal = (torch.tensor(tol, dtype=torch.float64, device=dev),
+            torch.tensor(max_iter, dtype=torch.int64, device=dev))
+    out = run(state.hier, key + ("first",), _refine_first, ctx, bv, xv,
+              torch.zeros(max_iter + 1, dtype=torch.float64, device=dev),
+              *scal, keep=(hi,), clone=False)
+    while bool(out[-1]):
+        out = run(state.hier, key + ("next",), _refine_chunk, ctx, bv,
+                  *out[:-1], *scal, keep=(hi,), clone=False)
+    xv, _, res, res0, it, resvec, _ = out
+    iters = int(it)
+    return (xv.clone(), iters, float(res), float(res0),
+            resvec[:iters + 1].cpu().numpy())
+
+
+def _print_resvec(resvec):
+    """Per-iteration report from a finished device loop (mgtpu's
+    `_print_resvec`): verbose output on the same numeric path as silent."""
+    res0 = max(float(resvec[0]), 1e-300)
+    for k in range(1, len(resvec)):
+        print(f"Refined cycle {k} relres: {resvec[k] / res0:.3e}. "
+              f"Factor: {resvec[k] / max(float(resvec[k - 1]), 1e-300):.3f}")
 
 
 def get_afun(A):
@@ -200,12 +323,13 @@ def get_afun(A):
     return A.matvec
 
 
-def _field_preconditioner(state: MGState):
+def _field_preconditioner(state: MGState, captured: bool = True):
     """One cycle from a zero guess on the engine's fields.  The cycle runs
     in the hierarchy's precision; the correction comes back in r's (the
-    mixed-precision shim, SolveFuncs.jl:52-58)."""
+    mixed-precision shim, SolveFuncs.jl:52-58).  A recorded cycle unless
+    `captured` is False (inside a recorded program it runs inline)."""
     cd = torch_dtype(state.config.dtype)
-    cycle = _runtime(state)[2]
+    cycle = _runtime(state, captured)[2]
 
     def prec(r):
         rl = r.to(cd)
@@ -216,7 +340,8 @@ def _field_preconditioner(state: MGState):
 
 def get_mg_preconditioner(state: MGState):
     """The one-cycle preconditioner as an operator on flat (n,) / (n, m)
-    tensors (reference getMGPreconditioner, SolveFuncs.jl:43-63)."""
+    tensors (reference getMGPreconditioner, SolveFuncs.jl:43-63); each
+    application replays the recorded cycle."""
     prec = _field_preconditioner(state)
     to_field, to_flat = _runtime(state)[:2]
 
@@ -228,9 +353,10 @@ def get_mg_preconditioner(state: MGState):
     return flat_prec
 
 
-def _krylov_setup(state: MGState, b, x0):
+def _krylov_setup(state: MGState, b, x0, captured: bool = True):
     """Krylov operands on the engine's fields: b and x0 as fields, the fine
-    matvec, the one-cycle preconditioner and the map back to flat.
+    matvec, the one-cycle preconditioner, the map back to flat, and the
+    `cache` (owner, key, keep) under which the Krylov programs are kept.
 
     A float64 b over a lower-precision hierarchy makes the outer iteration
     float64: its matvec is the float64 operator of `A_input` and each cycle
@@ -243,28 +369,35 @@ def _krylov_setup(state: MGState, b, x0):
     x2 = (torch.zeros_like(b2) if x0 is None
           else _as_2d(torch.as_tensor(x0, dtype=outer, device=dev))[0])
     to_field, to_flat2, _, matvec = _runtime(state)
+    keep = ()
     if outer != cd:
         matvec = _hi_matvec(state)
+        keep = (high_precision_fine_operator(state),)
+    cache = (state.hier, ("krylov", static_config(cfg), outer,
+                          tuple(map(id, keep))), keep)
 
     def to_flat(Xv):
         X2 = to_flat2(Xv)
         return X2[:, 0] if squeeze else X2
 
     return (to_field(b2), to_field(x2), matvec,
-            _field_preconditioner(state), to_flat)
+            _field_preconditioner(state, captured), to_flat, cache)
 
 
 def _krylov_solve(state: MGState, name: str, fn, block_fn, block: bool, b,
-                  x0, report: bool, **kw):
+                  x0, report: bool, device_loop: bool = True, **kw):
     """Run `fn` (or `block_fn` for block=True with several right-hand
-    sides) on the Krylov operands of `_krylov_setup`."""
+    sides) on the Krylov operands of `_krylov_setup`; `device_loop=False`
+    runs the eager loop with eager cycles (the comparison)."""
     t0 = time.perf_counter()
-    bv, xv, matvec, prec, to_flat = _krylov_setup(state, b, x0)
+    bv, xv, matvec, prec, to_flat, cache = _krylov_setup(state, b, x0,
+                                                         device_loop)
     cfg = state.config
     if block and bv.shape[0] > 1:
         fn = block_fn
     x, info = fn(matvec, bv, prec=prec, x0=xv, tol=cfg.relative_tol,
-                 max_iter=cfg.max_outer_iter, **kw)
+                 max_iter=cfg.max_outer_iter, device_loop=device_loop,
+                 cache=cache, **kw)
     if report:
         rel = float(torch.as_tensor(info["relres"]).max())
         print(f"{name}: {int(info['iters'])} iters, relres {rel:.3e}")
@@ -274,29 +407,32 @@ def _krylov_solve(state: MGState, name: str, fn, block_fn, block: bool, b,
 
 
 def solve_cg_mg(state: MGState, b, x0=None, verbose: bool = False,
-                block: bool = False):
+                block: bool = False, device_loop: bool = True):
     """MG-preconditioned CG (reference solveCG_MG, SolveFuncs.jl:103-116);
     block=True with several right-hand sides uses the shared-space block CG
-    (SolveFuncs.jl:109-114).  b: (n,) or (n, m)."""
+    (SolveFuncs.jl:109-114).  b: (n,) or (n, m).  `device_loop=False` runs
+    the eager loop (for comparison)."""
     return _krylov_solve(state, "solve_cg_mg", pcg, block_pcg, block, b, x0,
-                         verbose)
+                         verbose, device_loop)
 
 
 def solve_bicgstab_mg(state: MGState, b, x0=None, verbose: bool = False,
-                      block: bool = False):
+                      block: bool = False, device_loop: bool = True):
     """MG-preconditioned BiCGSTAB (reference solveBiCGSTAB_MG,
     SolveFuncs.jl:85-99); block=True uses the shared-space Bl-BiCGSTAB
-    (SolveFuncs.jl:91-96)."""
+    (SolveFuncs.jl:91-96).  `device_loop=False` runs the eager loop."""
     return _krylov_solve(state, "solve_bicgstab_mg", bicgstab,
-                         block_bicgstab, block, b, x0, verbose)
+                         block_bicgstab, block, b, x0, verbose, device_loop)
 
 
 def solve_gmres_mg(state: MGState, b, x0=None, flexible: bool = True,
                    inner: int = 5, verbose: bool = False,
-                   block: bool = False):
+                   block: bool = False, device_loop: bool = True):
     """MG-preconditioned restarted (F)GMRES (reference solveGMRES_MG,
     SolveFuncs.jl:120-133): max_outer_iter restarts of `inner` steps;
-    block=True shares one Krylov space between the right-hand sides."""
+    block=True shares one Krylov space between the right-hand sides.  Each
+    restart is one recorded program (`device_loop=False`: eager restarts
+    with eager cycles)."""
     return _krylov_solve(state, "solve_gmres_mg", fgmres, block_fgmres,
-                         block, b, x0, False, restart=inner,
+                         block, b, x0, False, device_loop, restart=inner,
                          flexible=flexible, verbose=verbose)

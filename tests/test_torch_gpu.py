@@ -906,3 +906,286 @@ def test_small_classical_solve_runs_through_kernel_d(coarsening):
     assert stencil.LAUNCHES["float64"] > before[0]["float64"]
     assert stencil.PLAIN_CALLS == before[1]
     assert native.PLAIN_CALLS == before[2]
+
+
+# ---------------------------------------------------------------------------
+# recorded programs (cycle/capture.py): CUDA graphs against the eager runs
+# ---------------------------------------------------------------------------
+
+def _capture_case(name):
+    """(state, operator, f64 right-hand side) of a small configuration on
+    the card: 3D Jacobi V(1,1) and SPAI V(2,2) at 32^3 (kernels A and B),
+    2D line Jacobi at 64^2 (kernel C), rough-sigma DivSigGrad at 64^2
+    (kernel D), its greedy SA on the flat engine (D on the DIA level, ELL
+    levels, DenseLU) and its structured SA K-cycles (D, the projection's
+    solve_ex)."""
+    import mgtpu_torch as mt
+    from mgtpu_torch.models.operators import nodal_laplacian_matrix
+    if name in ("jacobi3d", "spai3d"):
+        M = mt.get_regular_mesh([0.0, 1.0] * 3, [32, 32, 32])
+        A = nodal_laplacian_matrix(M)
+        A = (A + 1e-4 * abs(A).sum(0).max() * sp.identity(A.shape[0])).tocsr()
+        kw = (dict(relax_type="jacobi", relax_param=0.8, nu_pre=1, nu_post=1)
+              if name == "jacobi3d" else dict(relax_type="spai"))
+    elif name == "line":
+        n = 64
+        T = sp.diags([-1.0, 2.0, -1.0], [-1, 0, 1], shape=(n + 1, n + 1))
+        I = sp.identity(n + 1)
+        A = (sp.kron(I, 100.0 * T) + sp.kron(T, I)).tocsr() * n * n
+        A = (A + 1e-4 * abs(A).sum(0).max() * sp.identity(A.shape[0])).tocsr()
+        M = mt.get_regular_mesh([0.0, 1.0, 0.0, 1.0], [n, n])
+        kw = dict(relax_type="line-jacobi", relax_param=0.8, nu_pre=1,
+                  nu_post=1)
+    else:
+        M, A = _rough_sigma(64)
+        kw = dict(relax_type="jacobi", relax_param=0.8, nu_pre=1, nu_post=1)
+    b = A @ np.random.RandomState(4).rand(A.shape[0])
+    b /= np.linalg.norm(b)
+    if name == "sa-flat":
+        cfg, rp = mt.get_mg_param(levels=4, relax_type="spai",
+                                  dtype=np.float32)
+        return mt.sa_amg_setup(A, cfg, rp), A, b
+    if name == "sa-k":
+        cfg, rp = mt.get_mg_param(levels=4, relax_type="jac-gmres",
+                                  relax_param=1.0, nu_pre=1, nu_post=1,
+                                  cycle_type="K", dtype=np.float32)
+        return mt.sa_amg_setup(A, cfg, rp, mesh=M), A, b
+    cfg, rp = mt.get_mg_param(levels=4, max_outer_iter=100,
+                              relative_tol=1e-8, dtype=np.float32, **kw)
+    return mt.mg_setup(A, M, cfg, rp), A, b
+
+
+CAPTURE_CASES = ["jacobi3d", "spai3d", "line", "divsig", "sa-flat", "sa-k"]
+
+
+def _counts():
+    from mgtpu_torch.cycle.capture import kernel_counters
+    return [dict(d) for d in kernel_counters()]
+
+
+def _since(before):
+    """Counter increments since `before` (launches and plain calls)."""
+    from mgtpu_torch.cycle.capture import kernel_counters
+    return [{k: v - b.get(k, 0) for k, v in d.items() if v != b.get(k, 0)}
+            for d, b in zip(kernel_counters(), before)]
+
+
+def _plain_calls(delta):
+    from mgtpu_torch.cycle.capture import kernel_counters
+    from mgtpu_torch.ops.cuda import const3d, fused3d, stencil, tridiag
+    plain = [const3d.PLAIN_CALLS, fused3d.PLAIN_CALLS, tridiag.PLAIN_CALLS,
+             stencil.PLAIN_CALLS]
+    return sum(sum(inc.values()) for d, inc in zip(kernel_counters(), delta)
+               if any(d is p for p in plain))
+
+
+@pytest.mark.parametrize("name", CAPTURE_CASES)
+def test_captured_cycle_replays_the_eager_cycle(name):
+    """grid_cycle_jit / cycle_jit: the first call records, every call's x
+    equals the eager cycle's bit for bit, and each replay counts the eager
+    cycle's launches (three replays three times), no plain version."""
+    _need_card()
+    import torch
+    from mgtpu_torch.cycle.cycle import make_cycle_fn, recursive_cycle
+    from mgtpu_torch.cycle.grid_cycle import (GridHierarchy, grid_cycle,
+                                              grid_cycle_jit)
+    st, _, b = _capture_case(name)
+    cfg, h = st.config, st.hier
+    rng = np.random.RandomState(1)
+    if isinstance(h, GridHierarchy):
+        bg = torch.tensor(rng.rand(2, *h.fine_grid), dtype=torch.float32,
+                          device="cuda")
+        eager = lambda x, xz: grid_cycle(cfg, h, bg, x, x_zero=xz)
+        rec = lambda x, xz: grid_cycle_jit(cfg, h, bg, x, xz)
+    else:
+        bg = torch.tensor(rng.rand(b.shape[0], 2), dtype=torch.float32,
+                          device="cuda")
+        eager = lambda x, xz: recursive_cycle(cfg, h, bg, x, x_zero=xz)
+        rec = lambda x, xz: make_cycle_fn(cfg)(h, bg, x, xz)
+    for xz in (True, False):
+        x0 = torch.zeros_like(bg) if xz else torch.rand_like(bg)
+        c0 = _counts()
+        want = eager(x0, xz)
+        torch.cuda.synchronize()
+        per_cycle = _since(c0)
+        assert sum(sum(d.values()) for d in per_cycle) > 0
+        assert torch.equal(rec(x0, xz), want)           # records
+        c1 = _counts()
+        for _ in range(3):
+            assert torch.equal(rec(x0, xz), want)       # replays
+        torch.cuda.synchronize()
+        got = _since(c1)
+        assert got == [{k: 3 * v for k, v in d.items()} for d in per_cycle]
+        assert _plain_calls(got) == 0
+
+
+@pytest.mark.parametrize("chunk", [1, 4])
+@pytest.mark.parametrize("name", CAPTURE_CASES)
+def test_captured_refined_loop_is_the_eager_loop(name, chunk, monkeypatch):
+    """solve_mg_refined's device loop (recorded chunks) against the eager
+    loop on the card: count, residual history and x bit for bit."""
+    _need_card()
+    import torch
+    import mgtpu_torch as mt
+    monkeypatch.setattr(mt.krylov._loop, "CHUNK", chunk)
+    st, A, b = _capture_case(name)
+    x1, i1 = mt.solve_mg_refined(st, b, tol=1e-8, max_iter=80)
+    x1b, _ = mt.solve_mg_refined(st, b, tol=1e-8, max_iter=80)
+    x0, i0 = mt.solve_mg_refined(st, b, tol=1e-8, max_iter=80,
+                                 device_loop=False)
+    assert i1["iters"] == i0["iters"]
+    assert np.array_equal(i1["resvec"], i0["resvec"])
+    assert torch.equal(x1, x0) and torch.equal(x1b, x0)
+    assert np.linalg.norm(b - A @ x1.cpu().numpy()) < 1e-8
+
+
+@pytest.mark.parametrize("method", ["cg", "bicgstab", "block-cg", "gmres"])
+def test_captured_krylov_is_the_eager_loop(method):
+    """The Krylov solves' recorded chunks (GMRES: restarts) against their
+    eager loops on the 64^2 rough-sigma problem, f64 outer iteration over
+    an f32 hierarchy: count, history and x bit for bit."""
+    _need_card()
+    import torch
+    import mgtpu_torch as mt
+    st, A, b = _capture_case("divsig")
+    B = (np.random.RandomState(4).rand(A.shape[0], 4)
+         if method == "block-cg" else b)
+    solve = {"cg": mt.solve_cg_mg, "block-cg": mt.solve_cg_mg,
+             "bicgstab": mt.solve_bicgstab_mg,
+             "gmres": mt.solve_gmres_mg}[method]
+    kw = dict(block=True) if method == "block-cg" else {}
+    x1, i1 = solve(st, B, **kw)
+    x0, i0 = solve(st, B, device_loop=False, **kw)
+    assert int(i1["iters"]) == int(i0["iters"])
+    r1, r0 = (np.asarray(torch.as_tensor(i["resvec"]).cpu())
+              for i in (i1, i0))
+    assert np.array_equal(r1, r0)
+    assert torch.equal(x1, x0)
+    rr = np.linalg.norm(B - A @ x1.cpu().numpy(), axis=0)
+    assert np.all(rr < 1e-8 * np.linalg.norm(B, axis=0))
+
+
+@pytest.mark.parametrize("ctype,segments", [("V", 2), ("W", 3)])
+@pytest.mark.parametrize("engine", ["grid", "flat"])
+def test_sparse_lu_cycle_records_in_segments(engine, ctype, segments,
+                                             monkeypatch):
+    """A host SuperLU coarsest splits the recorded cycle: a V-cycle in two
+    graphs around one host step, a W-cycle of three levels in three; the
+    replayed cycle equals the eager one bit for bit."""
+    _need_card()
+    import torch
+    import mgtpu_torch as mt
+    from mgtpu_torch.cycle import capture
+    from mgtpu_torch.cycle import grid_cycle as gc
+    from mgtpu_torch.cycle.cycle import cycle_jit, recursive_cycle
+    monkeypatch.setattr(gc, "HOST_INV_MAX", 16)
+    monkeypatch.setattr(gc, "DENSE_LU_MAX", 16)
+    M, A = _rough_sigma(64)
+    cfg, rp = mt.get_mg_param(levels=3, relax_type="jacobi", relax_param=0.8,
+                              nu_pre=1, nu_post=1, cycle_type=ctype,
+                              engine=engine, dtype=np.float32)
+    st = mt.mg_setup(A, M, cfg, rp)
+    assert type(st.hier.coarse).__name__ in ("GridSparseLU", "SparseLUCoarse")
+    bf = torch.tensor(np.random.RandomState(2).rand(A.shape[0], 1),
+                      dtype=torch.float32, device="cuda")
+    x0 = torch.zeros_like(bf)
+    want = recursive_cycle(cfg, st.hier, bf, x0, x_zero=True)
+    for _ in range(2):
+        assert torch.equal(cycle_jit(cfg, st.hier, bf, x0, True), want)
+    table = capture.programs(st.hier).table
+    assert [c.segments for c in table.values()] == [segments]
+    x1, i1 = mt.solve_mg_refined(st, A @ np.ones(A.shape[0]), tol=1e-8,
+                                 max_iter=60)
+    x0r, i0 = mt.solve_mg_refined(st, A @ np.ones(A.shape[0]), tol=1e-8,
+                                  max_iter=60, device_loop=False)
+    assert i1["iters"] == i0["iters"] and torch.equal(x1, x0r)
+
+
+def test_capture_failure_raises():
+    """A function that reads the card's memory on the host cannot be
+    recorded: the program raises with torch's message instead of running
+    eagerly, the card stays usable, and the owner's next program
+    records."""
+    _need_card()
+    import torch
+    from mgtpu_torch.cycle import capture
+
+    def reads_back(ctx, x):
+        return x * float(x.sum())
+
+    class Owner:
+        pass
+
+    x = torch.ones(8, device="cuda")
+    for owner in (None, Owner()):
+        with pytest.raises(RuntimeError, match="captur"):
+            capture.run(owner, "bad", reads_back, None, x)
+        assert float((x + 1).sum()) == 16.0
+        # the owner's next program records (in a new pool)
+        y = capture.run(owner, "good", lambda ctx, v: v * 2, None, x)
+        assert torch.equal(y, 2 * x)
+
+
+def test_new_tolerance_replays_the_recorded_loop():
+    """tol and max_iter's bound are device scalars: a solve to a new
+    tolerance replays the programs recorded for the old one."""
+    _need_card()
+    import mgtpu_torch as mt
+    from mgtpu_torch.cycle import capture
+    st, A, b = _capture_case("divsig")
+    _, i1 = mt.solve_mg_refined(st, b, tol=1e-6, max_iter=80)
+    keys = set(capture.programs(st.hier).table)
+    _, i2 = mt.solve_mg_refined(st, b, tol=1e-9, max_iter=80)
+    assert set(capture.programs(st.hier).table) == keys
+    assert i2["iters"] > i1["iters"] and i2["relres"] < 1e-9
+
+
+class _CountingFactor:
+    """A SuperLU factor that counts its solves."""
+
+    def __init__(self, factor):
+        self.factor, self.calls = factor, 0
+
+    def solve(self, *args, **kwargs):
+        self.calls += 1
+        return self.factor.solve(*args, **kwargs)
+
+    def __getattr__(self, name):
+        return getattr(self.factor, name)
+
+
+@pytest.mark.parametrize("engine", ["grid", "flat"])
+def test_masked_iterations_skip_the_host_solve(engine, monkeypatch):
+    """Past the stop, a recorded chunk's masked iterations skip their host
+    SuperLU solves: a replayed refined solve and a replayed CG solve call
+    the factor as often as their eager loops (chunks of 16, counts that
+    are no multiple of 16)."""
+    _need_card()
+    import torch
+    import mgtpu_torch as mt
+    from mgtpu_torch.cycle import grid_cycle as gc
+    monkeypatch.setattr(gc, "HOST_INV_MAX", 16)
+    monkeypatch.setattr(gc, "DENSE_LU_MAX", 16)
+    monkeypatch.setattr(mt.krylov._loop, "CHUNK", 16)
+    M, A = _rough_sigma(64)
+    cfg, rp = mt.get_mg_param(levels=3, relax_type="jacobi", relax_param=0.8,
+                              nu_pre=1, nu_post=1, engine=engine,
+                              max_outer_iter=100, relative_tol=1e-8,
+                              dtype=np.float32)
+    st = mt.mg_setup(A, M, cfg, rp)
+    counting = _CountingFactor(st.hier.coarse.factor)
+    object.__setattr__(st.hier.coarse, "factor", counting)
+    b = A @ np.random.RandomState(4).rand(A.shape[0])
+    b /= np.linalg.norm(b)
+    for solve in (lambda **kw: mt.solve_mg_refined(st, b, tol=1e-8,
+                                                   max_iter=60, **kw),
+                  lambda **kw: mt.solve_cg_mg(st, b, **kw)):
+        solve()                                 # records
+        calls = []
+        for mode in (True, False):
+            counting.calls = 0
+            x, info = solve(device_loop=mode)
+            torch.cuda.synchronize()
+            calls.append(counting.calls)
+        assert int(info["iters"]) % 16 != 0
+        assert calls[0] == calls[1] > 0, calls
