@@ -101,14 +101,40 @@ Phases, each of which raises on failure:
             there; one cycle of each by CUDA events and the host clock, and
             the busy share.
 
-Every solve of phases 4, 5, 7, 8, 10, 11 and 12 runs through the recorded
-programs (mgtpu_torch/cycle/capture.py: CUDA graphs), the entry points'
-default, and is then held against its eager run (the captured phase, 13):
+13. systems — the staggered-systems engine, f32 hierarchies, each to
+            mgtpu's count +- 1 and a true f64 relres below 1e-8 inside one
+            launch-counter window: (V-2d) mixed elasticity at 1024^2,
+            VankaFaces 0.75 V(1,1), 6 levels, refined (9), (E-2d)
+            elasticity at 1024^2, SPAI 0.75 V(2,2), 6 levels (28), (V-3d)
+            mixed elasticity at 64^3, 5 levels (12), (E-cg) E-2d's
+            hierarchy under solve_cg_mg (13); the Vanka variants on the
+            64^2 mixed problem, 4 levels: econ (9), add (15), tuple
+            weights (8) on the systems engine, lex on kernel E (9) and
+            cell Kaczmarz V(2,2) (31) on the flat one; each setup's host
+            seconds by stage (RAP, transfers, cross stencils, smoother,
+            coarsest inverse) and its f64 residual operator; counters
+            prove kernel D ran in f32 and f64 in each systems-engine
+            solve, kernel E in the lex solve, and no plain version
+            anywhere; one cycle of V-2d, E-2d, V-3d by CUDA events, the
+            host clock and torch.profiler.  Then kernel D's cross apply
+            against its plain version on every block of every level of
+            V-2d and V-3d (f32 2e-5, f64 1e-12, m = 1, 2; a square block
+            bitwise the square apply) and its times on the fine levels
+            beside its byte bound and torch.sparse.mm of the block's CSR;
+            kernel E against its per-cell loop on a 32^2 mixed problem
+            and every level of the lex hierarchy (f32 1e-5, f64 1e-12)
+            and its time on the 64^2 fine level.
 
-13. captured — for each of the 23 paths (3D Jacobi, Chebyshev and SPAI
+Every solve of phases 4, 5, 7, 8, 10, 11, 12 and 13 runs through the
+recorded programs (mgtpu_torch/cycle/capture.py: CUDA graphs), the entry
+points' default, and is then held against its eager run (the captured
+phase, 14):
+
+14. captured — for each of the 32 paths (3D Jacobi, Chebyshev and SPAI
             refined; 2D Jacobi; the FMG start; (a)-(e) and (b6); (f),
             f-bicg, f-block, (g), (h); SA-s, SA-K, SA-f; C-cc, C-pmis,
-            SA-dev, C-cg): the recorded solve takes the eager loop's
+            SA-dev, C-cg; V-2d, E-2d, V-3d, E-cg and the five Vanka
+            variants): the recorded solve takes the eager loop's
             iteration count (device_loop=False) and returns its x bit for
             bit (or within a stated 1e-12 relative); one recorded
             correction cycle (grid_cycle_jit / cycle_jit) launches what the
@@ -119,8 +145,8 @@ default, and is then held against its eager run (the captured phase, 13):
             left out of the path windows' counts.  Then one CG iteration of
             (f) recorded and eager, and the chunk sweep: time to 1e-8 of the
             3D Jacobi refined solve and of (f)'s CG at 1, 2, 4, 8 and 16
-            iterations a program.  Kernel D's timings (9, 11, 12) add its
-            time per launch inside a CUDA graph of 40 launches.
+            iterations a program.  Kernel D's timings (9, 11, 12, 13) add
+            its time per launch inside a CUDA graph of 40 launches.
 
 The last lines are one JSON object with a row per kernel, the card's name and
 power limit, and {"ok": true, "device": {...}}.  Without a CUDA device, or
@@ -388,9 +414,24 @@ KERNELS = {
     "stencil.float64": (
         "mgtpu/ops/pallas/stencil_kernel.py:31 _stencil_kernel (K8), "
         "pallas_call at :76", "mgtpu_torch/csrc/stencil.cu", 2),
+    # kernel D's cross apply: mgtpu computes these blocks in XLA
+    # (ops/cross_stencil.py:123-138), K8's job between two grids
+    "stencil_cross.float32": (
+        "mgtpu/ops/pallas/stencil_kernel.py:31 _stencil_kernel (K8), "
+        "pallas_call at :76, as mgtpu/ops/cross_stencil.py:123 "
+        "cross_stencil_matvec", "mgtpu_torch/csrc/stencil.cu", 2),
+    "stencil_cross.float64": (
+        "mgtpu/ops/pallas/stencil_kernel.py:31 _stencil_kernel (K8), "
+        "pallas_call at :76, as mgtpu/ops/cross_stencil.py:123 "
+        "cross_stencil_matvec", "mgtpu_torch/csrc/stencil.cu", 2),
+    # kernel E: no Pallas kernel; mgtpu's lax.fori_loop over the cells
+    "vanka_lex": (
+        "mgtpu/cycle/vanka.py:97 _lex_sweep (lax.fori_loop, no "
+        "pallas_call)", "mgtpu_torch/csrc/vanka.cu", 2),
 }
-STENCIL_KERNELS = [k for k in KERNELS
-                   if not k.startswith(("tridiag", "stencil."))]
+STENCIL_KERNELS = [k for k in KERNELS       # kernels A and B
+                   if not k.startswith(("tridiag", "stencil.",
+                                        "stencil_cross.", "vanka"))]
 
 
 def run_kernel(name, A, x, b, d, p, plain: bool):
@@ -559,12 +600,12 @@ def phase_timing(timed_levels, rows):
 
 
 def reset_counters():
-    from mgtpu_torch.ops.cuda import const3d, fused3d, stencil, tridiag
+    from mgtpu_torch.ops.cuda import const3d, fused3d, stencil, tridiag, vanka
     from mgtpu_torch.setup import native
     for dct in (const3d.LAUNCHES, const3d.PLAIN_CALLS, fused3d.LAUNCHES,
                 fused3d.PLAIN_CALLS, tridiag.LAUNCHES, tridiag.PLAIN_CALLS,
-                stencil.LAUNCHES, stencil.PLAIN_CALLS, native.CALLS,
-                native.PLAIN_CALLS):
+                stencil.LAUNCHES, stencil.PLAIN_CALLS, vanka.LAUNCHES,
+                vanka.PLAIN_CALLS, native.CALLS, native.PLAIN_CALLS):
         for k in dct:
             dct[k] = 0
     fused3d.GRID_LAUNCHES.clear()
@@ -590,6 +631,13 @@ def stencil_counters():
     from mgtpu_torch.ops.cuda import stencil
     return ({f"stencil.{k}": v for k, v in stencil.LAUNCHES.items()},
             {f"stencil.{k}": v for k, v in stencil.PLAIN_CALLS.items()})
+
+
+def vanka_counters():
+    """Launches and plain calls of kernel E, per float type."""
+    from mgtpu_torch.ops.cuda import vanka
+    return ({f"vanka.{k}": v for k, v in vanka.LAUNCHES.items()},
+            {f"vanka.{k}": v for k, v in vanka.PLAIN_CALLS.items()})
 
 
 def true_relres(L, b, x) -> float:
@@ -741,9 +789,11 @@ def vcycle_profile(st, b, cycle_ms, card, label="129^3", captured=True):
 # ---------------------------------------------------------------------------
 
 CAPTURED = []           # one row per path: printed as JSON at the end
-CAPTURED_PATHS = 23     # 3D Jacobi, Chebyshev, SPAI; 2D Jacobi; FMG;
+CAPTURED_PATHS = 32     # 3D Jacobi, Chebyshev, SPAI; 2D Jacobi; FMG;
                         # (a)-(e), (b6); (f), f-bicg, f-block, (g), (h);
-                        # SA-s, SA-K, SA-f; C-cc, C-pmis, SA-dev, C-cg
+                        # SA-s, SA-K, SA-f; C-cc, C-pmis, SA-dev, C-cg;
+                        # V-2d, E-2d, V-3d, E-cg and the five Vanka
+                        # variants
 
 
 @contextlib.contextmanager
@@ -764,11 +814,13 @@ def uncounted():
 def launches_of(run):
     """Kernel launches and plain calls of one call of `run` (a dict by
     counter), outside any window."""
-    from mgtpu_torch.ops.cuda import const3d, fused3d, stencil, tridiag
+    from mgtpu_torch.ops.cuda import const3d, fused3d, stencil, tridiag, vanka
     named = {"const3d": const3d.LAUNCHES, "fused3d": fused3d.LAUNCHES,
-             "tridiag": tridiag.LAUNCHES, "stencil": stencil.LAUNCHES}
+             "tridiag": tridiag.LAUNCHES, "stencil": stencil.LAUNCHES,
+             "vanka": vanka.LAUNCHES}
     plain = {"const3d": const3d.PLAIN_CALLS, "fused3d": fused3d.PLAIN_CALLS,
-             "tridiag": tridiag.PLAIN_CALLS, "stencil": stencil.PLAIN_CALLS}
+             "tridiag": tridiag.PLAIN_CALLS, "stencil": stencil.PLAIN_CALLS,
+             "vanka": vanka.PLAIN_CALLS}
     with uncounted():
         b_l = {k: dict(d) for k, d in named.items()}
         b_p = {k: dict(d) for k, d in plain.items()}
@@ -1316,16 +1368,17 @@ def stencil_cases(states):
 D_TOLS = {torch.float32: 2e-5, torch.float64: 1e-12}
 
 
-def check_d(rows, label, out, ref):
+def check_d(rows, label, out, ref, row="stencil"):
     """Kernel D's output against its reference: same shape and type,
     finite, relative error below 2e-5 (f32) / 1e-12 (f64); the row of its
-    type keeps the largest errors."""
+    type (`row`: "stencil", or "stencil_cross" for the cross apply) keeps
+    the largest errors."""
     torch.cuda.synchronize()
     require(out.shape == ref.shape and out.dtype == ref.dtype
             and bool(torch.isfinite(out).all()), f"D {label}: bad output")
     ae = float((out - ref).abs().max())
     re = ae / float(ref.abs().max())
-    row = rows[f"stencil.{str(ref.dtype).split('.')[-1]}"]
+    row = rows[f"{row}.{str(ref.dtype).split('.')[-1]}"]
     row["max_abs_err"] = max(row["max_abs_err"], ae)
     row["max_rel_err"] = max(row["max_rel_err"], re)
     require(re < D_TOLS[ref.dtype], f"kernel D {label}: relative error "
@@ -1392,13 +1445,25 @@ def box3(grid):
 def d_case(kind, op, csr):
     """What timing one kernel-D case needs: (dtype, input shape, kernel
     call, plain call, plan, least bytes, flops, shape note).  kind: "grid"
-    (a GridStencil), "dia" (a DIA matrix), "prolong" / "restrict" (a
-    Stride2Transfer, whose least bytes are P's own: nnz + nc + nf values
-    of csr, P or P^T)."""
+    (a GridStencil), "cross" (a CrossGridStencil: nd coefficient planes
+    and y on the output grid, x on the input grid), "dia" (a DIA matrix),
+    "prolong" / "restrict" (a Stride2Transfer, whose least bytes are P's
+    own: nnz + nc + nf values of csr, P or P^T)."""
     from mgtpu_torch.ops.cuda import stencil
     from mgtpu_torch.ops.grid_stencil import grid_stencil_matvec
     dt = op.dtype
     item = torch.empty((), dtype=dt).element_size()
+    if kind == "cross":
+        nd, no = len(op.offsets), int(np.prod(op.out_grid))
+        ni = int(np.prod(op.in_grid))
+        return (dt, (1,) + tuple(op.in_grid),
+                lambda x: stencil.cross_apply(op.coeff, op.offsets,
+                                              op.in_grid, x),
+                lambda x: stencil.cross_apply_plain(op.coeff, op.offsets,
+                                                    op.in_grid, x),
+                d_plan(box3(op.out_grid), nd, dt, "apply" if op.in_grid
+                       == op.out_grid else "cross"), (nd * no + ni + no) * item,
+                2 * nd * no, f"{op.in_grid} -> {op.out_grid} nd={nd}")
     if kind == "grid":
         n, nd = int(np.prod(op.grid)), len(op.offsets)
         return (dt, (1,) + tuple(op.grid),
@@ -2157,6 +2222,307 @@ def phase_classical(agg_ab, rows, card):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the staggered-systems engine
+# ---------------------------------------------------------------------------
+
+SYSTEMS = [
+    # key, label, dim, cells, mixed, relax, sweeps, levels, mgtpu's refined
+    # count on the CPU (scripts/systems_reference.py)
+    ("V-2d", "(V-2d) mixed elasticity 1024^2, SystemsFacesMixedLinear, "
+     "VankaFaces 0.75 V(1,1), 6 levels", 2, 1024, True, "VankaFaces", 1, 6,
+     9),
+    ("E-2d", "(E-2d) elasticity 1024^2, SystemsFacesLinear, SPAI 0.75 "
+     "V(2,2), 6 levels", 2, 1024, False, "SPAI", 2, 6, 28),
+    ("V-3d", "(V-3d) mixed elasticity 64^3, VankaFaces 0.75 V(1,1), 5 "
+     "levels", 3, 64, True, "VankaFaces", 1, 5, 12),
+]
+E_CG = 13       # (E-cg) E-2d's hierarchy under solve_cg_mg, mgtpu's count
+VARIANTS = [
+    # key, relax, weight, sweeps, engine, mgtpu's refined count on the
+    # 64^2 mixed problem, 4 levels (scripts/systems_reference.py)
+    ("econ", "EconVankaFaces", 0.75, 1, "SystemsGridHierarchy", 9),
+    ("add", "VankaFacesAdd", 0.75, 1, "SystemsGridHierarchy", 15),
+    ("tuple", "VankaFaces", (0.75, 0.75), 1, "SystemsGridHierarchy", 8),
+    ("lex", "VankaFacesLex", 0.75, 1, "Hierarchy", 9),
+    ("kacz", "hybridVankaFacesKaczmarz", 0.9, 2, "Hierarchy", 31),
+]
+LEX_TOLS = {torch.float32: 1e-5, torch.float64: 1e-12}
+
+
+def elasticity(dim, cells, mixed):
+    """The systems contracts' operator (bench.py:396-399): elasticity or
+    mixed elasticity with mu = lam = 1, plus 1e-3 * (max column sum) * I;
+    its mesh and b = A RandomState(4).rand(n), normalised."""
+    from mgtpu_torch import get_regular_mesh
+    from mgtpu_torch.models.operators import (
+        linear_elasticity_operator, linear_elasticity_operator_mixed)
+    M = get_regular_mesh([0.0, 1.0] * dim, [cells] * dim)
+    mu = np.ones(M.num_cells)
+    A = (linear_elasticity_operator_mixed if mixed
+         else linear_elasticity_operator)(M, mu, mu)
+    A = (A + 1e-3 * abs(A).sum(axis=0).max() * sp.identity(A.shape[0])
+         ).tocsr()
+    b = A @ np.random.RandomState(4).rand(A.shape[0])
+    return M, A, b / np.linalg.norm(b)
+
+
+def systems_setup(label, dim, cells, mixed, relax, w, nu, levels, card):
+    """mg_setup on the card with its host seconds by stage, and the f64
+    residual operator built once; returns (state, A, b)."""
+    from mgtpu_torch import get_mg_param, mg_setup
+    from mgtpu_torch.solvers.mg_solver import high_precision_fine_operator
+    t0 = time.perf_counter()
+    M, A, b = elasticity(dim, cells, mixed)
+    t_op = time.perf_counter() - t0
+    cfg, rp = get_mg_param(
+        levels=levels, relax_type=relax, relax_param=w, nu_pre=nu,
+        nu_post=nu, dtype=np.float32, max_outer_iter=60,
+        transfer_type="SystemsFacesMixedLinear" if mixed
+        else "SystemsFacesLinear")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = mg_setup(A, M, cfg, rp)
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    high_precision_fine_operator(st)
+    torch.cuda.synchronize()
+    t_hi = time.perf_counter() - t0
+    stages = ", ".join(f"{k} {v:.2f} s" for k, v in st.setup_times.items())
+    log(f"[systems] {label}: {A.shape[0]} unknowns, {A.nnz} nonzeros; "
+        f"operator {t_op:.2f} s, mg_setup {t_setup:.2f} s host clock "
+        f"({stages}), f64 residual operator {t_hi:.2f} s; levels "
+        f"{[a.shape[0] for a in st.As]}, {type(st.hier).__name__} ({card})")
+    return st, A, b
+
+
+def cross_blocks(key, st):
+    """(label, stencil) of every block of every level of a systems state,
+    f32 from the hierarchy, f64 from the residual operator (level 0) or
+    the f32 coefficients widened (the coarser levels)."""
+    from mgtpu_torch.ops.cross_stencil import CrossGridStencil
+    from mgtpu_torch.solvers.mg_solver import high_precision_fine_operator
+    out = []
+    for l, lv in enumerate(st.hier.levels):
+        hi = (high_precision_fine_operator(st).stencils if l == 0 else
+              [CrossGridStencil(S.coeff.double(), S.offsets, S.out_grid,
+                                S.in_grid) for S in lv.A.stencils])
+        for (ci, cj), S, S64 in zip(lv.A.pairs, lv.A.stencils, hi):
+            out.append((f"{key} level {l} block ({ci},{cj})", S))
+            out.append((f"{key} level {l} block ({ci},{cj})", S64))
+    return out
+
+
+def phase_cross_kernels(states, rows, card):
+    """Kernel D's cross apply against its plain version on every block of
+    every level of V-2d and V-3d, f32 (2e-5) and f64 (1e-12), m = 1, 2;
+    a square block bitwise the square apply (grid_apply); then its times
+    on V-2d's and V-3d's fine levels.  The f32 and f64 rows take V-2d's
+    fine (0, 2) block (x-face rows from the pressure grid: a cross form
+    launch; a square block launches the apply form)."""
+    from mgtpu_torch.ops.cuda import stencil
+    nblocks = 0
+    for key in ("V-2d", "V-3d"):
+        for label, S in cross_blocks(key, states[key][0]):
+            for m in (1, 2):
+                x = torch.tensor(np.random.RandomState(SEED + m).rand(
+                    m, *S.in_grid), dtype=S.coeff.dtype, device="cuda")
+                y = stencil.cross_apply(S.coeff, S.offsets, S.in_grid, x)
+                check_d(rows, f"{label} m={m}", y,
+                        stencil.cross_apply_plain(S.coeff, S.offsets,
+                                                  S.in_grid, x),
+                        "stencil_cross")
+                if S.in_grid == S.out_grid:
+                    require(torch.equal(y, stencil.grid_apply(
+                        S.coeff, S.offsets, x)), f"{label}: the square "
+                        "block differs from the square apply")
+            nblocks += 1
+    log(f"[kernel] D cross apply: {nblocks} blocks of V-2d's and V-3d's "
+        "levels (f32 and f64, m = 1, 2) match their plain version; the "
+        "square blocks are bitwise the square apply")
+    timer = Timer()
+    for key in ("V-2d", "V-3d"):
+        st = states[key][0]
+        seen = set()
+        for label, S in cross_blocks(key, st):
+            if " level 0 " not in label:
+                continue
+            dt = str(S.coeff.dtype).split(".")[-1]
+            entry, _ = time_d(f"{label} {dt}", "cross", S, S.to_scipy(),
+                              timer, card)
+            row = rows[f"stencil_cross.{dt}"]
+            row.setdefault("times", {})[f"{label} {dt}"] = entry
+            if key == "V-2d" and label.endswith("(0,2)") and dt not in seen:
+                seen.add(dt)
+                row.update({k: entry[k] for k in (
+                    "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                    "host_ms", "plan")},
+                    timed_shape=f"{label}: {entry['shape']} m=1",
+                    library_call="torch.sparse.mm(CSR, x)")
+
+
+def lex_tables(st, l):
+    """The vanka-lex tables of level l of a flat state, as kernel E takes
+    them."""
+    vr = st.hier.levels[l].relax
+    return vr.idx[0], vr.dinv[0], vr.rows_idx[0], vr.rows_val[0]
+
+
+def phase_lex_kernel(lex_state, rows, card):
+    """Kernel E against its plain version (the per-cell loop) on a 32^2
+    mixed problem and on every level of the 64^2 lex hierarchy, f32
+    (1e-5) and f64 (1e-12), two sweeps; its device time on the 64^2 fine
+    level beside its byte bound and the plain loop's time."""
+    from mgtpu_torch.ops.cuda import vanka
+    from mgtpu_torch.setup.smoothers import setup_vanka
+    M, A, _ = elasticity(2, 32, True)
+    cases = []
+    for dt in (np.float32, np.float64):
+        vr = setup_vanka(A, M, 0.75, True, "vanka-lex", dtype=dt).to(
+            torch.float32 if dt == np.float32 else torch.float64, "cuda")
+        cases.append(("32^2 level 0", A.shape[0],
+                      (vr.idx[0], vr.dinv[0], vr.rows_idx[0],
+                       vr.rows_val[0])))
+    st = lex_state
+    for l in range(len(st.hier.levels) - 1):
+        t32 = lex_tables(st, l)
+        cases.append((f"64^2 level {l}", st.As[l].shape[0], t32))
+        cases.append((f"64^2 level {l}", st.As[l].shape[0],
+                      t32[:3] + (t32[3].double(),)))
+    row = rows["vanka_lex"]
+    for label, n, tabs in cases:
+        dt = tabs[3].dtype
+        rng = np.random.RandomState(SEED + n)
+        x = torch.tensor(rng.rand(n, 1), dtype=dt, device="cuda")
+        b = torch.tensor(rng.rand(n, 1), dtype=dt, device="cuda")
+        out = vanka.lex_sweep(x, b, *tabs, 2)
+        ref = vanka.lex_sweep_plain(x, b, *tabs, 2)
+        torch.cuda.synchronize()
+        require(out.shape == ref.shape and bool(torch.isfinite(out).all()),
+                f"kernel E {label}: bad output")
+        ae = float((out - ref).abs().max())
+        re = ae / float(ref.abs().max())
+        row["max_abs_err"] = max(row["max_abs_err"], ae)
+        row["max_rel_err"] = max(row["max_rel_err"], re)
+        require(re < LEX_TOLS[dt], f"kernel E {label} {dt}: relative error "
+                f"{re:.3e} >= {LEX_TOLS[dt]}")
+    log(f"[kernel] E (lexicographic Vanka): {len(cases)} cases (32^2 and "
+        f"every level of the 64^2 lex hierarchy, f32 and f64, two sweeps) "
+        f"match the per-cell loop")
+    idx, dinv, ri, rv = lex_tables(st, 0)
+    n = st.As[0].shape[0]
+    L, bs = idx.shape
+    K = ri.shape[-1]
+    sets = [(torch.tensor(np.random.RandomState(SEED + j).rand(n, 1),
+                          dtype=torch.float32, device="cuda"),
+             torch.tensor(np.random.RandomState(SEED + 9 + j).rand(n, 1),
+                          dtype=torch.float32, device="cuda"))
+            for j in range(2)]
+    ms, host_ms = Timer(reps=10)([lambda s=s: vanka.lex_sweep(
+        s[0], s[1], idx, dinv, ri, rv, 1) for s in sets])
+    plain_ms = Timer(reps=2)([lambda s=s: vanka.lex_sweep_plain(
+        s[0], s[1], idx, dinv, ri, rv, 1) for s in sets])[0]
+    fbytes = (L * bs * 4 + L * bs * bs * 4 + L * bs * K * 8 + 3 * n * 4)
+    flops = 2 * L * bs * (K + bs)
+    bound = max(fbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS) * 1e3
+    log(f"[time] E lex sweep, 64^2 fine level ({L} cells, bs {bs}, K {K}, "
+        f"f32): kernel {ms:.4f} ms ({ms * 1e3 / L:.2f} us a cell), plain "
+        f"{plain_ms:.1f} ms, bound {bound:.4f} ms ({fbytes / 1e6:.2f} MB), "
+        f"host per call {host_ms:.3f} ms ({card})")
+    row.update(ms=ms, plain_ms=plain_ms, bound_ms=bound, library_ms=None,
+               host_ms=host_ms, us_per_cell=ms * 1e3 / L,
+               bound_by="bytes" if fbytes / HBM_BYTES_PER_S
+               >= flops / FP32_FLOPS else "operations",
+               timed_shape=f"64^2 fine level: {L} cells, bs {bs}, K {K}, "
+               "m=1, one sweep")
+
+
+def phase_systems(card):
+    """V-2d, E-2d and V-3d set up on the card (host seconds by stage),
+    E-cg on E-2d's hierarchy, and the five Vanka variants at 64^2, all
+    solved inside one launch-counter window: each to mgtpu's count +- 1
+    and a true f64 relres below 1e-8; kernel D in f32 and f64 in each
+    systems-engine solve, kernel E in the lex solve, no plain version
+    anywhere.  Every solve is held against its eager run (the captured
+    phase).  Returns (the states, the lex state, the window's launches)."""
+    from dataclasses import replace
+    from mgtpu_torch import solve_cg_mg
+    states = {}
+    for key, label, dim, cells, mixed, relax, nu, levels, _ in SYSTEMS:
+        states[key] = systems_setup(label, dim, cells, mixed, relax, 0.75,
+                                    nu, levels, card)
+    variants = {}
+    for key, relax, w, nu, engine, _ in VARIANTS:
+        st, A, b = systems_setup(f"({key}) 64^2 mixed, {relax} {w}", 2, 64,
+                                 True, relax, w, nu, 4, card)
+        require(type(st.hier).__name__ == engine,
+                f"{key}: {type(st.hier).__name__}, want {engine}")
+        variants[key] = (st, A, b)
+    reset_counters()                       # ---- main path window ----
+    for key, label, *_, want in SYSTEMS:
+        st, A, b = states[key]
+        before = stencil_counters()[0]
+        refined(st, A, b, want, label, card, max_iter=60)
+        d_l = {k: v - before[k] for k, v in stencil_counters()[0].items()}
+        log(f"[path] {key}: kernel D launches in this solve: {d_l}")
+        for k in ("stencil.float32", "stencil.float64"):
+            require(d_l[k] > 0, f"{key}: {k} was never launched")
+    st, A, b = states["E-2d"]
+    cfg = st.config
+    st.config = replace(cfg, max_outer_iter=100, relative_tol=1e-8)
+    try:
+        before = stencil_counters()[0]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x, info = solve_cg_mg(st, b)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        rr, iters = true_relres(A, b, x), int(info["iters"])
+        d_l = {k: v - before[k] for k, v in stencil_counters()[0].items()}
+        log(f"[path] (E-cg) E-2d's hierarchy, solve_cg_mg: {iters} "
+            f"iterations (want {E_CG} +- 1), true f64 relres {rr:.3e}, time "
+            f"to 1e-8 {wall:.1f} ms (host clock, synchronised; {card}); "
+            f"kernel D launches {d_l}")
+        require(abs(iters - E_CG) <= 1, f"E-cg: {iters} iterations")
+        require(rr < 1e-8, f"E-cg: true relres {rr:.3e} >= 1e-8")
+        for k in ("stencil.float32", "stencil.float64"):
+            require(d_l[k] > 0, f"E-cg: {k} was never launched")
+        compare_krylov(st, A, b, "(E-cg) E-2d's hierarchy, solve_cg_mg",
+                       solve_cg_mg, {}, x, info, wall, card)
+    finally:
+        st.config = cfg
+    for key, relax, w, nu, engine, want in VARIANTS:
+        st, A, b = variants[key]
+        before = dict(stencil_counters()[0], **vanka_counters()[0])
+        refined(st, A, b, want, f"({key}) 64^2 mixed, {relax} {w} "
+                f"V({nu},{nu}), {engine}", card, max_iter=60)
+        got = {k: v - before[k] for k, v in
+               dict(stencil_counters()[0], **vanka_counters()[0]).items()}
+        log(f"[path] ({key}): kernel launches in this solve: {got}")
+        if engine == "SystemsGridHierarchy":
+            for k in ("stencil.float32", "stencil.float64"):
+                require(got[k] > 0, f"{key}: {k} was never launched")
+        if key == "lex":
+            require(got["vanka.float32"] > 0,
+                    "lex: kernel E was never launched")
+    launches, plain = stencil_counters()   # ---- end of window ----
+    e_l, e_p = vanka_counters()
+    more_l, more_p = counters()
+    line_l, line_p = line_counters()
+    launches.update(e_l)
+    plain.update(e_p, **more_p, **line_p)
+    log(f"[path] systems window kernel D and E launches: {launches}; other "
+        f"kernels {dict(more_l, **line_l)}")
+    log(f"[path] systems window plain-version calls on the card: {plain}")
+    require(not any(plain.values()), f"plain versions ran: {plain}")
+    for key, *_ in SYSTEMS:
+        st, A, b = states[key]
+        ev_ms, _ = vcycle_ms(st, b, card, label=key)
+        vcycle_profile(st, b, ev_ms, card, label=key)
+    return states, variants["lex"][0], launches
+
+
 def chunk_sweep(jac, f, card):
     """Time to 1e-8 of the 3D Jacobi refined solve and of (f)'s CG, by the
     host clock (synchronised), at 1, 2, 4, 8 and 16 iterations a recorded
@@ -2275,16 +2641,27 @@ def main() -> int:
     phase_amg_timing(runs, st3, rows, card)
     amg = phase_amg(runs, card)
     classical = phase_classical(runs[2], rows, card)
+    del runs, st3, levels3
+    torch.cuda.empty_cache()
+    sys_states, lex_state, systems = phase_systems(card)
+    phase_cross_kernels(sys_states, rows, card)
+    phase_lex_kernel(lex_state, rows, card)
+    del sys_states, lex_state
     for k, row in rows.items():
-        # each kernel's launches from the window of its own path
-        row["launches"] = (aniso[k] if k.startswith("tridiag") else
-                           krylov[k] if k.startswith("stencil.") else
-                           launches[k])
+        # each kernel's launches from the window of its own path (the
+        # systems window's kernel D launches are all cross applies)
+        row["launches"] = (
+            aniso[k] if k.startswith("tridiag") else
+            krylov[k] if k.startswith("stencil.") else
+            systems["stencil." + k.split(".")[1]]
+            if k.startswith("stencil_cross.") else
+            systems["vanka.float32"] if k == "vanka_lex" else launches[k])
     for k in ("stencil3d_apply.matvec", "stencil.float32", "stencil.float64"):
         rows[k]["launches_aniso"] = aniso[k]
     for k in ("stencil.float32", "stencil.float64"):
         rows[k]["launches_amg"] = amg[k]
         rows[k]["launches_classical"] = classical[k]
+        rows[k]["launches_systems"] = systems[k]
     require(len(CAPTURED) == CAPTURED_PATHS, f"the captured phase "
             f"compared {len(CAPTURED)} paths, want {CAPTURED_PATHS}")
     log("[captured] " + json.dumps({"paths": CAPTURED, "chunks": sweep}))

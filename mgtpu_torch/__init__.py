@@ -2,14 +2,18 @@
 
 Geometric multigrid on regular meshes through the structured grid engine
 (host Galerkin setup in scipy/numpy, full weighting or semicoarsening;
-grid-form cycles on torch tensors) and smoothed-aggregation AMG
+grid-form cycles on torch tensors), the staggered-systems engine
+(elasticity and mixed elasticity: cross-grid stencil blocks, per-component
+transfers, cell-wise Vanka smoothers; ``transfer_type=
+"SystemsFaces(Mixed)Linear"``) and smoothed-aggregation AMG
 (``sa_amg_setup``: structured aggregates on the grid engine with a mesh,
 greedy or MIS-2 aggregates on the flat ELL/DIA engine without) and
 classical AMG (``classical_amg_setup``: C/F splitting by host C++ kernels
 or PMIS on the device, direct or standard interpolation, on the flat
 engine), with hand-written CUDA kernels for Hopper (``sm_90a``) on the 3D
 constant-stencil levels, the variable-coefficient levels and transfers,
-the DIA levels and line-Jacobi smoothing; MG-preconditioned Krylov solves
+the DIA levels, the staggered systems' blocks, line-Jacobi smoothing and
+the lexicographic Vanka sweep; MG-preconditioned Krylov solves
 (CG, BiCGSTAB, FGMRES, their block forms) and K-cycles.  The cycles, the
 refinement loop and the Krylov iterations run as CUDA graphs on the card
 (``cycle/capture.py``: mgtpu's compiled programs).  Imports torch,
@@ -21,6 +25,7 @@ the CPU; without a card they raise.
 
 from .cycle.cycle import cycle_jit, make_cycle_fn, recursive_cycle
 from .cycle.grid_cycle import grid_cycle_jit
+from .cycle.systems_grid import systems_grid_cycle_jit
 from .krylov import bicgstab, block_fgmres, fgmres, pcg
 from .models.mesh import RegularMesh, get_cell_centered_grid, get_regular_mesh
 from .setup.hierarchy import (MGConfig, MGState, build_device_hierarchy,
@@ -36,6 +41,7 @@ __all__ = ["RegularMesh", "get_regular_mesh", "get_cell_centered_grid",
            "MGConfig", "MGState", "get_mg_param", "mg_setup",
            "sa_amg_setup", "classical_amg_setup", "build_device_hierarchy",
            "recursive_cycle", "cycle_jit", "make_cycle_fn", "grid_cycle_jit",
+           "systems_grid_cycle_jit",
            "solve_mg", "solve_mg_jit", "solve_mg_refined", "get_afun", "get_mg_preconditioner",
            "solve_cg_mg", "solve_bicgstab_mg", "solve_gmres_mg", "pcg",
            "fgmres", "block_fgmres", "bicgstab"]

@@ -33,6 +33,18 @@ def is_complex(dtype) -> bool:
     return np.issubdtype(np.dtype(dtype), np.complexfloating)
 
 
+def single_variant(dtype) -> np.dtype:
+    """Single-precision companion of a dtype: Vanka block inverses are
+    stored in single precision (the reference's `toSingle`,
+    Vanka.jl:34-42)."""
+    d = np.dtype(dtype)
+    if d == np.float64:
+        return np.dtype(np.float32)
+    if d == np.complex128:
+        return np.dtype(np.complex64)
+    return d
+
+
 def torch_dtype(dtype) -> torch.dtype:
     """numpy dtype (or type) -> torch dtype; torch dtypes pass through."""
     if isinstance(dtype, torch.dtype):

@@ -4,8 +4,10 @@ A hierarchy exported as numpy arrays — for example the leaves of an mgtpu
 `GridHierarchy` or flat `Hierarchy`, taken with ``np.asarray`` — becomes
 one of this package, so a cycle can run on exactly the reference's
 operators, diagonals (Jacobi, SPAI and Jac-GMRES levels), line states,
-transfers (per-axis factors or stride-2 stencils) and coarsest solve and
-be compared node for node.
+Vanka tables and block inverses, transfers (per-axis factors or stride-2
+stencils) and coarsest solve and be compared node for node; the systems
+engine's hierarchy (cross stencils, grid Vanka, per-component factors,
+dense coarsest inverse) comes across by `systems_hierarchy_from_arrays`.
 
 LU pivots are taken as scipy's and JAX's ``lu_factor`` give them, 0-based;
 torch's `lu_solve` reads LAPACK's 1-based pivots, so they gain one here.
@@ -19,6 +21,11 @@ from .cycle.coarse import DenseLU, IterativeCoarse
 from .cycle.grid_cycle import (DenseInverse, GridHierarchy,
                                GridIterativeCoarse, GridLevel, line_state_to)
 from .cycle.relax import AltLineRelax, ChebyshevRelax, DiagRelax, LineRelax
+from .cycle.systems_grid import (BlockDenseInverse, BlockGridOperator,
+                                 GridVanka, SystemsGridHierarchy,
+                                 SystemsGridLevel)
+from .cycle.vanka import VankaRelax
+from .ops.cross_stencil import CrossGridStencil
 from .ops.dia import DIA
 from .ops.ell import ELL
 from .ops.grid_stencil import (ConstGridStencil, GridStencil,
@@ -27,7 +34,8 @@ from .setup.hierarchy import Hierarchy, Level
 
 __all__ = ["grid_hierarchy_from_arrays", "flat_hierarchy_from_arrays",
            "matrix_from_arrays", "dense_lu_from_arrays",
-           "stride2_from_arrays"]
+           "stride2_from_arrays", "vanka_relax_from_arrays",
+           "systems_hierarchy_from_arrays"]
 
 
 def _as_tensor(a, device):
@@ -70,10 +78,26 @@ def dense_lu_from_arrays(lu, piv, device) -> DenseLU:
                                 device=device))
 
 
+def vanka_relax_from_arrays(spec, n: int, dtype, device) -> VankaRelax:
+    """A mapping {``idx``, ``dinv``, ``rows_idx``, ``rows_val``,
+    ``variant``} (mgtpu's VankaRelax) as the port's on `device`, with the
+    scatter tables its overlapping variants add through (built as
+    setup/smoothers.py's `setup_vanka` builds them; n: the level's size)."""
+    from .setup.smoothers import vanka_scatter
+    idx, rows_idx, rows_val = (np.asarray(spec[k]) for k in
+                               ("idx", "rows_idx", "rows_val"))
+    variant = str(spec["variant"])
+    return VankaRelax(idx.astype(np.int32), np.asarray(spec["dinv"]),
+                      rows_idx.astype(np.int32), rows_val, variant,
+                      vanka_scatter(variant, idx, rows_idx, rows_val, n)
+                      ).to(dtype, device)
+
+
 def flat_hierarchy_from_arrays(levels, coarse, *, device) -> Hierarchy:
     """levels: one mapping per level with ``A`` (a `matrix_from_arrays`
     mapping), and below the coarsest ``P`` and ``R`` (ELL mappings) and
-    ``d`` (the smoother diagonal) with ``lam_max`` for a Chebyshev level.
+    ``d`` (the smoother diagonal) with ``lam_max`` for a Chebyshev level,
+    or ``vanka`` (a `vanka_relax_from_arrays` mapping).
     coarse: {``lu``, ``piv``} (0-based pivots) for `DenseLU`, or
     {``d``, ``ell_idx``, ``ell_val``, ``inner``} for `IterativeCoarse`."""
     out = []
@@ -82,9 +106,13 @@ def flat_hierarchy_from_arrays(levels, coarse, *, device) -> Hierarchy:
         if lv.get("P") is None:
             out.append(Level(A, None, None, None))
             continue
-        d = _as_tensor(lv["d"], device)
-        relax = (DiagRelax(d) if lv.get("lam_max") is None
-                 else ChebyshevRelax(d, float(lv["lam_max"])))
+        if lv.get("vanka") is not None:
+            relax = vanka_relax_from_arrays(lv["vanka"], A.shape[0],
+                                            A.dtype, device)
+        else:
+            d = _as_tensor(lv["d"], device)
+            relax = (DiagRelax(d) if lv.get("lam_max") is None
+                     else ChebyshevRelax(d, float(lv["lam_max"])))
         out.append(Level(A, matrix_from_arrays(lv["P"], device),
                          matrix_from_arrays(lv["R"], device), relax))
     if "lu" in coarse:
@@ -146,3 +174,43 @@ def grid_hierarchy_from_arrays(levels, coarse_inv, coarse_grid, *,
         coarse = DenseInverse(_as_tensor(coarse_inv, device),
                               tuple(int(v) for v in coarse_grid))
     return GridHierarchy(tuple(out), coarse)
+
+
+def systems_hierarchy_from_arrays(levels, coarse_inv, *,
+                                  device) -> SystemsGridHierarchy:
+    """levels: one mapping per level of mgtpu's systems hierarchy with
+         ``stencils`` (per stored block a mapping {``coeff``,
+         ``offsets``, ``in_grid``}: coeff (nd, *out_grid)), ``pairs``
+         ((ci, cj) per block) and ``grids`` (per-component grid shapes);
+         below the coarsest ``d`` (per-component diagonals) or ``vanka``
+         ({``dinv``, ``masks``, ``slots``, ``cell_grid``, ``variant``}),
+         and ``P1``, ``R1`` (per component, per grid axis, the dense 1D
+         factors);
+    coarse_inv: the dense inverse of the coarsest operator (on the last
+         level's grids)."""
+    out = []
+    for lv in levels:
+        sts = tuple(CrossGridStencil(
+            _as_tensor(st["coeff"], device),
+            tuple(tuple(int(v) for v in o) for o in st["offsets"]),
+            tuple(int(v) for v in np.asarray(st["coeff"]).shape[1:]),
+            tuple(int(v) for v in st["in_grid"])) for st in lv["stencils"])
+        A = BlockGridOperator(sts, tuple(tuple(int(c) for c in p)
+                                         for p in lv["pairs"]),
+                              tuple(tuple(int(v) for v in g)
+                                    for g in lv["grids"]))
+        fac = lambda k: (None if lv.get(k) is None else tuple(
+            tuple(_as_tensor(f, device) for f in comp) for comp in lv[k]))
+        d = (None if lv.get("d") is None
+             else tuple(_as_tensor(c, device) for c in lv["d"]))
+        vk = lv.get("vanka")
+        if vk is not None:
+            vk = GridVanka(_as_tensor(vk["dinv"], device),
+                           _as_tensor(vk["masks"], device),
+                           tuple((int(c), tuple(int(v) for v in o))
+                                 for c, o in vk["slots"]),
+                           tuple(int(v) for v in vk["cell_grid"]),
+                           str(vk["variant"]))
+        out.append(SystemsGridLevel(A, d, vk, fac("P1"), fac("R1")))
+    return SystemsGridHierarchy(tuple(out), BlockDenseInverse(
+        _as_tensor(coarse_inv, device), out[-1].A.grids))

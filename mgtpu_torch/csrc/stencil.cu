@@ -13,8 +13,13 @@
 // (dz, dy, dx).  The grid stencil's 3D grid maps onto it as it is, a 2D grid
 // as (1, Y, X), K8's slab form as (NJ, 1, NI) with taps (dj, 0, di), and a
 // DIA matrix (diagonal offsets off_d) as (1, 1, n) with taps (0, 0, off_d).
-// Three forms share one kernel body, one thread slot per output node i:
+// Four forms share one kernel body, one thread slot per output node i:
 //   apply     y[i]  = sum_k coeff[k, i] x[i + d_k]            (K8)
+//   cross     the same with x on another box than y's: a block of a
+//             staggered system between two component grids; i's
+//             coordinates index x's box, off it a tap reads nothing (its
+//             own instantiation, so that the square apply's code and
+//             registers stay as they were)
 //   restrict  rc[c] = sum_k coeff[k, c] r[2c + d_k]           (P^T r)
 //   prolong   y[f]  = sum_t coeff[t, f] xc[(f - d_{q(f),t}) / 2]   (P xc)
 // for every right-hand side.  A tap whose source lies outside its box on
@@ -82,7 +87,7 @@ constexpr int kLgThreads = 8;
 constexpr int kMaxSplit = 16;
 constexpr int kClasses = 8;         // parity classes of a (Z, Y, X) box
 constexpr int kNoLin = -2147483647 - 1;   // a class table's padding
-enum Form { kApply = 0, kRestrict = 1, kProlong = 2 };
+enum Form { kApply = 0, kRestrict = 1, kProlong = 2, kCross = 3 };
 
 struct Taps {
   int dz[kMaxTaps];
@@ -118,8 +123,9 @@ __host__ __device__ constexpr int table_bytes(int nd) {
 // addresses first, then all of its loads, then its FMAs in tap order.
 // CHECK: test each tap's source against x's box (else every tap of the
 // node lands inside it, and only a prolong's class padding is skipped).
-// base: the node's source origin in x's box (apply: e; restrict: 2i;
-// prolong: i / 2, where the class table's lin is subtracted).
+// base: the node's source origin in x's box (apply and cross: i;
+// restrict: 2i; prolong: i / 2, where the class table's lin is
+// subtracted).
 template <typename T, int MB, int FORM, bool CHECK>
 __device__ __forceinline__ void sum_taps(
     T (&acc)[MB], const Taps& t, const Geom& g, const int4* tab, int k0,
@@ -228,6 +234,7 @@ __global__ void __launch_bounds__(kThreads, (min_blocks<T, MB>()))
   const int cls = ((iz & 1) << 2) | ((iy & 1) << 1) | (ix & 1);
   const int base =
       FORM == kApply ? e
+      : FORM == kCross ? (iz * g.i.Y + iy) * g.i.X + ix
       : FORM == kRestrict
           ? ((2 * iz) * g.i.Y + 2 * iy) * g.i.X + 2 * ix
           : ((iz >> 1) * g.i.Y + (iy >> 1)) * g.i.X + (ix >> 1);
@@ -337,6 +344,8 @@ static void launch(int form, const int* p, const Taps& t, const Geom& g,
   T* yy = static_cast<T*>(y);
   if (form == kApply)
     launch_form<T, kApply>(p, t, g, nd, m, cc, xx, yy, ptab, st);
+  else if (form == kCross)
+    launch_form<T, kCross>(p, t, g, nd, m, cc, xx, yy, ptab, st);
   else if (form == kRestrict)
     launch_form<T, kRestrict>(p, t, g, nd, m, cc, xx, yy, ptab, st);
   else
@@ -391,11 +400,13 @@ static bool make_taps(int form, int ntaps, const int* offs, Geom& g,
   return true;
 }
 
-// dtype: 0 float32, 1 float64.  form: 0 apply, 1 restrict, 2 prolong.
+// dtype: 0 float32, 1 float64.  form: 0 apply, 1 restrict, 2 prolong,
+// 3 cross.
 // nd: coefficient planes (for a prolong, its widest class).  offs: ntaps
 // rows of (dz, dy, dx) (for a prolong, every offset of the transfer).
-// oZ..oX / iZ..iX: the (Z, Y, X) boxes of y and x (equal for an apply;
-// coarse and fine for a restrict; fine and coarse for a prolong).  coeff is
+// oZ..oX / iZ..iX: the (Z, Y, X) boxes of y and x (equal for an apply,
+// any two for a cross apply; coarse and fine for a restrict; fine and
+// coarse for a prolong).  coeff is
 // (nd, obox), x (m, ibox), y (m, obox), all contiguous.  ptab: a prolong's
 // (nd, 8, 4) class table on the device (dz, dy, dx, lin per tap and class,
 // padding (.., .., .., INT_MIN) with offsets past the box), else unused.
@@ -408,7 +419,7 @@ extern "C" int mgt_stencil(int dtype, int form, int nd, int ntaps,
                            const void* x, void* y, const void* ptab,
                            const int* plan, void* stream) {
   Geom g{{oZ, oY, oX}, {iZ, iY, iX}, {0, 0, 0}, {0, 0, 0}};
-  if (dtype < 0 || dtype > 1 || form < kApply || form > kProlong || nd < 1 ||
+  if (dtype < 0 || dtype > 1 || form < kApply || form > kCross || nd < 1 ||
       nd > kMaxTaps || ntaps < 1 || ntaps > kMaxTaps || !offs || oZ < 1 ||
       oY < 1 || oX < 1 || iZ < 1 || iY < 1 || iX < 1 || m < 1 || !plan)
     return (int)cudaErrorInvalidValue;

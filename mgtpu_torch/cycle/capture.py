@@ -67,10 +67,11 @@ def _busy() -> bool:
 
 def kernel_counters() -> list[dict]:
     """The launch and plain-call counters of every kernel wrapper."""
-    from ..ops.cuda import const3d, fused3d, stencil, tridiag
+    from ..ops.cuda import const3d, fused3d, stencil, tridiag, vanka
     return [const3d.LAUNCHES, const3d.PLAIN_CALLS, fused3d.LAUNCHES,
             fused3d.PLAIN_CALLS, fused3d.GRID_LAUNCHES, tridiag.LAUNCHES,
-            tridiag.PLAIN_CALLS, stencil.LAUNCHES, stencil.PLAIN_CALLS]
+            tridiag.PLAIN_CALLS, stencil.LAUNCHES, stencil.PLAIN_CALLS,
+            vanka.LAUNCHES, vanka.PLAIN_CALLS]
 
 
 class Tally:

@@ -5,8 +5,11 @@ residual, solve or recurse on the coarse level (V once, W twice, F as F
 then V, K as a `kcycle_inner`-step FGMRES preconditioned by the coarser
 cycle), prolongate-correct, post-smooth.  Vectors are flat columns
 (n, m).  A `GridHierarchy` goes to the grid engine through its flat
-adapter (grid_cycle.grid_cycle_flat).  `cycle_jit` / `make_cycle_fn` run
-one cycle as a recorded program (capture.py), mgtpu's jitted cycle.
+adapter (grid_cycle.grid_cycle_flat), a `SystemsGridHierarchy` to the
+systems engine through its own (systems_grid.systems_grid_cycle_flat).
+Vanka levels smooth with cycle/vanka.py's sweeps.  `cycle_jit` /
+`make_cycle_fn` run one cycle as a recorded program (capture.py), mgtpu's
+jitted cycle.
 """
 from __future__ import annotations
 
@@ -17,11 +20,9 @@ import torch
 from .capture import run, static_config
 from .relax import (chebyshev4_smooth, chebyshev_smooth, fgmres_relaxation,
                     relax_diag)
+from .vanka import VankaRelax, vanka_sweep
 
 __all__ = ["recursive_cycle", "cycle_jit", "make_cycle_fn"]
-
-_UNPORTED = ("vanka", "econ-vanka", "vanka-lex", "vanka-add",
-             "kaczmarz-vanka", "hybrid-kaczmarz")
 
 
 def _smooth(cfg, level, r, x, b, nu: int, matvec):
@@ -43,7 +44,9 @@ def _smooth(cfg, level, r, x, b, nu: int, matvec):
     if rt == "line-jacobi":
         raise ValueError("line-jacobi is a grid-engine smoother (regular "
                          "meshes with full-weighting transfers)")
-    if rt in _UNPORTED:
+    if isinstance(level.relax, VankaRelax):
+        return vanka_sweep(x, b, level.relax, nu)
+    if rt == "hybrid-kaczmarz":
         raise NotImplementedError(f"relax_type {rt!r} not yet ported")
     return relax_diag(matvec, r, x, b, level.relax.d, nu)
 
@@ -58,6 +61,9 @@ def recursive_cycle(cfg, hier, b, x, level: int = 0,
     from .grid_cycle import GridHierarchy, grid_cycle_flat
     if isinstance(hier, GridHierarchy):
         return grid_cycle_flat(cfg, hier, b, x, ctype, x_zero=x_zero)
+    from .systems_grid import SystemsGridHierarchy, systems_grid_cycle_flat
+    if isinstance(hier, SystemsGridHierarchy):
+        return systems_grid_cycle_flat(cfg, hier, b, x, ctype, x_zero=x_zero)
     ctype = cfg.cycle_type if ctype is None else ctype
     if ctype not in ("V", "W", "F", "K"):
         raise NotImplementedError(f"cycle type {ctype!r} not yet ported")

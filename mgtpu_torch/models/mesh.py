@@ -6,7 +6,8 @@ load mgtpu/__init__.py and with it JAX).  A mesh is a tiny immutable object:
 (cell widths).
 
 Index conventions: 0-based indices and "dim-0 fastest" linearisation
-(Fortran order over (n1,n2[,n3]) grids).
+(Fortran order over (n1,n2[,n3]) grids); `loc2cs` / `cs2loc` convert
+between linear and per-dimension indices.
 """
 from __future__ import annotations
 
@@ -57,3 +58,31 @@ def get_cell_centered_grid(mesh: RegularMesh) -> np.ndarray:
             for i in range(mesh.dim)]
     grids = np.meshgrid(*axes, indexing="ij")
     return np.stack([g.ravel(order="F") for g in grids], axis=1)
+
+
+def get_nodal_grid(mesh: RegularMesh) -> np.ndarray:
+    """(num_nodes, dim) coordinates of mesh nodes, dim-0 fastest."""
+    axes = [mesh.domain[2 * i] + np.arange(mesh.n[i] + 1) * mesh.h[i]
+            for i in range(mesh.dim)]
+    grids = np.meshgrid(*axes, indexing="ij")
+    return np.stack([g.ravel(order="F") for g in grids], axis=1)
+
+
+def loc2cs(loc, n) -> np.ndarray:
+    """Cartesian (0-based, per-dim) -> linear, dim-0 fastest. Vectorised."""
+    loc = np.asarray(loc)
+    n = np.asarray(n)
+    strides = np.concatenate([[1], np.cumprod(n[:-1])])
+    return (loc * strides).sum(axis=-1)
+
+
+def cs2loc(cs, n) -> np.ndarray:
+    """Linear (0-based) -> cartesian (..., dim), dim-0 fastest. Vectorised."""
+    cs = np.asarray(cs)
+    n = np.asarray(n)
+    out = np.empty(cs.shape + (len(n),), dtype=np.int64)
+    rem = cs
+    for d in range(len(n)):
+        out[..., d] = rem % n[d]
+        rem = rem // n[d]
+    return out

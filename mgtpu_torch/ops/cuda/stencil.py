@@ -11,6 +11,10 @@ Entry points:
  * `grid_apply(coeff, offsets, x)` — `GridStencil.matvec`'s apply on grid
    fields (..., *grid) of a 1D, 2D or 3D grid, any per-axis shifts, at most
    `MAX_TAPS` taps; taps that leave the grid read zero on every axis.
+ * `cross_apply(coeff, offsets, in_grid, x)` — `CrossGridStencil.matvec`
+   (ops/cross_stencil.py): the same apply from a field x (..., *in_grid)
+   on another grid than y's (..., *out_grid), coeff (nd, *out_grid); node
+   r reads x at r + d_k, zero off in_grid.  A block of a staggered system.
  * `stencil_matvec(coeff, di, dj, x)` — the counterpart of
    ``stencil_matvec_pallas`` on the slab form G[j, i] = x[i + j NI]:
    coeff (nd, NJ, NI), x (..., NJ, NI), |dj| <= 1, any in-plane shift di;
@@ -24,8 +28,9 @@ Entry points:
    fine node only the taps of its parity class, reading xc at (f - d) / 2;
    per coarse node the taps at 2c + d of the fine field.
 
-The plain versions are `grid_stencil_matvec` (ops/grid_stencil.py), the
-slab `stencil_matvec_plain`, `dia_apply_plain` and the strided
+The plain versions are `grid_stencil_matvec` (ops/grid_stencil.py),
+`cross_stencil_matvec` (ops/cross_stencil.py), the slab
+`stencil_matvec_plain`, `dia_apply_plain` and the strided
 `stride2_prolong_plain` / `stride2_restrict_plain`: the same
 shift-multiply-accumulate with zero-filled shifts, in the kernel's tap
 order.
@@ -60,7 +65,8 @@ from . import _build
 
 __all__ = ["LAUNCHES", "PLAIN_CALLS", "MAX_TAPS", "FORMS", "StencilPlan",
            "stencil_plan", "plan_fits", "supports_stencil", "grid_apply",
-           "grid_apply_plain", "stencil_matvec", "stencil_matvec_plain",
+           "grid_apply_plain", "cross_apply", "cross_apply_plain",
+           "stencil_matvec", "stencil_matvec_plain",
            "dia_apply", "dia_apply_plain", "stride2_prolong",
            "stride2_prolong_plain", "stride2_restrict",
            "stride2_restrict_plain"]
@@ -69,7 +75,7 @@ _DTYPES = {torch.float32: 0, torch.float64: 1}
 LAUNCHES = {"float32": 0, "float64": 0}
 PLAIN_CALLS = {"float32": 0, "float64": 0}
 MAX_TAPS = 256                   # kMaxTaps of csrc/stencil.cu
-FORMS = ("apply", "restrict", "prolong")
+FORMS = ("apply", "restrict", "prolong", "cross")
 THREADS = 256                    # kThreads
 MAX_SPLIT = 16                   # kMaxSplit
 CLASSES = 8                      # kClasses: parity classes of a 3D box
@@ -127,7 +133,7 @@ def stencil_plan(box, nd: int, m: int, dtype, form: str = "apply",
                  split: int | None = None) -> StencilPlan:
     """The launch plan of kernel D for `nd` taps on an output box (Z, Y, X)
     and m right-hand sides of `dtype`, in `form` (apply, restrict,
-    prolong; a prolong's nd is its widest parity class).
+    prolong, cross; a prolong's nd is its widest parity class).
 
     Schedule: "stream" (split 1) where the grid fills the card; else
     "split", doubling the threads a node shares (up to MAX_SPLIT) while
@@ -225,8 +231,8 @@ def _taps(taps) -> np.ndarray:
 def _launch(coeff, box, taps, x, form="apply", in_box=None, in_space=None,
             ptab=None, plan=None):
     """Check the operands and launch kernel D: y on the (Z, Y, X) `box`
-    (coeff is (nd, *space)), x (..., *in_space) on `in_box` (the same as
-    y's for an apply).  `taps`: (dz, dy, dx) per tap (of an apply or a
+    (coeff is (nd, *space)), x (..., *in_space) on `in_box` (y's for an
+    apply, any for a cross apply).  `taps`: (dz, dy, dx) per tap (of an apply or a
     restrict; every offset of a prolong's transfer); `ptab`: a prolong's
     (nd, 8, 4) class table on the device.  `plan` overrides `stencil_plan`
     (it must fit).  Returns y (..., *space)."""
@@ -315,6 +321,37 @@ def grid_apply(coeff, offsets, x):
     pad = 3 - len(grid)
     taps = tuple((0,) * pad + off for off in offsets)
     return _launch(coeff, _box(grid), taps, x)
+
+
+def cross_apply_plain(coeff, offsets, in_grid, x):
+    """Counted plain cross apply: `cross_stencil_matvec` on any device."""
+    from ..cross_stencil import cross_stencil_matvec
+    _count_plain(x.dtype)
+    return cross_stencil_matvec(coeff, offsets, in_grid, x)
+
+
+def cross_apply(coeff, offsets, in_grid, x):
+    """y = A x for a cross-grid stencil: x (..., *in_grid) -> y (...,
+    *out_grid) with coeff (nd, *out_grid) and per-tap per-axis shifts
+    `offsets` (slowest axis first).  Kernel D on a CUDA tensor,
+    `cross_apply_plain` on a CPU one."""
+    if x.device.type == "cpu":
+        return cross_apply_plain(coeff, offsets, in_grid, x)
+    _device_check(x)
+    out_grid = tuple(int(v) for v in coeff.shape[1:])
+    in_grid = tuple(int(v) for v in in_grid)
+    offsets = tuple(tuple(int(d) for d in off) for off in offsets)
+    if (not supports_stencil(offsets, out_grid, x.dtype)
+            or len(in_grid) != len(out_grid)):
+        raise ValueError(f"kernel D takes 1D-3D stencils in float32/float64 "
+                         f"(got {out_grid} from {in_grid}, {x.dtype})")
+    _check_taps(len(offsets))
+    pad = 3 - len(out_grid)
+    taps = tuple((0,) * pad + off for off in offsets)
+    # a square block is a plain apply: the same instantiation and result
+    return _launch(coeff, _box(out_grid), taps, x,
+                   "apply" if in_grid == out_grid else "cross",
+                   in_box=_box(in_grid), in_space=in_grid)
 
 
 def stencil_matvec(coeff, di, dj, x):

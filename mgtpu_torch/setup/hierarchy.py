@@ -1,7 +1,7 @@
 """Multigrid configuration, geometric setup and the device hierarchy.
 
 Counterpart of mgtpu/setup/hierarchy.py on the matrix path with
-full-weighting or semicoarsening transfers:
+full-weighting, semicoarsening or face-staggered systems transfers:
 
  * `MGConfig` — immutable solver configuration (levels, cycle type
    including the K-cycle, relaxation including Jac-GMRES, per-level sweep
@@ -11,10 +11,14 @@ full-weighting or semicoarsening transfers:
    spellings accepted as aliases.
  * `mg_setup` — Galerkin hierarchy built on the host (structured
    full-weighting RAP on the stencil coefficients; under semicoarsening
-   only the strongly coupled axes coarsen).
+   only the strongly coupled axes coarsen; the staggered systems
+   transfers of Systems.jl under scipy's RAP).  `MGState.setup_times`
+   keeps the host seconds of its stages.
  * `build_device_hierarchy` — the engine choice: the structured grid
-   engine (cycle/grid_cycle.py) where the hierarchy is a grid one, else
-   the flat ELL/DIA engine (`Hierarchy`, cycle/cycle.py).  Under
+   engine (cycle/grid_cycle.py) or, for staggered systems, the systems
+   grid engine (cycle/systems_grid.py) where the hierarchy is a grid
+   one, else the flat ELL/DIA engine (`Hierarchy`, cycle/cycle.py; Vanka
+   smoothers from cycle/vanka.py).  Under
    ``engine="auto"`` a `ValueError` of the grid engine (a matrix that is
    no grid stencil, say) hands the hierarchy to the flat engine;
    ``engine="grid"`` re-raises it and ``engine="flat"`` skips the grid
@@ -39,7 +43,11 @@ from . import smoothers as sm
 from . import transfers as tr
 
 __all__ = ["MGConfig", "get_mg_param", "Level", "Hierarchy", "MGState",
-           "mg_setup", "build_device_hierarchy"]
+           "mg_setup", "build_device_hierarchy", "VANKA_TYPES"]
+
+VANKA_TYPES = ("vanka", "econ-vanka", "vanka-lex", "vanka-add",
+               "kaczmarz-vanka")
+SYSTEMS_TRANSFERS = ("systems-faces", "systems-faces-mixed")
 
 # reference relaxType spellings accepted as aliases
 _RELAX_ALIASES = {
@@ -82,6 +90,11 @@ class MGConfig:
     engine: str = "auto"             # "auto" | "grid" | "flat"
     cheby_degree: int = 3            # polynomial degree per chebyshev sweep
     cheby_frac: float = 0.25         # smoothing interval [frac*lam, lam]
+
+    @property
+    def mixed(self) -> bool:
+        """Staggered systems with a cell-centered pressure block."""
+        return self.transfer_type == "systems-faces-mixed"
 
 
 def get_mg_param(levels: int = 3, max_outer_iter: int = 20,
@@ -128,7 +141,7 @@ class Level:
     A: Any                 # ELL | DIA
     P: Any                 # ELL | None
     R: Any                 # ELL | None
-    relax: Any             # DiagRelax | ChebyshevRelax | None
+    relax: Any             # DiagRelax | ChebyshevRelax | VankaRelax | None
 
 
 @dataclass(frozen=True, eq=False)
@@ -178,6 +191,7 @@ class MGState:
     A_input: Any = None            # fine operator at its ORIGINAL precision
     time_setup: float = 0.0
     time_solve: float = 0.0
+    setup_times: dict = field(default_factory=dict)   # host s per stage
     n_iter: int = 0
     _gs_cache: dict = field(default_factory=dict, repr=False)
     _hi_op_cache: Any = field(default=None, repr=False)
@@ -208,11 +222,17 @@ def _setup_relax(A: sp.spmatrix, cfg: MGConfig, relax_param, mesh):
         return sm.chebyshev_prec(A, relax_param, dtype=cfg.dtype)
     if rt == "line-jacobi":
         return sm.line_prec(A, mesh, relax_param, dtype=cfg.dtype)
+    if rt in VANKA_TYPES:
+        return sm.setup_vanka(A, mesh, relax_param, cfg.mixed, rt,
+                              dtype=cfg.dtype)
     raise NotImplementedError(f"relax_type {rt!r} not yet ported")
 
 
 class _RelaxThunk:
-    """Deferred relaxation setup (resolved when the hierarchy is built)."""
+    """Deferred relaxation setup (resolved when the hierarchy is built).
+    The grid engines rebuild smoother state in grid form (the systems
+    engine makes its Vanka inverses itself), so the flat Vanka tables are
+    only made when the flat engine is taken."""
 
     def __init__(self, *args):
         self._args = args
@@ -241,9 +261,10 @@ def _check_ported(cfg: MGConfig) -> None:
     """Raise for configuration options this port does not have yet."""
     from ..cycle.grid_cycle import GRID_RELAX
     checks = [
-        (cfg.transfer_type in ("full-weighting", "semicoarsening"),
-         f"transfer_type {cfg.transfer_type!r}"),
-        (cfg.relax_type in GRID_RELAX, f"relax_type {cfg.relax_type!r}"),
+        (cfg.transfer_type in ("full-weighting", "semicoarsening")
+         + SYSTEMS_TRANSFERS, f"transfer_type {cfg.transfer_type!r}"),
+        (cfg.relax_type in GRID_RELAX + VANKA_TYPES,
+         f"relax_type {cfg.relax_type!r}"),
         (cfg.cycle_type in ("V", "W", "F", "K"),
          f"cycle_type {cfg.cycle_type!r}"),
         (cfg.coarse_solve in ("lu", "gmres"),
@@ -286,8 +307,12 @@ def _to_device_matrix(A: sp.spmatrix, dtype, prefer_dia: bool = True,
 
 
 def _relax_to(rs, dtype, device):
-    """A host smoother state with its diagonal as a tensor on `device`."""
+    """A host smoother state with its diagonal (or its Vanka tables) as
+    tensors on `device`."""
     from ..cycle.relax import ChebyshevRelax, DiagRelax
+    from ..cycle.vanka import VankaRelax
+    if isinstance(rs, VankaRelax):
+        return rs.to(dtype, device)
     d = torch.as_tensor(np.asarray(rs.d), device=device).to(dtype)
     if isinstance(rs, ChebyshevRelax):
         return ChebyshevRelax(d, rs.lam_max)
@@ -329,8 +354,12 @@ def build_device_hierarchy(state: MGState, relax_states: list,
         raise ValueError(f"unknown engine {cfg.engine!r}")
     if cfg.engine in ("auto", "grid"):
         from ..cycle.grid_cycle import build_grid_hierarchy
+        from ..cycle.systems_grid import build_systems_grid_hierarchy
+        build = (build_systems_grid_hierarchy
+                 if cfg.transfer_type in SYSTEMS_TRANSFERS
+                 else build_grid_hierarchy)
         try:
-            gh = build_grid_hierarchy(state, relax_states, state.device)
+            gh = build(state, relax_states, state.device)
             if verbose:
                 print("build_device_hierarchy: using the grid stencil engine")
             return gh
@@ -376,6 +405,7 @@ def mg_setup(A, mesh: RegularMesh, cfg: MGConfig, relax_param=None,
             "the re-discretization (operator constructor) path is not yet "
             "ported; pass the operator as a scipy sparse matrix")
     _check_ported(cfg)
+    systems = cfg.transfer_type in SYSTEMS_TRANSFERS
     if relax_param is None:
         relax_param = 1.0
     A = sp.csr_matrix(A)
@@ -396,10 +426,31 @@ def mg_setup(A, mesh: RegularMesh, cfg: MGConfig, relax_param=None,
             gs = gs_cache[l] = grid_stencil_from_csr(As[l], list(n + 1))
         return gs
 
+    times: dict = {}
     for l in range(cfg.levels - 1):
         t0 = time.perf_counter()
         A_l = As[l]
         sc_axes = None                   # mesh-axis coarsening flags (semi)
+        if systems:
+            P, R, nc = tr.linear_operators_systems_faces(list(n), cfg.mixed)
+            if P.shape[0] == P.shape[1]:
+                if verbose:
+                    print(f"mg_setup: stopped coarsening at level {l}")
+                levels = l + 1
+                break
+            relax_states.append(_RelaxThunk(A_l, cfg, rp_arr[l], meshes[l]))
+            Ps.append(P.tocsr())
+            Rs.append(((0.5 ** mesh.dim) * R).tocsr())
+            meshes.append(get_regular_mesh(meshes[l].domain, nc))
+            t1 = time.perf_counter()
+            times["transfers"] = times.get("transfers", 0.0) + t1 - t0
+            As.append((Rs[l] @ A_l @ Ps[l]).tocsr().astype(cfg.dtype))
+            times["rap"] = times.get("rap", 0.0) + time.perf_counter() - t1
+            if verbose:
+                print(f"mg_setup: level {l} ({int(np.prod(n))} cells) took "
+                      f"{time.perf_counter() - t0:.3f}s")
+            n = np.asarray(nc)
+            continue
         if cfg.transfer_type == "semicoarsening":
             # coarsen only the strongly coupled axes
             try:
@@ -460,7 +511,7 @@ def mg_setup(A, mesh: RegularMesh, cfg: MGConfig, relax_param=None,
     cfg = replace(cfg, levels=levels,
                   nu_pre=cfg.nu_pre[:levels], nu_post=cfg.nu_post[:levels])
     state = MGState(cfg, relax_param, As, Ps, Rs, meshes, device=dev,
-                    A_input=A_input)
+                    A_input=A_input, setup_times=times)
     state._gs_cache = {k: v for k, v in gs_cache.items()
                        if v.coeff.dtype == np.dtype(cfg.dtype)}
     state.hier = build_device_hierarchy(state, relax_states, verbose)

@@ -1,8 +1,10 @@
 """Stand-alone multigrid solves and Krylov-wrapped solves.
 
-Counterpart of mgtpu/solvers/mg_solver.py, on either engine: the solve
+Counterpart of mgtpu/solvers/mg_solver.py, on every engine: the solve
 loops keep their iterates as the engine's fields — (m, *grid) on the grid
-engine, (m, n) on the flat one (`_runtime`, mgtpu's `_cycle_runtime`).
+engine, (m, N) rows on the systems engine (its components one after the
+other in each row, systems_grid.py), (m, n) on the flat one (`_runtime`,
+mgtpu's `_cycle_runtime`).
 What mgtpu compiles runs here as recorded programs (cycle/capture.py: CUDA
 graphs on the card, the plain functions on the CPU):
 
@@ -46,6 +48,10 @@ from ..cycle.grid_cycle import (GridHierarchy, grid_cycle, grid_cycle_jit,
 from ..krylov import _loop
 from ..krylov import (bicgstab, block_bicgstab, block_fgmres, block_pcg,
                       fgmres, pcg)
+from ..cycle.systems_grid import (SystemsGridHierarchy,
+                                  block_operator_from_csr, fields_to_rows,
+                                  rows_to_fields, systems_grid_cycle,
+                                  systems_grid_cycle_jit)
 from ..ops.grid_stencil import flat_to_grid, grid_to_flat, make_grid_stencil
 from ..setup.hierarchy import MGState, _to_device_matrix
 
@@ -72,10 +78,11 @@ def _runtime(state: MGState, captured: bool = True):
 
     to_field takes flat (n, m) columns to a field, to_flat back;
     cycle(b, x, x_zero) is one cycle of the hierarchy on fields — a
-    recorded program (grid_cycle_jit / cycle_jit) unless `captured` is
-    False — and matvec the fine operator on fields.  Grid fields are
-    (m, *grid); the flat engine's are (m, n), whose transposes are the
-    (n, m) columns its cycle takes."""
+    recorded program (grid_cycle_jit / systems_grid_cycle_jit / cycle_jit)
+    unless `captured` is False — and matvec the fine operator on fields.
+    Grid fields are (m, *grid); the systems engine's are (m, N) rows, split
+    into component fields around each cycle and matvec; the flat engine's
+    are (m, n), whose transposes are the (n, m) columns its cycle takes."""
     cfg, h = state.config, state.hier
     if isinstance(h, GridHierarchy):
         grid = h.fine_grid
@@ -83,6 +90,14 @@ def _runtime(state: MGState, captured: bool = True):
         return (lambda v: flat_to_grid(v, grid), grid_to_flat,
                 lambda b, x, xz=False: cyc(cfg, h, b, x, x_zero=xz),
                 h.levels[0].A.matvec)
+    if isinstance(h, SystemsGridHierarchy):
+        grids = h.fine_grids
+        cyc = systems_grid_cycle_jit if captured else systems_grid_cycle
+        return (lambda v: v.T.contiguous(), lambda v: v.T,
+                lambda b, x, xz=False: fields_to_rows(cyc(
+                    cfg, h, rows_to_fields(b, grids),
+                    rows_to_fields(x, grids), x_zero=xz)),
+                h.levels[0].A.rows_matvec)
     cyc = cycle_jit if captured else recursive_cycle
     return (lambda v: v.T.contiguous(), lambda v: v.T,
             lambda b, x, xz=False: cyc(cfg, h, b.T, x.T, x_zero=xz).T,
@@ -157,12 +172,19 @@ def solve_mg_jit(state: MGState, b, x=None, num_cycles: int | None = None):
 def high_precision_fine_operator(state: MGState):
     """Float64 form of the ORIGINAL fine operator, cached on the state (the
     hierarchy's fine matrix was cast to the cycle dtype): a grid stencil on
-    the grid engine, DIA or ELL (`_to_device_matrix`) on the flat one.
-    On the grid engine its matvec takes fields, on the flat engine (n, m)
-    columns; `_hi_matvec` is the apply on fields for both."""
+    the grid engine, a `BlockGridOperator` of cross stencils on the systems
+    engine (kernel D in float64: mgtpu's double-single block operator
+    becomes native f64), DIA or ELL (`_to_device_matrix`) on the flat one.
+    On the grid engines its matvec takes fields (block fields on the
+    systems engine), on the flat engine (n, m) columns; `_hi_matvec` is
+    the apply on the solve loops' fields for all."""
     if state._hi_op_cache is None:
         A_host = state.A_input if state.A_input is not None else state.As[0]
-        if isinstance(state.hier, GridHierarchy):
+        if isinstance(state.hier, SystemsGridHierarchy):
+            state._hi_op_cache = block_operator_from_csr(
+                A_host, list(state.meshes[0].n), state.config.mixed,
+                dtype=np.float64, device=state.device)
+        elif isinstance(state.hier, GridHierarchy):
             grid = state.hier.fine_grid
             state._hi_op_cache = make_grid_stencil(
                 A_host, list(reversed(grid)), dtype=np.float64,
@@ -176,8 +198,11 @@ def high_precision_fine_operator(state: MGState):
 
 def _hi_matvec(state: MGState):
     """The float64 fine operator's apply on the engine's fields."""
-    mv = high_precision_fine_operator(state).matvec
-    return mv if isinstance(state.hier, GridHierarchy) else _rows(mv)
+    op = high_precision_fine_operator(state)
+    if isinstance(state.hier, SystemsGridHierarchy):
+        return op.rows_matvec
+    return op.matvec if isinstance(state.hier, GridHierarchy) \
+        else _rows(op.matvec)
 
 
 def solve_mg_refined(state: MGState, b, x=None, tol: float = 1e-8,

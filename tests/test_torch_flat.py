@@ -175,7 +175,7 @@ def test_engine_auto_falls_back_to_flat_as_reference():
 
 
 @pytest.mark.parametrize("engine", ["auto", "flat"])
-@pytest.mark.parametrize("kw", [dict(relax_type="VankaFaces"),
+@pytest.mark.parametrize("kw", [dict(relax_type="hybridKaczmarzNodal"),
                                 dict(dtype=np.complex128)])
 def test_unported_options_raise_on_every_engine(engine, kw):
     """NotImplementedError is never taken for a grid-engine ValueError."""

@@ -1189,3 +1189,133 @@ def test_masked_iterations_skip_the_host_solve(engine, monkeypatch):
             calls.append(counting.calls)
         assert int(info["iters"]) % 16 != 0
         assert calls[0] == calls[1] > 0, calls
+
+
+# ---------------------------------------------------------------------------
+# the staggered-systems engine: kernel D's cross apply and kernel E
+# ---------------------------------------------------------------------------
+
+def _elasticity_csr(dims, mixed):
+    import mgtpu_torch as mt
+    from mgtpu_torch.models.operators import (
+        linear_elasticity_operator, linear_elasticity_operator_mixed)
+    M = mt.get_regular_mesh([0.0, 1.0] * len(dims), list(dims))
+    mu = np.ones(M.num_cells)
+    A = (linear_elasticity_operator_mixed if mixed
+         else linear_elasticity_operator)(M, mu, mu)
+    A = (A + 1e-3 * abs(A).sum(0).max() * sp.identity(A.shape[0])).tocsr()
+    return M, A
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("dims", [(24, 17), (9, 12, 7)])
+def test_cross_apply_matches_plain(dims, dtype):
+    """Every block of a mixed elasticity operator (square and cross) on
+    kernel D against its plain version, m = 1, 2, 5; the square blocks
+    bitwise grid_apply."""
+    _need_card()
+    from mgtpu_torch.cycle.systems_grid import block_operator_from_csr
+    from mgtpu_torch.ops.cuda import stencil
+    tol = 2e-5 if dtype == np.float32 else 1e-12
+    key = np.dtype(dtype).name
+    _, A = _elasticity_csr(dims, True)
+    op = block_operator_from_csr(A, list(dims), True, dtype=dtype,
+                                 device="cuda")
+    assert any(s.in_grid != s.out_grid for s in op.stencils)
+    for S in op.stencils:
+        for m in (1, 2, 5):
+            x = torch.tensor(np.random.RandomState(m).rand(m, *S.in_grid),
+                             dtype=S.coeff.dtype, device="cuda")
+            n0, p0 = stencil.LAUNCHES[key], stencil.PLAIN_CALLS[key]
+            y = S.matvec(x)
+            torch.cuda.synchronize()
+            assert stencil.LAUNCHES[key] == n0 + 1
+            assert stencil.PLAIN_CALLS[key] == p0
+            ref = stencil.cross_apply_plain(S.coeff, S.offsets, S.in_grid, x)
+            assert y.shape == (m,) + S.out_grid
+            err = float((y - ref).abs().max() / ref.abs().max())
+            assert err < tol, (S.offsets, m, err)
+            if S.in_grid == S.out_grid:
+                assert torch.equal(y, stencil.grid_apply(S.coeff, S.offsets,
+                                                         x))
+    xs = tuple(torch.rand((2,) + g, dtype=op.dtype, device="cuda")
+               for g in op.grids)
+    from mgtpu_torch.cycle.systems_grid import fields_to_block
+    got = fields_to_block(op.matvec(xs)).cpu().numpy()
+    want = A @ fields_to_block(xs).cpu().numpy().astype(np.float64)
+    assert np.abs(got - want).max() / np.abs(want).max() < tol * 10
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("m", [1, 3])
+def test_lex_sweep_kernel_matches_plain(dtype, m):
+    """Kernel E (one launch, two sweeps) against its plain per-cell loop on
+    a 16^2 mixed problem's vanka-lex tables."""
+    _need_card()
+    from mgtpu_torch.ops.cuda import vanka as vk
+    from mgtpu_torch.setup.smoothers import setup_vanka
+    M, A = _elasticity_csr((16, 16), True)
+    vr = setup_vanka(A, M, 0.75, True, "vanka-lex", dtype=dtype).to(
+        torch.float64 if dtype == np.float64 else torch.float32, "cuda")
+    rng = np.random.RandomState(m)
+    x = torch.tensor(rng.rand(A.shape[0], m), dtype=vr.rows_val.dtype,
+                     device="cuda")
+    b = torch.tensor(rng.rand(A.shape[0], m), dtype=x.dtype, device="cuda")
+    args = (vr.idx[0], vr.dinv[0], vr.rows_idx[0], vr.rows_val[0], 2)
+    key = np.dtype(dtype).name
+    n0, p0 = vk.LAUNCHES[key], vk.PLAIN_CALLS[key]
+    y = vk.lex_sweep(x, b, *args)
+    torch.cuda.synchronize()
+    assert vk.LAUNCHES[key] == n0 + 1 and vk.PLAIN_CALLS[key] == p0
+    ref = vk.lex_sweep_plain(x, b, *args)
+    tol = 1e-5 if dtype == np.float32 else 1e-12
+    assert float((y - ref).abs().max() / ref.abs().max()) < tol
+    assert not torch.equal(y, x)
+    with pytest.raises(ValueError):
+        vk.lex_sweep(x, b, vr.idx[0].long(), *args[1:])
+
+
+@pytest.mark.parametrize("relax,mixed", [("vanka", True), ("spai", False),
+                                         ("vanka-lex", True),
+                                         ("vanka-add", True),
+                                         ("kaczmarz-vanka", True)])
+def test_small_systems_solves_on_the_card(relax, mixed):
+    """32^2 refined solves on the card take the CPU's count; the systems
+    engine's blocks run on kernel D in f32 and f64 (the flat engine's ELL
+    levels in plain torch, the lex smoother on kernel E), with no plain
+    call of a kernel; recorded = eager bit for bit."""
+    _need_card()
+    import mgtpu_torch as mt
+    from mgtpu_torch.ops.cuda import stencil
+    from mgtpu_torch.ops.cuda import vanka as vk
+    # cell Kaczmarz as chip_smoke.py runs it: 64^2, 4 levels, 0.9 V(2,2)
+    # (at 32^2 it does not reach 1e-8 in 60 refined iterations)
+    kacz = relax == "kaczmarz-vanka"
+    M, A = _elasticity_csr((64, 64) if kacz else (32, 32), mixed)
+    nu = 2 if kacz else 1
+    cfg, rp = mt.get_mg_param(
+        levels=4 if kacz else 3, relax_type=relax,
+        relax_param=0.9 if kacz else 0.75, nu_pre=nu, nu_post=nu,
+        transfer_type="systems-faces-mixed" if mixed else "systems-faces",
+        dtype=np.float32, max_outer_iter=60)
+    b = A @ np.random.RandomState(4).rand(A.shape[0])
+    b /= np.linalg.norm(b)
+    counts = {}
+    for dev in ("cpu", "cuda"):
+        st = mt.mg_setup(A, M, cfg, rp, device=dev)
+        before = (dict(stencil.LAUNCHES), dict(stencil.PLAIN_CALLS),
+                  dict(vk.LAUNCHES), dict(vk.PLAIN_CALLS))
+        x, info = mt.solve_mg_refined(st, b, tol=1e-8, max_iter=60)
+        counts[dev] = info["iters"]
+        xh = x.cpu().numpy()
+        assert np.linalg.norm(b - A @ xh) / np.linalg.norm(b) < 1e-8
+    assert abs(counts["cuda"] - counts["cpu"]) <= 1
+    assert stencil.PLAIN_CALLS == before[1] and vk.PLAIN_CALLS == before[3]
+    d = {k: stencil.LAUNCHES[k] - before[0][k] for k in stencil.LAUNCHES}
+    systems = relax in ("vanka", "spai", "vanka-add")   # else flat ELL
+    assert (d["float32"] > 0 and d["float64"] > 0) == systems
+    if relax == "vanka-lex":
+        assert vk.LAUNCHES["float32"] > before[2]["float32"]
+    xe, info_e = mt.solve_mg_refined(st, b, tol=1e-8, max_iter=60,
+                                     device_loop=False)
+    assert info_e["iters"] == info["iters"] and torch.equal(xe, x)

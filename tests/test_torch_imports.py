@@ -23,7 +23,9 @@ import mgtpu_torch.krylov, mgtpu_torch.parallel.stencil
 import mgtpu_torch.setup.sa_amg, mgtpu_torch.cycle.cycle
 import mgtpu_torch.cycle.coarse, mgtpu_torch.ops.ell, mgtpu_torch.ops.dia
 import mgtpu_torch.setup.classical_amg, mgtpu_torch.setup.device_agg
-import mgtpu_torch.setup.native
+import mgtpu_torch.setup.native, mgtpu_torch.cycle.systems_grid
+import mgtpu_torch.cycle.vanka, mgtpu_torch.ops.cross_stencil
+import mgtpu_torch.ops.cuda.vanka
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "mgtpu" or m.startswith("mgtpu."))

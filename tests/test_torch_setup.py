@@ -4,6 +4,7 @@ import numpy as np
 import jax  # noqa: F401  (conftest pins JAX to the CPU with x64 on)
 import pytest
 import scipy.sparse as sp
+import torch
 
 import mgtpu
 from mgtpu.models.operators import nodal_laplacian_matrix as lap_ref
@@ -108,9 +109,6 @@ def test_mg_setup_matches_reference(dims, levels, relax):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(relax_type="VankaFaces"), dict(relax_type="EconVankaFaces"),
-    dict(transfer_type="SystemsFacesLinear"),
-    dict(transfer_type="SystemsFacesMixedLinear"),
     dict(relax_type="hybridKaczmarzNodal"), dict(dtype=np.complex128),
 ])
 def test_unported_options_raise(kw):
@@ -119,6 +117,49 @@ def test_unported_options_raise(kw):
     with pytest.raises(NotImplementedError, match="not yet ported"):
         mt.mg_setup(L, mt.get_regular_mesh([0.0, 1.0] * 2, dims), cfg, rp,
                     device="cpu")
+
+
+@pytest.mark.parametrize("kw", [
+    dict(relax_type="VankaFaces", transfer_type="SystemsFacesMixedLinear"),
+    dict(relax_type="EconVankaFaces", relax_param=2.0,
+         transfer_type="SystemsFacesMixedLinear"),
+    dict(transfer_type="SystemsFacesLinear"),
+    dict(transfer_type="SystemsFacesMixedLinear", relax_type="jacobi",
+         relax_param=0.5),
+])
+def test_staggered_options_set_up_as_reference(kw):
+    """The reference spellings of the Vanka smoothers and the staggered
+    transfers set up the systems engine on an elasticity operator (16^2,
+    mixed where a pressure block is asked for), with mgtpu's hierarchy:
+    the same level operators bit for bit and one V-cycle within 1e-9."""
+    import jax.numpy as jnp
+    from mgtpu.cycle.cycle import recursive_cycle as cycle_ref
+    from mgtpu.models import operators as ops_ref
+    from mgtpu_torch.cycle.cycle import recursive_cycle as cycle_port
+    mixed = kw["transfer_type"] == "SystemsFacesMixedLinear"
+    M = mgtpu.get_regular_mesh([0.0, 1.0] * 2, [16, 16])
+    mu = np.ones(M.num_cells)
+    A = (ops_ref.linear_elasticity_operator_mixed if mixed
+         else ops_ref.linear_elasticity_operator)(M, mu, mu)
+    A = (A + 1e-3 * abs(A).sum(0).max() * sp.identity(A.shape[0])).tocsr()
+    kw = dict(dict(relax_param=0.75), **kw)
+    cfg_r, rp = mgtpu.get_mg_param(levels=3, nu_pre=1, nu_post=1, **kw)
+    cfg_p, _ = mt.get_mg_param(levels=3, nu_pre=1, nu_post=1, **kw)
+    assert (cfg_p.relax_type, cfg_p.transfer_type, cfg_p.mixed) == \
+        (cfg_r.relax_type, cfg_r.transfer_type, cfg_r.mixed)
+    st_r = mgtpu.mg_setup(A, M, cfg_r, rp)
+    st_p = mt.mg_setup(A, mt.get_regular_mesh([0.0, 1.0] * 2, [16, 16]),
+                       cfg_p, rp, device="cpu")
+    assert type(st_p.hier).__name__ == type(st_r.hier).__name__ == \
+        "SystemsGridHierarchy"
+    for a, b in zip(st_r.As, st_p.As):
+        assert (a != b).nnz == 0
+    b = np.random.RandomState(0).rand(A.shape[0], 1)
+    y_r = cycle_ref(cfg_r, st_r.hier, jnp.asarray(b),
+                    jnp.zeros_like(jnp.asarray(b)))
+    y_p = cycle_port(cfg_p, st_p.hier, torch.tensor(b),
+                     torch.zeros(b.shape, dtype=torch.float64))
+    assert _rel(y_p, y_r) < 1e-9
 
 
 def test_anisotropy_aliases_set_up():
