@@ -125,16 +125,49 @@ Phases, each of which raises on failure:
             and every level of the lex hierarchy (f32 1e-5, f64 1e-12)
             and its time on the 64^2 fine level.
 
-Every solve of phases 4, 5, 7, 8, 10, 11, 12 and 13 runs through the
+15. kernel F — the hybrid Kaczmarz sweep against its plain version
+            (mgtpu's row_step in torch) on every level of the K-mg
+            hierarchy, the K-prec level and a ragged 255^2 mesh with
+            padded domains, f32 (2e-5) and f64 (1e-12), m = 1-3, a second
+            launch bitwise the first; then its time (CUDA events) on the
+            K-mg fine level beside its byte bound, its dependency-chain
+            bound and the plain version;
+16. façade — inside one launch-counter window, each to mgtpu's count
+            +- 1 (scripts/facade_reference.py) at a true f64 relres below
+            1e-8: (W) MGSolver gmres / pcg / bicgstab on (f)'s 1024^2
+            operator, SPAI V(2,2), 4 columns (4 / 15 / 10 a column; the
+            second call reuses the setup), (W-3d) MGSolver pcg on 128^3
+            (7; kernels A and B), (W-amg) SAAMGSolver / ClassicalAMGSolver
+            at 512^2 (15 / 9), (W-adj) MGSolver(sym=0) gmres on the
+            nonsymmetric 1024^2 operator: solve, adjoint, solve (1 / 1 / 1
+            restarts below 1e-6; the third x bitwise the first), (R) four
+            replace_matrix_in_hierarchy calls on the 2D state (min
+            seconds, CUDA memory within 5 %) and refined Jacobi (16),
+            (R-sigma) (f)'s state replaced by sigma' under CG (20, a fresh
+            setup's count), (D) DirectSolver dense on the card and host in
+            four value types (test_solvers.py's tolerances), (D-coarse)
+            and (DD-coarse) the 2D operator with a DirectSolver / DDSolver
+            coarsest on the flat engine (16 / 16), (S) the Schur solver on
+            64^2 mixed elasticity (dense below 1e-10; the Kaczmarz inner
+            below 0.5 on kernel F), (DD-256) DDSolver [8, 8] overlap 2
+            under FGMRES(5) (6 restarts), (K-mg) solve_mg with hybrid
+            Kaczmarz on kernel F (17), (K-prec) Kaczmarz-preconditioned
+            FGMRES (3 restarts, capped by max_iter; below 1e-10), (bf16) 3D Jacobi refined with bfloat16 cycles (22;
+            their plain calls counted and printed), (RD) 512^2 mixed
+            elasticity re-discretized, Vanka (11); counters prove kernels
+            A, B, D and F ran and no plain version did (but bf16's).
+
+Every solve of phases 4, 5, 7, 8, 10, 11, 12, 13 and 16 runs through the
 recorded programs (mgtpu_torch/cycle/capture.py: CUDA graphs), the entry
 points' default, and is then held against its eager run (the captured
 phase, 14):
 
-14. captured — for each of the 32 paths (3D Jacobi, Chebyshev and SPAI
+14. captured — for each of the 41 paths (3D Jacobi, Chebyshev and SPAI
             refined; 2D Jacobi; the FMG start; (a)-(e) and (b6); (f),
             f-bicg, f-block, (g), (h); SA-s, SA-K, SA-f; C-cc, C-pmis,
             SA-dev, C-cg; V-2d, E-2d, V-3d, E-cg and the five Vanka
-            variants): the recorded solve takes the eager loop's
+            variants; W (pcg), W-3d, R, D-coarse, DD-coarse, DD-256, K-mg,
+            bf16, RD): the recorded solve takes the eager loop's
             iteration count (device_loop=False) and returns its x bit for
             bit (or within a stated 1e-12 relative); one recorded
             correction cycle (grid_cycle_jit / cycle_jit) launches what the
@@ -428,10 +461,15 @@ KERNELS = {
     "vanka_lex": (
         "mgtpu/cycle/vanka.py:97 _lex_sweep (lax.fori_loop, no "
         "pallas_call)", "mgtpu_torch/csrc/vanka.cu", 2),
+    # kernel F: no Pallas kernel; mgtpu's lax.fori_loop over the rows
+    "kaczmarz": (
+        "mgtpu/cycle/kaczmarz.py:70 kaczmarz_sweep (row_step :78-91, "
+        "lax.fori_loop, no pallas_call)", "mgtpu_torch/csrc/kaczmarz.cu", 2),
 }
 STENCIL_KERNELS = [k for k in KERNELS       # kernels A and B
                    if not k.startswith(("tridiag", "stencil.",
-                                        "stencil_cross.", "vanka"))]
+                                        "stencil_cross.", "vanka",
+                                        "kaczmarz"))]
 
 
 def run_kernel(name, A, x, b, d, p, plain: bool):
@@ -600,12 +638,14 @@ def phase_timing(timed_levels, rows):
 
 
 def reset_counters():
-    from mgtpu_torch.ops.cuda import const3d, fused3d, stencil, tridiag, vanka
+    from mgtpu_torch.ops.cuda import (const3d, fused3d, kaczmarz, stencil,
+                                      tridiag, vanka)
     from mgtpu_torch.setup import native
     for dct in (const3d.LAUNCHES, const3d.PLAIN_CALLS, fused3d.LAUNCHES,
                 fused3d.PLAIN_CALLS, tridiag.LAUNCHES, tridiag.PLAIN_CALLS,
                 stencil.LAUNCHES, stencil.PLAIN_CALLS, vanka.LAUNCHES,
-                vanka.PLAIN_CALLS, native.CALLS, native.PLAIN_CALLS):
+                vanka.PLAIN_CALLS, kaczmarz.LAUNCHES, kaczmarz.PLAIN_CALLS,
+                native.CALLS, native.PLAIN_CALLS):
         for k in dct:
             dct[k] = 0
     fused3d.GRID_LAUNCHES.clear()
@@ -638,6 +678,13 @@ def vanka_counters():
     from mgtpu_torch.ops.cuda import vanka
     return ({f"vanka.{k}": v for k, v in vanka.LAUNCHES.items()},
             {f"vanka.{k}": v for k, v in vanka.PLAIN_CALLS.items()})
+
+
+def kaczmarz_counters():
+    """Launches and plain calls of kernel F, per float type."""
+    from mgtpu_torch.ops.cuda import kaczmarz
+    return ({f"kaczmarz.{k}": v for k, v in kaczmarz.LAUNCHES.items()},
+            {f"kaczmarz.{k}": v for k, v in kaczmarz.PLAIN_CALLS.items()})
 
 
 def true_relres(L, b, x) -> float:
@@ -687,15 +734,18 @@ def compare_krylov(st, A, rh, label, solve, kw, x, info, first_ms, card):
 
 
 def refined(st, L, b, want, label, card, max_iter=40, fmg=False,
-            compare=True):
+            compare=True, kw=None, pair=True):
     """Certified refined solve through the recorded device loop (the
     default): iteration count and host f64 residual; with `compare`, held
-    against the eager loop (compare_refined).  `want` None: no contract
-    count, the eager run's count alone."""
+    against the eager loop (compare_refined; `pair`: with the cycle pair).
+    `want` None: no contract count, the eager run's count alone.  `kw`:
+    more keywords of solve_mg_refined (cycle_dtype)."""
     from mgtpu_torch import solve_mg_refined
+    kw = kw or {}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    x, info = solve_mg_refined(st, b, tol=1e-8, max_iter=max_iter, fmg=fmg)
+    x, info = solve_mg_refined(st, b, tol=1e-8, max_iter=max_iter, fmg=fmg,
+                               **kw)
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3
     rr = true_relres(L, b, x)
@@ -706,7 +756,8 @@ def refined(st, L, b, want, label, card, max_iter=40, fmg=False,
             f"{label}: {info['iters']} refined iterations, want {want} +- 1")
     require(rr < 1e-8, f"{label}: true relres {rr:.3e} >= 1e-8")
     if compare:
-        compare_refined(st, L, b, label, info, x, wall, card, max_iter, fmg)
+        compare_refined(st, L, b, label, info, x, wall, card, max_iter, fmg,
+                        kw, pair)
     return info["iters"], rr, wall
 
 
@@ -789,11 +840,16 @@ def vcycle_profile(st, b, cycle_ms, card, label="129^3", captured=True):
 # ---------------------------------------------------------------------------
 
 CAPTURED = []           # one row per path: printed as JSON at the end
-CAPTURED_PATHS = 32     # 3D Jacobi, Chebyshev, SPAI; 2D Jacobi; FMG;
+NO_PAIR = dict(cycle_launches=None, graphs=None, record_ms=None,
+               cycle_ev_ms=None, cycle_host_ms=None, cycle_dev_ms=None,
+               eager_cycle_ev_ms=None, eager_cycle_host_ms=None,
+               eager_cycle_dev_ms=None, busy=None, eager_busy=None)
+CAPTURED_PATHS = 41     # 3D Jacobi, Chebyshev, SPAI; 2D Jacobi; FMG;
                         # (a)-(e), (b6); (f), f-bicg, f-block, (g), (h);
                         # SA-s, SA-K, SA-f; C-cc, C-pmis, SA-dev, C-cg;
                         # V-2d, E-2d, V-3d, E-cg and the five Vanka
-                        # variants
+                        # variants; W (pcg), W-3d, R, D-coarse, DD-coarse,
+                        # DD-256, K-mg, bf16, RD
 
 
 @contextlib.contextmanager
@@ -814,13 +870,14 @@ def uncounted():
 def launches_of(run):
     """Kernel launches and plain calls of one call of `run` (a dict by
     counter), outside any window."""
-    from mgtpu_torch.ops.cuda import const3d, fused3d, stencil, tridiag, vanka
+    from mgtpu_torch.ops.cuda import (const3d, fused3d, kaczmarz, stencil,
+                                      tridiag, vanka)
     named = {"const3d": const3d.LAUNCHES, "fused3d": fused3d.LAUNCHES,
              "tridiag": tridiag.LAUNCHES, "stencil": stencil.LAUNCHES,
-             "vanka": vanka.LAUNCHES}
+             "vanka": vanka.LAUNCHES, "kaczmarz": kaczmarz.LAUNCHES}
     plain = {"const3d": const3d.PLAIN_CALLS, "fused3d": fused3d.PLAIN_CALLS,
              "tridiag": tridiag.PLAIN_CALLS, "stencil": stencil.PLAIN_CALLS,
-             "vanka": vanka.PLAIN_CALLS}
+             "vanka": vanka.PLAIN_CALLS, "kaczmarz": kaczmarz.PLAIN_CALLS}
     with uncounted():
         b_l = {k: dict(d) for k, d in named.items()}
         b_p = {k: dict(d) for k, d in plain.items()}
@@ -921,19 +978,20 @@ def log_captured(row, card):
 
 
 def compare_refined(st, L, b, label, info, x, first_ms, card, max_iter,
-                    fmg=False):
+                    fmg=False, kw=None, pair=True):
     """The recorded refined solve just run (x, info, its first call's
     time) against the eager loop: the same count, x bitwise, a true f64
-    relres below 1e-8; then the warm recorded and the eager times and the
-    cycle pair.  Adds a row to CAPTURED."""
+    relres below 1e-8; then the warm recorded and the eager times and (with
+    `pair`) the cycle pair.  Adds a row to CAPTURED."""
     from mgtpu_torch import solve_mg_refined
+    kw = kw or {}
     with uncounted():
         times = {}
         for mode in (True, False):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             xm, im = solve_mg_refined(st, b, tol=1e-8, max_iter=max_iter,
-                                      fmg=fmg, device_loop=mode)
+                                      fmg=fmg, device_loop=mode, **kw)
             torch.cuda.synchronize()
             times[mode] = (time.perf_counter() - t0) * 1e3
             require(im["iters"] == info["iters"], f"{label}: "
@@ -948,9 +1006,9 @@ def compare_refined(st, L, b, label, info, x, first_ms, card, max_iter,
                relres=true_relres(L, b, x), first_ms=first_ms,
                solve_ms=times[True], eager_ms=times[False],
                **solve_profile(lambda: solve_mg_refined(
-                   st, b, tol=1e-8, max_iter=max_iter, fmg=fmg), label,
-                   card),
-               **cycle_pair(st, b, card))
+                   st, b, tol=1e-8, max_iter=max_iter, fmg=fmg, **kw),
+                   label, card),
+               **(cycle_pair(st, b, card) if pair else NO_PAIR))
     CAPTURED.append(row)
     log_captured(row, card)
     return row
@@ -1033,6 +1091,7 @@ def phase_path2d(card):
     before = counters()
     refined(st, L, b, 16, "2D 1024^2 Jacobi 0.8 V(1,1)", card)
     require(counters() == before, "2D levels launched a 3D kernel")
+    return M, L, b, st
 
 
 # ---------------------------------------------------------------------------
@@ -2583,10 +2642,648 @@ def coarsest_ms(st, cycle_ms, card, label):
         f"cycle's {cycle_ms:.3f} ms ({card})")
 
 
+# ---------------------------------------------------------------------------
+# the façade, the direct tier, DD and hybrid Kaczmarz (kernel F)
+# ---------------------------------------------------------------------------
+
+# mgtpu's counts on the CPU (scripts/facade_reference.py; ROADMAP North star)
+FACADE = {"W": {"gmres": 4, "pcg": 15, "bicgstab": 10}, "W-3d": 7,
+          "W-amg": {"SAAMGSolver": 15, "ClassicalAMGSolver": 9},
+          "W-adj": (1, 1, 1), "R": 16, "R-sigma": 20, "D-coarse": 16,
+          "DD-256": 6, "DD-coarse": 16, "K-mg": 17, "K-prec": 3, "bf16": 22,
+          "RD": 11}
+F_TOLS = {torch.float32: 2e-5, torch.float64: 1e-12}
+# an assumed shared-memory round trip (~30 cycles at the H100 SXM's
+# 1.98 GHz): the log's dependency-chain bound, not measured here, so it
+# stays out of the kernels line
+SMEM_ROUND_TRIP_NS = 30 / 1.98
+DTYPES_TOL = [(np.float64, 1e-8), (np.float32, 1e-4),
+              (np.complex128, 1e-8), (np.complex64, 1e-4)]
+
+
+def rhs_of(A, m=None, seed=4):
+    """b = A RandomState(seed).rand(n) normalised (m columns: each column
+    normalised)."""
+    rng = np.random.RandomState(seed)
+    if m is None:
+        b = A @ rng.rand(A.shape[0])
+        return b / np.linalg.norm(b)
+    B = A @ rng.rand(A.shape[0], m)
+    return B / np.linalg.norm(B, axis=0)
+
+
+def col_relres(A, B, X) -> float:
+    """The largest true f64 relres over the columns of X."""
+    xh = X.detach().cpu().numpy().astype(np.float64)
+    require(xh.shape == B.shape and np.isfinite(xh).all(),
+            "solution has the wrong shape or non-finite values")
+    return float(np.max(np.linalg.norm(B - A @ xh, axis=0)
+                        / np.linalg.norm(B, axis=0)))
+
+
+def kmg_state(card):
+    """K-mg: 256^2, sigma = exp(0.3 RandomState(3).randn) + 1e-4 shift, 4
+    levels, float64, hybrid Kaczmarz [4, 4] omega 0.8 num_it 2, V(1,1)."""
+    from mgtpu_torch import get_mg_param, mg_setup
+    from mgtpu_torch.dd.indices import nodal_indices_of_box
+    from mgtpu_torch.models.operators import nodal_div_sig_grad_matrix
+    from mgtpu_torch import get_regular_mesh
+    M = get_regular_mesh([0.0, 1.0, 0.0, 1.0], [256, 256])
+    sig = np.exp(0.3 * np.random.RandomState(3).randn(M.num_cells))
+    A = nodal_div_sig_grad_matrix(M, sig)
+    A = (A + 1e-4 * abs(A).sum(axis=0).max() * sp.identity(A.shape[0])
+         ).tocsr()
+    cfg, _ = get_mg_param(levels=4, relax_type="hybridKaczmarzNodal",
+                          nu_pre=1, nu_post=1, relative_tol=1e-8,
+                          max_outer_iter=60)
+    rp = {"num_domains": [4, 4], "omega": 0.8, "num_it": 2,
+          "index_fn": nodal_indices_of_box}
+    t0 = time.perf_counter()
+    st = mg_setup(A, M, cfg, rp)
+    log(f"[facade] (K-mg) setup {time.perf_counter() - t0:.2f} s (host "
+        f"clock), {type(st.hier).__name__}, levels "
+        f"{[a.shape[0] for a in st.As]}, Kaczmarz steps a sweep "
+        f"{[lv.relax.arr.shape[0] for lv in st.hier.levels[:-1]]} over "
+        f"{st.hier.levels[0].relax.arr.shape[1]} domains ({card})")
+    require(type(st.hier).__name__ == "Hierarchy", "K-mg: want the flat "
+            "engine")
+    return st, A, rhs_of(A)
+
+
+def kprec_state():
+    """K-prec: test_dd.py:115 at 256^2 (sigma = exp(RandomState(3).randn),
+    + 0.2 shift), [4, 4] domains, omega 0.8, num_it 5."""
+    from mgtpu_torch.cycle.kaczmarz import setup_hybrid_kaczmarz
+    from mgtpu_torch.dd.indices import nodal_indices_of_box
+    M, A = divsig((256, 256), shift=2e-1)
+    kz = setup_hybrid_kaczmarz(A, M, [4, 4], nodal_indices_of_box, 0.8, 5)
+    return A, kz.to(torch.float64, "cuda")
+
+
+def f_tables(kz, dtype):
+    """A Kaczmarz state's tables as kernel F takes them, in `dtype`."""
+    return (kz.arr, kz.mask.to(dtype), kz.invd.to(dtype), kz.ell_idx,
+            kz.ell_val.to(dtype), kz.link)
+
+
+def phase_kaczmarz_kernel(kmg, kprec, rows, card):
+    """Kernel F against its plain version (mgtpu's row_step in torch) on
+    every level of the K-mg hierarchy, the K-prec level and a ragged 255^2
+    mesh (padded domains, unequal max_len), f32 (2e-5) and f64 (1e-12),
+    m = 1-3; a second launch bitwise the first; then its device time on
+    the K-mg fine level (one main-path launch: two sweeps, f64, m = 1)
+    beside its byte bound, its dependency-chain bound and the plain
+    version."""
+    from mgtpu_torch.cycle.kaczmarz import setup_hybrid_kaczmarz
+    from mgtpu_torch.dd.indices import nodal_indices_of_box
+    from mgtpu_torch.ops.cuda import kaczmarz as kf
+    st = kmg[0]
+    M_r, A_r = divsig((255, 255), shift=1e-4)
+    ragged = setup_hybrid_kaczmarz(A_r, M_r, [4, 4], nodal_indices_of_box,
+                                   0.8, 2).to(torch.float64, "cuda")
+    require(bool((ragged.mask == 0).any()), "the 255^2 case has no padding")
+    cases = []
+    for l, lv in enumerate(st.hier.levels[:-1]):
+        cases.append((f"K-mg level {l}", lv.relax, torch.float64, 1 + l % 3,
+                      1 if l == 0 else 2))
+        cases.append((f"K-mg level {l}", lv.relax, torch.float32,
+                      3 - l % 3, 1 if l == 0 else 2))
+    cases += [("K-prec 257^2", kprec[1], torch.float64, 2, 1),
+              ("ragged 255^2", ragged, torch.float32, 1, 1),
+              ("ragged 255^2", ragged, torch.float64, 3, 1)]
+    row = rows["kaczmarz"]
+    for label, kz, dt, m, it in cases:
+        tabs = f_tables(kz, dt)
+        n = kz.ell_idx.shape[0]
+        rng = np.random.RandomState(SEED + n + m)
+        x = torch.tensor(rng.rand(n, m), dtype=dt, device="cuda")
+        b = torch.tensor(rng.rand(n, m), dtype=dt, device="cuda")
+        out = kf.kaczmarz_sweep_kernel(x, b, *tabs, it)
+        out2 = kf.kaczmarz_sweep_kernel(x, b, *tabs, it)
+        ref = kf.kaczmarz_sweep_plain(x, b, *tabs[:-1], it)
+        torch.cuda.synchronize()
+        require(bool(torch.isfinite(out).all()), f"kernel F {label}: "
+                "non-finite output")
+        require(torch.equal(out, out2), f"kernel F {label}: two launches "
+                "differ")
+        ae = float((out - ref).abs().max())
+        re = ae / float(ref.abs().max())
+        row["max_abs_err"] = max(row["max_abs_err"], ae)
+        row["max_rel_err"] = max(row["max_rel_err"], re)
+        require(re < F_TOLS[dt], f"kernel F {label} {dt} m={m}: relative "
+                f"error {re:.3e} >= {F_TOLS[dt]}")
+    log(f"[kernel] F (hybrid Kaczmarz): {len(cases)} cases (every K-mg "
+        f"level, K-prec, a ragged 255^2 mesh; f32 and f64, m = 1-3) match "
+        f"the plain version (max rel {row['max_rel_err']:.2e}); a second "
+        f"launch is bitwise the first")
+    kz = st.hier.levels[0].relax
+    tabs = f_tables(kz, torch.float64)
+    max_len, nd = kz.arr.shape
+    n, K = kz.ell_idx.shape
+    it = st.config.nu_pre[0] * kz.num_it
+    sets = [(torch.tensor(np.random.RandomState(SEED + j).rand(n, 1),
+                          device="cuda"),
+             torch.tensor(np.random.RandomState(SEED + 9 + j).rand(n, 1),
+                          device="cuda")) for j in range(2)]
+    ms, host_ms = Timer(reps=10)([lambda s=s: kf.kaczmarz_sweep_kernel(
+        s[0], s[1], *tabs, it) for s in sets])
+    plain_ms = Timer(reps=2)([lambda s=s: kf.kaczmarz_sweep_plain(
+        s[0], s[1], *tabs[:-1], it) for s in sets])[0]
+    # what row_step reads and writes: arr, mask, invd, the ELL rows, b,
+    # and x read and written (kernel F's own link table is left out)
+    fbytes = (max_len * nd * (4 + 8) + n * 8 + n * K * (4 + 8) + 3 * n * 8)
+    flops = it * max_len * nd * (4 * K + 3)
+    bound = max(fbytes / HBM_BYTES_PER_S, flops / FP64_FLOPS) * 1e3
+    chain = it * max_len * SMEM_ROUND_TRIP_NS * 1e-6
+    log(f"[time] F Kaczmarz launch, K-mg fine level ({n} rows, "
+        f"{max_len} steps x {nd} domains, K {K}, {it} sweeps, f64, m=1): "
+        f"kernel {ms:.4f} ms ({ms * 1e3 / (it * max_len):.3f} us a step), "
+        f"plain {plain_ms:.1f} ms, byte bound {bound:.4f} ms "
+        f"({fbytes / 1e6:.2f} MB), dependency-chain bound {chain:.4f} ms "
+        f"({it * max_len} steps x an assumed {SMEM_ROUND_TRIP_NS:.1f} ns), "
+        f"host per call {host_ms:.3f} ms ({card})")
+    row.update(ms=ms, plain_ms=plain_ms, bound_ms=bound, library_ms=None,
+               host_ms=host_ms,
+               us_per_step=ms * 1e3 / (it * max_len),
+               bound_by="bytes" if fbytes / HBM_BYTES_PER_S
+               >= flops / FP64_FLOPS else "operations",
+               timed_shape=f"K-mg fine level: {n} rows, {max_len} steps x "
+               f"{nd} domains, K {K}, {it} sweeps, f64, m=1")
+
+
+def captured_row(label, iters, x_rel, relres, first_ms, solve_ms, eager_ms,
+                 pair=None):
+    """A CAPTURED row for a path held against its eager run by its own
+    loop; `pair` the cycle pair's fields, or none."""
+    row = dict(label=label, iters=iters, x_rel=x_rel, relres=relres,
+               first_ms=first_ms, solve_ms=solve_ms, eager_ms=eager_ms,
+               solve_dev_ms=None, solve_busy=None, **(pair or NO_PAIR))
+    CAPTURED.append(row)
+    log_captured(row, card_name())
+    return row
+
+
+_CARD = []
+
+
+def card_name():
+    return _CARD[0] if _CARD else "?"
+
+
+def timed(fn):
+    """fn() and its host-clock ms (synchronised)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def facade_wrappers(M3, L3, card):
+    """W (MGSolver gmres / pcg / bicgstab on (f)'s operator, 4 columns;
+    the second pcg call reuses the setup), W-3d (MGSolver pcg on 128^3,
+    kernels A and B), W-amg (SAAMGSolver, ClassicalAMGSolver)."""
+    import mgtpu_torch as mt
+    from mgtpu_torch.ops.cuda import const3d, fused3d
+    M, A = divsig((1024, 1024))
+    B = rhs_of(A, 4)
+    cfg, rp = mt.get_mg_param(levels=6, dtype=np.float32, relative_tol=1e-8,
+                              max_outer_iter=100)
+    for k, want in FACADE["W"].items():
+        s = mt.MGSolver(cfg, rp, mesh=M, krylov=k)
+        before = stencil_counters()[0]
+        X, ms = timed(lambda: s.solve_linear_system(A, B))
+        per_col, rr = s.n_iter // 4, col_relres(A, B, X)
+        d_l = {key: v - before[key] for key, v in stencil_counters()[0].items()}
+        log(f"[facade] (W) MGSolver({k}) 1024^2 SPAI V(2,2), 4 columns: "
+            f"{per_col} iterations a column (want {want} +- 1), true f64 "
+            f"relres <= {rr:.3e}, setup {s.time_setup:.2f} s, solve "
+            f"{ms:.1f} ms incl. setup and recording (host clock; {card}); "
+            f"kernel D {d_l}")
+        require(abs(per_col - want) <= 1, f"W {k}: {per_col} iterations")
+        require(rr < 1e-8, f"W {k}: relres {rr:.3e}")
+        require(all(v > 0 for v in d_l.values()), f"W {k}: kernel D idle")
+        if k == "pcg":
+            ts, hier = s.time_setup, s.state.hier
+            X2, ms2 = timed(lambda: s.solve_linear_system(A, B))
+            require(s.time_setup == ts and s.state.hier is hier,
+                    "W: the second call set up anew")
+            require(s.n_iter == 2 * per_col * 4, "W: second call's count")
+            log(f"[facade] (W) second pcg call: the setup reused, "
+                f"{ms2:.1f} ms (host clock; {card})")
+            x, info = mt.solve_cg_mg(s.state, B)
+            compare_krylov(s.state, A, B, "(W) MGSolver(pcg) 1024^2 SPAI "
+                           "V(2,2), 4 columns", mt.solve_cg_mg, {}, x, info,
+                           ms2, card)
+        s.clear()
+    del A, B
+    cfg, rp = mt.get_mg_param(levels=5, dtype=np.float32, relative_tol=1e-8,
+                              max_outer_iter=100)
+    b3 = rhs_of(L3)
+    s = mt.MGSolver(cfg, rp, mesh=M3, krylov="pcg")
+    b_l = dict(const3d.LAUNCHES, **fused3d.LAUNCHES)
+    x, ms = timed(lambda: s.solve_linear_system(L3, b3))
+    rr = true_relres(L3, b3, x)
+    ab = {k: v - b_l[k] for k, v in dict(const3d.LAUNCHES,
+                                          **fused3d.LAUNCHES).items()}
+    log(f"[facade] (W-3d) MGSolver(pcg) 128^3 SPAI V(2,2): {s.n_iter} "
+        f"iterations (want {FACADE['W-3d']} +- 1), true f64 relres "
+        f"{rr:.3e}, {ms:.1f} ms incl. setup (host clock; {card}); kernels "
+        f"A and B {ab}")
+    require(abs(s.n_iter - FACADE["W-3d"]) <= 1, f"W-3d: {s.n_iter}")
+    require(rr < 1e-8, f"W-3d: relres {rr:.3e}")
+    require(ab["jacobi_residual3d"] > 0 and sum(ab.values()) > ab[
+        "jacobi_residual3d"], f"W-3d: kernels A and B not both launched")
+    x, info = mt.solve_cg_mg(s.state, b3)
+    compare_krylov(s.state, L3, b3, "(W-3d) MGSolver(pcg) 128^3 SPAI V(2,2)",
+                   mt.solve_cg_mg, {}, x, info, ms, card)
+    s.clear()
+    M, A = divsig((512, 512), seed=5)
+    B = rhs_of(A, 4, seed=6)
+    cfg, rp = mt.get_mg_param(levels=4, dtype=np.float32, relative_tol=1e-8,
+                              max_outer_iter=100)
+    for cls in (mt.SAAMGSolver, mt.ClassicalAMGSolver):
+        want = FACADE["W-amg"][cls.__name__]
+        s = cls(cfg, rp, krylov="pcg")
+        X, ms = timed(lambda: s.solve_linear_system(A, B))
+        per_col, rr = s.n_iter // 4, col_relres(A, B, X)
+        log(f"[facade] (W-amg) {cls.__name__}(pcg) 512^2, 4 columns: "
+            f"{per_col} iterations a column (want {want} +- 1), true f64 "
+            f"relres <= {rr:.3e}, setup {s.time_setup:.2f} s, "
+            f"{ms:.1f} ms incl. setup (host clock; {card})")
+        require(abs(per_col - want) <= 1, f"W-amg {cls.__name__}: "
+                f"{per_col}")
+        require(rr < 1e-8, f"W-amg {cls.__name__}: relres {rr:.3e}")
+        s.clear()
+
+
+def facade_adjoint(card):
+    """W-adj: MGSolver(sym=0) on the nonsymmetric 1024^2 operator: solve,
+    adjoint solve (the hierarchy transposed), solve; the third x bitwise
+    the first."""
+    import mgtpu_torch as mt
+    M = mt.get_regular_mesh([0.0, 1.0, 0.0, 1.0], [1024, 1024])
+    L = nodal_laplacian(M)
+    n = L.shape[0]
+    opn1 = abs(L).sum(axis=0).max()
+    C = sp.diags([np.ones(n - 1)], [1], shape=(n, n)) * (0.05 * opn1 / 8)
+    A = (L + 1e-3 * opn1 * sp.identity(n) + C).tocsr()
+    b = rhs_of(A)
+    cfg, rp = mt.get_mg_param(levels=6, max_outer_iter=20, relative_tol=1e-8,
+                              relax_type="jacobi", relax_param=0.7,
+                              nu_pre=1, nu_post=1, dtype=np.float32)
+    s = mt.MGSolver(cfg, rp, mesh=M, sym=0, krylov="gmres", gmres_inner=10)
+    xs = []
+    for i, (tr, want) in enumerate(zip((False, True, False),
+                                       FACADE["W-adj"])):
+        before = s.n_iter
+        x, ms = timed(lambda: s.solve_linear_system(A, b, transpose=tr))
+        got = s.n_iter - before
+        rr = true_relres(A.conj().T.tocsr() if tr else A, b, x)
+        log(f"[facade] (W-adj) solve {i + 1} (transpose={tr}): {got} "
+            f"restarts (want {want} +- 1), true f64 relres {rr:.3e}, "
+            f"{ms:.1f} ms incl. setup or transposition (host clock; "
+            f"{card}), {type(s.state.hier).__name__}")
+        require(abs(got - want) <= 1, f"W-adj {i + 1}: {got} restarts")
+        require(rr < 1e-6, f"W-adj {i + 1}: relres {rr:.3e}")
+        xs.append(x)
+    require(torch.equal(xs[0], xs[2]), "W-adj: the third solve is not "
+            "bitwise the first (a stale recorded program?)")
+    log("[facade] (W-adj) the third x is bitwise the first")
+    s.clear()
+
+
+def nodal_laplacian(M):
+    from mgtpu_torch.models.operators import nodal_laplacian_matrix
+    return nodal_laplacian_matrix(M)
+
+
+def facade_replace(st2d, card):
+    """R: bench.py:269-280 on the 2D path's state (1.7 L, L, 1.7 L, L),
+    min seconds, CUDA memory after the fourth replace within 5 % of after
+    the first, then refined Jacobi 16 +- 1; R-sigma: (f)'s Jacobi state
+    replaced by sigma', solve_cg_mg, against a fresh setup."""
+    import gc
+    import mgtpu_torch as mt
+    M, L, b, st = st2d
+    L_alt = (1.7 * L).tocsr()
+    secs, mem = [], []
+    for A_new in (L_alt, L, L_alt, L):
+        _, ms = timed(lambda: mt.replace_matrix_in_hierarchy(st, A_new))
+        secs.append(ms / 1e3)
+        gc.collect()
+        torch.cuda.synchronize()
+        mem.append(torch.cuda.memory_allocated())
+    log(f"[facade] (R) replace_matrix_in_hierarchy 1024^2, 6 levels: "
+        f"min {min(secs):.3f} s of {[round(v, 3) for v in secs]} (host "
+        f"clock, synchronised; {card}); CUDA memory after each "
+        f"{[round(v / 2**20, 1) for v in mem]} MiB")
+    require(mem[3] <= 1.05 * mem[0], f"R: memory grew {mem[0]} -> {mem[3]}")
+    refined(st, L, b, FACADE["R"], "(R) 2D 1024^2 after four replaces, "
+            "Jacobi 0.8 V(1,1)", card)
+    M, A = divsig((1024, 1024))
+    _, A2 = divsig((1024, 1024), seed=7)
+    b2 = rhs_of(A2)
+    cfg, rp = mt.get_mg_param(levels=6, relax_type="jacobi", relax_param=0.8,
+                              nu_pre=1, nu_post=1, dtype=np.float32,
+                              relative_tol=1e-8, max_outer_iter=100)
+    st = mt.mg_setup(A, M, cfg, rp)
+    _, ms = timed(lambda: mt.replace_matrix_in_hierarchy(st, A2))
+    (x, info), ms_s = timed(lambda: mt.solve_cg_mg(st, b2))
+    fresh = mt.mg_setup(A2, M, cfg, rp)
+    (xf, info_f), _ = timed(lambda: mt.solve_cg_mg(fresh, b2))
+    rr = true_relres(A2, b2, x)
+    log(f"[facade] (R-sigma) (f)'s state replaced by sigma' in "
+        f"{ms / 1e3:.2f} s: solve_cg_mg {int(info['iters'])} iterations "
+        f"(a fresh setup {int(info_f['iters'])}, want {FACADE['R-sigma']} "
+        f"+- 1), true f64 relres {rr:.3e}, {ms_s:.1f} ms (host clock; "
+        f"{card})")
+    require(int(info["iters"]) == int(info_f["iters"]), "R-sigma: the "
+            "replaced and the fresh hierarchy differ")
+    require(abs(int(info["iters"]) - FACADE["R-sigma"]) <= 1,
+            f"R-sigma: {info['iters']}")
+    require(rr < 1e-8, f"R-sigma: relres {rr:.3e}")
+
+
+def facade_direct(st2d, card):
+    """D: DirectSolver dense (on the card) and host on the 65^2 Laplacian
+    + 1e-1 shift, all four value types, 1 and 5 right-hand sides, A and
+    A^H; D-coarse and DD-coarse: the 2D operator with a DirectSolver and
+    a DDSolver coarsest (the flat engine), refined."""
+    import mgtpu_torch as mt
+    from mgtpu_torch.cycle.coarse import DenseLU
+    from mgtpu_torch.dd.schwarz import DDSolver
+    Ls = nodal_laplacian(mt.get_regular_mesh([0.0, 1.0, 0.0, 1.0],
+                                             [64, 64]))
+    A0 = (Ls + 1e-1 * abs(Ls).sum(axis=0).max() * sp.identity(Ls.shape[0])
+          ).tocsr()
+    for backend in ("dense", "host"):
+        worst = 0.0
+        for dtype, tol in DTYPES_TOL:
+            A = A0.astype(dtype)
+            if np.issubdtype(dtype, np.complexfloating):
+                P = sp.random(*A.shape, density=0.001, random_state=2)
+                A = (A + 1j * 0.1 * abs(A).sum() / A.nnz * (P - P.T)
+                     ).tocsr().astype(dtype)
+            ds = mt.DirectSolver(backend, dtype=dtype)
+            for nrhs in (1, 5):
+                bb = (A @ np.random.RandomState(nrhs).rand(A.shape[0], nrhs)
+                      ).astype(dtype)
+                bb = bb[:, 0] if nrhs == 1 else bb
+                for tr in (False, True):
+                    x = (ds.solve(bb, transpose=True) if tr
+                         else ds.solve_linear_system(A, bb))
+                    require(x.is_cuda == (backend == "dense"),
+                            f"D {backend}: x on the wrong device")
+                    Ax = A.conj().T if tr else A
+                    err = float(np.abs(Ax @ x.cpu().numpy() - bb).max()
+                                / np.abs(bb).max())
+                    worst = max(worst, err / tol)
+                    require(err < tol, f"D {backend} {np.dtype(dtype)} "
+                            f"nrhs {nrhs} transpose {tr}: {err:.3e}")
+            require(ds.n_fac == 1 and ds.n_solve == 4, f"D: counters "
+                    f"{ds.n_fac} / {ds.n_solve}")
+        log(f"[facade] (D) DirectSolver({backend}) 4225 dofs: f64, f32, "
+            f"c128, c64, 1 and 5 right-hand sides, A and A^H within "
+            f"test_solvers.py's DTYPES_TOL (worst {worst:.2e} of the "
+            f"bound)")
+    M, L, b, _ = st2d
+    cfg, rp = mt.get_mg_param(levels=6, relax_type="jacobi", relax_param=0.8,
+                              nu_pre=1, nu_post=1, dtype=np.float32)
+    for key, coarse in (("D-coarse", mt.DirectSolver("dense")),
+                        ("DD-coarse", DDSolver(None, [2, 2], [1, 1]))):
+        st, ms = timed(lambda: mt.mg_setup(L, M, cfg, rp,
+                                           coarse_solver=coarse))
+        kinds = [type(lv.A).__name__ for lv in st.hier.levels]
+        log(f"[facade] ({key}) setup {ms / 1e3:.2f} s (host clock), "
+            f"{type(st.hier).__name__}, levels {kinds}, coarsest "
+            f"{type(st.hier.coarse).__name__} of {st.As[-1].shape[0]} dofs")
+        require(type(st.hier).__name__ == "Hierarchy" and kinds[0] == "DIA",
+                f"{key}: want the flat engine with DIA levels")
+        if key == "D-coarse":
+            require(isinstance(st.hier.coarse, DenseLU), "D-coarse: want a "
+                    "DenseLU coarsest")
+        before = stencil_counters()[0]
+        refined(st, L, b, FACADE[key], f"({key}) 2D 1024^2 Jacobi 0.8 "
+                f"V(1,1), {type(coarse).__name__} coarsest", card, max_iter=60)
+        d_l = {k: v - before[k] for k, v in stencil_counters()[0].items()}
+        require(d_l["stencil.float32"] > 0, f"{key}: kernel D idle")
+        del st
+
+
+def facade_schur_dd(card):
+    """S: the Schur solver on 64^2 mixed elasticity (dense inner to 1e-10
+    with the counters; the Kaczmarz inner below 0.5 on kernel F); DD-256:
+    DDSolver([8, 8], [2, 2]) under FGMRES(5), recorded against eager."""
+    import mgtpu_torch as mt
+    from mgtpu_torch.dd.schwarz import DDSolver
+    from mgtpu_torch.solvers.schur import SchurComplementSolver
+    from mgtpu_torch.models.operators import linear_elasticity_operator_mixed
+    M = mt.get_regular_mesh([0.0, 1.0, 0.0, 1.0], [64, 64])
+    mu = np.ones(M.num_cells)
+    A = linear_elasticity_operator_mixed(M, mu, 10.0 * mu)
+    A = (A + 1e-3 * abs(A).sum(axis=0).max() * sp.identity(A.shape[0])
+         ).tocsr()
+    b = rhs_of(A)
+    S = SchurComplementSolver(inner="dense")
+    x, ms = timed(lambda: S.solve_linear_system(A, b, mesh=M))
+    rr = true_relres(A, b, x)
+    log(f"[facade] (S) SchurComplementSolver(dense) 64^2 mixed: true relres "
+        f"{rr:.3e}, n_fac {S.n_fac}, n_solve {S.n_solve}, factor "
+        f"{S.fac_time:.2f} s, {ms:.1f} ms with setup (host clock; {card})")
+    require(rr < 1e-10 and S.n_fac == 1 and S.n_solve == 1, "S dense")
+    f_before = kaczmarz_counters()[0]
+    S2 = SchurComplementSolver(inner="kaczmarz", kaczmarz_opts={
+        "num_domains": [2, 2], "omega": 0.8, "num_it": 2, "inner": 20})
+    x, ms = timed(lambda: S2.solve_linear_system(A, b, mesh=M))
+    rr = true_relres(A, b, x)
+    f_l = {k: v - f_before[k] for k, v in kaczmarz_counters()[0].items()}
+    log(f"[facade] (S) SchurComplementSolver(kaczmarz, 20 steps): true "
+        f"relres {rr:.3e} (bound 0.5), {ms:.1f} ms with setup (host clock; "
+        f"{card}); kernel F {f_l}")
+    require(rr < 0.5 and f_l["kaczmarz.float64"] == 20, "S kaczmarz")
+    Mdd, Ldd = shifted_laplacian((256, 256))
+    Ldd = Ldd.astype(np.float64)
+    bdd = rhs_of(Ldd)
+    dd, ms_s = timed(lambda: DDSolver(Mdd, [8, 8], [2, 2],
+                                      layout="nodal").setup(Ldd))
+    (x, info), ms = timed(lambda: dd.solve_linear_system(
+        Ldd, bdd, tol=1e-8, max_iter=200, restart=5))
+    rr = true_relres(Ldd, bdd, x)
+    k = dd.state.lu.shape[-1]
+    log(f"[facade] (DD-256) DDSolver([8, 8], [2, 2]) 256^2: "
+        f"{info['iters']} restarts (want {FACADE['DD-256']} +- 1), true f64 "
+        f"relres {rr:.3e}; setup {ms_s / 1e3:.2f} s (64 blocks of {k}), "
+        f"solve {ms:.1f} ms incl. recording (host clock; {card})")
+    require(abs(info["iters"] - FACADE["DD-256"]) <= 1 and rr < 1e-8,
+            f"DD-256: {info['iters']} restarts, relres {rr:.3e}")
+    with uncounted():
+        (x2, i2), ms2 = timed(lambda: dd.solve_linear_system(
+            Ldd, bdd, tol=1e-8, max_iter=200, restart=5))
+        (xe, ie), ms_e = timed(lambda: dd.solve_linear_system(
+            Ldd, bdd, tol=1e-8, max_iter=200, restart=5, device_loop=False))
+    require(torch.equal(x2, x) and i2["iters"] == info["iters"],
+            "DD-256: two recorded runs differ")
+    require(ie["iters"] == info["iters"], "DD-256: eager count differs")
+    captured_row("(DD-256) DDSolver FGMRES(5) 256^2", info["iters"],
+                 same_x("DD-256", x, xe), rr, ms, ms2, ms_e)
+
+
+def eager_solve_mg(st, b):
+    """solve_mg's loop with eager cycles (the recorded one's comparison)."""
+    from mgtpu_torch.solvers.mg_solver import _norm, _runtime
+    cfg = st.config
+    to_field, to_flat, cycle, matvec = _runtime(st, captured=False)
+    bv = to_field(torch.as_tensor(b, device="cuda")[:, None])
+    xv = torch.zeros_like(bv)
+    res0 = _norm(bv)
+    it = 0
+    for it in range(1, cfg.max_outer_iter + 1):
+        xv = cycle(bv, xv)
+        if _norm(bv - matvec(xv)) / res0 < cfg.relative_tol:
+            break
+    return to_flat(xv)[:, 0], it
+
+
+def facade_kaczmarz(kmg, kprec, card):
+    """K-mg (solve_mg through recorded cycles on kernel F, against the
+    eager loop and one eager cycle bitwise) and K-prec (FGMRES with the
+    Kaczmarz preconditioner)."""
+    import mgtpu_torch as mt
+    from mgtpu_torch.cycle.kaczmarz import make_kaczmarz_precond
+    from mgtpu_torch.krylov import fgmres
+    from mgtpu_torch.ops.ell import ell_from_scipy
+    st, A, b = kmg
+    f_before = kaczmarz_counters()[0]
+    (x, info), ms = timed(lambda: mt.solve_mg(st, b))
+    rr = true_relres(A, b, x)
+    f_l = {k: v - f_before[k] for k, v in kaczmarz_counters()[0].items()}
+    log(f"[facade] (K-mg) solve_mg 256^2 hybrid Kaczmarz: {info['iters']} "
+        f"cycles (want {FACADE['K-mg']} +- 1), true f64 relres {rr:.3e}, "
+        f"{ms:.1f} ms incl. recording (host clock; {card}); kernel F {f_l}")
+    require(abs(info["iters"] - FACADE["K-mg"]) <= 1 and rr < 1e-8,
+            f"K-mg: {info['iters']} cycles, relres {rr:.3e}")
+    require(f_l["kaczmarz.float64"] > 0, "K-mg: kernel F idle")
+    with uncounted():
+        (x2, i2), ms2 = timed(lambda: mt.solve_mg(st, b))
+        (xe, ie), ms_e = timed(lambda: eager_solve_mg(st, b))
+    require(torch.equal(x2, x) and i2["iters"] == info["iters"],
+            "K-mg: two recorded runs differ")
+    require(ie == info["iters"], f"K-mg: eager loop {ie} cycles")
+    captured_row("(K-mg) solve_mg 256^2 hybrid Kaczmarz", info["iters"],
+                 same_x("K-mg", x, xe), rr, ms, ms2, ms_e,
+                 cycle_pair(st, b, card))
+    A2, kz = kprec
+    B = A2 @ np.random.RandomState(4).rand(A2.shape[0], 2)
+    B /= np.linalg.norm(B)
+    E = ell_from_scipy(A2, device="cuda")
+    prec = make_kaczmarz_precond(kz)
+    f_before = kaczmarz_counters()[0]
+    (X, info), ms = timed(lambda: fgmres(
+        lambda v: E.matvec(v.T).T, torch.tensor(B.T.copy(), device="cuda"),
+        restart=5, prec=lambda v: prec(v.T).T, tol=1e-10, max_iter=3))
+    rr = float(np.linalg.norm(A2 @ X.T.cpu().numpy() - B)
+               / np.linalg.norm(B))
+    f_l = {k: v - f_before[k] for k, v in kaczmarz_counters()[0].items()}
+    log(f"[facade] (K-prec) FGMRES(5) with Kaczmarz sweeps 256^2: "
+        f"{info['iters']} restarts (want {FACADE['K-prec']} +- 1), relres "
+        f"{rr:.3e}, {ms:.1f} ms incl. recording (host clock; {card}); "
+        f"kernel F {f_l}")
+    # the count is capped by max_iter=3, so the residual decides: below
+    # FGMRES's tol, as mgtpu's 5.0e-11 is
+    require(abs(info["iters"] - FACADE["K-prec"]) <= 1 and rr < 1e-10,
+            f"K-prec: {info['iters']}, {rr:.3e}")
+    require(f_l["kaczmarz.float64"] > 0, "K-prec: kernel F idle")
+
+
+def facade_bf16_rd(L3, st_jac, card):
+    """bf16: refined Jacobi on the 3D 128^3 path with bfloat16 cycles (the
+    kernels' plain versions, counted); RD: mixed elasticity at 512^2
+    re-discretized with coefficient coarsening, Vanka, refined.  Returns
+    the bf16 solve's plain calls (left out of the window's check)."""
+    import mgtpu_torch as mt
+    from mgtpu_torch.models.operators import linear_elasticity_operator_mixed
+    from mgtpu_torch.setup.transfers import restrict_cell_centered_variables
+    b3 = rhs_of(L3)
+    with uncounted():
+        p_before = counters()[1]
+    refined(st_jac, L3, b3, FACADE["bf16"], "(bf16) 3D 128^3 Jacobi 0.8 "
+            "V(1,1), bfloat16 cycles", card, max_iter=60,
+            kw=dict(cycle_dtype=torch.bfloat16), pair=False)
+    plain = {k: v - p_before[k] for k, v in counters()[1].items()
+             if v != p_before[k]}
+    log(f"[facade] (bf16) plain calls of the kernels (bfloat16 is no "
+        f"kernel's type): {plain}")
+    require(plain.get("matvec", 0) > 0, "bf16: no counted plain call")
+    M = mt.get_regular_mesh([0.0, 1.0, 0.0, 1.0], [512, 512])
+    mu0 = 1.0 + (np.arange(M.num_cells) % 4) * 0.25
+    scale = {}
+
+    def get_op(m, mu):
+        A = linear_elasticity_operator_mixed(m, mu, mu)
+        if "s" not in scale:
+            scale["s"] = 1e-3 * abs(A).sum(axis=0).max()
+        return A + scale["s"] * sp.identity(A.shape[0])
+
+    ctor = mt.OperatorConstructor(
+        mu0, get_op, lambda mf, mc, mu, lvl:
+        restrict_cell_centered_variables(mu, list(mf.n)))
+    cfg, rp = mt.get_mg_param(levels=6, relax_type="VankaFaces",
+                              relax_param=0.75, nu_pre=1, nu_post=1,
+                              dtype=np.float32,
+                              transfer_type="SystemsFacesMixedLinear")
+    st, ms = timed(lambda: mt.mg_setup(ctor, M, cfg, rp))
+    A = get_op(M, mu0).tocsr()
+    b = rhs_of(A)
+    log(f"[facade] (RD) re-discretized setup {ms / 1e3:.2f} s (host clock),"
+        f" {type(st.hier).__name__}, levels {[a.shape[0] for a in st.As]}")
+    before = stencil_counters()[0]
+    refined(st, A, b, FACADE["RD"], "(RD) 512^2 mixed elasticity "
+            "re-discretized, VankaFaces 0.75 V(1,1)", card, max_iter=60)
+    d_l = {k: v - before[k] for k, v in stencil_counters()[0].items()}
+    require(all(v > 0 for v in d_l.values()), f"RD: kernel D {d_l}")
+    return plain
+
+
+def phase_facade(M3, L3, st_jac, st2d, kmg, kprec, card):
+    """Every façade / direct / DD / Kaczmarz contract inside one
+    launch-counter window: kernels A, B, D and F launched, no plain
+    version (the bf16 row's counted plain calls left out).  Returns the
+    window's kernel F launches."""
+    t0 = time.perf_counter()
+    reset_counters()                       # ---- main path window ----
+    facade_wrappers(M3, L3, card)
+    facade_adjoint(card)
+    facade_replace(st2d, card)
+    facade_direct(st2d, card)
+    facade_schur_dd(card)
+    facade_kaczmarz(kmg, kprec, card)
+    bf16_plain = facade_bf16_rd(L3, st_jac, card)
+    launches, plain = counters()           # ---- end of window ----
+    d_l, d_p = stencil_counters()
+    f_l, f_p = kaczmarz_counters()
+    line_l, line_p = line_counters()
+    e_l, e_p = vanka_counters()
+    launches.update(d_l, **f_l)
+    for k, v in bf16_plain.items():
+        plain[k] -= v
+    plain.update(d_p, **f_p, **line_p, **e_p)
+    log(f"[facade] window launches: {launches}; other kernels "
+        f"{dict(line_l, **e_l)} ({time.perf_counter() - t0:.1f} s)")
+    log(f"[facade] window plain-version calls on the card (the bf16 "
+        f"row's left out): {plain}")
+    require(not any(plain.values()), f"plain versions ran: {plain}")
+    for k in ("jacobi_residual3d", "stencil.float32", "stencil.float64",
+              "kaczmarz.float64"):
+        require(launches[k] > 0, f"the window never launched {k}")
+    return f_l
+
+
 def main() -> int:
     t_start = time.perf_counter()
     smi, name = phase_card()
     card = f"{name}, {smi.split(',')[-1].strip()}"
+    _CARD.append(card)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase_build()
@@ -2610,7 +3307,7 @@ def main() -> int:
     phase_timing(timed, rows)
     launches, b_by_grid = phase_path3d(M3, L3, st_jac, card)
     rows["jacobi_residual3d"]["launches_by_grid"] = b_by_grid
-    phase_path2d(card)
+    st2d = phase_path2d(card)
 
     t0 = time.perf_counter()
     line_ops = {"a": aniso2d(1024, 100.0), "d": aniso3d([128] * 3, 0)}
@@ -2647,6 +3344,11 @@ def main() -> int:
     phase_cross_kernels(sys_states, rows, card)
     phase_lex_kernel(lex_state, rows, card)
     del sys_states, lex_state
+    torch.cuda.empty_cache()
+    kmg, kprec = kmg_state(card), kprec_state()
+    phase_kaczmarz_kernel(kmg, kprec, rows, card)
+    f_launches = phase_facade(M3, L3, st_jac, st2d, kmg, kprec, card)
+    del kmg, kprec, st2d
     for k, row in rows.items():
         # each kernel's launches from the window of its own path (the
         # systems window's kernel D launches are all cross applies)
@@ -2655,7 +3357,9 @@ def main() -> int:
             krylov[k] if k.startswith("stencil.") else
             systems["stencil." + k.split(".")[1]]
             if k.startswith("stencil_cross.") else
-            systems["vanka.float32"] if k == "vanka_lex" else launches[k])
+            systems["vanka.float32"] if k == "vanka_lex" else
+            f_launches["kaczmarz.float64"] if k == "kaczmarz" else
+            launches[k])
     for k in ("stencil3d_apply.matvec", "stencil.float32", "stencil.float64"):
         rows[k]["launches_aniso"] = aniso[k]
     for k in ("stencil.float32", "stencil.float64"):

@@ -4,8 +4,10 @@ A hierarchy exported as numpy arrays — for example the leaves of an mgtpu
 `GridHierarchy` or flat `Hierarchy`, taken with ``np.asarray`` — becomes
 one of this package, so a cycle can run on exactly the reference's
 operators, diagonals (Jacobi, SPAI and Jac-GMRES levels), line states,
-Vanka tables and block inverses, transfers (per-axis factors or stride-2
-stencils) and coarsest solve and be compared node for node; the systems
+Vanka tables and block inverses, hybrid-Kaczmarz tables, transfers
+(per-axis factors or stride-2 stencils) and coarsest solve (dense or
+batched LU factors, a Schwarz state, a Schur solver) and be compared node
+for node; the systems
 engine's hierarchy (cross stencils, grid Vanka, per-component factors,
 dense coarsest inverse) comes across by `systems_hierarchy_from_arrays`.
 
@@ -17,7 +19,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .config import torch_dtype
+
 from .cycle.coarse import DenseLU, IterativeCoarse
+from .cycle.kaczmarz import KaczmarzRelax
 from .cycle.grid_cycle import (DenseInverse, GridHierarchy,
                                GridIterativeCoarse, GridLevel, line_state_to)
 from .cycle.relax import AltLineRelax, ChebyshevRelax, DiagRelax, LineRelax
@@ -30,11 +35,16 @@ from .ops.dia import DIA
 from .ops.ell import ELL
 from .ops.grid_stencil import (ConstGridStencil, GridStencil,
                                Stride2Transfer, pack_stride2)
+from .dd.schwarz import SchwarzState, _SchwarzCoarse
 from .setup.hierarchy import Hierarchy, Level
+from .solvers.direct import BatchedDenseLU
+from .solvers.schur import KaczmarzFGMRESSolver, SchurCoarse
 
 __all__ = ["grid_hierarchy_from_arrays", "flat_hierarchy_from_arrays",
            "matrix_from_arrays", "dense_lu_from_arrays",
-           "stride2_from_arrays", "vanka_relax_from_arrays",
+           "batched_lu_from_arrays", "stride2_from_arrays",
+           "vanka_relax_from_arrays", "kaczmarz_relax_from_arrays",
+           "schwarz_state_from_arrays", "schur_coarse_from_arrays",
            "systems_hierarchy_from_arrays"]
 
 
@@ -93,13 +103,81 @@ def vanka_relax_from_arrays(spec, n: int, dtype, device) -> VankaRelax:
                       ).to(dtype, device)
 
 
+def batched_lu_from_arrays(lu, piv, device) -> BatchedDenseLU:
+    """BatchedDenseLU from packed (nb, k, k) factors and 0-based pivots."""
+    from .solvers.direct import pivots_to_permutation
+    piv1 = np.asarray(piv).astype(np.int64) + 1
+    perm = pivots_to_permutation(piv1)
+    return BatchedDenseLU(_as_tensor(lu, device),
+                          torch.tensor(piv1.astype(np.int32), device=device),
+                          torch.tensor(perm, device=device),
+                          torch.tensor(np.argsort(perm, axis=1),
+                                       device=device))
+
+
+def kaczmarz_relax_from_arrays(spec, device) -> KaczmarzRelax:
+    """A mapping {``arr``, ``mask``, ``invd``, ``ell_idx``, ``ell_val``,
+    ``num_domains``, ``num_it``, ``omega``} (mgtpu's KaczmarzRelax) as the
+    port's on `device`, with kernel F's link table (a row's stored count
+    taken as the position of its last nonzero plus one)."""
+    from .ops.cuda.kaczmarz import kaczmarz_links
+    arr, mask, invd, idx, val = (np.asarray(spec[k]) for k in
+                                 ("arr", "mask", "invd", "ell_idx",
+                                  "ell_val"))
+    nz = val != 0
+    counts = np.where(nz.any(axis=1),
+                      val.shape[1] - np.argmax(nz[:, ::-1], axis=1), 0)
+    kz = KaczmarzRelax(arr.astype(np.int32), mask, invd,
+                       idx.astype(np.int32), val,
+                       kaczmarz_links(arr, mask, idx, counts),
+                       tuple(int(d) for d in spec["num_domains"]),
+                       int(spec["num_it"]), float(spec["omega"]))
+    return kz.to(torch_dtype(val.dtype), device)
+
+
+def schwarz_state_from_arrays(spec, device) -> SchwarzState:
+    """A mapping {``idx``, ``mask``, ``rows_idx``, ``rows_val``, ``lu``,
+    ``piv`` (0-based), ``colors``} (mgtpu's SchwarzState) as the port's."""
+    t = lambda k, dt=None: torch.tensor(
+        np.asarray(spec[k]) if dt is None else np.asarray(spec[k], dt),
+        device=device)
+    lu = batched_lu_from_arrays(spec["lu"], spec["piv"], device)
+    colors = tuple(tuple(int(d) for d in g) for g in spec["colors"])
+    return SchwarzState(t("idx", np.int64), t("mask"),
+                        t("rows_idx", np.int64), t("rows_val"), lu.lu,
+                        lu.piv, colors,
+                        tuple(torch.tensor(g, dtype=torch.int64,
+                                           device=device) for g in colors),
+                        lu.perm, lu.iperm)
+
+
+def schur_coarse_from_arrays(spec, device) -> SchurCoarse:
+    """A mapping {``B``, ``CT`` (ELL mappings), ``Dinv``, ``n_cut`` and
+    ``lu``, ``piv`` (a dense S factor, 0-based pivots) or ``kaczmarz``
+    (a `kaczmarz_relax_from_arrays` mapping) with ``ell`` (S's ELL) and
+    ``inner``} (mgtpu's SchurCoarse) as the port's."""
+    if "lu" in spec:
+        s_solver = dense_lu_from_arrays(spec["lu"], spec["piv"], device)
+    else:
+        s_solver = KaczmarzFGMRESSolver(
+            kaczmarz_relax_from_arrays(spec["kaczmarz"], device),
+            matrix_from_arrays(spec["ell"], device), int(spec["inner"]))
+    return SchurCoarse(matrix_from_arrays(spec["B"], device),
+                       matrix_from_arrays(spec["CT"], device),
+                       _as_tensor(spec["Dinv"], device), s_solver,
+                       int(spec["n_cut"]))
+
+
 def flat_hierarchy_from_arrays(levels, coarse, *, device) -> Hierarchy:
     """levels: one mapping per level with ``A`` (a `matrix_from_arrays`
     mapping), and below the coarsest ``P`` and ``R`` (ELL mappings) and
     ``d`` (the smoother diagonal) with ``lam_max`` for a Chebyshev level,
     or ``vanka`` (a `vanka_relax_from_arrays` mapping).
-    coarse: {``lu``, ``piv``} (0-based pivots) for `DenseLU`, or
-    {``d``, ``ell_idx``, ``ell_val``, ``inner``} for `IterativeCoarse`."""
+    or ``kaczmarz`` (a `kaczmarz_relax_from_arrays` mapping).
+    coarse: {``lu``, ``piv``} (0-based pivots) for `DenseLU`,
+    {``d``, ``ell_idx``, ``ell_val``, ``inner``} for `IterativeCoarse`,
+    {``schwarz``: a `schwarz_state_from_arrays` mapping} for a DD
+    coarsest, or {``schur``: a `schur_coarse_from_arrays` mapping}."""
     out = []
     for lv in levels:
         A = matrix_from_arrays(lv["A"], device)
@@ -109,6 +187,8 @@ def flat_hierarchy_from_arrays(levels, coarse, *, device) -> Hierarchy:
         if lv.get("vanka") is not None:
             relax = vanka_relax_from_arrays(lv["vanka"], A.shape[0],
                                             A.dtype, device)
+        elif lv.get("kaczmarz") is not None:
+            relax = kaczmarz_relax_from_arrays(lv["kaczmarz"], device)
         else:
             d = _as_tensor(lv["d"], device)
             relax = (DiagRelax(d) if lv.get("lam_max") is None
@@ -117,6 +197,11 @@ def flat_hierarchy_from_arrays(levels, coarse, *, device) -> Hierarchy:
                          matrix_from_arrays(lv["R"], device), relax))
     if "lu" in coarse:
         solver = dense_lu_from_arrays(coarse["lu"], coarse["piv"], device)
+    elif "schwarz" in coarse:
+        solver = _SchwarzCoarse(schwarz_state_from_arrays(coarse["schwarz"],
+                                                          device))
+    elif "schur" in coarse:
+        solver = schur_coarse_from_arrays(coarse["schur"], device)
     else:
         solver = IterativeCoarse(_as_tensor(coarse["d"], device),
                                  _as_tensor(coarse["ell_idx"], device),

@@ -67,11 +67,13 @@ def _busy() -> bool:
 
 def kernel_counters() -> list[dict]:
     """The launch and plain-call counters of every kernel wrapper."""
-    from ..ops.cuda import const3d, fused3d, stencil, tridiag, vanka
+    from ..ops.cuda import (const3d, fused3d, kaczmarz, stencil, tridiag,
+                            vanka)
     return [const3d.LAUNCHES, const3d.PLAIN_CALLS, fused3d.LAUNCHES,
             fused3d.PLAIN_CALLS, fused3d.GRID_LAUNCHES, tridiag.LAUNCHES,
             tridiag.PLAIN_CALLS, stencil.LAUNCHES, stencil.PLAIN_CALLS,
-            vanka.LAUNCHES, vanka.PLAIN_CALLS]
+            vanka.LAUNCHES, vanka.PLAIN_CALLS, kaczmarz.LAUNCHES,
+            kaczmarz.PLAIN_CALLS]
 
 
 class Tally:

@@ -44,8 +44,14 @@ class DenseLU:
 
     def _solve(self, b, adjoint: bool):
         b2 = b[:, None] if b.ndim == 1 else b
+        lu = self.lu
+        if lu.dtype.itemsize < 4:
+            # a bfloat16 cycle: torch has no triangular solve below float32,
+            # so the bfloat16 factors are solved in float32 arithmetic
+            lu, b2 = lu.float(), b2.float()
         with full_fp32():
-            x = torch.linalg.lu_solve(self.lu, self.piv, b2, adjoint=adjoint)
+            x = torch.linalg.lu_solve(lu, self.piv, b2, adjoint=adjoint)
+        x = x.to(b.dtype)
         return x[:, 0] if b.ndim == 1 else x
 
     def solve(self, b: torch.Tensor) -> torch.Tensor:

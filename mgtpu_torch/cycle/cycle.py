@@ -7,7 +7,8 @@ cycle), prolongate-correct, post-smooth.  Vectors are flat columns
 (n, m).  A `GridHierarchy` goes to the grid engine through its flat
 adapter (grid_cycle.grid_cycle_flat), a `SystemsGridHierarchy` to the
 systems engine through its own (systems_grid.systems_grid_cycle_flat).
-Vanka levels smooth with cycle/vanka.py's sweeps.  `cycle_jit` /
+Vanka levels smooth with cycle/vanka.py's sweeps, hybrid-Kaczmarz levels
+with cycle/kaczmarz.py's (kernel F).  `cycle_jit` /
 `make_cycle_fn` run one cycle as a recorded program (capture.py), mgtpu's
 jitted cycle.
 """
@@ -18,6 +19,7 @@ import functools
 import torch
 
 from .capture import run, static_config
+from .kaczmarz import kaczmarz_sweep
 from .relax import (chebyshev4_smooth, chebyshev_smooth, fgmres_relaxation,
                     relax_diag)
 from .vanka import VankaRelax, vanka_sweep
@@ -47,7 +49,7 @@ def _smooth(cfg, level, r, x, b, nu: int, matvec):
     if isinstance(level.relax, VankaRelax):
         return vanka_sweep(x, b, level.relax, nu)
     if rt == "hybrid-kaczmarz":
-        raise NotImplementedError(f"relax_type {rt!r} not yet ported")
+        return kaczmarz_sweep(x, b, level.relax, nu * level.relax.num_it)
     return relax_diag(matvec, r, x, b, level.relax.d, nu)
 
 

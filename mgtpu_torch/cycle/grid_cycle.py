@@ -366,10 +366,10 @@ def _cubic_prolong(xc: torch.Tensor, fine_grid) -> torch.Tensor:
     return y.contiguous()
 
 
-def grid_fmg(cfg, gh: GridHierarchy, b):
+def grid_fmg(cfg, gh: GridHierarchy, b, n_cycles: int = 1):
     """Full multigrid (nested iteration): solve on the coarsest level, then
     on each finer level start from the cubic prolongation of the coarser
-    solution and polish it with one cycle.  b is (m, *fine_grid)."""
+    solution and polish it with `n_cycles` cycles.  b is (m, *fine_grid)."""
     nlev = len(gh.levels)
     bs = [b]
     for l in range(nlev - 1):
@@ -381,7 +381,8 @@ def grid_fmg(cfg, gh: GridHierarchy, b):
             x = grid_prolong(x, P1)       # matrix-dependent P: kept as is
         else:
             x = _cubic_prolong(x, gh.levels[l].A.grid)
-        x = grid_cycle(cfg, gh, bs[l], x, level=l)
+        for _ in range(n_cycles):
+            x = grid_cycle(cfg, gh, bs[l], x, level=l)
     return x
 
 
@@ -454,6 +455,28 @@ def line_state_to(rs, dtype, device):
                      float(rs.omega))
 
 
+def _check_separable(state) -> None:
+    """Raise ValueError unless each level's stored prolongation is the
+    Kronecker product of the full-weighting factors the grid engine
+    applies (None, an axis that does not coarsen: the identity).  The
+    re-discretization path builds its transfers in geometric mode, which
+    can differ on even node counts."""
+    from ..setup import transfers as tr
+    for l in range(state.num_levels - 1):
+        nodes = [int(v) + 1 for v in np.asarray(state.meshes[l].n).ravel()]
+        nodes_c = [int(v) + 1
+                   for v in np.asarray(state.meshes[l + 1].n).ravel()]
+        K = None
+        for nn, ncn in zip(nodes, nodes_c):
+            pm = (sp.identity(nn, format="csr") if nn == ncn
+                  else tr.fw_interp_1d(nn)[0])
+            K = pm if K is None else sp.kron(pm, K, format="csr")
+        P = state.Ps[l]
+        if K.shape != P.shape or (K != P).nnz != 0:
+            raise ValueError("hierarchy transfers are not the separable "
+                             "full-weighting factors")
+
+
 def build_grid_hierarchy(state, relax_states, device) -> GridHierarchy:
     """Build the grid engine on `device` for an MGState that mg_setup made
     (scalar full-weighting or semicoarsening transfers, pointwise, line or
@@ -471,8 +494,11 @@ def build_grid_hierarchy(state, relax_states, device) -> GridHierarchy:
         raise ValueError("grid engine supports pointwise relaxations only")
     if not state.meshes or len(state.meshes) < state.num_levels:
         raise ValueError("grid engine needs per-level meshes")
-    if cfg.coarse_solve not in ("lu", "gmres"):
+    if (cfg.coarse_solve not in ("lu", "gmres")
+            or state.coarse_solver is not None):
         raise ValueError("grid engine supports lu/gmres coarsest solves")
+    if not state._fw_separable:
+        _check_separable(state)
     dt = torch_dtype(cfg.dtype)
     gs_cache = getattr(state, "_gs_cache", None) or {}
     levels = []

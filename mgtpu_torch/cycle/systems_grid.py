@@ -518,7 +518,7 @@ def build_systems_grid_hierarchy(state, relax_states,
                          f"{cfg.relax_type}")
     if not state.meshes or len(state.meshes) < state.num_levels:
         raise ValueError("systems grid engine needs per-level meshes")
-    if cfg.coarse_solve != "lu":
+    if cfg.coarse_solve != "lu" or state.coarse_solver is not None:
         raise ValueError("systems grid engine supports the lu coarsest only")
     A_c = state.As[-1]
     if A_c.shape[0] > DENSE_INV_MAX:

@@ -393,8 +393,10 @@ def dia_apply_plain(data, offsets, x):
 def dia_apply(data, offsets, x):
     """y = A x for the DIA matrix data (nd, n) with diagonal offsets
     `offsets` on flat columns x (n,) or (n, m): kernel D on a CUDA tensor,
-    `dia_apply_plain` on a CPU one."""
-    if x.device.type == "cpu":
+    `dia_apply_plain` on a CPU one or in a floating type below float32 (a
+    bfloat16 cycle)."""
+    if x.device.type == "cpu" or (x.dtype.is_floating_point
+                                  and x.dtype.itemsize < 4):
         return dia_apply_plain(data, offsets, x)
     _device_check(x)
     n = data.shape[1]

@@ -504,10 +504,15 @@ class ConstGridStencil:
             x2 = x[:, None] if squeeze else x
             y = grid_to_flat(self.matvec(flat_to_grid(x2, self.grid)))
             return y[:, 0] if squeeze else y
-        from .cuda.const3d import supports_const3d, const3d_matvec
-        if supports_const3d(self.offsets, self.grid,
-                            torch.promote_types(self.dtype, x.dtype)):
+        from .cuda.const3d import apply_plain, const3d_matvec, supports_const3d
+        dt = torch.promote_types(self.dtype, x.dtype)
+        if supports_const3d(self.offsets, self.grid, dt):
             return const3d_matvec(self, x)
+        if dt.itemsize < 4 and supports_const3d(self.offsets, self.grid,
+                                                torch.float32):
+            # kernel A's stencil in a type below float32 (a bfloat16
+            # cycle): its counted plain version
+            return apply_plain(self, "matvec", x)
         return const_grid_stencil_matvec(self.const, self.strips,
                                          self.offsets, self.grid, self.boxes,
                                          x)

@@ -320,7 +320,8 @@ _COARSENING = ("common-c", "min-coarse", "pmis")
 
 
 def classical_amg_setup(A: sp.spmatrix, cfg: MGConfig, relax_param=1.0,
-                        verbose: bool = False, interpolation: str = "direct",
+                        coarse_solver=None, verbose: bool = False,
+                        interpolation: str = "direct",
                         coarsening: str = "common-c",
                         device=None) -> MGState:
     """Build a classical-AMG hierarchy (reference ClassicalAMGsetup,
@@ -333,7 +334,8 @@ def classical_amg_setup(A: sp.spmatrix, cfg: MGConfig, relax_param=1.0,
     coloring.jl:169-257) or "pmis" (PMIS on `device`, then
     `enforce_common_c`: direct interpolation needs every strong F-F pair to
     share a C neighbor, which PMIS alone does not give).  Coarsening stops
-    at 100 dofs or when P is square."""
+    at 100 dofs or when P is square.  `coarse_solver`: an external
+    coarsest solver, as in mg_setup."""
     t_all = time.perf_counter()
     dev = resolve_device(device)
     if cfg.relax_type not in ("jacobi", "jac-gmres", "spai"):
@@ -391,7 +393,7 @@ def classical_amg_setup(A: sp.spmatrix, cfg: MGConfig, relax_param=1.0,
     As[-1] = (As[-1] + shift * sp.identity(As[-1].shape[0])).tocsr()
 
     state = MGState(cfg, relax_param, As, Ps, Rs, meshes=[], device=dev,
-                    A_input=A_orig)
+                    A_input=A_orig, coarse_solver=coarse_solver)
     state.hier = build_device_hierarchy(state, relax_states, verbose)
     state.time_setup += time.perf_counter() - t_all
     return state

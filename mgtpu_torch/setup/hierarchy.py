@@ -12,8 +12,16 @@ full-weighting, semicoarsening or face-staggered systems transfers:
  * `mg_setup` — Galerkin hierarchy built on the host (structured
    full-weighting RAP on the stencil coefficients; under semicoarsening
    only the strongly coupled axes coarsen; the staggered systems
-   transfers of Systems.jl under scipy's RAP).  `MGState.setup_times`
-   keeps the host seconds of its stages.
+   transfers of Systems.jl under scipy's RAP), or a re-discretized one
+   from an `OperatorConstructor`; an external coarsest solver
+   (`coarse_solver=`: `DirectSolver`, `DDSolver`,
+   `SchurComplementSolver`) takes the hierarchy to the flat engine.
+   `MGState.setup_times` keeps the host seconds of its stages.
+ * The lifecycle (reference MGsetup.jl:226-318, MGdef.jl:138-210):
+   `hierarchy_exists`, `replace_matrix_in_hierarchy` (new values, the
+   same transfers), `transpose_hierarchy` (A^H, for adjoint solves),
+   `copy_solver` and `clear`.  A rebuilt hierarchy drops the recorded
+   programs of the old one.
  * `build_device_hierarchy` — the engine choice: the structured grid
    engine (cycle/grid_cycle.py) or, for staggered systems, the systems
    grid engine (cycle/systems_grid.py) where the hierarchy is a grid
@@ -31,7 +39,7 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field, replace
-from typing import Any
+from typing import Any, Callable
 
 import numpy as np
 import scipy.sparse as sp
@@ -43,7 +51,9 @@ from . import smoothers as sm
 from . import transfers as tr
 
 __all__ = ["MGConfig", "get_mg_param", "Level", "Hierarchy", "MGState",
-           "mg_setup", "build_device_hierarchy", "VANKA_TYPES"]
+           "OperatorConstructor", "mg_setup", "build_device_hierarchy",
+           "hierarchy_exists", "replace_matrix_in_hierarchy",
+           "transpose_hierarchy", "copy_solver", "clear", "VANKA_TYPES"]
 
 VANKA_TYPES = ("vanka", "econ-vanka", "vanka-lex", "vanka-add",
                "kaczmarz-vanka")
@@ -80,7 +90,7 @@ class MGConfig:
     nu_pre: tuple[int, ...] = ()     # per level; filled by get_mg_param
     nu_post: tuple[int, ...] = ()
     cycle_type: str = "V"
-    coarse_solve: str = "lu"
+    coarse_solve: str = "lu"         # "lu" | "gmres" | "external"
     strong_conn_param: float = 0.4   # AMG strength-of-connection threshold
     filtering_param: float = 0.0     # non-Galerkin SA magnitude filter
     transfer_type: str = "full-weighting"
@@ -141,14 +151,40 @@ class Level:
     A: Any                 # ELL | DIA
     P: Any                 # ELL | None
     R: Any                 # ELL | None
-    relax: Any             # DiagRelax | ChebyshevRelax | VankaRelax | None
+    relax: Any             # DiagRelax | ChebyshevRelax | VankaRelax |
+                           # KaczmarzRelax | None
 
 
 @dataclass(frozen=True, eq=False)
 class Hierarchy:
     """The flat engine's device hierarchy."""
     levels: tuple          # Level per level, coarsest included
-    coarse: Any            # DenseLU | IterativeCoarse | SparseLUCoarse | ...
+    coarse: Any            # DenseLU | IterativeCoarse | SparseLUCoarse |
+                           # an external solver's device state
+
+
+@dataclass
+class OperatorConstructor:
+    """PDE re-discretization callback (reference
+    multilevelOperatorConstructor, MGdef.jl:31-46): get_operator(mesh,
+    param) -> scipy matrix (get_operator(mesh) without restrict_params);
+    restrict_params(mesh_fine, mesh_coarse, param, level) -> coarse
+    param."""
+    param: Any
+    get_operator: Callable
+    restrict_params: Callable | None = None
+
+    def operator(self, mesh):
+        if self.restrict_params is None:
+            return self.get_operator(mesh)
+        return self.get_operator(mesh, self.param)
+
+    def restricted(self, mesh_f, mesh_c, level):
+        if self.restrict_params is None:
+            return self
+        new_param = self.restrict_params(mesh_f, mesh_c, self.param, level)
+        return OperatorConstructor(new_param, self.get_operator,
+                                   self.restrict_params)
 
 
 class _LazySparseList:
@@ -189,12 +225,16 @@ class MGState:
     device: Any = None             # torch.device the hierarchy lives on
     hier: Any = None               # GridHierarchy | Hierarchy
     A_input: Any = None            # fine operator at its ORIGINAL precision
+    coarse_solver: Any = None      # external coarsest solver, if any
+    do_transpose: int = 0          # 1 while the hierarchy holds A^H
     time_setup: float = 0.0
     time_solve: float = 0.0
     setup_times: dict = field(default_factory=dict)   # host s per stage
     n_iter: int = 0
     _gs_cache: dict = field(default_factory=dict, repr=False)
-    _hi_op_cache: Any = field(default=None, repr=False)
+    _fw_separable: bool = field(default=False, repr=False)
+    _outer_ops: dict = field(default_factory=dict, repr=False)
+    _lo_hier: Any = field(default=None, repr=False)
 
     @property
     def num_levels(self) -> int:
@@ -225,6 +265,14 @@ def _setup_relax(A: sp.spmatrix, cfg: MGConfig, relax_param, mesh):
     if rt in VANKA_TYPES:
         return sm.setup_vanka(A, mesh, relax_param, cfg.mixed, rt,
                               dtype=cfg.dtype)
+    if rt == "hybrid-kaczmarz":
+        from ..cycle.kaczmarz import setup_hybrid_kaczmarz
+        from ..dd.indices import nodal_indices_of_box
+        opts = relax_param          # a KaczmarzOptions-like mapping
+        return setup_hybrid_kaczmarz(
+            A, mesh, opts["num_domains"],
+            opts.get("index_fn", nodal_indices_of_box),
+            opts.get("omega", 0.8), opts.get("num_it", 1), dtype=cfg.dtype)
     raise NotImplementedError(f"relax_type {rt!r} not yet ported")
 
 
@@ -263,11 +311,11 @@ def _check_ported(cfg: MGConfig) -> None:
     checks = [
         (cfg.transfer_type in ("full-weighting", "semicoarsening")
          + SYSTEMS_TRANSFERS, f"transfer_type {cfg.transfer_type!r}"),
-        (cfg.relax_type in GRID_RELAX + VANKA_TYPES,
+        (cfg.relax_type in GRID_RELAX + VANKA_TYPES + ("hybrid-kaczmarz",),
          f"relax_type {cfg.relax_type!r}"),
         (cfg.cycle_type in ("V", "W", "F", "K"),
          f"cycle_type {cfg.cycle_type!r}"),
-        (cfg.coarse_solve in ("lu", "gmres"),
+        (cfg.coarse_solve in ("lu", "gmres", "external"),
          f"coarse_solve {cfg.coarse_solve!r}"),
         (not is_complex(cfg.dtype), f"dtype {np.dtype(cfg.dtype)}"),
     ]
@@ -307,11 +355,12 @@ def _to_device_matrix(A: sp.spmatrix, dtype, prefer_dia: bool = True,
 
 
 def _relax_to(rs, dtype, device):
-    """A host smoother state with its diagonal (or its Vanka tables) as
-    tensors on `device`."""
+    """A host smoother state with its diagonal (or its Vanka or Kaczmarz
+    tables) as tensors on `device`."""
+    from ..cycle.kaczmarz import KaczmarzRelax
     from ..cycle.relax import ChebyshevRelax, DiagRelax
     from ..cycle.vanka import VankaRelax
-    if isinstance(rs, VankaRelax):
+    if isinstance(rs, (VankaRelax, KaczmarzRelax)):
         return rs.to(dtype, device)
     d = torch.as_tensor(np.asarray(rs.d), device=device).to(dtype)
     if isinstance(rs, ChebyshevRelax):
@@ -329,6 +378,9 @@ def _setup_coarse(state: MGState, verbose: bool = False):
     from ..cycle import grid_cycle as gc
     cfg, dev = state.config, state.device
     A_c = state.As[-1]
+    if state.coarse_solver is not None:
+        mesh_c = state.meshes[-1] if state.meshes else None
+        return state.coarse_solver.setup_coarse(A_c, mesh_c, device=dev)
     if cfg.coarse_solve == "gmres":
         rp = _per_level_relax_param(state.relax_param, cfg.levels)[-1]
         omega = rp if np.isscalar(rp) else 1.0
@@ -392,23 +444,29 @@ def build_device_hierarchy(state: MGState, relax_states: list,
 # geometric multigrid setup (Galerkin RAP on the matrix path)
 # ---------------------------------------------------------------------------
 
-def mg_setup(A, mesh: RegularMesh, cfg: MGConfig, relax_param=None,
-             verbose: bool = False, device=None) -> MGState:
-    """Build a Galerkin hierarchy (full-weighting or semicoarsening
-    transfers) for the scipy matrix `A` on `mesh` and move it to `device`
-    ("cuda" unless the caller asks for the CPU; raises when no card is
-    present) on the engine `cfg.engine` selects."""
+def mg_setup(A_or_ctor, mesh: RegularMesh, cfg: MGConfig, relax_param=None,
+             coarse_solver=None, verbose: bool = False,
+             device=None) -> MGState:
+    """Build a geometric hierarchy (full-weighting, semicoarsening or
+    staggered systems transfers) on `mesh` and move it to `device` ("cuda"
+    unless the caller asks for the CPU; raises when no card is present) on
+    the engine `cfg.engine` selects.
+
+    `A_or_ctor` is the operator as a scipy sparse matrix (Galerkin coarse
+    operators) or an `OperatorConstructor` (each level re-discretized on
+    its mesh).  `coarse_solver` is an external coarsest solver with
+    `setup_coarse(A_c, mesh_c, device=)` (DirectSolver, DDSolver,
+    SchurComplementSolver); the grid engines refuse it, so under
+    ``engine="auto"`` such a hierarchy runs on the flat engine."""
     t_all = time.perf_counter()
     dev = resolve_device(device)
-    if not sp.issparse(A):
-        raise NotImplementedError(
-            "the re-discretization (operator constructor) path is not yet "
-            "ported; pass the operator as a scipy sparse matrix")
     _check_ported(cfg)
     systems = cfg.transfer_type in SYSTEMS_TRANSFERS
     if relax_param is None:
         relax_param = 1.0
-    A = sp.csr_matrix(A)
+    geometric = isinstance(A_or_ctor, OperatorConstructor)
+    ctor = A_or_ctor if geometric else None
+    A = sp.csr_matrix(ctor.operator(mesh) if geometric else A_or_ctor)
     A_input = A
     A = A.astype(cfg.dtype)
 
@@ -425,6 +483,15 @@ def mg_setup(A, mesh: RegularMesh, cfg: MGConfig, relax_param=None,
         if gs is None:
             gs = gs_cache[l] = grid_stencil_from_csr(As[l], list(n + 1))
         return gs
+
+    def coarse_operator(l, mesh_c, galerkin):
+        """Level l + 1's operator: re-discretized by the constructor, else
+        `galerkin()`."""
+        nonlocal ctor
+        if ctor is None:
+            return galerkin()
+        ctor = ctor.restricted(meshes[l], mesh_c, l)
+        return sp.csr_matrix(ctor.operator(mesh_c))
 
     times: dict = {}
     for l in range(cfg.levels - 1):
@@ -444,7 +511,9 @@ def mg_setup(A, mesh: RegularMesh, cfg: MGConfig, relax_param=None,
             meshes.append(get_regular_mesh(meshes[l].domain, nc))
             t1 = time.perf_counter()
             times["transfers"] = times.get("transfers", 0.0) + t1 - t0
-            As.append((Rs[l] @ A_l @ Ps[l]).tocsr().astype(cfg.dtype))
+            As.append(coarse_operator(
+                l, meshes[-1], lambda: (Rs[l] @ A_l @ Ps[l]).tocsr()
+            ).astype(cfg.dtype))
             times["rap"] = times.get("rap", 0.0) + time.perf_counter() - t1
             if verbose:
                 print(f"mg_setup: level {l} ({int(np.prod(n))} cells) took "
@@ -472,7 +541,10 @@ def mg_setup(A, mesh: RegularMesh, cfg: MGConfig, relax_param=None,
             stop = not any(sc_axes)
             d_c = int(sum(sc_axes))
         else:
-            p1s, nc1s = zip(*(tr.fw_interp_1d(int(nd)) for nd in (n + 1)))
+            # re-discretization keeps integer cells: an even node count
+            # stops coarsening (fw_interp_1d's geometric mode)
+            p1s, nc1s = zip(*(tr.fw_interp_1d(int(nd), geometric)
+                              for nd in (n + 1)))
             stop = all(m.shape[0] == m.shape[1] for m in p1s)
             d_c = mesh.dim
         nc = np.asarray(nc1s, dtype=np.int64) - 1
@@ -487,22 +559,26 @@ def mg_setup(A, mesh: RegularMesh, cfg: MGConfig, relax_param=None,
         Rs.append(lambda ms=tuple(p1s), d=d_c:
                   ((0.5 ** d) * tr._kron_nd(list(ms)).T).tocsr())
         meshes.append(get_regular_mesh(meshes[l].domain, nc))
-        # structured stencil RAP on the grid-form coefficients (which the
-        # grid engine reuses via the cache); scipy's triple product where
-        # the operator is not a +-1 stencil on odd grids
-        try:
-            gs_f = host_stencil(l)
-            dim_g = len(gs_f.grid)
-            rap_axes = (None if sc_axes is None else
-                        tuple(dim_g - 1 - a
-                              for a, c in enumerate(sc_axes) if c))
-            gs_c = structured_fw_rap(gs_f, axes=rap_axes)
-            gs_cache[l + 1] = gs_c
-            A_c = gs_c.to_scipy().tocsr()
-            A_c.eliminate_zeros()   # boundary non-entries
-        except ValueError:
-            A_c = (Rs[l] @ A_l @ Ps[l]).tocsr()
-        As.append(A_c.astype(cfg.dtype))
+
+        def galerkin():
+            # structured stencil RAP on the grid-form coefficients (which
+            # the grid engine reuses via the cache); scipy's triple product
+            # where the operator is not a +-1 stencil on odd grids
+            try:
+                gs_f = host_stencil(l)
+                dim_g = len(gs_f.grid)
+                rap_axes = (None if sc_axes is None else
+                            tuple(dim_g - 1 - a
+                                  for a, c in enumerate(sc_axes) if c))
+                gs_c = structured_fw_rap(gs_f, axes=rap_axes)
+                gs_cache[l + 1] = gs_c
+                A_c = gs_c.to_scipy().tocsr()
+                A_c.eliminate_zeros()   # boundary non-entries
+                return A_c
+            except ValueError:
+                return (Rs[l] @ A_l @ Ps[l]).tocsr()
+
+        As.append(coarse_operator(l, meshes[-1], galerkin).astype(cfg.dtype))
         if verbose:
             print(f"mg_setup: level {l} ({int(np.prod(n))} cells) took "
                   f"{time.perf_counter() - t0:.3f}s")
@@ -511,9 +587,133 @@ def mg_setup(A, mesh: RegularMesh, cfg: MGConfig, relax_param=None,
     cfg = replace(cfg, levels=levels,
                   nu_pre=cfg.nu_pre[:levels], nu_post=cfg.nu_post[:levels])
     state = MGState(cfg, relax_param, As, Ps, Rs, meshes, device=dev,
-                    A_input=A_input, setup_times=times)
+                    A_input=A_input, coarse_solver=coarse_solver,
+                    setup_times=times)
     state._gs_cache = {k: v for k, v in gs_cache.items()
                        if v.coeff.dtype == np.dtype(cfg.dtype)}
+    # the full-weighting transfers built above are the separable
+    # fw_interp factors the grid engine applies; on the re-discretization
+    # path (geometric factors) the grid engine checks them first
+    state._fw_separable = (cfg.transfer_type in ("full-weighting",
+                                                 "semicoarsening")
+                           and not geometric)
     state.hier = build_device_hierarchy(state, relax_states, verbose)
     state.time_setup += time.perf_counter() - t_all
     return state
+
+
+# ---------------------------------------------------------------------------
+# lifecycle (reference MGsetup.jl:226-318, MGdef.jl:138-210)
+# ---------------------------------------------------------------------------
+
+def hierarchy_exists(state: MGState | None) -> bool:
+    return state is not None and state.hier is not None and len(state.As) > 0
+
+
+def _rebuild(state: MGState, relax_states, verbose: bool) -> None:
+    """A new device hierarchy for the state's host levels; the old one's
+    recorded programs (and their memory pool) go with it."""
+    from ..cycle import capture
+    old, state.hier = state.hier, None
+    if old is not None:
+        capture.forget(old)
+    del old
+    state._outer_ops, state._lo_hier = {}, None
+    state.hier = build_device_hierarchy(state, relax_states, verbose)
+
+
+def replace_matrix_in_hierarchy(state: MGState, A: sp.spmatrix,
+                                verbose: bool = False) -> MGState:
+    """Re-setup for a new matrix of the same sparsity and geometry, reusing
+    the transfers (reference replaceMatrixInHierarchy, MGsetup.jl:226-270).
+    Where the transfers are mg_setup's separable full-weighting factors the
+    coarse operators come from the structured stencil RAP (two scipy
+    SpGEMMs a level otherwise), and its stencils seed the grid engine."""
+    from ..ops.grid_stencil import grid_stencil_from_csr, structured_fw_rap
+    state._gs_cache = {}        # the host stencils are stale
+    cfg = state.config
+    t_all = time.perf_counter()
+    rp_arr = _per_level_relax_param(state.relax_param, cfg.levels)
+    As = [sp.csr_matrix(A).astype(cfg.dtype)]
+    state.A_input = sp.csr_matrix(A)
+    relax_states = []
+    use_rap = (cfg.transfer_type == "full-weighting" and state._fw_separable
+               and bool(state.meshes))
+    for l in range(state.num_levels - 1):
+        mesh_l = state.meshes[l] if state.meshes else None
+        relax_states.append(_RelaxThunk(As[l], cfg, rp_arr[l], mesh_l))
+        A_c = None
+        if use_rap:
+            try:
+                gs_f = state._gs_cache.get(l)
+                if gs_f is None:
+                    n_l = np.asarray(state.meshes[l].n)
+                    gs_f = grid_stencil_from_csr(As[l], list(n_l + 1))
+                    state._gs_cache[l] = gs_f
+                gs_c = structured_fw_rap(gs_f)
+                state._gs_cache[l + 1] = gs_c
+                A_c = gs_c.to_scipy().tocsr().astype(cfg.dtype)
+                A_c.eliminate_zeros()
+            except ValueError:
+                use_rap = False
+                A_c = None
+        if A_c is None:
+            A_c = (state.Rs[l] @ As[l] @ state.Ps[l]).tocsr().astype(
+                cfg.dtype)
+        As.append(A_c)
+    state._gs_cache = {k: v for k, v in state._gs_cache.items()
+                       if v.coeff.dtype == np.dtype(cfg.dtype)}
+    state.As = As
+    _rebuild(state, relax_states, verbose)
+    state.do_transpose = 0
+    state.time_setup += time.perf_counter() - t_all
+    return state
+
+
+def transpose_hierarchy(state: MGState, verbose: bool = False) -> MGState:
+    """Flip the hierarchy to solve A^H x = b (reference
+    transposeHierarchy, MGsetup.jl:274-318): every level conjugate-
+    transposed, P and R swapped, the smoothers and the coarsest made
+    anew.  Pointwise relaxations only, as in the reference."""
+    state._gs_cache = {}
+    if state.config.relax_type not in ("jacobi", "jac-gmres", "spai"):
+        raise NotImplementedError(
+            "transpose is supported for pointwise relaxations only "
+            "(same restriction as the reference, MGsetup.jl:288-291)")
+    t_all = time.perf_counter()
+    state.As = [a.conj().T.tocsr() for a in state.As]
+    if state.A_input is not None:
+        state.A_input = state.A_input.conj().T.tocsr()
+    new_Ps = [r.conj().T.tocsr() for r in state.Rs]
+    new_Rs = [p.conj().T.tocsr() for p in state.Ps]
+    state.Ps, state.Rs = new_Ps, new_Rs
+    cfg = state.config
+    rp_arr = _per_level_relax_param(state.relax_param, cfg.levels)
+    relax_states = [
+        _RelaxThunk(state.As[l], cfg, rp_arr[l],
+                    state.meshes[l] if state.meshes else None)
+        for l in range(state.num_levels - 1)]
+    _rebuild(state, relax_states, verbose)
+    state.do_transpose = (state.do_transpose + 1) % 2
+    state.time_setup += time.perf_counter() - t_all
+    return state
+
+
+def copy_solver(state: MGState) -> MGState:
+    """The configuration without the setup (reference copySolver,
+    MGdef.jl:138-145)."""
+    return MGState(state.config, state.relax_param, [], [], [], [],
+                   device=state.device, coarse_solver=state.coarse_solver)
+
+
+def clear(state: MGState) -> None:
+    """Drop the hierarchy and its factors (reference clear! /
+    destroyCoarsestLU, MGdef.jl:179-206); the device memory is freed with
+    the last reference, the recorded programs with the hierarchy."""
+    from ..cycle import capture
+    if state.hier is not None:
+        capture.forget(state.hier)
+    state.As, state.Ps, state.Rs, state.meshes = [], [], [], []
+    state.hier = None
+    state._outer_ops, state._lo_hier = {}, None
+    state._gs_cache = {}

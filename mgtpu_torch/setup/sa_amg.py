@@ -222,8 +222,9 @@ def sparsify_non_galerkin(A_g: sp.csr_matrix, A_fine: sp.csr_matrix,
 
 
 def sa_amg_setup(A: sp.spmatrix, cfg: MGConfig, relax_param=1.0,
-                 verbose: bool = False, non_galerkin: bool = False,
-                 mesh=None, device=None) -> MGState:
+                 coarse_solver=None, verbose: bool = False,
+                 non_galerkin: bool = False, mesh=None,
+                 device=None) -> MGState:
     """Build a smoothed-aggregation hierarchy (reference SA_AMGsetup,
     SA-AMG.jl:8-76) on `device` ("cuda" unless the caller asks for the
     CPU; raises when no card is present).
@@ -233,7 +234,9 @@ def sa_amg_setup(A: sp.spmatrix, cfg: MGConfig, relax_param=1.0,
     hierarchy runs on the grid engine; without a mesh, greedy aggregation
     and the flat ELL/DIA engine.  non_galerkin=True (or a pattern
     distance) sparsifies the coarse operators, filtered by
-    cfg.filtering_param."""
+    cfg.filtering_param.  `coarse_solver` (an external coarsest, as in
+    mg_setup) serves the flat engine; the structured grid path keeps its
+    own coarsest, as mgtpu's does."""
     t_all = time.perf_counter()
     dev = resolve_device(device)
     if cfg.relax_type not in _SA_RELAX:
@@ -307,7 +310,7 @@ def sa_amg_setup(A: sp.spmatrix, cfg: MGConfig, relax_param=1.0,
 
     state = MGState(cfg, relax_param, As, Ps, Rs,
                     meshes=([mesh] if mesh is not None else []), device=dev,
-                    A_input=A_orig)
+                    A_input=A_orig, coarse_solver=coarse_solver)
     state.hier = None
     if structured_nodes is not None:
         try:

@@ -14,8 +14,10 @@ graphs on the card, the plain functions on the CPU):
    one program, with no host read.
  * `solve_mg_refined` is mixed-precision iterative refinement: the residual
    b - A x in native float64 against the ORIGINAL operator (`A_input`), the
-   correction one cycle of the (float32) hierarchy from a zero guess;
-   `fmg=True` starts from one full-multigrid pass instead of zero.  With
+   correction one cycle of the (float32) hierarchy from a zero guess
+   (`outer_dtype`, `cycle_dtype`: mgtpu's; a bfloat16 cycle runs a
+   `cast_hierarchy` copy); `fmg=True` starts a grid-engine solve from one
+   full-multigrid pass instead of zero.  With
    `device_loop` (mgtpu's default) the loop runs as recorded chunks of
    iterations masked by a device flag (mgtpu's `lax.while_loop`), else as
    the eager host loop.
@@ -35,6 +37,7 @@ All run on the state's device and return torch tensors there.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 
 import numpy as np
@@ -73,7 +76,7 @@ def _rows(matvec):
     return lambda v: matvec(v.T).T
 
 
-def _runtime(state: MGState, captured: bool = True):
+def _runtime(state: MGState, captured: bool = True, hier=None):
     """The engine's field form: (to_field, to_flat, cycle, matvec).
 
     to_field takes flat (n, m) columns to a field, to_flat back;
@@ -82,8 +85,10 @@ def _runtime(state: MGState, captured: bool = True):
     unless `captured` is False — and matvec the fine operator on fields.
     Grid fields are (m, *grid); the systems engine's are (m, N) rows, split
     into component fields around each cycle and matvec; the flat engine's
-    are (m, n), whose transposes are the (n, m) columns its cycle takes."""
-    cfg, h = state.config, state.hier
+    are (m, n), whose transposes are the (n, m) columns its cycle takes.
+    `hier` (default the state's) is the hierarchy the cycle runs: a
+    `cycle_dtype` copy in the refined solve."""
+    cfg, h = state.config, state.hier if hier is None else hier
     if isinstance(h, GridHierarchy):
         grid = h.fine_grid
         cyc = grid_cycle_jit if captured else grid_cycle
@@ -169,85 +174,127 @@ def solve_mg_jit(state: MGState, b, x=None, num_cycles: int | None = None):
     return x2[:, 0] if squeeze else x2
 
 
-def high_precision_fine_operator(state: MGState):
-    """Float64 form of the ORIGINAL fine operator, cached on the state (the
-    hierarchy's fine matrix was cast to the cycle dtype): a grid stencil on
-    the grid engine, a `BlockGridOperator` of cross stencils on the systems
-    engine (kernel D in float64: mgtpu's double-single block operator
-    becomes native f64), DIA or ELL (`_to_device_matrix`) on the flat one.
-    On the grid engines its matvec takes fields (block fields on the
-    systems engine), on the flat engine (n, m) columns; `_hi_matvec` is
-    the apply on the solve loops' fields for all."""
-    if state._hi_op_cache is None:
-        A_host = state.A_input if state.A_input is not None else state.As[0]
-        if isinstance(state.hier, SystemsGridHierarchy):
-            state._hi_op_cache = block_operator_from_csr(
-                A_host, list(state.meshes[0].n), state.config.mixed,
-                dtype=np.float64, device=state.device)
-        elif isinstance(state.hier, GridHierarchy):
-            grid = state.hier.fine_grid
-            state._hi_op_cache = make_grid_stencil(
-                A_host, list(reversed(grid)), dtype=np.float64,
-                max_shift=(min(grid) - 1) // 2 if min(grid) < 7 else 3,
-                device=state.device)
-        else:
-            state._hi_op_cache = _to_device_matrix(
-                A_host, np.float64, device=state.device)
-    return state._hi_op_cache
+def _fine_operator(state: MGState, dtype):
+    """The ORIGINAL fine operator (`A_input`) in `dtype` on the state's
+    device, in the engine's form: a grid stencil, a `BlockGridOperator` of
+    cross stencils (systems), DIA or ELL (flat)."""
+    A_host = state.A_input if state.A_input is not None else state.As[0]
+    if isinstance(state.hier, SystemsGridHierarchy):
+        return block_operator_from_csr(
+            A_host, list(state.meshes[0].n), state.config.mixed,
+            dtype=dtype, device=state.device)
+    if isinstance(state.hier, GridHierarchy):
+        grid = state.hier.fine_grid
+        return make_grid_stencil(
+            A_host, list(reversed(grid)), dtype=dtype,
+            max_shift=(min(grid) - 1) // 2 if min(grid) < 7 else 3,
+            device=state.device)
+    return _to_device_matrix(A_host, dtype, device=state.device)
 
 
-def _hi_matvec(state: MGState):
-    """The float64 fine operator's apply on the engine's fields."""
-    op = high_precision_fine_operator(state)
+def high_precision_fine_operator(state: MGState, dtype=np.float64):
+    """The ORIGINAL fine operator in float64 (or `dtype`: solve_mg_refined's
+    `outer_dtype`), cached on the state (the hierarchy's fine matrix was
+    cast to the cycle dtype): a grid stencil on the grid engine, a
+    `BlockGridOperator` of cross stencils on the systems engine (kernel D
+    in float64: mgtpu's double-single block operator becomes native f64),
+    DIA or ELL (`_to_device_matrix`) on the flat one.  On the grid engines
+    its matvec takes fields (block fields on the systems engine), on the
+    flat engine (n, m) columns; `_hi_matvec` is the apply on the solve
+    loops' fields for all."""
+    key = np.dtype(dtype).name
+    if key not in state._outer_ops:
+        state._outer_ops[key] = _fine_operator(state, np.dtype(dtype).type)
+    return state._outer_ops[key]
+
+
+def _hi_matvec(state: MGState, dtype=np.float64):
+    """The fine operator's apply (float64, or `dtype`) on the engine's
+    fields."""
+    op = high_precision_fine_operator(state, dtype)
     if isinstance(state.hier, SystemsGridHierarchy):
         return op.rows_matvec
     return op.matvec if isinstance(state.hier, GridHierarchy) \
         else _rows(op.matvec)
 
 
-def solve_mg_refined(state: MGState, b, x=None, tol: float = 1e-8,
-                     max_iter: int | None = None, fmg: bool = False,
-                     verbose: bool = False, device_loop: bool = True):
-    """Iterative refinement x += Cycle(b - A x) to a float64 relative
-    residual below `tol`.
+def cast_hierarchy(hier, dtype: torch.dtype):
+    """A copy of a device hierarchy with every floating tensor in `dtype`
+    (mgtpu's `_cast_hier`): the levels, transfers, smoother states and the
+    coarsest solver's tables; integer tables and host objects are shared.
+    Kernels A-F take float32 and float64, so a bfloat16 copy runs their
+    counted plain versions."""
+    if isinstance(hier, torch.Tensor):
+        return hier.to(dtype) if hier.is_floating_point() else hier
+    if isinstance(hier, tuple):
+        return tuple(cast_hierarchy(v, dtype) for v in hier)
+    if dataclasses.is_dataclass(hier) and not isinstance(hier, type):
+        return dataclasses.replace(hier, **{
+            f.name: cast_hierarchy(getattr(hier, f.name), dtype)
+            for f in dataclasses.fields(hier) if f.init})
+    return hier
 
-    The residual is computed in native float64 against `A_input`; each
-    correction is one cycle of the hierarchy (its own dtype) from a zero
-    guess.  With `fmg` and no `x`, the iterate starts from one full
-    multigrid pass on b (grid_fmg) instead of zero.  The loop stops at
-    `tol`, at `max_iter` (default max_outer_iter), or once the residual
-    exceeds 1e3 * ||b||.
+
+def _cycle_hierarchy(state: MGState, cd: torch.dtype):
+    """The hierarchy a correction cycle in `cd` runs: the state's own, or
+    its `cast_hierarchy` copy (made once, kept on the state)."""
+    if cd == torch_dtype(state.config.dtype):
+        return state.hier
+    lo = state._lo_hier
+    if lo is None or lo[0] != cd:
+        state._lo_hier = lo = (cd, cast_hierarchy(state.hier, cd))
+    return lo[1]
+
+
+def solve_mg_refined(state: MGState, b, x=None, tol: float = 1e-8,
+                     max_iter: int | None = None, outer_dtype=None,
+                     cycle_dtype=None, device_loop: bool = True,
+                     fmg: bool = False, verbose: bool = False):
+    """Iterative refinement x += Cycle(b - A x) to a relative residual
+    below `tol` (mgtpu's signature).
+
+    The residual is computed in `outer_dtype` (default float64) against
+    `A_input`; each correction is one cycle from a zero guess in
+    `cycle_dtype` (default the hierarchy's; ``torch.bfloat16`` runs the
+    cycles on a bfloat16 copy of the hierarchy, `cast_hierarchy`, whose
+    kernels take their counted plain versions).  With `fmg` and no `x`, a
+    grid-engine iterate starts from one full multigrid pass on b
+    (grid_fmg) instead of zero; on the flat and systems engines the solve
+    starts from zero, as mgtpu's does.  The loop stops at `tol`, at
+    `max_iter` (default max_outer_iter), or once the residual exceeds
+    1e3 * ||b||.
 
     `device_loop` (mgtpu's default) runs it as recorded programs of
     krylov/_loop.py's CHUNK iterations, each masked by the device flag of
-    mgtpu's `cond`; the FMG start and the first residual
-    run inside the first program, `tol` and `max_iter` are device scalars,
-    and the host reads the flag once a chunk.  `device_loop=False` is the
-    eager host loop, one host read an iteration.  Returns (x, info) with x
-    a float64 tensor on the state's device."""
+    mgtpu's `cond`; the FMG start and the first residual run inside the
+    first program, `tol` and `max_iter` are device scalars, and the host
+    reads the flag once a chunk.  `device_loop=False` is the eager host
+    loop, one host read an iteration.  Returns (x, info) with x an
+    `outer_dtype` tensor on the state's device."""
     t0 = time.perf_counter()
-    cfg, gh, dev = state.config, state.hier, state.device
-    cd = torch_dtype(cfg.dtype)
+    cfg, dev = state.config, state.device
+    outer = torch_dtype(np.float64 if outer_dtype is None else outer_dtype)
+    cd = torch_dtype(cfg.dtype if cycle_dtype is None else cycle_dtype)
+    gh = _cycle_hierarchy(state, cd)
     if max_iter is None:
         max_iter = cfg.max_outer_iter
-    b2, squeeze = _as_2d(torch.as_tensor(b, dtype=torch.float64, device=dev))
+    b2, squeeze = _as_2d(torch.as_tensor(b, dtype=outer, device=dev))
     x2 = (torch.zeros_like(b2) if x is None
-          else _as_2d(torch.as_tensor(x, dtype=torch.float64, device=dev))[0])
-    matvec_hi = _hi_matvec(state)
-    to_field, to_flat, cycle, _ = _runtime(state, captured=False)
+          else _as_2d(torch.as_tensor(x, dtype=outer, device=dev))[0])
+    np_outer = np.dtype(str(outer).rsplit(".", 1)[-1])
+    matvec_hi = _hi_matvec(state, np_outer)
+    to_field, to_flat, cycle, _ = _runtime(state, captured=False, hier=gh)
     bv, xv = to_field(b2), to_field(x2)
-    use_fmg = bool(fmg and x is None)
-    if use_fmg and not isinstance(gh, GridHierarchy):
-        raise ValueError("the FMG start needs the grid engine")
+    use_fmg = bool(fmg and x is None and isinstance(gh, GridHierarchy))
     if device_loop:
         xv, iters, res, res0, resvec = _refined_device_loop(
             state, (cfg, gh, cycle, matvec_hi, cd, use_fmg, _loop.CHUNK),
-            bv, xv, tol, int(max_iter))
+            bv, xv, tol, int(max_iter), np_outer)
         if verbose:
             _print_resvec(resvec)
     else:
         if use_fmg:
-            xv = grid_fmg(cfg, gh, bv.to(cd)).to(torch.float64)
+            xv = grid_fmg(cfg, gh, bv.to(cd)).to(outer)
         res0 = max(_norm(bv), 1e-300)
         r = bv - matvec_hi(xv)
         res = _norm(r)
@@ -256,7 +303,7 @@ def solve_mg_refined(state: MGState, b, x=None, tol: float = 1e-8,
         while iters < max_iter and tol * res0 <= res < 1e3 * res0:
             rl = r.to(cd)
             z = cycle(rl, torch.zeros_like(rl), True)
-            xv = xv + z.to(torch.float64)
+            xv = xv + z.to(outer)
             r = bv - matvec_hi(xv)
             res_prev, res = res, _norm(r)
             resvec.append(res)
@@ -288,7 +335,7 @@ def _refine_chunk(ctx, bv, xv, r, res, res0, it, resvec, tol, max_iter):
         rl = r.to(cd)
         with gate(active):              # a masked iteration skips host steps
             z = cycle(rl, torch.zeros_like(rl), True)
-        xn = xv + z.to(torch.float64)
+        xn = xv + z.to(xv.dtype)
         r = bv - matvec_hi(xn)
         rn = torch.linalg.vector_norm(r)
         xv = torch.where(active, xn, xv)
@@ -303,7 +350,7 @@ def _refine_first(ctx, bv, xv, resvec, tol, max_iter):
     """The first program: the FMG start, the first residual, a chunk."""
     cfg, gh, _, matvec_hi, cd, use_fmg, _ = ctx
     if use_fmg:
-        xv = grid_fmg(cfg, gh, bv.to(cd)).to(torch.float64)
+        xv = grid_fmg(cfg, gh, bv.to(cd)).to(bv.dtype)
     res0 = torch.clamp(torch.linalg.vector_norm(bv), min=1e-300)
     r = bv - matvec_hi(xv)
     res = torch.linalg.vector_norm(r)
@@ -312,20 +359,21 @@ def _refine_first(ctx, bv, xv, resvec, tol, max_iter):
                          torch.zeros_like(max_iter), resvec, tol, max_iter)
 
 
-def _refined_device_loop(state, ctx, bv, xv, tol, max_iter):
+def _refined_device_loop(state, ctx, bv, xv, tol, max_iter, outer):
     """The refinement loop as recorded chunks (mgtpu's
-    `_refined_device_loop`): (x, iters, res, res0, resvec)."""
-    cfg, _, _, _, cd, use_fmg, chunk = ctx
-    hi = high_precision_fine_operator(state)
+    `_refined_device_loop`), kept with the cycle's hierarchy:
+    (x, iters, res, res0, resvec)."""
+    cfg, gh, _, _, cd, use_fmg, chunk = ctx
+    hi = high_precision_fine_operator(state, outer)
     key = ("refine", static_config(cfg), cd, use_fmg, chunk, id(hi))
     dev = bv.device
-    scal = (torch.tensor(tol, dtype=torch.float64, device=dev),
+    scal = (torch.tensor(tol, dtype=bv.dtype, device=dev),
             torch.tensor(max_iter, dtype=torch.int64, device=dev))
-    out = run(state.hier, key + ("first",), _refine_first, ctx, bv, xv,
-              torch.zeros(max_iter + 1, dtype=torch.float64, device=dev),
+    out = run(gh, key + ("first",), _refine_first, ctx, bv, xv,
+              torch.zeros(max_iter + 1, dtype=bv.dtype, device=dev),
               *scal, keep=(hi,), clone=False)
     while bool(out[-1]):
-        out = run(state.hier, key + ("next",), _refine_chunk, ctx, bv,
+        out = run(gh, key + ("next",), _refine_chunk, ctx, bv,
                   *out[:-1], *scal, keep=(hi,), clone=False)
     xv, _, res, res0, it, resvec, _ = out
     iters = int(it)
@@ -363,15 +411,20 @@ def _field_preconditioner(state: MGState, captured: bool = True):
     return prec
 
 
-def get_mg_preconditioner(state: MGState):
+def get_mg_preconditioner(state: MGState, outer_dtype=None):
     """The one-cycle preconditioner as an operator on flat (n,) / (n, m)
     tensors (reference getMGPreconditioner, SolveFuncs.jl:43-63); each
-    application replays the recorded cycle."""
+    application replays the recorded cycle.  The cycle runs in the
+    hierarchy's precision; the correction comes back in `outer_dtype`
+    (default r's type: the mixed-precision shim, SolveFuncs.jl:52-58)."""
     prec = _field_preconditioner(state)
     to_field, to_flat = _runtime(state)[:2]
+    out = None if outer_dtype is None else torch_dtype(outer_dtype)
 
     def flat_prec(r):
         r2, squeeze = _as_2d(r)
+        if out is not None:
+            r2 = r2.to(out)
         z = to_flat(prec(to_field(r2)))
         return z[:, 0] if squeeze else z
 

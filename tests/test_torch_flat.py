@@ -175,8 +175,8 @@ def test_engine_auto_falls_back_to_flat_as_reference():
 
 
 @pytest.mark.parametrize("engine", ["auto", "flat"])
-@pytest.mark.parametrize("kw", [dict(relax_type="hybridKaczmarzNodal"),
-                                dict(dtype=np.complex128)])
+@pytest.mark.parametrize("kw", [dict(dtype=np.complex128),
+                                dict(dtype=np.complex64)])
 def test_unported_options_raise_on_every_engine(engine, kw):
     """NotImplementedError is never taken for a grid-engine ValueError."""
     dims, A = _divsig(8)
@@ -438,8 +438,11 @@ def test_flat_solves_match_reference():
     assert np.linalg.norm(b - A @ _np(x_c)) < 1e-5
     z = mt.get_mg_preconditioner(st_p)(torch.from_numpy(b))
     assert tuple(z.shape) == b.shape and z.dtype == torch.float64
-    with pytest.raises(ValueError, match="grid engine"):
-        mt.solve_mg_refined(st_p, b, fmg=True)
+    # FMG on a flat hierarchy: a solve from zero, as mgtpu's
+    x_f, i_f = mt.solve_mg_refined(st_p, b, tol=1e-8, max_iter=60, fmg=True)
+    x_r, i_r = refined_ref(st_r, b, tol=1e-8, max_iter=60, fmg=True)
+    assert abs(i_f["iters"] - i_r["iters"]) <= 1
+    assert torch.equal(x_f, x_p) and i_f["resvec"][0] == pytest.approx(1.0)
 
 
 def test_flat_refinement_uses_the_f64_dia_operator():

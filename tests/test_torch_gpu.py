@@ -1319,3 +1319,139 @@ def test_small_systems_solves_on_the_card(relax, mixed):
     xe, info_e = mt.solve_mg_refined(st, b, tol=1e-8, max_iter=60,
                                      device_loop=False)
     assert info_e["iters"] == info["iters"] and torch.equal(xe, x)
+
+
+# ---------------------------------------------------------------------------
+# kernel F (hybrid Kaczmarz), the direct tier
+# ---------------------------------------------------------------------------
+
+def _kaczmarz_state(n, ndom, dtype):
+    import mgtpu_torch as mt
+    from mgtpu_torch.cycle.kaczmarz import setup_hybrid_kaczmarz
+    from mgtpu_torch.dd.indices import nodal_indices_of_box
+    from mgtpu_torch.models.operators import nodal_div_sig_grad_matrix
+    M = mt.get_regular_mesh([0.0, 1.0, 0.0, 1.0], [n, n])
+    A = nodal_div_sig_grad_matrix(
+        M, np.exp(np.random.RandomState(3).randn(M.num_cells)))
+    A = (A + 1e-4 * abs(A).sum(0).max() * sp.identity(A.shape[0])).tocsr()
+    return A, setup_hybrid_kaczmarz(A, M, ndom, nodal_indices_of_box, 0.8,
+                                    2, dtype=dtype)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("m", [1, 3])
+def test_kaczmarz_kernel_matches_plain(dtype, m):
+    """Kernel F against its plain version (f32 2e-5, f64 1e-12), on ragged
+    domains ((3, 2) boxes of a 37^2 mesh: padded steps); a second launch
+    is bitwise the first; it refuses what it does not take."""
+    _need_card()
+    from mgtpu_torch.cycle.kaczmarz import kaczmarz_sweep
+    from mgtpu_torch.ops.cuda import kaczmarz as kf
+    A, kz = _kaczmarz_state(37, [3, 2], dtype)
+    assert (kz.mask == 0).any()
+    dt = torch.float32 if dtype == np.float32 else torch.float64
+    kd = kz.to(dt, "cuda")
+    rng = np.random.RandomState(m)
+    x = torch.tensor(rng.rand(A.shape[0], m), dtype=dt, device="cuda")
+    b = torch.tensor(rng.rand(A.shape[0], m), dtype=dt, device="cuda")
+    before = kf.LAUNCHES[str(dt).rsplit(".", 1)[-1]]
+    y = kaczmarz_sweep(x, b, kd, 2)
+    y2 = kaczmarz_sweep(x, b, kd, 2)
+    torch.cuda.synchronize()
+    assert kf.LAUNCHES[str(dt).rsplit(".", 1)[-1]] == before + 2
+    assert torch.equal(y, y2)
+    ref = kf.kaczmarz_sweep_plain(x, b, kd.arr, kd.mask, kd.invd,
+                                  kd.ell_idx, kd.ell_val, 2)
+    tol = 2e-5 if dtype == np.float32 else 1e-12
+    assert float((y - ref).abs().max() / ref.abs().max()) < tol
+    with pytest.raises(ValueError):
+        kaczmarz_sweep(torch.zeros((A.shape[0], 5), dtype=dt, device="cuda"),
+                       torch.zeros((A.shape[0], 5), dtype=dt, device="cuda"),
+                       kd)
+
+
+def test_hybrid_kaczmarz_solve_runs_through_kernel_f():
+    """A small hybrid-Kaczmarz hierarchy on the card: solve_mg through the
+    recorded cycle launches kernel F and no plain version, with the count
+    of the same solve on the CPU."""
+    _need_card()
+    import mgtpu_torch as mt
+    from mgtpu_torch.dd.indices import nodal_indices_of_box
+    from mgtpu_torch.ops.cuda import kaczmarz as kf
+    A, _ = _kaczmarz_state(32, [4, 4], np.float64)
+    M = mt.get_regular_mesh([0.0, 1.0, 0.0, 1.0], [32, 32])
+    cfg, _ = mt.get_mg_param(levels=3, relax_type="hybridKaczmarzNodal",
+                             nu_pre=1, nu_post=1, relative_tol=1e-8,
+                             max_outer_iter=40)
+    rp = {"num_domains": [4, 4], "omega": 0.8, "num_it": 2,
+          "index_fn": nodal_indices_of_box}
+    b = A @ np.random.RandomState(4).rand(A.shape[0])
+    b /= np.linalg.norm(b)
+    x_c, info_c = mt.solve_mg(mt.mg_setup(A, M, cfg, rp, device="cpu"), b)
+    st = mt.mg_setup(A, M, cfg, rp)
+    l0, p0 = kf.LAUNCHES["float64"], kf.PLAIN_CALLS["float64"]
+    x, info = mt.solve_mg(st, b)
+    assert kf.LAUNCHES["float64"] > l0 and kf.PLAIN_CALLS["float64"] == p0
+    assert info["iters"] == info_c["iters"]
+    # the kernel sums a column's adds in another order than index_add
+    assert float((x.cpu() - x_c).abs().max() / x_c.abs().max()) < 1e-9
+
+
+def test_hybrid_kaczmarz_bfloat16_cycles_on_the_card():
+    """bfloat16 cycles on a hybrid-Kaczmarz hierarchy on the card: the
+    sweeps take kernel F's counted plain version (the kernel takes float32
+    and float64 only) and launch no kernel F; the refined solve reaches
+    1e-8 within one iteration of the same solve on the CPU."""
+    _need_card()
+    import mgtpu_torch as mt
+    from mgtpu_torch.dd.indices import nodal_indices_of_box
+    from mgtpu_torch.ops.cuda import kaczmarz as kf
+    A, _ = _kaczmarz_state(32, [4, 4], np.float64)
+    M = mt.get_regular_mesh([0.0, 1.0, 0.0, 1.0], [32, 32])
+    cfg, _ = mt.get_mg_param(levels=3, relax_type="hybridKaczmarzNodal",
+                             nu_pre=1, nu_post=1)
+    rp = {"num_domains": [4, 4], "omega": 0.8, "num_it": 2,
+          "index_fn": nodal_indices_of_box}
+    b = A @ np.random.RandomState(4).rand(A.shape[0])
+    b /= np.linalg.norm(b)
+    kw = dict(tol=1e-8, max_iter=60, cycle_dtype=torch.bfloat16)
+    x_c, info_c = mt.solve_mg_refined(
+        mt.mg_setup(A, M, cfg, rp, device="cpu"), b, **kw)
+    st = mt.mg_setup(A, M, cfg, rp)
+    l0, p0 = dict(kf.LAUNCHES), kf.PLAIN_CALLS.get("bfloat16", 0)
+    x, info = mt.solve_mg_refined(st, b, **kw)
+    torch.cuda.synchronize()
+    assert kf.LAUNCHES == l0 and kf.PLAIN_CALLS["bfloat16"] > p0
+    assert abs(info["iters"] - info_c["iters"]) <= 1
+    assert np.linalg.norm(A @ x.cpu().numpy() - b) < 1e-8
+
+
+@pytest.mark.parametrize("dtype,tol", [(np.float64, 1e-8),
+                                       (np.float32, 1e-4),
+                                       (np.complex128, 1e-8),
+                                       (np.complex64, 1e-4)])
+def test_direct_solver_on_the_card(dtype, tol):
+    """The dense DirectSolver factors and solves on the card (A and A^H,
+    1 and 5 right-hand sides) to test_solvers.py's tolerances."""
+    _need_card()
+    import mgtpu_torch as mt
+    from mgtpu_torch.models.operators import nodal_laplacian_matrix
+    M = mt.get_regular_mesh([0.0, 1.0, 0.0, 1.0], [20, 23])
+    A = nodal_laplacian_matrix(M)
+    A = (A + 1e-1 * abs(A).sum(0).max() * sp.identity(A.shape[0]))
+    if np.issubdtype(dtype, np.complexfloating):
+        P = sp.random(*A.shape, density=0.001, random_state=2)
+        A = A + 1j * 0.1 * abs(A).sum() / A.nnz * (P - P.T)
+    A = A.tocsr().astype(dtype)
+    ds = mt.DirectSolver("dense", dtype=dtype)
+    for nrhs in (1, 5):
+        bb = (A @ np.random.RandomState(nrhs).rand(A.shape[0], nrhs)
+              ).astype(dtype)
+        bb = bb[:, 0] if nrhs == 1 else bb
+        x = ds.solve_linear_system(A, bb)
+        assert x.is_cuda
+        xh = x.cpu().numpy()
+        assert np.abs(A @ xh - bb).max() / np.abs(bb).max() < tol
+        xt = ds.solve(bb, transpose=True).cpu().numpy()
+        assert np.abs(A.conj().T @ xt - bb).max() / np.abs(bb).max() < tol
+    assert ds.n_fac == 1 and ds.n_solve == 4

@@ -25,7 +25,10 @@ import mgtpu_torch.cycle.coarse, mgtpu_torch.ops.ell, mgtpu_torch.ops.dia
 import mgtpu_torch.setup.classical_amg, mgtpu_torch.setup.device_agg
 import mgtpu_torch.setup.native, mgtpu_torch.cycle.systems_grid
 import mgtpu_torch.cycle.vanka, mgtpu_torch.ops.cross_stencil
-import mgtpu_torch.ops.cuda.vanka
+import mgtpu_torch.ops.cuda.vanka, mgtpu_torch.ops.cuda.kaczmarz
+import mgtpu_torch.cycle.kaczmarz, mgtpu_torch.dd.indices
+import mgtpu_torch.dd.schwarz, mgtpu_torch.solvers.direct
+import mgtpu_torch.solvers.schur, mgtpu_torch.solvers.wrappers
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "mgtpu" or m.startswith("mgtpu."))
