@@ -157,17 +157,42 @@ Phases, each of which raises on failure:
             elasticity re-discretized, Vanka (11); counters prove kernels
             A, B, D and F ran and no plain version did (but bf16's).
 
-Every solve of phases 4, 5, 7, 8, 10, 11, 12, 13 and 16 runs through the
+17. complex — the complex hierarchies (scripts/complex_reference.py),
+            each to mgtpu's count +- 1 at a true complex128 relres below
+            1e-8 computed on the host, inside one launch-counter window:
+            the heterogeneous shifted-Laplacian Helmholtz operator
+            L - (1 - 0.5i) diag(k^2) in complex64 hierarchies with
+            complex128 outer solves: (H-2d) 1024^2, kh 0.125, Jacobi 0.8
+            V(1,1), 5 levels, refined (17), (H-bicg) BiCGSTAB (6),
+            (H-gmres) FGMRES(5) (3 restarts), (H-K) Jac-GMRES K-cycles
+            refined (14), (H-3d) 128^3 refined (23), (H-3d-bicg) (7),
+            (H-3d-gmres) (3); (Z-sa) / (Z-cl) the 512^2 complex-shifted
+            rough DivSigGrad under greedy SA / classical AMG, SPAI V(2,2),
+            4 levels, refined (20 / 10), with their level sizes and
+            operator complexities; (K-c) 256^2, kh 0.25, complex128 hybrid
+            Kaczmarz, solve_mg (18); each setup's host seconds by stage;
+            counters prove kernel D ran in complex64 and complex128 and
+            kernel F in complex128, and no plain version.  Before the
+            window, kernel D's complex instantiations against their plain
+            versions (2e-5 / 1e-12) on H-2d's and H-3d's fine levels and
+            their complex128 residual operators, the stride-2 transfers
+            of H-2d's operator under structured SA (1025^2 -> 513^2,
+            restrict = P^H) and Z-sa's DIA fine level; kernel F's complex
+            instantiations on K-c's fine level; their times beside their
+            bounds, plain versions and torch.sparse.mm.
+
+Every solve of phases 4, 5, 7, 8, 10, 11, 12, 13, 16 and 17 runs through the
 recorded programs (mgtpu_torch/cycle/capture.py: CUDA graphs), the entry
 points' default, and is then held against its eager run (the captured
 phase, 14):
 
-14. captured — for each of the 41 paths (3D Jacobi, Chebyshev and SPAI
+14. captured — for each of the 44 paths (3D Jacobi, Chebyshev and SPAI
             refined; 2D Jacobi; the FMG start; (a)-(e) and (b6); (f),
             f-bicg, f-block, (g), (h); SA-s, SA-K, SA-f; C-cc, C-pmis,
             SA-dev, C-cg; V-2d, E-2d, V-3d, E-cg and the five Vanka
             variants; W (pcg), W-3d, R, D-coarse, DD-coarse, DD-256, K-mg,
-            bf16, RD): the recorded solve takes the eager loop's
+            bf16, RD; H-2d, H-gmres, H-3d): the recorded solve takes the
+            eager loop's
             iteration count (device_loop=False) and returns its x bit for
             bit (or within a stated 1e-12 relative); one recorded
             correction cycle (grid_cycle_jit / cycle_jit) launches what the
@@ -465,6 +490,19 @@ KERNELS = {
     "kaczmarz": (
         "mgtpu/cycle/kaczmarz.py:70 kaczmarz_sweep (row_step :78-91, "
         "lax.fori_loop, no pallas_call)", "mgtpu_torch/csrc/kaczmarz.cu", 2),
+    # the complex instantiations of kernels D and F (phase 17): mgtpu runs
+    # its complex levels through grid_stencil_matvec in XLA
+    "stencil.complex64": (
+        "mgtpu/ops/pallas/stencil_kernel.py:31 _stencil_kernel (K8), "
+        "pallas_call at :76; complex in mgtpu/ops/grid_stencil.py "
+        "grid_stencil_matvec (XLA)", "mgtpu_torch/csrc/stencil.cu", 2),
+    "stencil.complex128": (
+        "mgtpu/ops/pallas/stencil_kernel.py:31 _stencil_kernel (K8), "
+        "pallas_call at :76; complex in mgtpu/ops/grid_stencil.py "
+        "grid_stencil_matvec (XLA)", "mgtpu_torch/csrc/stencil.cu", 2),
+    "kaczmarz.complex128": (
+        "mgtpu/cycle/kaczmarz.py:70 kaczmarz_sweep (row_step :78-91, "
+        "lax.fori_loop, no pallas_call)", "mgtpu_torch/csrc/kaczmarz.cu", 2),
 }
 STENCIL_KERNELS = [k for k in KERNELS       # kernels A and B
                    if not k.startswith(("tridiag", "stencil.",
@@ -688,7 +726,10 @@ def kaczmarz_counters():
 
 
 def true_relres(L, b, x) -> float:
-    xh = x.detach().cpu().numpy().astype(np.float64)
+    """||b - L x|| / ||b|| on the host, in float64 (complex128 for a
+    complex x)."""
+    xh = x.detach().cpu().numpy()
+    xh = xh.astype(np.complex128 if np.iscomplexobj(xh) else np.float64)
     require(xh.shape == b.shape and np.isfinite(xh).all(),
             "solution has the wrong shape or non-finite values")
     return float(np.linalg.norm(b - L @ xh) / np.linalg.norm(b))
@@ -750,7 +791,8 @@ def refined(st, L, b, want, label, card, max_iter=40, fmg=False,
     wall = (time.perf_counter() - t0) * 1e3
     rr = true_relres(L, b, x)
     log(f"[path] {label}: refined iters {info['iters']} (want {want} +- 1), "
-        f"true f64 relres {rr:.3e}, time to 1e-8 {wall:.1f} ms "
+        f"true {'c128' if np.iscomplexobj(b) else 'f64'} relres {rr:.3e}, "
+        f"time to 1e-8 {wall:.1f} ms "
         f"(host clock, synchronised; {card})")
     require(want is None or abs(info["iters"] - want) <= 1,
             f"{label}: {info['iters']} refined iterations, want {want} +- 1")
@@ -844,12 +886,12 @@ NO_PAIR = dict(cycle_launches=None, graphs=None, record_ms=None,
                cycle_ev_ms=None, cycle_host_ms=None, cycle_dev_ms=None,
                eager_cycle_ev_ms=None, eager_cycle_host_ms=None,
                eager_cycle_dev_ms=None, busy=None, eager_busy=None)
-CAPTURED_PATHS = 41     # 3D Jacobi, Chebyshev, SPAI; 2D Jacobi; FMG;
+CAPTURED_PATHS = 44     # 3D Jacobi, Chebyshev, SPAI; 2D Jacobi; FMG;
                         # (a)-(e), (b6); (f), f-bicg, f-block, (g), (h);
                         # SA-s, SA-K, SA-f; C-cc, C-pmis, SA-dev, C-cg;
                         # V-2d, E-2d, V-3d, E-cg and the five Vanka
                         # variants; W (pcg), W-3d, R, D-coarse, DD-coarse,
-                        # DD-256, K-mg, bf16, RD
+                        # DD-256, K-mg, bf16, RD; H-2d, H-gmres, H-3d
 
 
 @contextlib.contextmanager
@@ -1424,7 +1466,8 @@ def stencil_cases(states):
     return cases
 
 
-D_TOLS = {torch.float32: 2e-5, torch.float64: 1e-12}
+D_TOLS = {torch.float32: 2e-5, torch.float64: 1e-12, torch.complex64: 2e-5,
+          torch.complex128: 1e-12}
 
 
 def check_d(rows, label, out, ref, row="stencil"):
@@ -1512,6 +1555,7 @@ def d_case(kind, op, csr):
     from mgtpu_torch.ops.grid_stencil import grid_stencil_matvec
     dt = op.dtype
     item = torch.empty((), dtype=dt).element_size()
+    fl = 8 if dt.is_complex else 2        # flops of a tap's multiply-add
     if kind == "cross":
         nd, no = len(op.offsets), int(np.prod(op.out_grid))
         ni = int(np.prod(op.in_grid))
@@ -1522,20 +1566,20 @@ def d_case(kind, op, csr):
                                                     op.in_grid, x),
                 d_plan(box3(op.out_grid), nd, dt, "apply" if op.in_grid
                        == op.out_grid else "cross"), (nd * no + ni + no) * item,
-                2 * nd * no, f"{op.in_grid} -> {op.out_grid} nd={nd}")
+                fl * nd * no, f"{op.in_grid} -> {op.out_grid} nd={nd}")
     if kind == "grid":
         n, nd = int(np.prod(op.grid)), len(op.offsets)
         return (dt, (1,) + tuple(op.grid),
                 lambda x: stencil.grid_apply(op.coeff, op.offsets, x),
                 lambda x: grid_stencil_matvec(op.coeff, op.offsets, x),
                 d_plan(box3(op.grid), nd, dt), (nd + 2) * n * item,
-                2 * nd * n, f"grid {op.grid} nd={nd}")
+                fl * nd * n, f"grid {op.grid} nd={nd}")
     if kind == "dia":
         n, nd = op.shape[0], len(op.offsets)
         return (dt, (n, 1),
                 lambda x: stencil.dia_apply(op.data, op.offsets, x),
                 lambda x: stencil.dia_apply_plain(op.data, op.offsets, x),
-                d_plan((1, 1, n), nd, dt), (nd + 2) * n * item, 2 * nd * n,
+                d_plan((1, 1, n), nd, dt), (nd + 2) * n * item, fl * nd * n,
                 f"DIA n={n} nd={nd}")
     pbytes = (csr.nnz + csr.shape[0] + csr.shape[1]) * item
     packed = hasattr(op, "pcoeff")
@@ -1544,14 +1588,15 @@ def d_case(kind, op, csr):
                 getattr(stencil, "stride2_prolong_plain", None)
                 and (lambda x: stencil.stride2_prolong_plain(op, x)),
                 d_plan(box3(op.fine_grid), op.pcoeff.shape[0], dt,
-                       "prolong") if packed else None, pbytes, 2 * csr.nnz,
+                       "prolong") if packed else None, pbytes,
+                fl * csr.nnz,
                 f"{op.coarse_grid} -> {op.fine_grid} "
                 f"taps {len(op.offsets)}")
     return (dt, (1,) + tuple(op.fine_grid), op.restrict,
             getattr(stencil, "stride2_restrict_plain", None)
             and (lambda x: stencil.stride2_restrict_plain(op, x)),
             d_plan(box3(op.coarse_grid), len(op.offsets), dt, "restrict")
-            if packed else None, pbytes, 2 * csr.nnz,
+            if packed else None, pbytes, fl * csr.nnz,
             f"{op.fine_grid} -> {op.coarse_grid} taps {len(op.offsets)}")
 
 
@@ -1570,9 +1615,15 @@ def time_d(label, kind, op, csr, timer, card, plain=True, seed=30):
     lib_ms = None
     if csr is not None:
         Tm = sparse_mm_yardstick(csr, dt)
-        lib_ms = timer([lambda c=x.reshape(-1, 1): torch.sparse.mm(Tm, c)
-                        for x in sets])[0]
-    peak = FP32_FLOPS if dt == torch.float32 else FP64_FLOPS
+        try:
+            lib_ms = timer([lambda c=x.reshape(-1, 1): torch.sparse.mm(Tm, c)
+                            for x in sets])[0]
+        except RuntimeError as e:          # the yardstick, not the port
+            log(f"[time] D {label}: torch.sparse.mm has no {dt} CSR product "
+                f"on the card ({str(e).splitlines()[0][:90]}): library "
+                "time none")
+    peak = (FP32_FLOPS if dt in (torch.float32, torch.complex64)
+            else FP64_FLOPS)
     bound = max(fbytes / HBM_BYTES_PER_S, flops / peak) * 1e3
     fmt = lambda v: "none" if v is None else f"{v:.4f} ms"
     sched = "no plan" if plan is None else (
@@ -2652,7 +2703,8 @@ FACADE = {"W": {"gmres": 4, "pcg": 15, "bicgstab": 10}, "W-3d": 7,
           "W-adj": (1, 1, 1), "R": 16, "R-sigma": 20, "D-coarse": 16,
           "DD-256": 6, "DD-coarse": 16, "K-mg": 17, "K-prec": 3, "bf16": 22,
           "RD": 11}
-F_TOLS = {torch.float32: 2e-5, torch.float64: 1e-12}
+F_TOLS = {torch.float32: 2e-5, torch.float64: 1e-12, torch.complex64: 2e-5,
+          torch.complex128: 1e-12}
 # an assumed shared-memory round trip (~30 cycles at the H100 SXM's
 # 1.98 GHz): the log's dependency-chain bound, not measured here, so it
 # stays out of the kernels line
@@ -2862,7 +2914,8 @@ def facade_wrappers(M3, L3, card):
             f"kernel D {d_l}")
         require(abs(per_col - want) <= 1, f"W {k}: {per_col} iterations")
         require(rr < 1e-8, f"W {k}: relres {rr:.3e}")
-        require(all(v > 0 for v in d_l.values()), f"W {k}: kernel D idle")
+        require(d_l["stencil.float32"] > 0 and d_l["stencil.float64"] > 0,
+                f"W {k}: kernel D idle")
         if k == "pcg":
             ts, hier = s.time_setup, s.state.hier
             X2, ms2 = timed(lambda: s.solve_linear_system(A, B))
@@ -3241,7 +3294,8 @@ def facade_bf16_rd(L3, st_jac, card):
     refined(st, A, b, FACADE["RD"], "(RD) 512^2 mixed elasticity "
             "re-discretized, VankaFaces 0.75 V(1,1)", card, max_iter=60)
     d_l = {k: v - before[k] for k, v in stencil_counters()[0].items()}
-    require(all(v > 0 for v in d_l.values()), f"RD: kernel D {d_l}")
+    require(d_l["stencil.float32"] > 0 and d_l["stencil.float64"] > 0,
+            f"RD: kernel D {d_l}")
     return plain
 
 
@@ -3277,6 +3331,329 @@ def phase_facade(M3, L3, st_jac, st2d, kmg, kprec, card):
               "kaczmarz.float64"):
         require(launches[k] > 0, f"the window never launched {k}")
     return f_l
+
+
+# ---------------------------------------------------------------------------
+# complex hierarchies (phase 17)
+# ---------------------------------------------------------------------------
+
+# mgtpu's counts (scripts/complex_reference.py's rows): refined iterations,
+# Krylov iterations or FGMRES(5) restarts, solve_mg cycles
+COMPLEX = {"H-2d": 17, "H-bicg": 6, "H-gmres": 3, "H-K": 14, "H-3d": 23,
+           "H-3d-bicg": 7, "H-3d-gmres": 3, "Z-sa": 20, "Z-cl": 10,
+           "K-c": 18}
+# Z-sa / Z-cl's level sizes and operator complexities: the port's host
+# setup's at 512^2 (first read on the card; the host setup is held to
+# mgtpu's bit for bit at 64^2, tests/test_torch_complex.py)
+Z_LEVELS = {"Z-sa": ([263169, 50246, 10031, 2997], 1.9319),
+            "Z-cl": ([263169, 131587, 49096, 22895], 2.6500)}
+
+
+def helmholtz(dims, kh):
+    """A = L - (1 - 0.5i) diag(k^2), k = (kh / h) / c, c =
+    exp(0.2 RandomState(3).randn(n)): the heterogeneous shifted-Laplacian
+    Helmholtz operator of scripts/complex_reference.py."""
+    from mgtpu_torch import get_regular_mesh
+    from mgtpu_torch.models.operators import nodal_laplacian_matrix
+    M = get_regular_mesh([0.0, 1.0] * len(dims), list(dims))
+    L = nodal_laplacian_matrix(M)
+    c = np.exp(0.2 * np.random.RandomState(3).randn(L.shape[0]))
+    return M, (L - (1 - 0.5j) * sp.diags((kh * dims[0] / c) ** 2)).tocsr()
+
+
+def complex_setup(label, build, card):
+    """A complex state, with its host seconds by stage: the operator, the
+    hierarchy, the complex128 residual operator of the refined and Krylov
+    solves."""
+    from mgtpu_torch.solvers.mg_solver import high_precision_fine_operator
+    (st, A, M), stages = build()
+    t0 = time.perf_counter()
+    high_precision_fine_operator(st, np.complex128)
+    stages["c128 residual operator"] = time.perf_counter() - t0
+    lv = ([lvl.A.grid for lvl in st.hier.levels]
+          if type(st.hier).__name__ == "GridHierarchy"
+          else [a.shape[0] for a in st.As])
+    log(f"[complex] ({label}) {type(st.hier).__name__} "
+        f"{st.config.dtype.__name__}, "
+        f"levels {lv}, coarsest {type(st.hier.coarse).__name__}, op. "
+        f"complexity {st.operator_complexity():.4f}; host setup "
+        + ", ".join(f"{k} {v:.2f} s" for k, v in stages.items())
+        + f" ({card})")
+    return st, A
+
+
+def complex_states(card):
+    """H-2d (1024^2, kh 0.125, Jacobi 0.8 V(1,1), 5 levels), H-K (the same
+    operator, Jac-GMRES K-cycles), H-3d (128^3), Z-sa / Z-cl (512^2
+    complex-shifted rough DivSigGrad, SPAI V(2,2), 4 levels) in
+    complex64, K-c (256^2, kh 0.25, hybrid Kaczmarz) in complex128."""
+    import mgtpu_torch as mt
+    from mgtpu_torch.dd.indices import nodal_indices_of_box
+
+    def grid(dims, lv, **kw):
+        def build():
+            t0 = time.perf_counter()
+            M, A = helmholtz(dims, 0.125)
+            t1 = time.perf_counter()
+            cfg, rp = mt.get_mg_param(levels=lv, nu_pre=1, nu_post=1,
+                                      dtype=np.complex64, max_outer_iter=100,
+                                      relative_tol=1e-8, **kw)
+            st = mt.mg_setup(A, M, cfg, rp)
+            return (st, A, M), {"operator": t1 - t0,
+                                "mg_setup": time.perf_counter() - t1}
+        return build
+
+    def amg(setup):
+        def build():
+            t0 = time.perf_counter()
+            M, A = divsig((512, 512), shift=1e-2 + 1e-2j, seed=5)
+            t1 = time.perf_counter()
+            cfg, rp = mt.get_mg_param(levels=4, relax_type="spai",
+                                      dtype=np.complex64)
+            st = setup(A, cfg, rp)
+            return (st, A, M), {"operator": t1 - t0,
+                                setup.__name__: time.perf_counter() - t1}
+        return build
+
+    def kc():
+        t0 = time.perf_counter()
+        M, A = helmholtz((256, 256), 0.25)
+        t1 = time.perf_counter()
+        cfg, _ = mt.get_mg_param(levels=4, relax_type="hybridKaczmarzNodal",
+                                 nu_pre=1, nu_post=1, relative_tol=1e-8,
+                                 max_outer_iter=60, dtype=np.complex128)
+        rp = {"num_domains": [4, 4], "omega": 0.8, "num_it": 2,
+              "index_fn": nodal_indices_of_box}
+        st = mt.mg_setup(A, M, cfg, rp)
+        return (st, A, M), {"operator": t1 - t0,
+                            "mg_setup": time.perf_counter() - t1}
+
+    jac = dict(relax_type="jacobi", relax_param=0.8)
+    builds = {"H-2d": grid((1024, 1024), 5, **jac),
+              "H-K": grid((1024, 1024), 5, relax_type="jac-gmres",
+                          relax_param=1.0, cycle_type="K"),
+              "H-3d": grid((128, 128, 128), 5, **jac),
+              "Z-sa": amg(mt.sa_amg_setup),
+              "Z-cl": amg(mt.classical_amg_setup),
+              "K-c": kc}
+    states = {k: complex_setup(k, b, card) for k, b in builds.items()}
+    for key, (sizes, oc) in Z_LEVELS.items():
+        st = states[key][0]
+        got = [a.shape[0] for a in st.As]
+        require(got == sizes and abs(st.operator_complexity() - oc) <= 0.01,
+                f"{key}: levels {got}, op. complexity "
+                f"{st.operator_complexity():.4f}; want {sizes}, {oc}")
+    require(type(states["H-2d"][0].hier).__name__ == "GridHierarchy"
+            and type(states["Z-sa"][0].hier.levels[0].A).__name__ == "DIA"
+            and type(states["K-c"][0].hier).__name__ == "Hierarchy",
+            "complex states: want the grid engine for H-*, DIA on Z-sa's "
+            "fine level, the flat engine for K-c")
+    return states
+
+
+def sa_stride2(st, A, dtype):
+    """The level-0 smoothed-aggregation prolongator of H-2d's operator
+    (structured aggregates on its 1025^2 grid: 1025^2 -> 513^2, SPAI
+    smoothing, as setup/sa_amg.py builds it), packed for kernel D."""
+    from mgtpu_torch.ops.grid_stencil import stride2_transfer_from_scipy
+    from mgtpu_torch.setup import smoothers as sm
+    from mgtpu_torch.setup.sa_amg import _rho_estimate, structured_tentative_p
+    nodes = [int(v) + 1 for v in np.asarray(st.meshes[0].n)]
+    P0, nc = structured_tentative_p(nodes)
+    DA = sp.diags(sm.spai_diag(A, 1.0)) @ A
+    P = (P0 - (4.0 / 3.0) / _rho_estimate(DA) * (DA @ P0)).tocsr()
+    return P, stride2_transfer_from_scipy(P, nodes, nc, dtype=dtype,
+                                          device="cuda")
+
+
+def phase_complex_kernels(states, rows, card):
+    """Kernel D's complex64 / complex128 instantiations against their plain
+    versions (2e-5 / 1e-12 relative to the plain version's largest entry):
+    the apply on H-2d's 1025^2 and H-3d's 129^3 fine levels (m = 1, 2)
+    and their complex128 residual operators, the stride-2 prolong and
+    restrict between 1025^2 and 513^2 (H-2d's operator under structured
+    SA; restrict = P^H), the DIA form on Z-sa's fine level and its
+    complex128 residual operator; kernel F's complex128 and complex64 on
+    K-c's fine level (m = 1, 2); then their times beside their bounds,
+    plain versions and torch.sparse.mm."""
+    from mgtpu_torch.ops.cuda import kaczmarz as kf
+    from mgtpu_torch.ops.cuda import stencil
+    from mgtpu_torch.solvers.mg_solver import high_precision_fine_operator
+    timer = Timer()
+    cases = []
+    for key in ("H-2d", "H-3d"):
+        st, A = states[key]
+        cases += [(f"({key}) fine", "grid", st.hier.levels[0].A, st.As[0]),
+                  (f"({key}) c128 fine", "grid",
+                   high_precision_fine_operator(st, np.complex128),
+                   st.A_input)]
+    st, A = states["H-2d"]
+    for dt in (np.complex64, np.complex128):
+        P, T = sa_stride2(st, A, dt)
+        cases += [(f"(H-2d) SA prolong {np.dtype(dt).name}", "prolong", T, P),
+                  (f"(H-2d) SA restrict {np.dtype(dt).name}", "restrict", T,
+                   P.conj().T.tocsr())]
+    st, A = states["Z-sa"]
+    cases += [("(Z-sa) DIA fine", "dia", st.hier.levels[0].A, st.As[0]),
+              ("(Z-sa) c128 DIA fine", "dia",
+               high_precision_fine_operator(st, np.complex128), st.A_input)]
+    for label, kind, op, csr in cases:
+        dt = op.dtype
+        for m in (1, 2):
+            _, shape, run, plain_fn, *_ = d_case(kind, op, csr)
+            rng = np.random.RandomState(SEED + m)
+            shp = ((shape[0], m) if kind == "dia" else (m,) + shape[1:])
+            x = torch.tensor(rng.rand(*shp) + 1j * rng.rand(*shp), dtype=dt,
+                             device="cuda")
+            check_d(rows, f"{label} m={m}", run(x), plain_fn(x))
+        if kind in ("prolong", "restrict"):
+            x = torch.tensor(np.random.RandomState(3).rand(*shape[1:]),
+                             dtype=torch.complex128, device="cuda")
+            y = run(x.to(dt)[None])[0].reshape(-1).to(torch.complex128)
+            want = torch.tensor(csr.astype(np.complex128) @ x.cpu().numpy()
+                                .reshape(-1), device="cuda")
+            rel = float((y - want).abs().max() / want.abs().max())
+            require(rel < (1e-5 if dt == torch.complex64 else 1e-12),
+                    f"D {label}: {rel:.2e} from its CSR product")
+        entry, _ = time_d(label, kind, op, csr, timer, card)
+        name = f"stencil.{str(dt).split('.')[-1]}"
+        rows[name].setdefault("times", {})[label] = entry
+        if label in ("(H-2d) fine", "(H-2d) c128 fine"):
+            rows[name].update(
+                {k: entry[k] for k in ("ms", "plain_ms", "bound_ms",
+                                       "bound_by", "library_ms", "host_ms",
+                                       "plan")},
+                timed_shape=f"{label}: {entry['shape']} m=1",
+                library_call="torch.sparse.mm(CSR, x)")
+        log(f"[kernel] D {label}: {entry['shape']} {dt}: matches its plain "
+            f"version, m = 1, 2")
+    # kernel F on K-c's fine level
+    st, A = states["K-c"]
+    kz = st.hier.levels[0].relax
+    row = rows["kaczmarz.complex128"]
+    it = st.config.nu_pre[0] * kz.num_it
+    for dt in (torch.complex128, torch.complex64):
+        tabs = (kz.arr, kz.mask.to(dt.to_real()), kz.invd.to(dt.to_real()),
+                kz.ell_idx, kz.ell_val.to(dt), kz.link)
+        for m in (1, 2):
+            rng = np.random.RandomState(SEED + m)
+            n = A.shape[0]
+            x, b = (torch.tensor(rng.rand(n, m) + 1j * rng.rand(n, m),
+                                 dtype=dt, device="cuda") for _ in range(2))
+            out = kf.kaczmarz_sweep_kernel(x, b, *tabs, it)
+            out2 = kf.kaczmarz_sweep_kernel(x, b, *tabs, it)
+            ref = kf.kaczmarz_sweep_plain(x, b, *tabs[:-1], it)
+            torch.cuda.synchronize()
+            require(bool(torch.isfinite(out).all())
+                    and torch.equal(out, out2), f"kernel F {dt}: "
+                    "non-finite output, or two launches differ")
+            ae = float((out - ref).abs().max())
+            re = ae / float(ref.abs().max())
+            require(re < F_TOLS[dt], f"kernel F K-c fine {dt} m={m}: "
+                    f"relative error {re:.3e} >= {F_TOLS[dt]}")
+            if dt == torch.complex128:
+                row["max_abs_err"] = max(row["max_abs_err"], ae)
+                row["max_rel_err"] = max(row["max_rel_err"], re)
+            log(f"[kernel] F K-c fine level {dt} m={m}: matches the plain "
+                f"version ({re:.2e} relative); a second launch is bitwise "
+                f"the first")
+    tabs = (kz.arr, kz.mask, kz.invd, kz.ell_idx, kz.ell_val, kz.link)
+    max_len, nd = kz.arr.shape
+    n, K = kz.ell_idx.shape
+    sets = [tuple(torch.tensor(np.random.RandomState(SEED + j + k).rand(n, 1)
+                               + 0j, device="cuda") for k in (0, 9))
+            for j in range(2)]
+    ms, host_ms = Timer(reps=10)([lambda s=s: kf.kaczmarz_sweep_kernel(
+        s[0], s[1], *tabs, it) for s in sets])
+    plain_ms = Timer(reps=2)([lambda s=s: kf.kaczmarz_sweep_plain(
+        s[0], s[1], *tabs[:-1], it) for s in sets])[0]
+    # what row_step reads and writes: arr and the real mask, the real invd,
+    # the ELL rows (int32 + complex128), b, and x read and written
+    fbytes = (max_len * nd * (4 + 8) + n * 8 + n * K * (4 + 16)
+              + 3 * n * 16)
+    flops = it * max_len * nd * (16 * K + 6)
+    bound = max(fbytes / HBM_BYTES_PER_S, flops / FP64_FLOPS) * 1e3
+    log(f"[time] F Kaczmarz launch, K-c fine level ({n} rows, {max_len} "
+        f"steps x {nd} domains, K {K}, {it} sweeps, complex128, m=1): "
+        f"kernel {ms:.4f} ms ({ms * 1e3 / (it * max_len):.3f} us a step), "
+        f"plain {plain_ms:.1f} ms, byte bound {bound:.4f} ms "
+        f"({fbytes / 1e6:.2f} MB), host per call {host_ms:.3f} ms; no "
+        f"PyTorch call computes a Kaczmarz sweep ({card})")
+    row.update(ms=ms, plain_ms=plain_ms, bound_ms=bound, library_ms=None,
+               library_call="none: no PyTorch call computes a sweep",
+               host_ms=host_ms, us_per_step=ms * 1e3 / (it * max_len),
+               bound_by="bytes" if fbytes / HBM_BYTES_PER_S
+               >= flops / FP64_FLOPS else "operations",
+               timed_shape=f"K-c fine level: {n} rows, {max_len} steps x "
+               f"{nd} domains, K {K}, {it} sweeps, complex128, m=1")
+
+
+def complex_krylov(st, A, b, label, fn, want, card, compare):
+    """A Krylov contract: its count (mgtpu's +- 1) and a true complex128
+    relres below 1e-8; with `compare`, held against its eager loop."""
+    import mgtpu_torch
+    solve = getattr(mgtpu_torch, fn)
+    (x, info), wall = timed(lambda: solve(st, b))
+    iters = int(info["iters"])
+    rr = true_relres(A, b, x)
+    log(f"[complex] ({label}) {fn}: {iters} (mgtpu {want}), true c128 "
+        f"relres {rr:.3e}, time to 1e-8 {wall:.1f} ms (host clock; {card})")
+    require(abs(iters - want) <= 1, f"{label}: {iters}, want {want} +- 1")
+    require(rr < 1e-8, f"{label}: true relres {rr:.3e} >= 1e-8")
+    if compare:
+        compare_krylov(st, A, b, label, solve, {}, x, info, wall, card)
+
+
+def phase_complex(states, card):
+    """Every complex contract inside one launch-counter window, each to
+    mgtpu's count +- 1 at a true complex128 relres below 1e-8 computed on
+    the host: H-2d refined (held against its eager loop), H-bicg, H-gmres
+    (held against its eager restarts), H-K, H-3d refined (held against its
+    eager loop), H-3d-bicg, H-3d-gmres, Z-sa, Z-cl, K-c.  Kernel D
+    launched in complex64 and complex128, kernel F in complex128, no plain
+    version.  Returns the window's launches."""
+    t0 = time.perf_counter()
+    reset_counters()                       # ---- main path window ----
+    for key in ("H-2d", "H-3d"):
+        st, A = states[key]
+        b = rhs_of(A)
+        refined(st, A, b, COMPLEX[key], f"({key})", card, max_iter=60,
+                compare=True)
+        for suffix, fn in (("bicg", "solve_bicgstab_mg"),
+                           ("gmres", "solve_gmres_mg")):
+            lab = f"{key}-{suffix}".replace("H-2d-", "H-")
+            complex_krylov(st, A, b, f"{lab}", fn, COMPLEX[lab], card,
+                           compare=lab == "H-gmres")
+    for key in ("H-K", "Z-sa", "Z-cl"):
+        st, A = states[key]
+        b = rhs_of(A, seed=6 if key.startswith("Z") else 4)
+        refined(st, A, b, COMPLEX[key], f"({key})", card,
+                max_iter=80 if key.startswith("Z") else 60, compare=False)
+    st, A = states["K-c"]
+    b = rhs_of(A)
+    import mgtpu_torch
+    (x, info), wall = timed(lambda: mgtpu_torch.solve_mg(st, b))
+    rr = true_relres(A, b, x)
+    log(f"[complex] (K-c) solve_mg: {info['iters']} cycles (mgtpu "
+        f"{COMPLEX['K-c']}), true c128 relres {rr:.3e}, time to 1e-8 "
+        f"{wall:.1f} ms (host clock; {card})")
+    require(abs(info["iters"] - COMPLEX["K-c"]) <= 1 and rr < 1e-8,
+            f"(K-c): {info['iters']} cycles, relres {rr:.3e}")
+    d_l, d_p = stencil_counters()          # ---- end of window ----
+    f_l, f_p = kaczmarz_counters()
+    launches, plain = counters()
+    line_l, line_p = line_counters()
+    e_l, e_p = vanka_counters()
+    launches.update(d_l, **f_l)
+    plain.update(d_p, **f_p, **line_p, **e_p)
+    log(f"[complex] window launches: {launches}; other kernels "
+        f"{dict(line_l, **e_l)} ({time.perf_counter() - t0:.1f} s)")
+    log(f"[complex] window plain-version calls on the card: {plain}")
+    require(not any(plain.values()), f"plain versions ran: {plain}")
+    for k in ("stencil.complex64", "stencil.complex128",
+              "kaczmarz.complex128"):
+        require(launches[k] > 0, f"the complex window never launched {k}")
+    return launches
 
 
 def main() -> int:
@@ -3349,10 +3726,16 @@ def main() -> int:
     phase_kaczmarz_kernel(kmg, kprec, rows, card)
     f_launches = phase_facade(M3, L3, st_jac, st2d, kmg, kprec, card)
     del kmg, kprec, st2d
+    torch.cuda.empty_cache()
+    cstates = complex_states(card)
+    phase_complex_kernels(cstates, rows, card)
+    cplx = phase_complex(cstates, card)
+    del cstates
     for k, row in rows.items():
         # each kernel's launches from the window of its own path (the
         # systems window's kernel D launches are all cross applies)
         row["launches"] = (
+            cplx[k] if "complex" in k else
             aniso[k] if k.startswith("tridiag") else
             krylov[k] if k.startswith("stencil.") else
             systems["stencil." + k.split(".")[1]]

@@ -33,6 +33,13 @@ def is_complex(dtype) -> bool:
     return np.issubdtype(np.dtype(dtype), np.complexfloating)
 
 
+def double_variant(dtype) -> np.dtype:
+    """The double-precision type of a value type: float64, or complex128
+    for a complex one (the refined solve's default outer type, mgtpu's
+    solve_mg_refined; the host factorizations' type)."""
+    return np.dtype(np.complex128 if is_complex(dtype) else np.float64)
+
+
 def single_variant(dtype) -> np.dtype:
     """Single-precision companion of a dtype: Vanka block inverses are
     stored in single precision (the reference's `toSingle`,

@@ -1,6 +1,7 @@
-// Kernel D: variable-coefficient stencil apply y = A x, float32 or float64,
-// for any stencil of up to kMaxTaps taps with any shift along each axis, and
-// the stride-2 transfers of smoothed aggregation in parity form.
+// Kernel D: variable-coefficient stencil apply y = A x, float32, float64,
+// complex64 or complex128, for any stencil of up to kMaxTaps taps with any
+// shift along each axis, and the stride-2 transfers of smoothed aggregation
+// in parity form.
 //
 // Replaces the Pallas TPU kernel
 //   mgtpu/ops/pallas/stencil_kernel.py::_stencil_kernel  (K8)
@@ -69,6 +70,15 @@
 // registers, so each coefficient is read once for every MB of them (MB =
 // 1, 2, 4 or 8; larger m loops over chunks of 8).  No vector loads: a
 // coefficient plane of an odd-sized grid is not 16-byte aligned.
+//
+// Complex values (mgtpu runs its complex levels through the same
+// shift-multiply-add in XLA, grid_stencil_matvec) are float2 / double2,
+// torch's complex64 / complex128 layout: each tap is one complex
+// multiply-add, four real FMAs into the accumulator in the plain version's
+// tap order, in the value's own precision.  A transfer's restriction is
+// P^H: the host conjugates its coefficient table (pack_stride2), so every
+// form computes the same multiply-add.  A complex128 value is four words
+// of register, so its register cap is lower (min_blocks).
 #include <cuda_runtime.h>
 
 #include <algorithm>
@@ -88,6 +98,46 @@ constexpr int kMaxSplit = 16;
 constexpr int kClasses = 8;         // parity classes of a (Z, Y, X) box
 constexpr int kNoLin = -2147483647 - 1;   // a class table's padding
 enum Form { kApply = 0, kRestrict = 1, kProlong = 2, kCross = 3 };
+
+// y = a * b + c, real or complex
+__device__ __forceinline__ float mad(float a, float b, float c) {
+  return fma(a, b, c);
+}
+__device__ __forceinline__ double mad(double a, double b, double c) {
+  return fma(a, b, c);
+}
+__device__ __forceinline__ float2 mad(float2 a, float2 b, float2 c) {
+  return make_float2(fma(-a.y, b.y, fma(a.x, b.x, c.x)),
+                     fma(a.y, b.x, fma(a.x, b.y, c.y)));
+}
+__device__ __forceinline__ double2 mad(double2 a, double2 b, double2 c) {
+  return make_double2(fma(-a.y, b.y, fma(a.x, b.x, c.x)),
+                      fma(a.y, b.x, fma(a.x, b.y, c.y)));
+}
+__device__ __forceinline__ float add(float a, float b) { return a + b; }
+__device__ __forceinline__ double add(double a, double b) { return a + b; }
+__device__ __forceinline__ float2 add(float2 a, float2 b) {
+  return make_float2(a.x + b.x, a.y + b.y);
+}
+__device__ __forceinline__ double2 add(double2 a, double2 b) {
+  return make_double2(a.x + b.x, a.y + b.y);
+}
+template <typename T>
+__device__ __forceinline__ T zero() {
+  return T{};
+}
+template <typename T>
+struct IsComplex {
+  static constexpr bool value = false;
+};
+template <>
+struct IsComplex<float2> {
+  static constexpr bool value = true;
+};
+template <>
+struct IsComplex<double2> {
+  static constexpr bool value = true;
+};
 
 struct Taps {
   int dz[kMaxTaps];
@@ -138,9 +188,9 @@ __device__ __forceinline__ void sum_taps(
     T v[G][MB];
 #pragma unroll
     for (int j = 0; j < G; ++j) {
-      c[j] = T(0);
+      c[j] = zero<T>();
 #pragma unroll
-      for (int r = 0; r < MB; ++r) v[j][r] = T(0);
+      for (int r = 0; r < MB; ++r) v[j][r] = zero<T>();
       if (j < nt) {
         const int k = kb + j;
         bool ok = true;
@@ -182,21 +232,21 @@ __device__ __forceinline__ void sum_taps(
     for (int j = 0; j < G; ++j)
       if (j < nt) {
 #pragma unroll
-        for (int r = 0; r < MB; ++r) acc[r] = fma(c[j], v[j][r], acc[r]);
+        for (int r = 0; r < MB; ++r) acc[r] = mad(c[j], v[j][r], acc[r]);
       }
   }
 }
 
 // Blocks per SM the register budget must allow (ptxas caps registers at
 // 65536 / (256 * this)): one right-hand side in float32 at 8 (32
-// registers: the SM full of threads) and in float64 at 5 (51).  ptxas then
-// spills a few words to L1 in the transfer forms and in float64, and the
-// streamed fine levels still run faster than uncapped, where 58 / 72
-// registers left room for 4 / 3 blocks (PERF.md, kernel D).  Several
-// right-hand sides: 3.
+// registers: the SM full of threads) and in float64 or complex64 at 5
+// (51).  ptxas then spills a few words to L1 in the transfer forms and in
+// float64, and the streamed fine levels still run faster than uncapped,
+// where 58 / 72 registers left room for 4 / 3 blocks (PERF.md, kernel D).
+// Several right-hand sides: 3.  complex128 (four words a value): 2.
 template <typename T, int MB>
 constexpr int min_blocks() {
-  return MB > 1 ? 3 : sizeof(T) == 4 ? 8 : 5;
+  return sizeof(T) == 16 ? 2 : MB > 1 ? 3 : sizeof(T) == 4 ? 8 : 5;
 }
 
 template <typename T, int MB, int FORM>
@@ -250,7 +300,7 @@ __global__ void __launch_bounds__(kThreads, (min_blocks<T, MB>()))
     const T* xm = x + (size_t)m0 * ni;
     T acc[MB];
 #pragma unroll
-    for (int r = 0; r < MB; ++r) acc[r] = T(0);
+    for (int r = 0; r < MB; ++r) acc[r] = zero<T>();
     if (fast)
       sum_taps<T, MB, FORM, false>(acc, t, g, tab, k0, k1, n, ni, e, iz, iy,
                                    ix, cls, base, mc, coeff, xm);
@@ -270,7 +320,7 @@ __global__ void __launch_bounds__(kThreads, (min_blocks<T, MB>()))
         for (int s = 1; s < (1 << lg_split); ++s)
 #pragma unroll
           for (int r = 0; r < MB; ++r)
-            acc[r] += red[((s - 1) * nb + slot) * MB + r];
+            acc[r] = add(acc[r], red[((s - 1) * nb + slot) * MB + r]);
       }
       __syncthreads();             // red is written again by the next chunk
     }
@@ -319,6 +369,10 @@ template <typename T, int FORM, int MB>
 static void launch_mb(const int* p, const Taps& t, const Geom& g, int nd,
                       int m, const T* c, const T* x, T* y, const int4* ptab,
                       cudaStream_t st) {
+  if (p[kPSmem] > 48 * 1024)      // above the default dynamic limit
+    cudaFuncSetAttribute(stencil_kernel<T, MB, FORM>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         p[kPSmem]);
   stencil_kernel<T, MB, FORM><<<p[kPBlocks], kThreads, p[kPSmem], st>>>(
       t, g, nd, m, lg2(p[kPSplit]), p[kPPerSlice], c, x, y, ptab);
 }
@@ -344,8 +398,10 @@ static void launch(int form, const int* p, const Taps& t, const Geom& g,
   T* yy = static_cast<T*>(y);
   if (form == kApply)
     launch_form<T, kApply>(p, t, g, nd, m, cc, xx, yy, ptab, st);
-  else if (form == kCross)
-    launch_form<T, kCross>(p, t, g, nd, m, cc, xx, yy, ptab, st);
+  else if (form == kCross) {
+    if constexpr (!IsComplex<T>::value)   // the cross form is real-only
+      launch_form<T, kCross>(p, t, g, nd, m, cc, xx, yy, ptab, st);
+  }
   else if (form == kRestrict)
     launch_form<T, kRestrict>(p, t, g, nd, m, cc, xx, yy, ptab, st);
   else
@@ -400,8 +456,9 @@ static bool make_taps(int form, int ntaps, const int* offs, Geom& g,
   return true;
 }
 
-// dtype: 0 float32, 1 float64.  form: 0 apply, 1 restrict, 2 prolong,
-// 3 cross.
+// dtype: 0 float32, 1 float64, 2 complex64, 3 complex128 (interleaved
+// real and imaginary parts).  form: 0 apply, 1 restrict, 2 prolong,
+// 3 cross (real types only).
 // nd: coefficient planes (for a prolong, its widest class).  offs: ntaps
 // rows of (dz, dy, dx) (for a prolong, every offset of the transfer).
 // oZ..oX / iZ..iX: the (Z, Y, X) boxes of y and x (equal for an apply,
@@ -419,7 +476,7 @@ extern "C" int mgt_stencil(int dtype, int form, int nd, int ntaps,
                            const void* x, void* y, const void* ptab,
                            const int* plan, void* stream) {
   Geom g{{oZ, oY, oX}, {iZ, iY, iX}, {0, 0, 0}, {0, 0, 0}};
-  if (dtype < 0 || dtype > 1 || form < kApply || form > kCross || nd < 1 ||
+  if (dtype < 0 || dtype > 3 || form < kApply || form > kCross || nd < 1 ||
       nd > kMaxTaps || ntaps < 1 || ntaps > kMaxTaps || !offs || oZ < 1 ||
       oY < 1 || oX < 1 || iZ < 1 || iY < 1 || iX < 1 || m < 1 || !plan)
     return (int)cudaErrorInvalidValue;
@@ -435,7 +492,10 @@ extern "C" int mgt_stencil(int dtype, int form, int nd, int ntaps,
     return (int)cudaErrorInvalidValue;
   if (form == kProlong ? !ptab : ntaps != nd)
     return (int)cudaErrorInvalidValue;
-  if (!plan_ok(plan, form, n, nd, m, dtype == 0 ? 4 : 8))
+  if (form == kCross && dtype > 1) return (int)cudaErrorInvalidValue;
+  const int itemsize = dtype == 0 ? 4 : dtype == 3 ? 16 : 8;
+  if (!plan_ok(plan, form, n, nd, m, itemsize) ||
+      plan[kPSmem] > 227 * 1024)
     return (int)cudaErrorInvalidValue;
   Taps t{};
   if (!make_taps(form, ntaps, offs, g, t)) return (int)cudaErrorInvalidValue;
@@ -443,7 +503,11 @@ extern "C" int mgt_stencil(int dtype, int form, int nd, int ntaps,
   const int4* pt = static_cast<const int4*>(ptab);
   if (dtype == 0)
     launch<float>(form, plan, t, g, nd, m, coeff, x, y, pt, st);
-  else
+  else if (dtype == 1)
     launch<double>(form, plan, t, g, nd, m, coeff, x, y, pt, st);
+  else if (dtype == 2)
+    launch<float2>(form, plan, t, g, nd, m, coeff, x, y, pt, st);
+  else
+    launch<double2>(form, plan, t, g, nd, m, coeff, x, y, pt, st);
   return (int)cudaGetLastError();
 }

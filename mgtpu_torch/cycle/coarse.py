@@ -25,7 +25,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
-from ..config import full_fp32
+from ..config import double_variant, full_fp32
 from ..ops.ell import ell_from_scipy, ell_matvec
 from .capture import host_step
 from .relax import fgmres_relaxation
@@ -85,8 +85,9 @@ class IterativeCoarse:
 
 @dataclass(frozen=True, eq=False)
 class SparseLUCoarse:
-    """Host SuperLU coarsest solve (float64 factor); b is (n,) or (n, m)
-    on any device and x comes back on b's device in b's type."""
+    """Host SuperLU coarsest solve (float64 or complex128 factor); b is
+    (n,) or (n, m) on any device and x comes back on b's device in b's
+    type."""
     factor: object          # scipy.sparse.linalg.SuperLU
     n: int
     dtype_name: str
@@ -113,9 +114,9 @@ class SparseLUCoarse:
 
 def sparse_lu_from_scipy(A: sp.spmatrix, dtype=None) -> SparseLUCoarse:
     """SuperLU (COLAMD ordering, partial pivoting) of A on the host, in
-    float64 (scipy's splu types)."""
+    float64 or complex128 (scipy's splu types)."""
     from scipy.sparse.linalg import splu
-    fac = splu(A.tocsc().astype(np.float64))
+    fac = splu(A.tocsc().astype(double_variant(A.dtype)))
     return SparseLUCoarse(fac, int(A.shape[0]),
                           str(np.dtype(dtype or A.dtype)))
 

@@ -39,7 +39,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
-from ..config import full_fp32, torch_dtype
+from ..config import double_variant, full_fp32, torch_dtype
 from ..ops.grid_stencil import (ConstGridStencil, GridStencil,
                                 Stride2Transfer, compress_grid_stencil,
                                 flat_to_grid, grid_to_flat, make_grid_stencil)
@@ -126,10 +126,10 @@ def grid_dense_inverse_from_scipy(A_c: sp.spmatrix, grid_c, dtype,
 @dataclass(frozen=True, eq=False)
 class GridSparseLU:
     """Host SuperLU coarsest solve on grid fields: (m, *grid) goes to the
-    host, is solved in float64 and comes back in its own type (the
-    reference's UMFPACK design point for coarsest levels beyond the
+    host, is solved in float64 (complex128) and comes back in its own type
+    (the reference's UMFPACK design point for coarsest levels beyond the
     replicated-dense budget, MGsetup.jl:350)."""
-    factor: object          # scipy SuperLU (float64)
+    factor: object          # scipy SuperLU (float64 or complex128)
     grid: tuple[int, ...]
 
     def solve(self, bg: torch.Tensor) -> torch.Tensor:
@@ -139,7 +139,8 @@ class GridSparseLU:
 
     def _host_solve(self, bh: torch.Tensor) -> torch.Tensor:
         m = bh.shape[0]
-        xh = self.factor.solve(bh.reshape(m, -1).numpy().astype(np.float64).T)
+        xh = self.factor.solve(
+            bh.reshape(m, -1).numpy().astype(self.factor.U.dtype).T)
         return torch.from_numpy(np.ascontiguousarray(xh.T)).to(
             bh.dtype).reshape(bh.shape)
 
@@ -543,7 +544,8 @@ def build_grid_hierarchy(state, relax_states, device) -> GridHierarchy:
 def grid_coarsest(state, A, grid_c, device, host_inverse=_checked_inverse):
     """The grid engine's coarsest solver, in mgtpu's order: FGMRES on the
     last level's stencil A under coarse_solve="gmres"; else a dense inverse
-    made at float64 on the host by `host_inverse` up to HOST_INV_MAX dofs
+    made at float64 (complex128) on the host by `host_inverse` up to
+    HOST_INV_MAX dofs
     (then cast: the f64 factorization error is far below the f32 storage
     rounding), the device-built inverse up to DENSE_LU_MAX, host SuperLU
     beyond (its O(nnz) factor instead of an O(nc^2) one on the card)."""
@@ -552,13 +554,14 @@ def grid_coarsest(state, A, grid_c, device, host_inverse=_checked_inverse):
     grid_c = tuple(int(v) for v in grid_c)
     if cfg.coarse_solve == "gmres":
         return grid_iterative_coarse(state, A, grid_c, device)
+    fdt = double_variant(A_c.dtype)
     if A_c.shape[0] <= HOST_INV_MAX:
-        Ad = np.asarray(sp.csr_matrix(A_c).astype(np.float64).todense())
+        Ad = np.asarray(sp.csr_matrix(A_c).astype(fdt).todense())
         return DenseInverse(torch.as_tensor(
             host_inverse(Ad).astype(cfg.dtype), device=device), grid_c)
     if A_c.shape[0] > DENSE_LU_MAX:
         from scipy.sparse.linalg import splu
-        return GridSparseLU(splu(A_c.tocsc().astype(np.float64)), grid_c)
+        return GridSparseLU(splu(A_c.tocsc().astype(fdt)), grid_c)
     return grid_dense_inverse_from_scipy(A_c, grid_c, cfg.dtype, device)
 
 

@@ -35,8 +35,8 @@ class KaczmarzRelax:
     """Kaczmarz smoother state: host numpy arrays at setup, tensors in a
     device hierarchy (`to`)."""
     arr: Any        # (max_len, ndomains) int32 row ids (0 where padded)
-    mask: Any       # (max_len, ndomains) of {0, 1} in the value type
-    invd: Any       # (n,) omega / ||a_row||^2
+    mask: Any       # (max_len, ndomains) of {0, 1} (real type on a device)
+    invd: Any       # (n,) omega / ||a_row||^2 (real)
     ell_idx: Any    # (n, K) int32 ELL columns of A
     ell_val: Any    # (n, K) ELL values of A
     link: Any       # (max_len, ndomains * K) int32: kernel F's link table
@@ -45,10 +45,12 @@ class KaczmarzRelax:
     omega: float
 
     def to(self, dtype, device) -> "KaczmarzRelax":
-        """The tables as tensors on `device`, the values in `dtype`."""
+        """The tables as tensors on `device`, the values in `dtype`, the
+        mask and invd in its real type (kernel F's operands)."""
         t = lambda a: torch.as_tensor(np.asarray(a), device=device)
-        return KaczmarzRelax(t(self.arr), t(self.mask).to(dtype),
-                             t(self.invd).to(dtype), t(self.ell_idx),
+        r = lambda a: t(a).real.to(dtype.to_real()).contiguous()
+        return KaczmarzRelax(t(self.arr), r(self.mask),
+                             r(self.invd), t(self.ell_idx),
                              t(self.ell_val).to(dtype), t(self.link),
                              self.num_domains, self.num_it, self.omega)
 

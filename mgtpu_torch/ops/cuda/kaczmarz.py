@@ -7,7 +7,9 @@ row_step at :78-91; no Pallas kernel): step i takes row arr[i, d] of every
 domain d, computes r = (b - a.x) * invd * mask from the x of before the
 step and adds conj(a) r at the row's columns, collisions across domains
 summed — `num_it` sweeps in one launch, one thread block walking the
-steps.  The plain version makes about ten torch calls a step.
+steps; in float32, float64, complex64 or complex128, with the row norms
+(invd) and the mask in the real type.  The plain version makes about ten
+torch calls a step.
 
 `kaczmarz_sweep_kernel(x, b, arr, mask, invd, ell_idx, ell_val, link,
 num_it)` launches the kernel for a CUDA tensor (or raises on anything it
@@ -16,7 +18,7 @@ does not take) and takes the plain version, `kaczmarz_sweep_plain`
 the kernel does not take (bfloat16).  `link` is
 `kaczmarz_links`'s setup-time table: the kernel sums the adds of one
 column in a fixed order instead of racing atomics.  `LAUNCHES` counts
-kernel launches, `PLAIN_CALLS` calls of the plain version, per float type
+kernel launches, `PLAIN_CALLS` calls of the plain version, per value type
 of x.
 """
 from __future__ import annotations
@@ -32,9 +34,10 @@ from . import _build
 __all__ = ["LAUNCHES", "PLAIN_CALLS", "MAX_RHS", "kaczmarz_links",
            "kaczmarz_sweep_kernel", "kaczmarz_sweep_plain", "threads_for"]
 
-_DTYPES = {torch.float32: 0, torch.float64: 1}
-LAUNCHES = {"float32": 0, "float64": 0}
-PLAIN_CALLS = {"float32": 0, "float64": 0}
+_DTYPES = {torch.float32: 0, torch.float64: 1, torch.complex64: 2,
+           torch.complex128: 3}
+LAUNCHES = {"float32": 0, "float64": 0, "complex64": 0, "complex128": 0}
+PLAIN_CALLS = {"float32": 0, "float64": 0, "complex64": 0, "complex128": 0}
 MAX_RHS = 4                      # kMaxRhs
 MAX_THREADS = 1024               # kMaxThreads
 
@@ -122,8 +125,8 @@ def kaczmarz_sweep_kernel(x, b, arr, mask, invd, ell_idx, ell_val, link,
     tensor (one launch; x is not written, the result is a new tensor),
     `kaczmarz_sweep_plain` on a CPU one or in a type below float32.  arr
     (max_len, ndom), ell_idx
-    (n, K) and link (max_len, ndom * K) int32; mask (max_len, ndom), invd
-    (n) and ell_val (n, K) of x's type."""
+    (n, K) and link (max_len, ndom * K) int32; mask (max_len, ndom) and
+    invd (n) of x's real type, ell_val (n, K) of x's type."""
     if x.device.type == "cpu" or (x.device.type == "cuda"
                                   and x.dtype not in _DTYPES
                                   and x.is_floating_point()):
@@ -142,8 +145,9 @@ def kaczmarz_sweep_kernel(x, b, arr, mask, invd, ell_idx, ell_val, link,
     max_len, nd = arr.shape
     K = ell_idx.shape[1]
     b = b.contiguous()
+    real = x.dtype.to_real()
     want = {"arr": ((max_len, nd), torch.int32),
-            "mask": ((max_len, nd), x.dtype), "invd": ((n,), x.dtype),
+            "mask": ((max_len, nd), real), "invd": ((n,), real),
             "ell_idx": ((n, K), torch.int32), "ell_val": ((n, K), x.dtype),
             "link": ((max_len, nd * K), torch.int32), "b": ((n, m), x.dtype)}
     ops = {"arr": arr, "mask": mask, "invd": invd, "ell_idx": ell_idx,

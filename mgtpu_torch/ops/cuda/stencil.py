@@ -3,8 +3,10 @@
 CUDA source: mgtpu_torch/csrc/stencil.cu (built by ops/cuda/_build.py).  It
 replaces the Pallas TPU kernel mgtpu/ops/pallas/stencil_kernel.py
 ``_stencil_kernel`` (K8): y = A x for a stencil with per-node coefficients,
-one read of the coefficients and of x, one write of y, in float32 or
-float64, for any number of leading right-hand sides.
+one read of the coefficients and of x, one write of y, in float32,
+float64, complex64 or complex128 (mgtpu runs its complex levels through
+the same shift-multiply-add in XLA), for any number of leading
+right-hand sides.
 
 Entry points:
 
@@ -14,7 +16,8 @@ Entry points:
  * `cross_apply(coeff, offsets, in_grid, x)` — `CrossGridStencil.matvec`
    (ops/cross_stencil.py): the same apply from a field x (..., *in_grid)
    on another grid than y's (..., *out_grid), coeff (nd, *out_grid); node
-   r reads x at r + d_k, zero off in_grid.  A block of a staggered system.
+   r reads x at r + d_k, zero off in_grid.  A block of a staggered system;
+   real types only.
  * `stencil_matvec(coeff, di, dj, x)` — the counterpart of
    ``stencil_matvec_pallas`` on the slab form G[j, i] = x[i + j NI]:
    coeff (nd, NJ, NI), x (..., NJ, NI), |dj| <= 1, any in-plane shift di;
@@ -26,7 +29,8 @@ Entry points:
  * `stride2_prolong(T, xc)` and `stride2_restrict(T, r)` — P xc and P^T r
    of a `Stride2Transfer` (ops/grid_stencil.py) in its packed forms: per
    fine node only the taps of its parity class, reading xc at (f - d) / 2;
-   per coarse node the taps at 2c + d of the fine field.
+   per coarse node the taps at 2c + d of the fine field (P^H r for a
+   complex P: `pack_stride2` conjugates the restriction's table).
 
 The plain versions are `grid_stencil_matvec` (ops/grid_stencil.py),
 `cross_stencil_matvec` (ops/cross_stencil.py), the slab
@@ -47,9 +51,9 @@ Dispatch: every entry point launches the kernel for a CUDA tensor (or raises
 on anything it does not take, a stencil of more than `MAX_TAPS` taps
 included) and takes the plain version only for a tensor on the CPU.
 `GridStencil.matvec` sends a field the kernel has no type for
-(`supports_stencil` false: float16, complex) to `grid_apply_plain` on any
+(`supports_stencil` false: bfloat16, float16) to `grid_apply_plain` on any
 device.  `LAUNCHES` counts kernel launches, `PLAIN_CALLS` calls of the plain
-version, per float type of x; a prolong or a restrict is one of either.
+version, per value type of x; a prolong or a restrict is one of either.
 """
 from __future__ import annotations
 
@@ -71,9 +75,10 @@ __all__ = ["LAUNCHES", "PLAIN_CALLS", "MAX_TAPS", "FORMS", "StencilPlan",
            "stride2_prolong_plain", "stride2_restrict",
            "stride2_restrict_plain"]
 
-_DTYPES = {torch.float32: 0, torch.float64: 1}
-LAUNCHES = {"float32": 0, "float64": 0}
-PLAIN_CALLS = {"float32": 0, "float64": 0}
+_DTYPES = {torch.float32: 0, torch.float64: 1, torch.complex64: 2,
+           torch.complex128: 3}
+LAUNCHES = {"float32": 0, "float64": 0, "complex64": 0, "complex128": 0}
+PLAIN_CALLS = {"float32": 0, "float64": 0, "complex64": 0, "complex128": 0}
 MAX_TAPS = 256                   # kMaxTaps of csrc/stencil.cu
 FORMS = ("apply", "restrict", "prolong", "cross")
 THREADS = 256                    # kThreads
@@ -178,7 +183,8 @@ def _key(dtype) -> str:
 
 def supports_stencil(offsets, grid, dtype) -> bool:
     """Kernel D covers 1D-3D grid stencils with any per-axis shifts in
-    float32 and float64; other types take the plain version.  A stencil of
+    float32, float64, complex64 and complex128; other types take the plain
+    version.  A stencil of
     more than MAX_TAPS taps is covered too: `grid_apply` raises for it on
     the card rather than run it plain."""
     return (1 <= len(grid) <= 3 and len(offsets) >= 1
@@ -237,7 +243,10 @@ def _launch(coeff, box, taps, x, form="apply", in_box=None, in_space=None,
     (nd, 8, 4) class table on the device.  `plan` overrides `stencil_plan`
     (it must fit).  Returns y (..., *space)."""
     if x.dtype not in _DTYPES:
-        raise TypeError(f"kernel D takes float32 or float64, got {x.dtype}")
+        raise TypeError(f"kernel D takes float32, float64, complex64 or "
+                        f"complex128, got {x.dtype}")
+    if form == "cross" and x.dtype.is_complex:
+        raise TypeError(f"kernel D's cross form is real-only, got {x.dtype}")
     space = tuple(coeff.shape[1:])
     in_space = space if in_space is None else tuple(in_space)
     in_box = box if in_box is None else in_box
@@ -298,7 +307,8 @@ def _device_check(x) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
     if x.dtype not in _DTYPES:
-        raise TypeError(f"kernel D takes float32 or float64, got {x.dtype}")
+        raise TypeError(f"kernel D takes float32, float64, complex64 or "
+                        f"complex128, got {x.dtype}")
 
 
 def _box(grid) -> tuple[int, int, int]:
@@ -315,8 +325,8 @@ def grid_apply(coeff, offsets, x):
     _device_check(x)
     offsets = tuple(tuple(int(d) for d in off) for off in offsets)
     if not supports_stencil(offsets, grid, x.dtype):
-        raise ValueError(f"kernel D takes 1D-3D stencils in float32/float64 "
-                         f"(got {len(grid)}D, {x.dtype})")
+        raise ValueError(f"kernel D takes 1D-3D stencils (got "
+                         f"{len(grid)}D, {x.dtype})")
     _check_taps(len(offsets))
     pad = 3 - len(grid)
     taps = tuple((0,) * pad + off for off in offsets)
@@ -343,8 +353,8 @@ def cross_apply(coeff, offsets, in_grid, x):
     offsets = tuple(tuple(int(d) for d in off) for off in offsets)
     if (not supports_stencil(offsets, out_grid, x.dtype)
             or len(in_grid) != len(out_grid)):
-        raise ValueError(f"kernel D takes 1D-3D stencils in float32/float64 "
-                         f"(got {out_grid} from {in_grid}, {x.dtype})")
+        raise ValueError(f"kernel D takes 1D-3D stencils (got {out_grid} "
+                         f"from {in_grid}, {x.dtype})")
     _check_taps(len(offsets))
     pad = 3 - len(out_grid)
     taps = tuple((0,) * pad + off for off in offsets)
@@ -443,8 +453,9 @@ def stride2_prolong_plain(T, xc):
 
 
 def stride2_restrict_plain(T, r):
-    """Plain P^T r of a packed Stride2Transfer: per tap k, the coarse nodes
-    c with 2c + d_k on the fine grid take rcoeff[k, c] * r[2c + d_k]."""
+    """Plain P^H r of a packed Stride2Transfer: per tap k, the coarse nodes
+    c with 2c + d_k on the fine grid take rcoeff[k, c] * r[2c + d_k]
+    (rcoeff holds the conjugated coefficients)."""
     _count_plain(r.dtype)
     r2, lead = _lead(r, T.fine_grid)
     rc = r2.new_zeros((r2.shape[0],) + T.coarse_grid)
@@ -477,7 +488,7 @@ def stride2_prolong(T, xc):
 
 
 def stride2_restrict(T, r):
-    """P^T r, r (..., *fine_grid) -> (..., *coarse_grid), for a packed
+    """P^H r, r (..., *fine_grid) -> (..., *coarse_grid), for a packed
     Stride2Transfer T: kernel D's restrict form on a CUDA tensor,
     `stride2_restrict_plain` on a CPU one."""
     if r.device.type == "cpu":

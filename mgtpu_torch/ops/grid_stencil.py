@@ -14,9 +14,9 @@ Host analysis (CSR extraction, structured RAP, constant-interior
 compression, stride-2 transfer extraction) runs in numpy; the results move
 to the device once.  A 3D radius-1 float32 `ConstGridStencil` applies
 through the hand-written CUDA kernel A (ops/cuda/const3d.py); a float32 or
-float64 `GridStencil` of any radius, and both applies of a
-`Stride2Transfer`, through kernel D (ops/cuda/stencil.py); every other
-stencil applies through the plain torch versions here.
+float64, complex64 or complex128 `GridStencil` of any radius, and both
+applies of a `Stride2Transfer`, through kernel D (ops/cuda/stencil.py);
+every other stencil applies through the plain torch versions here.
 """
 from __future__ import annotations
 
@@ -75,10 +75,11 @@ class GridStencil:
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
         """y = A @ x on grid fields (m, *grid) or flat (n,) / (n, m).
 
-        A float32 or float64 x goes through kernel D's wrapper
-        (ops/cuda/stencil.py), which raises on a CUDA x whose dtype is not
-        the coefficients' or for more taps than the kernel takes; any other
-        type through the counted plain `grid_apply_plain`."""
+        A float32, float64, complex64 or complex128 x goes through kernel
+        D's wrapper (ops/cuda/stencil.py), which raises on a CUDA x whose
+        dtype is not the coefficients' or for more taps than the kernel
+        takes; any other type through the counted plain
+        `grid_apply_plain`."""
         if _is_flat(x, self.grid):
             squeeze = x.ndim == 1
             x2 = x[:, None] if squeeze else x
@@ -312,9 +313,10 @@ class Stride2Transfer:
               (`classes`, in tap order; `ptab` the same table on the
               device with each tap's offset in the coarse box, padded with
               an offset that reads nothing);
-    restrict: rc[c] = sum_k rcoeff[k, c] r[2c + offsets[k]] = P^T r (the
+    restrict: rc[c] = sum_k rcoeff[k, c] r[2c + offsets[k]] = P^H r (the
               SA convention R = P', reference SA-AMG.jl:49), with
-              rcoeff[k, c] = coeff[k, 2c + offsets[k]] (zero outside).
+              rcoeff[k, c] = conj(coeff[k, 2c + offsets[k]]) (zero
+              outside; mgtpu conjugates at the apply, grid_stencil.py:429).
 
     Neither reads the stencil form's zeros: no upsampled field, no outputs
     on odd fine nodes.  Both apply through kernel D on a CUDA tensor (its
@@ -341,7 +343,7 @@ class Stride2Transfer:
         return stride2_prolong(self, xc)
 
     def restrict(self, r: torch.Tensor) -> torch.Tensor:
-        """P^T r: (..., *fine_grid) -> (..., *coarse_grid)."""
+        """P^H r: (..., *fine_grid) -> (..., *coarse_grid)."""
         from .cuda.stencil import stride2_restrict
         return stride2_restrict(self, r)
 
@@ -405,8 +407,8 @@ def pack_stride2(coeff, offsets, fine_grid, coarse_grid,
         raise ValueError("stride-2 coefficients off their parity class")
     even = (slice(None),) + tuple(slice(None, 2 * c - 1, 2)
                                   for c in coarse_grid)
-    rcoeff = np.stack([_shift_np(coeff[k], o)
-                       for k, o in enumerate(offsets)])[even]
+    rcoeff = np.conj(np.stack([_shift_np(coeff[k], o)
+                               for k, o in enumerate(offsets)])[even])
     return Stride2Transfer(
         torch.as_tensor(pcoeff, device=device),
         torch.as_tensor(ptab, device=device),

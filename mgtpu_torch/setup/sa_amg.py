@@ -31,7 +31,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
-from ..config import resolve_device
+from ..config import is_complex, resolve_device
 from . import native
 from . import smoothers as sm
 from .device_agg import device_aggregation
@@ -49,7 +49,10 @@ _SA_RELAX = ("jacobi", "jac-gmres", "spai", "chebyshev", "chebyshev4")
 def strength_matrix(A: sp.spmatrix, theta: float) -> sp.csr_matrix:
     """Symmetrised strength-of-connection matrix (values thresholded,
     pattern kept)."""
-    S = (-A).tocsr().astype(np.float64)
+    S = (sp.csr_matrix(-A.real)
+         if np.iscomplexobj(A.data if hasattr(A, "data") else A)
+         else (-A).tocsr())
+    S = S.astype(np.float64)
     S.sum_duplicates()
     mm = 1e-16 * max(S.data.max(), 1e-300) if S.nnz else 1e-16
     n = S.shape[0]
@@ -244,6 +247,11 @@ def sa_amg_setup(A: sp.spmatrix, cfg: MGConfig, relax_param=1.0,
                          "(same as the reference, SA-AMG.jl:27-31); "
                          "chebyshev counts — it is diagonal-based")
     _check_ported(cfg)
+    if (is_complex(cfg.dtype) and mesh is None
+            and os.environ.get("MGTPU_AGG", "").lower() == "device"):
+        # mgtpu's device aggregation keeps float32 strength values
+        raise NotImplementedError("complex device aggregation not yet "
+                                  "ported")
     # the original-precision operator: the refined solve certifies against it
     A_orig = sp.csr_matrix(A)
     A = A_orig.astype(cfg.dtype)

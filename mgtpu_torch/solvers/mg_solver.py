@@ -43,7 +43,7 @@ import time
 import numpy as np
 import torch
 
-from ..config import torch_dtype
+from ..config import double_variant, is_complex, torch_dtype
 from ..cycle.capture import gate, run, static_config
 from ..cycle.cycle import cycle_jit, recursive_cycle
 from ..cycle.grid_cycle import (GridHierarchy, grid_cycle, grid_cycle_jit,
@@ -253,7 +253,8 @@ def solve_mg_refined(state: MGState, b, x=None, tol: float = 1e-8,
     """Iterative refinement x += Cycle(b - A x) to a relative residual
     below `tol` (mgtpu's signature).
 
-    The residual is computed in `outer_dtype` (default float64) against
+    The residual is computed in `outer_dtype` (default float64, complex128
+    for a complex hierarchy) against
     `A_input`; each correction is one cycle from a zero guess in
     `cycle_dtype` (default the hierarchy's; ``torch.bfloat16`` runs the
     cycles on a bfloat16 copy of the hierarchy, `cast_hierarchy`, whose
@@ -273,8 +274,12 @@ def solve_mg_refined(state: MGState, b, x=None, tol: float = 1e-8,
     `outer_dtype` tensor on the state's device."""
     t0 = time.perf_counter()
     cfg, dev = state.config, state.device
-    outer = torch_dtype(np.float64 if outer_dtype is None else outer_dtype)
+    outer = torch_dtype(double_variant(cfg.dtype) if outer_dtype is None
+                        else outer_dtype)
     cd = torch_dtype(cfg.dtype if cycle_dtype is None else cycle_dtype)
+    if is_complex(cfg.dtype) and cd != torch_dtype(cfg.dtype):
+        raise NotImplementedError("a complex cycle_dtype other than the "
+                                  "hierarchy's is not yet ported")
     gh = _cycle_hierarchy(state, cd)
     if max_iter is None:
         max_iter = cfg.max_outer_iter
@@ -366,11 +371,11 @@ def _refined_device_loop(state, ctx, bv, xv, tol, max_iter, outer):
     cfg, gh, _, _, cd, use_fmg, chunk = ctx
     hi = high_precision_fine_operator(state, outer)
     key = ("refine", static_config(cfg), cd, use_fmg, chunk, id(hi))
-    dev = bv.device
-    scal = (torch.tensor(tol, dtype=bv.dtype, device=dev),
+    dev, rdt = bv.device, bv.real.dtype         # norms are real
+    scal = (torch.tensor(tol, dtype=rdt, device=dev),
             torch.tensor(max_iter, dtype=torch.int64, device=dev))
     out = run(gh, key + ("first",), _refine_first, ctx, bv, xv,
-              torch.zeros(max_iter + 1, dtype=bv.dtype, device=dev),
+              torch.zeros(max_iter + 1, dtype=rdt, device=dev),
               *scal, keep=(hi,), clone=False)
     while bool(out[-1]):
         out = run(gh, key + ("next",), _refine_chunk, ctx, bv,
@@ -436,21 +441,24 @@ def _krylov_setup(state: MGState, b, x0, captured: bool = True):
     matvec, the one-cycle preconditioner, the map back to flat, and the
     `cache` (owner, key, keep) under which the Krylov programs are kept.
 
-    A float64 b over a lower-precision hierarchy makes the outer iteration
-    float64: its matvec is the float64 operator of `A_input` and each cycle
-    runs on the residual cast to the hierarchy's precision."""
+    A float64 (complex128) b over a lower-precision hierarchy makes the
+    outer iteration float64 (complex128 for a complex b or hierarchy): its
+    matvec is that operator of `A_input` and each cycle runs on the
+    residual cast to the hierarchy's precision."""
     cfg, dev = state.config, state.device
     cd = torch_dtype(cfg.dtype)
     bt = torch.as_tensor(b, device=dev)
-    outer = torch.float64 if bt.dtype == torch.float64 else cd
+    outer = (torch.promote_types(bt.dtype, cd)
+             if bt.dtype in (torch.float64, torch.complex128) else cd)
     b2, squeeze = _as_2d(bt.to(outer))
     x2 = (torch.zeros_like(b2) if x0 is None
           else _as_2d(torch.as_tensor(x0, dtype=outer, device=dev))[0])
     to_field, to_flat2, _, matvec = _runtime(state)
     keep = ()
     if outer != cd:
-        matvec = _hi_matvec(state)
-        keep = (high_precision_fine_operator(state),)
+        np_outer = np.dtype(str(outer).rsplit(".", 1)[-1])
+        matvec = _hi_matvec(state, np_outer)
+        keep = (high_precision_fine_operator(state, np_outer),)
     cache = (state.hier, ("krylov", static_config(cfg), outer,
                           tuple(map(id, keep))), keep)
 

@@ -366,7 +366,7 @@ def test_structured_sa_chebyshev_conforms_to_flat(relax):
     assert info["relres"] < 1e-8
 
 
-def test_sa_options():
+def test_sa_options(monkeypatch):
     _, Mp, A = _divsig(16)
     # MIS-2 aggregation: every node in one aggregate, deterministic
     P0 = sa_port.get_aggregation(A, 0.4, method="device", device="cpu")
@@ -380,8 +380,10 @@ def test_sa_options():
     with pytest.raises(ValueError, match="pointwise"):
         mt.sa_amg_setup(A, cfg, rp, mesh=Mp, device="cpu")
     cfg, rp = mt.get_mg_param(levels=3, dtype=np.complex128)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        mt.sa_amg_setup(A, cfg, rp, device="cpu")
+    with monkeypatch.context() as mp:
+        mp.setenv("MGTPU_AGG", "device")
+        with pytest.raises(NotImplementedError, match="not yet ported"):
+            mt.sa_amg_setup(A, cfg, rp, device="cpu")
     # a mesh with engine="flat" takes greedy aggregation
     cfg, rp = mt.get_mg_param(levels=3, engine="flat")
     st = mt.sa_amg_setup(A, cfg, rp, mesh=Mp, device="cpu")

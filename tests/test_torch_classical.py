@@ -339,7 +339,8 @@ def test_classical_options():
     cfg, rp = mt.get_mg_param(levels=3, relax_type="chebyshev")
     with pytest.raises(ValueError, match="pointwise"):
         mt.classical_amg_setup(A, cfg, rp, device="cpu")
-    cfg, rp = mt.get_mg_param(levels=3, dtype=np.complex128)
+    cfg, rp = mt.get_mg_param(levels=3, dtype=np.complex128,
+                              transfer_type="SemiCoarsening")
     with pytest.raises(NotImplementedError, match="not yet ported"):
         mt.classical_amg_setup(A, cfg, rp, device="cpu")
     # no mesh: the grid engine has nothing to build

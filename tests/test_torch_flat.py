@@ -175,15 +175,25 @@ def test_engine_auto_falls_back_to_flat_as_reference():
 
 
 @pytest.mark.parametrize("engine", ["auto", "flat"])
-@pytest.mark.parametrize("kw", [dict(dtype=np.complex128),
-                                dict(dtype=np.complex64)])
-def test_unported_options_raise_on_every_engine(engine, kw):
-    """NotImplementedError is never taken for a grid-engine ValueError."""
+@pytest.mark.parametrize("kw", [
+    dict(dtype=np.complex128, transfer_type="SystemsFacesLinear"),
+    dict(dtype=np.complex64, aggregation="device")])
+def test_unported_options_raise_on_every_engine(engine, kw, monkeypatch):
+    """NotImplementedError is never taken for a grid-engine ValueError:
+    complex staggered systems (mg_setup) and complex device aggregation
+    (sa_amg_setup under MGTPU_AGG=device), item 19's rest."""
     dims, A = _divsig(8)
+    kw = dict(kw)
+    device_agg = kw.pop("aggregation", None) == "device"
     cfg, rp = mt.get_mg_param(levels=2, engine=engine, **kw)
+    A = A.astype(kw["dtype"])
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        mt.mg_setup(A, mt.get_regular_mesh([0.0, 1.0] * 2, dims), cfg, rp,
-                    device="cpu")
+        if device_agg:
+            monkeypatch.setenv("MGTPU_AGG", "device")
+            mt.sa_amg_setup(A, cfg, rp, device="cpu")
+        else:
+            mt.mg_setup(A, mt.get_regular_mesh([0.0, 1.0] * 2, dims), cfg,
+                        rp, device="cpu")
 
 
 def test_state_transfers_and_complexity_match_reference():

@@ -1455,3 +1455,135 @@ def test_direct_solver_on_the_card(dtype, tol):
         xt = ds.solve(bb, transpose=True).cpu().numpy()
         assert np.abs(A.conj().T @ xt - bb).max() / np.abs(bb).max() < tol
     assert ds.n_fac == 1 and ds.n_solve == 4
+
+
+# ---------------------------------------------------------------------------
+# complex hierarchies: kernels D and F in complex64 / complex128
+# ---------------------------------------------------------------------------
+
+def _helmholtz(dims, kh=0.125):
+    """L - (1 - 0.5i) diag(k^2), k = (kh / h) / c, c = exp(0.2 randn)."""
+    import mgtpu_torch as mt
+    from mgtpu_torch.models.operators import nodal_laplacian_matrix
+    M = mt.get_regular_mesh([0.0, 1.0] * len(dims), list(dims))
+    L = nodal_laplacian_matrix(M)
+    c = np.exp(0.2 * np.random.RandomState(3).randn(L.shape[0]))
+    return M, (L - (1 - 0.5j) * sp.diags((kh * dims[0] / c) ** 2)).tocsr()
+
+
+def _crand(rng, shape, dt):
+    return torch.tensor(rng.rand(*shape) + 1j * rng.rand(*shape),
+                        dtype=dt, device="cuda")
+
+
+@pytest.mark.parametrize("dtype", [np.complex64, np.complex128])
+@pytest.mark.parametrize("dims", [(64, 64), (16, 16, 16)])
+def test_complex_stencil_forms_match_plain(dims, dtype):
+    """Kernel D's complex instantiations against the plain versions
+    (complex64 1e-5, complex128 1e-12 relative to the largest entry):
+    apply at 1, 2 and 5 right-hand sides, a coarse level's apply, the
+    stride-2 prolong and restrict of a structured SA hierarchy (restrict =
+    P^H), and the DIA form of a flat one; every call one launch."""
+    _need_card()
+    import mgtpu_torch as mt
+    from mgtpu_torch.config import torch_dtype
+    from mgtpu_torch.ops.cuda import stencil as sk
+    dt = torch_dtype(dtype)
+    key = str(dt).rsplit(".", 1)[-1]
+    tol = 1e-5 if dtype == np.complex64 else 1e-12
+    rel = lambda a, b: float((a - b).abs().max() / b.abs().max())
+    M, A = _helmholtz(list(dims))
+    rng = np.random.RandomState(2)
+    cfg, rp = mt.get_mg_param(levels=3, relax_type="jacobi",
+                              relax_param=0.8, nu_pre=1, nu_post=1,
+                              dtype=dtype)
+    st = mt.mg_setup(A, M, cfg, rp)
+    for lvl in st.hier.levels:
+        for m in (1, 2, 5):
+            x = _crand(rng, (m,) + lvl.A.grid, dt)
+            n0 = sk.LAUNCHES[key]
+            y = lvl.A.matvec(x)
+            torch.cuda.synchronize()
+            assert sk.LAUNCHES[key] == n0 + 1
+            assert rel(y, sk.grid_apply_plain(lvl.A.coeff, lvl.A.offsets,
+                                              x)) < tol
+    cfg, _ = mt.get_mg_param(levels=3, relax_type="spai", dtype=dtype)
+    sa = mt.sa_amg_setup(A, cfg, 1.0, mesh=M)
+    T = sa.hier.levels[0].P1
+    xc = _crand(rng, (2,) + T.coarse_grid, dt)
+    rf = _crand(rng, (2,) + T.fine_grid, dt)
+    assert rel(T.prolong(xc), sk.stride2_prolong_plain(T, xc)) < tol
+    assert rel(T.restrict(rf), sk.stride2_restrict_plain(T, rf)) < tol
+    Pd = torch.tensor(sa.Ps[0].toarray(), dtype=torch.complex128,
+                      device="cuda")
+    want = (Pd.conj().T @ rf.reshape(2, -1).T.to(torch.complex128)).T
+    assert rel(T.restrict(rf).reshape(2, -1).to(torch.complex128),
+               want) < max(tol, 1e-11)
+    flat = mt.sa_amg_setup(A, cfg, 1.0)
+    D = flat.hier.levels[0].A
+    assert type(D).__name__ == "DIA"
+    x = _crand(rng, (D.shape[0], 3), dt)
+    assert rel(D.matvec(x), sk.dia_apply_plain(D.data, D.offsets, x)) < tol
+
+
+@pytest.mark.parametrize("dtype", [np.complex64, np.complex128])
+@pytest.mark.parametrize("m", [1, 3])
+def test_complex_kaczmarz_kernel_matches_plain(dtype, m):
+    """Kernel F's complex instantiations (real row norms and mask, the
+    conjugated update) against the plain version on ragged domains
+    (complex64 2e-5, complex128 1e-12); a second launch is bitwise the
+    first."""
+    _need_card()
+    from mgtpu_torch.config import torch_dtype
+    from mgtpu_torch.cycle.kaczmarz import (kaczmarz_sweep,
+                                            setup_hybrid_kaczmarz)
+    from mgtpu_torch.dd.indices import nodal_indices_of_box
+    from mgtpu_torch.ops.cuda import kaczmarz as kf
+    M, A = _helmholtz([37, 37], 0.25)
+    dt = torch_dtype(dtype)
+    kd = setup_hybrid_kaczmarz(A, M, [3, 2], nodal_indices_of_box, 0.8, 2,
+                               dtype=dtype).to(dt, "cuda")
+    assert kd.mask.dtype == kd.invd.dtype == dt.to_real()
+    rng = np.random.RandomState(m)
+    x, b = (_crand(rng, (A.shape[0], m), dt) for _ in range(2))
+    key = str(dt).rsplit(".", 1)[-1]
+    before = kf.LAUNCHES[key]
+    y = kaczmarz_sweep(x, b, kd, 2)
+    y2 = kaczmarz_sweep(x, b, kd, 2)
+    torch.cuda.synchronize()
+    assert kf.LAUNCHES[key] == before + 2 and torch.equal(y, y2)
+    ref = kf.kaczmarz_sweep_plain(x, b, kd.arr, kd.mask, kd.invd,
+                                  kd.ell_idx, kd.ell_val, 2)
+    tol = 2e-5 if dtype == np.complex64 else 1e-12
+    assert float((y - ref).abs().max() / ref.abs().max()) < tol
+
+
+def test_complex_refined_solve_records_as_eager():
+    """A complex64 Helmholtz hierarchy on the card: the recorded refined
+    solve (complex128 outer) is its eager run bit for bit, launches kernel
+    D in both types and no complex plain version, and certifies 1e-8 at
+    the count of the same solve on the CPU."""
+    _need_card()
+    import mgtpu_torch as mt
+    from mgtpu_torch.ops.cuda import stencil as sk
+    M, A = _helmholtz([64, 64])
+    cfg, rp = mt.get_mg_param(levels=3, relax_type="jacobi",
+                              relax_param=0.8, nu_pre=1, nu_post=1,
+                              dtype=np.complex64)
+    b = A @ np.random.RandomState(4).rand(A.shape[0])
+    b /= np.linalg.norm(b)
+    _, info_c = mt.solve_mg_refined(mt.mg_setup(A, M, cfg, rp,
+                                                device="cpu"), b)
+    st = mt.mg_setup(A, M, cfg, rp)
+    l0, p0 = dict(sk.LAUNCHES), dict(sk.PLAIN_CALLS)
+    x1, i1 = mt.solve_mg_refined(st, b, tol=1e-8, max_iter=60)
+    torch.cuda.synchronize()
+    for k in ("complex64", "complex128"):
+        assert sk.LAUNCHES[k] > l0[k] and sk.PLAIN_CALLS[k] == p0[k]
+    x0, i0 = mt.solve_mg_refined(st, b, tol=1e-8, max_iter=60,
+                                 device_loop=False)
+    assert i1["iters"] == i0["iters"] and abs(i1["iters"]
+                                              - info_c["iters"]) <= 1
+    assert np.array_equal(i1["resvec"], i0["resvec"])
+    assert torch.equal(x1, x0) and x1.dtype == torch.complex128
+    assert np.linalg.norm(b - A @ x1.cpu().numpy()) < 1e-8

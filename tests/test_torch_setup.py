@@ -109,12 +109,13 @@ def test_mg_setup_matches_reference(dims, levels, relax):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(relax_type="hybridKaczmarzNodal"), dict(dtype=np.complex128),
+    dict(relax_type="hybridKaczmarzNodal"),
+    dict(dtype=np.complex128, relax_type="LineJac"),
 ])
 def test_unported_options_raise(kw):
-    """complex128 is not ported yet (item 19) and raises; the hybrid
-    Kaczmarz smoother is (it sets up as mgtpu's: the flat engine, the
-    same tables)."""
+    """complex128 line relaxation is not ported yet (item 19's rest: kernel
+    C is real-only) and raises; the hybrid Kaczmarz smoother is (it sets up
+    as mgtpu's: the flat engine, the same tables)."""
     dims, L = _problem([8, 8])
     cfg, rp = mt.get_mg_param(levels=2, **kw)
     Mp = mt.get_regular_mesh([0.0, 1.0] * 2, dims)

@@ -118,10 +118,11 @@ def test_flat_matvec_goes_through_the_wrapper():
 
 def test_dispatch_rule():
     """Stencils of 1D-3D grids with any per-axis shifts applied to
-    float32/float64 x take kernel D's wrapper (which raises on a CUDA x
-    whose dtype is not the coefficients', or for more than MAX_TAPS taps);
-    another dtype takes the plain version.  On the CPU the wrapper runs the
-    plain version.  Every plain call is counted under x's dtype."""
+    float32/float64/complex64/complex128 x take kernel D's wrapper (which
+    raises on a CUDA x whose dtype is not the coefficients', or for more
+    than MAX_TAPS taps); another dtype takes the plain version.  On the CPU
+    the wrapper runs the plain version.  Every plain call is counted under
+    x's dtype."""
     off2 = ((0, -1), (0, 0), (0, 1))
     assert stencil.supports_stencil(off2, (5, 6), torch.float32)
     assert stencil.supports_stencil(off2, (5, 6), torch.float64)
@@ -130,7 +131,8 @@ def test_dispatch_rule():
     assert stencil.supports_stencil(((-3, 5), (0, 0)), (5, 6), torch.float64)
     assert stencil.MAX_TAPS == 256
     assert not stencil.supports_stencil(off2, (5, 6), torch.float16)
-    assert not stencil.supports_stencil(off2, (5, 6), torch.complex128)
+    assert stencil.supports_stencil(off2, (5, 6), torch.complex128)
+    assert not stencil.supports_stencil(off2, (5, 6), torch.bfloat16)
     A = GridStencil(torch.ones((3, 5, 6), dtype=torch.float64), off2, (5, 6))
     n0 = dict(stencil.PLAIN_CALLS)
     y = A.matvec(torch.ones((1, 5, 6), dtype=torch.float32))
