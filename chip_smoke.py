@@ -181,18 +181,41 @@ Phases, each of which raises on failure:
             instantiations on K-c's fine level; their times beside their
             bounds, plain versions and torch.sparse.mm.
 
-Every solve of phases 4, 5, 7, 8, 10, 11, 12, 13, 16 and 17 runs through the
-recorded programs (mgtpu_torch/cycle/capture.py: CUDA graphs), the entry
-points' default, and is then held against its eager run (the captured
-phase, 14):
+18. complex rest — the complex rows of scripts/complex_rest_reference.py
+            at full width, each to mgtpu's count +- 1 at a true complex128
+            relres below 1e-8, inside one launch-counter window, every one
+            held against its eager run: (CL-2d) eps = 100 + the Helmholtz
+            shift (kh 0.125) at 1024^2, line Jacobi 0.8 V(1,1), 5 levels
+            (11), (CL-3d) eps = 50 on grid axis 0 at 128^3 (11), (CS-2d)
+            eps = 0.01, kh 0.01, semicoarsening + line Jacobi 0.9, 7 levels
+            (6), (CV-2d) mixed elasticity + (1e-3 + 1e-3i) at 1024^2,
+            VankaFaces 0.75 V(1,1), 6 levels (9), (CE-2d) elasticity, SPAI
+            0.75 V(2,2) (28), (C-lex) / (C-kacz) the mixed operator at 64^2
+            on the flat engine (9 / 18), (Z-dev) Z-sa's operator with MIS-2
+            aggregation on the card (12), (H-cd) H-2d in a complex128
+            hierarchy cycled in complex64 (16), and CL-2d and C-lex in
+            complex128 hierarchies (11 / 9); complex64 hierarchies else;
+            counters prove kernel C, D's cross form and E ran in complex64
+            and complex128 and no plain version.  Before the window, those
+            instantiations against their plain versions (C on CL-2d's,
+            CL-3d's and every CS-2d level's lines, 2e-4 / 1e-10; the cross
+            form on every block of CV-2d's fine level and its complex128
+            residual operator, 2e-5 / 1e-12; E on every C-lex level, 1e-5 /
+            1e-12) and their times beside their bounds, plain versions and
+            (D) torch.sparse.mm.
 
-14. captured — for each of the 44 paths (3D Jacobi, Chebyshev and SPAI
+Every solve of phases 4, 5, 7, 8, 10, 11, 12, 13, 16, 17 and 18 runs
+through the recorded programs (mgtpu_torch/cycle/capture.py: CUDA graphs),
+the entry points' default, and is then held against its eager run (the
+captured phase, 14):
+
+14. captured — for each of the 55 paths (3D Jacobi, Chebyshev and SPAI
             refined; 2D Jacobi; the FMG start; (a)-(e) and (b6); (f),
             f-bicg, f-block, (g), (h); SA-s, SA-K, SA-f; C-cc, C-pmis,
             SA-dev, C-cg; V-2d, E-2d, V-3d, E-cg and the five Vanka
             variants; W (pcg), W-3d, R, D-coarse, DD-coarse, DD-256, K-mg,
-            bf16, RD; H-2d, H-gmres, H-3d): the recorded solve takes the
-            eager loop's
+            bf16, RD; H-2d, H-gmres, H-3d; the eleven rows of phase 18):
+            the recorded solve takes the eager loop's
             iteration count (device_loop=False) and returns its x bit for
             bit (or within a stated 1e-12 relative); one recorded
             correction cycle (grid_cycle_jit / cycle_jit) launches what the
@@ -503,6 +526,24 @@ KERNELS = {
     "kaczmarz.complex128": (
         "mgtpu/cycle/kaczmarz.py:70 kaczmarz_sweep (row_step :78-91, "
         "lax.fori_loop, no pallas_call)", "mgtpu_torch/csrc/kaczmarz.cu", 2),
+    # phase 18: kernel C, kernel D's cross form and kernel E in complex;
+    # mgtpu runs complex lines through its XLA doubling scan (its Pallas
+    # line kernel is float32 only) and the rest in XLA
+    **{f"tridiag.{c}": (
+        "mgtpu/ops/pallas/tridiag.py:71 _fwd_kernel + :85 _bwd_kernel (K7), "
+        "pallas_calls at :120, :134 (float32 only); complex lines in "
+        "mgtpu/cycle/relax.py:218 _scan_linear (XLA)",
+        "mgtpu_torch/csrc/tridiag.cu", 3) for c in ("complex64",
+                                                    "complex128")},
+    **{f"stencil_cross.{c}": (
+        "mgtpu/ops/pallas/stencil_kernel.py:31 _stencil_kernel (K8), "
+        "pallas_call at :76, as mgtpu/ops/cross_stencil.py:123 "
+        "cross_stencil_matvec (XLA, complex)", "mgtpu_torch/csrc/stencil.cu",
+        2) for c in ("complex64", "complex128")},
+    **{f"vanka_lex.{c}": (
+        "mgtpu/cycle/vanka.py:97 _lex_sweep (lax.fori_loop, no "
+        "pallas_call)", "mgtpu_torch/csrc/vanka.cu", 2)
+        for c in ("complex64", "complex128")},
 }
 STENCIL_KERNELS = [k for k in KERNELS       # kernels A and B
                    if not k.startswith(("tridiag", "stencil.",
@@ -681,7 +722,8 @@ def reset_counters():
     from mgtpu_torch.setup import native
     for dct in (const3d.LAUNCHES, const3d.PLAIN_CALLS, fused3d.LAUNCHES,
                 fused3d.PLAIN_CALLS, tridiag.LAUNCHES, tridiag.PLAIN_CALLS,
-                stencil.LAUNCHES, stencil.PLAIN_CALLS, vanka.LAUNCHES,
+                stencil.LAUNCHES, stencil.PLAIN_CALLS,
+                stencil.CROSS_LAUNCHES, vanka.LAUNCHES,
                 vanka.PLAIN_CALLS, kaczmarz.LAUNCHES, kaczmarz.PLAIN_CALLS,
                 native.CALLS, native.PLAIN_CALLS):
         for k in dct:
@@ -886,12 +928,14 @@ NO_PAIR = dict(cycle_launches=None, graphs=None, record_ms=None,
                cycle_ev_ms=None, cycle_host_ms=None, cycle_dev_ms=None,
                eager_cycle_ev_ms=None, eager_cycle_host_ms=None,
                eager_cycle_dev_ms=None, busy=None, eager_busy=None)
-CAPTURED_PATHS = 44     # 3D Jacobi, Chebyshev, SPAI; 2D Jacobi; FMG;
+CAPTURED_PATHS = 55     # 3D Jacobi, Chebyshev, SPAI; 2D Jacobi; FMG;
                         # (a)-(e), (b6); (f), f-bicg, f-block, (g), (h);
                         # SA-s, SA-K, SA-f; C-cc, C-pmis, SA-dev, C-cg;
                         # V-2d, E-2d, V-3d, E-cg and the five Vanka
                         # variants; W (pcg), W-3d, R, D-coarse, DD-coarse,
-                        # DD-256, K-mg, bf16, RD; H-2d, H-gmres, H-3d
+                        # DD-256, K-mg, bf16, RD; H-2d, H-gmres, H-3d;
+                        # CL-2d, CL-3d, CS-2d, CV-2d, CE-2d, C-lex,
+                        # C-kacz, Z-dev, H-cd, CL-2d-c128, C-lex-c128
 
 
 @contextlib.contextmanager
@@ -2357,13 +2401,15 @@ VARIANTS = [
     ("lex", "VankaFacesLex", 0.75, 1, "Hierarchy", 9),
     ("kacz", "hybridVankaFacesKaczmarz", 0.9, 2, "Hierarchy", 31),
 ]
-LEX_TOLS = {torch.float32: 1e-5, torch.float64: 1e-12}
+LEX_TOLS = {torch.float32: 1e-5, torch.float64: 1e-12, torch.complex64: 1e-5,
+            torch.complex128: 1e-12}
 
 
-def elasticity(dim, cells, mixed):
+def elasticity(dim, cells, mixed, shift=1e-3):
     """The systems contracts' operator (bench.py:396-399): elasticity or
-    mixed elasticity with mu = lam = 1, plus 1e-3 * (max column sum) * I;
-    its mesh and b = A RandomState(4).rand(n), normalised."""
+    mixed elasticity with mu = lam = 1, plus shift * (max column sum) * I
+    (1e-3; the complex rows (1e-3 + 1e-3i)); its mesh and b = A
+    RandomState(4).rand(n), normalised."""
     from mgtpu_torch import get_regular_mesh
     from mgtpu_torch.models.operators import (
         linear_elasticity_operator, linear_elasticity_operator_mixed)
@@ -2371,7 +2417,7 @@ def elasticity(dim, cells, mixed):
     mu = np.ones(M.num_cells)
     A = (linear_elasticity_operator_mixed if mixed
          else linear_elasticity_operator)(M, mu, mu)
-    A = (A + 1e-3 * abs(A).sum(axis=0).max() * sp.identity(A.shape[0])
+    A = (A + shift * abs(A).sum(axis=0).max() * sp.identity(A.shape[0])
          ).tocsr()
     b = A @ np.random.RandomState(4).rand(A.shape[0])
     return M, A, b / np.linalg.norm(b)
@@ -3656,6 +3702,372 @@ def phase_complex(states, card):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the rest of complex — line relaxation, semicoarsening, the
+# staggered-systems engine, device aggregation, a lower cycle type
+# ---------------------------------------------------------------------------
+
+REST = {
+    # key: (label, mgtpu's refined count at full width on the CPU
+    # (scripts/complex_rest_reference.py, JAX 0.9.0), max_iter)
+    "CL-2d": ("(CL-2d) eps=100 shifted, kh 0.125, 1024^2, line Jacobi 0.8 "
+              "V(1,1), 5 levels", 11, 60),
+    "CL-3d": ("(CL-3d) 3D eps=50 on grid axis 0 shifted, kh 0.125, 128^3, "
+              "line Jacobi 0.8 V(1,1), 5 levels", 11, 60),
+    "CS-2d": ("(CS-2d) eps=0.01 shifted, kh 0.01, 1024^2, semicoarsening + "
+              "line Jacobi 0.9 V(1,1), 7 levels", 6, 60),
+    "CV-2d": ("(CV-2d) mixed elasticity + (1e-3 + 1e-3i), 1024^2, "
+              "VankaFaces 0.75 V(1,1), 6 levels", 9, 60),
+    "CE-2d": ("(CE-2d) elasticity + (1e-3 + 1e-3i), 1024^2, SPAI 0.75 "
+              "V(2,2), 6 levels", 28, 60),
+    "C-lex": ("(C-lex) CV-2d's operator at 64^2, VankaFacesLex 0.75 V(1,1), "
+              "4 levels", 9, 60),
+    "C-kacz": ("(C-kacz) the same, hybridVankaFacesKaczmarz 0.9 V(2,2), 4 "
+               "levels", 18, 60),
+    "Z-dev": ("(Z-dev) Z-sa's operator, 512^2, MIS-2 aggregation on the card "
+              "(MGTPU_AGG=device), SPAI 1.0 V(2,2), 4 levels", 12, 80),
+    "H-cd": ("(H-cd) H-2d in a complex128 hierarchy, complex64 cycles "
+             "(cycle_dtype), 5 levels", 16, 60),
+    # the complex128 instantiations of kernels C and E on a path: the same
+    # rows in complex128 hierarchies, held to the complex64 rows' count
+    "CL-2d-c128": ("(CL-2d-c128) CL-2d in a complex128 hierarchy", 11, 60),
+    "C-lex-c128": ("(C-lex-c128) C-lex in a complex128 hierarchy", 9, 60),
+}
+Z_DEV_MGTPU = [263169, 69425, 18219, 7665]   # mgtpu's level sizes (CPU)
+REST_ROWS = [f"{k}.{c}" for k in ("tridiag", "stencil_cross", "vanka_lex")
+             for c in ("complex64", "complex128")]
+
+
+def cshift(A, kh, n):
+    """A - (1 - 0.5i) diag(k^2), k = (kh n) / c, c = exp(0.2
+    RandomState(3).randn(n_nodes)): the Helmholtz shift of
+    scripts/complex_rest_reference.py."""
+    c = np.exp(0.2 * np.random.RandomState(3).randn(A.shape[0]))
+    return (A - (1 - 0.5j) * sp.diags((kh * n / c) ** 2)).tocsr()
+
+
+def rest_problem(key):
+    """(mesh, operator, get_mg_param keywords, b) of a phase-18 row."""
+    z = 1e-3 + 1e-3j
+    dt = np.complex128 if key.endswith("c128") else np.complex64
+    line = dict(relax_type="line-jacobi", nu_pre=1, nu_post=1)
+    if key.startswith("CL-2d"):
+        M, A = aniso2d(1024, 100.0)
+        return M, cshift(A, 0.125, 1024), dict(levels=5, relax_param=0.8,
+                                               dtype=dt, **line)
+    if key == "CL-3d":
+        M, A = aniso3d([128] * 3, 0)
+        return M, cshift(A, 0.125, 128), dict(levels=5, relax_param=0.8,
+                                              dtype=dt, **line)
+    if key == "CS-2d":
+        M, A = aniso2d(1024, 0.01)
+        return M, cshift(A, 0.01, 1024), dict(
+            levels=7, relax_param=0.9, transfer_type="semicoarsening",
+            dtype=dt, **line)
+    if key in ("CV-2d", "CE-2d"):
+        mixed = key == "CV-2d"
+        M, A, _ = elasticity(2, 1024, mixed, shift=z)
+        return M, A, dict(
+            levels=6, relax_type="VankaFaces" if mixed else "SPAI",
+            relax_param=0.75, nu_pre=1 if mixed else 2,
+            nu_post=1 if mixed else 2, dtype=dt,
+            transfer_type="SystemsFacesMixedLinear" if mixed
+            else "SystemsFacesLinear")
+    if key.startswith(("C-lex", "C-kacz")):
+        M, A, _ = elasticity(2, 64, True, shift=z)
+        lex = key.startswith("C-lex")
+        return M, A, dict(
+            levels=4, relax_type="VankaFacesLex" if lex
+            else "hybridVankaFacesKaczmarz", relax_param=0.75 if lex else 0.9,
+            nu_pre=1 if lex else 2, nu_post=1 if lex else 2, dtype=dt,
+            transfer_type="SystemsFacesMixedLinear")
+    if key == "Z-dev":
+        M, A = divsig((512, 512), shift=1e-2 + 1e-2j, seed=5)
+        return M, A, dict(levels=4, relax_type="spai", relax_param=1.0,
+                          nu_pre=2, nu_post=2, dtype=dt)
+    M, A = helmholtz((1024, 1024), 0.125)
+    return M, A, dict(levels=5, relax_type="jacobi", relax_param=0.8,
+                      nu_pre=1, nu_post=1, dtype=np.complex128)
+
+
+def rest_states(card):
+    """Every phase-18 row set up on the card (Z-dev's aggregation by the
+    device loops), with its host seconds by stage and its complex128
+    residual operator built once."""
+    import os
+    import mgtpu_torch as mt
+    from mgtpu_torch.solvers.mg_solver import high_precision_fine_operator
+    states = {}
+    for key in REST:
+        t0 = time.perf_counter()
+        M, A, kw = rest_problem(key)
+        b = rhs_of(A, seed=6 if key == "Z-dev" else 4)
+        t1 = time.perf_counter()
+        cfg, rp = mt.get_mg_param(max_outer_iter=60, **kw)
+        torch.cuda.synchronize()
+        if key == "Z-dev":
+            os.environ["MGTPU_AGG"] = "device"
+            try:
+                st = mt.sa_amg_setup(A, cfg, rp)
+            finally:
+                os.environ.pop("MGTPU_AGG", None)
+        else:
+            st = mt.mg_setup(A, M, cfg, rp)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        high_precision_fine_operator(st, np.complex128)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        sizes = [a.shape[0] for a in st.As]
+        stages = ", ".join(f"{k} {v:.2f} s"
+                           for k, v in st.setup_times.items())
+        log(f"[rest] {REST[key][0]}: {A.shape[0]} unknowns, "
+            f"{type(st.hier).__name__} {st.config.dtype.__name__}, levels "
+            f"{sizes}; operator and b {t1 - t0:.2f} s, setup {t2 - t1:.2f} s"
+            f" host clock ({stages}), c128 residual operator {t3 - t2:.2f} s"
+            f" ({card})")
+        if key == "Z-dev":
+            log(f"[rest] (Z-dev) level sizes {sizes}: mgtpu's on the CPU "
+                f"{Z_DEV_MGTPU} ({'equal' if sizes == Z_DEV_MGTPU else 'NOT equal'})")
+        states[key] = (st, A, b)
+    engines = {k: type(v[0].hier).__name__ for k, v in states.items()}
+    want = {"CV-2d": "SystemsGridHierarchy", "CE-2d": "SystemsGridHierarchy",
+            "C-lex": "Hierarchy", "C-kacz": "Hierarchy", "Z-dev": "Hierarchy",
+            "CL-2d": "GridHierarchy", "CS-2d": "GridHierarchy"}
+    require(all(engines[k] == v for k, v in want.items()),
+            f"phase 18 engines {engines}, want {want}")
+    return states
+
+
+def rest_line_cases(states):
+    """(label, LineRelax) of the fine-level lines of CL-2d (contiguous),
+    CL-3d (strided, 129^3) and CS-2d (every level's axis), complex64 from
+    the hierarchies and complex128 from CL-2d-c128 or widened."""
+    from mgtpu_torch.cycle.relax import LineRelax
+    out = []
+    for key in ("CL-2d", "CL-3d", "CS-2d"):
+        st = states[key][0]
+        lvls = st.hier.levels[:-1] if key == "CS-2d" else st.hier.levels[:1]
+        for l, lv in enumerate(lvls):
+            lr = lv.line
+            wide = LineRelax(*(getattr(lr, k).to(torch.complex128) for k in
+                               ("alpha", "pivot", "cprime")), lr.axis,
+                             lr.omega)
+            lab = f"({key}) level {l} {tuple(lr.alpha.shape)} axis {lr.axis}"
+            out += [(lab, lr), (lab, wide)]
+    out.append(("(CL-2d-c128) level 0", states["CL-2d-c128"][0].hier
+                .levels[0].line))
+    return out
+
+
+def phase_rest_kernels(states, rows, card):
+    """Kernel C, kernel D's cross form and kernel E in complex64 and
+    complex128 against their plain versions on the card at the phase's
+    shapes: C (solve and correct, m = 1, 2; 2e-4 / 1e-10 relative) on
+    CL-2d's contiguous, CL-3d's strided and every CS-2d level's lines; D's
+    cross form (2e-5 / 1e-12) on every block of CV-2d's fine level and its
+    complex128 residual operator, m = 1, 2; E (1e-5 / 1e-12, two sweeps)
+    on every level of C-lex and C-lex-c128.  Then their device times
+    beside their bounds, plain versions and (D) torch.sparse.mm."""
+    from mgtpu_torch.cycle.relax import LineRelax
+    from mgtpu_torch.ops.cuda import stencil, tridiag, vanka
+    from mgtpu_torch.solvers.mg_solver import high_precision_fine_operator
+    tols = {torch.complex64: 2e-4, torch.complex128: 1e-10}
+    cases = rest_line_cases(states)
+    for label, lr in cases:
+        dt = lr.alpha.dtype
+        row = rows[f"tridiag.{str(dt).split('.')[-1]}"]
+        for m in (1, 2):
+            rng = np.random.RandomState(SEED + m)
+            shape = (m,) + tuple(lr.alpha.shape)
+            r, x = (torch.tensor(rng.rand(*shape) + 1j * rng.rand(*shape),
+                                 dtype=dt, device="cuda") for _ in range(2))
+            for name in ("tridiag.solve", "tridiag.correct"):
+                o = run_line(name, lr, r, x, plain=False)
+                ref = run_line(name, lr, r, x, plain=True)
+                torch.cuda.synchronize()
+                require(o.shape == ref.shape and o.dtype == dt
+                        and bool(torch.isfinite(o).all()),
+                        f"C {label}: bad output")
+                ae = float((o - ref).abs().max())
+                re = ae / float(ref.abs().max())
+                row["max_abs_err"] = max(row["max_abs_err"], ae)
+                row["max_rel_err"] = max(row["max_rel_err"], re)
+                require(re < tols[dt], f"kernel C {label} {name} m={m} "
+                        f"{dt}: relative error {re:.3e} >= {tols[dt]}")
+    log(f"[kernel] C complex: {len(cases)} line sets (CL-2d contiguous, "
+        "CL-3d strided, every CS-2d level; complex64 and complex128) match "
+        "the plain version in both modes, m = 1, 2")
+    st = states["CV-2d"][0]
+    hi = high_precision_fine_operator(st, np.complex128)
+    fine = st.hier.levels[0].A
+    nb = 0
+    for (ci, cj), S, S128 in zip(fine.pairs, fine.stencils, hi.stencils):
+        for S_ in (S, S128):
+            for m in (1, 2):
+                rng = np.random.RandomState(SEED + m)
+                shape = (m,) + tuple(S_.in_grid)
+                x = torch.tensor(rng.rand(*shape) + 1j * rng.rand(*shape),
+                                 dtype=S_.coeff.dtype, device="cuda")
+                y = stencil.cross_apply(S_.coeff, S_.offsets, S_.in_grid, x)
+                check_d(rows, f"(CV-2d) block ({ci},{cj}) m={m}", y,
+                        stencil.cross_apply_plain(S_.coeff, S_.offsets,
+                                                  S_.in_grid, x),
+                        "stencil_cross")
+            nb += 1
+    log(f"[kernel] D cross form complex: {nb} blocks of CV-2d's fine level "
+        "(complex64) and its complex128 residual operator match the plain "
+        "version, m = 1, 2")
+    lex = []
+    for key in ("C-lex", "C-lex-c128"):
+        st = states[key][0]
+        for l in range(len(st.hier.levels) - 1):
+            lex.append((f"({key}) level {l}", st.As[l].shape[0],
+                        lex_tables(st, l)))
+    for label, n, tabs in lex:
+        dt = tabs[3].dtype
+        row = rows[f"vanka_lex.{str(dt).split('.')[-1]}"]
+        rng = np.random.RandomState(SEED + n)
+        x, b = (torch.tensor(rng.rand(n, 1) + 1j * rng.rand(n, 1), dtype=dt,
+                             device="cuda") for _ in range(2))
+        out = vanka.lex_sweep(x, b, *tabs, 2)
+        ref = vanka.lex_sweep_plain(x, b, *tabs, 2)
+        torch.cuda.synchronize()
+        require(out.shape == ref.shape and bool(torch.isfinite(out).all()),
+                f"kernel E {label}: bad output")
+        ae = float((out - ref).abs().max())
+        re = ae / float(ref.abs().max())
+        row["max_abs_err"] = max(row["max_abs_err"], ae)
+        row["max_rel_err"] = max(row["max_rel_err"], re)
+        require(re < LEX_TOLS[dt], f"kernel E {label} {dt}: relative error "
+                f"{re:.3e} >= {LEX_TOLS[dt]}")
+    log(f"[kernel] E complex: {len(lex)} levels of C-lex (complex64) and "
+        "C-lex-c128 match the per-cell loop, two sweeps")
+
+    # times: C correct on CL-2d's fine lines (and the strided shapes), D's
+    # cross form on CV-2d's fine (0, 2) block, E one sweep of C-lex's fine
+    timer = Timer()
+    for label, lr in cases:
+        if "level 0" not in label:
+            continue
+        dt = lr.alpha.dtype
+        key = str(dt).split(".")[-1]
+        item = torch.empty((), dtype=dt).element_size()
+        nodes = lr.alpha.numel()
+        sets = [(LineRelax(lr.alpha.clone(), lr.pivot.clone(),
+                           lr.cprime.clone(), lr.axis, lr.omega),
+                 *(torch.tensor(np.random.RandomState(SEED + 10 + j).rand(
+                     1, *lr.alpha.shape) + 0.5j, dtype=dt, device="cuda")
+                   for _ in range(2))) for j in range(4)]
+        name = "tridiag.correct"
+        ms, host_ms = timer([lambda s=s: run_line(name, *s, False)
+                             for s in sets])
+        plain_ms, _ = timer([lambda s=s: run_line(name, *s, True)
+                             for s in sets])
+        # r, x, out and three coefficients; 26 real flops a node
+        fbytes = 6 * item * nodes
+        flops = 26 * nodes
+        peak = FP32_FLOPS if dt == torch.complex64 else FP64_FLOPS
+        bound = max(fbytes / HBM_BYTES_PER_S, flops / peak) * 1e3
+        grid = tuple(lr.alpha.shape)
+        inner = int(np.prod(grid[lr.axis + 1:]))
+        plan = tridiag.line_plan(nodes // (grid[lr.axis] * inner),
+                                 grid[lr.axis], inner, item, "correct")
+        log(f"[time] C {label} ({'contiguous' if inner == 1 else 'strided'})"
+            f" {dt} correct: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
+            f"bound {bound:.4f} ms ({fbytes / 1e6:.1f} MB)  kernel/bound "
+            f"{ms / bound:.1f}x  host per call {host_ms:.3f} ms  plan "
+            f"{tuple(plan)} ({card})")
+        row = rows[f"tridiag.{key}"]
+        row.setdefault("times", {})[label] = dict(ms=ms, plain_ms=plain_ms,
+                                                  bound_ms=bound)
+        if label.startswith("(CL-2d)") or (label.startswith("(CL-2d-c128)")
+                                           and "ms" not in row):
+            row.update(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                       bound_by="bytes" if fbytes / HBM_BYTES_PER_S
+                       >= flops / peak else "operations", library_ms=None,
+                       library_call="none: no PyTorch call solves "
+                       "tridiagonal lines", host_ms=host_ms, plan=tuple(plan),
+                       timed_shape=f"{label}, correct, m=1")
+    for S_, tag in ((fine.stencils[fine.pairs.index((0, 2))], "complex64"),
+                    (hi.stencils[fine.pairs.index((0, 2))], "complex128")):
+        label = f"(CV-2d) fine block (0,2) {tag}"
+        entry, _ = time_d(label, "cross", S_, S_.to_scipy(), timer, card)
+        rows[f"stencil_cross.{tag}"].update(
+            {k: entry[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms", "host_ms", "plan")},
+            timed_shape=f"{label}: {entry['shape']} m=1",
+            library_call="torch.sparse.mm(CSR, x)")
+    for key in ("C-lex", "C-lex-c128"):
+        st = states[key][0]
+        idx, dinv, ri, rv = lex_tables(st, 0)
+        dt = rv.dtype
+        item = torch.empty((), dtype=dt).element_size()
+        n = st.As[0].shape[0]
+        L, bs = idx.shape
+        K = ri.shape[-1]
+        sets = [tuple(torch.tensor(np.random.RandomState(SEED + j + k).rand(
+            n, 1) + 0.5j, dtype=dt, device="cuda") for k in (0, 9))
+            for j in range(2)]
+        ms, host_ms = Timer(reps=10)([lambda s=s: vanka.lex_sweep(
+            s[0], s[1], idx, dinv, ri, rv, 1) for s in sets])
+        plain_ms = Timer(reps=2)([lambda s=s: vanka.lex_sweep_plain(
+            s[0], s[1], idx, dinv, ri, rv, 1) for s in sets])[0]
+        fbytes = (L * bs * 4 + L * bs * bs * 8 + L * bs * K * (4 + item)
+                  + 3 * n * item)
+        flops = 8 * L * bs * (K + bs)
+        peak = FP32_FLOPS if dt == torch.complex64 else FP64_FLOPS
+        bound = max(fbytes / HBM_BYTES_PER_S, flops / peak) * 1e3
+        log(f"[time] E lex sweep ({key}) 64^2 fine level ({L} cells, bs "
+            f"{bs}, K {K}, {dt}): kernel {ms:.4f} ms ({ms * 1e3 / L:.2f} us "
+            f"a cell), plain {plain_ms:.1f} ms, bound {bound:.4f} ms "
+            f"({fbytes / 1e6:.2f} MB), host per call {host_ms:.3f} ms; no "
+            f"PyTorch call computes a Vanka sweep ({card})")
+        rows[f"vanka_lex.{str(dt).split('.')[-1]}"].update(
+            ms=ms, plain_ms=plain_ms, bound_ms=bound, library_ms=None,
+            library_call="none: no PyTorch call computes a sweep",
+            host_ms=host_ms, us_per_cell=ms * 1e3 / L,
+            bound_by="bytes" if fbytes / HBM_BYTES_PER_S >= flops / peak
+            else "operations",
+            timed_shape=f"{key} 64^2 fine level: {L} cells, bs {bs}, K {K}, "
+            "m=1, one sweep")
+
+
+def phase_rest(states, card):
+    """Every phase-18 row inside one launch-counter window, each to
+    mgtpu's count +- 1 at a true complex128 relres below 1e-8 computed on
+    the host, each held against its eager run (the captured phase):
+    kernel C in complex64 (line rows) and complex128 (CL-2d-c128), kernel
+    D's cross form in complex64 and complex128 (the systems rows' cycles
+    and residuals), kernel E in complex64 (C-lex) and complex128 (C-lex
+    c128); no plain version.  Returns the window's launches."""
+    from mgtpu_torch.ops.cuda import stencil
+    t0 = time.perf_counter()
+    reset_counters()                       # ---- main path window ----
+    for key, (label, want, max_iter) in REST.items():
+        st, A, b = states[key]
+        kw = {"cycle_dtype": torch.complex64} if key == "H-cd" else None
+        refined(st, A, b, want, label, card, max_iter=max_iter, compare=True,
+                kw=kw)
+    line_l, line_p = line_counters()       # ---- end of window ----
+    d_l, d_p = stencil_counters()
+    e_l, e_p = vanka_counters()
+    f_l, f_p = kaczmarz_counters()
+    launches, plain = counters()
+    launches.update(line_l, **d_l, **e_l, **f_l)
+    plain.update(line_p, **d_p, **e_p, **f_p)
+    for c in ("complex64", "complex128"):
+        launches[f"stencil_cross.{c}"] = stencil.CROSS_LAUNCHES[c]
+        launches[f"vanka_lex.{c}"] = launches[f"vanka.{c}"]
+    log(f"[rest] window launches: {launches} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    log(f"[rest] window plain-version calls on the card: {plain}")
+    require(not any(plain.values()), f"plain versions ran: {plain}")
+    for k in REST_ROWS + ["stencil.complex64", "stencil.complex128"]:
+        require(launches[k] > 0, f"the phase-18 window never launched {k}")
+    return launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
     smi, name = phase_card()
@@ -3731,10 +4143,16 @@ def main() -> int:
     phase_complex_kernels(cstates, rows, card)
     cplx = phase_complex(cstates, card)
     del cstates
+    torch.cuda.empty_cache()
+    rstates = rest_states(card)
+    phase_rest_kernels(rstates, rows, card)
+    rest = phase_rest(rstates, card)
+    del rstates
     for k, row in rows.items():
         # each kernel's launches from the window of its own path (the
         # systems window's kernel D launches are all cross applies)
         row["launches"] = (
+            rest[k] if k in REST_ROWS else
             cplx[k] if "complex" in k else
             aniso[k] if k.startswith("tridiag") else
             krylov[k] if k.startswith("stencil.") else

@@ -77,7 +77,9 @@
 // multiply-add, four real FMAs into the accumulator in the plain version's
 // tap order, in the value's own precision.  A transfer's restriction is
 // P^H: the host conjugates its coefficient table (pack_stride2), so every
-// form computes the same multiply-add.  A complex128 value is four words
+// form computes the same multiply-add.  The cross form takes them too: a
+// complex staggered system's blocks (mgtpu's cross_stencil_matvec in XLA,
+// complex coefficients and fields).  A complex128 value is four words
 // of register, so its register cap is lower (min_blocks).
 #include <cuda_runtime.h>
 
@@ -126,18 +128,6 @@ template <typename T>
 __device__ __forceinline__ T zero() {
   return T{};
 }
-template <typename T>
-struct IsComplex {
-  static constexpr bool value = false;
-};
-template <>
-struct IsComplex<float2> {
-  static constexpr bool value = true;
-};
-template <>
-struct IsComplex<double2> {
-  static constexpr bool value = true;
-};
 
 struct Taps {
   int dz[kMaxTaps];
@@ -398,10 +388,8 @@ static void launch(int form, const int* p, const Taps& t, const Geom& g,
   T* yy = static_cast<T*>(y);
   if (form == kApply)
     launch_form<T, kApply>(p, t, g, nd, m, cc, xx, yy, ptab, st);
-  else if (form == kCross) {
-    if constexpr (!IsComplex<T>::value)   // the cross form is real-only
-      launch_form<T, kCross>(p, t, g, nd, m, cc, xx, yy, ptab, st);
-  }
+  else if (form == kCross)
+    launch_form<T, kCross>(p, t, g, nd, m, cc, xx, yy, ptab, st);
   else if (form == kRestrict)
     launch_form<T, kRestrict>(p, t, g, nd, m, cc, xx, yy, ptab, st);
   else
@@ -458,7 +446,7 @@ static bool make_taps(int form, int ntaps, const int* offs, Geom& g,
 
 // dtype: 0 float32, 1 float64, 2 complex64, 3 complex128 (interleaved
 // real and imaginary parts).  form: 0 apply, 1 restrict, 2 prolong,
-// 3 cross (real types only).
+// 3 cross.
 // nd: coefficient planes (for a prolong, its widest class).  offs: ntaps
 // rows of (dz, dy, dx) (for a prolong, every offset of the transfer).
 // oZ..oX / iZ..iX: the (Z, Y, X) boxes of y and x (equal for an apply,
@@ -492,7 +480,6 @@ extern "C" int mgt_stencil(int dtype, int form, int nd, int ntaps,
     return (int)cudaErrorInvalidValue;
   if (form == kProlong ? !ptab : ntaps != nd)
     return (int)cudaErrorInvalidValue;
-  if (form == kCross && dtype > 1) return (int)cudaErrorInvalidValue;
   const int itemsize = dtype == 0 ? 4 : dtype == 3 ? 16 : 8;
   if (!plan_ok(plan, form, n, nd, m, itemsize) ||
       plan[kPSmem] > 227 * 1024)

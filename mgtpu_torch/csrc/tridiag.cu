@@ -50,18 +50,131 @@
 //    walks each chunk twice per recurrence from device memory; on the
 //    contiguous axis one warp walks a line 32 nodes at a time with a
 //    shuffle scan.  y goes through the output buffer (two extra passes).
-// Both are templated on float and double.
+// Both are templated on the value type: float, double, and float2 /
+// double2 (torch's complex64 / complex128 layout).  mgtpu computes its
+// complex lines with its XLA doubling scan (cycle/relax.py::_scan_linear;
+// its Pallas kernel is float32 only): the same two recurrences with complex
+// alpha, pivot and cprime, no conjugate.  A complex value goes through the
+// overloaded operators below (a complex product is four real multiplies),
+// so the real instantiations compile to the instructions they had; omega
+// stays real.  A strided staged tile holds 4 complex64 or 2 complex128
+// lines (one 32-byte sector a row).
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 extern "C" const char* mgt_error_string(int e) {
   return cudaGetErrorString(static_cast<cudaError_t>(e));
 }
 
+// complex arithmetic on float2 / double2 (.x the real part, .y the
+// imaginary part)
+__device__ __forceinline__ float2 operator+(float2 a, float2 b) {
+  return make_float2(a.x + b.x, a.y + b.y);
+}
+__device__ __forceinline__ double2 operator+(double2 a, double2 b) {
+  return make_double2(a.x + b.x, a.y + b.y);
+}
+__device__ __forceinline__ float2 operator*(float2 a, float2 b) {
+  return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
+}
+__device__ __forceinline__ double2 operator*(double2 a, double2 b) {
+  return make_double2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
+}
+__device__ __forceinline__ float2 operator*(float w, float2 a) {
+  return make_float2(w * a.x, w * a.y);
+}
+__device__ __forceinline__ double2 operator*(double w, double2 a) {
+  return make_double2(w * a.x, w * a.y);
+}
+__device__ __forceinline__ float2 operator-(float2 a) {
+  return make_float2(-a.x, -a.y);
+}
+__device__ __forceinline__ double2 operator-(double2 a) {
+  return make_double2(-a.x, -a.y);
+}
+__device__ __forceinline__ float2& operator*=(float2& a, float2 b) {
+  return a = a * b;
+}
+__device__ __forceinline__ double2& operator*=(double2& a, double2 b) {
+  return a = a * b;
+}
+
+// the real type of a value type (omega's), and 0 and 1 of the value type
+template <typename T>
+struct Real {
+  using type = T;
+};
+template <>
+struct Real<float2> {
+  using type = float;
+};
+template <>
+struct Real<double2> {
+  using type = double;
+};
+template <typename T>
+__device__ __forceinline__ T zero() {
+  return T{};
+}
+template <typename T>
+__device__ __forceinline__ T one() {
+  return T(1);
+}
+template <>
+__device__ __forceinline__ float2 one<float2>() {
+  return make_float2(1.f, 0.f);
+}
+template <>
+__device__ __forceinline__ double2 one<double2>() {
+  return make_double2(1.0, 0.0);
+}
+
+// warp shuffles of a value (a complex one part by part)
+__device__ __forceinline__ float shfl_up(float v, int d) {
+  return __shfl_up_sync(0xffffffffu, v, d);
+}
+__device__ __forceinline__ double shfl_up(double v, int d) {
+  return __shfl_up_sync(0xffffffffu, v, d);
+}
+__device__ __forceinline__ float shfl_down(float v, int d) {
+  return __shfl_down_sync(0xffffffffu, v, d);
+}
+__device__ __forceinline__ double shfl_down(double v, int d) {
+  return __shfl_down_sync(0xffffffffu, v, d);
+}
+__device__ __forceinline__ float shfl(float v, int src) {
+  return __shfl_sync(0xffffffffu, v, src);
+}
+__device__ __forceinline__ double shfl(double v, int src) {
+  return __shfl_sync(0xffffffffu, v, src);
+}
+template <typename V>
+__device__ __forceinline__ V shfl_up(V v, int d) {
+  v.x = shfl_up(v.x, d);
+  v.y = shfl_up(v.y, d);
+  return v;
+}
+template <typename V>
+__device__ __forceinline__ V shfl_down(V v, int d) {
+  v.x = shfl_down(v.x, d);
+  v.y = shfl_down(v.y, d);
+  return v;
+}
+template <typename V>
+__device__ __forceinline__ V shfl(V v, int src) {
+  v.x = shfl(v.x, src);
+  v.y = shfl(v.y, src);
+  return v;
+}
+
 constexpr int kThreads = 256;        // streamed variant
 // shared memory a block may opt into, less the staged kernel's static
-// cross-warp slots (ta, ty: 2 x 32 values, at most double)
-constexpr int kMaxSmem = 232448 - 2 * 32 * static_cast<int>(sizeof(double));
+// cross-warp slots (ta, ty: 2 x 32 values of at least 8 bytes)
+__host__ __device__ constexpr int max_smem(int itemsize) {
+  return 232448 - 2 * 32 * (itemsize > 8 ? itemsize : 8);
+}
 constexpr int kStaged = 0, kStreamed = 1;
 
 // lines of a strided staged tile: one 32-byte sector per row
@@ -97,12 +210,11 @@ __device__ __forceinline__ void line_in_smem(int n, int st, const T* sa,
                                              const T* sp, const T* sc, T* sy,
                                              int W, int wl, int lane, T* ta,
                                              T* ty) {
-  const unsigned full = 0xffffffffu;
   const int len = staged_chunk(n, W);
   const int i0 = min(n, (wl * 32 + lane) * len);
   const int i1 = min(n, i0 + len);
   // forward, walk 1: the chunk's map y_end = a * y_in + y
-  T a = T(1), y = T(0);
+  T a = one<T>(), y = zero<T>();
 #pragma unroll 8
   for (int i = i0; i < i1; ++i) {
     const T al = sa[i * st];
@@ -111,14 +223,14 @@ __device__ __forceinline__ void line_in_smem(int n, int st, const T* sa,
   }
 #pragma unroll
   for (int d = 1; d < 32; d *= 2) {
-    const T ap = __shfl_up_sync(full, a, d);
-    const T yp = __shfl_up_sync(full, y, d);
+    const T ap = shfl_up(a, d);
+    const T yp = shfl_up(y, d);
     if (lane >= d) {
       y = a * yp + y;
       a = a * ap;
     }
   }
-  T carry = T(0);                                    // y before this warp
+  T carry = zero<T>();                               // y before this warp
   if (W > 1) {                                       // block-uniform
     if (lane == 31) {
       ta[wl] = a;
@@ -128,8 +240,8 @@ __device__ __forceinline__ void line_in_smem(int n, int st, const T* sa,
     for (int q = 0; q < wl; ++q) carry = ta[q] * carry + ty[q];
     __syncthreads();                                 // ta/ty reused below
   }
-  T ap = __shfl_up_sync(full, a, 1);
-  T yp = __shfl_up_sync(full, y, 1);
+  T ap = shfl_up(a, 1);
+  T yp = shfl_up(y, 1);
   // forward, walk 2: y with the carry, over r's slot (each lane touches
   // only its own chunk, so no barrier is needed between the walks)
   y = lane == 0 ? carry : ap * carry + yp;
@@ -139,8 +251,8 @@ __device__ __forceinline__ void line_in_smem(int n, int st, const T* sa,
     sy[i * st] = y;
   }
   // backward, walk 1: s_start = a * s_in + s over the chunk, high to low
-  a = T(1);
-  T s = T(0);
+  a = one<T>();
+  T s = zero<T>();
 #pragma unroll 8
   for (int i = i1 - 1; i >= i0; --i) {
     const T cm = -sc[i * st];
@@ -149,14 +261,14 @@ __device__ __forceinline__ void line_in_smem(int n, int st, const T* sa,
   }
 #pragma unroll
   for (int d = 1; d < 32; d *= 2) {
-    const T an = __shfl_down_sync(full, a, d);
-    const T sn = __shfl_down_sync(full, s, d);
+    const T an = shfl_down(a, d);
+    const T sn = shfl_down(s, d);
     if (lane + d < 32) {
       s = a * sn + s;
       a = a * an;
     }
   }
-  carry = T(0);                                      // s after this warp
+  carry = zero<T>();                                 // s after this warp
   if (W > 1) {
     if (lane == 0) {
       ta[wl] = a;
@@ -165,8 +277,8 @@ __device__ __forceinline__ void line_in_smem(int n, int st, const T* sa,
     __syncthreads();
     for (int q = W - 1; q > wl; --q) carry = ta[q] * carry + ty[q];
   }
-  ap = __shfl_down_sync(full, a, 1);
-  yp = __shfl_down_sync(full, s, 1);
+  ap = shfl_down(a, 1);
+  yp = shfl_down(s, 1);
   // backward, walk 2: the solution, over y's slot
   s = lane == 31 ? carry : ap * carry + yp;
 #pragma unroll 8
@@ -185,7 +297,8 @@ __global__ void __launch_bounds__(1024) tridiag_staged(
     int n, int inner, int outer, int outer_c, int tile, int ntiles,
     const T* __restrict__ alpha, const T* __restrict__ pivot,
     const T* __restrict__ cprime, const T* __restrict__ r,
-    const T* __restrict__ x, T omega, T* __restrict__ out) {
+    const T* __restrict__ x, typename Real<T>::type omega,
+    T* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sm = reinterpret_cast<T*>(smem_raw);
   constexpr int TL = strided_tile<T>();
@@ -298,7 +411,8 @@ __global__ void __launch_bounds__(kThreads) tridiag_strided(
     int n, int inner, int outer_c, int tl, int nchunk, int ntiles,
     const T* __restrict__ alpha, const T* __restrict__ pivot,
     const T* __restrict__ cprime, const T* __restrict__ r,
-    const T* __restrict__ x, T omega, T* __restrict__ out) {
+    const T* __restrict__ x, typename Real<T>::type omega,
+    T* __restrict__ out) {
   __shared__ T sA[kThreads];
   __shared__ T sB[kThreads];
   const int tid = threadIdx.x;
@@ -314,7 +428,7 @@ __global__ void __launch_bounds__(kThreads) tridiag_strided(
   const int i1 = valid ? min(n, i0 + len) : i0;      // empty when invalid
 
   // forward, walk 1: the chunk's affine map y_end = A * y_in + B
-  T a = T(1), y = T(0);
+  T a = one<T>(), y = zero<T>();
 #pragma unroll 4
   for (int i = i0; i < i1; ++i) {
     const int k = i * inner;
@@ -325,7 +439,7 @@ __global__ void __launch_bounds__(kThreads) tridiag_strided(
   sA[tid] = a;
   sB[tid] = y;
   __syncthreads();
-  T carry = T(0);
+  T carry = zero<T>();
   for (int q = 0; q < c; ++q)
     carry = sA[q * tl + lane] * carry + sB[q * tl + lane];
   __syncthreads();                                   // sA/sB reused below
@@ -339,8 +453,8 @@ __global__ void __launch_bounds__(kThreads) tridiag_strided(
   }
 
   // backward, walk 1: s_start = A * s_in + B over the chunk, high to low
-  a = T(1);
-  T s = T(0);
+  a = one<T>();
+  T s = zero<T>();
 #pragma unroll 4
   for (int i = i1 - 1; i >= i0; --i) {
     const int k = i * inner;
@@ -351,7 +465,7 @@ __global__ void __launch_bounds__(kThreads) tridiag_strided(
   sA[tid] = a;
   sB[tid] = s;
   __syncthreads();
-  carry = T(0);
+  carry = zero<T>();
   for (int q = nchunk - 1; q > c; --q)
     carry = sA[q * tl + lane] * carry + sB[q * tl + lane];
   // backward, walk 2: the solution, damped, onto x
@@ -371,12 +485,11 @@ template <typename T, bool HAS_X>
 __global__ void __launch_bounds__(kThreads) tridiag_contiguous(
     int n, int outer, int outer_c, const T* __restrict__ alpha,
     const T* __restrict__ pivot, const T* __restrict__ cprime,
-    const T* __restrict__ r, const T* __restrict__ x, T omega,
-    T* __restrict__ out) {
+    const T* __restrict__ r, const T* __restrict__ x,
+    typename Real<T>::type omega, T* __restrict__ out) {
   const int lane = threadIdx.x & 31;
   const int line = blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
   if (line >= outer) return;                         // whole warp leaves
-  const unsigned full = 0xffffffffu;
   const T* al = alpha + (line % outer_c) * n;
   const T* pv = pivot + (line % outer_c) * n;
   const T* cp = cprime + (line % outer_c) * n;
@@ -385,19 +498,19 @@ __global__ void __launch_bounds__(kThreads) tridiag_contiguous(
   const int nseg = (n + 31) / 32;
 
   // forward: segments low to high; lanes past the end carry the identity
-  T carry = T(0);
+  T carry = zero<T>();
   int i = lane;
-  T a_nx = i < n ? __ldg(al + i) : T(1);
-  T b_nx = i < n ? __ldg(pv + i) * __ldg(rl + i) : T(0);
+  T a_nx = i < n ? __ldg(al + i) : one<T>();
+  T b_nx = i < n ? __ldg(pv + i) * __ldg(rl + i) : zero<T>();
   for (int seg = 0; seg < nseg; ++seg, i += 32) {
     T a = a_nx, b = b_nx;
     const int in = i + 32;
-    a_nx = in < n ? __ldg(al + in) : T(1);
-    b_nx = in < n ? __ldg(pv + in) * __ldg(rl + in) : T(0);
+    a_nx = in < n ? __ldg(al + in) : one<T>();
+    b_nx = in < n ? __ldg(pv + in) * __ldg(rl + in) : zero<T>();
 #pragma unroll
     for (int d = 1; d < 32; d *= 2) {
-      const T ap = __shfl_up_sync(full, a, d);
-      const T bp = __shfl_up_sync(full, b, d);
+      const T ap = shfl_up(a, d);
+      const T bp = shfl_up(b, d);
       if (lane >= d) {
         b = a * bp + b;
         a = a * ap;
@@ -405,14 +518,14 @@ __global__ void __launch_bounds__(kThreads) tridiag_contiguous(
     }
     const T y = a * carry + b;
     if (i < n) ol[i] = y;
-    carry = __shfl_sync(full, y, 31);
+    carry = shfl(y, 31);
   }
 
   // backward: segments high to low, y read back from out (same lane)
-  carry = T(0);
+  carry = zero<T>();
   i = (nseg - 1) * 32 + lane;
-  a_nx = i < n ? -__ldg(cp + i) : T(1);
-  b_nx = i < n ? ol[i] : T(0);
+  a_nx = i < n ? -__ldg(cp + i) : one<T>();
+  b_nx = i < n ? ol[i] : zero<T>();
   for (int seg = nseg - 1; seg >= 0; --seg, i -= 32) {
     T a = a_nx, b = b_nx;
     const int in = i - 32;
@@ -422,8 +535,8 @@ __global__ void __launch_bounds__(kThreads) tridiag_contiguous(
     }
 #pragma unroll
     for (int d = 1; d < 32; d *= 2) {
-      const T an = __shfl_down_sync(full, a, d);
-      const T bn = __shfl_down_sync(full, b, d);
+      const T an = shfl_down(a, d);
+      const T bn = shfl_down(b, d);
       if (lane + d < 32) {
         b = a * bn + b;
         a = a * an;
@@ -436,7 +549,7 @@ __global__ void __launch_bounds__(kThreads) tridiag_contiguous(
       else
         ol[i] = omega * s;
     }
-    carry = __shfl_sync(full, s, 0);
+    carry = shfl(s, 0);
   }
 }
 
@@ -463,7 +576,7 @@ static bool plan_ok(const int* plan, int itemsize, int has_x, int outer,
     }
     want_nchunk = 32 * staged_warps(n, inner > 1);
     want_threads = (long long)want_nchunk * tile;
-    if (want_smem > kMaxSmem || want_threads > 1024) return false;
+    if (want_smem > max_smem(itemsize) || want_threads > 1024) return false;
   } else if (variant == kStreamed) {
     if (inner > 1) {
       if (tile != 8 && tile != 32) return false;
@@ -484,20 +597,21 @@ static bool plan_ok(const int* plan, int itemsize, int has_x, int outer,
          want_blocks < (1LL << 31);
 }
 
-template <typename K>
+template <typename T, typename K>
 static cudaError_t allow_smem(K* kernel) {
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              kMaxSmem);
+                              max_smem(static_cast<int>(sizeof(T))));
 }
 
 template <typename T, bool HAS_X, bool STRIDED>
 static cudaError_t launch_staged(const int* plan, int outer, int outer_c,
                                  int n, int inner, const T* a, const T* p,
                                  const T* c, const T* rr, const T* xx,
-                                 T omega, T* o, cudaStream_t st) {
+                                 typename Real<T>::type omega, T* o,
+                                 cudaStream_t st) {
   auto* kernel = tridiag_staged<T, HAS_X, STRIDED>;
-  static const cudaError_t opt_in = allow_smem(kernel);  // once per kernel
+  static const cudaError_t opt_in = allow_smem<T>(kernel);  // once a kernel
   if (opt_in != cudaSuccess) return opt_in;
   const int ntiles = STRIDED ? (inner + plan[1] - 1) / plan[1] : 0;
   kernel<<<plan[4], plan[3], plan[5], st>>>(n, inner, outer, outer_c,
@@ -517,7 +631,7 @@ static cudaError_t launch(const int* plan, int outer, int outer_c, int n,
   const T* rr = static_cast<const T*>(r);
   const T* xx = static_cast<const T*>(x);
   T* o = static_cast<T*>(out);
-  const T w = static_cast<T>(omega);
+  const auto w = static_cast<typename Real<T>::type>(omega);
   if (plan[0] == kStaged) {
     if (inner > 1)
       return launch_staged<T, HAS_X, true>(plan, outer, outer_c, n, inner, a,
@@ -537,7 +651,8 @@ static cudaError_t launch(const int* plan, int outer, int outer_c, int n,
   return cudaSuccess;
 }
 
-// dtype: 0 float32, 1 float64.  has_x: correct mode (x + omega s) when
+// dtype: 0 float32, 1 float64, 2 complex64, 3 complex128 (interleaved
+// real and imaginary parts; omega real).  has_x: correct mode (x + omega s) when
 // nonzero, else solve mode (omega s).  plan: the host's launch plan (see
 // plan_ok).  Launches on `stream` and returns cudaGetLastError()
 // (cudaErrorInvalidValue for bad sizes or a plan that does not fit them).
@@ -546,24 +661,25 @@ extern "C" int mgt_tridiag(int dtype, int has_x, int outer, int outer_c,
                            const void* pivot, const void* cprime,
                            const void* r, const void* x, double omega,
                            void* out, void* stream, const int* plan) {
-  if (dtype < 0 || dtype > 1 || outer < 1 || outer_c < 1 ||
+  const int itemsize = dtype == 0 ? 4 : dtype == 3 ? 16 : 8;
+  if (dtype < 0 || dtype > 3 || outer < 1 || outer_c < 1 ||
       outer % outer_c != 0 || n < 1 || inner < 1 || (has_x && !x) ||
       !plan || (long long)outer * n * inner >= (1LL << 31) ||
-      !plan_ok(plan, dtype == 0 ? 4 : 8, has_x, outer, n, inner))
+      !plan_ok(plan, itemsize, has_x, outer, n, inner))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  if (dtype == 0) {
-    e = has_x ? launch<float, true>(plan, outer, outer_c, n, inner, alpha,
-                                    pivot, cprime, r, x, omega, out, st)
-              : launch<float, false>(plan, outer, outer_c, n, inner, alpha,
-                                     pivot, cprime, r, x, omega, out, st);
-  } else {
-    e = has_x ? launch<double, true>(plan, outer, outer_c, n, inner, alpha,
-                                     pivot, cprime, r, x, omega, out, st)
-              : launch<double, false>(plan, outer, outer_c, n, inner, alpha,
-                                      pivot, cprime, r, x, omega, out, st);
-  }
+  auto go = [&](auto* tag) {
+    using T = std::remove_pointer_t<decltype(tag)>;
+    return has_x ? launch<T, true>(plan, outer, outer_c, n, inner, alpha,
+                                   pivot, cprime, r, x, omega, out, st)
+                 : launch<T, false>(plan, outer, outer_c, n, inner, alpha,
+                                    pivot, cprime, r, x, omega, out, st);
+  };
+  const cudaError_t e =
+      dtype == 0   ? go(static_cast<float*>(nullptr))
+      : dtype == 1 ? go(static_cast<double*>(nullptr))
+      : dtype == 2 ? go(static_cast<float2*>(nullptr))
+                   : go(static_cast<double2*>(nullptr));
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

@@ -72,8 +72,8 @@ def kernel_counters() -> list[dict]:
     return [const3d.LAUNCHES, const3d.PLAIN_CALLS, fused3d.LAUNCHES,
             fused3d.PLAIN_CALLS, fused3d.GRID_LAUNCHES, tridiag.LAUNCHES,
             tridiag.PLAIN_CALLS, stencil.LAUNCHES, stencil.PLAIN_CALLS,
-            vanka.LAUNCHES, vanka.PLAIN_CALLS, kaczmarz.LAUNCHES,
-            kaczmarz.PLAIN_CALLS]
+            stencil.CROSS_LAUNCHES, vanka.LAUNCHES, vanka.PLAIN_CALLS,
+            kaczmarz.LAUNCHES, kaczmarz.PLAIN_CALLS]
 
 
 class Tally:

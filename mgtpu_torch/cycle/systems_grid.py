@@ -566,7 +566,8 @@ def build_systems_grid_hierarchy(state, relax_states,
         levels.append(SystemsGridLevel(A, d, vanka, P1, R1))
 
     t0 = time.perf_counter()
-    Ad = np.asarray(A_c.astype(np.float64).todense())
+    Ad = np.asarray(A_c.astype(
+        np.complex128 if np.iscomplexobj(A_c.data) else np.float64).todense())
     if A_c.shape[0] <= 4096:
         inv = _checked_inverse(Ad)
     else:

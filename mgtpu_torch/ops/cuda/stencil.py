@@ -16,8 +16,8 @@ Entry points:
  * `cross_apply(coeff, offsets, in_grid, x)` — `CrossGridStencil.matvec`
    (ops/cross_stencil.py): the same apply from a field x (..., *in_grid)
    on another grid than y's (..., *out_grid), coeff (nd, *out_grid); node
-   r reads x at r + d_k, zero off in_grid.  A block of a staggered system;
-   real types only.
+   r reads x at r + d_k, zero off in_grid.  A block of a staggered system,
+   real or complex.
  * `stencil_matvec(coeff, di, dj, x)` — the counterpart of
    ``stencil_matvec_pallas`` on the slab form G[j, i] = x[i + j NI]:
    coeff (nd, NJ, NI), x (..., NJ, NI), |dj| <= 1, any in-plane shift di;
@@ -54,6 +54,8 @@ included) and takes the plain version only for a tensor on the CPU.
 (`supports_stencil` false: bfloat16, float16) to `grid_apply_plain` on any
 device.  `LAUNCHES` counts kernel launches, `PLAIN_CALLS` calls of the plain
 version, per value type of x; a prolong or a restrict is one of either.
+`CROSS_LAUNCHES` counts, per value type, the launches of the cross form
+alone (a cross block between two different grids).
 """
 from __future__ import annotations
 
@@ -67,8 +69,9 @@ import torch
 from ..grid_stencil import grid_stencil_matvec
 from . import _build
 
-__all__ = ["LAUNCHES", "PLAIN_CALLS", "MAX_TAPS", "FORMS", "StencilPlan",
-           "stencil_plan", "plan_fits", "supports_stencil", "grid_apply",
+__all__ = ["LAUNCHES", "PLAIN_CALLS", "CROSS_LAUNCHES", "MAX_TAPS",
+           "FORMS", "StencilPlan", "stencil_plan", "plan_fits",
+           "supports_stencil", "grid_apply",
            "grid_apply_plain", "cross_apply", "cross_apply_plain",
            "stencil_matvec", "stencil_matvec_plain",
            "dia_apply", "dia_apply_plain", "stride2_prolong",
@@ -79,6 +82,8 @@ _DTYPES = {torch.float32: 0, torch.float64: 1, torch.complex64: 2,
            torch.complex128: 3}
 LAUNCHES = {"float32": 0, "float64": 0, "complex64": 0, "complex128": 0}
 PLAIN_CALLS = {"float32": 0, "float64": 0, "complex64": 0, "complex128": 0}
+CROSS_LAUNCHES = {"float32": 0, "float64": 0, "complex64": 0,
+                  "complex128": 0}
 MAX_TAPS = 256                   # kMaxTaps of csrc/stencil.cu
 FORMS = ("apply", "restrict", "prolong", "cross")
 THREADS = 256                    # kThreads
@@ -245,8 +250,6 @@ def _launch(coeff, box, taps, x, form="apply", in_box=None, in_space=None,
     if x.dtype not in _DTYPES:
         raise TypeError(f"kernel D takes float32, float64, complex64 or "
                         f"complex128, got {x.dtype}")
-    if form == "cross" and x.dtype.is_complex:
-        raise TypeError(f"kernel D's cross form is real-only, got {x.dtype}")
     space = tuple(coeff.shape[1:])
     in_space = space if in_space is None else tuple(in_space)
     in_box = box if in_box is None else in_box
@@ -300,6 +303,8 @@ def _launch(coeff, box, taps, x, form="apply", in_box=None, in_space=None,
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, rc, "stencil")
     LAUNCHES[_key(x.dtype)] += 1
+    if form == "cross":
+        CROSS_LAUNCHES[_key(x.dtype)] += 1
     return y
 
 

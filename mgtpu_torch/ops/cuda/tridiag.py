@@ -11,7 +11,9 @@ one grid axis of a contiguous (..., *grid) field:
     correct   out = x + omega s
 
 The coefficients are grid-shaped and shared by the leading right-hand
-sides.  The kernel is bound by device memory: per node it reads r (and x),
+sides.  Values are float32, float64, complex64 or complex128 (mgtpu runs
+its complex lines through its XLA doubling scan; the same recurrences with
+complex coefficients, no conjugate); omega is real.  The kernel is bound by device memory: per node it reads r (and x),
 three coefficients, and writes one output.
 
 `line_plan` chooses, from the shape alone, how the kernel is launched: the
@@ -27,7 +29,7 @@ same operations in the same order.
 Dispatch: `line_apply` launches the kernel for a CUDA tensor (or raises on
 anything the kernel does not take) and takes the plain version only for a
 tensor on the CPU.  `LAUNCHES` counts kernel launches, `PLAIN_CALLS` calls
-of the plain version, per mode.
+of the plain version: a real call per mode, a complex one per value type.
 """
 from __future__ import annotations
 
@@ -44,12 +46,11 @@ __all__ = ["MODES", "LAUNCHES", "PLAIN_CALLS", "LinePlan", "line_plan",
            "line_apply", "line_plain", "scan_linear"]
 
 MODES = ("solve", "correct")
-LAUNCHES = dict.fromkeys(MODES, 0)
-PLAIN_CALLS = dict.fromkeys(MODES, 0)
-_DTYPES = {torch.float32: 0, torch.float64: 1}
-# dynamic shared memory a staged block may opt into: sm_90's 232 448 bytes
-# less the kernel's static cross-warp slots (2 x 32 doubles)
-MAX_SMEM = 232_448 - 512
+COMPLEX = ("complex64", "complex128")
+LAUNCHES = dict.fromkeys(MODES + COMPLEX, 0)
+PLAIN_CALLS = dict.fromkeys(MODES + COMPLEX, 0)
+_DTYPES = {torch.float32: 0, torch.float64: 1, torch.complex64: 2,
+           torch.complex128: 3}
 SMALL_SMEM = 48 * 1024     # what a block gets without the opt-in
 STAGED, STREAMED = "staged", "streamed"
 _VARIANTS = (STAGED, STREAMED)
@@ -74,13 +75,28 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
+def max_smem(itemsize: int) -> int:
+    """Dynamic shared memory a staged block may opt into: sm_90's 232 448
+    bytes less the kernel's static cross-warp slots (2 x 32 values of at
+    least 8 bytes; csrc/tridiag.cu, max_smem)."""
+    return 232_448 - 64 * max(itemsize, 8)
+
+
+MAX_SMEM = max_smem(8)      # the real types' limit
+
+
+def _key(mode: str, dtype) -> str:
+    """The counters' key of a call: its mode, or a complex value type."""
+    return str(dtype).rsplit(".", 1)[-1] if dtype.is_complex else mode
+
+
 @functools.lru_cache(maxsize=256)
 def line_plan(outer: int, n: int, inner: int, itemsize: int,
               mode: str) -> LinePlan:
     """The launch plan of `outer` x `inner` lines of n nodes.
 
-    Staged when a tile fits in shared memory: strided lines take tiles of
-    32 / itemsize lines (each tile row one 32-byte sector, padded by one
+    Staged when a tile fits in shared memory (`max_smem`): strided lines
+    take tiles of 32 / itemsize lines (each tile row one 32-byte sector, padded by one
     element against bank conflicts), contiguous lines the most of 8, 4, 2
     lines that fit in 48 KB (one line when none does).  Each holds four
     arrays (alpha, pivot, cprime, r), and x in correct mode; one warp per
@@ -90,10 +106,11 @@ def line_plan(outer: int, n: int, inner: int, itemsize: int,
     still gives two blocks per SM, else 8), or one warp per contiguous
     line."""
     arrays = 5 if mode == "correct" else 4
+    limit = max_smem(itemsize)
     if inner > 1:
         tile = 32 // itemsize
         smem = arrays * n * (tile + 1) * itemsize
-        if smem <= MAX_SMEM:
+        if smem <= limit:
             return LinePlan(STAGED, tile, 32, 32 * tile,
                             outer * _cdiv(inner, tile), smem)
         tl = 32 if outer * _cdiv(inner, 32) >= 264 else 8
@@ -101,7 +118,7 @@ def line_plan(outer: int, n: int, inner: int, itemsize: int,
                         _STREAMED_THREADS, outer * _cdiv(inner, tl), 0)
     line = arrays * n * itemsize
     chunks = 32 * (4 if n >= 1024 else 2 if n >= 512 else 1)  # lanes per line
-    if line <= MAX_SMEM:
+    if line <= limit:
         tile = next((t for t in (8, 4, 2) if t * line <= SMALL_SMEM), 1)
         return LinePlan(STAGED, tile, chunks, chunks * tile,
                         _cdiv(outer, tile), tile * line)
@@ -152,7 +169,7 @@ def scan_linear(alpha, beta, axis: int, reverse: bool = False):
 def line_plain(mode: str, alpha, pivot, cprime, axis: int, r, x=None,
                omega: float = 1.0):
     """Plain torch version of the kernel (mgtpu's doubling-scan form)."""
-    PLAIN_CALLS[mode] += 1
+    PLAIN_CALLS[_key(mode, r.dtype)] += 1
     ax = r.ndim - (alpha.ndim - axis)
     beta = pivot * r
     y = scan_linear(alpha.expand(beta.shape), beta, ax)
@@ -173,12 +190,12 @@ def _lib() -> ctypes.CDLL:
 
 
 def _check(alpha, pivot, cprime, axis: int, r, x) -> None:
-    """Raise unless every operand is what the kernel takes: one float type
-    (float32 or float64), contiguous, on r's device; coefficients of the
-    grid's shape, r and x of one shape (..., *grid)."""
+    """Raise unless every operand is what the kernel takes: one value type
+    (float32, float64, complex64 or complex128), contiguous, on r's device;
+    coefficients of the grid's shape, r and x of one shape (..., *grid)."""
     if r.dtype not in _DTYPES:
-        raise TypeError(f"the line kernel takes float32 or float64, got "
-                        f"{r.dtype}")
+        raise TypeError(f"the line kernel takes float32, float64, complex64 "
+                        f"or complex128, got {r.dtype}")
     grid = tuple(alpha.shape)
     if not 0 <= axis < len(grid):
         raise ValueError(f"line axis {axis} outside a {len(grid)}D grid")
@@ -244,5 +261,5 @@ def line_apply(mode: str, alpha, pivot, cprime, axis: int, r, x=None,
         float(omega), out.data_ptr(),
         torch.cuda.current_stream(r.device).cuda_stream, plan.ctypes.data)
     _build.check(lib, rc, f"tridiag[{mode}]")
-    LAUNCHES[mode] += 1
+    LAUNCHES[_key(mode, r.dtype)] += 1
     return out

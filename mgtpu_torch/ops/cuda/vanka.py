@@ -5,13 +5,16 @@ runs on the card what mgtpu runs there as one `lax.fori_loop` over the
 cells (mgtpu/cycle/vanka.py::_lex_sweep; no Pallas kernel): `num_it`
 sequential sweeps, cell after cell, each cell's block residual from its
 ELL rows, times its single-precision block inverse, added to x — one
-launch a call, one thread block walking the cells.
+launch a call, one thread block walking the cells.  Values are float32,
+float64, complex64 or complex128; the block inverses float32, or complex64
+for complex values (the single variant, raised to x's type before the
+product as mgtpu's ``dinv.astype(x.dtype)``).
 
 `lex_sweep(x, b, idx, dinv, rows_idx, rows_val, num_it)` launches the
 kernel for a CUDA tensor (or raises on anything it does not take) and
 takes the plain version, `lex_sweep_plain` (mgtpu's per-cell loop in
 torch), only for a tensor on the CPU.  `LAUNCHES` counts kernel launches,
-`PLAIN_CALLS` calls of the plain version, per float type of x.
+`PLAIN_CALLS` calls of the plain version, per value type of x.
 """
 from __future__ import annotations
 
@@ -24,9 +27,10 @@ from . import _build
 
 __all__ = ["LAUNCHES", "PLAIN_CALLS", "lex_sweep", "lex_sweep_plain"]
 
-_DTYPES = {torch.float32: 0, torch.float64: 1}
-LAUNCHES = {"float32": 0, "float64": 0}
-PLAIN_CALLS = {"float32": 0, "float64": 0}
+_DTYPES = {torch.float32: 0, torch.float64: 1, torch.complex64: 2,
+           torch.complex128: 3}
+LAUNCHES = {"float32": 0, "float64": 0, "complex64": 0, "complex128": 0}
+PLAIN_CALLS = {"float32": 0, "float64": 0, "complex64": 0, "complex128": 0}
 MAX_SHARED = 48 * 1024           # kMaxShared: the (bs, m) block residual
 
 
@@ -65,14 +69,15 @@ def lex_sweep(x, b, idx, dinv, rows_idx, rows_val, num_it: int):
     """num_it lexicographic Vanka sweeps on x, b (n, m): kernel E on a
     CUDA tensor (one launch; x is not written, the result is a new
     tensor), `lex_sweep_plain` on a CPU one.  idx (L, bs) and rows_idx
-    (L, bs, K) int32, dinv (L, bs, bs) float32, rows_val (L, bs, K) of
-    x's type."""
+    (L, bs, K) int32, dinv (L, bs, bs) float32 (complex64 for complex
+    x), rows_val (L, bs, K) of x's type."""
     if x.device.type == "cpu":
         return lex_sweep_plain(x, b, idx, dinv, rows_idx, rows_val, num_it)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
     if x.dtype not in _DTYPES:
-        raise TypeError(f"kernel E takes float32 or float64, got {x.dtype}")
+        raise TypeError(f"kernel E takes float32, float64, complex64 or "
+                        f"complex128, got {x.dtype}")
     if x.ndim != 2 or tuple(b.shape) != tuple(x.shape):
         raise ValueError(f"x and b must be (n, m), got {tuple(x.shape)} "
                          f"and {tuple(b.shape)}")
@@ -82,7 +87,8 @@ def lex_sweep(x, b, idx, dinv, rows_idx, rows_val, num_it: int):
     n, m = x.shape
     want = {"idx": ((L, bs), torch.int32), "rows_idx": ((L, bs, K),
                                                         torch.int32),
-            "dinv": ((L, bs, bs), torch.float32),
+            "dinv": ((L, bs, bs), torch.complex64 if x.dtype.is_complex
+                     else torch.float32),
             "rows_val": ((L, bs, K), x.dtype), "b": ((n, m), x.dtype)}
     ops = {"idx": idx, "rows_idx": rows_idx, "dinv": dinv,
            "rows_val": rows_val, "b": b}

@@ -45,7 +45,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
-from ..config import is_complex, resolve_device, torch_dtype
+from ..config import resolve_device, torch_dtype
 from ..models.mesh import RegularMesh, get_regular_mesh
 from . import smoothers as sm
 from . import transfers as tr
@@ -306,12 +306,8 @@ def _per_level_relax_param(relax_param, levels: int):
 
 
 def _check_ported(cfg: MGConfig) -> None:
-    """Raise for configuration options this port does not have yet: among
-    them complex values with line relaxation or semicoarsening (kernel C
-    is real-only) and on the staggered-systems engine (kernel D's cross
-    form and kernel E are real-only)."""
+    """Raise for configuration options this port does not have."""
     from ..cycle.grid_cycle import GRID_RELAX
-    cplx = is_complex(cfg.dtype)
     checks = [
         (cfg.transfer_type in ("full-weighting", "semicoarsening")
          + SYSTEMS_TRANSFERS, f"transfer_type {cfg.transfer_type!r}"),
@@ -321,13 +317,6 @@ def _check_ported(cfg: MGConfig) -> None:
          f"cycle_type {cfg.cycle_type!r}"),
         (cfg.coarse_solve in ("lu", "gmres", "external"),
          f"coarse_solve {cfg.coarse_solve!r}"),
-        (not (cplx and cfg.relax_type == "line-jacobi"),
-         "complex line relaxation"),
-        (not (cplx and cfg.transfer_type == "semicoarsening"),
-         "complex semicoarsening"),
-        (not (cplx and (cfg.transfer_type in SYSTEMS_TRANSFERS
-                        or cfg.relax_type in VANKA_TYPES)),
-         "complex staggered systems"),
     ]
     for ok, what in checks:
         if not ok:

@@ -31,7 +31,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
-from ..config import is_complex, resolve_device
+from ..config import resolve_device
 from . import native
 from . import smoothers as sm
 from .device_agg import device_aggregation
@@ -247,11 +247,6 @@ def sa_amg_setup(A: sp.spmatrix, cfg: MGConfig, relax_param=1.0,
                          "(same as the reference, SA-AMG.jl:27-31); "
                          "chebyshev counts — it is diagonal-based")
     _check_ported(cfg)
-    if (is_complex(cfg.dtype) and mesh is None
-            and os.environ.get("MGTPU_AGG", "").lower() == "device"):
-        # mgtpu's device aggregation keeps float32 strength values
-        raise NotImplementedError("complex device aggregation not yet "
-                                  "ported")
     # the original-precision operator: the refined solve certifies against it
     A_orig = sp.csr_matrix(A)
     A = A_orig.astype(cfg.dtype)

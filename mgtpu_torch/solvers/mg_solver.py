@@ -222,10 +222,16 @@ def cast_hierarchy(hier, dtype: torch.dtype):
     """A copy of a device hierarchy with every floating tensor in `dtype`
     (mgtpu's `_cast_hier`): the levels, transfers, smoother states and the
     coarsest solver's tables; integer tables and host objects are shared.
-    Kernels A-F take float32 and float64, so a bfloat16 copy runs their
-    counted plain versions."""
+    For a complex `dtype` the complex tensors take it and the real ones
+    (row norms, masks) its real variant.  Kernels A-F take float32 and
+    float64 (C-F also complex64 and complex128), so a bfloat16 copy runs
+    their counted plain versions."""
     if isinstance(hier, torch.Tensor):
-        return hier.to(dtype) if hier.is_floating_point() else hier
+        if hier.is_complex():
+            return hier.to(dtype)
+        if hier.is_floating_point():
+            return hier.to(dtype.to_real() if dtype.is_complex else dtype)
+        return hier
     if isinstance(hier, tuple):
         return tuple(cast_hierarchy(v, dtype) for v in hier)
     if dataclasses.is_dataclass(hier) and not isinstance(hier, type):
@@ -277,9 +283,10 @@ def solve_mg_refined(state: MGState, b, x=None, tol: float = 1e-8,
     outer = torch_dtype(double_variant(cfg.dtype) if outer_dtype is None
                         else outer_dtype)
     cd = torch_dtype(cfg.dtype if cycle_dtype is None else cycle_dtype)
-    if is_complex(cfg.dtype) and cd != torch_dtype(cfg.dtype):
-        raise NotImplementedError("a complex cycle_dtype other than the "
-                                  "hierarchy's is not yet ported")
+    if is_complex(cfg.dtype) and not cd.is_complex:
+        raise NotImplementedError(
+            f"cycle_dtype {cd} for a complex hierarchy: torch has no complex "
+            "bfloat16, and a real cycle would drop the imaginary part")
     gh = _cycle_hierarchy(state, cd)
     if max_iter is None:
         max_iter = cfg.max_outer_iter

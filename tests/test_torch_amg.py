@@ -382,8 +382,13 @@ def test_sa_options(monkeypatch):
     cfg, rp = mt.get_mg_param(levels=3, dtype=np.complex128)
     with monkeypatch.context() as mp:
         mp.setenv("MGTPU_AGG", "device")
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            mt.sa_amg_setup(A, cfg, rp, device="cpu")
+        # complex device aggregation (strengths of -Re A) sets up as mgtpu's
+        st = mt.sa_amg_setup(A, cfg, rp, device="cpu")
+        st_r = sa_ref.sa_amg_setup(A, mgtpu.get_mg_param(
+            levels=3, dtype=np.complex128)[0], rp)
+        assert len(st.As) == len(st_r.As) > 1
+        assert all(_same(a, b) for a, b in zip(st.As, st_r.As))
+        assert st.As[1].dtype == np.complex128
     # a mesh with engine="flat" takes greedy aggregation
     cfg, rp = mt.get_mg_param(levels=3, engine="flat")
     st = mt.sa_amg_setup(A, cfg, rp, mesh=Mp, device="cpu")

@@ -339,10 +339,15 @@ def test_classical_options():
     cfg, rp = mt.get_mg_param(levels=3, relax_type="chebyshev")
     with pytest.raises(ValueError, match="pointwise"):
         mt.classical_amg_setup(A, cfg, rp, device="cpu")
-    cfg, rp = mt.get_mg_param(levels=3, dtype=np.complex128,
-                              transfer_type="SemiCoarsening")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        mt.classical_amg_setup(A, cfg, rp, device="cpu")
+    # complex128 with semicoarsening named: classical AMG builds its own
+    # transfers and sets up as mgtpu's (it raised until semicoarsening
+    # took complex values)
+    kw = dict(levels=3, dtype=np.complex128, transfer_type="SemiCoarsening")
+    cfg, rp = mt.get_mg_param(**kw)
+    st = mt.classical_amg_setup(A, cfg, rp, device="cpu")
+    st_r = ca_ref.classical_amg_setup(A, *mgtpu.get_mg_param(**kw))
+    assert len(st.As) == len(st_r.As) > 1
+    assert all(_same(a, b) for a, b in zip(st.As, st_r.As))
     # no mesh: the grid engine has nothing to build
     cfg, rp = mt.get_mg_param(levels=3, engine="grid")
     with pytest.raises(ValueError, match="engine='grid'"):

@@ -179,21 +179,38 @@ def test_engine_auto_falls_back_to_flat_as_reference():
     dict(dtype=np.complex128, transfer_type="SystemsFacesLinear"),
     dict(dtype=np.complex64, aggregation="device")])
 def test_unported_options_raise_on_every_engine(engine, kw, monkeypatch):
-    """NotImplementedError is never taken for a grid-engine ValueError:
-    complex staggered systems (mg_setup) and complex device aggregation
-    (sa_amg_setup under MGTPU_AGG=device), item 19's rest."""
-    dims, A = _divsig(8)
+    """Options that raised until they were ported set up on every engine as
+    mgtpu's: complex staggered systems (mg_setup on a complex-shifted
+    elasticity operator: the engine mgtpu takes, the same levels) and
+    complex device aggregation (sa_amg_setup under MGTPU_AGG=device: the
+    same levels)."""
+    from mgtpu.models.operators import linear_elasticity_operator as el_ref
     kw = dict(kw)
     device_agg = kw.pop("aggregation", None) == "device"
     cfg, rp = mt.get_mg_param(levels=2, engine=engine, **kw)
-    A = A.astype(kw["dtype"])
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        if device_agg:
-            monkeypatch.setenv("MGTPU_AGG", "device")
-            mt.sa_amg_setup(A, cfg, rp, device="cpu")
-        else:
-            mt.mg_setup(A, mt.get_regular_mesh([0.0, 1.0] * 2, dims), cfg,
-                        rp, device="cpu")
+    cfg_r, _ = mgtpu.get_mg_param(levels=2, engine=engine, **kw)
+    if device_agg:
+        _, A = _divsig(8)
+        A = (A + (1e-2 + 1e-2j) * abs(A).sum(0).max()
+             * sp.identity(A.shape[0])).tocsr()
+        monkeypatch.setenv("MGTPU_AGG", "device")
+        st = mt.sa_amg_setup(A, cfg, rp, device="cpu")
+        st_r = mgtpu.sa_amg_setup(A, cfg_r, rp)
+    else:
+        dims = [8, 8]
+        M = mgtpu.get_regular_mesh([0.0, 1.0] * 2, dims)
+        mu = np.ones(M.num_cells)
+        A = el_ref(M, mu, mu)
+        A = (A + (1e-3 + 1e-3j) * abs(A).sum(0).max()
+             * sp.identity(A.shape[0])).tocsr()
+        st = mt.mg_setup(A, mt.get_regular_mesh([0.0, 1.0] * 2, dims), cfg,
+                         rp, device="cpu")
+        st_r = mgtpu.mg_setup(A, M, cfg_r, rp)
+    assert type(st.hier).__name__ == type(st_r.hier).__name__
+    assert len(st.As) == len(st_r.As)
+    for a, b in zip(st.As, st_r.As):
+        assert a.dtype == b.dtype and np.iscomplexobj(a.data)
+        assert (a != b).nnz == 0
 
 
 def test_state_transfers_and_complexity_match_reference():

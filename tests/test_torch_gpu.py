@@ -1587,3 +1587,200 @@ def test_complex_refined_solve_records_as_eager():
     assert np.array_equal(i1["resvec"], i0["resvec"])
     assert torch.equal(x1, x0) and x1.dtype == torch.complex128
     assert np.linalg.norm(b - A @ x1.cpu().numpy()) < 1e-8
+
+
+# ---------------------------------------------------------------------------
+# the rest of complex: kernel C, kernel D's cross form and kernel E in
+# complex64 / complex128, and the solves that run them
+# ---------------------------------------------------------------------------
+
+def _rest_script():
+    import importlib.util
+    import os
+    spec = importlib.util.spec_from_file_location(
+        "complex_rest_reference", os.path.join(
+            os.path.dirname(__file__), "..", "scripts",
+            "complex_rest_reference.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("dtype", [np.complex64, np.complex128])
+@pytest.mark.parametrize("dims", [(64, 64), (18, 24, 30), (1024, 1024),
+                                  (128, 128, 128)])
+def test_complex_tridiag_matches_plain_on_every_axis(dims, dtype):
+    """Kernel C's complex instantiations against the plain version on
+    every line axis of a shifted anisotropic operator (the contracts'
+    1025^2 and 129^3 grids among them; the strided 1025^2 complex128
+    correct streams), both modes, m = 1, 2; complex64 2e-4, complex128
+    1e-10 relative, as the real types; one launch a call, counted under
+    the value type."""
+    _need_card()
+    import mgtpu_torch as mt
+    from mgtpu_torch.config import torch_dtype
+    from mgtpu_torch.cycle.grid_cycle import line_state_to
+    from mgtpu_torch.ops.cuda import tridiag
+    from mgtpu_torch.setup.smoothers import line_prec
+    rest = _rest_script()
+    A = (rest.aniso2d(dims[0], 100.0) if len(dims) == 2
+         else rest.aniso3d(list(dims), 0))
+    A = rest.shift(A, 0.125, dims[0])
+    M = mt.get_regular_mesh([0.0, 1.0] * len(dims), list(dims))
+    dt = torch_dtype(dtype)
+    key = np.dtype(dtype).name
+    tol = 2e-4 if dtype == np.complex64 else 1e-10
+    for a in range(len(dims)):
+        lr = line_state_to(line_prec(A, M, 0.8, dtype=dtype, axis=a), dt,
+                           "cuda")
+        for m in (1, 2):
+            rng = np.random.RandomState(m)
+            r, x = (_crand(rng, (m,) + tuple(lr.alpha.shape), dt)
+                    for _ in range(2))
+            args = (lr.alpha, lr.pivot, lr.cprime, lr.axis)
+            for mode, kw in (("solve", {}),
+                             ("correct", dict(x=x, omega=lr.omega))):
+                n0, p0 = tridiag.LAUNCHES[key], tridiag.PLAIN_CALLS[key]
+                y = tridiag.line_apply(mode, *args, r, **kw)
+                torch.cuda.synchronize()
+                assert tridiag.LAUNCHES[key] == n0 + 1
+                assert tridiag.PLAIN_CALLS[key] == p0
+                ref = tridiag.line_plain(mode, *args, r, **kw)
+                assert y.dtype == dt and y.shape == r.shape
+                err = float((y - ref).abs().max() / ref.abs().max())
+                assert err < tol, (mode, a, m, err)
+
+
+@pytest.mark.parametrize("dtype", [np.complex64, np.complex128])
+@pytest.mark.parametrize("dims", [(24, 17), (9, 12, 7), (1024, 1024)])
+def test_complex_cross_apply_matches_plain(dims, dtype):
+    """Every block of a complex-shifted mixed elasticity operator (CV-2d's
+    at 1024^2) on kernel D's cross form against its plain version,
+    m = 1, 2 (complex64 2e-5, complex128 1e-12); the cross blocks counted
+    in CROSS_LAUNCHES, the square ones bitwise grid_apply; the operator
+    against scipy."""
+    _need_card()
+    from mgtpu_torch.config import torch_dtype
+    from mgtpu_torch.cycle.systems_grid import (block_operator_from_csr,
+                                                fields_to_block)
+    from mgtpu_torch.ops.cuda import stencil
+    rest = _rest_script()
+    tol = 2e-5 if dtype == np.complex64 else 1e-12
+    key = np.dtype(dtype).name
+    if dims == (1024, 1024):
+        A = rest.elasticity(1024, True)
+    else:
+        _, A = _elasticity_csr(dims, True)
+        A = (A + 1e-3j * abs(A).sum(0).max() * sp.identity(A.shape[0])
+             ).tocsr()
+    op = block_operator_from_csr(A, list(dims), True, dtype=dtype,
+                                 device="cuda")
+    dt = torch_dtype(dtype)
+    assert any(s.in_grid != s.out_grid for s in op.stencils)
+    rng = np.random.RandomState(0)
+    for S in op.stencils:
+        for m in (1, 2):
+            x = _crand(rng, (m,) + S.in_grid, dt)
+            n0, p0 = stencil.LAUNCHES[key], stencil.PLAIN_CALLS[key]
+            c0 = stencil.CROSS_LAUNCHES[key]
+            y = S.matvec(x)
+            torch.cuda.synchronize()
+            assert stencil.LAUNCHES[key] == n0 + 1
+            assert stencil.PLAIN_CALLS[key] == p0
+            assert stencil.CROSS_LAUNCHES[key] == c0 + (S.in_grid
+                                                       != S.out_grid)
+            ref = stencil.cross_apply_plain(S.coeff, S.offsets, S.in_grid, x)
+            err = float((y - ref).abs().max() / ref.abs().max())
+            assert err < tol, (S.offsets, m, err)
+            if S.in_grid == S.out_grid:
+                assert torch.equal(y, stencil.grid_apply(S.coeff, S.offsets,
+                                                         x))
+    xs = tuple(_crand(rng, (1,) + g, dt) for g in op.grids)
+    got = fields_to_block(op.matvec(xs)).cpu().numpy()[:, 0]
+    want = A @ fields_to_block(xs).cpu().numpy()[:, 0].astype(np.complex128)
+    assert np.abs(got - want).max() / np.abs(want).max() < tol * 10
+
+
+@pytest.mark.parametrize("dtype", [np.complex64, np.complex128])
+@pytest.mark.parametrize("cells,m", [(16, 1), (16, 3), (64, 1)])
+def test_complex_lex_sweep_kernel_matches_plain(dtype, cells, m):
+    """Kernel E's complex instantiations (one launch, two sweeps; complex64
+    block inverses raised to x's type) against the plain per-cell loop on
+    the complex-shifted mixed problem's vanka-lex tables (C-lex's 64^2
+    fine level among them); complex64 1e-5, complex128 1e-12."""
+    _need_card()
+    import mgtpu_torch as mt
+    from mgtpu_torch.config import torch_dtype
+    from mgtpu_torch.ops.cuda import vanka as vk
+    from mgtpu_torch.setup.smoothers import setup_vanka
+    rest = _rest_script()
+    A = rest.elasticity(cells, True)
+    M = mt.get_regular_mesh([0.0, 1.0] * 2, [cells, cells])
+    dt = torch_dtype(dtype)
+    vr = setup_vanka(A, M, 0.75, True, "vanka-lex", dtype=dtype).to(dt,
+                                                                    "cuda")
+    assert vr.dinv.dtype == torch.complex64
+    rng = np.random.RandomState(m)
+    x, b = (_crand(rng, (A.shape[0], m), dt) for _ in range(2))
+    args = (vr.idx[0], vr.dinv[0], vr.rows_idx[0], vr.rows_val[0], 2)
+    key = np.dtype(dtype).name
+    n0, p0 = vk.LAUNCHES[key], vk.PLAIN_CALLS[key]
+    y = vk.lex_sweep(x, b, *args)
+    torch.cuda.synchronize()
+    assert vk.LAUNCHES[key] == n0 + 1 and vk.PLAIN_CALLS[key] == p0
+    ref = vk.lex_sweep_plain(x, b, *args)
+    tol = 1e-5 if dtype == np.complex64 else 1e-12
+    assert float((y - ref).abs().max() / ref.abs().max()) < tol
+    with pytest.raises(ValueError):
+        vk.lex_sweep(x, b, args[0], args[1].to(torch.float32), *args[2:])
+
+
+@pytest.mark.parametrize("row", ["CL-2d", "CS-2d", "CV-2d", "CE-2d",
+                                 "C-lex", "C-kacz", "Z-dev", "H-cd"])
+def test_complex_rest_solves_record_as_eager(row, monkeypatch):
+    """scripts/complex_rest_reference.py's rows at 64^2 on the card: the
+    recorded refined solve takes the CPU's count, is its eager run bit for
+    bit, certifies 1e-8, and launches kernels C (line rows), D (all but
+    the flat Vanka rows) and E (C-lex) in complex with no plain call of
+    any of them."""
+    _need_card()
+    import mgtpu_torch as mt
+    from mgtpu_torch.ops.cuda import stencil, tridiag
+    from mgtpu_torch.ops.cuda import vanka as vk
+    rest = _rest_script()
+    A, dims, kw, seed, solve_kw = rest.problem(row, 64, 16)
+    b = rest.rhs(A, seed)
+    kw = dict(dtype=np.complex64, max_outer_iter=60) | kw
+    if row == "Z-dev":
+        monkeypatch.setenv("MGTPU_AGG", "device")
+    cfg, rp = mt.get_mg_param(**kw)
+
+    def setup(dev):
+        if row == "Z-dev":
+            return mt.sa_amg_setup(A, cfg, rp, device=dev)
+        return mt.mg_setup(A, mt.get_regular_mesh([0.0, 1.0] * len(dims),
+                                                  dims), cfg, rp, device=dev)
+    solve_kw = {"max_iter": 60} | solve_kw
+    _, info_c = mt.solve_mg_refined(setup("cpu"), b, **solve_kw)
+    st = setup("cuda")
+    counters = (tridiag.LAUNCHES, tridiag.PLAIN_CALLS, stencil.LAUNCHES,
+                stencil.PLAIN_CALLS, vk.LAUNCHES, vk.PLAIN_CALLS)
+    before = [dict(c) for c in counters]
+    x1, i1 = mt.solve_mg_refined(st, b, **solve_kw)
+    torch.cuda.synchronize()
+    after = [dict(c) for c in counters]
+    for k in ("complex64", "complex128"):
+        for j in (1, 3, 5):
+            assert after[j][k] == before[j][k], (row, j, k)
+    ran = {name: sum(after[j][k] - before[j][k]
+                     for k in ("complex64", "complex128"))
+           for name, j in (("C", 0), ("D", 2), ("E", 4))}
+    # the flat engine's ELL levels run plain torch (C-lex, C-kacz)
+    assert (ran["D"] > 0) == (row not in ("C-lex", "C-kacz"))
+    assert (ran["C"] > 0) == row.startswith(("CL", "CS"))
+    assert (ran["E"] > 0) == (row == "C-lex")
+    x0, i0 = mt.solve_mg_refined(st, b, device_loop=False, **solve_kw)
+    assert i1["iters"] == i0["iters"]
+    assert abs(i1["iters"] - info_c["iters"]) <= 1
+    assert torch.equal(x1, x0) and x1.dtype == torch.complex128
+    assert rest.relres(A, b, x1) < 1e-8

@@ -113,15 +113,24 @@ def test_mg_setup_matches_reference(dims, levels, relax):
     dict(dtype=np.complex128, relax_type="LineJac"),
 ])
 def test_unported_options_raise(kw):
-    """complex128 line relaxation is not ported yet (item 19's rest: kernel
-    C is real-only) and raises; the hybrid Kaczmarz smoother is (it sets up
-    as mgtpu's: the flat engine, the same tables)."""
+    """Options that raised until they were ported set up as mgtpu's:
+    complex128 line relaxation (the grid engine, complex128 Thomas factors
+    bit for bit), the hybrid Kaczmarz smoother (the flat engine, the same
+    tables)."""
     dims, L = _problem([8, 8])
     cfg, rp = mt.get_mg_param(levels=2, **kw)
     Mp = mt.get_regular_mesh([0.0, 1.0] * 2, dims)
     if "dtype" in kw:
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            mt.mg_setup(L, Mp, cfg, rp, device="cpu")
+        st = mt.mg_setup(L, Mp, cfg, rp, device="cpu")
+        st_r = mgtpu.mg_setup(L, mgtpu.get_regular_mesh([0.0, 1.0] * 2, dims),
+                              mgtpu.get_mg_param(levels=2, **kw)[0], rp)
+        assert type(st.hier).__name__ == "GridHierarchy"
+        lr, lr_r = st.hier.levels[0].line, st_r.hier.levels[0].d
+        assert lr.axis == lr_r.axis
+        for k in ("alpha", "pivot", "cprime"):
+            got, want = _np(getattr(lr, k)), np.asarray(getattr(lr_r, k))
+            assert got.dtype == want.dtype == np.complex128
+            assert np.array_equal(got, want), k
         return
     from mgtpu.dd.indices import nodal_indices_of_box as box_ref
     from mgtpu_torch.dd.indices import nodal_indices_of_box
