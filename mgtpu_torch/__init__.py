@@ -22,8 +22,11 @@ solver, the hierarchy lifecycle (``replace_matrix_in_hierarchy``,
 domain decomposition (``dd/``); MG-preconditioned Krylov solves
 (CG, BiCGSTAB, FGMRES, their block forms) and K-cycles.  The cycles, the
 refinement loop and the Krylov iterations run as CUDA graphs on the card
-(``cycle/capture.py``: mgtpu's compiled programs).  Imports torch,
-numpy and scipy only — never JAX or ``mgtpu``.
+(``cycle/capture.py``: mgtpu's compiled programs).  The multi-device
+grid tier (``parallel/``, ``dd/parallel.py``) runs the grid engine, its
+solves and the Schwarz sweep over ranks of ``torch.distributed`` (NCCL,
+or gloo).  Imports torch, numpy and scipy only — never JAX or
+``mgtpu``.
 
 Entry points run on the card (``device="cuda"``) unless the caller asks for
 the CPU; without a card they raise.

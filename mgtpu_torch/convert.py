@@ -35,6 +35,7 @@ from .ops.dia import DIA
 from .ops.ell import ELL
 from .ops.grid_stencil import (ConstGridStencil, GridStencil,
                                Stride2Transfer, pack_stride2)
+from .dd.parallel import ShardedSchwarz, shard_schwarz
 from .dd.schwarz import SchwarzState, _SchwarzCoarse
 from .setup.hierarchy import Hierarchy, Level
 from .solvers.direct import BatchedDenseLU
@@ -45,7 +46,8 @@ __all__ = ["grid_hierarchy_from_arrays", "flat_hierarchy_from_arrays",
            "batched_lu_from_arrays", "stride2_from_arrays",
            "vanka_relax_from_arrays", "kaczmarz_relax_from_arrays",
            "schwarz_state_from_arrays", "schur_coarse_from_arrays",
-           "systems_hierarchy_from_arrays"]
+           "systems_hierarchy_from_arrays", "sharded_mg_from_arrays",
+           "sharded_schwarz_from_arrays"]
 
 
 def _as_tensor(a, device):
@@ -149,6 +151,54 @@ def schwarz_state_from_arrays(spec, device) -> SchwarzState:
                         tuple(torch.tensor(g, dtype=torch.int64,
                                            device=device) for g in colors),
                         lu.perm, lu.iperm)
+
+
+def sharded_mg_from_arrays(spec, num_ranks: int, rank: int, *,
+                           device):
+    """Rank `rank`'s part (of `num_ranks`) of mgtpu's `ShardedMG` (built
+    for num_ranks devices), given as a mapping {``levels``: per level
+    {``coeff`` (nd, NJp, NI), ``d``, ``masks``, ``ds_map``, ``di``, ``dj``,
+    ``plan`` (a mapping of TransferPlan's fields), ``slab``}, ``lu``,
+    ``piv`` (0-based), ``nu_pre``, ``nu_post``, ``coarse_nj``,
+    ``n_nodes0``}, as the port's `ShardedMG` shard on `device`."""
+    from .parallel.sharded import ShardedMG, level_from_arrays
+    from .parallel.stencil import TransferPlan
+    levels = []
+    for lv in spec["levels"]:
+        pl = lv["plan"]
+        plan = TransferPlan(tuple((int(o), float(w)) for o, w in
+                                  pl["offsets"]),
+                            *(int(pl[k]) for k in ("NI", "NIc", "NJ", "NJc",
+                                                   "dim")))
+        coeff = np.asarray(lv["coeff"])
+        levels.append(level_from_arrays(
+            coeff, lv["d"], lv["masks"], lv["ds_map"], lv["di"], lv["dj"],
+            plan, int(lv["slab"]), rank, device, coeff.dtype))
+    lu = dense_lu_from_arrays(spec["lu"], spec["piv"], device)
+    return ShardedMG(tuple(levels), lu.lu, lu.piv,
+                     tuple(int(v) for v in spec["nu_pre"]),
+                     tuple(int(v) for v in spec["nu_post"]),
+                     int(spec["coarse_nj"]),
+                     tuple(int(v) for v in spec["n_nodes0"]))
+
+
+def sharded_schwarz_from_arrays(spec, num_ranks: int, rank: int, *,
+                                device) -> ShardedSchwarz:
+    """Rank `rank`'s slice of mgtpu's `ShardedSchwarz` (colour-major
+    (ncolors, L, ...) arrays {``idx``, ``mask``, ``rows_idx``,
+    ``rows_val``, ``lu``, ``piv`` (0-based), ``ncolors``}) as the port's,
+    on `device`; the pivots become 1-based with their row orders."""
+    from .solvers.direct import pivots_to_permutation
+    piv = np.asarray(spec["piv"]).astype(np.int64) + 1
+    shape = piv.shape
+    perm = pivots_to_permutation(piv.reshape(-1, shape[-1])).reshape(shape)
+    arrays = tuple(np.asarray(spec[k]) for k in ("idx", "mask", "rows_idx",
+                                                 "rows_val", "lu"))
+    arrays = (arrays[0].astype(np.int64),) + arrays[1:2] + (
+        arrays[2].astype(np.int64),) + arrays[3:] + (
+        piv.astype(np.int32), perm, np.argsort(perm, axis=-1))
+    return shard_schwarz(arrays, int(spec["ncolors"]), num_ranks, rank,
+                         device)
 
 
 def schur_coarse_from_arrays(spec, device) -> SchurCoarse:

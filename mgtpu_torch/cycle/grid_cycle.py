@@ -181,8 +181,10 @@ def grid_restrict(rg: torch.Tensor, P1) -> torch.Tensor:
     """R r; rg is (m, *fine_grid).  Per-axis factors give full weighting,
     R = 0.5^c P^T with c the number of coarsened axes (a None factor,
     under semicoarsening, leaves its axis as is); a Stride2Transfer gives
-    R = P^T, the SA convention."""
-    if isinstance(P1, Stride2Transfer):
+    R = P^T, the SA convention; a transfer object that is not a tuple of
+    factors (a Stride2Transfer, the multi-device tier's
+    parallel/grid_sharded.py::ShardedTransfer) applies itself."""
+    if not isinstance(P1, tuple):
         return P1.restrict(rg)
     y = rg
     nc = 0
@@ -196,7 +198,7 @@ def grid_restrict(rg: torch.Tensor, P1) -> torch.Tensor:
 
 def grid_prolong(xc: torch.Tensor, P1) -> torch.Tensor:
     """P xc; xc is (m, *coarse_grid)."""
-    if isinstance(P1, Stride2Transfer):
+    if not isinstance(P1, tuple):
         return P1.prolong(xc)
     y = xc
     for a, W in enumerate(P1):

@@ -15,7 +15,7 @@ solver (`setup_coarse`).
    `index_add` of the corrections (disjoint within a color; padding adds
    exact zeros, so the order of the adds does not change x).
 
-The sharded tier (mgtpu's dd/parallel.py) is not ported yet.
+The multi-device sweep (mgtpu's dd/parallel.py) is dd/parallel.py.
 """
 from __future__ import annotations
 

@@ -16,11 +16,13 @@ __all__ = ["bicgstab"]
 
 
 def bicgstab(matvec, b, prec=None, x0=None, tol: float = 1e-6,
-             max_iter: int = 100, *, device_loop: bool = True, cache=None):
+             max_iter: int = 100, *, device_loop: bool = True, cache=None,
+             reduce=None):
     """Solve A x = b with preconditioned BiCGSTAB; b: (m, *space).
-    `device_loop` and `cache` are krylov/_loop.py's `iterate` arguments."""
+    `device_loop` and `cache` are krylov/_loop.py's `iterate` arguments;
+    `reduce` sums the inner products over the ranks of a sharded b."""
     M = (lambda r: r) if prec is None else prec
-    lay = Layout(b)
+    lay = Layout(b, reduce)
     X = torch.zeros_like(b) if x0 is None else x0
 
     def init(b, X, tol, maxit):

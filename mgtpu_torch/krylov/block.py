@@ -42,14 +42,15 @@ def _go(s, k, cur, bnorm, tol, maxit):
 
 def block_pcg(matvec, b, prec=None, x0=None, tol: float = 1e-6,
               max_iter: int = 100, *, device_loop: bool = True,
-              cache=None):
+              cache=None, reduce=None):
     """Block preconditioned CG: solve A X = B (A HPD) with one shared space.
 
     b: (m, *space).  Returns (x, info) with info = dict(iters, relres (m,),
     resvec (max_iter+1, m)).  `device_loop` and `cache` are
-    krylov/_loop.py's `iterate` arguments."""
+    krylov/_loop.py's `iterate` arguments; `reduce` sums the Gram blocks
+    and norms over the ranks of a sharded b (krylov/_layout.py)."""
     M = (lambda r: r) if prec is None else prec
-    lay = Layout(b)
+    lay = Layout(b, reduce)
     X = torch.zeros_like(b) if x0 is None else x0
 
     def init(b, X, tol, maxit):
@@ -83,13 +84,14 @@ def block_pcg(matvec, b, prec=None, x0=None, tol: float = 1e-6,
 
 def block_bicgstab(matvec, b, prec=None, x0=None, tol: float = 1e-6,
                    max_iter: int = 100, *, device_loop: bool = True,
-                   cache=None):
+                   cache=None, reduce=None):
     """Bl-BiCGSTAB: solve A X = B (general A) with one shared block space;
     omega is the scalar trace-minimising stabilisation of the block
     variant.  `device_loop` and `cache` are krylov/_loop.py's `iterate`
-    arguments."""
+    arguments; `reduce` sums the Gram blocks, norms and omega's two sums
+    over the ranks of a sharded b."""
     M = (lambda r: r) if prec is None else prec
-    lay = Layout(b)
+    lay = Layout(b, reduce)
     X = torch.zeros_like(b) if x0 is None else x0
 
     def init(b, X, tol, maxit):
@@ -108,8 +110,8 @@ def block_bicgstab(matvec, b, prec=None, x0=None, tol: float = 1e-6,
         S = R - lay.mix(V, alpha)
         Sh = M(S)
         T = matvec(Sh)
-        ts = torch.sum(T.conj() * S)
-        tt = torch.clamp(torch.sum(T.conj() * T).real, min=1e-300)
+        ts = lay.sum(torch.sum(T.conj() * S))
+        tt = torch.clamp(lay.sum(torch.sum(T.conj() * T).real), min=1e-300)
         omega = ts / tt
         X = X + lay.mix(Ph, alpha) + omega * Sh
         R = S - omega * T

@@ -16,14 +16,16 @@ __all__ = ["pcg"]
 
 
 def pcg(matvec, b, prec=None, x0=None, tol: float = 1e-6,
-        max_iter: int = 100, *, device_loop: bool = True, cache=None):
+        max_iter: int = 100, *, device_loop: bool = True, cache=None,
+        reduce=None):
     """Solve A x = b (A HPD) with preconditioned CG.
 
     b: (m, *space).  Returns (x, info) with info = dict(iters, relres (m,),
     resvec (max_iter+1, m)).  `device_loop` and `cache` are
-    krylov/_loop.py's `iterate` arguments."""
+    krylov/_loop.py's `iterate` arguments; `reduce` sums the inner products
+    over the ranks of a sharded b (krylov/_layout.py)."""
     M = (lambda r: r) if prec is None else prec
-    lay = Layout(b)
+    lay = Layout(b, reduce)
     X = torch.zeros_like(b) if x0 is None else x0
 
     def init(b, X, tol, maxit):

@@ -25,10 +25,12 @@ from ._layout import Layout
 __all__ = ["fgmres", "block_fgmres"]
 
 
-def _fgmres_cycle(matvec, prec, restart: int, X, B):
+def _fgmres_cycle(matvec, prec, restart: int, X, B, reduce=None):
     """One restart cycle for all right-hand sides; returns the updated X
-    and the per-RHS residual norms."""
-    lay = Layout(B)
+    and the per-RHS residual norms.  The Hessenberg matrix is built from
+    reduced inner products, so every rank holds it whole and G and c need
+    no reduction."""
+    lay = Layout(B, reduce)
     m = lay.nbatch
     R = B - matvec(X)
     beta = lay.norm(R)
@@ -79,34 +81,36 @@ def ridge_solve(G, c):
 
 def _restart_program(ctx, X, B):
     """One restart: (F)GMRES on X, B; the updated X and its residual norms."""
-    matvec, M, restart, flexible = ctx
+    matvec, M, restart, flexible, reduce = ctx
     if flexible:
-        return _fgmres_cycle(matvec, M, restart, X, B)
+        return _fgmres_cycle(matvec, M, restart, X, B, reduce)
     # right-preconditioned standard GMRES: solve (A M) u = r, x += M u
     Xp, _ = _fgmres_cycle(lambda v: matvec(M(v)), lambda v: v, restart,
-                          torch.zeros_like(X), B - matvec(X))
+                          torch.zeros_like(X), B - matvec(X), reduce)
     X = X + M(Xp)
-    return X, Layout(B).norm(B - matvec(X))
+    return X, Layout(B, reduce).norm(B - matvec(X))
 
 
 def fgmres(matvec, b, restart: int = 5, prec=None, x0=None,
            tol: float = 1e-6, max_iter: int = 10, flexible: bool = True,
-           verbose: bool = False, *, device_loop: bool = True, cache=None):
+           verbose: bool = False, *, device_loop: bool = True, cache=None,
+           reduce=None):
     """Restarted (F)GMRES on b (m, *space): at most max_iter restarts of
     `restart` inner steps; stops once max over RHS of ||r|| / max ||b||
     falls below tol.  Each restart is one recorded program (capture.run;
     `cache` = (owner, key, keep) as in krylov/_loop.py's `iterate`, key
     determining matvec and prec; `device_loop=False` runs it eagerly); the
-    host reads the residuals once a restart, as mgtpu does."""
+    host reads the residuals once a restart, as mgtpu does.  `reduce` sums
+    the inner products over the ranks of a sharded b (krylov/_layout.py)."""
     M = (lambda r: r) if prec is None else prec
     X = torch.zeros_like(b) if x0 is None else x0
-    lay = Layout(b)
+    lay = Layout(b, reduce)
     owner, key, keep = cache if cache is not None else (None, (), ())
     bnorm = max(float(torch.max(lay.norm(b))), 1e-300)
     resvec = [lay.norm(b - matvec(X)).cpu().numpy()]
     iters = 0
     rel = float("inf")
-    ctx = (matvec, M, restart, flexible)
+    ctx = (matvec, M, restart, flexible, reduce)
     for outer in range(max_iter):
         X, rn = (run(owner, (key, "fgmres", restart, flexible),
                      _restart_program, ctx, X, b, keep=keep)
@@ -124,7 +128,7 @@ def fgmres(matvec, b, restart: int = 5, prec=None, x0=None,
 def block_fgmres(matvec, b, restart: int = 5, prec=None, x0=None,
                  tol: float = 1e-6, max_iter: int = 10, flexible: bool = True,
                  verbose: bool = False, *, device_loop: bool = True,
-                 cache=None):
+                 cache=None, reduce=None):
     """Block FGMRES (FGMRES.jl:51-53): the whole (m, *space) field is ONE
     Krylov vector, so every right-hand side shares a single space."""
     blk_mv = lambda v: matvec(v[0])[None]
@@ -132,5 +136,5 @@ def block_fgmres(matvec, b, restart: int = 5, prec=None, x0=None,
     x0b = None if x0 is None else x0[None]
     xb, info = fgmres(blk_mv, b[None], restart, blk_prec, x0b, tol,
                       max_iter, flexible, verbose, device_loop=device_loop,
-                      cache=cache)
+                      cache=cache, reduce=reduce)
     return xb[0], info

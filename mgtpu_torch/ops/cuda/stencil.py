@@ -18,6 +18,13 @@ Entry points:
    on another grid than y's (..., *out_grid), coeff (nd, *out_grid); node
    r reads x at r + d_k, zero off in_grid.  A block of a staggered system,
    real or complex.
+ * `halo_apply(coeff, offsets, in_grid, x, plan_box=)` — the cross apply
+   from a halo-extended block of the multi-device tier (parallel/): x
+   (..., *in_grid) holds y's block and its neighbours' planes, the taps
+   are shifted by the halo width.  Its launch plan is the one of
+   `plan_box` (default y's box), so that the pieces of one apply — the
+   overlapped slab's interior and edge rows — sum each node's taps as
+   the whole does.
  * `stencil_matvec(coeff, di, dj, x)` — the counterpart of
    ``stencil_matvec_pallas`` on the slab form G[j, i] = x[i + j NI]:
    coeff (nd, NJ, NI), x (..., NJ, NI), |dj| <= 1, any in-plane shift di;
@@ -55,7 +62,8 @@ included) and takes the plain version only for a tensor on the CPU.
 device.  `LAUNCHES` counts kernel launches, `PLAIN_CALLS` calls of the plain
 version, per value type of x; a prolong or a restrict is one of either.
 `CROSS_LAUNCHES` counts, per value type, the launches of the cross form
-alone (a cross block between two different grids).
+(a cross block between two different grids, and a halo apply);
+`HALO_LAUNCHES` those of `halo_apply` alone.
 """
 from __future__ import annotations
 
@@ -69,10 +77,12 @@ import torch
 from ..grid_stencil import grid_stencil_matvec
 from . import _build
 
-__all__ = ["LAUNCHES", "PLAIN_CALLS", "CROSS_LAUNCHES", "MAX_TAPS",
+__all__ = ["LAUNCHES", "PLAIN_CALLS", "CROSS_LAUNCHES", "HALO_LAUNCHES",
+           "MAX_TAPS",
            "FORMS", "StencilPlan", "stencil_plan", "plan_fits",
            "supports_stencil", "grid_apply",
            "grid_apply_plain", "cross_apply", "cross_apply_plain",
+           "halo_apply",
            "stencil_matvec", "stencil_matvec_plain",
            "dia_apply", "dia_apply_plain", "stride2_prolong",
            "stride2_prolong_plain", "stride2_restrict",
@@ -84,6 +94,8 @@ LAUNCHES = {"float32": 0, "float64": 0, "complex64": 0, "complex128": 0}
 PLAIN_CALLS = {"float32": 0, "float64": 0, "complex64": 0, "complex128": 0}
 CROSS_LAUNCHES = {"float32": 0, "float64": 0, "complex64": 0,
                   "complex128": 0}
+HALO_LAUNCHES = {"float32": 0, "float64": 0, "complex64": 0,
+                 "complex128": 0}
 MAX_TAPS = 256                   # kMaxTaps of csrc/stencil.cu
 FORMS = ("apply", "restrict", "prolong", "cross")
 THREADS = 256                    # kThreads
@@ -367,6 +379,37 @@ def cross_apply(coeff, offsets, in_grid, x):
     return _launch(coeff, _box(out_grid), taps, x,
                    "apply" if in_grid == out_grid else "cross",
                    in_box=_box(in_grid), in_space=in_grid)
+
+
+def halo_apply(coeff, offsets, in_grid, x, plan_box=None):
+    """y = A x for a block y (..., *out_grid), coeff (nd, *out_grid), from
+    x (..., *in_grid): the block with its halo planes (the taps shifted
+    by the halo width; zero off in_grid).  Kernel D's cross form on a
+    CUDA tensor, with the split of `plan_box`'s plan (default y's box);
+    `cross_apply_plain` on a CPU one."""
+    if x.device.type == "cpu":
+        return cross_apply_plain(coeff, offsets, in_grid, x)
+    _device_check(x)
+    out_grid = tuple(int(v) for v in coeff.shape[1:])
+    in_grid = tuple(int(v) for v in in_grid)
+    offsets = tuple(tuple(int(d) for d in off) for off in offsets)
+    if (not supports_stencil(offsets, out_grid, x.dtype)
+            or len(in_grid) != len(out_grid)):
+        raise ValueError(f"kernel D takes 1D-3D stencils (got {out_grid} "
+                         f"from {in_grid}, {x.dtype})")
+    _check_taps(len(offsets))
+    pad = 3 - len(out_grid)
+    taps = tuple((0,) * pad + off for off in offsets)
+    box = _box(out_grid)
+    m = x.numel() // max(int(np.prod(in_grid)), 1)
+    split = stencil_plan(box if plan_box is None else _box(plan_box),
+                         len(taps), m, x.dtype, "cross").split
+    y = _launch(coeff, box, taps, x, "cross", in_box=_box(in_grid),
+                in_space=in_grid,
+                plan=stencil_plan(box, len(taps), m, x.dtype, "cross",
+                                  split))
+    HALO_LAUNCHES[_key(x.dtype)] += 1
+    return y
 
 
 def stencil_matvec(coeff, di, dj, x):

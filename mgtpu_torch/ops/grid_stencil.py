@@ -500,6 +500,17 @@ class ConstGridStencil:
             o += cnt
         return tuple(out)
 
+    def to_dense_stencil(self) -> GridStencil:
+        """The same operator with every node's coefficients stored (mgtpu's
+        to_dense_stencil), on this stencil's device."""
+        nd = len(self.offsets)
+        coeff = self.const.reshape((nd,) + (1,) * len(self.grid)).expand(
+            (nd,) + tuple(self.grid)).clone()
+        for (start, size), strip in zip(self.boxes, self.strips):
+            sl = tuple(slice(s, s + z) for s, z in zip(start, size))
+            coeff[(slice(None),) + sl] = strip
+        return GridStencil(coeff, self.offsets, self.grid)
+
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
         if _is_flat(x, self.grid):
             squeeze = x.ndim == 1

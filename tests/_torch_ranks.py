@@ -1,0 +1,285 @@
+"""What the ranks of the multi-device tests run (mgtpu_torch only).
+
+The CPU tests of mgtpu_torch/parallel/ and dd/parallel.py spawn gloo ranks
+(parallel/launch.py::run_ranks); each rank imports this module to unpickle
+its function, so it imports torch, numpy, scipy and mgtpu_torch and
+nothing else (no JAX: a rank does not pay for it).  Each function runs all
+of one test file's cases for one rank group and returns numpy arrays; the
+test files hold them against mgtpu.  The problems are made here from seeds,
+so the parent builds the same inputs for mgtpu.
+"""
+from __future__ import annotations
+
+import numpy as np
+import scipy.sparse as sp
+import torch
+
+import mgtpu_torch as mt
+from mgtpu_torch.models.operators import (nodal_div_sig_grad_matrix,
+                                          nodal_laplacian_matrix)
+
+DEADLINE_S = 60.0          # a rank group that has not finished fails
+
+
+# ---------------------------------------------------------------------------
+# problems
+# ---------------------------------------------------------------------------
+
+def poisson(n: int, dim: int = 2, shift: float = 1e-4):
+    """The n^dim-cell nodal Laplacian + shift * (max column sum) I."""
+    M = mt.get_regular_mesh([0.0, 1.0] * dim, [n] * dim)
+    L = nodal_laplacian_matrix(M)
+    return M, (L + shift * abs(L).sum(axis=0).max()
+               * sp.identity(L.shape[0])).tocsr()
+
+
+def divsig(n: int, seed: int = 3, scale: float = 0.3, shift: float = 1e-4):
+    """mgtpu's test_sharded_variable_coefficients_multirhs operator."""
+    M = mt.get_regular_mesh([0.0, 1.0, 0.0, 1.0], [n, n])
+    sig = np.exp(scale * np.random.RandomState(seed).randn(M.num_cells))
+    A = nodal_div_sig_grad_matrix(M, sig)
+    return M, (A + shift * abs(A).sum(axis=0).max()
+               * sp.identity(A.shape[0])).tocsr()
+
+
+def params(levels: int, dtype, **kw):
+    """Jacobi 0.8 V(1,1), mgtpu's sharded tests' configuration."""
+    kw.setdefault("max_outer_iter", 5)
+    kw.setdefault("relative_tol", 1e-12)
+    return dict(levels=levels, relax_type="jacobi", relax_param=0.8,
+                nu_pre=1, nu_post=1, dtype=dtype, **kw)
+
+
+def setup(M, A, **kw):
+    cfg, rp = mt.get_mg_param(**kw)
+    return mt.mg_setup(A, M, cfg, rp, device="cpu")
+
+
+def rhs(A, m=None, seed=1):
+    """A @ rand, normalised (m columns, or a vector)."""
+    rng = np.random.RandomState(seed)
+    b = A @ (rng.rand(A.shape[0]) if m is None else rng.rand(A.shape[0], m))
+    return b / np.linalg.norm(b)
+
+
+def slab_field(m: int, nj: int, ni: int, seed: int = 7, dtype=np.float64):
+    return np.random.RandomState(seed).rand(m, nj, ni).astype(dtype)
+
+
+# slab tier problems: name -> (cells a side, levels)
+SLAB_CASES = {"poisson": (32, 3), "poisson3d": (16, 3), "divsig": (32, 3)}
+CONVERGE = (128, 4)        # mgtpu's test_sharded_converges_to_contract
+HALO_NI = 5                # in-plane width of the halo cases
+
+
+def slab_problem(name):
+    n, levels = SLAB_CASES[name]
+    if name == "poisson":
+        M, A = poisson(n)
+        return M, A, levels, rhs(A)
+    if name == "poisson3d":
+        M, A = poisson(n, dim=3)
+        return M, A, levels, rhs(A)
+    M, A = divsig(n)
+    return M, A, levels, rhs(A, 2, seed=5)
+
+
+# ---------------------------------------------------------------------------
+# rank programs
+# ---------------------------------------------------------------------------
+
+def _slab(full, world, rank):
+    s = full.shape[-2] // world
+    return torch.tensor(full[..., rank * s:(rank + 1) * s, :].copy())
+
+
+def parallel_cases(rank, world, device):
+    """tests/test_torch_parallel.py: the halo exchange, the slab apply in
+    its fused and overlapped forms, the transfers, the slab cycle."""
+    from mgtpu_torch.parallel import stencil as ps
+    from mgtpu_torch.parallel.comm import RankGrid
+    from mgtpu_torch.parallel.sharded import (build_sharded_mg,
+                                              make_sharded_solver)
+    comm = RankGrid(None, "gloo")
+    out = {}
+    # halo exchange: widths 1 and 2 on a (2, 4 world, NI) field
+    full = slab_field(2, 4 * world, HALO_NI)
+    x = _slab(full, world, rank)
+    out["halo1"] = ps.exchange_halo(x, comm).numpy()
+    out["halo2"] = comm.exchange_halo(x, 0, 2, dim=-2).numpy()
+    out["bcast"] = comm.broadcast(torch.full((3,), float(rank)),
+                                  src=world - 1).numpy()
+
+    # the slab apply on the fine level of the 2D problem; S = 1 slabs too
+    M, A, levels, b = slab_problem("poisson")
+    state = setup(M, A, **params(levels, np.float64))
+    mg = build_sharded_mg(state, world, rank, np.float64, device)
+    lvl = mg.levels[0]
+    xs = _slab(slab_field(2, lvl.slab * world, lvl.plan.NI, seed=8),
+               world, rank)
+    fused = ps.stencil_matvec_local(lvl.coeff, lvl.di, lvl.dj,
+                                    ps.exchange_halo(xs, comm))
+    over = ps.stencil_matvec_overlapped(lvl.coeff, lvl.di, lvl.dj, xs, comm,
+                                        parts=lvl.parts)
+    out["apply_fused"], out["apply_over"] = fused.numpy(), over.numpy()
+    c1 = lvl.coeff[:, :1].contiguous()
+    x1 = xs[:, :1].contiguous()
+    out["s1_fused"] = ps.stencil_matvec_local(
+        c1, lvl.di, lvl.dj, ps.exchange_halo(x1, comm)).numpy()
+    out["s1_over"] = ps.stencil_matvec_overlapped(c1, lvl.di, lvl.dj, x1,
+                                                  comm).numpy()
+    # transfers on level 0 (fields zero in the pad, as in a cycle): R r
+    # from a halo-extended slab, P xc
+    r = slab_field(1, lvl.slab * world, lvl.plan.NI, seed=9)
+    r[:, lvl.plan.NJ:] = 0
+    out["restrict"] = ps.restrict_local(
+        ps.exchange_halo(_slab(r, world, rank), comm), lvl.plan, lvl.masks,
+        lvl.ds_map, lvl.slab // 2).numpy()
+    xc = slab_field(1, lvl.slab // 2 * world, lvl.plan.NIc, seed=10)
+    xc[:, lvl.plan.NJc:] = 0
+    xc = _slab(xc, world, rank)
+    out["prolong"] = ps.prolong_local(xc, lvl.plan, lvl.masks, lvl.ds_map,
+                                      comm, lvl.slab).numpy()
+
+    # one slab cycle of each problem, f64, and its residual norm
+    for name in SLAB_CASES:
+        M, A, levels, b = slab_problem(name)
+        state = setup(M, A, **params(levels, np.float64))
+        mg, step, to_grid, from_grid = make_sharded_solver(
+            state, comm, dtype=np.float64, device=device)
+        bg = to_grid(b)
+        xg, rn = step(mg, bg, torch.zeros_like(bg))
+        out[f"cycle_{name}"] = from_grid(xg).numpy()
+        out[f"rn_{name}"] = float(rn)
+    # five cycles at 128^2, 4 levels (mgtpu's convergence contract)
+    M, A = poisson(CONVERGE[0])
+    b = rhs(A)
+    state = setup(M, A, **params(CONVERGE[1], np.float64))
+    mg, step, to_grid, from_grid = make_sharded_solver(
+        state, comm, dtype=np.float64, device=device)
+    bg, xg = to_grid(b), to_grid(np.zeros_like(b))
+    for _ in range(5):
+        xg, rn = step(mg, bg, xg)
+    out["converge"] = from_grid(xg).numpy()[:, 0]
+    out["sent"] = dict(comm.sent)
+    return out
+
+
+# grid-sharded problems (mgtpu's test_grid_sharded.py, test_sharded_solve.py)
+CYCLE_N, CYCLE_LEVELS = 32, 3
+SOLVE_N, SOLVE_LEVELS = 32, 3
+# the other smoothers and cycle shapes the sharded grid engine takes:
+# name -> (relax_type, relax_param, cycle_type)
+CYCLE_OPTIONS = {"chebyshev-W": ("chebyshev", 1.0, "W"),
+                 "chebyshev4-V": ("chebyshev4", 1.0, "V"),
+                 "spai-F": ("spai", 1.0, "F")}
+
+
+def cycle_params(option):
+    """The cycle problem's parameters, f64, with `option`'s smoother and
+    cycle shape."""
+    relax, rp, ctype = CYCLE_OPTIONS[option]
+    p = params(CYCLE_LEVELS, np.float64)
+    p.update(relax_type=relax, relax_param=rp, cycle_type=ctype)
+    return p
+
+
+def grid_sharded_cases(rank, world, device, shape):
+    """tests/test_torch_grid_sharded.py: three grid-sharded cycles and the
+    refined solve on a slab or pencil rank grid; on a slab the Krylov
+    solves too (mgtpu's tests run them on a slab mesh)."""
+    from mgtpu_torch.parallel.comm import RankGrid
+    from mgtpu_torch.parallel.grid_sharded import make_grid_sharded_cycle
+    from mgtpu_torch.parallel.sharded_solve import make_sharded_refined_solver
+    comm = RankGrid(shape, "gloo")
+    axes = tuple(range(len(comm.shape)))
+    out = {}
+    M, A = poisson(CYCLE_N)
+    state = setup(M, A, **params(CYCLE_LEVELS, np.float64))
+    gh, cycle, to_grid, from_grid = make_grid_sharded_cycle(state, comm, axes,
+                                                            device)
+    bg = to_grid(np.random.RandomState(3).rand(A.shape[0], 2))
+    xg = torch.zeros_like(bg)
+    for _ in range(3):
+        xg = cycle(gh, bg, xg)
+    out["cycle"] = from_grid(xg).numpy()
+    for option in CYCLE_OPTIONS:
+        st = setup(M, A, **cycle_params(option))
+        gh, cycle, to_grid, from_grid = make_grid_sharded_cycle(st, comm,
+                                                                axes, device)
+        xg = torch.zeros_like(bg)
+        for _ in range(2):
+            xg = cycle(gh, bg, xg)
+        out[option] = from_grid(xg).numpy()
+
+    M, A = poisson(SOLVE_N)
+    state = setup(M, A, **params(SOLVE_LEVELS, np.float32,
+                                 max_outer_iter=40, relative_tol=1e-6))
+    solver = make_sharded_refined_solver(state, comm, axes, device)
+    b = rhs(A, seed=1)
+    x, info = solver.solve_refined(b, tol=1e-8)
+    out["refined"] = (x, info["iters"], info["resvec"])
+    B = np.random.RandomState(2).rand(A.shape[0], 3)
+    x, info = solver.solve_refined(B, tol=1e-8)
+    out["refined_multi"] = (x, info["iters"])
+    if len(comm.shape) > 1:
+        out["sent"] = dict(comm.sent)
+        return out
+    b = np.random.RandomState(3).rand(A.shape[0])
+    b /= np.linalg.norm(b)
+    for name in ("solve_fgmres", "solve_cg", "solve_bicgstab"):
+        x, info = getattr(solver, name)(b, tol=1e-8, max_iter=30)
+        out[name] = (x, int(info["iters"]))
+    b32 = np.random.RandomState(4).rand(A.shape[0]).astype(np.float32)
+    x, info = solver.solve_fgmres(b32, tol=1e-6, max_iter=30)
+    out["fgmres_f32"] = (x, int(info["iters"]))
+    rng = np.random.RandomState(5)
+    base = rng.rand(A.shape[0], 1)
+    B = base + 0.05 * rng.rand(A.shape[0], 3)
+    out["block_cg"] = tuple(
+        (x, int(info["iters"])) for x, info in
+        (solver.solve_cg(B, tol=1e-8, max_iter=30, block=blk)
+         for blk in (True, False)))
+    out["sent"] = dict(comm.sent)
+    return out
+
+
+DD_N, DD_DOMAINS, DD_OVERLAP = 32, (4, 4), (1, 1)
+
+
+def dd_cases(rank, world, device):
+    """tests/test_torch_dd.py's parallel case: one sharded sweep from zero,
+    and FGMRES(5) preconditioned by it (mgtpu's test_dd.py:79)."""
+    from mgtpu_torch.dd.parallel import dd_parallel_preconditioner
+    from mgtpu_torch.dd.schwarz import DDSolver
+    from mgtpu_torch.krylov import fgmres
+    from mgtpu_torch.ops.ell import ell_from_scipy
+    from mgtpu_torch.parallel.comm import RankGrid
+    comm = RankGrid(None, "gloo")
+    M, A = poisson(DD_N)
+    dd = DDSolver(M, list(DD_DOMAINS), list(DD_OVERLAP), layout="nodal",
+                  device=device).setup(A)
+    prec = dd_parallel_preconditioner(dd, comm, device)
+    b = rhs(A, seed=6)
+    x = prec(torch.tensor(b, device=device))
+    E = ell_from_scipy(A, dtype=np.float64, device=device)
+    mv = lambda v: E.matvec(v.T).T
+    B = torch.tensor(b, device=device)[None]
+    X, info = fgmres(mv, B, restart=5, prec=lambda v: prec(v.T).T,
+                     tol=1e-8, max_iter=10, device_loop=False)
+    return {"sweep": x.cpu().numpy(), "x": X[0].cpu().numpy(),
+            "restarts": int(info["iters"]), "sent": dict(comm.sent)}
+
+
+def sleeper(rank, world, device, seconds):
+    """A rank that outlives its deadline (the launcher's hang test)."""
+    import time
+    time.sleep(seconds)
+    return rank
+
+
+def failer(rank, world, device):
+    """Rank 1 raises (the launcher's failure test)."""
+    if rank == 1:
+        raise ValueError("rank 1 fails on purpose")
+    return rank

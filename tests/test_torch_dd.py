@@ -5,7 +5,10 @@ masks and gathered rows bit for bit; one Schwarz sweep and one hybrid
 Kaczmarz sweep (kernel F's plain version, and kernel F's link-table
 schedule emulated in numpy) within 1e-9 in float64; the Kaczmarz tables
 bit for bit; one hybrid-Kaczmarz cycle; and the counts of mgtpu's own DD
-and Kaczmarz tests (test_dd.py, test_coverage_extra.py:148)."""
+and Kaczmarz tests (test_dd.py, test_coverage_extra.py:148); and the
+multi-device Schwarz sweep (dd/parallel.py) on 2 and 4 CPU gloo ranks
+equal to the serial sweep (test_dd.py:79), with mgtpu's ShardedSchwarz
+carried across bit for bit."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -22,10 +25,15 @@ from mgtpu.models.operators import nodal_laplacian_matrix as lap_ref
 from mgtpu.models.operators import linear_elasticity_operator as el_ref
 from mgtpu.ops.ell import ell_from_scipy as ell_ref
 
+import _torch_ranks as tr
 import mgtpu_torch as mt
+from mgtpu.dd import parallel as par_ref
 from mgtpu_torch.convert import (flat_hierarchy_from_arrays,
                                  kaczmarz_relax_from_arrays,
-                                 schwarz_state_from_arrays)
+                                 schwarz_state_from_arrays,
+                                 sharded_schwarz_from_arrays)
+from mgtpu_torch.dd import parallel as par
+from mgtpu_torch.parallel.launch import run_ranks
 from mgtpu_torch.cycle import kaczmarz as kz
 from mgtpu_torch.cycle.cycle import recursive_cycle as cycle_port
 from mgtpu_torch.dd import indices as ddi
@@ -479,3 +487,82 @@ def test_hybrid_kaczmarz_bfloat16_cycles_match_reference():
     assert abs(i_p["iters"] - i_r["iters"]) <= 1
     assert x_p.dtype == torch.float64
     assert np.linalg.norm(A @ _np(x_p) - b) < 1e-8 * np.linalg.norm(b)
+
+
+# ---------------------------------------------------------------------------
+# the multi-device sweep (mgtpu's dd/parallel.py)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module", params=[2, 4], ids=lambda r: f"R{r}")
+def dd_group(request):
+    """tests/_torch_ranks.py::dd_cases on R gloo ranks: (R, outputs)."""
+    R = request.param
+    return R, run_ranks(tr.dd_cases, R, "cpu", "gloo", tr.DEADLINE_S)
+
+
+def _dd_problem():
+    M, A = tr.poisson(tr.DD_N)
+    Mr = mgtpu.get_regular_mesh(list(M.domain), list(np.asarray(M.n)))
+    return M, Mr, A, tr.rhs(A, seed=6)
+
+
+def test_dd_sharded_sweep_matches_serial(dd_group):
+    """One sweep from zero with the domains spread over the ranks equals
+    the serial sweep (test_dd.py:79, atol 1e-11), on every rank, and
+    mgtpu's serial sweep."""
+    _, outs = dd_group
+    M, Mr, A, b = _dd_problem()
+    serial = sw.DDSolver(M, list(tr.DD_DOMAINS), list(tr.DD_OVERLAP),
+                         layout="nodal", device="cpu").setup(A)
+    x_serial = _np(serial.sweep(np.zeros_like(b), b, 1))
+    ref = sw_ref.DDSolver(Mr, list(tr.DD_DOMAINS), list(tr.DD_OVERLAP),
+                          layout="nodal").setup(A)
+    x_ref = np.asarray(ref.sweep(np.zeros_like(b), b, 1))
+    for o in outs:
+        np.testing.assert_allclose(o["sweep"], x_serial, atol=1e-11)
+        np.testing.assert_allclose(o["sweep"], x_ref, atol=1e-11)
+
+
+def test_dd_sharded_preconditioner_under_fgmres(dd_group):
+    """FGMRES(5) preconditioned by the sharded sweep: mgtpu's bound
+    (||A x - b|| < 1e-6, test_dd.py:95) in the serial preconditioner's
+    restarts."""
+    _, outs = dd_group
+    M, Mr, A, b = _dd_problem()
+    ref = sw_ref.DDSolver(Mr, list(tr.DD_DOMAINS), list(tr.DD_OVERLAP),
+                          layout="nodal").setup(A)
+    _, info = ref.solve_linear_system(A, b, tol=1e-8, max_iter=10, restart=5)
+    for o in outs:
+        assert np.linalg.norm(A @ o["x"] - b) < 1e-6
+        assert o["restarts"] == int(info["iters"])
+        assert o["sent"]["psum"] > 0
+
+
+@pytest.mark.parametrize("R", [2, 4])
+def test_sharded_schwarz_from_arrays_round_trip(R):
+    """mgtpu's ShardedSchwarz for R devices, carried across, gives each
+    rank's shard bit for bit: the port's own colour-major regrouping of the
+    same serial state."""
+    M, Mr, A, _ = _dd_problem()
+    ref = sw_ref.DDSolver(Mr, list(tr.DD_DOMAINS), list(tr.DD_OVERLAP),
+                          layout="nodal").setup(A)
+    sh_ref = par_ref.build_sharded_schwarz(ref, R)
+    spec = {k: np.asarray(getattr(sh_ref, k)) for k in
+            ("idx", "mask", "rows_idx", "rows_val", "lu", "piv")}
+    spec["ncolors"] = sh_ref.ncolors
+    port = sw.DDSolver(M, list(tr.DD_DOMAINS), list(tr.DD_OVERLAP),
+                       layout="nodal", device="cpu")
+    port.state = schwarz_state_from_arrays(_state_arrays(ref.state), "cpu")
+    fields = ("idx", "mask", "rows_idx", "rows_val", "lu", "piv", "perm",
+              "iperm")
+    for k in range(R):
+        got = sharded_schwarz_from_arrays(spec, R, k, device="cpu")
+        own = par.build_sharded_schwarz(port, R, k, "cpu")
+        L = spec["idx"].shape[1] // R
+        assert np.array_equal(_np(got.lu), spec["lu"][:, k * L:(k + 1) * L])
+        assert np.array_equal(_np(got.piv),
+                              spec["piv"][:, k * L:(k + 1) * L] + 1)
+        assert got.ncolors == own.ncolors == sh_ref.ncolors
+        for f in fields:
+            a, b = _np(getattr(got, f)), _np(getattr(own, f))
+            assert a.dtype == b.dtype and np.array_equal(a, b), f

@@ -1784,3 +1784,105 @@ def test_complex_rest_solves_record_as_eager(row, monkeypatch):
     assert abs(i1["iters"] - info_c["iters"]) <= 1
     assert torch.equal(x1, x0) and x1.dtype == torch.complex128
     assert rest.relres(A, b, x1) < 1e-8
+
+
+# ---------------------------------------------------------------------------
+# the multi-device tier: kernel D's halo apply (one rank, in-process)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def one_rank(tmp_path):
+    """A one-rank NCCL process group from a file store, and its RankGrid."""
+    import torch.distributed as dist
+    from mgtpu_torch.parallel.comm import RankGrid
+    _need_card()
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            world_size=1, rank=0)
+    try:
+        yield RankGrid(None, "nccl")
+    finally:
+        dist.destroy_process_group()
+
+
+def _slab_problem(dims, dtype):
+    """The DivSigGrad operator's slab stencil (J the slowest axis)."""
+    from mgtpu_torch.parallel.stencil import stencil_from_banded
+    A, _ = _divsig_stencils(dims, dtype)
+    st = stencil_from_banded(A, [d + 1 for d in dims], 0.8, dtype=dtype)
+    return torch.tensor(st.coeff, device="cuda"), st.di, st.dj
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("dims", [(1024, 256), (64, 64, 64)])
+def test_halo_apply_matches_plain(dims, dtype, one_rank):
+    """The slab rows from a halo-extended slab (S + 2 planes in, S out):
+    kernel D's cross form against its plain version; the overlapped apply
+    (interior, then edge rows, each under the whole slab's plan) bitwise
+    the fused one."""
+    from mgtpu_torch.ops.cuda import stencil as sk
+    from mgtpu_torch.parallel import stencil as ps
+    coeff, di, dj = _slab_problem(dims, dtype)
+    S, NI = coeff.shape[1:]
+    tol = 2e-5 if dtype == np.float32 else 1e-12
+    key = np.dtype(dtype).name
+    for m in (1, 2):
+        x = torch.tensor(np.random.RandomState(m).rand(m, S, NI),
+                         dtype=coeff.dtype, device="cuda")
+        xh = ps.exchange_halo(x, one_rank)
+        n0, h0 = sk.LAUNCHES[key], sk.HALO_LAUNCHES[key]
+        y = ps.stencil_matvec_local(coeff, di, dj, xh)
+        ref = sk.cross_apply_plain(coeff, tuple((j + 1, i)
+                                                for i, j in zip(di, dj)),
+                                   (S + 2, NI), xh)
+        over = ps.stencil_matvec_overlapped(coeff, di, dj, x, one_rank)
+        torch.cuda.synchronize()
+        assert sk.LAUNCHES[key] == n0 + 4 and sk.HALO_LAUNCHES[key] == h0 + 4
+        err = float((y - ref).abs().max() / ref.abs().max())
+        assert err < tol, (dims, m, err)
+        assert torch.equal(over, y)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_grid_sharded_block_apply_matches_plain(dtype, one_rank):
+    """A sharded level's block apply (halo of the stencil's radius, kernel
+    D's halo apply) against the plain grid apply of the whole stencil."""
+    from mgtpu_torch.ops.grid_stencil import grid_stencil_matvec
+    from mgtpu_torch.parallel.grid_sharded import ShardedGridStencil
+    tol = 2e-5 if dtype == np.float32 else 1e-12
+    for dims in [(64, 32), (32, 16, 24)]:
+        _, ops = _divsig_stencils(dims, dtype)
+        for A in ops:
+            sh = ShardedGridStencil(A.coeff, A.offsets, A.grid, one_rank,
+                                    ((0, 0),), (1,))
+            x = torch.tensor(np.random.RandomState(0).rand(2, *A.grid),
+                             dtype=A.coeff.dtype, device="cuda")
+            y = sh.matvec(x)
+            ref = grid_stencil_matvec(A.coeff, A.offsets, x)
+            torch.cuda.synchronize()
+            err = float((y - ref).abs().max() / ref.abs().max())
+            assert err < tol, (dims, len(A.offsets), err)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_grid_sharded_pencil_block_apply_matches_plain(dtype, one_rank):
+    """A pencil level's block apply (halos on both leading axes, exchanged
+    in two phases, so the 9- and 27-point stencils read the corners)
+    against the plain grid apply of the whole stencil."""
+    from mgtpu_torch.ops.grid_stencil import grid_stencil_matvec
+    from mgtpu_torch.parallel.comm import RankGrid
+    from mgtpu_torch.parallel.grid_sharded import ShardedGridStencil
+    pencil = RankGrid((1, 1), "nccl")
+    tol = 2e-5 if dtype == np.float32 else 1e-12
+    for dims in [(64, 32), (32, 16, 24)]:
+        _, ops = _divsig_stencils(dims, dtype)
+        for A in ops:
+            sh = ShardedGridStencil(A.coeff, A.offsets, A.grid, pencil,
+                                    ((0, 0), (1, 1)), (1, 1))
+            x = torch.tensor(np.random.RandomState(0).rand(2, *A.grid),
+                             dtype=A.coeff.dtype, device="cuda")
+            y = sh.matvec(x)
+            ref = grid_stencil_matvec(A.coeff, A.offsets, x)
+            torch.cuda.synchronize()
+            err = float((y - ref).abs().max() / ref.abs().max())
+            assert err < tol, (dims, len(A.offsets), err)

@@ -29,6 +29,9 @@ import mgtpu_torch.ops.cuda.vanka, mgtpu_torch.ops.cuda.kaczmarz
 import mgtpu_torch.cycle.kaczmarz, mgtpu_torch.dd.indices
 import mgtpu_torch.dd.schwarz, mgtpu_torch.solvers.direct
 import mgtpu_torch.solvers.schur, mgtpu_torch.solvers.wrappers
+import mgtpu_torch.parallel.comm, mgtpu_torch.parallel.launch
+import mgtpu_torch.parallel.sharded, mgtpu_torch.parallel.grid_sharded
+import mgtpu_torch.parallel.sharded_solve, mgtpu_torch.dd.parallel
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "mgtpu" or m.startswith("mgtpu."))
