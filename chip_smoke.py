@@ -130,8 +130,8 @@ Phases, each of which raises on failure:
             hierarchy, the K-prec level and a ragged 255^2 mesh with
             padded domains, f32 (2e-5) and f64 (1e-12), m = 1-3, a second
             launch bitwise the first; then its time (CUDA events) on the
-            K-mg fine level beside its byte bound, its dependency-chain
-            bound and the plain version;
+            K-mg fine level and level 1 beside its byte bound, its
+            dependency-chain bound and the plain version;
 16. façade — inside one launch-counter window, each to mgtpu's count
             +- 1 (scripts/facade_reference.py) at a true f64 relres below
             1e-8: (W) MGSolver gmres / pcg / bicgstab on (f)'s 1024^2
@@ -476,10 +476,15 @@ def phase_card():
     return smi, name
 
 
+BUILD_LOGS: dict = {}         # ptxas's output of each source (phase_build)
+PROBE_NS: dict = {}           # ns a dependent shared-memory round (probe)
+
+
 def phase_build():
     from mgtpu_torch.ops.cuda import _build
     t0 = time.perf_counter()
     logs = _build.build()
+    BUILD_LOGS.update(logs)
     log(f"[build] nvcc {' '.join(_build.FLAGS)}: "
         f"{time.perf_counter() - t0:.1f} s")
     for name, text in logs.items():
@@ -488,6 +493,43 @@ def phase_build():
                 log(f"[build] {name}: {line.strip()}")
     for name in _build.SOURCES:
         _build.library(name)
+
+
+def ptxas(source: str, kernel: str) -> str:
+    """Registers and spill bytes of each instantiation of `kernel` in
+    `source`'s ptxas output, e.g. "IddLi5ELi1E 40 regs 0/0 B spill"."""
+    out, entry = [], None
+    for line in BUILD_LOGS.get(source, "").splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            entry = name if kernel in name else None
+        elif entry and "spill stores" in line:
+            st = line.split("bytes spill stores")[0].split(",")[-1].strip()
+            ld = line.split("bytes spill loads")[0].split(",")[-1].strip()
+            spill = f"{st}/{ld} B spill"
+        elif entry and "Used" in line and "registers" in line:
+            regs = line.split("Used")[1].split("registers")[0].strip()
+            tag = entry.split(kernel, 1)[1].split("Ev", 1)[0]
+            out.append(f"{tag} {regs} regs {spill}")
+            entry = None
+    return "; ".join(out) or "not built by this process"
+
+
+def phase_probe(card):
+    """The latency probe (csrc/probe.cu): ns a dependent shared-memory
+    round under __syncwarp, __syncthreads (32 and 128 threads) and a
+    cluster barrier of 2-16 blocks.  Kernels E and F step by __syncwarp,
+    so their dependency-chain bounds are steps x the warp round; the
+    others are what a step of a wider block or of a cluster would pay."""
+    from mgtpu_torch.ops.cuda import probe
+    PROBE_NS.update(warp=probe.round_ns("warp"),
+                    block32=probe.round_ns("block", threads=32),
+                    block128=probe.round_ns("block", threads=128))
+    for c in (2, 4, 8, 16):
+        PROBE_NS[f"cluster{c}"] = probe.round_ns("cluster", ctas=c)
+    log("[probe] ns a dependent shared-memory round (slope of two launches "
+        "by CUDA events): " + ", ".join(f"{k} {v:.1f}" for k, v in
+                                        PROBE_NS.items()) + f" ({card})")
 
 
 KERNELS = {
@@ -757,8 +799,8 @@ def reset_counters():
                 fused3d.PLAIN_CALLS, tridiag.LAUNCHES, tridiag.PLAIN_CALLS,
                 stencil.LAUNCHES, stencil.PLAIN_CALLS,
                 stencil.CROSS_LAUNCHES, stencil.HALO_LAUNCHES, vanka.LAUNCHES,
-                vanka.PLAIN_CALLS, kaczmarz.LAUNCHES, kaczmarz.PLAIN_CALLS,
-                native.CALLS, native.PLAIN_CALLS):
+                vanka.PLAIN_CALLS, vanka.FORMS, kaczmarz.LAUNCHES,
+                kaczmarz.PLAIN_CALLS, native.CALLS, native.PLAIN_CALLS):
         for k in dct:
             dct[k] = 0
     fused3d.GRID_LAUNCHES.clear()
@@ -798,6 +840,13 @@ def kaczmarz_counters():
     from mgtpu_torch.ops.cuda import kaczmarz
     return ({f"kaczmarz.{k}": v for k, v in kaczmarz.LAUNCHES.items()},
             {f"kaczmarz.{k}": v for k, v in kaczmarz.PLAIN_CALLS.items()})
+
+
+def form_counters():
+    """Launches of kernel E by form (x and b staged, x staged, x in global
+    memory)."""
+    from mgtpu_torch.ops.cuda import vanka
+    return {f"E.{k}": v for k, v in vanka.FORMS.items()}
 
 
 def true_relres(L, b, x) -> float:
@@ -2570,11 +2619,131 @@ def lex_tables(st, l):
     return vr.idx[0], vr.dinv[0], vr.rows_idx[0], vr.rows_val[0]
 
 
+def e_forms(n, tabs, m):
+    """Kernel E's forms that fit a call, the one it takes first: {form:
+    its shared memory}."""
+    from mgtpu_torch.ops.cuda import vanka
+    L, bs = tabs[0].shape
+    K = tabs[2].shape[-1]
+    dt = tabs[3].dtype
+    item = torch.empty((), dtype=dt).element_size()
+    ditem = 8 if dt.is_complex else 4
+    need = {f: vanka.smem_bytes(bs, K, m, n, item, ditem, f)
+            for f in E_FORMS}
+    return {f: v for f, v in need.items() if v <= vanka.MAX_SHARED}
+
+
+def e_call(x, b, tabs, it, need):
+    """One kernel E launch with shared memory capped at `need`, so that it
+    takes the form that needs that much (the first that fits)."""
+    from mgtpu_torch.ops.cuda import vanka
+    old = vanka.MAX_SHARED
+    vanka.MAX_SHARED = need
+    try:
+        return vanka.lex_sweep(x, b, *tabs, it)
+    finally:
+        vanka.MAX_SHARED = old
+
+
+def check_e(label, n, tabs, row, seed, complex_=False):
+    """Kernel E (two sweeps) against its plain per-cell loop (LEX_TOLS,
+    relative) in every form that fits (x staged in shared memory, x in
+    global memory): two launches of a form bitwise, every form bitwise the
+    first.  Returns the forms."""
+    from mgtpu_torch.ops.cuda import vanka
+    dt = tabs[3].dtype
+    rng = np.random.RandomState(seed)
+    draw = (lambda: rng.rand(n, 1) + 1j * rng.rand(n, 1)) if complex_ \
+        else (lambda: rng.rand(n, 1))
+    x, b = (torch.tensor(draw(), dtype=dt, device="cuda") for _ in range(2))
+    ref = vanka.lex_sweep_plain(x, b, *tabs, 2)
+    forms = e_forms(n, tabs, 1)
+    first = None
+    for form, need in forms.items():
+        f0 = vanka.FORMS[form]
+        out = e_call(x, b, tabs, 2, need)
+        out2 = e_call(x, b, tabs, 2, need)
+        torch.cuda.synchronize()
+        require(vanka.FORMS[form] == f0 + 2, f"kernel E {label}: form "
+                f"{form} did not run")
+        require(out.shape == ref.shape and bool(torch.isfinite(out).all()),
+                f"kernel E {label} {form}: bad output")
+        require(torch.equal(out, out2), f"kernel E {label} {form}: two "
+                "launches differ")
+        require(first is None or torch.equal(out, first), f"kernel E "
+                f"{label}: form {form} differs from {next(iter(forms))}")
+        first = out if first is None else first
+        ae = float((out - ref).abs().max())
+        re = ae / float(ref.abs().max())
+        row["max_abs_err"] = max(row["max_abs_err"], ae)
+        row["max_rel_err"] = max(row["max_rel_err"], re)
+        require(re < LEX_TOLS[dt], f"kernel E {label} {form} {dt}: "
+                f"relative error {re:.3e} >= {LEX_TOLS[dt]}")
+    return list(forms)
+
+
+def time_e(label, n, tabs, card):
+    """One sweep of kernel E in each form that fits (m = 1), beside its
+    byte bound (idx, dinv, the rows, b, x read and written) and its chain
+    bound (cells x the probe's warp round).  Returns {form: entry}, the
+    first the call's own."""
+    from mgtpu_torch.ops.cuda import vanka
+    idx, dinv, ri, rv = tabs
+    dt = rv.dtype
+    item = torch.empty((), dtype=dt).element_size()
+    ditem = 8 if dt.is_complex else 4
+    L, bs = idx.shape
+    K = ri.shape[-1]
+    add = 0.5j if dt.is_complex else 0
+    sets = [tuple(torch.tensor(np.random.RandomState(SEED + j + k).rand(
+        n, 1) + add, dtype=dt, device="cuda") for k in (0, 9))
+        for j in range(2)]
+    fbytes = (L * bs * 4 + L * bs * bs * ditem + L * bs * K * (4 + item)
+              + 3 * n * item)
+    flops = (8 if dt.is_complex else 2) * L * bs * (K + bs)
+    peak = FP32_FLOPS if dt in (torch.float32, torch.complex64) \
+        else FP64_FLOPS
+    bound = max(fbytes / HBM_BYTES_PER_S, flops / peak) * 1e3
+    chain = L * PROBE_NS["warp"] * 1e-6
+    out = {}
+    for form, need in e_forms(n, tabs, 1).items():
+        ms, host_ms = Timer(reps=10)([lambda s=s: e_call(
+            s[0], s[1], tabs, 1, need) for s in sets])
+        log(f"[time] E lex sweep, {label} ({L} cells, bs {bs}, K {K}, {dt}, "
+            f"m=1), form {form}: kernel {ms:.4f} ms ({ms * 1e3 / L:.3f} us "
+            f"a cell), byte bound {bound:.4f} ms ({fbytes / 1e6:.2f} MB), "
+            f"chain bound {chain:.4f} ms ({L} x {PROBE_NS['warp']:.1f} ns, "
+            f"warp), host per call {host_ms:.3f} ms ({card})")
+        bound_by = "bytes" if fbytes / HBM_BYTES_PER_S >= flops / peak \
+            else "operations"
+        out[form] = dict(ms=ms, host_ms=host_ms, us_per_cell=ms * 1e3 / L,
+                         chain_bound_ms=chain, bound_ms=bound,
+                         bound_by=bound_by, limited_by="chain"
+                         if chain > bound else bound_by)
+    log(f"[time] E ptxas: {ptxas('vanka', 'vanka_lex_kernel')}")
+    return out
+
+
+def e_row(row, times, plain_ms, shape):
+    """The kernels line's fields of a kernel E row from `time_e`'s
+    entries (the call's own form first)."""
+    form, e = next(iter(times.items()))
+    row.update(ms=e["ms"], plain_ms=plain_ms, bound_ms=e["bound_ms"],
+               library_ms=None, library_call="none: no PyTorch call "
+               "computes a Vanka sweep", host_ms=e["host_ms"],
+               us_per_cell=e["us_per_cell"],
+               chain_bound_ms=e["chain_bound_ms"], form=form,
+               forms={f: round(v["ms"], 4) for f, v in times.items()},
+               bound_by=e["bound_by"], limited_by=e["limited_by"],
+               timed_shape=shape, ptxas=ptxas("vanka", "vanka_lex_kernel"))
+
+
 def phase_lex_kernel(lex_state, rows, card):
     """Kernel E against its plain version (the per-cell loop) on a 32^2
     mixed problem and on every level of the 64^2 lex hierarchy, f32
-    (1e-5) and f64 (1e-12), two sweeps; its device time on the 64^2 fine
-    level beside its byte bound and the plain loop's time."""
+    (1e-5) and f64 (1e-12), two sweeps, in every form that fits; its
+    device time on the 64^2 fine level in each form beside its byte bound,
+    its chain bound and the plain loop's time."""
     from mgtpu_torch.ops.cuda import vanka
     from mgtpu_torch.setup.smoothers import setup_vanka
     M, A, _ = elasticity(2, 32, True)
@@ -2592,51 +2761,44 @@ def phase_lex_kernel(lex_state, rows, card):
         cases.append((f"64^2 level {l}", st.As[l].shape[0],
                       t32[:3] + (t32[3].double(),)))
     row = rows["vanka_lex"]
+    seen = set()
     for label, n, tabs in cases:
-        dt = tabs[3].dtype
-        rng = np.random.RandomState(SEED + n)
-        x = torch.tensor(rng.rand(n, 1), dtype=dt, device="cuda")
-        b = torch.tensor(rng.rand(n, 1), dtype=dt, device="cuda")
-        out = vanka.lex_sweep(x, b, *tabs, 2)
-        ref = vanka.lex_sweep_plain(x, b, *tabs, 2)
-        torch.cuda.synchronize()
-        require(out.shape == ref.shape and bool(torch.isfinite(out).all()),
-                f"kernel E {label}: bad output")
-        ae = float((out - ref).abs().max())
-        re = ae / float(ref.abs().max())
-        row["max_abs_err"] = max(row["max_abs_err"], ae)
-        row["max_rel_err"] = max(row["max_rel_err"], re)
-        require(re < LEX_TOLS[dt], f"kernel E {label} {dt}: relative error "
-                f"{re:.3e} >= {LEX_TOLS[dt]}")
+        seen.update(check_e(label, n, tabs, row, SEED + n))
+    require(seen == set(E_FORMS), f"kernel E: forms {seen} ran, want all "
+            f"of {E_FORMS}")
     log(f"[kernel] E (lexicographic Vanka): {len(cases)} cases (32^2 and "
-        f"every level of the 64^2 lex hierarchy, f32 and f64, two sweeps) "
-        f"match the per-cell loop")
-    idx, dinv, ri, rv = lex_tables(st, 0)
+        f"every level of the 64^2 lex hierarchy, f32 and f64, two sweeps, "
+        f"every form) match the per-cell loop; forms bitwise one another")
+    # more right-hand sides than one warp walks a cell with (bs 5, m 7):
+    # launches of at most 32 // bs columns
+    label, n, tabs = cases[1]
+    rng = np.random.RandomState(SEED)
+    x, b = (torch.tensor(rng.rand(n, 7), device="cuda") for _ in range(2))
+    n0 = vanka.LAUNCHES["float64"]
+    out = vanka.lex_sweep(x, b, *tabs, 2)
+    ref = vanka.lex_sweep_plain(x, b, *tabs, 2)
+    re = float((out - ref).abs().max() / ref.abs().max())
+    require(vanka.LAUNCHES["float64"] == n0 + 2 and re < LEX_TOLS[
+        torch.float64], f"kernel E {label} m=7: {vanka.LAUNCHES['float64'] - n0}"
+        f" launches, relative error {re:.3e}")
+    log(f"[kernel] E {label} f64 m=7: two launches (6 + 1 columns) match "
+        f"the per-cell loop (rel {re:.2e})")
+    tabs = lex_tables(st, 0)
     n = st.As[0].shape[0]
-    L, bs = idx.shape
-    K = ri.shape[-1]
+    L, bs = tabs[0].shape
+    K = tabs[2].shape[-1]
+    times = time_e("64^2 fine level", n, tabs, card)
     sets = [(torch.tensor(np.random.RandomState(SEED + j).rand(n, 1),
                           dtype=torch.float32, device="cuda"),
              torch.tensor(np.random.RandomState(SEED + 9 + j).rand(n, 1),
                           dtype=torch.float32, device="cuda"))
             for j in range(2)]
-    ms, host_ms = Timer(reps=10)([lambda s=s: vanka.lex_sweep(
-        s[0], s[1], idx, dinv, ri, rv, 1) for s in sets])
     plain_ms = Timer(reps=2)([lambda s=s: vanka.lex_sweep_plain(
-        s[0], s[1], idx, dinv, ri, rv, 1) for s in sets])[0]
-    fbytes = (L * bs * 4 + L * bs * bs * 4 + L * bs * K * 8 + 3 * n * 4)
-    flops = 2 * L * bs * (K + bs)
-    bound = max(fbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS) * 1e3
-    log(f"[time] E lex sweep, 64^2 fine level ({L} cells, bs {bs}, K {K}, "
-        f"f32): kernel {ms:.4f} ms ({ms * 1e3 / L:.2f} us a cell), plain "
-        f"{plain_ms:.1f} ms, bound {bound:.4f} ms ({fbytes / 1e6:.2f} MB), "
-        f"host per call {host_ms:.3f} ms ({card})")
-    row.update(ms=ms, plain_ms=plain_ms, bound_ms=bound, library_ms=None,
-               host_ms=host_ms, us_per_cell=ms * 1e3 / L,
-               bound_by="bytes" if fbytes / HBM_BYTES_PER_S
-               >= flops / FP32_FLOPS else "operations",
-               timed_shape=f"64^2 fine level: {L} cells, bs {bs}, K {K}, "
-               "m=1, one sweep")
+        s[0], s[1], *tabs, 1) for s in sets])[0]
+    log(f"[time] E plain version, 64^2 fine level: {plain_ms:.1f} ms "
+        f"({card})")
+    e_row(row, times, plain_ms, f"64^2 fine level: {L} cells, "
+          f"bs {bs}, K {K}, m=1, one sweep")
 
 
 def phase_systems(card):
@@ -2714,7 +2876,8 @@ def phase_systems(card):
     launches.update(e_l)
     plain.update(e_p, **more_p, **line_p)
     log(f"[path] systems window kernel D and E launches: {launches}; other "
-        f"kernels {dict(more_l, **line_l)}")
+        f"kernels {dict(more_l, **line_l)}; E by form "
+        f"{form_counters()}")
     log(f"[path] systems window plain-version calls on the card: {plain}")
     require(not any(plain.values()), f"plain versions ran: {plain}")
     for key, *_ in SYSTEMS:
@@ -2796,10 +2959,7 @@ FACADE = {"W": {"gmres": 4, "pcg": 15, "bicgstab": 10}, "W-3d": 7,
           "RD": 11}
 F_TOLS = {torch.float32: 2e-5, torch.float64: 1e-12, torch.complex64: 2e-5,
           torch.complex128: 1e-12}
-# an assumed shared-memory round trip (~30 cycles at the H100 SXM's
-# 1.98 GHz): the log's dependency-chain bound, not measured here, so it
-# stays out of the kernels line
-SMEM_ROUND_TRIP_NS = 30 / 1.98
+E_FORMS = ("smem_b", "smem", "global")     # kernel E's forms, in order
 DTYPES_TOL = [(np.float64, 1e-8), (np.float32, 1e-4),
               (np.complex128, 1e-8), (np.complex64, 1e-4)]
 
@@ -2865,18 +3025,104 @@ def kprec_state():
 
 def f_tables(kz, dtype):
     """A Kaczmarz state's tables as kernel F takes them, in `dtype`."""
-    return (kz.arr, kz.mask.to(dtype), kz.invd.to(dtype), kz.ell_idx,
+    real = dtype.to_real()
+    return (kz.arr, kz.mask.to(real), kz.invd.to(real), kz.ell_idx,
             kz.ell_val.to(dtype), kz.link)
+
+
+def f_call(kz, x, b, tabs, it):
+    """One launch of kernel F on the state's plan (with its records where
+    the values are the state's own)."""
+    from mgtpu_torch.ops.cuda import kaczmarz as kf
+    rec = kz.records if tabs[4] is kz.ell_val else None
+    return kf.kaczmarz_sweep_kernel(x, b, *tabs, it, plan=kz.plan,
+                                    records=rec)
+
+
+def check_f(label, kz, dt, m, it, row, seed, complex_=False):
+    """Kernel F against its plain version (F_TOLS, relative); a second
+    launch bitwise the first."""
+    from mgtpu_torch.ops.cuda import kaczmarz as kf
+    tabs = f_tables(kz, dt)
+    n = kz.ell_idx.shape[0]
+    rng = np.random.RandomState(seed)
+    draw = (lambda: rng.rand(n, m) + 1j * rng.rand(n, m)) if complex_ \
+        else (lambda: rng.rand(n, m))
+    x, b = (torch.tensor(draw(), dtype=dt, device="cuda") for _ in range(2))
+    ref = kf.kaczmarz_sweep_plain(x, b, *tabs[:-1], it)
+    out = f_call(kz, x, b, tabs, it)
+    out2 = f_call(kz, x, b, tabs, it)
+    torch.cuda.synchronize()
+    require(bool(torch.isfinite(out).all()), f"kernel F {label}: "
+            "non-finite output")
+    require(torch.equal(out, out2), f"kernel F {label}: two launches "
+            "differ")
+    ae = float((out - ref).abs().max())
+    re = ae / float(ref.abs().max())
+    row["max_abs_err"] = max(row["max_abs_err"], ae)
+    row["max_rel_err"] = max(row["max_rel_err"], re)
+    require(re < F_TOLS[dt], f"kernel F {label} {dt} m={m}: relative "
+            f"error {re:.3e} >= {F_TOLS[dt]}")
+
+
+def time_f(label, kz, dt, it, card):
+    """Kernel F's device time (m = 1) beside the byte bound (what
+    row_step reads and writes: arr, the real mask and invd, the ELL rows,
+    b, and x read and written; F's own tables left out) and the chain
+    bound (steps x the probe's __syncwarp round).  Returns the entry."""
+    tabs = f_tables(kz, dt)
+    max_len, nd = kz.arr.shape
+    n, K = kz.ell_idx.shape
+    steps = it * max_len
+    complex_ = dt.is_complex
+    item = torch.empty((), dtype=dt).element_size()
+    real = item // 2 if complex_ else item
+    fbytes = (max_len * nd * (4 + real) + n * real + n * K * (4 + item)
+              + 3 * n * item)
+    flops = it * max_len * nd * ((16 * K + 6) if complex_ else (4 * K + 3))
+    peak = FP32_FLOPS if real == 4 else FP64_FLOPS
+    add = 1j if complex_ else 0
+    sets = [tuple(torch.tensor(np.random.RandomState(SEED + j + k).rand(
+        n, 1) + add, dtype=dt, device="cuda") for k in (0, 9))
+        for j in range(2)]
+    bound = max(fbytes / HBM_BYTES_PER_S, flops / peak) * 1e3
+    bound_by = "bytes" if fbytes / HBM_BYTES_PER_S >= flops / peak \
+        else "operations"
+    chain = steps * PROBE_NS["warp"] * 1e-6
+    ms, host_ms = Timer(reps=10)([lambda s=s: f_call(kz, s[0], s[1], tabs,
+                                                      it) for s in sets])
+    log(f"[time] F Kaczmarz launch, {label} ({n} rows, {max_len} steps x "
+        f"{nd} domains, K {K}, {it} sweeps, {dt}, m=1): kernel {ms:.4f} ms "
+        f"({ms * 1e3 / steps:.3f} us a step), byte bound {bound:.4f} ms "
+        f"({fbytes / 1e6:.2f} MB), chain bound {chain:.4f} ms ({steps} x "
+        f"{PROBE_NS['warp']:.1f} ns, warp), host per call {host_ms:.3f} ms "
+        f"({card})")
+    log(f"[time] F ptxas: {ptxas('kaczmarz', 'kaczmarz_kernel')}")
+    return dict(ms=ms, host_ms=host_ms, us_per_step=ms * 1e3 / steps,
+                chain_bound_ms=chain, bound_ms=bound, bound_by=bound_by,
+                limited_by="chain" if chain > bound else bound_by)
+
+
+def f_row(row, e, plain_ms, shape):
+    """The kernels line's fields of a kernel F row from `time_f`'s
+    entry."""
+    row.update(ms=e["ms"], plain_ms=plain_ms, bound_ms=e["bound_ms"],
+               library_ms=None, library_call="none: no PyTorch call "
+               "computes a sweep", host_ms=e["host_ms"],
+               us_per_step=e["us_per_step"],
+               chain_bound_ms=e["chain_bound_ms"], bound_by=e["bound_by"],
+               limited_by=e["limited_by"], timed_shape=shape,
+               ptxas=ptxas("kaczmarz", "kaczmarz_kernel"))
 
 
 def phase_kaczmarz_kernel(kmg, kprec, rows, card):
     """Kernel F against its plain version (mgtpu's row_step in torch) on
     every level of the K-mg hierarchy, the K-prec level and a ragged 255^2
     mesh (padded domains, unequal max_len), f32 (2e-5) and f64 (1e-12),
-    m = 1-3; a second launch bitwise the first; then its device time on
-    the K-mg fine level (one main-path launch: two sweeps, f64, m = 1)
-    beside its byte bound, its dependency-chain bound and the plain
-    version."""
+    m = 1-3, a second launch bitwise the first; then its device time on
+    the K-mg fine level (one main-path launch: two sweeps, f64, m = 1) and
+    on level 1 beside its byte bound, its dependency-chain bound (the
+    probe's warp round a step) and the plain version."""
     from mgtpu_torch.cycle.kaczmarz import setup_hybrid_kaczmarz
     from mgtpu_torch.dd.indices import nodal_indices_of_box
     from mgtpu_torch.ops.cuda import kaczmarz as kf
@@ -2896,62 +3142,32 @@ def phase_kaczmarz_kernel(kmg, kprec, rows, card):
               ("ragged 255^2", ragged, torch.float64, 3, 1)]
     row = rows["kaczmarz"]
     for label, kz, dt, m, it in cases:
-        tabs = f_tables(kz, dt)
         n = kz.ell_idx.shape[0]
-        rng = np.random.RandomState(SEED + n + m)
-        x = torch.tensor(rng.rand(n, m), dtype=dt, device="cuda")
-        b = torch.tensor(rng.rand(n, m), dtype=dt, device="cuda")
-        out = kf.kaczmarz_sweep_kernel(x, b, *tabs, it)
-        out2 = kf.kaczmarz_sweep_kernel(x, b, *tabs, it)
-        ref = kf.kaczmarz_sweep_plain(x, b, *tabs[:-1], it)
-        torch.cuda.synchronize()
-        require(bool(torch.isfinite(out).all()), f"kernel F {label}: "
-                "non-finite output")
-        require(torch.equal(out, out2), f"kernel F {label}: two launches "
-                "differ")
-        ae = float((out - ref).abs().max())
-        re = ae / float(ref.abs().max())
-        row["max_abs_err"] = max(row["max_abs_err"], ae)
-        row["max_rel_err"] = max(row["max_rel_err"], re)
-        require(re < F_TOLS[dt], f"kernel F {label} {dt} m={m}: relative "
-                f"error {re:.3e} >= {F_TOLS[dt]}")
+        check_f(label, kz, dt, m, it, row, SEED + n + m)
+        log(f"[kernel] F {label} {dt} m={m}: matches the plain version; a "
+            f"second launch is bitwise the first")
     log(f"[kernel] F (hybrid Kaczmarz): {len(cases)} cases (every K-mg "
         f"level, K-prec, a ragged 255^2 mesh; f32 and f64, m = 1-3) match "
         f"the plain version (max rel {row['max_rel_err']:.2e}); a second "
         f"launch is bitwise the first")
     kz = st.hier.levels[0].relax
-    tabs = f_tables(kz, torch.float64)
     max_len, nd = kz.arr.shape
     n, K = kz.ell_idx.shape
     it = st.config.nu_pre[0] * kz.num_it
+    times = time_f("K-mg fine level", kz, torch.float64, it, card)
+    tabs = f_tables(kz, torch.float64)
     sets = [(torch.tensor(np.random.RandomState(SEED + j).rand(n, 1),
                           device="cuda"),
              torch.tensor(np.random.RandomState(SEED + 9 + j).rand(n, 1),
                           device="cuda")) for j in range(2)]
-    ms, host_ms = Timer(reps=10)([lambda s=s: kf.kaczmarz_sweep_kernel(
-        s[0], s[1], *tabs, it) for s in sets])
     plain_ms = Timer(reps=2)([lambda s=s: kf.kaczmarz_sweep_plain(
         s[0], s[1], *tabs[:-1], it) for s in sets])[0]
-    # what row_step reads and writes: arr, mask, invd, the ELL rows, b,
-    # and x read and written (kernel F's own link table is left out)
-    fbytes = (max_len * nd * (4 + 8) + n * 8 + n * K * (4 + 8) + 3 * n * 8)
-    flops = it * max_len * nd * (4 * K + 3)
-    bound = max(fbytes / HBM_BYTES_PER_S, flops / FP64_FLOPS) * 1e3
-    chain = it * max_len * SMEM_ROUND_TRIP_NS * 1e-6
-    log(f"[time] F Kaczmarz launch, K-mg fine level ({n} rows, "
-        f"{max_len} steps x {nd} domains, K {K}, {it} sweeps, f64, m=1): "
-        f"kernel {ms:.4f} ms ({ms * 1e3 / (it * max_len):.3f} us a step), "
-        f"plain {plain_ms:.1f} ms, byte bound {bound:.4f} ms "
-        f"({fbytes / 1e6:.2f} MB), dependency-chain bound {chain:.4f} ms "
-        f"({it * max_len} steps x an assumed {SMEM_ROUND_TRIP_NS:.1f} ns), "
-        f"host per call {host_ms:.3f} ms ({card})")
-    row.update(ms=ms, plain_ms=plain_ms, bound_ms=bound, library_ms=None,
-               host_ms=host_ms,
-               us_per_step=ms * 1e3 / (it * max_len),
-               bound_by="bytes" if fbytes / HBM_BYTES_PER_S
-               >= flops / FP64_FLOPS else "operations",
-               timed_shape=f"K-mg fine level: {n} rows, {max_len} steps x "
-               f"{nd} domains, K {K}, {it} sweeps, f64, m=1")
+    log(f"[time] F plain version, K-mg fine level: {plain_ms:.1f} ms "
+        f"({card})")
+    f_row(row, times, plain_ms,
+          f"K-mg fine level: {n} rows, {max_len} steps x {nd} domains, K "
+          f"{K}, {it} sweeps, f64, m=1")
+    time_f("K-mg level 1", st.hier.levels[1].relax, torch.float64, it, card)
 
 
 def captured_row(label, iters, x_rel, relres, first_ms, solve_ms, eager_ms,
@@ -3414,7 +3630,8 @@ def phase_facade(M3, L3, st_jac, st2d, kmg, kprec, card):
         plain[k] -= v
     plain.update(d_p, **f_p, **line_p, **e_p)
     log(f"[facade] window launches: {launches}; other kernels "
-        f"{dict(line_l, **e_l)} ({time.perf_counter() - t0:.1f} s)")
+        f"{dict(line_l, **e_l)}; E by form {form_counters()} "
+        f"({time.perf_counter() - t0:.1f} s)")
     log(f"[facade] window plain-version calls on the card (the bf16 "
         f"row's left out): {plain}")
     require(not any(plain.values()), f"plain versions ran: {plain}")
@@ -3565,8 +3782,8 @@ def phase_complex_kernels(states, rows, card):
     restrict between 1025^2 and 513^2 (H-2d's operator under structured
     SA; restrict = P^H), the DIA form on Z-sa's fine level and its
     complex128 residual operator; kernel F's complex128 and complex64 on
-    K-c's fine level (m = 1, 2); then their times beside their bounds,
-    plain versions and torch.sparse.mm."""
+    K-c's fine level (m = 1, 2); then their times
+    beside their bounds, plain versions and torch.sparse.mm."""
     from mgtpu_torch.ops.cuda import kaczmarz as kf
     from mgtpu_torch.ops.cuda import stencil
     from mgtpu_torch.solvers.mg_solver import high_precision_fine_operator
@@ -3624,59 +3841,27 @@ def phase_complex_kernels(states, rows, card):
     row = rows["kaczmarz.complex128"]
     it = st.config.nu_pre[0] * kz.num_it
     for dt in (torch.complex128, torch.complex64):
-        tabs = (kz.arr, kz.mask.to(dt.to_real()), kz.invd.to(dt.to_real()),
-                kz.ell_idx, kz.ell_val.to(dt), kz.link)
         for m in (1, 2):
-            rng = np.random.RandomState(SEED + m)
-            n = A.shape[0]
-            x, b = (torch.tensor(rng.rand(n, m) + 1j * rng.rand(n, m),
-                                 dtype=dt, device="cuda") for _ in range(2))
-            out = kf.kaczmarz_sweep_kernel(x, b, *tabs, it)
-            out2 = kf.kaczmarz_sweep_kernel(x, b, *tabs, it)
-            ref = kf.kaczmarz_sweep_plain(x, b, *tabs[:-1], it)
-            torch.cuda.synchronize()
-            require(bool(torch.isfinite(out).all())
-                    and torch.equal(out, out2), f"kernel F {dt}: "
-                    "non-finite output, or two launches differ")
-            ae = float((out - ref).abs().max())
-            re = ae / float(ref.abs().max())
-            require(re < F_TOLS[dt], f"kernel F K-c fine {dt} m={m}: "
-                    f"relative error {re:.3e} >= {F_TOLS[dt]}")
-            if dt == torch.complex128:
-                row["max_abs_err"] = max(row["max_abs_err"], ae)
-                row["max_rel_err"] = max(row["max_rel_err"], re)
+            scratch = {"max_abs_err": 0.0, "max_rel_err": 0.0}
+            check_f(f"K-c fine {dt}", kz, dt, m, it,
+                    row if dt == torch.complex128 else scratch, SEED + m,
+                    complex_=True)
             log(f"[kernel] F K-c fine level {dt} m={m}: matches the plain "
-                f"version ({re:.2e} relative); a second launch is bitwise "
-                f"the first")
-    tabs = (kz.arr, kz.mask, kz.invd, kz.ell_idx, kz.ell_val, kz.link)
+                f"version; a second launch is bitwise the first")
     max_len, nd = kz.arr.shape
     n, K = kz.ell_idx.shape
+    times = time_f("K-c fine level", kz, torch.complex128, it, card)
+    tabs = f_tables(kz, torch.complex128)
     sets = [tuple(torch.tensor(np.random.RandomState(SEED + j + k).rand(n, 1)
                                + 0j, device="cuda") for k in (0, 9))
             for j in range(2)]
-    ms, host_ms = Timer(reps=10)([lambda s=s: kf.kaczmarz_sweep_kernel(
-        s[0], s[1], *tabs, it) for s in sets])
     plain_ms = Timer(reps=2)([lambda s=s: kf.kaczmarz_sweep_plain(
         s[0], s[1], *tabs[:-1], it) for s in sets])[0]
-    # what row_step reads and writes: arr and the real mask, the real invd,
-    # the ELL rows (int32 + complex128), b, and x read and written
-    fbytes = (max_len * nd * (4 + 8) + n * 8 + n * K * (4 + 16)
-              + 3 * n * 16)
-    flops = it * max_len * nd * (16 * K + 6)
-    bound = max(fbytes / HBM_BYTES_PER_S, flops / FP64_FLOPS) * 1e3
-    log(f"[time] F Kaczmarz launch, K-c fine level ({n} rows, {max_len} "
-        f"steps x {nd} domains, K {K}, {it} sweeps, complex128, m=1): "
-        f"kernel {ms:.4f} ms ({ms * 1e3 / (it * max_len):.3f} us a step), "
-        f"plain {plain_ms:.1f} ms, byte bound {bound:.4f} ms "
-        f"({fbytes / 1e6:.2f} MB), host per call {host_ms:.3f} ms; no "
+    log(f"[time] F plain version, K-c fine level: {plain_ms:.1f} ms; no "
         f"PyTorch call computes a Kaczmarz sweep ({card})")
-    row.update(ms=ms, plain_ms=plain_ms, bound_ms=bound, library_ms=None,
-               library_call="none: no PyTorch call computes a sweep",
-               host_ms=host_ms, us_per_step=ms * 1e3 / (it * max_len),
-               bound_by="bytes" if fbytes / HBM_BYTES_PER_S
-               >= flops / FP64_FLOPS else "operations",
-               timed_shape=f"K-c fine level: {n} rows, {max_len} steps x "
-               f"{nd} domains, K {K}, {it} sweeps, complex128, m=1")
+    f_row(row, times, plain_ms,
+          f"K-c fine level: {n} rows, {max_len} steps x {nd} domains, K "
+          f"{K}, {it} sweeps, complex128, m=1")
 
 
 def complex_krylov(st, A, b, label, fn, want, card, compare):
@@ -3738,7 +3923,8 @@ def phase_complex(states, card):
     launches.update(d_l, **f_l)
     plain.update(d_p, **f_p, **line_p, **e_p)
     log(f"[complex] window launches: {launches}; other kernels "
-        f"{dict(line_l, **e_l)} ({time.perf_counter() - t0:.1f} s)")
+        f"{dict(line_l, **e_l)}; E by form {form_counters()} "
+        f"({time.perf_counter() - t0:.1f} s)")
     log(f"[complex] window plain-version calls on the card: {plain}")
     require(not any(plain.values()), f"plain versions ran: {plain}")
     for k in ("stencil.complex64", "stencil.complex128",
@@ -3972,22 +4158,11 @@ def phase_rest_kernels(states, rows, card):
     for label, n, tabs in lex:
         dt = tabs[3].dtype
         row = rows[f"vanka_lex.{str(dt).split('.')[-1]}"]
-        rng = np.random.RandomState(SEED + n)
-        x, b = (torch.tensor(rng.rand(n, 1) + 1j * rng.rand(n, 1), dtype=dt,
-                             device="cuda") for _ in range(2))
-        out = vanka.lex_sweep(x, b, *tabs, 2)
-        ref = vanka.lex_sweep_plain(x, b, *tabs, 2)
-        torch.cuda.synchronize()
-        require(out.shape == ref.shape and bool(torch.isfinite(out).all()),
-                f"kernel E {label}: bad output")
-        ae = float((out - ref).abs().max())
-        re = ae / float(ref.abs().max())
-        row["max_abs_err"] = max(row["max_abs_err"], ae)
-        row["max_rel_err"] = max(row["max_rel_err"], re)
-        require(re < LEX_TOLS[dt], f"kernel E {label} {dt}: relative error "
-                f"{re:.3e} >= {LEX_TOLS[dt]}")
+        forms = check_e(label, n, tabs, row, SEED + n, complex_=True)
+        log(f"[kernel] E {label} {dt}: forms {forms} match the per-cell "
+            f"loop and one another bitwise")
     log(f"[kernel] E complex: {len(lex)} levels of C-lex (complex64) and "
-        "C-lex-c128 match the per-cell loop, two sweeps")
+        "C-lex-c128 match the per-cell loop, two sweeps, every form")
 
     # times: C correct on CL-2d's fine lines (and the strided shapes), D's
     # cross form on CV-2d's fine (0, 2) block, E one sweep of C-lex's fine
@@ -4045,37 +4220,22 @@ def phase_rest_kernels(states, rows, card):
             library_call="torch.sparse.mm(CSR, x)")
     for key in ("C-lex", "C-lex-c128"):
         st = states[key][0]
-        idx, dinv, ri, rv = lex_tables(st, 0)
-        dt = rv.dtype
-        item = torch.empty((), dtype=dt).element_size()
+        tabs = lex_tables(st, 0)
+        dt = tabs[3].dtype
         n = st.As[0].shape[0]
-        L, bs = idx.shape
-        K = ri.shape[-1]
+        L, bs = tabs[0].shape
+        K = tabs[2].shape[-1]
+        times = time_e(f"({key}) 64^2 fine level", n, tabs, card)
         sets = [tuple(torch.tensor(np.random.RandomState(SEED + j + k).rand(
             n, 1) + 0.5j, dtype=dt, device="cuda") for k in (0, 9))
             for j in range(2)]
-        ms, host_ms = Timer(reps=10)([lambda s=s: vanka.lex_sweep(
-            s[0], s[1], idx, dinv, ri, rv, 1) for s in sets])
         plain_ms = Timer(reps=2)([lambda s=s: vanka.lex_sweep_plain(
-            s[0], s[1], idx, dinv, ri, rv, 1) for s in sets])[0]
-        fbytes = (L * bs * 4 + L * bs * bs * 8 + L * bs * K * (4 + item)
-                  + 3 * n * item)
-        flops = 8 * L * bs * (K + bs)
-        peak = FP32_FLOPS if dt == torch.complex64 else FP64_FLOPS
-        bound = max(fbytes / HBM_BYTES_PER_S, flops / peak) * 1e3
-        log(f"[time] E lex sweep ({key}) 64^2 fine level ({L} cells, bs "
-            f"{bs}, K {K}, {dt}): kernel {ms:.4f} ms ({ms * 1e3 / L:.2f} us "
-            f"a cell), plain {plain_ms:.1f} ms, bound {bound:.4f} ms "
-            f"({fbytes / 1e6:.2f} MB), host per call {host_ms:.3f} ms; no "
-            f"PyTorch call computes a Vanka sweep ({card})")
-        rows[f"vanka_lex.{str(dt).split('.')[-1]}"].update(
-            ms=ms, plain_ms=plain_ms, bound_ms=bound, library_ms=None,
-            library_call="none: no PyTorch call computes a sweep",
-            host_ms=host_ms, us_per_cell=ms * 1e3 / L,
-            bound_by="bytes" if fbytes / HBM_BYTES_PER_S >= flops / peak
-            else "operations",
-            timed_shape=f"{key} 64^2 fine level: {L} cells, bs {bs}, K {K}, "
-            "m=1, one sweep")
+            s[0], s[1], *tabs, 1) for s in sets])[0]
+        log(f"[time] E plain version, ({key}) 64^2 fine level: "
+            f"{plain_ms:.1f} ms ({card})")
+        key_row = f"vanka_lex.{str(dt).split('.')[-1]}"
+        e_row(rows[key_row], times, plain_ms, f"{key} 64^2 fine "
+              f"level: {L} cells, bs {bs}, K {K}, m=1, one sweep")
 
 
 def phase_rest(states, card):
@@ -4104,8 +4264,8 @@ def phase_rest(states, card):
     for c in ("complex64", "complex128"):
         launches[f"stencil_cross.{c}"] = stencil.CROSS_LAUNCHES[c]
         launches[f"vanka_lex.{c}"] = launches[f"vanka.{c}"]
-    log(f"[rest] window launches: {launches} "
-        f"({time.perf_counter() - t0:.1f} s)")
+    log(f"[rest] window launches: {launches}; E by form "
+        f"{form_counters()} ({time.perf_counter() - t0:.1f} s)")
     log(f"[rest] window plain-version calls on the card: {plain}")
     require(not any(plain.values()), f"plain versions ran: {plain}")
     for k in REST_ROWS + ["stencil.complex64", "stencil.complex128"]:
@@ -4552,6 +4712,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase_build()
+    phase_probe(card)
     # the process's first profiler run can see no device events
     # (CUPTI starting up): spend it here, not on a path's busy share
     device_ms(lambda: torch.ones(8, device="cuda").sum())

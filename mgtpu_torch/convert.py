@@ -121,19 +121,20 @@ def kaczmarz_relax_from_arrays(spec, device) -> KaczmarzRelax:
     """A mapping {``arr``, ``mask``, ``invd``, ``ell_idx``, ``ell_val``,
     ``num_domains``, ``num_it``, ``omega``} (mgtpu's KaczmarzRelax) as the
     port's on `device`, with kernel F's link table (a row's stored count
-    taken as the position of its last nonzero plus one)."""
-    from .ops.cuda.kaczmarz import kaczmarz_links
+    taken as the position of its last nonzero plus one) and its plan."""
+    from .ops.cuda.kaczmarz import kaczmarz_links, kaczmarz_plan
     arr, mask, invd, idx, val = (np.asarray(spec[k]) for k in
                                  ("arr", "mask", "invd", "ell_idx",
                                   "ell_val"))
     nz = val != 0
     counts = np.where(nz.any(axis=1),
                       val.shape[1] - np.argmax(nz[:, ::-1], axis=1), 0)
+    link = kaczmarz_links(arr, mask, idx, counts)
     kz = KaczmarzRelax(arr.astype(np.int32), mask, invd,
-                       idx.astype(np.int32), val,
-                       kaczmarz_links(arr, mask, idx, counts),
+                       idx.astype(np.int32), val, link,
                        tuple(int(d) for d in spec["num_domains"]),
-                       int(spec["num_it"]), float(spec["omega"]))
+                       int(spec["num_it"]), float(spec["omega"]),
+                       kaczmarz_plan(arr, mask, idx, link))
     return kz.to(torch_dtype(val.dtype), device)
 
 

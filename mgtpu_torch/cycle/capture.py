@@ -73,7 +73,7 @@ def kernel_counters() -> list[dict]:
             fused3d.PLAIN_CALLS, fused3d.GRID_LAUNCHES, tridiag.LAUNCHES,
             tridiag.PLAIN_CALLS, stencil.LAUNCHES, stencil.PLAIN_CALLS,
             stencil.CROSS_LAUNCHES, vanka.LAUNCHES, vanka.PLAIN_CALLS,
-            kaczmarz.LAUNCHES, kaczmarz.PLAIN_CALLS]
+            vanka.FORMS, kaczmarz.LAUNCHES, kaczmarz.PLAIN_CALLS]
 
 
 class Tally:

@@ -12,8 +12,9 @@ are flat columns (n, m).  Variants (reference Vanka.jl:13-17):
                       velocity block before inversion, Vanka.jl:333-334);
  * "econ-vanka"     — velocity diagonal scaled by 1/w;
  * "vanka-lex"      — lexicographic sequential sweep: kernel E
-                      (ops/cuda/vanka.py), one launch a call, on the card;
-                      its plain per-cell loop on the CPU;
+                      (ops/cuda/vanka.py), one launch a call, on the card
+                      (its cell records packed with the state); its plain
+                      per-cell loop on the CPU;
  * "vanka-add"      — additive, boundary-weighted, overlapping updates;
  * "kaczmarz-vanka" — cell-wise block Kaczmarz: t = inv((A A^H)_cc) r_c,
                       x += A_c^H t (reference Vanka.h:185-259).
@@ -29,7 +30,7 @@ Block inverses are stored in single precision like the reference
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any
 
 import numpy as np
@@ -43,13 +44,24 @@ __all__ = ["VankaRelax", "vanka_sweep"]
 @dataclass(frozen=True, eq=False)
 class VankaRelax:
     """Colored, padded Vanka tables; host numpy arrays at setup, tensors
-    in a device hierarchy (`to`)."""
+    in a device hierarchy (`to`).  A vanka-lex state on a card carries
+    kernel E's cell records of its own tables (`cells`, packed when the
+    state is made: by `to`, and anew for a copy of other values such as
+    cast_hierarchy's)."""
     idx: Any        # (ncolors, L, bs) int32 variable ids per cell (0-pad)
     dinv: Any       # (ncolors, L, bs, bs) block inverses (0 on padding)
     rows_idx: Any   # (ncolors, L, bs, K) int32 ELL column ids of the rows
     rows_val: Any   # (ncolors, L, bs, K) ELL values of the block rows
     variant: str
     scatter: tuple | None = None   # per color: (n, c) int32 scatter table
+    cells: Any = field(default=None, init=False, repr=False)
+
+    def __post_init__(self):
+        v = self.rows_val
+        if (self.variant == "vanka-lex" and isinstance(v, torch.Tensor)
+                and v.device.type == "cuda" and v.dtype in vk.DTYPES):
+            object.__setattr__(self, "cells", vk.pack_cells(
+                self.idx[0], self.dinv[0], self.rows_idx[0], v[0]))
 
     @property
     def ncolors(self) -> int:
@@ -97,7 +109,7 @@ def vanka_sweep(x, b, vr: VankaRelax, num_it: int):
         return _additive_sweep(x, b, vr, num_it)
     if vr.variant == "vanka-lex":
         return vk.lex_sweep(x, b, vr.idx[0], vr.dinv[0], vr.rows_idx[0],
-                            vr.rows_val[0], num_it)
+                            vr.rows_val[0], num_it, cells=vr.cells)
     if vr.variant == "kaczmarz-vanka":
         return _kaczmarz_cell_sweep(x, b, vr, num_it)
     raise ValueError(f"unknown Vanka variant {vr.variant}")

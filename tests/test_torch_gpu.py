@@ -1248,7 +1248,7 @@ def test_cross_apply_matches_plain(dims, dtype):
 
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 @pytest.mark.parametrize("m", [1, 3])
-def test_lex_sweep_kernel_matches_plain(dtype, m):
+def test_lex_sweep_kernel_matches_plain(dtype, m, monkeypatch):
     """Kernel E (one launch, two sweeps) against its plain per-cell loop on
     a 16^2 mixed problem's vanka-lex tables."""
     _need_card()
@@ -1264,15 +1264,141 @@ def test_lex_sweep_kernel_matches_plain(dtype, m):
     args = (vr.idx[0], vr.dinv[0], vr.rows_idx[0], vr.rows_val[0], 2)
     key = np.dtype(dtype).name
     n0, p0 = vk.LAUNCHES[key], vk.PLAIN_CALLS[key]
+    f0 = dict(vk.FORMS)
     y = vk.lex_sweep(x, b, *args)
     torch.cuda.synchronize()
     assert vk.LAUNCHES[key] == n0 + 1 and vk.PLAIN_CALLS[key] == p0
+    assert vk.FORMS["smem_b"] == f0["smem_b"] + 1  # x and b fit at 16^2
     ref = vk.lex_sweep_plain(x, b, *args)
     tol = 1e-5 if dtype == np.float32 else 1e-12
     assert float((y - ref).abs().max() / ref.abs().max()) < tol
     assert not torch.equal(y, x)
+    _lex_forms_agree(x, b, args, y, monkeypatch)
     with pytest.raises(ValueError):
         vk.lex_sweep(x, b, vr.idx[0].long(), *args[1:])
+
+
+def _lex_forms_agree(x, b, args, y, monkeypatch):
+    """b gathered a cell at a time ("smem") and x left in global memory
+    ("global"), taken where they fit once shared memory is capped at what
+    that form needs, do the arithmetic of y bit for bit."""
+    from mgtpu_torch.ops.cuda import vanka as vk
+    (L, bs), K = args[0].shape, args[2].shape[-1]
+    n, m = x.shape
+    ditem = 8 if x.dtype.is_complex else 4
+    for form in ("smem", "global"):
+        need = vk.smem_bytes(bs, K, m, n, x.element_size(), ditem, form)
+        if need > vk.MAX_SHARED:
+            continue
+        monkeypatch.setattr(vk, "MAX_SHARED", need)
+        f0 = vk.FORMS[form]
+        assert torch.equal(vk.lex_sweep(x, b, *args), y), form
+        assert vk.FORMS[form] == f0 + 1
+        monkeypatch.undo()
+
+
+@pytest.mark.parametrize("dims,m", [((16, 16), 7), ((16, 16), 13),
+                                    ((6, 6, 6), 5)])
+def test_lex_sweep_splits_right_hand_sides(dims, m):
+    """More right-hand sides than one warp walks a cell with (bs * m > 32:
+    2D bs 5 at m 7 and 13, 3D bs 7 at m 5) run as launches of at most
+    32 // bs columns each, and match the plain loop (1e-12) and the
+    single-column launches bit for bit."""
+    _need_card()
+    from mgtpu_torch.ops.cuda import vanka as vk
+    from mgtpu_torch.setup.smoothers import setup_vanka
+    M, A = _elasticity_csr(dims, True)
+    vr = setup_vanka(A, M, 0.75, True, "vanka-lex").to(torch.float64,
+                                                        "cuda")
+    bs = vr.idx.shape[-1]
+    assert bs * m > 32
+    rng = np.random.RandomState(m)
+    x, b = (torch.tensor(rng.rand(A.shape[0], m), device="cuda")
+            for _ in range(2))
+    args = (vr.idx[0], vr.dinv[0], vr.rows_idx[0], vr.rows_val[0], 2)
+    n0 = vk.LAUNCHES["float64"]
+    y = vk.lex_sweep(x, b, *args, cells=vr.cells)
+    torch.cuda.synchronize()
+    assert vk.LAUNCHES["float64"] == n0 + -(-m // (32 // bs))
+    ref = vk.lex_sweep_plain(x, b, *args)
+    assert float((y - ref).abs().max() / ref.abs().max()) < 1e-12
+    for r in (0, m - 1):
+        assert torch.equal(y[:, r:r + 1], vk.lex_sweep(
+            x[:, r:r + 1], b[:, r:r + 1], *args, cells=vr.cells))
+
+
+@pytest.mark.parametrize("kind,dtype,low", [
+    ("vanka-lex", np.float64, torch.float32),
+    ("vanka-lex", np.complex128, torch.complex64),
+    ("kaczmarz", np.float64, torch.float32),
+    ("kaczmarz", np.complex128, torch.complex64)])
+def test_cast_smoother_sweeps_with_its_own_records(kind, dtype, low):
+    """cast_hierarchy's copy of a kernel E or F state (what the cycles of
+    solve_mg_refined(cycle_dtype=low) run on) carries records of its own
+    values: its sweep on the card matches the plain sweep of the cast
+    tables (1e-5 / 2e-5), and the original state's records refuse the cast
+    values."""
+    _need_card()
+    from mgtpu_torch.config import torch_dtype
+    from mgtpu_torch.solvers.mg_solver import cast_hierarchy
+    dt = torch_dtype(dtype)
+    rng = np.random.RandomState(7)
+    cplx = np.dtype(dtype).kind == "c"
+    draw = (lambda n: _crand(rng, (n, 2), low)) if cplx else (
+        lambda n: torch.tensor(rng.rand(n, 2), dtype=low, device="cuda"))
+    if kind == "vanka-lex":
+        import mgtpu_torch as mt
+        from mgtpu_torch.cycle.vanka import vanka_sweep
+        from mgtpu_torch.ops.cuda import vanka as vk
+        from mgtpu_torch.setup.smoothers import setup_vanka
+        if cplx:
+            A = _rest_script().elasticity(16, True)
+            M = mt.get_regular_mesh([0.0, 1.0] * 2, [16, 16])
+        else:
+            M, A = _elasticity_csr((16, 16), True)
+        hi = setup_vanka(A, M, 0.75, True, "vanka-lex", dtype=dtype).to(
+            dt, "cuda")
+        lo = cast_hierarchy(hi, low)
+        tabs = (lo.idx[0], lo.dinv[0], lo.rows_idx[0], lo.rows_val[0])
+        assert lo.rows_val.dtype == low and lo.cells is not hi.cells
+        assert lo.cells.of(*tabs) and not hi.cells.of(*tabs)
+        x, b = draw(A.shape[0]), draw(A.shape[0])
+        n0 = vk.LAUNCHES[str(low).rsplit(".", 1)[-1]]
+        y = vanka_sweep(x, b, lo, 2)
+        assert vk.LAUNCHES[str(low).rsplit(".", 1)[-1]] == n0 + 1
+        ref = vk.lex_sweep_plain(x, b, *tabs, 2)
+        tol = 1e-5
+        with pytest.raises(ValueError):
+            vk.lex_sweep(x, b, *tabs, 2, cells=hi.cells)
+    else:
+        from mgtpu_torch.cycle.kaczmarz import (kaczmarz_sweep,
+                                                setup_hybrid_kaczmarz)
+        from mgtpu_torch.dd.indices import nodal_indices_of_box
+        from mgtpu_torch.ops.cuda import kaczmarz as kf
+        if cplx:
+            M, A = _helmholtz([37, 37], 0.25)
+            hi = setup_hybrid_kaczmarz(A, M, [3, 2], nodal_indices_of_box,
+                                       0.8, 2, dtype=dtype)
+        else:
+            A, hi = _kaczmarz_state(37, [3, 2], dtype)
+        hi = hi.to(dt, "cuda")
+        lo = cast_hierarchy(hi, low)
+        assert lo.ell_val.dtype == low and lo.records is not hi.records
+        assert lo.records.of(lo.plan, lo.ell_val, lo.invd)
+        assert not hi.records.of(lo.plan, lo.ell_val, lo.invd)
+        x, b = draw(A.shape[0]), draw(A.shape[0])
+        n0 = kf.LAUNCHES[str(low).rsplit(".", 1)[-1]]
+        y = kaczmarz_sweep(x, b, lo, 2)
+        assert kf.LAUNCHES[str(low).rsplit(".", 1)[-1]] == n0 + 1
+        ref = kf.kaczmarz_sweep_plain(x, b, lo.arr, lo.mask, lo.invd,
+                                      lo.ell_idx, lo.ell_val, 2)
+        tol = 2e-5
+        with pytest.raises(ValueError):
+            kf.kaczmarz_sweep_kernel(x, b, lo.arr, lo.mask, lo.invd,
+                                     lo.ell_idx, lo.ell_val, lo.link, 2,
+                                     plan=lo.plan, records=hi.records)
+    torch.cuda.synchronize()
+    assert float((y - ref).abs().max() / ref.abs().max()) < tol
 
 
 @pytest.mark.parametrize("relax,mixed", [("vanka", True), ("spai", False),
@@ -1343,7 +1469,8 @@ def _kaczmarz_state(n, ndom, dtype):
 def test_kaczmarz_kernel_matches_plain(dtype, m):
     """Kernel F against its plain version (f32 2e-5, f64 1e-12), on ragged
     domains ((3, 2) boxes of a 37^2 mesh: padded steps); a second launch
-    is bitwise the first; it refuses what it does not take."""
+    is bitwise the first; it refuses what it does not take, records of
+    other values included."""
     _need_card()
     from mgtpu_torch.cycle.kaczmarz import kaczmarz_sweep
     from mgtpu_torch.ops.cuda import kaczmarz as kf
@@ -1364,10 +1491,20 @@ def test_kaczmarz_kernel_matches_plain(dtype, m):
                                   kd.ell_idx, kd.ell_val, 2)
     tol = 2e-5 if dtype == np.float32 else 1e-12
     assert float((y - ref).abs().max() / ref.abs().max()) < tol
+    _kaczmarz_refuses_other_values(kd, x, b)
     with pytest.raises(ValueError):
         kaczmarz_sweep(torch.zeros((A.shape[0], 5), dtype=dt, device="cuda"),
                        torch.zeros((A.shape[0], 5), dtype=dt, device="cuda"),
                        kd)
+
+
+def _kaczmarz_refuses_other_values(kd, x, b):
+    """Kernel F given the state's records beside other values raises."""
+    from mgtpu_torch.ops.cuda import kaczmarz as kf
+    with pytest.raises(ValueError):
+        kf.kaczmarz_sweep_kernel(x, b, kd.arr, kd.mask, kd.invd, kd.ell_idx,
+                                 kd.ell_val.clone(), kd.link, 2,
+                                 plan=kd.plan, records=kd.records)
 
 
 def test_hybrid_kaczmarz_solve_runs_through_kernel_f():
@@ -1556,6 +1693,7 @@ def test_complex_kaczmarz_kernel_matches_plain(dtype, m):
                                   kd.ell_idx, kd.ell_val, 2)
     tol = 2e-5 if dtype == np.complex64 else 1e-12
     assert float((y - ref).abs().max() / ref.abs().max()) < tol
+    _kaczmarz_refuses_other_values(kd, x, b)
 
 
 def test_complex_refined_solve_records_as_eager():
@@ -1703,7 +1841,8 @@ def test_complex_cross_apply_matches_plain(dims, dtype):
 
 @pytest.mark.parametrize("dtype", [np.complex64, np.complex128])
 @pytest.mark.parametrize("cells,m", [(16, 1), (16, 3), (64, 1)])
-def test_complex_lex_sweep_kernel_matches_plain(dtype, cells, m):
+def test_complex_lex_sweep_kernel_matches_plain(dtype, cells, m,
+                                                monkeypatch):
     """Kernel E's complex instantiations (one launch, two sweeps; complex64
     block inverses raised to x's type) against the plain per-cell loop on
     the complex-shifted mixed problem's vanka-lex tables (C-lex's 64^2
@@ -1731,6 +1870,7 @@ def test_complex_lex_sweep_kernel_matches_plain(dtype, cells, m):
     ref = vk.lex_sweep_plain(x, b, *args)
     tol = 1e-5 if dtype == np.complex64 else 1e-12
     assert float((y - ref).abs().max() / ref.abs().max()) < tol
+    _lex_forms_agree(x, b, args, y, monkeypatch)
     with pytest.raises(ValueError):
         vk.lex_sweep(x, b, args[0], args[1].to(torch.float32), *args[2:])
 
