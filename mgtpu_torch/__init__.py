@@ -36,9 +36,11 @@ from .cycle.cycle import cycle_jit, make_cycle_fn, recursive_cycle
 from .cycle.grid_cycle import grid_cycle_jit
 from .cycle.systems_grid import systems_grid_cycle_jit
 from .krylov import bicgstab, block_fgmres, fgmres, pcg
-from .models.mesh import RegularMesh, get_cell_centered_grid, get_regular_mesh
-from .setup.hierarchy import (MGConfig, MGState, OperatorConstructor,
-                              build_device_hierarchy, clear, copy_solver,
+from .models.mesh import (RegularMesh, get_cell_centered_grid, get_nodal_grid,
+                          get_regular_mesh)
+from .setup.hierarchy import (Hierarchy, Level, MGConfig, MGState,
+                              OperatorConstructor, build_device_hierarchy,
+                              clear, copy_solver,
                               get_mg_param, hierarchy_exists, mg_setup,
                               replace_matrix_in_hierarchy,
                               transpose_hierarchy)
@@ -53,7 +55,8 @@ from .solvers.schur import SchurComplementSolver
 from .solvers.wrappers import ClassicalAMGSolver, MGSolver, SAAMGSolver
 
 __all__ = ["RegularMesh", "get_regular_mesh", "get_cell_centered_grid",
-           "MGConfig", "MGState", "get_mg_param", "mg_setup",
+           "get_nodal_grid", "MGConfig", "MGState", "Hierarchy", "Level",
+           "get_mg_param", "mg_setup",
            "OperatorConstructor", "transpose_hierarchy",
            "replace_matrix_in_hierarchy", "copy_solver", "clear",
            "hierarchy_exists", "MGSolver", "SAAMGSolver",

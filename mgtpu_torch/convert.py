@@ -10,6 +10,9 @@ batched LU factors, a Schwarz state, a Schur solver) and be compared node
 for node; the systems
 engine's hierarchy (cross stencils, grid Vanka, per-component factors,
 dense coarsest inverse) comes across by `systems_hierarchy_from_arrays`.
+One rank's part of mgtpu's padded multi-device hierarchies comes across by
+`sharded_systems_from_arrays` (systems tier) and `sharded_flat_from_arrays`
+(row-sharded flat tier).
 
 LU pivots are taken as scipy's and JAX's ``lu_factor`` give them, 0-based;
 torch's `lu_solve` reads LAPACK's 1-based pivots, so they gain one here.
@@ -47,7 +50,8 @@ __all__ = ["grid_hierarchy_from_arrays", "flat_hierarchy_from_arrays",
            "vanka_relax_from_arrays", "kaczmarz_relax_from_arrays",
            "schwarz_state_from_arrays", "schur_coarse_from_arrays",
            "systems_hierarchy_from_arrays", "sharded_mg_from_arrays",
-           "sharded_schwarz_from_arrays"]
+           "sharded_schwarz_from_arrays", "sharded_systems_from_arrays",
+           "sharded_flat_from_arrays"]
 
 
 def _as_tensor(a, device):
@@ -350,3 +354,38 @@ def systems_hierarchy_from_arrays(levels, coarse_inv, *,
         out.append(SystemsGridLevel(A, d, vk, fac("P1"), fac("R1")))
     return SystemsGridHierarchy(tuple(out), BlockDenseInverse(
         _as_tensor(coarse_inv, device), out[-1].A.grids))
+
+
+def sharded_systems_from_arrays(levels, coarse_inv, true_grids, comm, *,
+                                device) -> SystemsGridHierarchy:
+    """This rank's part of mgtpu's `pad_systems_hierarchy(gh, D)` output
+    (D = the rank count): `levels` the padded levels as
+    `systems_hierarchy_from_arrays` takes them, `coarse_inv` the dense
+    inverse of its `PaddedBlockCoarse` (on the true coarsest grids
+    `true_grids`), sharded over `comm` on `device` in the layout of
+    parallel/systems_sharded.py."""
+    from .parallel.comm import rank_device
+    from .parallel.systems_sharded import (PaddedBlockCoarse,
+                                           shard_systems_hierarchy)
+    gh = systems_hierarchy_from_arrays(levels, coarse_inv, device="cpu")
+    true_grids = tuple(tuple(int(v) for v in g) for g in true_grids)
+    coarse = PaddedBlockCoarse(BlockDenseInverse(gh.coarse.inv, true_grids),
+                               gh.levels[-1].A.grids, true_grids)
+    return shard_systems_hierarchy(SystemsGridHierarchy(gh.levels, coarse),
+                                   comm, rank_device(device))
+
+
+def sharded_flat_from_arrays(levels, coarse, nc: int, comm, *,
+                             device) -> Hierarchy:
+    """This rank's part of mgtpu's `shard_flat_hierarchy` (built for as
+    many devices as `comm` has ranks): `levels` and `coarse` its row-padded
+    arrays as `flat_hierarchy_from_arrays` takes them (ELL levels,
+    padded smoother diagonals; the coarsest solver's own arrays), `nc` the
+    coarsest's true size (its `_PaddedCoarse`), row-sharded over `comm` on
+    `device` as parallel/sharded_amg.py shards it."""
+    from .parallel.comm import rank_device
+    from .parallel.sharded_amg import PaddedCoarse, shard_padded_hierarchy
+    hier = flat_hierarchy_from_arrays(levels, coarse, device="cpu")
+    return shard_padded_hierarchy(
+        Hierarchy(hier.levels, PaddedCoarse(hier.coarse, int(nc))), comm,
+        rank_device(device))

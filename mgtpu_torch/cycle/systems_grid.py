@@ -246,7 +246,11 @@ def grid_vanka_sweep(op: BlockGridOperator, gv: GridVanka, xs, bs_field,
                      num_it: int):
     """num_it colored (or additive) Vanka sweeps on block fields.  The
     windows of one component are added in slot order (the low and the
-    high face of the additive variant overlap: a fixed order)."""
+    high face of the additive variant overlap: a fixed order).  A smoother
+    that is not a `GridVanka` (the multi-device tier's
+    parallel/systems_sharded.py::ShardedVanka) sweeps itself."""
+    if not isinstance(gv, GridVanka):
+        return gv.sweep(op, xs, bs_field, num_it)
     cg = gv.cell_grid
     dinv = gv.dinv.to(xs[0].dtype)
     for _ in range(num_it):
@@ -334,7 +338,11 @@ class SystemsGridHierarchy:
 
 
 def systems_restrict(rs, R1):
-    """R r per component: per-axis 1D restriction matmuls, scaled 0.5^dim."""
+    """R r per component: per-axis 1D restriction matmuls, scaled 0.5^dim.
+    A transfer that is not a tuple of factors (the multi-device tier's
+    parallel/systems_sharded.py::ShardedSystemsTransfer) applies itself."""
+    if not isinstance(R1, tuple):
+        return R1.restrict(rs)
     out = []
     dim = len(R1[0])
     for r, facs in zip(rs, R1):
@@ -346,7 +354,9 @@ def systems_restrict(rs, R1):
 
 
 def systems_prolong(xcs, P1):
-    """P xc per component."""
+    """P xc per component (a transfer object prolongs itself)."""
+    if not isinstance(P1, tuple):
+        return P1.prolong(xcs)
     out = []
     for xc, facs in zip(xcs, P1):
         y = xc

@@ -15,7 +15,8 @@ row and per column.  Each mgtpu collective is one call here:
                      on either transport);
  * `broadcast`       from a rank of an axis;
  * `exchange_halo`   one batch_isend_irecv each way along an axis; edge
-                     ranks receive zero planes, as `ppermute` leaves them.
+                     ranks receive zero planes, as `ppermute` leaves them;
+ * `shift`           one way along an axis (a `ppermute` by a fixed step).
 
 Two transports, chosen by the caller (`transport=`, the backend of the
 process group) and never switched on an error:
@@ -246,6 +247,26 @@ class RankGrid:
             self._count("halo", send.nbytes)
         works = dist.batch_isend_irecv(ops) if ops else []
         return _Halo(works, recvs, x, self._staged(x), sends)
+
+    def shift(self, x: torch.Tensor, axis: int = 0,
+              step: int = 1) -> torch.Tensor:
+        """x of the rank `step` places before this one along `axis` (each
+        rank sends x to the rank `step` places after it): zeros where there
+        is no such rank.  x has the same shape on every rank."""
+        P, i = self.shape[axis], self.coords[axis]
+        line, group = self._members[axis], self._groups[axis]
+        ops, send = [], None
+        if 0 <= i + step < P:
+            send = self._out(x)
+            ops.append(dist.P2POp(dist.isend, send, line[i + step], group))
+            self._count("halo", send.nbytes)
+        recv = None
+        if 0 <= i - step < P:
+            recv = self._empty(x.shape, x)
+            ops.append(dist.P2POp(dist.irecv, recv, line[i - step], group))
+        for w in (dist.batch_isend_irecv(ops) if ops else []):
+            w.wait()
+        return x.new_zeros(x.shape) if recv is None else self._back(recv, x)
 
     def exchange_halo(self, x: torch.Tensor, axis: int = 0, width: int = 1,
                       dim: int = 0) -> torch.Tensor:

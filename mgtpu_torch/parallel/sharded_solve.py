@@ -1,5 +1,5 @@
-"""Solve-to-completion loops on the sharded grid engine
-(mgtpu/parallel/sharded_solve.py, its grid half).
+"""Solve-to-completion loops on the sharded grid and systems engines
+(mgtpu/parallel/sharded_solve.py).
 
 `ShardedGridSolver` runs over one sharded hierarchy
 (parallel/grid_sharded.py, slab or pencil):
@@ -15,6 +15,11 @@
    ranks (`reduce`), the float64 operator outside and the float32 cycle as
    the preconditioner when b is float64 (mgtpu's `_krylov_ops`).
 
+`ShardedSystemsSolver` runs over one sharded systems hierarchy
+(parallel/systems_sharded.py): `solve_refined` in the same form, its
+float64 residual the original operator's blocks padded and sharded like
+the fine level and applied by kernel D's halo apply.
+
 The loops run eagerly (`device_loop=False`): gloo's calls cannot be
 recorded into a CUDA graph.  b and x cross the boundary as flat (n,) or
 (n, m) arrays that every rank holds whole, as the single-device solves
@@ -27,10 +32,28 @@ import torch
 
 from ..config import torch_dtype
 from ..ops.grid_stencil import grid_stencil_from_csr
+from ..solvers.mg_solver import cast_hierarchy, high_precision_fine_operator
 from .grid_sharded import (ShardedGridStencil, _local, _pad_to, _radius,
                            make_grid_sharded_cycle)
+from .systems_sharded import (make_systems_sharded_cycle,
+                              pad_block_operator, shard_block_operator)
 
-__all__ = ["ShardedGridSolver", "make_sharded_refined_solver"]
+__all__ = ["ShardedGridSolver", "make_sharded_refined_solver",
+           "ShardedSystemsSolver", "make_sharded_systems_solver"]
+
+
+def _cycle_copy(solver, cycle_dtype):
+    """(the sharded hierarchy a correction cycle in `cycle_dtype` runs, its
+    torch type): the solver's own for the hierarchy's type, else its
+    `cast_hierarchy` copy, made once and kept on the solver."""
+    cd = torch_dtype(solver.cfg.dtype if cycle_dtype is None
+                     else cycle_dtype)
+    if cd == torch_dtype(solver.cfg.dtype):
+        return solver.gh, cd
+    lo = getattr(solver, "_lo", None)
+    if lo is None or lo[0] != cd:
+        solver._lo = lo = (cd, cast_hierarchy(solver.gh, cd))
+    return lo[1], cd
 
 
 class ShardedGridSolver:
@@ -91,13 +114,16 @@ class ShardedGridSolver:
 
     # -- refined solve -----------------------------------------------------
     def solve_refined(self, b, x=None, tol: float = 1e-8,
-                      max_iter: int | None = None):
+                      max_iter: int | None = None, cycle_dtype=None):
         """Refinement to a true float64 relative residual below `tol`, at
-        most `max_iter` (default max_outer_iter) corrections, each a
-        float32 cycle; stops once the residual exceeds 1e3 ||b||.  Returns
+        most `max_iter` (default max_outer_iter) corrections, each one
+        cycle from zero in `cycle_dtype` (default the hierarchy's float32;
+        another type cycles a copy of the sharded hierarchy, as mgtpu's
+        cycle_dtype); stops once the residual exceeds 1e3 ||b||.  Returns
         (x float64 numpy, info)."""
         cfg = self.cfg
         max_iter = cfg.max_outer_iter if max_iter is None else max_iter
+        gh, cd = _cycle_copy(self, cycle_dtype)
         A64 = self.f64_operator()
         bv, squeeze = self.to_grid(b, torch.float64)
         xv = (torch.zeros_like(bv) if x is None
@@ -108,8 +134,8 @@ class ShardedGridSolver:
         resvec = [res]
         iters = 0
         while iters < max_iter and tol * res0 <= res < 1e3 * res0:
-            rl = r.float()
-            z = self.cycle(self.gh, rl, torch.zeros_like(rl), True)
+            rl = r.to(cd)
+            z = self.cycle(gh, rl, torch.zeros_like(rl), True)
             xv = xv + z.to(torch.float64)
             r = bv - A64.matvec(xv)
             res = self._norm(r)
@@ -178,3 +204,90 @@ def make_sharded_refined_solver(state, comm, axes=(0,),
     """The sharded end-to-end solver of a scalar grid MGState on this
     rank."""
     return ShardedGridSolver(state, comm, axes=axes, device=device)
+
+
+# ---------------------------------------------------------------------------
+# the systems (face-staggered) tier
+# ---------------------------------------------------------------------------
+
+class ShardedSystemsSolver:
+    """The sharded refined solve of a systems (staggered) MGState, built
+    once a (state, rank grid) on every rank, on `device` (default the
+    rank's card).  mgtpu certifies with a double-single block residual;
+    the port's residual is native float64 (ROADMAP item 11)."""
+
+    def __init__(self, state, comm, device=None):
+        cfg = state.config
+        if np.dtype(cfg.dtype) != np.float32:
+            raise ValueError("the sharded refined solver takes a float32 "
+                             "hierarchy (its residual is float64)")
+        self.state, self.cfg, self.comm = state, cfg, comm
+        gh, cycle, to_fields, from_fields = make_systems_sharded_cycle(
+            state, comm, device)
+        self.gh, self.cycle = gh, cycle
+        self._to_fields, self._from_fields = to_fields, from_fields
+        A0 = gh.levels[0].A
+        self.device = A0.coeffs[0].device
+        self.true_grids = state.hier.fine_grids
+        D = comm.axis_size(0)
+        self.pad_grids = tuple((w * D,) + tuple(g[1:])
+                               for w, g in zip(A0.layout.widths, A0.grids))
+        # the original operator's blocks in float64 (the state's cached
+        # one), padded along grid axis 0 like the fine level (zero pad
+        # coefficients keep the pad inert) and sharded like it
+        self.A64 = shard_block_operator(pad_block_operator(
+            high_precision_fine_operator(state), self.pad_grids), comm,
+            self.device)
+
+    def to_fields(self, v, dtype=None):
+        """(this rank's padded blocks, squeeze) of flat (n,) or (n, m)
+        columns."""
+        return self._to_fields(v, dtype), np.ndim(v) == 1
+
+    def from_fields(self, xs, squeeze):
+        x2 = self._from_fields(xs)
+        return x2[:, 0] if squeeze else x2
+
+    def _norm(self, v) -> float:
+        """The global 2-norm over every component and column."""
+        return float(torch.sqrt(self.comm.psum(sum(torch.sum(t * t)
+                                                   for t in v))))
+
+    def solve_refined(self, b, x=None, tol: float = 1e-8,
+                      max_iter: int | None = None, cycle_dtype=None):
+        """Refinement to a true float64 relative residual below `tol`, at
+        most `max_iter` (default max_outer_iter) corrections, each one
+        cycle from zero in `cycle_dtype` (default the hierarchy's: a copy
+        of the sharded hierarchy otherwise); stops once the residual
+        exceeds 1e3 ||b||.  b (n,) or (n, m); returns (x float64 numpy,
+        info)."""
+        cfg = self.cfg
+        max_iter = cfg.max_outer_iter if max_iter is None else max_iter
+        gh, cd = _cycle_copy(self, cycle_dtype)
+        bv, squeeze = self.to_fields(b, torch.float64)
+        xv = (tuple(torch.zeros_like(t) for t in bv) if x is None
+              else self.to_fields(x, torch.float64)[0])
+        res0 = max(self._norm(bv), 1e-300)
+        r = tuple(p - q for p, q in zip(bv, self.A64.matvec(xv)))
+        res = self._norm(r)
+        resvec = [res]
+        iters = 0
+        while iters < max_iter and tol * res0 <= res < 1e3 * res0:
+            rl = tuple(t.to(cd) for t in r)
+            z = self.cycle(gh, rl, tuple(torch.zeros_like(t) for t in rl),
+                           True)
+            xv = tuple(p + q.to(torch.float64) for p, q in zip(xv, z))
+            r = tuple(p - q for p, q in zip(bv, self.A64.matvec(xv)))
+            res = self._norm(r)
+            resvec.append(res)
+            iters += 1
+        x_np = self.from_fields(xv, squeeze).cpu().numpy()
+        return x_np, {"iters": iters, "relres": res / res0,
+                      "resvec": np.array(resvec)}
+
+
+def make_sharded_systems_solver(state, comm,
+                                device=None) -> ShardedSystemsSolver:
+    """The sharded end-to-end refined solver of a systems MGState on this
+    rank."""
+    return ShardedSystemsSolver(state, comm, device=device)

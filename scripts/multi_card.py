@@ -1,13 +1,16 @@
 #!/usr/bin/env python3
-"""chip_smoke.py's phase 19 with one card a rank: the multi-device rows
-(MS-2d, MG-2d, MG-pen, MG-3d, MG-cg, MG-bicg, DD-par) on 1 NCCL rank and
-on N NCCL ranks, each on its own card of one host, against the same
+"""chip_smoke.py's phases 19 and 20 with one card a rank: the multi-device
+rows (phase 19: MS-2d, MG-2d, MG-pen, MG-3d, MG-cg, MG-bicg, DD-par;
+phase 20: SY-2d, SE-2d, SY-3d, MA-sa, MA-cl, MA-fg) on 1 NCCL rank and on
+N NCCL ranks, each on its own card of one host, against the same
 contracts and the same single-device references.
 
-    python3 scripts/multi_card.py [--cards 4]
+    python3 scripts/multi_card.py [--cards 4] [--phases 19 20]
 
-It needs N cards (N = 4 for the pencil row) and fails without them.
-Prints phase 19's [multi] lines (counts, true relres, ms a solve and a
+It needs N cards (N = 4 for the pencil and SY-3d rows) and fails without
+them.  Phase 20 first sets up its five states on card 0 (as chip_smoke.py's
+phases 11-13 do) and keeps them in files the ranks load.  Prints the
+phases' [multi] / [multi2] lines (counts, true relres, ms a solve and a
 cycle, bytes a cycle by collective kind, kernel D's launches, the fused
 and overlapped slab apply times of every rank) and, last, one JSON object
 of the rows; `--out` also writes it to a file.
@@ -31,6 +34,8 @@ import chip_smoke as cs  # noqa: E402
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--cards", type=int, default=4)
+    ap.add_argument("--phases", type=int, nargs="+", default=[19, 20],
+                    choices=[19, 20])
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -45,15 +50,27 @@ def main() -> int:
     card = f"{name}, {smi.splitlines()[0].split(',')[-1].strip()}"
     torch.backends.cuda.matmul.allow_tf32 = False
     cs.phase_build()
-    L2 = cs.shifted_laplacian((cs.N2, cs.N2))[1]
-    L3 = cs.shifted_laplacian((cs.N3, cs.N3, cs.N3))[1]
     layouts = (("1 NCCL rank", 1, ["cuda:0"], "nccl"),
                (f"{args.cards} NCCL ranks, a card each", args.cards,
                 [f"cuda:{r}" for r in range(args.cards)], "nccl"))
-    multi, launches = cs.phase_multi(L2, L3, card, layouts)
-    out = {"card": card, "cards": args.cards, "rows": multi,
-           "launches": launches,
-           "seconds": round(time.perf_counter() - t0, 1)}
+    out = {"card": card, "cards": args.cards}
+    if 19 in args.phases:
+        L2 = cs.shifted_laplacian((cs.N2, cs.N2))[1]
+        L3 = cs.shifted_laplacian((cs.N3, cs.N3, cs.N3))[1]
+        t19 = time.perf_counter()
+        out["rows"], out["launches"] = cs.phase_multi(L2, L3, card, layouts)
+        out["seconds_19"] = round(time.perf_counter() - t19, 1)
+    if 20 in args.phases:
+        t20 = time.perf_counter()
+        cs.multi2_states(card)
+        torch.cuda.empty_cache()
+        try:
+            out["rows_20"], out["launches_20"] = cs.phase_multi2(card,
+                                                                 layouts)
+        finally:
+            cs.drop_handoffs()
+        out["seconds_20"] = round(time.perf_counter() - t20, 1)
+    out["seconds"] = round(time.perf_counter() - t0, 1)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(out, f, default=float)

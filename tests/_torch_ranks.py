@@ -222,6 +222,8 @@ def grid_sharded_cases(rank, world, device, shape):
     B = np.random.RandomState(2).rand(A.shape[0], 3)
     x, info = solver.solve_refined(B, tol=1e-8)
     out["refined_multi"] = (x, info["iters"])
+    x, info = solver.solve_refined(b, tol=1e-8, cycle_dtype=np.float64)
+    out["refined_f64_cycles"] = (x, int(info["iters"]))
     if len(comm.shape) > 1:
         out["sent"] = dict(comm.sent)
         return out
@@ -283,3 +285,218 @@ def failer(rank, world, device):
     if rank == 1:
         raise ValueError("rank 1 fails on purpose")
     return rank
+
+
+# ---------------------------------------------------------------------------
+# the systems tier (tests/test_torch_systems_sharded.py)
+# ---------------------------------------------------------------------------
+
+# cycle cases: name -> (cells a side, dim, levels, mixed, relax_type, nu)
+SYSTEMS_CYCLES = {"mixed": (16, 2, 3, True, "VankaFaces", 1),
+                  "econ": (16, 2, 3, True, "EconVankaFaces", 1),
+                  "add": (16, 2, 3, True, "VankaFacesAdd", 1),
+                  "spai": (16, 2, 3, False, "SPAI", 2),
+                  "mixed3d": (8, 3, 3, True, "VankaFaces", 1)}
+SYSTEMS_SOLVE = (32, 2, 3, True, "VankaFaces", 1)
+
+
+def elasticity(n: int, dim: int = 2, mixed: bool = True,
+               shift: float = 1e-3):
+    """(Mixed) linear elasticity, mu = lambda = 1, on n^dim cells + shift *
+    (max column sum) I (mgtpu's tests/test_systems_sharded.py)."""
+    from mgtpu_torch.models.operators import (
+        linear_elasticity_operator, linear_elasticity_operator_mixed)
+    M = mt.get_regular_mesh([0.0, 1.0] * dim, [n] * dim)
+    mu = np.ones(M.num_cells)
+    A = (linear_elasticity_operator_mixed if mixed
+         else linear_elasticity_operator)(M, mu, mu)
+    return M, (A + shift * abs(A).sum(axis=0).max()
+               * sp.identity(A.shape[0])).tocsr()
+
+
+def systems_params(levels: int, mixed: bool, relax: str, nu: int, dtype,
+                   **kw):
+    return dict(levels=levels, relax_type=relax, relax_param=0.75,
+                nu_pre=nu, nu_post=nu, dtype=dtype,
+                transfer_type=("SystemsFacesMixedLinear" if mixed
+                               else "SystemsFacesLinear"), **kw)
+
+
+def systems_case(name, dtype=np.float64, **kw):
+    n, dim, levels, mixed, relax, nu = (SYSTEMS_CYCLES.get(name)
+                                        or SYSTEMS_SOLVE)
+    M, A = elasticity(n, dim, mixed)
+    return M, A, systems_params(levels, mixed, relax, nu, dtype, **kw)
+
+
+def _pad_is_zero(xs, lay, true_grids, comm) -> bool:
+    """Every plane of the gathered padded fields past the true grids (the
+    pad, the dead slots among them) is exactly zero."""
+    ok = True
+    for c, (x, g) in enumerate(zip(xs, true_grids)):
+        full = lay.gather(x, c, comm)
+        ok &= bool((full[:, g[0]:] == 0).all())
+    return ok
+
+
+def systems_sharded_cases(rank, world, device, ref_padded):
+    """tests/test_torch_systems_sharded.py: two sharded cycles of every
+    SYSTEMS_CYCLES case (f64, 2 right-hand sides), the same from mgtpu's
+    padded arrays (`ref_padded`, made for `world` ranks), the refined solve
+    of SYSTEMS_SOLVE (f32; one and two columns), and the K-cycle
+    refusal."""
+    from mgtpu_torch.convert import sharded_systems_from_arrays
+    from mgtpu_torch.parallel.comm import RankGrid
+    from mgtpu_torch.parallel.sharded_solve import make_sharded_systems_solver
+    from mgtpu_torch.parallel.systems_sharded import (
+        make_systems_sharded_cycle)
+    comm = RankGrid(None, "gloo")
+    out = {"shift": tuple(comm.shift(torch.full((2,), float(rank)),
+                                     step=s).numpy() for s in (1, -1))}
+    comm.reset_counts()
+    for name in SYSTEMS_CYCLES:
+        M, A, p = systems_case(name)
+        st = setup(M, A, **p)
+        gh, cycle, to_fields, from_fields = make_systems_sharded_cycle(
+            st, comm, device)
+        bf = to_fields(np.random.RandomState(3).rand(A.shape[0], 2))
+        xf = tuple(torch.zeros_like(t) for t in bf)
+        for _ in range(2):
+            xf = cycle(gh, bf, xf)
+        out[name] = from_fields(xf).numpy()
+        out[f"{name}_pad_zero"] = _pad_is_zero(
+            xf, gh.levels[0].A.layout, st.hier.fine_grids, comm)
+        if name == "mixed":
+            levels, inv, true_grids = ref_padded
+            gh2 = sharded_systems_from_arrays(levels, inv, true_grids, comm,
+                                              device=device)
+            xf = tuple(torch.zeros_like(t) for t in bf)
+            for _ in range(2):
+                xf = cycle(gh2, bf, xf)
+            out["convert"] = from_fields(xf).numpy()
+    M, A, p = systems_case("mixed", cycle_type="K")
+    try:
+        make_systems_sharded_cycle(setup(M, A, **p), comm, device)
+        out["refuses_K"] = False
+    except NotImplementedError as e:
+        out["refuses_K"] = "reduce hook" in str(e)
+    M, A, p = systems_case("solve", np.float32, max_outer_iter=40)
+    solver = make_sharded_systems_solver(setup(M, A, **p), comm, device)
+    x, info = solver.solve_refined(rhs(A, seed=9), tol=1e-8)
+    out["refined"] = (x, int(info["iters"]), info["resvec"])
+    B = np.random.RandomState(10).rand(A.shape[0], 2)
+    x, info = solver.solve_refined(B, tol=1e-8)
+    out["refined_multi"] = (x, int(info["iters"]))
+    x, info = solver.solve_refined(rhs(A, seed=9), tol=1e-8,
+                                   cycle_dtype=np.float64)
+    out["refined_f64_cycles"] = (x, int(info["iters"]))
+    out["sent"] = dict(comm.sent)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the row-sharded flat tier (tests/test_torch_sharded_amg.py)
+# ---------------------------------------------------------------------------
+
+AMG_N = 64
+# cycle cases: name -> (setup, hierarchy dtype, cycle type)
+AMG_CYCLES = {"sa": ("sa", np.float32, "V"), "cl": ("cl", np.float32, "V"),
+              "sa64": ("sa", np.float64, "V"),
+              "cl64": ("cl", np.float64, "V"),
+              "sa64-K": ("sa", np.float64, "K"),
+              "sa64-W": ("sa", np.float64, "W"),
+              "sa-K": ("sa", np.float32, "K"),
+              "sa-W": ("sa", np.float32, "W")}
+
+
+def amg_problem(n: int = AMG_N):
+    """mgtpu's tests/test_sharded_amg.py operator: nodal DivSigGrad with
+    sigma = exp(RandomState(0).randn) + 1e-4 (max column sum) I."""
+    M = mt.get_regular_mesh([0.0, 1.0, 0.0, 1.0], [n, n])
+    sig = np.exp(np.random.RandomState(0).randn(n * n))
+    L = nodal_div_sig_grad_matrix(M, sig)
+    return (L + 1e-4 * abs(L).sum(0).max() * sp.identity(L.shape[0])).tocsr()
+
+
+def amg_params(dtype, **kw):
+    """Jacobi 0.8 V(1,1), 4 levels (mgtpu's _amg_state)."""
+    kw.setdefault("relax_type", "jacobi")
+    return dict(levels=4, relax_param=0.8, nu_pre=1, nu_post=1, dtype=dtype,
+                max_outer_iter=60, relative_tol=1e-8, **kw)
+
+
+def amg_setup(kind, L, **p):
+    cfg, rp = mt.get_mg_param(**p)
+    if kind == "sa":
+        return mt.sa_amg_setup(L, cfg, rp, device="cpu")
+    return mt.classical_amg_setup(L, cfg, rp, coarsening="pmis",
+                                  device="cpu")
+
+
+def _refuses(fn) -> bool:
+    try:
+        fn()
+    except ValueError as e:
+        return "pointwise" in str(e) or "grid engine" in str(e)
+    return False
+
+
+def sharded_amg_cases(rank, world, device, ref_padded):
+    """tests/test_torch_sharded_amg.py: one cycle of every AMG_CYCLES case
+    (ShardedAMGSolver.cycle for the f32 V-cycles, recursive_cycle on
+    shard_flat_hierarchy's levels else, with the pad rows of its result),
+    one from mgtpu's padded arrays (`ref_padded`), the refined solves and
+    FGMRES, and the refusals."""
+    from mgtpu_torch.convert import sharded_flat_from_arrays
+    from mgtpu_torch.parallel.comm import RankGrid
+    from mgtpu_torch.parallel.sharded_amg import (ShardedAMGSolver,
+                                                  shard_flat_hierarchy)
+    comm = RankGrid(None, "gloo")
+    L = amg_problem()
+    n = L.shape[0]
+    b = np.random.RandomState(2).rand(n, 2)
+    out = {}
+    states = {}
+    for name, (kind, dt, ctype) in AMG_CYCLES.items():
+        st = amg_setup(kind, L, **amg_params(dt, cycle_type=ctype))
+        states[name] = st
+        if dt == np.float32 and ctype == "V":
+            out[name] = ShardedAMGSolver(st, comm, device).cycle(
+                b.astype(dt))
+            continue
+        hier = shard_flat_hierarchy(st.hier, comm, device)
+        n_pad = hier.levels[0].A.shape[0]
+        bp = torch.zeros((n_pad, 2), dtype=torch.float64 if dt == np.float64
+                         else torch.float32)
+        bp[:n] = torch.tensor(b)
+        y = mt.recursive_cycle(st.config, hier, bp, torch.zeros_like(bp))
+        out[name] = y[:n].numpy()
+        out[f"{name}_pad_zero"] = bool((y[n:] == 0).all())
+    levels, coarse, nc = ref_padded
+    hier = sharded_flat_from_arrays(levels, coarse, nc, comm, device=device)
+    bp = torch.zeros((hier.levels[0].A.shape[0], 2), dtype=torch.float32)
+    bp[:n] = torch.tensor(b)
+    out["convert"] = mt.recursive_cycle(states["sa"].config, hier, bp,
+                                        torch.zeros_like(bp))[:n].numpy()
+    b3 = rhs(L, seed=3)
+    for name in ("sa", "cl"):
+        x, info = ShardedAMGSolver(states[name], comm, device).solve_refined(
+            b3, tol=1e-8, max_iter=80)
+        out[f"refined_{name}"] = (x, int(info["iters"]))
+    x, info = ShardedAMGSolver(states["sa"], comm, device).solve_fgmres(
+        rhs(L, seed=4).astype(np.float32), tol=1e-5, max_iter=10)
+    out["fgmres"] = (x, int(info["iters"]))
+    jg = amg_setup("sa", L, **amg_params(np.float32, relax_type="jac-gmres",
+                                         cycle_type="K"))
+    out["refuses_jacgmres"] = _refuses(
+        lambda: ShardedAMGSolver(jg, comm, device))
+    lex = setup(*elasticity(8), **systems_params(2, True, "VankaFacesLex", 1,
+                                                 np.float32))
+    out["refuses_vanka"] = _refuses(
+        lambda: shard_flat_hierarchy(lex.hier, comm, device))
+    M, A = poisson(16)
+    grid = setup(M, A, **params(2, np.float32))
+    out["refuses_grid"] = _refuses(
+        lambda: ShardedAMGSolver(grid, comm, device))
+    out["sent"] = dict(comm.sent)
+    return out

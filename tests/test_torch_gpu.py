@@ -2026,3 +2026,69 @@ def test_grid_sharded_pencil_block_apply_matches_plain(dtype, one_rank):
             torch.cuda.synchronize()
             err = float((y - ref).abs().max() / ref.abs().max())
             assert err < tol, (dims, len(A.offsets), err)
+
+
+class _RankOf:
+    """The layout questions a RankGrid answers for rank k of D (no process
+    group): what one rank of the systems tier builds its blocks from."""
+
+    def __init__(self, D, k):
+        self.shape, self._k = (D,), k
+
+    def axis_size(self, axis=0):
+        return self.shape[0]
+
+    def axis_index(self, axis=0):
+        return self._k
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("dims", [(48, 40), (12, 10, 16)])
+def test_staggered_halo_apply_matches_plain(dims, dtype, one_rank):
+    """The systems tier's block applies (parallel/systems_sharded.py):
+    every block of a mixed elasticity operator as rank 1 of 4 builds it
+    (padded, cell-aligned blocks, the input's owned planes with the halo
+    of its radius, the taps shifted by it; the axis-0 face component one
+    plane more than the cells, so in_grid != out_grid) on kernel D's halo
+    apply against its plain version; on one NCCL rank the sharded block
+    operator against the single-device one."""
+    from mgtpu_torch.cycle.systems_grid import block_operator_from_csr
+    from mgtpu_torch.ops.cuda import stencil as sk
+    from mgtpu_torch.parallel.systems_sharded import (pad_block_operator,
+                                                      padded_grids,
+                                                      shard_block_operator)
+    _, A = _elasticity_csr(dims, True)
+    op = block_operator_from_csr(A, list(dims), True, dtype=dtype,
+                                 device="cuda")
+    tol = 2e-5 if dtype == np.float32 else 1e-12
+    key = np.dtype(dtype).name
+    sop = shard_block_operator(pad_block_operator(
+        op, padded_grids(op.grids, 4)), _RankOf(4, 1), "cuda")
+    staggered = 0
+    for (ci, cj), coeff, offs in zip(sop.pairs, sop.coeffs, sop.offsets):
+        r = sop.radius[cj]
+        taps = tuple((o[0] + r,) + tuple(o[1:]) for o in offs)
+        g = sop.grids[cj]
+        in_grid = ((sop.layout.owned[cj] + 2 * r,) + tuple(g[1:]) if r
+                   else tuple(g))
+        staggered += in_grid[0] != coeff.shape[1] + 2 * r
+        for m in (1, 2):
+            x = torch.tensor(np.random.RandomState(m).rand(m, *in_grid),
+                             dtype=coeff.dtype, device="cuda")
+            h0 = sk.HALO_LAUNCHES[key]
+            y = sk.halo_apply(coeff, taps, in_grid, x)
+            ref = sk.cross_apply_plain(coeff, taps, in_grid, x)
+            torch.cuda.synchronize()
+            assert sk.HALO_LAUNCHES[key] == h0 + 1
+            err = float((y - ref).abs().max() / ref.abs().max())
+            assert err < tol, ((ci, cj), m, err)
+    assert staggered > 0
+    one = shard_block_operator(pad_block_operator(
+        op, padded_grids(op.grids, 1)), one_rank, "cuda")
+    xs = tuple(torch.tensor(np.random.RandomState(c).rand(2, *g),
+                            dtype=op.dtype, device="cuda")
+               for c, g in enumerate(op.grids))
+    for y, ref in zip(one.matvec(xs), op.matvec(xs)):
+        torch.cuda.synchronize()
+        err = float((y - ref).abs().max() / ref.abs().max())
+        assert err < tol, err

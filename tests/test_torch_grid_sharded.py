@@ -279,3 +279,29 @@ def test_krylov_without_a_group_is_the_single_device_path(method):
     assert torch.equal(x0, x1) and i0["iters"] == i1["iters"]
     assert np.array_equal(np.asarray(i0["resvec"]),
                           np.asarray(i1["resvec"]))
+
+
+@pytest.fixture(scope="module")
+def ref_refined_f64_cycles(ref_solve):
+    """mgtpu's sharded refined count with float64 cycles of the float32
+    hierarchy (its cycle_dtype), on a one-device mesh."""
+    st, A = ref_solve
+    s1 = make_sharded_refined_solver(
+        st, Mesh(np.array(jax.devices()[:1]), ("x",)))
+    _, info = s1.solve_refined(tr.rhs(A, seed=1), tol=1e-8,
+                               cycle_dtype=np.float64)
+    return int(info["iters"])
+
+
+def test_refined_cycle_dtype_matches_mgtpu(group, ref_solve,
+                                           ref_refined_f64_cycles):
+    """solve_refined's cycle_dtype (mgtpu's argument): float64 cycles of
+    the float32 hierarchy take mgtpu's count +- 1 at a true f64 relres
+    below 1e-8."""
+    _, outs = group
+    A = ref_solve[1]
+    b = tr.rhs(A, seed=1)
+    for o in outs:
+        x, it = o["refined_f64_cycles"]
+        assert abs(it - ref_refined_f64_cycles) <= 1
+        assert _relres(A, b, x) < 1e-8

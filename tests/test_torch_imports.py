@@ -32,6 +32,7 @@ import mgtpu_torch.solvers.schur, mgtpu_torch.solvers.wrappers
 import mgtpu_torch.parallel.comm, mgtpu_torch.parallel.launch
 import mgtpu_torch.parallel.sharded, mgtpu_torch.parallel.grid_sharded
 import mgtpu_torch.parallel.sharded_solve, mgtpu_torch.dd.parallel
+import mgtpu_torch.parallel.systems_sharded, mgtpu_torch.parallel.sharded_amg
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "mgtpu" or m.startswith("mgtpu."))
@@ -128,3 +129,18 @@ def test_resolve_device_rule():
             resolve_device(None)
         with pytest.raises(RuntimeError):
             resolve_device("cuda")
+
+
+def test_root_exports_match_mgtpu_names():
+    """The package root carries mgtpu's root names get_nodal_grid,
+    Hierarchy and Level (mgtpu/__init__.py), the same objects as their
+    modules'; enable_x64, JAX's x64 switch, has no torch meaning."""
+    from mgtpu_torch.models.mesh import get_nodal_grid
+    from mgtpu_torch.setup.hierarchy import Hierarchy, Level
+    assert mt.get_nodal_grid is get_nodal_grid
+    assert mt.Hierarchy is Hierarchy and mt.Level is Level
+    for name in ("get_nodal_grid", "Hierarchy", "Level"):
+        assert name in mt.__all__
+    assert not hasattr(mt, "enable_x64")
+    M = mt.get_regular_mesh([0.0, 1.0, 0.0, 1.0], [4, 2])
+    assert mt.get_nodal_grid(M).shape[0] == 15
