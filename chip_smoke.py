@@ -252,6 +252,26 @@ Phases, each of which raises on failure:
             row ms a solve and a cycle, bytes a cycle by collective kind,
             kernel D's launches.
 
+21. multi-device 3 — the partitioned flat tier (parallel/part_amg.py)
+            and the reduce hook, on the states phases 7 and 11-13 kept and
+            PA-K's own host setup, 1 NCCL rank and 4 gloo ranks sharing
+            the card: (PA-sa) SA-f's under
+            PartitionedAMGSolver.solve_refined (50 +- 1; on 4 ranks the
+            halo entries of A a level mgtpu's {1026, 814, 487, 224}),
+            (PA-cl) C-pmis's, its SuperLU coarsest solved on rank 0 (13),
+            (PA-K) SA-f's operator with Jac-GMRES K-cycles (62), (GK-2d)
+            (g)'s hierarchy on the sharded grid engine under
+            solve_fgmres(restart=5) (4 restarts) and solve_refined (the
+            single-device count on the card), (SK-2d) V-2d's hierarchy
+            with K-cycles under ShardedSystemsSolver.solve_refined (the
+            single-device count), each at a true f64 relres below 1e-8;
+            one correction cycle against one device's (PA-*: on the tier's
+            own ELL levels, bitwise on 1 rank, 1e-5 on 4; a K-cycle where
+            its rounding differs 5e-3), its pad exactly zero, the 4-rank
+            x within 1e-6 of the 1-rank x; per row ms a solve and a cycle,
+            bytes a cycle by collective kind (PA-sa beside MA-sa's
+            replicated cycle), kernel D's halo launches (GK-2d, SK-2d).
+
 Every solve of phases 4, 5, 7, 8, 10, 11, 12, 13, 16, 17 and 18 runs
 through the recorded programs (mgtpu_torch/cycle/capture.py: CUDA graphs),
 the entry points' default, and is then held against its eager run (the
@@ -4751,24 +4771,26 @@ MULTI2 = {"SY-2d": ("V-2d", 9), "SE-2d": ("E-2d", 28), "SY-3d": ("V-3d", 12),
           "MA-sa": ("SA-f", 50), "MA-cl": ("C-pmis", 13)}
 MULTI2_FOUR_ONLY = ("SY-3d",)
 MULTI2_CYCLE = ("SY-2d", "MA-sa")        # one cycle against one device
-HANDOFF = {}            # state key -> what phase 20 reads of it
+HANDOFF = {}            # state key -> what phases 20 and 21 read of it
 _HANDOFF_DIR = []
 
 
 def save_handoff(key, st, A, b):
-    """Keep a state an earlier phase set up on the card for phase 20: what
-    the sharded solvers read of it (config, device hierarchy, the cached
-    float64 fine operator of a systems state, the original operator of a
-    flat one) in a file the ranks load, its operator and b for the host's
-    relres, and the single-device correction cycle from zero on b.  A host
-    SuperLU coarsest cannot be pickled: the ranks factor its matrix again
-    (the same factor)."""
+    """Keep a state an earlier phase set up on the card for phases 20 and
+    21: what the sharded solvers read of it (config, device hierarchy, the
+    cached float64 fine operator of a systems state, the original operator
+    of a flat or grid one, the host matrices of a flat one) in a file the
+    ranks load, its operator and b for the host's relres, and the
+    single-device correction cycle from zero on b.  A host SuperLU coarsest
+    cannot be pickled: the ranks that need it factor its matrix again (the
+    same factor)."""
     import dataclasses
     import os
     import tempfile
     from types import SimpleNamespace
     from mgtpu_torch import recursive_cycle
     from mgtpu_torch.cycle.coarse import SparseLUCoarse
+    from mgtpu_torch.cycle.grid_cycle import GridHierarchy
     from mgtpu_torch.cycle.systems_grid import (SystemsGridHierarchy,
                                                 block_to_fields,
                                                 fields_to_block,
@@ -4777,6 +4799,8 @@ def save_handoff(key, st, A, b):
         _HANDOFF_DIR.append(tempfile.mkdtemp(prefix="mgtpu_multi2_"))
     t0 = time.perf_counter()
     systems = isinstance(st.hier, SystemsGridHierarchy)
+    grid = isinstance(st.hier, GridHierarchy)
+    flat = not (systems or grid)
     hier, lu = st.hier, None
     if isinstance(hier.coarse, SparseLUCoarse):
         hier, lu = dataclasses.replace(hier, coarse=None), st.As[-1]
@@ -4785,7 +4809,8 @@ def save_handoff(key, st, A, b):
         _outer_ops={"float64": st._outer_ops["float64"]} if systems else {},
         A_input=None if systems else (st.A_input if st.A_input is not None
                                       else st.As[0]),
-        coarse_matrix=lu)
+        As=st.As if flat else None, Ps=st.Ps if flat else None,
+        Rs=st.Rs if flat else None, coarse_matrix=lu)
     path = os.path.join(_HANDOFF_DIR[0], f"{key}.pt")
     torch.save(lean, path)
     if systems:
@@ -4795,17 +4820,29 @@ def save_handoff(key, st, A, b):
             st.config, st.hier, bf, tuple(torch.zeros_like(t) for t in bf),
             x_zero=True))[:, 0].cpu().numpy()
         ell = None
+    elif grid:
+        b2 = torch.tensor(b[:, None], dtype=torch.float32, device="cuda")
+        ref = recursive_cycle(st.config, st.hier, b2, torch.zeros_like(b2),
+                              x_zero=True)[:, 0].cpu().numpy()
+        ell = None
     else:
         # the state's cycle (its DIA levels on kernel D) and the same
         # hierarchy with every level as the padded ELL the flat tier shards
         # (one device, no pad): they differ in the fine apply's rounding only
+        # (phase 20); and phase 21's one device: the partitioned tier's own
+        # ELL levels (from the host matrices) on one rank of no group
+        from mgtpu_torch.parallel.part_amg import PartitionedAMGSolver
         from mgtpu_torch.parallel.sharded_amg import pad_flat_hierarchy
         b2 = torch.tensor(b[:, None], dtype=torch.float32, device="cuda")
-        ref, ell = (recursive_cycle(st.config, h, b2, torch.zeros_like(b2),
-                                    x_zero=True)[:, 0].cpu().numpy()
-                    for h in (st.hier, pad_flat_hierarchy(st.hier, 1)))
-    HANDOFF[key] = dict(path=path, A=A, b=b, cycle=ref, cycle_ell=ell)
-    log(f"[multi2] {key} kept for phase 20 in "
+        part = PartitionedAMGSolver(st, _OneRank(), "cuda").hier
+        ref, ell, part = (recursive_cycle(st.config, h, b2,
+                                          torch.zeros_like(b2),
+                                          x_zero=True)[:, 0].cpu().numpy()
+                          for h in (st.hier, pad_flat_hierarchy(st.hier, 1),
+                                    part))
+    HANDOFF[key] = dict(path=path, A=A, b=b, cycle=ref, cycle_ell=ell,
+                        cycle_part=None if systems or grid else part)
+    log(f"[multi2] {key} kept for phases 20 and 21 in "
         f"{os.path.getsize(path) / 2 ** 20:.0f} MB, "
         f"{time.perf_counter() - t0:.1f} s")
 
@@ -4815,11 +4852,17 @@ def multi2_states(card):
     a run of phase 20 alone (scripts/multi_card.py): V-2d, E-2d and V-3d
     as phase 13 sets them up, SA-f as phase 11, C-pmis as phase 12 (SA-f's
     operator, b seed 6).  chip_smoke.py keeps those phases' own states."""
-    from mgtpu_torch import get_mg_param, sa_amg_setup
     for key, label, dim, cells, mixed, relax, nu, levels, _ in SYSTEMS:
         save_handoff(key, *systems_setup(label, dim, cells, mixed, relax,
                                          0.75, nu, levels, card))
         torch.cuda.empty_cache()
+    amg_handoffs()
+
+
+def amg_handoffs():
+    """Set up and keep SA-f (as phase 11) and C-pmis (as phase 12: SA-f's
+    operator, b seed 6)."""
+    from mgtpu_torch import get_mg_param, sa_amg_setup
     _, label, seed, _, opts, *_ = AMG[2]
     _, A = divsig((AMG_CELLS, AMG_CELLS), seed=seed)
     b = A @ np.random.RandomState(seed + 1).rand(A.shape[0])
@@ -4838,16 +4881,43 @@ def drop_handoffs():
         shutil.rmtree(d, ignore_errors=True)
 
 
-def load_handoff(path, device):
-    """A state kept by save_handoff, on `device` (a SuperLU coarsest factored
-    again on the host)."""
+def load_handoff(path, device, factor: bool = True):
+    """A state kept by save_handoff, on `device`; a SuperLU coarsest
+    factored again on the host, or (factor False: a rank that never solves
+    it) held without its factor."""
     import dataclasses
-    from mgtpu_torch.cycle.coarse import sparse_lu_from_scipy
+    from mgtpu_torch.cycle.coarse import SparseLUCoarse, sparse_lu_from_scipy
     st = torch.load(path, map_location=device, weights_only=False)
     if st.coarse_matrix is not None:
-        st.hier = dataclasses.replace(st.hier, coarse=sparse_lu_from_scipy(
-            st.coarse_matrix, dtype=st.config.dtype))
+        A_c = st.coarse_matrix
+        st.hier = dataclasses.replace(st.hier, coarse=(
+            sparse_lu_from_scipy(A_c, dtype=st.config.dtype) if factor else
+            SparseLUCoarse(None, int(A_c.shape[0]),
+                           str(np.dtype(st.config.dtype)))))
     return st
+
+
+class _OneRank:
+    """The collectives of a group of one rank, without a process group:
+    phase 21's single-device reference runs the partitioned tier's levels
+    through them (each is the identity there, as on one NCCL rank)."""
+    rank = 0
+    shape = (1,)
+
+    def axis_size(self, axis=0):
+        return 1
+
+    def axis_index(self, axis=0):
+        return 0
+
+    def psum(self, t):
+        return t
+
+    def all_gather(self, t, axis=0):
+        return t[None]
+
+    def broadcast(self, t, src=0, axis=None):
+        return t
 
 
 class _RankOf:
@@ -5150,6 +5220,360 @@ def phase_multi2(card, layouts=MULTI_RUNS):
     return runs, halo
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the partitioned flat tier (parallel/part_amg.py) and the reduce
+# hook (Jac-GMRES and K-cycles on the sharded grid and systems engines)
+# ---------------------------------------------------------------------------
+
+# ROADMAP's contracts: row -> (the state it takes, the count wanted +- 1;
+# None: the port's single-device count of the same solve on the card)
+MULTI3 = {"PA-sa": ("SA-f", 50), "PA-cl": ("C-pmis", 13),
+          "PA-K": ("PA-K", 62), "GK-2d": ("g", 4), "SK-2d": ("V-2d", None)}
+# mgtpu's halo entries of A per level on 4 devices, for SA-f's levels
+# (scripts/part_reference.py)
+PA_LEVELS = [263169, 50246, 7872, 964]
+PA_HALO = [1026, 814, 487, 224]
+K_REFERENCE = {}        # state key -> the single-device K-cycle's count
+                        # and its correction cycle from zero on b
+
+
+def pa_k_state(card):
+    """(PA-K) SA-f's operator and b, Jac-GMRES 1.0 V(1,1) K-cycles, 4
+    levels, f32: a new host setup on the card, kept for phase 21."""
+    from mgtpu_torch import get_mg_param, sa_amg_setup
+    h = HANDOFF["SA-f"]
+    cfg, rp = get_mg_param(levels=4, relax_type="jac-gmres", relax_param=1.0,
+                           nu_pre=1, nu_post=1, cycle_type="K",
+                           dtype=np.float32)
+    t0 = time.perf_counter()
+    st = sa_amg_setup(h["A"], cfg, rp)
+    torch.cuda.synchronize()
+    log(f"[multi3] (PA-K) setup {time.perf_counter() - t0:.1f} s (host "
+        f"clock), levels {[a.shape[0] for a in st.As]}, coarsest "
+        f"{type(st.hier.coarse).__name__} ({card})")
+    save_handoff("PA-K", st, h["A"], h["b"])
+
+
+def k_reference(key, st, A, b, max_iter=None):
+    """The single-device K-cycle of a state on the card: a systems state's
+    config with cycle_type "K" (the hierarchy does not depend on it), its
+    refined count to 1e-8 and one correction cycle from zero on b."""
+    import copy
+    import dataclasses
+    from mgtpu_torch import recursive_cycle, solve_mg_refined
+    if st.config.cycle_type != "K":
+        st = copy.copy(st)
+        st.config = dataclasses.replace(st.config, cycle_type="K")
+    x, info = solve_mg_refined(st, b, tol=1e-8, max_iter=max_iter)
+    rr = true_relres(A, b, x)
+    b2 = torch.tensor(b[:, None], dtype=torch.float32, device="cuda")
+    cyc = recursive_cycle(st.config, st.hier, b2, torch.zeros_like(b2),
+                          x_zero=True)[:, 0].cpu().numpy()
+    K_REFERENCE[key] = dict(iters=int(info["iters"]), cycle=cyc)
+    log(f"[multi3] {key} K-cycles on one device: {int(info['iters'])} "
+        f"iterations, true relres {rr:.3e}")
+    require(rr < 1e-8, f"{key}: the single-device K-cycle solve reached "
+            f"{rr:.3e}")
+
+
+def multi3_states(card):
+    """Set up and keep the states phase 21 takes, for a run of phase 21
+    without the phases before it (scripts/multi_card.py): SA-f and C-pmis
+    (`amg_handoffs`, unless kept already), V-2d as phase 13 and (g) as
+    phase 7 with their single-device K-cycle references, and PA-K."""
+    from mgtpu_torch import get_mg_param, mg_setup
+    if "SA-f" not in HANDOFF:
+        amg_handoffs()
+        torch.cuda.empty_cache()
+    if "V-2d" not in K_REFERENCE:
+        _, label, dim, cells, mixed, relax, nu, levels, _ = SYSTEMS[0]
+        st, A, b = systems_setup(label, dim, cells, mixed, relax, 0.75, nu,
+                                 levels, card)
+        if "V-2d" not in HANDOFF:
+            save_handoff("V-2d", st, A, b)
+        k_reference("V-2d", st, A, b, max_iter=60)
+        del st
+        torch.cuda.empty_cache()
+    if "g" not in K_REFERENCE:
+        M, A = divsig((N2, N2))
+        cfg, rp = get_mg_param(levels=LEVELS2, max_outer_iter=100,
+                               relative_tol=1e-8, nu_pre=1, nu_post=1,
+                               dtype=np.float32, relax_type="jac-gmres",
+                               relax_param=1.0, cycle_type="K")
+        st, b = mg_setup(A, M, cfg, rp), rhs_of(A)
+        save_handoff("g", st, A, b)
+        k_reference("g", st, A, b)
+        del st
+        torch.cuda.empty_cache()
+    pa_k_state(card)
+
+
+def multi3_rank(rank, world, device, transport, paths, k_iters):
+    """Phase 21 on one rank (spawned by mgtpu_torch/parallel/launch.py):
+    each row's state loaded (save_handoff) and its sharded solver built,
+    its solves, one correction cycle from zero (its ms, bytes a cycle by
+    kind, its x on rank 0, whether its pad is zero); for PA-sa also
+    MA-sa's replicated cycle (ms, bytes).  Kernel D's counters are read
+    around each row.  Returns the rows; rank 0 also its x."""
+    import dataclasses
+    from mgtpu_torch import recursive_cycle
+    from mgtpu_torch.ops.cuda import stencil as sk
+    from mgtpu_torch.parallel.comm import RankGrid
+    from mgtpu_torch.parallel.grid_sharded import _gather
+    from mgtpu_torch.parallel.part_amg import PartitionedAMGSolver
+    from mgtpu_torch.parallel.sharded_amg import ShardedAMGSolver
+    from mgtpu_torch.parallel.sharded_solve import (ShardedGridSolver,
+                                                    ShardedSystemsSolver)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    comm = RankGrid(None, transport)
+
+    def sync():
+        torch.cuda.synchronize(device)
+
+    def clock(fn):
+        sync()
+        t = time.perf_counter()
+        res = fn()
+        sync()
+        return res, (time.perf_counter() - t) * 1e3
+
+    def d_count():
+        return {f"{kind}.{t}": dct[t] for kind, dct in (
+            ("apply", sk.LAUNCHES), ("halo", sk.HALO_LAUNCHES))
+            for t in ("float32", "float64")}
+
+    def one_cycle(fn):
+        """(a cycle's host-clock ms and bytes by kind, its output): one
+        cycle, after the solve has warmed the path."""
+        comm.reset_counts()
+        y, t = clock(fn)
+        return (t, dict(comm.sent)), y
+
+    for dct in (sk.LAUNCHES, sk.PLAIN_CALLS, sk.HALO_LAUNCHES,
+                sk.CROSS_LAUNCHES):
+        for k in dct:
+            dct[k] = 0
+    out = {"rank": rank, "rows": {}}
+    for row, (key, _) in MULTI3.items():
+        t0 = time.perf_counter()
+        st = load_handoff(paths[key], device, factor=rank == 0)
+        b = st.b
+        more = {}
+        before = d_count()
+        if row.startswith("PA"):
+            solver = PartitionedAMGSolver(st, comm, device)
+            sync()
+            setup_s = time.perf_counter() - t0
+            (x, info), ms = clock(lambda: solver.solve_refined(
+                b, tol=1e-8, max_iter=80 if row == "PA-K" else 60))
+            bl = solver.to_block(b)[0]
+            run = lambda: recursive_cycle(st.config, solver.hier, bl,
+                                          torch.zeros_like(bl), x_zero=True)
+            cyc, y = one_cycle(run)
+            pad = solver.n_true - rank * solver.p[0]
+            pad_zero = bool((y[max(pad, 0):] == 0).all())
+            xc = solver.from_block(y, True)
+            more["halo"] = [solver.comm_entries_per_cycle()[l]["A"][
+                "halo_entries"] for l in range(len(solver.p))]
+            more["levels"] = [int(a.shape[0]) for a in st.As]
+            if row == "PA-sa":
+                rep = ShardedAMGSolver(st, comm, device)
+                bv = rep.to_vec(b)[0]
+                rep_run = lambda: recursive_cycle(
+                    st.config, rep.hier, bv, torch.zeros_like(bv),
+                    x_zero=True)
+                rep_run()
+                more["ma_sa"] = one_cycle(rep_run)[0]
+                del rep
+        elif row == "GK-2d":
+            solver = ShardedGridSolver(st, comm, (0,), device)
+            sync()
+            setup_s = time.perf_counter() - t0
+            (xf, fi), fms = clock(lambda: solver.solve_fgmres(
+                b, restart=5, tol=1e-8))
+            more.update(fgmres_iters=int(fi["iters"]), fgmres_ms=fms,
+                        fgmres_x=xf if rank == 0 else None)
+            (x, info), ms = clock(lambda: solver.solve_refined(b, tol=1e-8))
+            rv = solver.to_grid(b)[0]
+            run = lambda: solver.cycle(solver.gh, rv, torch.zeros_like(rv),
+                                       True)
+            cyc, y = one_cycle(run)
+            full = _gather(y, comm, solver.gh.levels[0].A.shard, 1)
+            n0 = solver.true_grid[0]
+            pad_zero = bool((full[:, n0:] == 0).all())
+            xc = solver.from_grid(y, True).cpu().numpy()
+        else:                               # SK-2d: V-2d's, K-cycles
+            st.config = dataclasses.replace(st.config, cycle_type="K")
+            solver = ShardedSystemsSolver(st, comm, device)
+            sync()
+            setup_s = time.perf_counter() - t0
+            (x, info), ms = clock(lambda: solver.solve_refined(
+                b, tol=1e-8, max_iter=60))
+            bf = solver.to_fields(b)[0]
+            z = tuple(torch.zeros_like(t) for t in bf)
+            run = lambda: solver.cycle(solver.gh, bf, z, True)
+            cyc, y = one_cycle(run)
+            pad_zero = _gathered_pad_zero(solver, y, comm)
+            xc = solver.from_fields(y, True).cpu().numpy()
+        after = d_count()
+        out["rows"][row] = dict(
+            iters=int(info["iters"]), solve_ms=ms, cycle_ms=cyc[0],
+            bytes=cyc[1], setup_s=setup_s, pad_zero=pad_zero,
+            launches={k: after[k] - before[k] for k in after},
+            x=x if rank == 0 else None,
+            cycle_x=np.asarray(xc, np.float64) if rank == 0 else None,
+            **more)
+        del solver, st
+        torch.cuda.empty_cache()
+    out["plain"] = dict(sk.PLAIN_CALLS)
+    return out
+
+
+def phase_multi3(card, layouts=MULTI_RUNS):
+    """Phase 21: the rows of MULTI3 on each layout of `layouts` (by default
+    1 NCCL rank and 4 gloo ranks sharing the card): each count +- 1 at a
+    true f64 relres below 1e-8 (GK-2d: its FGMRES(5) restarts, then the
+    refined solve at the single-device count); PA-sa's halo entries on 4
+    ranks mgtpu's; one correction cycle from zero against one device's
+    (PA-*: on the tier's own ELL levels, bitwise on 1 rank, 1e-5 on 4; a
+    K-cycle where its rounding differs 5e-3), its pad exactly zero; the
+    4-rank x within 1e-6 of 1 rank's.  Prints PA-sa's bytes a cycle beside MA-sa's.  Returns
+    each run's rows (x dropped) and kernel D's halo launches of GK-2d and
+    SK-2d in each run, summed over the ranks."""
+    from mgtpu_torch.parallel.launch import run_ranks
+    paths = {key: HANDOFF[key]["path"] for key, _ in MULTI3.values()}
+    k_iters = {key: K_REFERENCE[key]["iters"] for key in K_REFERENCE}
+    runs, halo = {}, {}
+    for label, world, devices, transport in layouts:
+        t0 = time.perf_counter()
+        outs = run_ranks(multi3_rank, world, devices, transport,
+                         MULTI_DEADLINE_S, args=(transport, paths, k_iters))
+        wall = time.perf_counter() - t0
+        r0 = outs[0]
+        log(f"[multi3] {label} ({transport}): {wall:.1f} s wall; state "
+            "loads and sharded setups a rank, s: "
+            + ", ".join(f"{row} {max(o['rows'][row]['setup_s'] for o in outs):.1f}"
+                        for row in r0["rows"]) + "; solves, s: "
+            + ", ".join(f"{row} {rw['solve_ms'] / 1e3:.1f}"
+                        for row, rw in r0["rows"].items()) + f" ({card})")
+        require(all(not any(o["plain"].values()) for o in outs),
+                f"{label}: kernel D's plain version ran: "
+                f"{[o['plain'] for o in outs]}")
+        halo[label] = {row: {k: sum(o["rows"][row]["launches"][k]
+                                    for o in outs)
+                             for k in r0["rows"][row]["launches"]}
+                       for row in ("GK-2d", "SK-2d")}
+        runs[label] = {}
+        for row, rw in r0["rows"].items():
+            key, want = MULTI3[row]
+            h = HANDOFF[key]
+            rr = true_relres(h["A"], h["b"], torch.as_tensor(rw["x"]))
+            if want is None or row == "GK-2d":
+                single = K_REFERENCE[key]["iters"]
+            dist = lambda a, r: float(np.abs(a - r).max() / np.abs(r).max())
+            # a K-cycle's f32 FGMRES projections solve normal equations:
+            # another rounding of the same levels moves its x by up to a
+            # few 1e-3 (mgtpu's own jitted and eager K-cycles are 3.7e-3
+            # apart at 48^2, tests/test_torch_part_amg.py), so K rows are
+            # held to 5e-3 where their rounding differs
+            kbound = 5e-3
+            if row.startswith("PA"):
+                # one device on the tier's own ELL levels (from the host
+                # matrices); the padded ELL of the state's levels (phase
+                # 20's, explicit zeros of a DIA level where they were)
+                # rounds the products otherwise by a few 1e-6: printed
+                ref = h["cycle_part"]
+                rel = dist(rw["cycle_x"], ref)
+                rw["cycle_rel_ell"] = dist(rw["cycle_x"], h["cycle_ell"])
+                # on 4 ranks every product rounds otherwise (the ELL
+                # batches' sizes); a V-cycle is held to 1e-5 or to ten
+                # times the spread its fine level's rounding alone makes
+                # between the two single-device cycles, whichever is larger
+                spread = dist(h["cycle_ell"], ref)
+                bound = 0.0 if world == 1 else (
+                    kbound if row == "PA-K" else max(1e-5, 10 * spread))
+                what = ("its own ELL levels (the padded ELL of the state's "
+                        f"levels {rw['cycle_rel_ell']:.2e})")
+            else:
+                ref = K_REFERENCE[key]["cycle"]
+                rel = dist(rw["cycle_x"], ref)
+                bound = kbound
+                what = "its state's levels"
+            rw["cycle_rel"] = rel
+            extra = ""
+            if row == "GK-2d":
+                rf = true_relres(h["A"], h["b"], torch.as_tensor(
+                    rw["fgmres_x"]))
+                extra = (f"; FGMRES(5) {rw['fgmres_iters']} restarts (want "
+                         f"{want} +- 1), true f64 relres {rf:.3e}, "
+                         f"{rw['fgmres_ms']:.1f} ms")
+                rw["fgmres_relres"] = rf
+                require(abs(rw["fgmres_iters"] - want) <= 1 and rf < 1e-8,
+                        f"GK-2d {label}: {rw['fgmres_iters']} restarts, "
+                        f"relres {rf:.3e}")
+                want = single
+            elif want is None:
+                want = single
+            if row.startswith("PA"):
+                extra += (f"; halo entries of A a level {rw['halo']} at "
+                          f"levels {rw['levels']}")
+                if world == 4 and rw["levels"] == PA_LEVELS \
+                        and row == "PA-sa":
+                    require(rw["halo"] == PA_HALO, f"PA-sa {label}: halo "
+                            f"entries {rw['halo']}, mgtpu's {PA_HALO}")
+            log(f"[multi3] ({row}) {label}: {rw['iters']} iterations (want "
+                f"{want} +- 1), true f64 relres {rr:.3e}{extra}; one cycle "
+                f"within {rel:.2e} of one device's on {what}; "
+                f"{rw['solve_ms']:.1f} ms a solve, {rw['cycle_ms']:.2f} ms a "
+                f"cycle, bytes a cycle {rw['bytes']}"
+                + (f", kernel D {rw['launches']}" if row[1] == "K" else "")
+                + f"; pad of the cycle's x zero: {rw['pad_zero']} (host "
+                f"clock, synchronised; {card})")
+            if row == "PA-sa":
+                ms, by = rw["ma_sa"]
+                log(f"[multi3] (PA-sa) {label}: bytes a cycle, one rank: "
+                    f"partitioned {sum(rw['bytes'].values())} "
+                    f"{rw['bytes']}, MA-sa's replicated cycle "
+                    f"{sum(by.values())} {by}; ms a cycle {rw['cycle_ms']:.2f}"
+                    f" / {ms:.2f} (host clock, synchronised; {card})")
+            require(rel <= bound, f"{row} {label}: one cycle {rel:.2e} from "
+                    f"the single-device cycle on {what} (bound {bound})")
+            require(all(o["rows"][row]["pad_zero"] for o in outs),
+                    f"{row} {label}: the pad of x is not zero after a cycle")
+            require(abs(rw["iters"] - want) <= 1 and rr < 1e-8,
+                    f"{row} {label}: {rw['iters']} iterations (want {want} "
+                    f"+- 1), relres {rr:.3e}")
+            if row[1] == "K":
+                require(rw["launches"]["halo.float32"] > 0
+                        and rw["launches"]["halo.float64"] > 0,
+                        f"{row} {label}: kernel D's halo apply did not run "
+                        f"in both types: {rw['launches']}")
+            runs[label][row] = dict(rw, relres=rr)
+    one, four = (runs[k] for k in runs)
+    for row in four:
+        for xk in ("x", "fgmres_x"):
+            if one[row].get(xk) is None:
+                continue
+            x1, x4 = np.asarray(one[row][xk]), np.asarray(four[row][xk])
+            rel = float(np.abs(x4 - x1).max() / np.abs(x1).max())
+            log(f"[multi3] ({row}) {xk} on 4 ranks within {rel:.2e} of 1 "
+                "rank's")
+            if xk == "fgmres_x":
+                # as MA-fg's (ROADMAP queue 3): a Krylov x to tol fixes its
+                # residual, not x; the same restarts, each relres held above
+                require(four[row]["fgmres_iters"] == one[row]["fgmres_iters"],
+                        f"{row}: {four[row]['fgmres_iters']} restarts on 4 "
+                        f"ranks, {one[row]['fgmres_iters']} on 1")
+                continue
+            require(rel <= 1e-6, f"{row}: x on 4 ranks {rel:.2e} from 1 "
+                    "rank's")
+    for label in runs:
+        for row in runs[label]:
+            for xk in ("x", "cycle_x", "fgmres_x"):
+                runs[label][row].pop(xk, None)
+    return runs, halo
+
+
 def main() -> int:
     t_start = time.perf_counter()
     smi, name = phase_card()
@@ -5177,6 +5601,7 @@ def main() -> int:
             for k, (rep, src, _) in KERNELS.items()}
     timed = phase_kernels(st_jac, rows)
     phase_timing(timed, rows)
+    log(f"[elapsed] phases 1-3 done: {time.perf_counter() - t_start:.1f} s")
     launches, b_by_grid = phase_path3d(M3, L3, st_jac, card)
     rows["jacobi_residual3d"]["launches_by_grid"] = b_by_grid
     st2d = phase_path2d(card)
@@ -5192,17 +5617,21 @@ def main() -> int:
     aniso = phase_aniso(line_ops, card)
     phase_fmg(card)
 
+    log(f"[elapsed] phases 4-8 done: {time.perf_counter() - t_start:.1f} s")
     ops, kstates, rhs = krylov_states()
     timed_states = {"f": kstates["f"], "h": kstates["h"]}
     phase_stencil_kernels(timed_states, rows)
     phase_stencil_timing(timed_states, rows, card)
     krylov = phase_krylov(ops, kstates, rhs, card)
+    save_handoff("g", kstates["g"], ops["f"][1], rhs["g"]["b"])
+    k_reference("g", kstates["g"], ops["f"][1], rhs["g"]["b"])
     cg_iteration(kstates["f"], rhs["f"]["b"], card)
     b3 = L3 @ np.random.RandomState(SEED).rand(L3.shape[0])
     sweep = chunk_sweep((st_jac, b3 / np.linalg.norm(b3)),
                         (kstates["f"], rhs["f"]["b"]), card)
     del ops, kstates, rhs, timed_states
 
+    log(f"[elapsed] phases 9-10 done: {time.perf_counter() - t_start:.1f} s")
     runs = amg_states()
     st3, levels3 = sa3d_levels()
     phase_amg_kernels(runs, st3, levels3, rows)
@@ -5214,28 +5643,34 @@ def main() -> int:
     classical = phase_classical(runs[2], rows, card)
     del runs, st3, levels3
     torch.cuda.empty_cache()
+    log(f"[elapsed] phases 11-12 done: {time.perf_counter() - t_start:.1f} s")
     sys_states, lex_state, systems = phase_systems(card)
     phase_cross_kernels(sys_states, rows, card)
     phase_lex_kernel(lex_state, rows, card)
     for key in ("V-2d", "E-2d", "V-3d"):
         save_handoff(key, *sys_states[key])
+    k_reference("V-2d", *sys_states["V-2d"], max_iter=60)
     del sys_states, lex_state
     torch.cuda.empty_cache()
+    log(f"[elapsed] phase 13 done: {time.perf_counter() - t_start:.1f} s")
     kmg, kprec = kmg_state(card), kprec_state()
     phase_kaczmarz_kernel(kmg, kprec, rows, card)
     f_launches = phase_facade(M3, L3, st_jac, st2d, kmg, kprec, card)
     del kmg, kprec, st2d
     torch.cuda.empty_cache()
+    log(f"[elapsed] phases 15-16 done: {time.perf_counter() - t_start:.1f} s")
     cstates = complex_states(card)
     phase_complex_kernels(cstates, rows, card)
     cplx = phase_complex(cstates, card)
     del cstates
     torch.cuda.empty_cache()
+    log(f"[elapsed] phase 17 done: {time.perf_counter() - t_start:.1f} s")
     rstates = rest_states(card)
     phase_rest_kernels(rstates, rows, card)
     rest = phase_rest(rstates, card)
     del rstates
     torch.cuda.empty_cache()
+    log(f"[elapsed] phase 18 done: {time.perf_counter() - t_start:.1f} s")
     t19 = time.perf_counter()
     L2 = shifted_laplacian((N2, N2))[1]
     phase_halo_kernels(L2, L3, rows, card)
@@ -5246,17 +5681,25 @@ def main() -> int:
     phase_stag_halo_kernels(rows, card)
     try:
         multi2, multi2_d = phase_multi2(card)
+        log("[multi2] " + json.dumps(multi2, default=float))
+        log(f"[multi2] phase 20: {time.perf_counter() - t20:.1f} s")
+        t21 = time.perf_counter()
+        pa_k_state(card)
+        multi3, multi3_d = phase_multi3(card)
     finally:
         drop_handoffs()
-    log("[multi2] " + json.dumps(multi2, default=float))
-    log(f"[multi2] phase 20: {time.perf_counter() - t20:.1f} s")
+    log("[multi3] " + json.dumps(multi3, default=float))
+    log(f"[multi3] phase 21: {time.perf_counter() - t21:.1f} s")
     for k, row in rows.items():
         # each kernel's launches from the window of its own path (the
         # systems window's kernel D launches are all cross applies)
         row["launches"] = (
             sum(w["halo." + k.split(".")[1]] for w in multi2_d.values())
+            + sum(w["SK-2d"]["halo." + k.split(".")[1]]
+                  for w in multi3_d.values())
             if k.startswith("stencil_halo_stag.") else
             sum(w[k[len("stencil_"):]] for w in multi_d.values())
+            + sum(w["GK-2d"][k[len("stencil_"):]] for w in multi3_d.values())
             if k.startswith("stencil_halo.") else
             rest[k] if k in REST_ROWS else
             cplx[k] if "complex" in k else
@@ -5270,9 +5713,15 @@ def main() -> int:
     for k in ("stencil_halo.float32", "stencil_halo.float64"):
         rows[k]["launches_by_run"] = {
             run: w[k[len("stencil_"):]] for run, w in multi_d.items()}
+        rows[k]["launches_by_run"].update({
+            f"GK-2d, {run}": w["GK-2d"][k[len("stencil_"):]]
+            for run, w in multi3_d.items()})
     for k in ("stencil_halo_stag.float32", "stencil_halo_stag.float64"):
         rows[k]["launches_by_run"] = {
             run: w["halo." + k.split(".")[1]] for run, w in multi2_d.items()}
+        rows[k]["launches_by_run"].update({
+            f"SK-2d, {run}": w["SK-2d"]["halo." + k.split(".")[1]]
+            for run, w in multi3_d.items()})
     for k in ("stencil3d_apply.matvec", "stencil.float32", "stencil.float64"):
         rows[k]["launches_aniso"] = aniso[k]
     for k in ("stencil.float32", "stencil.float64"):

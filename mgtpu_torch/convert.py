@@ -12,7 +12,8 @@ engine's hierarchy (cross stencils, grid Vanka, per-component factors,
 dense coarsest inverse) comes across by `systems_hierarchy_from_arrays`.
 One rank's part of mgtpu's padded multi-device hierarchies comes across by
 `sharded_systems_from_arrays` (systems tier) and `sharded_flat_from_arrays`
-(row-sharded flat tier).
+(row-sharded flat tier), and of its partitioned flat tier's plan arrays by
+`partitioned_flat_from_arrays`.
 
 LU pivots are taken as scipy's and JAX's ``lu_factor`` give them, 0-based;
 torch's `lu_solve` reads LAPACK's 1-based pivots, so they gain one here.
@@ -51,7 +52,7 @@ __all__ = ["grid_hierarchy_from_arrays", "flat_hierarchy_from_arrays",
            "schwarz_state_from_arrays", "schur_coarse_from_arrays",
            "systems_hierarchy_from_arrays", "sharded_mg_from_arrays",
            "sharded_schwarz_from_arrays", "sharded_systems_from_arrays",
-           "sharded_flat_from_arrays"]
+           "sharded_flat_from_arrays", "partitioned_flat_from_arrays"]
 
 
 def _as_tensor(a, device):
@@ -389,3 +390,58 @@ def sharded_flat_from_arrays(levels, coarse, nc: int, comm, *,
     return shard_padded_hierarchy(
         Hierarchy(hier.levels, PaddedCoarse(hier.coarse, int(nc))), comm,
         rank_device(device))
+
+
+def partitioned_flat_from_arrays(levels, coarse, comm, *,
+                                 device) -> Hierarchy:
+    """This rank's partitioned hierarchy (parallel/part_amg.py) from the
+    plan arrays of mgtpu's PartitionedAMGSolver, built for as many devices
+    as `comm` has ranks.
+
+    levels: one mapping per level with ``A`` (below the coarsest also
+         ``P`` and ``R``), each a mapping {``indices`` (ndev, p_rows, K)
+         remapped, ``values``, ``sends`` (per ring distance (ndev, S_d)),
+         ``dists``, ``shape`` (p_rows, p_cols + H)} as `partition_plan`
+         returns them and mgtpu's PartELL holds them; below the coarsest
+         ``d`` (ndev, p) the smoother's diagonal blocks and, for a
+         Chebyshev smoother, ``lam_max``;
+    coarse: {``lu``, ``piv`` (0-based), ``nc``} for the dense LU,
+         {``matrix`` (scipy), ``nc``} for the host SuperLU (factored on
+         rank 0 only), or {``d`` (ndev, p), ``inner``} for the iterative
+         coarsest on the last level's A."""
+    from .cycle.coarse import sparse_lu_from_scipy
+    from .parallel.comm import rank_device
+    from .parallel.part_amg import (PartDenseLU, PartIterativeCoarse,
+                                    PartSparseLU, part_ell)
+    dev = rank_device(device)
+    k = comm.axis_index(0)
+
+    def op(m):
+        return part_ell(np.asarray(m["indices"]), np.asarray(m["values"]),
+                        m["dists"], [np.asarray(s) for s in m["sends"]],
+                        m["shape"], comm, dev)
+
+    out = []
+    for lv in levels:
+        relax = None
+        if lv.get("d") is not None:
+            d = torch.tensor(np.asarray(lv["d"])[k], device=dev)
+            relax = (DiagRelax(d) if lv.get("lam_max") is None
+                     else ChebyshevRelax(d, float(lv["lam_max"])))
+        out.append(Level(op(lv["A"]), None if lv.get("P") is None
+                         else op(lv["P"]), None if lv.get("R") is None
+                         else op(lv["R"]), relax))
+    p = out[-1].A.shape[0]
+    if "lu" in coarse:
+        solver = PartDenseLU(dense_lu_from_arrays(coarse["lu"], coarse["piv"],
+                                                  dev), int(coarse["nc"]), p,
+                             comm)
+    elif "matrix" in coarse:
+        solver = PartSparseLU(
+            sparse_lu_from_scipy(coarse["matrix"]) if comm.rank == 0
+            else None, int(coarse["nc"]), p, comm)
+    else:
+        solver = PartIterativeCoarse(
+            out[-1].A, torch.tensor(np.asarray(coarse["d"])[k], device=dev),
+            int(coarse["inner"]), comm.psum)
+    return Hierarchy(tuple(out), solver, comm.psum)

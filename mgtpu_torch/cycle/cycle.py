@@ -27,14 +27,15 @@ from .vanka import VankaRelax, vanka_sweep
 __all__ = ["recursive_cycle", "cycle_jit", "make_cycle_fn"]
 
 
-def _smooth(cfg, level, r, x, b, nu: int, matvec):
-    """One smoothing stage (reference MGcycle.jl:46-55)."""
+def _smooth(cfg, level, r, x, b, nu: int, matvec, reduce=None):
+    """One smoothing stage (reference MGcycle.jl:46-55); `reduce` the
+    hierarchy's (Jac-GMRES's Gram sums over the ranks)."""
     if nu <= 0:
         return x
     rt = cfg.relax_type
     if rt == "jac-gmres":
         d = level.relax.d[:, None]
-        return fgmres_relaxation(matvec, lambda v: d * v, r, x, nu)
+        return fgmres_relaxation(matvec, lambda v: d * v, r, x, nu, reduce)
     if rt == "chebyshev":
         return chebyshev_smooth(matvec, level.relax.d[:, None],
                                 level.relax.lam_max, cfg.cheby_degree * nu,
@@ -76,7 +77,7 @@ def recursive_cycle(cfg, hier, b, x, level: int = 0,
     lvl = hier.levels[level]
     matvec = lvl.A.matvec
     r = b if x_zero else b - matvec(x)
-    x = _smooth(cfg, lvl, r, x, b, cfg.nu_pre[level], matvec)
+    x = _smooth(cfg, lvl, r, x, b, cfg.nu_pre[level], matvec, hier.reduce)
     r = b - matvec(x) if cfg.nu_pre[level] > 0 or not x_zero else b
     bc = lvl.R.matvec(r)
     xc0 = torch.zeros((lvl.R.shape[0], b.shape[1]), dtype=b.dtype,
@@ -87,7 +88,7 @@ def recursive_cycle(cfg, hier, b, x, level: int = 0,
         prec = lambda v: recursive_cycle(cfg, hier, v, torch.zeros_like(v),
                                          level + 1, "K", x_zero=True)
         xc = fgmres_relaxation(hier.levels[level + 1].A.matvec, prec, bc,
-                               xc0, cfg.kcycle_inner)
+                               xc0, cfg.kcycle_inner, hier.reduce)
     else:
         xc = recursive_cycle(cfg, hier, bc, xc0, level + 1, ctype,
                              x_zero=True)
@@ -98,7 +99,8 @@ def recursive_cycle(cfg, hier, b, x, level: int = 0,
 
     x = x + lvl.P.matvec(xc)
     r = b - matvec(x)
-    return _smooth(cfg, lvl, r, x, b, cfg.nu_post[level], matvec)
+    return _smooth(cfg, lvl, r, x, b, cfg.nu_post[level], matvec,
+                   hier.reduce)
 
 
 def _cycle_program(ctx, b, x):

@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import functools
 from dataclasses import dataclass
+from typing import Any
 
 import numpy as np
 import scipy.sparse as sp
@@ -153,15 +154,21 @@ class GridIterativeCoarse:
     d: torch.Tensor             # grid-shaped damped inverse diagonal
     inner: int
 
-    def solve(self, bg: torch.Tensor) -> torch.Tensor:
+    def solve(self, bg: torch.Tensor, reduce=None) -> torch.Tensor:
         return fgmres_relaxation(self.A.matvec, lambda r: self.d * r,
-                                 bg, torch.zeros_like(bg), self.inner)
+                                 bg, torch.zeros_like(bg), self.inner,
+                                 reduce)
 
 
 @dataclass(frozen=True, eq=False)
 class GridHierarchy:
+    """The grid engine's device hierarchy.  `reduce` sums a tensor over the
+    ranks when the fields are this rank's blocks (parallel/grid_sharded.py):
+    the cycle's FGMRES projections (Jac-GMRES, K-cycles, the iterative
+    coarsest) pass it to `fgmres_relaxation`; None on one device."""
     levels: tuple               # GridLevel per level (coarsest included)
     coarse: DenseInverse | GridIterativeCoarse
+    reduce: Any = None
 
     @property
     def fine_grid(self) -> tuple[int, ...]:
@@ -224,7 +231,7 @@ def _fused3d(cfg, lvl: GridLevel) -> bool:
 
 
 def _grid_smooth(cfg, lvl: GridLevel, r, x, b, nu: int,
-                 x_zero: bool = False):
+                 x_zero: bool = False, reduce=None):
     if nu <= 0:
         return x
     if cfg.relax_type == "chebyshev":
@@ -237,12 +244,21 @@ def _grid_smooth(cfg, lvl: GridLevel, r, x, b, nu: int,
     if cfg.relax_type == "line-jacobi":
         return line_smooth(lvl.A.matvec, lvl.line, r, x, b, nu, x_zero)
     if cfg.relax_type == "jac-gmres":
-        return fgmres_relaxation(lvl.A.matvec, lambda v: lvl.d * v, r, x, nu)
+        return fgmres_relaxation(lvl.A.matvec, lambda v: lvl.d * v, r, x, nu,
+                                 reduce)
     # jacobi / spai: x += d .* r with the residual refreshed between sweeps
     for _ in range(nu - 1):
         x = x + lvl.d * r
         r = b - lvl.A.matvec(x)
     return x + lvl.d * r
+
+
+def _coarse_solve(gh: GridHierarchy, b):
+    """The coarsest solve; an iterative coarsest takes the hierarchy's
+    reduce hook."""
+    if isinstance(gh.coarse, GridIterativeCoarse):
+        return gh.coarse.solve(b, gh.reduce)
+    return gh.coarse.solve(b)
 
 
 def grid_cycle(cfg, gh: GridHierarchy, b, x, level: int = 0,
@@ -262,7 +278,7 @@ def grid_cycle(cfg, gh: GridHierarchy, b, x, level: int = 0,
         raise NotImplementedError(f"cycle type {ctype!r} not yet ported")
     nlev = len(gh.levels)
     if level == nlev - 1:
-        return gh.coarse.solve(b)
+        return _coarse_solve(gh, b)
 
     lvl = gh.levels[level]
     matvec = lvl.A.matvec
@@ -288,16 +304,18 @@ def grid_cycle(cfg, gh: GridHierarchy, b, x, level: int = 0,
             r = b
     else:
         r = b if x_zero else b - matvec(x)
-        x = _grid_smooth(cfg, lvl, r, x, b, cfg.nu_pre[level], x_zero)
+        x = _grid_smooth(cfg, lvl, r, x, b, cfg.nu_pre[level], x_zero,
+                         gh.reduce)
         r = b - matvec(x) if cfg.nu_pre[level] > 0 or not x_zero else b
     bc = grid_restrict(r, lvl.P1)
     if level == nlev - 2:
-        xc = gh.coarse.solve(bc)
+        xc = _coarse_solve(gh, bc)
     elif ctype == "K":
         prec = lambda v: grid_cycle(cfg, gh, v, torch.zeros_like(v),
                                     level + 1, "K", x_zero=True)
         xc = fgmres_relaxation(gh.levels[level + 1].A.matvec, prec, bc,
-                               torch.zeros_like(bc), cfg.kcycle_inner)
+                               torch.zeros_like(bc), cfg.kcycle_inner,
+                               gh.reduce)
     else:
         xc = grid_cycle(cfg, gh, bc, torch.zeros_like(bc), level + 1,
                         ctype, x_zero=True)
@@ -318,7 +336,8 @@ def grid_cycle(cfg, gh: GridHierarchy, b, x, level: int = 0,
     else:
         x = x + p
         r = b - matvec(x)
-        x = _grid_smooth(cfg, lvl, r, x, b, cfg.nu_post[level])
+        x = _grid_smooth(cfg, lvl, r, x, b, cfg.nu_post[level],
+                         reduce=gh.reduce)
     return x
 
 

@@ -88,7 +88,7 @@ def relax_diag(matvec, r, x, b, d, num_it: int):
     return x + dcol * r
 
 
-def fgmres_relaxation(matvec, prec, r0, x0, inner: int):
+def fgmres_relaxation(matvec, prec, r0, x0, inner: int, reduce=None):
     """Minimal-residual correction over the preconditioned Krylov subspace
     (the reference's FGMRES_relaxation, FGMRES.jl:40-126).
 
@@ -96,7 +96,16 @@ def fgmres_relaxation(matvec, prec, r0, x0, inner: int):
     t = argmin ||r0 - (A Z) t||_2 over the flattened block system: the m
     right-hand sides share one subspace (FGMRES.jl:51-53).  The projection
     is a Tikhonov-regularised solve of the normal equations, the form mgtpu
-    uses in place of the reference's pinv."""
+    uses in place of the reference's pinv.
+
+    `reduce` (mgtpu's `axis_name`): when the operands are this rank's row
+    blocks of partitioned vectors, the Gram matrix G = (AZ)^H AZ and the
+    right-hand side c = (AZ)^H r0 are this rank's partial sums;
+    reduce(t) returns the sum of t over the ranks (`RankGrid.psum`) and is
+    called once, on G and c stacked as one (inner, inner + 1) tensor.  The
+    regularisation is taken from the summed G, so every rank solves the
+    same projection.  Rows outside the operator (a zero pad) must hold
+    zeros."""
     zs, azs = [], []
     w = r0
     for j in range(inner):
@@ -109,6 +118,9 @@ def fgmres_relaxation(matvec, prec, r0, x0, inner: int):
     G = AZ.conj().T @ AZ                # (inner, inner) normal equations
     c = AZ.conj().T @ r0.reshape(-1)
     k = G.shape[0]
+    if reduce is not None:              # row blocks: the global sums
+        Gc = reduce(torch.cat([G, c[:, None]], dim=1))
+        G, c = Gc[:, :k], Gc[:, k]
     reg = (8 * k) * torch.finfo(G.dtype).eps * (
         torch.diagonal(G).sum().real / k + 1e-30)
     t = torch.linalg.solve_ex(

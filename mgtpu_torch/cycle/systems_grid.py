@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass
+from typing import Any
 
 import numpy as np
 import scipy.sparse as sp
@@ -155,6 +156,13 @@ class BlockGridOperator:
         m = xs[0].shape[0]
         return tuple(xs[0].new_zeros((m,) + tuple(g)) if y is None else y
                      for y, g in zip(ys, self.grids))
+
+    def to_rows(self, xs) -> torch.Tensor:
+        """Block fields as the (m, N) rows the Krylov algebra runs on."""
+        return fields_to_rows(xs)
+
+    def from_rows(self, v: torch.Tensor):
+        return rows_to_fields(v, self.grids)
 
     def rows_matvec(self, v: torch.Tensor) -> torch.Tensor:
         """The apply on (m, N) rows."""
@@ -329,8 +337,13 @@ class BlockDenseInverse:
 
 @dataclass(frozen=True, eq=False)
 class SystemsGridHierarchy:
+    """The systems engine's device hierarchy.  `reduce` sums a tensor over
+    the ranks when the fields are this rank's blocks
+    (parallel/systems_sharded.py): the K-cycle's FGMRES projections pass it
+    to `fgmres_relaxation`; None on one device."""
     levels: tuple
     coarse: BlockDenseInverse
+    reduce: Any = None
 
     @property
     def fine_grids(self) -> tuple:
@@ -377,15 +390,15 @@ def _systems_smooth(cfg, lvl: SystemsGridLevel, r, xs, bs_field, nu: int):
     return _tadd(xs, tuple(d * ri for d, ri in zip(lvl.d, r)))
 
 
-def _fields_fgmres(A, prec, b, inner: int):
-    """`fgmres_relaxation` from zero on block fields (through their rows)."""
-    grids = A.grids
-    b2 = fields_to_rows(b)
+def _fields_fgmres(A, prec, b, inner: int, reduce=None):
+    """`fgmres_relaxation` from zero on block fields, through the rows view
+    of the operator (`to_rows` / `from_rows`: every row on one device, this
+    rank's owned rows of a sharded operator)."""
+    b2 = A.to_rows(b)
     x2 = fgmres_relaxation(A.rows_matvec,
-                           lambda v: fields_to_rows(prec(
-                               rows_to_fields(v, grids))),
-                           b2, torch.zeros_like(b2), inner)
-    return rows_to_fields(x2, grids)
+                           lambda v: A.to_rows(prec(A.from_rows(v))),
+                           b2, torch.zeros_like(b2), inner, reduce)
+    return A.from_rows(x2)
 
 
 def systems_grid_cycle(cfg, gh: SystemsGridHierarchy, b, x, level: int = 0,
@@ -415,7 +428,7 @@ def systems_grid_cycle(cfg, gh: SystemsGridHierarchy, b, x, level: int = 0,
         prec = lambda v: systems_grid_cycle(cfg, gh, v, _tzeros(v),
                                             level + 1, "K", x_zero=True)
         xc = _fields_fgmres(gh.levels[level + 1].A, prec, bc,
-                            cfg.kcycle_inner)
+                            cfg.kcycle_inner, gh.reduce)
     else:
         xc = systems_grid_cycle(cfg, gh, bc, _tzeros(bc), level + 1, ctype,
                                 x_zero=True)

@@ -16,7 +16,9 @@ row and per column.  Each mgtpu collective is one call here:
  * `broadcast`       from a rank of an axis;
  * `exchange_halo`   one batch_isend_irecv each way along an axis; edge
                      ranks receive zero planes, as `ppermute` leaves them;
- * `shift`           one way along an axis (a `ppermute` by a fixed step).
+ * `shift`           one way along an axis (a `ppermute` by a fixed step);
+ * `ring_permute`    around the ring of an axis, several steps at once
+                     (the `ppermute`s of mgtpu's part_amg.py::_halo_concat).
 
 Two transports, chosen by the caller (`transport=`, the backend of the
 process group) and never switched on an error:
@@ -267,6 +269,32 @@ class RankGrid:
         for w in (dist.batch_isend_irecv(ops) if ops else []):
             w.wait()
         return x.new_zeros(x.shape) if recv is None else self._back(recv, x)
+
+    def ring_permute(self, bufs, steps, axis: int = 0) -> list:
+        """Cyclic shifts along `axis`: bufs[j] of this rank goes to the
+        rank steps[j] places after it (modulo the axis), and the list of
+        what the ranks steps[j] places before it sent comes back.  bufs[j]
+        has the same shape on every rank; the steps are distinct and not
+        multiples of the axis size, so each peer gets at most one message
+        each way.  Every step is posted in one batch_isend_irecv."""
+        P, i = self.shape[axis], self.coords[axis]
+        line, group = self._members[axis], self._groups[axis]
+        ops, recvs, sends = [], [], []
+        for buf, step in zip(bufs, steps):
+            if step % P == 0:
+                raise ValueError(f"a ring step of {step} on {P} ranks")
+            send = self._out(buf)
+            recv = self._empty(buf.shape, buf)
+            ops += [dist.P2POp(dist.isend, send, line[(i + step) % P],
+                               group),
+                    dist.P2POp(dist.irecv, recv, line[(i - step) % P],
+                               group)]
+            sends.append(send)
+            recvs.append(recv)
+            self._count("halo", send.nbytes)
+        for w in (dist.batch_isend_irecv(ops) if ops else []):
+            w.wait()
+        return [self._back(r, b) for r, b in zip(recvs, bufs)]
 
     def exchange_halo(self, x: torch.Tensor, axis: int = 0, width: int = 1,
                       dim: int = 0) -> torch.Tensor:

@@ -24,6 +24,11 @@ runs the unchanged `grid_cycle` on it:
  * the coarsest (`ShardedCoarse`): the dense inverse applied replicated to
    the gathered field, then sliced.
 
+Jac-GMRES smoothing and K-cycles run with the hierarchy's reduce hook
+(`GridHierarchy.reduce` = `RankGrid.psum`): each rank's FGMRES Gram
+products cover its own block, the zero pad adds exact zeros, and their sum
+over the ranks is the single device's projection.
+
 As in mgtpu the sums over a sharded axis run in another order than on one
 device, so iterates agree to rounding, not bitwise.
 """
@@ -43,7 +48,7 @@ __all__ = ["PaddedDenseInverse", "pad_grid_hierarchy", "ShardedGridStencil",
            "ShardedTransfer", "ShardedCoarse", "shard_grid_hierarchy",
            "make_grid_sharded_cycle", "SHARDED_RELAX"]
 
-SHARDED_RELAX = ("jacobi", "spai", "chebyshev", "chebyshev4")
+SHARDED_RELAX = ("jacobi", "spai", "chebyshev", "chebyshev4", "jac-gmres")
 
 
 def _pad_to(a: torch.Tensor, targets, axes) -> torch.Tensor:
@@ -231,7 +236,7 @@ def shard_grid_hierarchy(gh_pad: GridHierarchy, comm, shard,
     coarse = ShardedCoarse(PaddedDenseInverse(
         DenseInverse(inner.inv.to(device), inner.grid),
         gh_pad.coarse.pad_grid), comm, shard)
-    return GridHierarchy(tuple(levels), coarse)
+    return GridHierarchy(tuple(levels), coarse, comm.psum)
 
 
 def make_grid_sharded_cycle(state, comm, axes=(0,), device=None):
@@ -252,9 +257,6 @@ def make_grid_sharded_cycle(state, comm, axes=(0,), device=None):
         raise NotImplementedError(
             f"relax_type {cfg.relax_type!r} on the sharded grid engine: its "
             f"smoothers are {SHARDED_RELAX}")
-    if cfg.cycle_type not in ("V", "W", "F"):
-        raise NotImplementedError("the sharded grid engine runs V, W and F "
-                                  "cycles")
     dev = rank_device(device)
     g = len(gh.fine_grid)
     axes = tuple(int(a) for a in axes)

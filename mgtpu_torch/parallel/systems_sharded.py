@@ -47,12 +47,15 @@ this module writes out what XLA inferred and runs the port's unchanged
    `PaddedBlockCoarse` (the replicated dense inverse on the true grids),
    this rank's blocks sliced back.
 
-K-cycles need a global reduction inside the cycle (their FGMRES Gram
-products): they wait for the reduce hook of ROADMAP queue 1, item 4.  As on
-one device the E-2d form (SPAI diagonals) is pointwise on each rank.  Sums
-over axis 0 (the transfers) run in another order than on one device, so
-iterates agree to rounding; the block applies and the Vanka windows are
-the single device's arithmetic.
+K-cycles run with the hierarchy's reduce hook (`SystemsGridHierarchy.
+reduce` = `RankGrid.psum`): the K-cycle's FGMRES works on the rows view of
+this rank's blocks (`ShardedBlockOperator.to_rows` / `from_rows`: the owned
+planes only, so the dead slots are outside every Krylov vector and every
+Gram sum, and come back zero), and its Gram products are summed over the
+ranks.  As on one device the E-2d form (SPAI diagonals) is pointwise on
+each rank.  Sums over axis 0 (the transfers) run in another order than on
+one device, so iterates agree to rounding; the block applies and the Vanka
+windows are the single device's arithmetic.
 """
 from __future__ import annotations
 
@@ -293,6 +296,27 @@ class ShardedBlockOperator:
         return tuple(xs[0].new_zeros((m,) + tuple(gr)) if y is None else y
                      for y, gr in zip(ys, self.grids))
 
+    def to_rows(self, xs) -> torch.Tensor:
+        """This rank's rows of block fields (m, *block_c): every
+        component's owned planes (a dead slot left out), flattened and
+        concatenated, (m, N_rank)."""
+        m = xs[0].shape[0]
+        return torch.cat([x.narrow(1, 0, w).reshape(m, -1)
+                          for x, w in zip(xs, self.layout.owned)], dim=1)
+
+    def from_rows(self, v: torch.Tensor):
+        """The block fields of `to_rows`'s rows, a dead slot zero."""
+        m, out, off = v.shape[0], [], 0
+        for g, w in zip(self.grids, self.layout.owned):
+            size = w * int(np.prod(g[1:]))
+            x = v[:, off:off + size].reshape((m, w) + tuple(g[1:]))
+            out.append(_pad_axis(x, g[0], 1).contiguous())
+            off += size
+        return tuple(out)
+
+    def rows_matvec(self, v: torch.Tensor) -> torch.Tensor:
+        return self.to_rows(self.matvec(self.from_rows(v)))
+
 
 def shard_block_operator(op: BlockGridOperator, comm,
                          device) -> ShardedBlockOperator:
@@ -466,7 +490,7 @@ def shard_systems_hierarchy(gh_pad: SystemsGridHierarchy, comm,
             T = ShardedSystemsTransfer(tuple(P1), tuple(R1), comm)
         levels.append(SystemsGridLevel(A, d, vanka, T, T))
     coarse = ShardedBlockCoarse(gh_pad.coarse.to(device), lays[-1], comm)
-    return SystemsGridHierarchy(tuple(levels), coarse)
+    return SystemsGridHierarchy(tuple(levels), coarse, comm.psum)
 
 
 def make_systems_sharded_cycle(state, comm, device=None):
@@ -482,11 +506,6 @@ def make_systems_sharded_cycle(state, comm, device=None):
     gh = state.hier
     if not isinstance(gh, SystemsGridHierarchy):
         raise ValueError("state does not use the systems grid engine")
-    if cfg.cycle_type not in ("V", "W", "F"):
-        raise NotImplementedError(
-            "the sharded systems engine runs V, W and F cycles: a K-cycle's "
-            "FGMRES needs a global reduction inside the cycle, the reduce "
-            "hook of ROADMAP queue 1, item 4")
     dev = rank_device(device)
     gh_pad, pgrids = pad_systems_hierarchy(gh, comm.axis_size(0))
     gh_sh = shard_systems_hierarchy(gh_pad, comm, dev)

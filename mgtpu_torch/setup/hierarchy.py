@@ -157,10 +157,14 @@ class Level:
 
 @dataclass(frozen=True, eq=False)
 class Hierarchy:
-    """The flat engine's device hierarchy."""
+    """The flat engine's device hierarchy.  `reduce` sums a tensor over
+    the ranks when the levels hold row blocks of partitioned vectors
+    (parallel/part_amg.py): the cycle's FGMRES projections (Jac-GMRES,
+    K-cycles) pass it to `fgmres_relaxation`; None on one device."""
     levels: tuple          # Level per level, coarsest included
     coarse: Any            # DenseLU | IterativeCoarse | SparseLUCoarse |
                            # an external solver's device state
+    reduce: Any = None
 
 
 @dataclass

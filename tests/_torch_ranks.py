@@ -374,12 +374,13 @@ def systems_sharded_cases(rank, world, device, ref_padded):
             for _ in range(2):
                 xf = cycle(gh2, bf, xf)
             out["convert"] = from_fields(xf).numpy()
+    # K-cycles, refused until the cycles took a reduce hook: one from zero
     M, A, p = systems_case("mixed", cycle_type="K")
-    try:
-        make_systems_sharded_cycle(setup(M, A, **p), comm, device)
-        out["refuses_K"] = False
-    except NotImplementedError as e:
-        out["refuses_K"] = "reduce hook" in str(e)
+    gh, cycle, to_fields, from_fields = make_systems_sharded_cycle(
+        setup(M, A, **p), comm, device)
+    bf = to_fields(np.random.RandomState(3).rand(A.shape[0], 2))
+    out["K"] = from_fields(cycle(gh, bf, tuple(torch.zeros_like(t)
+                                               for t in bf), True)).numpy()
     M, A, p = systems_case("solve", np.float32, max_outer_iter=40)
     solver = make_sharded_systems_solver(setup(M, A, **p), comm, device)
     x, info = solver.solve_refined(rhs(A, seed=9), tol=1e-8)
@@ -498,5 +499,273 @@ def sharded_amg_cases(rank, world, device, ref_padded):
     grid = setup(M, A, **params(2, np.float32))
     out["refuses_grid"] = _refuses(
         lambda: ShardedAMGSolver(grid, comm, device))
+    out["sent"] = dict(comm.sent)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the partitioned flat tier (tests/test_torch_part_amg.py)
+# ---------------------------------------------------------------------------
+
+# mgtpu's tests/test_part_amg.py cases: name -> (cells a side, dim, sigma
+# seed, parameters, cycle b seed, refined (b seed, tol, max_iter) or None)
+PART_CASES = {
+    "spai": (48, 2, 1, dict(levels=3, relax_type="spai"), 2, (3, 1e-8, 40)),
+    "cheb": (40, 2, 1, dict(levels=3, relax_type="chebyshev",
+                            cheby_degree=2, nu_pre=1, nu_post=1), None,
+             (4, 1e-8, 60)),
+    "kcycle": (48, 2, 1, dict(levels=3, relax_type="jac-gmres",
+                              relax_param=1.0, nu_pre=1, nu_post=1,
+                              cycle_type="K"), 7, (8, 1e-8, 40)),
+    "sparselu": (48, 2, 1, dict(levels=3, relax_type="spai"), 9, None),
+    "gmres": (48, 2, 1, dict(levels=3, relax_type="spai",
+                             coarse_solve="gmres"), 15, (16, 1e-6, 60)),
+    "3d": (20, 3, 11, dict(levels=3, relax_type="spai"), 12, (13, 1e-8, 60)),
+}
+PART_MULTI_P = 50               # rows a rank of the multi-distance plan
+PART_MULTI_DIAGS = [(0, 4.0), (1, -1.0), (-1, -1.0), (75, -0.5),
+                    (-75, -0.5), (125, -0.25), (-125, -0.25)]
+
+
+def part_operator(n: int, dim: int = 2, seed: int = 1):
+    """mgtpu's test_part_amg.py operator: nodal DivSigGrad with sigma =
+    exp(RandomState(seed).randn) per cell + 1e-8 (max column sum) I."""
+    M = mt.get_regular_mesh([0.0, 1.0] * dim, [n] * dim)
+    sig = np.exp(np.random.RandomState(seed).randn(n ** dim))
+    A = nodal_div_sig_grad_matrix(M, sig)
+    return (A + 1e-8 * abs(A).sum(0).max() * sp.identity(A.shape[0])).tocsr()
+
+
+def part_case(name):
+    """(operator, get_mg_param keywords) of a PART_CASES entry (float32)."""
+    n, dim, seed, p, *_ = PART_CASES[name]
+    return part_operator(n, dim, seed), dict(p, dtype=np.float32)
+
+
+def part_state(name, device="cpu"):
+    """The port's SA state of a PART_CASES entry; "sparselu" swaps in the
+    host SuperLU coarsest, as mgtpu's test does."""
+    import dataclasses
+    from mgtpu_torch.cycle.coarse import sparse_lu_from_scipy
+    A, p = part_case(name)
+    cfg, rp = mt.get_mg_param(**p)
+    st = mt.sa_amg_setup(A, cfg, rp, device=device)
+    if name == "sparselu":
+        st.hier = dataclasses.replace(st.hier, coarse=sparse_lu_from_scipy(
+            st.As[-1], dtype=np.float32))
+    return A, st
+
+
+def part_rhs(A, seed):
+    """A @ RandomState(seed).rand(n), normalised (the refined b)."""
+    b = A @ np.random.RandomState(seed).rand(A.shape[0])
+    return b / np.linalg.norm(b)
+
+
+def part_multi_matrix(world: int):
+    """mgtpu's multi-distance operator on world * PART_MULTI_P rows."""
+    n = world * PART_MULTI_P
+    return sp.csr_matrix(sum(sp.diags(np.full(n - abs(o), v), o,
+                                      shape=(n, n))
+                             for o, v in PART_MULTI_DIAGS if abs(o) < n))
+
+
+def part_amg_cases(rank, world, device, ref_arrays):
+    """tests/test_torch_part_amg.py: for every PART_CASES entry the
+    partitioned solver's cycle from zero (and with an explicit zero x, its
+    bytes), its refined solve, its halo plan's sizes and vector rows; the
+    multi-distance plan's apply through the ring permute; one cycle from
+    mgtpu's own plan arrays (`ref_arrays`, built for `world` devices)."""
+    from mgtpu_torch.convert import partitioned_flat_from_arrays
+    from mgtpu_torch.parallel.comm import RankGrid
+    from mgtpu_torch.parallel.part_amg import (PartitionedAMGSolver,
+                                               part_ell, partition_plan)
+    from mgtpu_torch.parallel.sharded_amg import pad_flat_hierarchy
+    comm = RankGrid(None, "gloo")
+    out = {}
+    for name, (*_, cyc_seed, refined) in PART_CASES.items():
+        A, st = part_state(name)
+        solver = PartitionedAMGSolver(st, comm, device)
+        out[f"{name}_comm"] = solver.comm_entries_per_cycle()
+        out[f"{name}_rows"] = solver.local_vector_rows()
+        out[f"{name}_coarse"] = type(solver.hier.coarse).__name__
+        if cyc_seed is not None:
+            b = np.random.RandomState(cyc_seed).rand(A.shape[0]).astype(
+                np.float32)
+            sent = dict(comm.sent)
+            out[name] = solver.cycle(b)
+            zero = {k: v - sent[k] for k, v in comm.sent.items()}
+            sent = dict(comm.sent)
+            out[f"{name}_explicit"] = solver.cycle(b, np.zeros_like(b))
+            out[f"{name}_bytes"] = (zero, {k: v - sent[k] for k, v in
+                                           comm.sent.items()})
+            bl, _ = solver.to_block(b)
+            y = mt.recursive_cycle(st.config, solver.hier, bl,
+                                   torch.zeros_like(bl), x_zero=True)
+            pad = solver.n_true - rank * solver.p[0]
+            out[f"{name}_pad_zero"] = bool((y[max(pad, 0):] == 0).all())
+            bt = torch.tensor(b[:, None])
+            out[f"{name}_single"] = mt.recursive_cycle(
+                st.config, st.hier, bt, torch.zeros_like(bt))[:, 0].numpy()
+            out[f"{name}_ell"] = mt.recursive_cycle(
+                st.config, pad_flat_hierarchy(st.hier, 1), bt,
+                torch.zeros_like(bt), x_zero=True)[:, 0].numpy()
+        if refined is not None:
+            seed, tol, max_iter = refined
+            x, info = solver.solve_refined(part_rhs(A, seed), tol=tol,
+                                           max_iter=max_iter)
+            out[f"{name}_refined"] = (x, int(info["iters"]),
+                                      float(info["relres"]))
+    # the multi-distance plan, applied through the ring permute
+    Am = part_multi_matrix(world)
+    idx3, val3, dists, sends, H = partition_plan(
+        Am, world, PART_MULTI_P, PART_MULTI_P, np.float32)
+    op = part_ell(idx3, val3, dists, sends, (PART_MULTI_P,
+                                             PART_MULTI_P + H), comm, device)
+    xm = np.random.RandomState(21).rand(Am.shape[0], 1).astype(np.float32)
+    xb = torch.tensor(xm[rank * PART_MULTI_P:(rank + 1) * PART_MULTI_P])
+    out["multi"] = (torch.cat(list(comm.all_gather(op.matvec(xb)))).numpy(),
+                    dists)
+    # one cycle on mgtpu's own plan arrays: its solver's (SPAI, f32), and
+    # the K-cycle's plan of its float64 state (mgtpu's solver takes f32
+    # only; the f64 cycle holds the reduce hook to 1e-10)
+    A, st = part_state("spai")
+    solver = PartitionedAMGSolver(st, comm, device)
+    for key, name, dt in (("convert", "spai", np.float32),
+                          ("kcycle64", "kcycle", np.float64)):
+        levels, coarse = ref_arrays[key]
+        hier = partitioned_flat_from_arrays(levels, coarse, comm,
+                                            device=device)
+        A, p = part_case(name)
+        cfg, _ = mt.get_mg_param(**dict(p, dtype=dt))
+        b = np.random.RandomState(PART_CASES[name][4]).rand(A.shape[0])
+        bl, _ = solver.to_block(b, torch.float64 if dt == np.float64
+                                else torch.float32)
+        y = mt.recursive_cycle(cfg, hier, bl, torch.zeros_like(bl),
+                               x_zero=True)
+        out[key] = solver.from_block(y, True)
+    out["sent"] = dict(comm.sent)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Jac-GMRES and K-cycles on the sharded grid and systems engines
+# (tests/test_torch_sharded_kcycle.py)
+# ---------------------------------------------------------------------------
+
+KCYCLE_N, KCYCLE_LEVELS = 32, 4
+# grid options: name -> (relax_type, relax_param, cycle_type)
+KCYCLE_OPTIONS = {"jacgmres-V": ("jac-gmres", 1.0, "V"),
+                  "jacobi-K": ("jacobi", 0.8, "K"),
+                  "jacgmres-K": ("jac-gmres", 1.0, "K")}
+KCYCLE_SYSTEMS = (32, 2, 4, True, "VankaFaces", 1)
+
+
+def kcycle_params(option, dtype=np.float64, **kw):
+    """The grid problem's parameters with `option`'s smoother and cycle."""
+    relax, rp, ctype = KCYCLE_OPTIONS[option]
+    p = params(KCYCLE_LEVELS, dtype, **kw)
+    p.update(relax_type=relax, relax_param=rp, cycle_type=ctype)
+    return p
+
+
+def kcycle_systems_case(dtype=np.float64, **kw):
+    """KCYCLE_SYSTEMS's operator and K-cycle parameters."""
+    n, dim, levels, mixed, relax, nu = KCYCLE_SYSTEMS
+    M, A = elasticity(n, dim, mixed)
+    return M, A, systems_params(levels, mixed, relax, nu, dtype,
+                                cycle_type="K", **kw)
+
+
+def _dead_slot_max(A, xs) -> float:
+    """The largest |entry| in the dead slots of block fields xs (planes of a
+    component past its owned ones on this rank)."""
+    return max((float(x.narrow(1, w, x.shape[1] - w).abs().max())
+                for x, w in zip(xs, A.layout.owned) if x.shape[1] > w),
+               default=0.0)
+
+
+def sharded_kcycle_cases(rank, world, device, shape):
+    """tests/test_torch_sharded_kcycle.py: two f64 cycles from zero of each
+    KCYCLE_OPTIONS entry on the grid engine (slab or pencil) and whether
+    their pad is zero; the f32 Jac-GMRES K-cycle's refined solve, FGMRES,
+    CG and BiCGSTAB; on a slab also two f64
+    systems K-cycles with the dead slot of every Krylov vector z, A z
+    and right-hand side recorded, and the systems refined solve."""
+    import mgtpu_torch.cycle.systems_grid as sg
+    from mgtpu_torch.parallel.comm import RankGrid
+    from mgtpu_torch.parallel.grid_sharded import (_gather,
+                                                   make_grid_sharded_cycle)
+    from mgtpu_torch.parallel.sharded_solve import (
+        make_sharded_refined_solver, make_sharded_systems_solver)
+    from mgtpu_torch.parallel.systems_sharded import (
+        make_systems_sharded_cycle)
+    comm = RankGrid(shape, "gloo")
+    axes = tuple(range(len(comm.shape)))
+    out = {}
+    M, A = poisson(KCYCLE_N)
+    b2 = np.random.RandomState(3).rand(A.shape[0], 2)
+    for option in KCYCLE_OPTIONS:
+        st = setup(M, A, **kcycle_params(option))
+        gh, cycle, to_grid, from_grid = make_grid_sharded_cycle(st, comm,
+                                                                axes, device)
+        bg = to_grid(b2)
+        xg = cycle(gh, bg, torch.zeros_like(bg), True)
+        xg = cycle(gh, bg, xg)
+        out[option] = from_grid(xg).numpy()
+        full = _gather(xg, comm, gh.levels[0].A.shard, 1)
+        n0, n1 = st.hier.fine_grid
+        out[f"{option}_pad_zero"] = bool((full[:, n0:] == 0).all()
+                                         and (full[:, :, n1:] == 0).all())
+    st = setup(M, A, **kcycle_params("jacgmres-K", np.float32,
+                                     max_outer_iter=40))
+    solver = make_sharded_refined_solver(st, comm, axes, device)
+    b = rhs(A, seed=1)
+    x, info = solver.solve_refined(b, tol=1e-8)
+    out["refined"] = (x, int(info["iters"]))
+    bk = np.random.RandomState(3).rand(A.shape[0])
+    bk /= np.linalg.norm(bk)
+    for name in ("solve_fgmres", "solve_cg", "solve_bicgstab"):
+        x, info = getattr(solver, name)(bk, tol=1e-8, max_iter=30)
+        out[name] = (x, int(info["iters"]))
+    if len(comm.shape) > 1:
+        out["sent"] = dict(comm.sent)
+        return out
+
+    # the systems engine: K-cycles with every FGMRES watched
+    dead, calls = [], []
+    fgmres_fields = sg._fields_fgmres
+
+    def watched(Aop, prec, bb, inner, reduce=None):
+        calls.append(reduce is not None)
+        dead.append(_dead_slot_max(Aop, bb))
+
+        def prec_w(v):
+            z = prec(v)
+            dead.append(_dead_slot_max(Aop, z))
+            dead.append(_dead_slot_max(Aop, Aop.matvec(z)))
+            return z
+
+        return fgmres_fields(Aop, prec_w, bb, inner, reduce)
+
+    Ms, As, ps = kcycle_systems_case()
+    st = setup(Ms, As, **ps)
+    gh, cycle, to_fields, from_fields = make_systems_sharded_cycle(
+        st, comm, device)
+    bf = to_fields(np.random.RandomState(3).rand(As.shape[0], 2))
+    sg._fields_fgmres = watched
+    try:
+        xf = cycle(gh, bf, tuple(torch.zeros_like(t) for t in bf), True)
+        xf = cycle(gh, bf, xf)
+    finally:
+        sg._fields_fgmres = fgmres_fields
+    out["systems"] = from_fields(xf).numpy()
+    out["systems_pad_zero"] = _pad_is_zero(xf, gh.levels[0].A.layout,
+                                           st.hier.fine_grids, comm)
+    out["systems_dead"] = (max(dead), len(calls), all(calls))
+    Ms, As, ps = kcycle_systems_case(np.float32, max_outer_iter=40)
+    solver = make_sharded_systems_solver(setup(Ms, As, **ps), comm, device)
+    x, info = solver.solve_refined(rhs(As, seed=9), tol=1e-8)
+    out["systems_refined"] = (x, int(info["iters"]))
     out["sent"] = dict(comm.sent)
     return out

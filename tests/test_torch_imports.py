@@ -33,6 +33,7 @@ import mgtpu_torch.parallel.comm, mgtpu_torch.parallel.launch
 import mgtpu_torch.parallel.sharded, mgtpu_torch.parallel.grid_sharded
 import mgtpu_torch.parallel.sharded_solve, mgtpu_torch.dd.parallel
 import mgtpu_torch.parallel.systems_sharded, mgtpu_torch.parallel.sharded_amg
+import mgtpu_torch.parallel.part_amg
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "mgtpu" or m.startswith("mgtpu."))
@@ -46,6 +47,17 @@ def test_import_loads_no_jax_and_no_mgtpu():
                          env=dict(os.environ, PYTHONPATH=REPO))
     assert out.returncode == 0, out.stderr[-2000:]
     assert "LOADED:\n" in out.stdout, out.stdout
+
+
+def test_part_amg_names_match_mgtpu():
+    """The partitioned tier's module exports mgtpu's names (mgtpu exports
+    them from the module, not from the package root)."""
+    import mgtpu
+    import mgtpu.parallel.part_amg as ref
+    import mgtpu_torch.parallel.part_amg as ours
+    assert sorted(ours.__all__) == sorted(ref.__all__)
+    assert all(hasattr(ours, n) for n in ours.__all__)
+    assert not any(n in getattr(mgtpu, "__all__", ()) for n in ref.__all__)
 
 
 def _tiny():

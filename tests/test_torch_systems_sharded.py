@@ -259,10 +259,19 @@ def test_refined_agrees_across_layouts(group):
 
 
 def test_refuses_k_cycles(group):
-    """K-cycles need a global reduction inside the cycle: refused, naming
-    the reduce hook."""
+    """K-cycles need a global reduction inside the cycle.  They were
+    refused until the cycles took a reduce hook (the FGMRES Gram sums over
+    the ranks); now make_systems_sharded_cycle takes them, and one K-cycle
+    from zero equals mgtpu's single-device K-cycle (rtol 1e-10; more in
+    test_torch_sharded_kcycle.py)."""
     _, outs = group
-    assert all(o["refuses_K"] for o in outs)
+    st, A = _ref_state("mixed", cycle_type="K")
+    bf = block_to_fields(jnp.asarray(np.random.RandomState(3).rand(
+        A.shape[0], 2)), st.hier.fine_grids)
+    ref = np.asarray(fields_to_block(cycle_ref(
+        st.config, st.hier, bf, tuple(jnp.zeros_like(t) for t in bf))))
+    for o in outs:
+        np.testing.assert_allclose(o["K"], ref, rtol=1e-10, atol=1e-11)
 
 
 def test_byte_counts_follow_the_collectives(group):
