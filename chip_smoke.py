@@ -113,14 +113,25 @@ Phases, each of which raises on failure:
             cell Kaczmarz V(2,2) (31) on the flat one; each setup's host
             seconds by stage (RAP, transfers, cross stencils, smoother,
             coarsest inverse) and its f64 residual operator; counters
-            prove kernel D ran in f32 and f64 in each systems-engine
-            solve, kernel E in the lex solve, and no plain version
-            anywhere; one cycle of V-2d, E-2d, V-3d by CUDA events, the
-            host clock and torch.profiler.  Then kernel D's cross apply
-            against its plain version on every block of every level of
-            V-2d and V-3d (f32 2e-5, f64 1e-12, m = 1, 2; a square block
-            bitwise the square apply) and its times on the fine levels
-            beside its byte bound and torch.sparse.mm of the block's CSR;
+            prove kernel D's block form ran in f32 and f64 in each
+            systems-engine solve (every level's apply and residual one
+            launch, no cross or halo launch in the window), kernel E in
+            the lex solve, and no plain version anywhere; one cycle of
+            V-2d, E-2d, V-3d by CUDA events, the host clock and
+            torch.profiler.  Then kernel D's cross apply against its
+            plain version on every block of every level of V-2d and V-3d
+            (f32 2e-5, f64 1e-12, m = 1, 2; a square block bitwise the
+            square apply) and its time on V-2d's fine (0, 2) block beside
+            its byte bound and torch.sparse.mm of the block's CSR (no
+            systems level runs it block by block); kernel D's
+            block form (csrc/block_stencil.cu) on every level operator of
+            V-2d and V-3d and their f64 residual operators, apply and
+            residual, m = 1, 2, 5, bit for bit the per-block cross
+            applies, torch's adds and subtraction and within 2e-5 / 1e-12
+            of its plain version, and its residual's time on V-2d's and
+            V-3d's fine levels and V-2d's f64 operator beside its byte
+            bound, the per-block path, its plain version and b -
+            torch.sparse.mm of the level's CSR, with ptxas's registers;
             kernel E against its per-cell loop on a 32^2 mixed problem
             and every level of the lex hierarchy (f32 1e-5, f64 1e-12)
             and its time on the 64^2 fine level.
@@ -195,12 +206,15 @@ Phases, each of which raises on failure:
             aggregation on the card (12), (H-cd) H-2d in a complex128
             hierarchy cycled in complex64 (16), and CL-2d and C-lex in
             complex128 hierarchies (11 / 9); complex64 hierarchies else;
-            counters prove kernel C, D's cross form and E ran in complex64
-            and complex128 and no plain version.  Before the window, those
-            instantiations against their plain versions (C on CL-2d's,
-            CL-3d's and every CS-2d level's lines, 2e-4 / 1e-10; the cross
-            form on every block of CV-2d's fine level and its complex128
-            residual operator, 2e-5 / 1e-12; E on every C-lex level, 1e-5 /
+            counters prove kernel C, D's block form and E ran in
+            complex64 and complex128, D's cross form not at all, and no
+            plain version.  Before the window, those instantiations
+            against their plain versions (C on CL-2d's, CL-3d's and every
+            CS-2d level's lines, 2e-4 / 1e-10; the cross form on every
+            block of CV-2d's fine level and its complex128 residual
+            operator, 2e-5 / 1e-12; the block form on every level of
+            CV-2d and its complex128 residual operator, m = 1, 2, 5, bit
+            for bit the per-block path; E on every C-lex level, 1e-5 /
             1e-12) and their times beside their bounds, plain versions and
             (D) torch.sparse.mm.
 
@@ -237,8 +251,12 @@ Phases, each of which raises on failure:
             out_grid: the axis-0 face component has one plane more than
             the cells) against its plain version (f32 2e-5, f64 1e-12) on
             every fine block of V-2d (f32 and the f64 residual operator)
-            and V-3d as rank 1 of 4 builds them, its times beside its
-            bound, plain version and torch.sparse.mm; then, spawned by
+            and V-3d as rank 1 of 4 builds them, its time on V-2d's
+            largest fine block beside its bound, plain version and
+            torch.sparse.mm; kernel D's block
+            form on every level of SY-2d (f32 and the f64 residual
+            operator) as every rank of 1 and of 4 builds it, bit for bit
+            the per-block halo applies, adds and subtraction; then, spawned by
             parallel/launch.py, 1 NCCL rank and 4 gloo ranks sharing the
             card: (SY-2d) V-2d's hierarchy under
             ShardedSystemsSolver.solve_refined (9 +- 1), (SE-2d) E-2d's
@@ -250,7 +268,8 @@ Phases, each of which raises on failure:
             1e-5 of the single-device cycle, the pad of every row's cycle
             exactly zero, the 4-rank x within 1e-6 of the 1-rank x; per
             row ms a solve and a cycle, bytes a cycle by collective kind,
-            kernel D's launches.
+            kernel D's launches (the systems rows' levels on its block
+            form, one launch an apply or residual, no halo apply).
 
 21. multi-device 3 — the partitioned flat tier (parallel/part_amg.py)
             and the reduce hook, on the states phases 7 and 11-13 kept and
@@ -260,9 +279,10 @@ Phases, each of which raises on failure:
             halo entries of A a level mgtpu's {1026, 814, 487, 224}),
             (PA-cl) C-pmis's, its SuperLU coarsest solved on rank 0 (13),
             (PA-K) SA-f's operator with Jac-GMRES K-cycles (62), (GK-2d)
-            (g)'s hierarchy on the sharded grid engine under
-            solve_fgmres(restart=5) (4 restarts) and solve_refined (the
-            single-device count on the card), (SK-2d) V-2d's hierarchy
+            (g)'s configuration at 5 levels (its 6 cut to 5 for the
+            script's time) on the sharded grid engine under
+            solve_fgmres(restart=5) and solve_refined (the single-device
+            counts at that depth, on the card), (SK-2d) V-2d's hierarchy
             with K-cycles under ShardedSystemsSolver.solve_refined (the
             single-device count), each at a true f64 relres below 1e-8;
             one correction cycle against one device's (PA-*: on the tier's
@@ -270,7 +290,8 @@ Phases, each of which raises on failure:
             its rounding differs 5e-3), its pad exactly zero, the 4-rank
             x within 1e-6 of the 1-rank x; per row ms a solve and a cycle,
             bytes a cycle by collective kind (PA-sa beside MA-sa's
-            replicated cycle), kernel D's halo launches (GK-2d, SK-2d).
+            replicated cycle), kernel D's halo launches (GK-2d) and block
+            launches (SK-2d).
 
 Every solve of phases 4, 5, 7, 8, 10, 11, 12, 13, 16, 17 and 18 runs
 through the recorded programs (mgtpu_torch/cycle/capture.py: CUDA graphs),
@@ -502,6 +523,18 @@ def graph_ms(calls, reps: int = 40) -> float:
     return e0.elapsed_time(e1) / (5 * reps)
 
 
+def loop_ms(call) -> float:
+    """Host-clock ms of one synchronised call of a plain version that is a
+    Python loop over a sweep's steps (kernels E and F): its thousands of
+    small launches are host-bound, so one call by the host clock is its
+    time (a second would take seconds more and tell nothing new)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    call()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
@@ -670,11 +703,22 @@ KERNELS = {
         "cross_stencil_matvec on the blocks of "
         "mgtpu/parallel/systems_sharded.py", "mgtpu_torch/csrc/stencil.cu",
         2) for c in ("float32", "float64")},
+    # kernel D's block form: a systems level's whole operator, or
+    # its residual, in one launch; mgtpu sums its XLA cross applies
+    # (phases 13, 18, 20, 21: every systems level on the main path)
+    **{f"stencil_block.{c}": (
+        "mgtpu/ops/pallas/stencil_kernel.py:31 _stencil_kernel (K8), "
+        "pallas_call at :76, as mgtpu/cycle/systems_grid.py:114 "
+        "BlockGridOperator.matvec (XLA: mgtpu/ops/cross_stencil.py:123 "
+        "cross_stencil_matvec a block, summed) and b - A x",
+        "mgtpu_torch/csrc/block_stencil.cu", 3)
+        for c in ("float32", "float64", "complex64", "complex128")},
 }
 STENCIL_KERNELS = [k for k in KERNELS       # kernels A and B
                    if not k.startswith(("tridiag", "stencil.",
                                         "stencil_cross.", "stencil_halo.",
-                                        "stencil_halo_stag.", "vanka",
+                                        "stencil_halo_stag.",
+                                        "stencil_block.", "vanka",
                                         "kaczmarz"))]
 
 
@@ -850,7 +894,8 @@ def reset_counters():
     for dct in (const3d.LAUNCHES, const3d.PLAIN_CALLS, fused3d.LAUNCHES,
                 fused3d.PLAIN_CALLS, tridiag.LAUNCHES, tridiag.PLAIN_CALLS,
                 stencil.LAUNCHES, stencil.PLAIN_CALLS,
-                stencil.CROSS_LAUNCHES, stencil.HALO_LAUNCHES, vanka.LAUNCHES,
+                stencil.CROSS_LAUNCHES, stencil.HALO_LAUNCHES,
+                stencil.BLOCK_LAUNCHES, vanka.LAUNCHES,
                 vanka.PLAIN_CALLS, vanka.FORMS, kaczmarz.LAUNCHES,
                 kaczmarz.PLAIN_CALLS, native.CALLS, native.PLAIN_CALLS):
         for k in dct:
@@ -2456,7 +2501,7 @@ def phase_classical(agg_ab, rows, card):
     cfg = st.config
     st.config = replace(cfg, max_outer_iter=100, relative_tol=1e-8)
     try:
-        before = stencil_counters()[0]
+        before = dict(stencil_counters()[0], **block_counters())
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         x, info = solve_cg_mg(st, b)
@@ -2621,9 +2666,12 @@ def phase_cross_kernels(states, rows, card):
     """Kernel D's cross apply against its plain version on every block of
     every level of V-2d and V-3d, f32 (2e-5) and f64 (1e-12), m = 1, 2;
     a square block bitwise the square apply (grid_apply); then its times
-    on V-2d's and V-3d's fine levels.  The f32 and f64 rows take V-2d's
-    fine (0, 2) block (x-face rows from the pressure grid: a cross form
-    launch; a square block launches the apply form)."""
+    on V-2d's fine (0, 2) block, f32 and f64 (x-face rows from the
+    pressure grid: a cross form launch; a square block launches the apply
+    form), its rows' shape.  Then kernel D's
+    block form (check_block) on every level operator of V-2d and V-3d and
+    their f64 residual operators, and its times (time_block) on V-2d's
+    and V-3d's fine levels and V-2d's f64 residual operator."""
     from mgtpu_torch.ops.cuda import stencil
     nblocks = 0
     for key in ("V-2d", "V-3d"):
@@ -2644,25 +2692,195 @@ def phase_cross_kernels(states, rows, card):
     log(f"[kernel] D cross apply: {nblocks} blocks of V-2d's and V-3d's "
         "levels (f32 and f64, m = 1, 2) match their plain version; the "
         "square blocks are bitwise the square apply")
+    # the cross form's times on its rows' block alone: since the block
+    # form no systems level runs it block by block
     timer = Timer()
+    for label, S in cross_blocks("V-2d", states["V-2d"][0]):
+        if label != "V-2d level 0 block (0,2)":
+            continue
+        dt = str(S.coeff.dtype).split(".")[-1]
+        entry, _ = time_d(f"{label} {dt}", "cross", S, S.to_scipy(), timer,
+                          card)
+        row = rows[f"stencil_cross.{dt}"]
+        row.setdefault("times", {})[f"{label} {dt}"] = entry
+        row.update({k: entry[k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "host_ms", "plan")},
+            timed_shape=f"{label}: {entry['shape']} m=1",
+            library_call="torch.sparse.mm(CSR, x)")
+    # kernel D's block form, the systems levels' main path: every level of
+    # V-2d and V-3d and their f64 residual operators, bitwise the per-block
+    # path; its times on the fine levels
+    from mgtpu_torch.solvers.mg_solver import high_precision_fine_operator
+    ops = {}
     for key in ("V-2d", "V-3d"):
         st = states[key][0]
-        seen = set()
-        for label, S in cross_blocks(key, st):
-            if " level 0 " not in label:
-                continue
-            dt = str(S.coeff.dtype).split(".")[-1]
-            entry, _ = time_d(f"{label} {dt}", "cross", S, S.to_scipy(),
-                              timer, card)
-            row = rows[f"stencil_cross.{dt}"]
-            row.setdefault("times", {})[f"{label} {dt}"] = entry
-            if key == "V-2d" and label.endswith("(0,2)") and dt not in seen:
-                seen.add(dt)
-                row.update({k: entry[k] for k in (
-                    "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                    "host_ms", "plan")},
-                    timed_shape=f"{label}: {entry['shape']} m=1",
-                    library_call="torch.sparse.mm(CSR, x)")
+        for l, lv in enumerate(st.hier.levels):
+            ops[f"{key} level {l}"] = lv.A
+        ops[f"{key} f64 residual operator"] = high_precision_fine_operator(st)
+    for label, op in ops.items():
+        check_block(rows, label, op, stencil.cross_apply)
+    log(f"[kernel] D block form: {len(ops)} level operators of V-2d and V-3d "
+        "(f32 levels, f64 residual operators; apply and residual, m = 1, 2, "
+        "5) bitwise the per-block cross applies, adds and subtraction, and "
+        "within 2e-5 / 1e-12 of the plain version; ptxas "
+        f"{ptxas('block_stencil', 'block_kernel')}")
+    for label in ("V-2d level 0", "V-2d f64 residual operator",
+                  "V-3d level 0"):
+        op = ops[label]
+        entry = time_block(label, op, states[label[:4]][1], timer, card)
+        name = f"stencil_block.{str(op.dtype).split('.')[-1]}"
+        rows[name].setdefault("times", {})[label] = entry
+        if label.startswith("V-2d"):
+            block_row(rows, op.dtype, label, entry)
+
+
+# ---------------------------------------------------------------------------
+# kernel D's block form (csrc/block_stencil.cu): a staggered system's level
+# operator, or its residual b - A x, in one launch
+# ---------------------------------------------------------------------------
+
+def block_counters():
+    """Launches of kernel D's block form, and of its cross and halo forms,
+    per value type."""
+    from mgtpu_torch.ops.cuda import stencil
+    out = {f"stencil_block.{k}": v for k, v in stencil.BLOCK_LAUNCHES.items()}
+    out.update({f"cross.{k}": v for k, v in stencil.CROSS_LAUNCHES.items()})
+    out.update({f"halo.{k}": v for k, v in stencil.HALO_LAUNCHES.items()})
+    return out
+
+
+def block_fields(grids, m, dt, seed):
+    """(m, *grid) fields of every component on the card, from one seed
+    (complex: real and imaginary parts drawn in turn)."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for g in grids:
+        a = rng.rand(m, *g)
+        if dt.is_complex:
+            a = a + 1j * rng.rand(m, *g)
+        out.append(torch.tensor(a, dtype=dt, device="cuda"))
+    return tuple(out)
+
+
+def per_block_path(op, xs, bs, apply):
+    """A block operator's apply and residual as the port ran them before
+    the block form: one launch of `apply(coeff, taps, in_grid, x)` a block
+    (kernel D's cross_apply, or halo_apply on a rank's blocks), torch's
+    adds in block order, torch's subtraction from b."""
+    g = len(op.grids[0])
+    ys = [None] * len(op.grids)
+    for (ci, cj), coeff, offs in zip(op.pairs, op.block_coeffs,
+                                     op.block_offsets):
+        t = apply(coeff, offs, tuple(xs[cj].shape[-g:]), xs[cj])
+        ys[ci] = t if ys[ci] is None else ys[ci] + t
+    ys = tuple(xs[0].new_zeros((xs[0].shape[0],) + tuple(gr)) if y is None
+               else y for y, gr in zip(ys, op.grids))
+    return ys, (None if bs is None else tuple(b - y for b, y in zip(bs, ys)))
+
+
+def check_block(rows, label, op, apply, ms=(1, 2, 5), seed=0):
+    """Kernel D's block form on `op` (a BlockGridOperator, or a rank's
+    ShardedBlockOperator on its halo-extended inputs), apply and residual
+    at each m of `ms`: bit for bit the per-block path (`per_block_path`
+    with `apply`), and within 2e-5 / 1e-12 of its plain version (the row
+    stencil_block.<type> keeps the largest errors)."""
+    from mgtpu_torch.ops.cuda import stencil
+    dt = op.block_coeffs[0].dtype
+    for m in ms:
+        xs = block_fields(getattr(op, "in_grids", op.grids), m, dt,
+                          SEED + seed + m)
+        bs = block_fields(op.grids, m, dt, SEED + seed + 10 + m)
+        got = stencil.block_apply(op, xs) + stencil.block_apply(op, xs, bs)
+        y0, r0 = per_block_path(op, xs, bs, apply)
+        torch.cuda.synchronize()
+        for c, (a, b) in enumerate(zip(got, y0 + r0)):
+            require(torch.equal(a, b), f"block form {label} m={m}: output "
+                    f"{c} differs from the per-block path")
+        ref = (stencil.block_apply_plain(op, xs)
+               + stencil.block_apply_plain(op, xs, bs))
+        for c, (a, b) in enumerate(zip(got, ref)):
+            check_d(rows, f"block form {label} m={m} output {c}", a, b,
+                    "stencil_block")
+
+
+def time_block(label, op, csr, timer, card):
+    """Kernel D's block form, the residual b - A x of a level operator
+    (m = 1, four input sets): its device time by CUDA events and inside a
+    CUDA graph, beside its least time (each block's coefficients, each
+    input component once, b read and r written), the per-block path it
+    replaces (events and graph), its plain version and torch.sparse.mm of
+    the level's host CSR `csr` (in the operator's type) followed by
+    b - y."""
+    from mgtpu_torch.cycle.systems_grid import fields_to_rows
+    from mgtpu_torch.ops.cuda import stencil
+    dt = op.dtype
+    item = torch.empty((), dtype=dt).element_size()
+    sets = [(block_fields(op.grids, 1, dt, SEED + 60 + j),
+             block_fields(op.grids, 1, dt, SEED + 70 + j)) for j in range(4)]
+    calls = lambda fn: [lambda s=s: fn(*s) for s in sets]
+    new = lambda xs, bs: stencil.block_apply(op, xs, bs)
+    old = lambda xs, bs: per_block_path(op, xs, bs, stencil.cross_apply)
+    plain = lambda xs, bs: stencil.block_apply_plain(op, xs, bs)
+    ms, host_ms = timer(calls(new))
+    g_ms = graph_ms(calls(new))
+    old_ms, old_host_ms = timer(calls(old))
+    old_g_ms = graph_ms(calls(old))
+    plain_ms = timer(calls(plain))[0]
+    Tm = sparse_mm_yardstick(csr, dt)
+    cols = [tuple(fields_to_rows(f).reshape(-1, 1) for f in s) for s in sets]
+    lib_ms = None
+    try:
+        lib_ms = timer([lambda c=c: c[1] - torch.sparse.mm(Tm, c[0])
+                        for c in cols])[0]
+    except RuntimeError as e:              # the yardstick, not the port
+        log(f"[time] D block {label}: torch.sparse.mm has no {dt} CSR "
+            f"product on the card ({str(e).splitlines()[0][:90]}): library "
+            "time none")
+    n_out = [int(np.prod(g)) for g in op.grids]
+    taps = sum(len(o) * n_out[ci] for (ci, _), o in zip(op.pairs,
+                                                        op.block_offsets))
+    fbytes = (taps + sum(n_out) * 3) * item
+    flops = (8 if dt.is_complex else 2) * taps + (2 if dt.is_complex
+                                                  else 1) * sum(n_out)
+    peak = (FP32_FLOPS if dt in (torch.float32, torch.complex64)
+            else FP64_FLOPS)
+    bound = max(fbytes / HBM_BYTES_PER_S, flops / peak) * 1e3
+    splits = sorted({int(v) for v in
+                     stencil.block_table_parts(op.block_table)[1][:, 5]})
+    note = (f"{len(op.grids)} components {list(op.grids)}, {len(op.pairs)} "
+            f"blocks, {sum(len(o) for o in op.block_offsets)} taps, splits "
+            f"{splits}")
+    fmt = lambda v: "none" if v is None else f"{v:.4f} ms"
+    # the per-block path: a launch a block, an add a block after a
+    # component's first, a subtraction a component
+    fed = len({ci for ci, _ in op.pairs})
+    old_launches = 2 * len(op.pairs) - fed + len(op.grids)
+    log(f"[time] D block {label} {dt} residual: kernel {ms:.4f} ms (graph "
+        f"{g_ms:.4f})  per-block path {old_ms:.4f} ms (graph {old_g_ms:.4f}, "
+        f"{old_launches} launches)  plain {fmt(plain_ms)}  sparse.mm + b - y "
+        f"{fmt(lib_ms)}  "
+        f"bound {bound:.4f} ms ({fbytes / 1e6:.2f} MB)  kernel/bound "
+        f"{ms / bound:.1f}x  host per call {host_ms:.3f} ms (per-block "
+        f"{old_host_ms:.3f})  {note} ({card})")
+    return dict(shape=note, ms=ms, graph_ms=g_ms, old_path_ms=old_ms,
+                old_path_graph_ms=old_g_ms, old_path_launches=old_launches,
+                plain_ms=plain_ms,
+                library_ms=lib_ms, bound_ms=bound, host_ms=host_ms,
+                old_path_host_ms=old_host_ms,
+                bound_by="bytes" if fbytes / HBM_BYTES_PER_S >= flops / peak
+                else "operations")
+
+
+def block_row(rows, dt, label, entry):
+    """A timing entry as the headline of the row stencil_block.<dt>."""
+    row = rows[f"stencil_block.{str(dt).split('.')[-1]}"]
+    row.update({k: entry[k] for k in ("ms", "plain_ms", "bound_ms",
+                                      "bound_by", "library_ms", "host_ms",
+                                      "old_path_ms", "graph_ms")},
+               timed_shape=f"{label}: {entry['shape']}, residual, m=1",
+               library_call="b - torch.sparse.mm(CSR, x)",
+               ptxas=ptxas("block_stencil", "block_kernel"))
 
 
 def lex_tables(st, l):
@@ -2845,9 +3063,9 @@ def phase_lex_kernel(lex_state, rows, card):
                           dtype=torch.float32, device="cuda"),
              torch.tensor(np.random.RandomState(SEED + 9 + j).rand(n, 1),
                           dtype=torch.float32, device="cuda"))
-            for j in range(2)]
-    plain_ms = Timer(reps=2)([lambda s=s: vanka.lex_sweep_plain(
-        s[0], s[1], *tabs, 1) for s in sets])[0]
+            for j in range(1)]
+    plain_ms = loop_ms(lambda: vanka.lex_sweep_plain(
+        sets[0][0], sets[0][1], *tabs, 1))
     log(f"[time] E plain version, 64^2 fine level: {plain_ms:.1f} ms "
         f"({card})")
     e_row(row, times, plain_ms, f"64^2 fine level: {L} cells, "
@@ -2878,31 +3096,33 @@ def phase_systems(card):
     reset_counters()                       # ---- main path window ----
     for key, label, *_, want in SYSTEMS:
         st, A, b = states[key]
-        before = stencil_counters()[0]
+        before = dict(stencil_counters()[0], **block_counters())
         refined(st, A, b, want, label, card, max_iter=60)
-        d_l = {k: v - before[k] for k, v in stencil_counters()[0].items()}
+        d_l = {k: v - before[k] for k, v in
+               dict(stencil_counters()[0], **block_counters()).items()}
         log(f"[path] {key}: kernel D launches in this solve: {d_l}")
-        for k in ("stencil.float32", "stencil.float64"):
+        for k in ("stencil_block.float32", "stencil_block.float64"):
             require(d_l[k] > 0, f"{key}: {k} was never launched")
     st, A, b = states["E-2d"]
     cfg = st.config
     st.config = replace(cfg, max_outer_iter=100, relative_tol=1e-8)
     try:
-        before = stencil_counters()[0]
+        before = dict(stencil_counters()[0], **block_counters())
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         x, info = solve_cg_mg(st, b)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
         rr, iters = true_relres(A, b, x), int(info["iters"])
-        d_l = {k: v - before[k] for k, v in stencil_counters()[0].items()}
+        d_l = {k: v - before[k] for k, v in
+               dict(stencil_counters()[0], **block_counters()).items()}
         log(f"[path] (E-cg) E-2d's hierarchy, solve_cg_mg: {iters} "
             f"iterations (want {E_CG} +- 1), true f64 relres {rr:.3e}, time "
             f"to 1e-8 {wall:.1f} ms (host clock, synchronised; {card}); "
             f"kernel D launches {d_l}")
         require(abs(iters - E_CG) <= 1, f"E-cg: {iters} iterations")
         require(rr < 1e-8, f"E-cg: true relres {rr:.3e} >= 1e-8")
-        for k in ("stencil.float32", "stencil.float64"):
+        for k in ("stencil_block.float32", "stencil_block.float64"):
             require(d_l[k] > 0, f"E-cg: {k} was never launched")
         compare_krylov(st, A, b, "(E-cg) E-2d's hierarchy, solve_cg_mg",
                        solve_cg_mg, {}, x, info, wall, card)
@@ -2910,14 +3130,15 @@ def phase_systems(card):
         st.config = cfg
     for key, relax, w, nu, engine, want in VARIANTS:
         st, A, b = variants[key]
-        before = dict(stencil_counters()[0], **vanka_counters()[0])
+        count = lambda: dict(stencil_counters()[0], **vanka_counters()[0],
+                             **block_counters())
+        before = count()
         refined(st, A, b, want, f"({key}) 64^2 mixed, {relax} {w} "
                 f"V({nu},{nu}), {engine}", card, max_iter=60)
-        got = {k: v - before[k] for k, v in
-               dict(stencil_counters()[0], **vanka_counters()[0]).items()}
+        got = {k: v - before[k] for k, v in count().items()}
         log(f"[path] ({key}): kernel launches in this solve: {got}")
         if engine == "SystemsGridHierarchy":
-            for k in ("stencil.float32", "stencil.float64"):
+            for k in ("stencil_block.float32", "stencil_block.float64"):
                 require(got[k] > 0, f"{key}: {k} was never launched")
         if key == "lex":
             require(got["vanka.float32"] > 0,
@@ -2926,13 +3147,18 @@ def phase_systems(card):
     e_l, e_p = vanka_counters()
     more_l, more_p = counters()
     line_l, line_p = line_counters()
-    launches.update(e_l)
+    launches.update(e_l, **block_counters())
     plain.update(e_p, **more_p, **line_p)
     log(f"[path] systems window kernel D and E launches: {launches}; other "
         f"kernels {dict(more_l, **line_l)}; E by form "
         f"{form_counters()}")
     log(f"[path] systems window plain-version calls on the card: {plain}")
     require(not any(plain.values()), f"plain versions ran: {plain}")
+    # every systems level's apply and residual is one block-form launch:
+    # no block runs alone on the cross or halo form
+    require(not any(v for k, v in launches.items()
+                    if k.startswith(("cross.", "halo."))),
+            f"systems window: kernel D's cross or halo form ran: {launches}")
     for key, *_ in SYSTEMS:
         st, A, b = states[key]
         ev_ms, _ = vcycle_ms(st, b, card, label=key)
@@ -3212,9 +3438,9 @@ def phase_kaczmarz_kernel(kmg, kprec, rows, card):
     sets = [(torch.tensor(np.random.RandomState(SEED + j).rand(n, 1),
                           device="cuda"),
              torch.tensor(np.random.RandomState(SEED + 9 + j).rand(n, 1),
-                          device="cuda")) for j in range(2)]
-    plain_ms = Timer(reps=2)([lambda s=s: kf.kaczmarz_sweep_plain(
-        s[0], s[1], *tabs[:-1], it) for s in sets])[0]
+                          device="cuda")) for j in range(1)]
+    plain_ms = loop_ms(lambda: kf.kaczmarz_sweep_plain(
+        sets[0][0], sets[0][1], *tabs[:-1], it))
     log(f"[time] F plain version, K-mg fine level: {plain_ms:.1f} ms "
         f"({card})")
     f_row(row, times, plain_ms,
@@ -3907,9 +4133,9 @@ def phase_complex_kernels(states, rows, card):
     tabs = f_tables(kz, torch.complex128)
     sets = [tuple(torch.tensor(np.random.RandomState(SEED + j + k).rand(n, 1)
                                + 0j, device="cuda") for k in (0, 9))
-            for j in range(2)]
-    plain_ms = Timer(reps=2)([lambda s=s: kf.kaczmarz_sweep_plain(
-        s[0], s[1], *tabs[:-1], it) for s in sets])[0]
+            for j in range(1)]
+    plain_ms = loop_ms(lambda: kf.kaczmarz_sweep_plain(
+        sets[0][0], sets[0][1], *tabs[:-1], it))
     log(f"[time] F plain version, K-c fine level: {plain_ms:.1f} ms; no "
         f"PyTorch call computes a Kaczmarz sweep ({card})")
     f_row(row, times, plain_ms,
@@ -4018,7 +4244,7 @@ REST = {
     "C-lex-c128": ("(C-lex-c128) C-lex in a complex128 hierarchy", 9, 60),
 }
 Z_DEV_MGTPU = [263169, 69425, 18219, 7665]   # mgtpu's level sizes (CPU)
-REST_ROWS = [f"{k}.{c}" for k in ("tridiag", "stencil_cross", "vanka_lex")
+REST_ROWS = [f"{k}.{c}" for k in ("tridiag", "stencil_block", "vanka_lex")
              for c in ("complex64", "complex128")]
 
 
@@ -4151,8 +4377,11 @@ def phase_rest_kernels(states, rows, card):
     CL-2d's contiguous, CL-3d's strided and every CS-2d level's lines; D's
     cross form (2e-5 / 1e-12) on every block of CV-2d's fine level and its
     complex128 residual operator, m = 1, 2; E (1e-5 / 1e-12, two sweeps)
-    on every level of C-lex and C-lex-c128.  Then their device times
-    beside their bounds, plain versions and (D) torch.sparse.mm."""
+    on every level of C-lex and C-lex-c128; D's block form (check_block)
+    on every level of CV-2d and its complex128 residual operator.  Then
+    their device times beside their bounds, plain versions and (D)
+    torch.sparse.mm; the block form's (time_block) on CV-2d's fine level
+    and its complex128 residual operator."""
     from mgtpu_torch.cycle.relax import LineRelax
     from mgtpu_torch.ops.cuda import stencil, tridiag, vanka
     from mgtpu_torch.solvers.mg_solver import high_precision_fine_operator
@@ -4202,6 +4431,15 @@ def phase_rest_kernels(states, rows, card):
     log(f"[kernel] D cross form complex: {nb} blocks of CV-2d's fine level "
         "(complex64) and its complex128 residual operator match the plain "
         "version, m = 1, 2")
+    blocks = {f"(CV-2d) level {l}": lv.A
+              for l, lv in enumerate(st.hier.levels)}
+    blocks["(CV-2d) complex128 residual operator"] = hi
+    for label, op in blocks.items():
+        check_block(rows, label, op, stencil.cross_apply)
+    log(f"[kernel] D block form complex: {len(blocks)} level operators of "
+        "CV-2d (complex64) and its complex128 residual operator, apply and "
+        "residual, m = 1, 2, 5, bitwise the per-block path, within 2e-5 / "
+        "1e-12 of the plain version")
     lex = []
     for key in ("C-lex", "C-lex-c128"):
         st = states[key][0]
@@ -4271,6 +4509,12 @@ def phase_rest_kernels(states, rows, card):
                                    "library_ms", "host_ms", "plan")},
             timed_shape=f"{label}: {entry['shape']} m=1",
             library_call="torch.sparse.mm(CSR, x)")
+    for label in ("(CV-2d) level 0", "(CV-2d) complex128 residual operator"):
+        entry = time_block(label, blocks[label], states["CV-2d"][1], timer,
+                           card)
+        rows[f"stencil_block.{str(blocks[label].dtype).split('.')[-1]}"
+             ].setdefault("times", {})[label] = entry
+        block_row(rows, blocks[label].dtype, label, entry)
     for key in ("C-lex", "C-lex-c128"):
         st = states[key][0]
         tabs = lex_tables(st, 0)
@@ -4281,9 +4525,9 @@ def phase_rest_kernels(states, rows, card):
         times = time_e(f"({key}) 64^2 fine level", n, tabs, card)
         sets = [tuple(torch.tensor(np.random.RandomState(SEED + j + k).rand(
             n, 1) + 0.5j, dtype=dt, device="cuda") for k in (0, 9))
-            for j in range(2)]
-        plain_ms = Timer(reps=2)([lambda s=s: vanka.lex_sweep_plain(
-            s[0], s[1], *tabs, 1) for s in sets])[0]
+            for j in range(1)]
+        plain_ms = loop_ms(lambda: vanka.lex_sweep_plain(
+            sets[0][0], sets[0][1], *tabs, 1))
         log(f"[time] E plain version, ({key}) 64^2 fine level: "
             f"{plain_ms:.1f} ms ({card})")
         key_row = f"vanka_lex.{str(dt).split('.')[-1]}"
@@ -4315,6 +4559,7 @@ def phase_rest(states, card):
     launches.update(line_l, **d_l, **e_l, **f_l)
     plain.update(line_p, **d_p, **e_p, **f_p)
     for c in ("complex64", "complex128"):
+        launches[f"stencil_block.{c}"] = stencil.BLOCK_LAUNCHES[c]
         launches[f"stencil_cross.{c}"] = stencil.CROSS_LAUNCHES[c]
         launches[f"vanka_lex.{c}"] = launches[f"vanka.{c}"]
     log(f"[rest] window launches: {launches}; E by form "
@@ -4323,6 +4568,9 @@ def phase_rest(states, card):
     require(not any(plain.values()), f"plain versions ran: {plain}")
     for k in REST_ROWS + ["stencil.complex64", "stencil.complex128"]:
         require(launches[k] > 0, f"the phase-18 window never launched {k}")
+    # the systems rows' levels run the block form, no block alone
+    require(not any(stencil.CROSS_LAUNCHES.values()), "the phase-18 window "
+            f"launched kernel D's cross form: {stencil.CROSS_LAUNCHES}")
     return launches
 
 
@@ -4550,7 +4798,7 @@ def multi_rank(rank, world, device, transport):
     out = {"rank": rank, "setup_s": setup_s, "bitwise": bitwise,
            "apply_ms": apply_ms, "rows": {}}
     for dct in (sk.LAUNCHES, sk.PLAIN_CALLS, sk.HALO_LAUNCHES,
-                sk.CROSS_LAUNCHES):
+                sk.CROSS_LAUNCHES, sk.BLOCK_LAUNCHES):
         for k in dct:
             dct[k] = 0
     d0 = d_count()
@@ -4934,10 +5182,11 @@ class _RankOf:
         return self._k
 
 
-def stag_cases(key, D=4, k=1):
-    """Kernel D's halo apply at the shapes phase 20 gives it: every block of
-    `key`'s fine level (f32) and of its float64 residual operator, as rank k
-    of D builds them (parallel/systems_sharded.py: the padded embedding,
+def stag_cases(key, st, D=4, k=1):
+    """Kernel D's halo apply at the shapes phase 20 gave it before the block
+    form: every block of `key`'s fine level (f32) and of its float64
+    residual operator (`st`, the state load_handoff gives), as rank k of D
+    builds them (parallel/systems_sharded.py: the padded embedding,
     the cell-aligned blocks; the input the block's owned planes with the
     halo of its radius, the taps shifted by it).  A face component has one
     plane more than a cell component, so in_grid != out_grid."""
@@ -4945,7 +5194,6 @@ def stag_cases(key, D=4, k=1):
     from mgtpu_torch.parallel.systems_sharded import (pad_block_operator,
                                                       pad_systems_hierarchy,
                                                       shard_block_operator)
-    st = load_handoff(HANDOFF[key]["path"], "cuda")
     gh_pad, pg = pad_systems_hierarchy(st.hier, D)
     out = []
     for op in (gh_pad.levels[0].A,
@@ -4967,12 +5215,21 @@ def phase_stag_halo_kernels(rows, card):
     """Kernel D's halo apply against its plain version (m = 1, 2; f32
     2e-5, f64 1e-12) on every block of `stag_cases` for SY-2d (V-2d's
     hierarchy) and SY-3d (V-3d's), then its device time beside its byte
-    bound, the plain version and torch.sparse.mm of the block's CSR: the
-    2D blocks in both types, the 3D blocks in f32."""
+    bound, the plain version and torch.sparse.mm of the block's CSR on
+    V-2d's largest fine block in both types (since the block form no
+    systems level runs it block by block).  Then kernel D's block form
+    on SY-2d's sharded levels (V-2d's hierarchy, f32, and its f64 residual
+    operator) as every rank of 1 and of 4 builds them, bit for bit the
+    per-block halo applies, adds and subtraction (check_block)."""
     from mgtpu_torch.ops.cuda import stencil
+    from mgtpu_torch.parallel.systems_sharded import (pad_block_operator,
+                                                      pad_systems_hierarchy,
+                                                      shard_block_operator)
     timer = Timer()
     for key in ("V-2d", "V-3d"):
-        for label, op in stag_cases(key):
+        st = load_handoff(HANDOFF[key]["path"], "cuda")
+        widest = {}
+        for label, op in stag_cases(key, st):
             dt = op.coeff.dtype
             for m in (1, 2):
                 x = torch.tensor(np.random.RandomState(SEED + m).rand(
@@ -4986,21 +5243,39 @@ def phase_stag_halo_kernels(rows, card):
             log(f"[kernel] D staggered halo apply, {label}, {op.in_grid} -> "
                 f"{op.out_grid}, {len(op.offsets)} taps, {dt}: matches its "
                 "plain version, m = 1, 2")
-            if key == "V-3d" and dt == torch.float64:
-                continue
+            size = op.coeff.numel() + int(np.prod(op.in_grid))
+            if key == "V-2d" and size > widest.get(dt, ("", None, 0))[2]:
+                widest[dt] = (label, op, size)
+        # the rows' headline: V-2d's largest fine block (the most bytes)
+        for dt, (label, op, _) in widest.items():
             entry, _ = time_d(f"stag {label}", "halo", op, op.to_scipy(),
                               timer, card)
-            name = f"stencil_halo_stag.{str(dt).split('.')[-1]}"
-            row = rows[name]
+            row = rows[f"stencil_halo_stag.{str(dt).split('.')[-1]}"]
             row.setdefault("times", {})[label] = entry
-            # the row's headline: V-2d's largest fine block
-            if key == "V-2d" and (row.get("ms") is None or entry["bound_ms"]
-                                  > row.get("bound_ms", 0.0)):
-                row.update({k: entry[k] for k in (
-                    "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                    "host_ms", "plan")},
-                    timed_shape=f"{label}: {entry['shape']} m=1",
-                    library_call="torch.sparse.mm(CSR, x)")
+            row.update({k: entry[k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "host_ms", "plan")},
+                timed_shape=f"{label}: {entry['shape']} m=1",
+                library_call="torch.sparse.mm(CSR, x)")
+        if key == "V-2d":
+            n = 0
+            for D in (1, 4):
+                gh_pad, pg = pad_systems_hierarchy(st.hier, D)
+                ops = [(f"level {l}", lv.A)
+                       for l, lv in enumerate(gh_pad.levels)]
+                ops.append(("f64 residual operator",
+                            pad_block_operator(st._outer_ops["float64"], pg)))
+                for label, op in ops:
+                    for k in range(D):
+                        sop = shard_block_operator(op, _RankOf(D, k), "cuda")
+                        check_block(rows, f"SY-2d {label}, rank {k} of {D}",
+                                    sop, stencil.halo_apply)
+                        n += 1
+            log(f"[kernel] D block form on SY-2d's sharded levels: {n} rank "
+                "operators (every level and the f64 residual operator, every "
+                "rank of 1 and of 4; apply and residual, m = 1, 2, 5) bitwise "
+                "the per-block halo applies, adds and subtraction")
+        del st
         torch.cuda.empty_cache()
 
 
@@ -5039,8 +5314,8 @@ def multi2_rank(rank, world, device, transport, paths):
 
     def d_count():
         return {f"{kind}.{t}": dct[t] for kind, dct in (
-            ("apply", sk.LAUNCHES), ("halo", sk.HALO_LAUNCHES))
-            for t in ("float32", "float64")}
+            ("apply", sk.LAUNCHES), ("halo", sk.HALO_LAUNCHES),
+            ("block", sk.BLOCK_LAUNCHES)) for t in ("float32", "float64")}
 
     def one_cycle(fn):
         """A cycle's host-clock ms (median of three) and bytes by kind."""
@@ -5052,7 +5327,7 @@ def multi2_rank(rank, world, device, transport, paths):
         return float(np.median(ms)), dict(comm.sent)
 
     for dct in (sk.LAUNCHES, sk.PLAIN_CALLS, sk.HALO_LAUNCHES,
-                sk.CROSS_LAUNCHES):
+                sk.CROSS_LAUNCHES, sk.BLOCK_LAUNCHES):
         for k in dct:
             dct[k] = 0
     d0 = d_count()
@@ -5139,10 +5414,11 @@ def phase_multi2(card, layouts=MULTI_RUNS):
         require(all(not any(o["plain"].values()) for o in outs),
                 f"{label}: kernel D's plain version ran: "
                 f"{[o['plain'] for o in outs]}")
-        for key in ("halo.float32", "halo.float64"):
-            require(all(o["window"][key] > 0 for o in outs),
-                    f"{label}: kernel D's staggered halo apply ({key}) "
-                    "never launched")
+        for t in ("float32", "float64"):
+            require(all(o["window"][f"block.{t}"] > 0
+                        and not o["window"][f"halo.{t}"] for o in outs),
+                    f"{label}: kernel D's block form ({t}) never launched, "
+                    f"or a block ran alone: {[o['window'] for o in outs]}")
         halo[label] = {k: sum(o["window"][k] for o in outs)
                        for k in r0["window"]}
         runs[label] = {}
@@ -5191,9 +5467,9 @@ def phase_multi2(card, layouts=MULTI_RUNS):
                         f"{row} {label}: {rw['iters']} iterations (want "
                         f"{want} +- 1), relres {rr:.3e}")
             if systems:
-                require(rw["launches"]["halo.float32"] > 0
-                        and rw["launches"]["halo.float64"] > 0,
-                        f"{row} {label}: kernel D's halo apply did not run "
+                require(rw["launches"]["block.float32"] > 0
+                        and rw["launches"]["block.float64"] > 0,
+                        f"{row} {label}: kernel D's block form did not run "
                         f"in both types: {rw['launches']}")
             runs[label][row] = dict(rw, relres=rr)
     one, four = (runs[k] for k in runs)
@@ -5228,7 +5504,14 @@ def phase_multi2(card, layouts=MULTI_RUNS):
 # ROADMAP's contracts: row -> (the state it takes, the count wanted +- 1;
 # None: the port's single-device count of the same solve on the card)
 MULTI3 = {"PA-sa": ("SA-f", 50), "PA-cl": ("C-pmis", 13),
-          "PA-K": ("PA-K", 62), "GK-2d": ("g", 4), "SK-2d": ("V-2d", None)}
+          "PA-K": ("PA-K", 62), "GK-2d": ("g5", None),
+          "SK-2d": ("V-2d", None)}
+# GK-2d runs (g)'s configuration at GK_LEVELS levels, not (g)'s 6, for the
+# script's time: a K-cycle visits level l 2^(l-1) times, each visit on 4
+# host-staged gloo ranks about as dear, so a sixth level about doubles the
+# row; its FGMRES(5) restarts and refined count are held to the
+# single-device counts at that depth (K_REFERENCE), as SK-2d's are
+GK_LEVELS = 5
 # mgtpu's halo entries of A per level on 4 devices, for SA-f's levels
 # (scripts/part_reference.py)
 PA_LEVELS = [263169, 50246, 7872, 964]
@@ -5254,13 +5537,26 @@ def pa_k_state(card):
     save_handoff("PA-K", st, h["A"], h["b"])
 
 
-def k_reference(key, st, A, b, max_iter=None):
+def gk_state(M, A):
+    """(g)'s configuration (Jac-GMRES 1.0 K-cycles, f32) at GK_LEVELS levels
+    on its operator: GK-2d's state."""
+    from mgtpu_torch import get_mg_param, mg_setup
+    cfg, rp = get_mg_param(levels=GK_LEVELS, max_outer_iter=100,
+                           relative_tol=1e-8, nu_pre=1, nu_post=1,
+                           dtype=np.float32, relax_type="jac-gmres",
+                           relax_param=1.0, cycle_type="K")
+    return mg_setup(A, M, cfg, rp)
+
+
+def k_reference(key, st, A, b, max_iter=None, fgmres=False):
     """The single-device K-cycle of a state on the card: a systems state's
     config with cycle_type "K" (the hierarchy does not depend on it), its
-    refined count to 1e-8 and one correction cycle from zero on b."""
+    refined count to 1e-8 and one correction cycle from zero on b; with
+    `fgmres`, also its solve_gmres_mg(inner=5) count to 1e-8 (GK-2d's
+    FGMRES(5) restarts)."""
     import copy
     import dataclasses
-    from mgtpu_torch import recursive_cycle, solve_mg_refined
+    from mgtpu_torch import recursive_cycle, solve_gmres_mg, solve_mg_refined
     if st.config.cycle_type != "K":
         st = copy.copy(st)
         st.config = dataclasses.replace(st.config, cycle_type="K")
@@ -5274,6 +5570,14 @@ def k_reference(key, st, A, b, max_iter=None):
         f"iterations, true relres {rr:.3e}")
     require(rr < 1e-8, f"{key}: the single-device K-cycle solve reached "
             f"{rr:.3e}")
+    if fgmres:
+        x, info = solve_gmres_mg(st, b, inner=5)
+        rr = true_relres(A, b, x)
+        K_REFERENCE[key]["fgmres"] = int(info["iters"])
+        log(f"[multi3] {key} solve_gmres_mg(inner=5) on one device: "
+            f"{int(info['iters'])} restarts, true relres {rr:.3e}")
+        require(rr < 1e-8, f"{key}: the single-device FGMRES(5) reached "
+                f"{rr:.3e}")
 
 
 def multi3_states(card):
@@ -5294,15 +5598,11 @@ def multi3_states(card):
         k_reference("V-2d", st, A, b, max_iter=60)
         del st
         torch.cuda.empty_cache()
-    if "g" not in K_REFERENCE:
+    if "g5" not in K_REFERENCE:
         M, A = divsig((N2, N2))
-        cfg, rp = get_mg_param(levels=LEVELS2, max_outer_iter=100,
-                               relative_tol=1e-8, nu_pre=1, nu_post=1,
-                               dtype=np.float32, relax_type="jac-gmres",
-                               relax_param=1.0, cycle_type="K")
-        st, b = mg_setup(A, M, cfg, rp), rhs_of(A)
-        save_handoff("g", st, A, b)
-        k_reference("g", st, A, b)
+        st, b = gk_state(M, A), rhs_of(A)
+        save_handoff("g5", st, A, b)
+        k_reference("g5", st, A, b, fgmres=True)
         del st
         torch.cuda.empty_cache()
     pa_k_state(card)
@@ -5339,8 +5639,8 @@ def multi3_rank(rank, world, device, transport, paths, k_iters):
 
     def d_count():
         return {f"{kind}.{t}": dct[t] for kind, dct in (
-            ("apply", sk.LAUNCHES), ("halo", sk.HALO_LAUNCHES))
-            for t in ("float32", "float64")}
+            ("apply", sk.LAUNCHES), ("halo", sk.HALO_LAUNCHES),
+            ("block", sk.BLOCK_LAUNCHES)) for t in ("float32", "float64")}
 
     def one_cycle(fn):
         """(a cycle's host-clock ms and bytes by kind, its output): one
@@ -5350,7 +5650,7 @@ def multi3_rank(rank, world, device, transport, paths, k_iters):
         return (t, dict(comm.sent)), y
 
     for dct in (sk.LAUNCHES, sk.PLAIN_CALLS, sk.HALO_LAUNCHES,
-                sk.CROSS_LAUNCHES):
+                sk.CROSS_LAUNCHES, sk.BLOCK_LAUNCHES):
         for k in dct:
             dct[k] = 0
     out = {"rank": rank, "rows": {}}
@@ -5433,13 +5733,14 @@ def phase_multi3(card, layouts=MULTI_RUNS):
     """Phase 21: the rows of MULTI3 on each layout of `layouts` (by default
     1 NCCL rank and 4 gloo ranks sharing the card): each count +- 1 at a
     true f64 relres below 1e-8 (GK-2d: its FGMRES(5) restarts, then the
-    refined solve at the single-device count); PA-sa's halo entries on 4
+    refined solve, each at the single-device count at GK_LEVELS levels);
+    PA-sa's halo entries on 4
     ranks mgtpu's; one correction cycle from zero against one device's
     (PA-*: on the tier's own ELL levels, bitwise on 1 rank, 1e-5 on 4; a
     K-cycle where its rounding differs 5e-3), its pad exactly zero; the
     4-rank x within 1e-6 of 1 rank's.  Prints PA-sa's bytes a cycle beside MA-sa's.  Returns
-    each run's rows (x dropped) and kernel D's halo launches of GK-2d and
-    SK-2d in each run, summed over the ranks."""
+    each run's rows (x dropped) and kernel D's launches of GK-2d and SK-2d
+    in each run, summed over the ranks."""
     from mgtpu_torch.parallel.launch import run_ranks
     paths = {key: HANDOFF[key]["path"] for key, _ in MULTI3.values()}
     k_iters = {key: K_REFERENCE[key]["iters"] for key in K_REFERENCE}
@@ -5468,7 +5769,7 @@ def phase_multi3(card, layouts=MULTI_RUNS):
             key, want = MULTI3[row]
             h = HANDOFF[key]
             rr = true_relres(h["A"], h["b"], torch.as_tensor(rw["x"]))
-            if want is None or row == "GK-2d":
+            if want is None:
                 single = K_REFERENCE[key]["iters"]
             dist = lambda a, r: float(np.abs(a - r).max() / np.abs(r).max())
             # a K-cycle's f32 FGMRES projections solve normal equations:
@@ -5504,15 +5805,16 @@ def phase_multi3(card, layouts=MULTI_RUNS):
             if row == "GK-2d":
                 rf = true_relres(h["A"], h["b"], torch.as_tensor(
                     rw["fgmres_x"]))
+                fw = K_REFERENCE[key]["fgmres"]
                 extra = (f"; FGMRES(5) {rw['fgmres_iters']} restarts (want "
-                         f"{want} +- 1), true f64 relres {rf:.3e}, "
+                         f"{fw} +- 1, one device's at {GK_LEVELS} levels), "
+                         f"true f64 relres {rf:.3e}, "
                          f"{rw['fgmres_ms']:.1f} ms")
                 rw["fgmres_relres"] = rf
-                require(abs(rw["fgmres_iters"] - want) <= 1 and rf < 1e-8,
+                require(abs(rw["fgmres_iters"] - fw) <= 1 and rf < 1e-8,
                         f"GK-2d {label}: {rw['fgmres_iters']} restarts, "
                         f"relres {rf:.3e}")
-                want = single
-            elif want is None:
+            if want is None:
                 want = single
             if row.startswith("PA"):
                 extra += (f"; halo entries of A a level {rw['halo']} at "
@@ -5544,9 +5846,15 @@ def phase_multi3(card, layouts=MULTI_RUNS):
                     f"{row} {label}: {rw['iters']} iterations (want {want} "
                     f"+- 1), relres {rr:.3e}")
             if row[1] == "K":
-                require(rw["launches"]["halo.float32"] > 0
-                        and rw["launches"]["halo.float64"] > 0,
-                        f"{row} {label}: kernel D's halo apply did not run "
+                # GK-2d's grid levels on the halo form, SK-2d's systems
+                # levels on the block form (no block alone)
+                kind = "halo" if row == "GK-2d" else "block"
+                require(rw["launches"][f"{kind}.float32"] > 0
+                        and rw["launches"][f"{kind}.float64"] > 0
+                        and (kind == "halo"
+                             or not rw["launches"]["halo.float32"]
+                             + rw["launches"]["halo.float64"]),
+                        f"{row} {label}: kernel D's {kind} form did not run "
                         f"in both types: {rw['launches']}")
             runs[label][row] = dict(rw, relres=rr)
     one, four = (runs[k] for k in runs)
@@ -5623,8 +5931,10 @@ def main() -> int:
     phase_stencil_kernels(timed_states, rows)
     phase_stencil_timing(timed_states, rows, card)
     krylov = phase_krylov(ops, kstates, rhs, card)
-    save_handoff("g", kstates["g"], ops["f"][1], rhs["g"]["b"])
-    k_reference("g", kstates["g"], ops["f"][1], rhs["g"]["b"])
+    st_gk = gk_state(*ops["f"])
+    save_handoff("g5", st_gk, ops["f"][1], rhs["g"]["b"])
+    k_reference("g5", st_gk, ops["f"][1], rhs["g"]["b"], fgmres=True)
+    del st_gk
     cg_iteration(kstates["f"], rhs["f"]["b"], card)
     b3 = L3 @ np.random.RandomState(SEED).rand(L3.shape[0])
     sweep = chunk_sweep((st_jac, b3 / np.linalg.norm(b3)),
@@ -5692,7 +6002,7 @@ def main() -> int:
     log(f"[multi3] phase 21: {time.perf_counter() - t21:.1f} s")
     for k, row in rows.items():
         # each kernel's launches from the window of its own path (the
-        # systems window's kernel D launches are all cross applies)
+        # systems levels' applies and residuals are block-form launches)
         row["launches"] = (
             sum(w["halo." + k.split(".")[1]] for w in multi2_d.values())
             + sum(w["SK-2d"]["halo." + k.split(".")[1]]
@@ -5701,11 +6011,18 @@ def main() -> int:
             sum(w[k[len("stencil_"):]] for w in multi_d.values())
             + sum(w["GK-2d"][k[len("stencil_"):]] for w in multi3_d.values())
             if k.startswith("stencil_halo.") else
-            rest[k] if k in REST_ROWS else
+            rest[k] if k in REST_ROWS
+            or k in ("stencil_cross.complex64", "stencil_cross.complex128")
+            else
+            systems[k] + sum(w["block." + k.split(".")[1]]
+                             for w in multi2_d.values())
+            + sum(w["SK-2d"]["block." + k.split(".")[1]]
+                  for w in multi3_d.values())
+            if k.startswith("stencil_block.") else
             cplx[k] if "complex" in k else
             aniso[k] if k.startswith("tridiag") else
             krylov[k] if k.startswith("stencil.") else
-            systems["stencil." + k.split(".")[1]]
+            systems["cross." + k.split(".")[1]]
             if k.startswith("stencil_cross.") else
             systems["vanka.float32"] if k == "vanka_lex" else
             f_launches["kaczmarz.float64"] if k == "kaczmarz" else
@@ -5722,6 +6039,23 @@ def main() -> int:
         rows[k]["launches_by_run"].update({
             f"SK-2d, {run}": w["SK-2d"]["halo." + k.split(".")[1]]
             for run, w in multi3_d.items()})
+    for k in ("stencil_block.float32", "stencil_block.float64"):
+        t = k.split(".")[1]
+        rows[k]["launches_by_run"] = dict(
+            {"systems window (phase 13)": systems[k]},
+            **{f"phase 20, {run}": w["block." + t]
+               for run, w in multi2_d.items()},
+            **{f"SK-2d, {run}": w["SK-2d"]["block." + t]
+               for run, w in multi3_d.items()})
+    for k, row in rows.items():
+        if k.startswith(("stencil_cross.", "stencil_halo_stag.")):
+            # a systems level's blocks run together on the block form;
+            # these forms stay for single blocks
+            row["main_path"] = (
+                "replaced by stencil_block." + k.split(".")[1] + ": a "
+                "systems level's apply and residual are one block-form "
+                "launch; this form stays for single blocks "
+                "(CrossGridStencil.matvec, halo_apply)")
     for k in ("stencil3d_apply.matvec", "stencil.float32", "stencil.float64"):
         rows[k]["launches_aniso"] = aniso[k]
     for k in ("stencil.float32", "stencil.float64"):

@@ -72,7 +72,8 @@ def kernel_counters() -> list[dict]:
     return [const3d.LAUNCHES, const3d.PLAIN_CALLS, fused3d.LAUNCHES,
             fused3d.PLAIN_CALLS, fused3d.GRID_LAUNCHES, tridiag.LAUNCHES,
             tridiag.PLAIN_CALLS, stencil.LAUNCHES, stencil.PLAIN_CALLS,
-            stencil.CROSS_LAUNCHES, vanka.LAUNCHES, vanka.PLAIN_CALLS,
+            stencil.CROSS_LAUNCHES, stencil.HALO_LAUNCHES,
+            stencil.BLOCK_LAUNCHES, vanka.LAUNCHES, vanka.PLAIN_CALLS,
             vanka.FORMS, kaczmarz.LAUNCHES, kaczmarz.PLAIN_CALLS]
 
 

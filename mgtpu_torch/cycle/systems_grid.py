@@ -3,10 +3,12 @@
 Counterpart of mgtpu/cycle/systems_grid.py.  The system keeps its block
 structure: each unknown component (face-j displacements, the optional
 cell-centered pressure) lives on its own node grid; operator blocks are
-`CrossGridStencil`s (ops/cross_stencil.py) applied by kernel D's cross
-apply on the card; transfers are per-component per-axis dense 1D matmuls
-(the Systems.jl composites, reference src/Multigrid/Systems.jl:33-76,
-checked block by block against the assembled operators at setup); and the
+`CrossGridStencil`s (ops/cross_stencil.py), a level's whole operator
+applied on the card in one launch of kernel D's block form, its residual
+b - A x too (`BlockGridOperator.matvec` / `residual`); transfers are
+per-component per-axis dense 1D matmuls (the Systems.jl composites,
+reference src/Multigrid/Systems.jl:33-76, checked block by block against
+the assembled operators at setup); and the
 cell-wise Vanka smoother is window arithmetic: every block slot of every
 cell is a +-1 window of a component field, so gathering block residuals,
 applying the batched block inverses and adding the corrections are
@@ -28,6 +30,7 @@ card.
 """
 from __future__ import annotations
 
+import functools
 import time
 from dataclasses import dataclass
 from typing import Any
@@ -110,10 +113,6 @@ def fields_to_rows(xs) -> torch.Tensor:
     return torch.cat([x.reshape(m, -1) for x in xs], dim=1)
 
 
-def _tsub(a, b):
-    return tuple(x - y for x, y in zip(a, b))
-
-
 def _tadd(a, b):
     return tuple(x + y for x, y in zip(a, b))
 
@@ -145,17 +144,43 @@ class BlockGridOperator:
     def nnz(self) -> int:
         return sum(s.nnz for s in self.stencils)
 
-    def matvec(self, xs):
-        """xs: tuple of (m, *grid_c) -> the same structure; each block one
-        cross apply (kernel D on the card), summed per output component in
-        block order."""
-        ys = [None] * len(self.grids)
+    @property
+    def block_coeffs(self) -> tuple:
+        return tuple(S.coeff for S in self.stencils)
+
+    @property
+    def block_offsets(self) -> tuple:
+        return tuple(S.offsets for S in self.stencils)
+
+    @functools.cached_property
+    def block_table(self) -> np.ndarray:
+        """Kernel D's block table of this operator (ops/cuda/stencil.py::
+        block_table), made on its first apply on the card: boxes, taps and
+        splits, no pointer."""
+        from ..ops.cuda.stencil import block_table
         for (ci, cj), S in zip(self.pairs, self.stencils):
-            t = S.matvec(xs[cj])
-            ys[ci] = t if ys[ci] is None else ys[ci] + t
-        m = xs[0].shape[0]
-        return tuple(xs[0].new_zeros((m,) + tuple(g)) if y is None else y
-                     for y, g in zip(ys, self.grids))
+            if (tuple(S.out_grid), tuple(S.in_grid)) != (
+                    tuple(self.grids[ci]), tuple(self.grids[cj])):
+                raise ValueError(f"block {(ci, cj)} maps {S.in_grid} to "
+                                 f"{S.out_grid}, not the components' grids")
+        grids = tuple(tuple(int(v) for v in g) for g in self.grids)
+        return block_table(grids, grids, tuple(map(tuple, self.pairs)),
+                           tuple(tuple(map(tuple, o))
+                                 for o in self.block_offsets))
+
+    def matvec(self, xs):
+        """xs: tuple of (m, *grid_c) -> the same structure: each output
+        component summed over its blocks in block order, in one launch of
+        kernel D's block form on the card (the blocks' plain cross applies
+        on the CPU)."""
+        from ..ops.cuda.stencil import block_apply
+        return block_apply(self, xs)
+
+    def residual(self, bs, xs):
+        """b - A x on block fields, in one launch on the card: the bits of
+        each b less `matvec`'s component."""
+        from ..ops.cuda.stencil import block_apply
+        return block_apply(self, xs, bs)
 
     def to_rows(self, xs) -> torch.Tensor:
         """Block fields as the (m, N) rows the Krylov algebra runs on."""
@@ -263,7 +288,7 @@ def grid_vanka_sweep(op: BlockGridOperator, gv: GridVanka, xs, bs_field,
     dinv = gv.dinv.to(xs[0].dtype)
     for _ in range(num_it):
         for c in range(gv.masks.shape[0]):
-            r = _tsub(bs_field, op.matvec(xs))
+            r = op.residual(bs_field, xs)
             rs = torch.stack([r[comp][_window(off, cg)]
                               for comp, off in gv.slots], dim=1)
             # u[:, i] = sum_j dinv[i, j] rs[:, j]: a broadcast product and
@@ -386,7 +411,7 @@ def _systems_smooth(cfg, lvl: SystemsGridLevel, r, xs, bs_field, nu: int):
         return grid_vanka_sweep(lvl.A, lvl.vanka, xs, bs_field, nu)
     for _ in range(nu - 1):
         xs = _tadd(xs, tuple(d * ri for d, ri in zip(lvl.d, r)))
-        r = _tsub(bs_field, lvl.A.matvec(xs))
+        r = lvl.A.residual(bs_field, xs)
     return _tadd(xs, tuple(d * ri for d, ri in zip(lvl.d, r)))
 
 
@@ -415,9 +440,9 @@ def systems_grid_cycle(cfg, gh: SystemsGridHierarchy, b, x, level: int = 0,
         return gh.coarse.solve(b)
 
     lvl = gh.levels[level]
-    r = b if x_zero else _tsub(b, lvl.A.matvec(x))
+    r = b if x_zero else lvl.A.residual(b, x)
     x = _systems_smooth(cfg, lvl, r, x, b, cfg.nu_pre[level])
-    r = (_tsub(b, lvl.A.matvec(x))
+    r = (lvl.A.residual(b, x)
          if cfg.nu_pre[level] > 0 or not x_zero else b)
     bc = systems_restrict(r, lvl.R1)
     if level == nlev - 2:
@@ -438,7 +463,7 @@ def systems_grid_cycle(cfg, gh: SystemsGridHierarchy, b, x, level: int = 0,
             xc = systems_grid_cycle(cfg, gh, bc, xc, level + 1, "V")
 
     x = _tadd(x, systems_prolong(xc, lvl.P1))
-    r = _tsub(b, lvl.A.matvec(x))
+    r = lvl.A.residual(b, x)
     return _systems_smooth(cfg, lvl, r, x, b, cfg.nu_post[level])
 
 

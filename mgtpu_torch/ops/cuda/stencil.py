@@ -25,6 +25,15 @@ Entry points:
    `plan_box` (default y's box), so that the pieces of one apply — the
    overlapped slab's interior and edge rows — sum each node's taps as
    the whole does.
+ * `block_apply(op, xs, bs=None)` — a whole block operator of a staggered
+   system in one launch (csrc/block_stencil.cu): every output component
+   summed over its blocks in block order, or with `bs` the residual
+   b - A x; `op` is a `BlockGridOperator` (cycle/systems_grid.py) or a
+   `ShardedBlockOperator` (parallel/systems_sharded.py, its inputs the
+   halo-extended components).  Each block keeps the tap slicing of its own
+   cross-form launch, so the result is the bits of the per-block launches,
+   torch's adds and torch's subtraction.  Its static table
+   (`block_table`) holds no pointer.
  * `stencil_matvec(coeff, di, dj, x)` — the counterpart of
    ``stencil_matvec_pallas`` on the slab form G[j, i] = x[i + j NI]:
    coeff (nd, NJ, NI), x (..., NJ, NI), |dj| <= 1, any in-plane shift di;
@@ -40,7 +49,8 @@ Entry points:
    complex P: `pack_stride2` conjugates the restriction's table).
 
 The plain versions are `grid_stencil_matvec` (ops/grid_stencil.py),
-`cross_stencil_matvec` (ops/cross_stencil.py), the slab
+`cross_stencil_matvec` (ops/cross_stencil.py), `block_apply_plain` (the
+cross applies of the blocks, added, subtracted from b), the slab
 `stencil_matvec_plain`, `dia_apply_plain` and the strided
 `stride2_prolong_plain` / `stride2_restrict_plain`: the same
 shift-multiply-accumulate with zero-filled shifts, in the kernel's tap
@@ -63,7 +73,8 @@ device.  `LAUNCHES` counts kernel launches, `PLAIN_CALLS` calls of the plain
 version, per value type of x; a prolong or a restrict is one of either.
 `CROSS_LAUNCHES` counts, per value type, the launches of the cross form
 (a cross block between two different grids, and a halo apply);
-`HALO_LAUNCHES` those of `halo_apply` alone.
+`HALO_LAUNCHES` those of `halo_apply` alone; `BLOCK_LAUNCHES` those of
+`block_apply` (which add to `LAUNCHES` too, not to the other two).
 """
 from __future__ import annotations
 
@@ -78,7 +89,8 @@ from ..grid_stencil import grid_stencil_matvec
 from . import _build
 
 __all__ = ["LAUNCHES", "PLAIN_CALLS", "CROSS_LAUNCHES", "HALO_LAUNCHES",
-           "MAX_TAPS",
+           "BLOCK_LAUNCHES", "MAX_TAPS", "block_table", "block_table_parts",
+           "block_apply", "block_apply_plain",
            "FORMS", "StencilPlan", "stencil_plan", "plan_fits",
            "supports_stencil", "grid_apply",
            "grid_apply_plain", "cross_apply", "cross_apply_plain",
@@ -96,6 +108,8 @@ CROSS_LAUNCHES = {"float32": 0, "float64": 0, "complex64": 0,
                   "complex128": 0}
 HALO_LAUNCHES = {"float32": 0, "float64": 0, "complex64": 0,
                  "complex128": 0}
+BLOCK_LAUNCHES = {"float32": 0, "float64": 0, "complex64": 0,
+                  "complex128": 0}
 MAX_TAPS = 256                   # kMaxTaps of csrc/stencil.cu
 FORMS = ("apply", "restrict", "prolong", "cross")
 THREADS = 256                    # kThreads
@@ -103,6 +117,10 @@ MAX_SPLIT = 16                   # kMaxSplit
 CLASSES = 8                      # kClasses: parity classes of a 3D box
 FILL = 132 * 1024                # threads that keep the H100's 132 SMs busy
 MIN_SLICE = 4                    # fewest taps a split slice takes
+BLOCK_MAX_COMPS = 4              # kMaxComps of csrc/block_stencil.cu
+BLOCK_MAX_BLOCKS = 16            # kMaxBlocks
+BLOCK_MAX_TAPS = 320             # kMaxBlockTaps: taps of all blocks
+BLOCK_MAX_ZY = 2 ** 15           # input boxes' Z and Y, shifts: 16 bits
 
 
 class StencilPlan(NamedTuple):
@@ -547,3 +565,201 @@ def stride2_restrict(T, r):
                    tuple((0,) * pad + off for off in T.offsets),
                    r.contiguous(), form="restrict",
                    in_box=_box(T.fine_grid), in_space=T.fine_grid)
+
+
+# ---------------------------------------------------------------------------
+# the block-operator form (csrc/block_stencil.cu)
+# ---------------------------------------------------------------------------
+
+def _tap_geometry(obox, ibox, d, lo, hi) -> int:
+    """One tap of a block: narrows [lo, hi] per axis to the output nodes
+    whose source r + d lies in the input box and returns the tap's offset
+    in that box; a tap that no output node reaches becomes (iZ, 0, 0),
+    always masked (csrc/block_stencil.cu::tap_geometry, stencil.cu's
+    make_taps)."""
+    reach = True
+    for a in range(3):
+        l = -d[a] if d[a] < 0 else 0
+        h = ibox[a] - 1 - d[a] if ibox[a] - 1 - d[a] >= 0 else -1
+        reach = reach and l <= h and l <= obox[a] - 1 and h >= 0
+        lo[a] = max(lo[a], l)
+        hi[a] = min(hi[a], max(h, -1))
+    if not reach:
+        d = (ibox[0], 0, 0)
+    return (d[0] * ibox[1] + d[1]) * ibox[2] + d[2]
+
+
+@functools.lru_cache(maxsize=256)
+def block_table(out_grids, in_grids, pairs, offsets) -> np.ndarray:
+    """The static table of a block operator for kernel D's block form
+    (csrc/block_stencil.cu, load_table), int32, read-only:
+
+      header  [ncomp, nblocks, ntaps, ctas]
+      comps   per component [oZ, oY, oX, iZ, iY, iX, b0, nb, split, cta0]:
+              its output box, the box its input has, its blocks [b0, b0 +
+              nb) of the table, the largest split of them, its first CUDA
+              block (THREADS / split nodes a block);
+      blocks  per block, grouped by output component in block order,
+              [src, ci, cj, t0, nd, split, per_slice, lo (3), hi (3)]:
+              src its index in `pairs`, its taps [t0, t0 + nd), the split
+              of its own cross-form launch (`stencil_plan` of its output
+              box), the output nodes whose taps all land in the input box;
+      taps    [dz, dy, dx, lin] per tap, lin its offset in the input box.
+
+    out_grids / in_grids: per component the grid of its output and of the
+    field the blocks read from it; offsets: per block its taps (per grid
+    axis).  No pointer: a cast copy's coefficients are the copy's own."""
+    nc, g = len(out_grids), len(out_grids[0])
+    if not 1 <= nc <= BLOCK_MAX_COMPS or len(in_grids) != nc:
+        raise ValueError(f"kernel D's block form takes 1 to "
+                         f"{BLOCK_MAX_COMPS} components, got {nc}")
+    if len(pairs) > BLOCK_MAX_BLOCKS or len(offsets) != len(pairs):
+        raise ValueError(f"kernel D's block form takes up to "
+                         f"{BLOCK_MAX_BLOCKS} blocks, got {len(pairs)}")
+    if not 1 <= g <= 3 or any(len(gr) != g for gr in (*out_grids,
+                                                       *in_grids)):
+        raise ValueError("the components' grids must all be 1D, 2D or 3D")
+    obox = [_box(gr) for gr in out_grids]
+    ibox = [_box(gr) for gr in in_grids]
+    if any(b[0] >= BLOCK_MAX_ZY or b[1] >= BLOCK_MAX_ZY for b in ibox):
+        raise ValueError("kernel D's block form takes input boxes under "
+                         f"{BLOCK_MAX_ZY} along Z and Y")
+    comps, blocks, taps, cta = [], [], [], 0
+    for c in range(nc):
+        b0, widest = len(blocks), 1
+        for src, (ci, cj) in enumerate(pairs):
+            if ci != c:
+                continue
+            nd = len(offsets[src])
+            _check_taps(nd)
+            split = stencil_plan(obox[ci], nd, 1, torch.float32,
+                                 "cross").split
+            lo, hi = [0, 0, 0], [v - 1 for v in obox[ci]]
+            t0 = len(taps)
+            for off in offsets[src]:
+                if len(off) != g:
+                    raise ValueError(f"tap {off} of block {(ci, cj)} is not "
+                                     f"{g}D")
+                d = (0,) * (3 - g) + tuple(int(v) for v in off)
+                if any(abs(v) >= BLOCK_MAX_ZY for v in d):
+                    raise ValueError(f"tap {off}: shifts of kernel D's "
+                                     f"block form stay under {BLOCK_MAX_ZY}")
+                taps.append(d + (_tap_geometry(obox[ci], ibox[cj], d, lo,
+                                               hi),))
+            blocks.append((src, ci, cj, t0, nd, split, -(-nd // split),
+                           *lo, *hi))
+            widest = max(widest, split)
+        comps.append((*obox[c], *ibox[c], b0, len(blocks) - b0, widest, cta))
+        cta += -(-int(np.prod(obox[c])) // (THREADS // widest))
+    if len(taps) > BLOCK_MAX_TAPS:
+        raise ValueError(f"kernel D's block form takes {BLOCK_MAX_TAPS} taps "
+                         f"in all, the operator has {len(taps)}")
+    out = np.concatenate([np.asarray((nc, len(blocks), len(taps), cta)),
+                          np.asarray(comps).ravel(),
+                          np.asarray(blocks, dtype=np.int64).ravel(),
+                          np.asarray(taps, dtype=np.int64).ravel()]
+                         ).astype(np.int32)
+    out.setflags(write=False)
+    return out
+
+
+def block_table_parts(table):
+    """(comps, blocks, taps) of a `block_table`: int32 arrays of 10, 13 and
+    4 columns."""
+    nc, nb, nt = (int(v) for v in table[:3])
+    cut = np.cumsum([4, 10 * nc, 13 * nb])
+    return (table[cut[0]:cut[1]].reshape(nc, 10),
+            table[cut[1]:cut[2]].reshape(nb, 13),
+            table[cut[2]:].reshape(nt, 4))
+
+
+def block_apply_plain(op, xs, bs=None):
+    """The plain block apply: each block's counted plain cross apply
+    (`cross_apply_plain` of `op.block_coeffs` and `op.block_offsets` on
+    the component it reads), added per output component in block order;
+    with `bs` each component subtracted from b."""
+    g = len(op.grids[0])
+    ys = [None] * len(op.grids)
+    for (ci, cj), coeff, offs in zip(op.pairs, op.block_coeffs,
+                                     op.block_offsets):
+        x = xs[cj]
+        t = cross_apply_plain(coeff, offs, tuple(x.shape[x.ndim - g:]), x)
+        ys[ci] = t if ys[ci] is None else ys[ci] + t
+    lead = tuple(xs[0].shape[:xs[0].ndim - g])
+    ys = tuple(xs[0].new_zeros(lead + tuple(gr)) if y is None else y
+               for y, gr in zip(ys, op.grids))
+    return ys if bs is None else tuple(b - y for b, y in zip(bs, ys))
+
+
+@functools.cache
+def _block_lib() -> ctypes.CDLL:
+    lib = _build.library("block_stencil")
+    fn = lib.mgt_block_stencil
+    fn.argtypes = ([ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
+                   + [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def _ptrs(ts) -> np.ndarray:
+    return np.fromiter((t.data_ptr() for t in ts), dtype=np.uint64)
+
+
+def block_apply(op, xs, bs=None):
+    """y = A x (each output component summed over its blocks in block
+    order) or, with `bs`, r = b - A x, for a block operator `op` on its
+    components' fields xs (m, *grid), in one launch of kernel D's block
+    form on a CUDA tensor; `block_apply_plain` on a CPU one.
+
+    `op` gives `pairs`, `grids` (the output components' grids),
+    `block_coeffs` and `block_offsets` (per block in pair order, the taps
+    on the field it reads) and `block_table` (`block_table` of them)."""
+    x0 = xs[0]
+    if x0.device.type == "cpu":
+        return block_apply_plain(op, xs, bs)
+    _device_check(x0)
+    table = op.block_table
+    comps, blocks, _ = block_table_parts(table)
+    grids = tuple(tuple(int(v) for v in gr) for gr in op.grids)
+    g = len(grids[0])
+    if len(xs) != len(grids) or (bs is not None and len(bs) != len(grids)):
+        raise ValueError(f"the operator has {len(grids)} components, got "
+                         f"{len(xs)} fields")
+    lead = tuple(x0.shape[:x0.ndim - g])
+    m = int(np.prod(lead))
+    if m < 1:
+        raise ValueError(f"empty field {tuple(x0.shape)}")
+    bs = None if bs is None else tuple(b.contiguous() for b in bs)
+    coeffs = op.block_coeffs
+    checks = [(f"x[{c}]", x, lead + tuple(int(v) for v in comps[c, 6 - g:6]))
+              for c, x in enumerate(xs)]
+    checks += [(f"b[{c}]", b, lead + gr)
+               for c, (b, gr) in enumerate(zip(bs or (), grids))]
+    checks += [(f"block {op.pairs[s]}", coeffs[s],
+                (int(nd),) + grids[ci]) for s, ci, nd in blocks[:, [0, 1, 4]]]
+    for name, t, shape in checks:
+        if t.device != x0.device or t.dtype != x0.dtype:
+            raise ValueError(f"{name} is {t.dtype} on {t.device}, x[0] "
+                             f"{x0.dtype} on {x0.device}")
+        if tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous {shape}, got "
+                             f"{tuple(t.shape)}")
+    if x0.device.index is not None and \
+            x0.device.index != torch.cuda.current_device():
+        raise ValueError(f"x is on {x0.device}, the current device is "
+                         f"cuda:{torch.cuda.current_device()}")
+    ys = tuple(x0.new_empty(lead + gr) for gr in grids)
+    cp = _ptrs(coeffs[s] for s in blocks[:, 0])
+    xp, yp = _ptrs(xs), _ptrs(ys)
+    bp = None if bs is None else _ptrs(bs)
+    lib = _block_lib()
+    rc = lib.mgt_block_stencil(
+        _DTYPES[x0.dtype], table.ctypes.data, table.size,
+        cp.ctypes.data, xp.ctypes.data,
+        None if bp is None else bp.ctypes.data, yp.ctypes.data, m,
+        torch.cuda.current_stream(x0.device).cuda_stream)
+    _build.check(lib, rc, "block stencil")
+    key = _key(x0.dtype)
+    LAUNCHES[key] += 1
+    BLOCK_LAUNCHES[key] += 1
+    return ys

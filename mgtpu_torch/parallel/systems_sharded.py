@@ -28,9 +28,10 @@ this module writes out what XLA inferred and runs the port's unchanged
  * level operators (`ShardedBlockOperator`): each input component that a
    block reads off-plane is extended once by its neighbours' planes
    (`RankGrid.post_halo`, the radius of its widest block; a block thinner
-   than that radius takes the gathered component instead) and every block
-   is kernel D's `halo_apply` with its taps shifted by that width; each
-   output component sums its blocks in the order of the single-device
+   than that radius takes the gathered component instead) and the level's
+   apply, or its residual b - A x, is one launch of kernel D's block form
+   with every block's taps shifted by that width; each output component
+   sums its blocks in the order of the single-device
    `BlockGridOperator.matvec`;
  * the Vanka sweep (`ShardedVanka`): per colour r = b - A x, the upper plane
    of r's axis-0 face component from the next rank (`RankGrid.shift`), the
@@ -59,6 +60,7 @@ windows are the single device's arithmetic.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -273,28 +275,57 @@ class ShardedBlockOperator:
     def dtype(self):
         return self.coeffs[0].dtype
 
+    @property
+    def block_coeffs(self) -> tuple:
+        return self.coeffs
+
+    @functools.cached_property
+    def block_offsets(self) -> tuple:
+        """Each block's taps on the extended field it reads: shifted by its
+        input's halo width along axis 0."""
+        return tuple(tuple((int(o[0]) + self.radius[cj],)
+                           + tuple(int(v) for v in o[1:]) for o in offs)
+                     for (_, cj), offs in zip(self.pairs, self.offsets))
+
+    @functools.cached_property
+    def in_grids(self) -> tuple:
+        """The field each component's readers take: its owned planes and a
+        halo of its radius on each side (the block itself at radius 0)."""
+        return tuple(((self.layout.owned[j] + 2 * r,) + tuple(g[1:])
+                      if r else tuple(g))
+                     for j, (r, g) in enumerate(zip(self.radius,
+                                                    self.grids)))
+
+    @functools.cached_property
+    def block_table(self) -> np.ndarray:
+        """Kernel D's block table (ops/cuda/stencil.py::block_table) of
+        this rank's blocks on the extended inputs."""
+        from ..ops.cuda.stencil import block_table
+        return block_table(tuple(tuple(int(v) for v in g)
+                                 for g in self.grids), self.in_grids,
+                           tuple(map(tuple, self.pairs)), self.block_offsets)
+
+    def extend(self, xs) -> tuple:
+        """The inputs of the blocks: each component a block reads off-plane
+        extended by its radius (`_extend`), the others as they are."""
+        read = {cj for _, cj in self.pairs}
+        return tuple(_extend(x, j, r, self.layout, self.comm)
+                     if r and j in read else x
+                     for j, (x, r) in enumerate(zip(xs, self.radius)))
+
     def matvec(self, xs):
-        """xs: this rank's blocks (m, *block_c) -> A xs, each block kernel
-        D's halo apply on its input's extension, summed per output
-        component in block order."""
-        from ..ops.cuda.stencil import halo_apply
-        g = len(self.grids[0])
-        ext = {}
-        for j, r in enumerate(self.radius):
-            if any(cj == j for _, cj in self.pairs):
-                ext[j] = (_extend(xs[j], j, r, self.layout, self.comm)
-                          if r else xs[j])
-        ys = [None] * len(self.grids)
-        for (ci, cj), coeff, offs in zip(self.pairs, self.coeffs,
-                                         self.offsets):
-            r = self.radius[cj]
-            taps = tuple((o[0] + r,) + tuple(o[1:]) for o in offs)
-            x = ext[cj]
-            t = halo_apply(coeff, taps, tuple(x.shape[-g:]), x)
-            ys[ci] = t if ys[ci] is None else ys[ci] + t
-        m = xs[0].shape[0]
-        return tuple(xs[0].new_zeros((m,) + tuple(gr)) if y is None else y
-                     for y, gr in zip(ys, self.grids))
+        """xs: this rank's blocks (m, *block_c) -> A xs: the inputs
+        extended, then every output component summed over its blocks in
+        the single-device block order, in one launch of kernel D's block
+        form on the card (the blocks' plain cross applies on the CPU)."""
+        from ..ops.cuda.stencil import block_apply
+        return block_apply(self, self.extend(xs))
+
+    def residual(self, bs, xs):
+        """b - A xs on this rank's blocks, in one launch on the card; a
+        dead slot of b (zero) stays zero."""
+        from ..ops.cuda.stencil import block_apply
+        return block_apply(self, self.extend(xs), bs)
 
     def to_rows(self, xs) -> torch.Tensor:
         """This rank's rows of block fields (m, *block_c): every
@@ -357,7 +388,7 @@ class ShardedVanka:
         dinv = self.dinv.to(xs[0].dtype)
         for _ in range(num_it):
             for c in range(self.masks.shape[0]):
-                r = [b - a for b, a in zip(bs_field, op.matvec(xs))]
+                r = list(op.residual(bs_field, xs))
                 for comp in self.up:
                     top = comm.shift(r[comp].narrow(1, 0, 1).contiguous(),
                                      step=-1)

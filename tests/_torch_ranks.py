@@ -396,6 +396,53 @@ def systems_sharded_cases(rank, world, device, ref_padded):
 
 
 # ---------------------------------------------------------------------------
+# kernel D's block form on sharded levels (tests/test_torch_block_stencil.py)
+# ---------------------------------------------------------------------------
+
+BLOCK_CASES = ("mixed", "mixed3d")
+
+
+def block_fields(grids, m: int, seed: int):
+    """(m, *grid) float64 fields of every component, from one seed."""
+    rng = np.random.RandomState(seed)
+    return [rng.rand(m, *g) for g in grids]
+
+
+def block_stencil_cases(rank, world, device):
+    """tests/test_torch_block_stencil.py: on every level of BLOCK_CASES'
+    hierarchies (f64), the sharded level operator's residual b - A x and
+    apply A x of block_fields(seeds 80 + l, 90 + l) padded and cut into
+    this rank's blocks (the dead slots zero), gathered back to the padded
+    fields: {(case, level): (r, y)}, per component (m, padded extent,
+    ...)."""
+    from mgtpu_torch.parallel.comm import RankGrid
+    from mgtpu_torch.parallel.systems_sharded import (_pad_axis,
+                                                      pad_systems_hierarchy,
+                                                      shard_block_operator)
+    comm = RankGrid(None, "gloo")
+    out = {}
+    for name in BLOCK_CASES:
+        st = setup(*systems_case(name)[:2], **systems_case(name)[2])
+        gh_pad, _ = pad_systems_hierarchy(st.hier, world)
+        for l, (lv, lp) in enumerate(zip(st.hier.levels, gh_pad.levels)):
+            sop = shard_block_operator(lp.A, comm, device)
+            lay = sop.layout
+
+            def local(fs):
+                return tuple(lay.local(_pad_axis(torch.from_numpy(f),
+                                                 pg[0], 1), c, 1)
+                             for c, (f, pg) in enumerate(zip(fs,
+                                                             lp.A.grids)))
+
+            xs = local(block_fields(lv.A.grids, 2, 80 + l))
+            bs = local(block_fields(lv.A.grids, 2, 90 + l))
+            out[(name, l)] = tuple(
+                [lay.gather(t, c, comm).numpy() for c, t in enumerate(v)]
+                for v in (sop.residual(bs, xs), sop.matvec(xs)))
+    return out
+
+
+# ---------------------------------------------------------------------------
 # the row-sharded flat tier (tests/test_torch_sharded_amg.py)
 # ---------------------------------------------------------------------------
 

@@ -1246,6 +1246,123 @@ def test_cross_apply_matches_plain(dims, dtype):
     assert np.abs(got - want).max() / np.abs(want).max() < tol * 10
 
 
+def _block_fields(grids, m, dt, seed):
+    rng = np.random.RandomState(seed)
+    return tuple(_crand(rng, (m,) + tuple(g), dt) if dt.is_complex else
+                 torch.tensor(rng.rand(m, *g), dtype=dt, device="cuda")
+                 for g in grids)
+
+
+def _per_block_path(op, xs, bs, apply):
+    """What a block operator's residual was before the block form: one
+    launch of `apply(coeff, taps, in_grid, x)` a block (cross_apply or
+    halo_apply), torch's adds in block order, torch's subtraction."""
+    g = len(op.grids[0])
+    ys = [None] * len(op.grids)
+    for (ci, cj), coeff, offs in zip(op.pairs, op.block_coeffs,
+                                     op.block_offsets):
+        t = apply(coeff, offs, tuple(xs[cj].shape[-g:]), xs[cj])
+        ys[ci] = t if ys[ci] is None else ys[ci] + t
+    ys = tuple(xs[0].new_zeros((xs[0].shape[0],) + tuple(gr)) if y is None
+               else y for y, gr in zip(ys, op.grids))
+    return ys, tuple(b - y for b, y in zip(bs, ys))
+
+
+def _check_block_form(op, xs, bs, apply, tol):
+    """op's block apply and residual: one launch each, counted in
+    BLOCK_LAUNCHES and not in CROSS_LAUNCHES or HALO_LAUNCHES, bitwise
+    the per-block path, within `tol` of the plain version."""
+    from mgtpu_torch.ops.cuda import stencil
+    key = str(xs[0].dtype).rsplit(".", 1)[-1]
+    before = [dict(d) for d in (stencil.LAUNCHES, stencil.BLOCK_LAUNCHES,
+                                stencil.CROSS_LAUNCHES,
+                                stencil.HALO_LAUNCHES, stencil.PLAIN_CALLS)]
+    y = stencil.block_apply(op, xs)
+    r = stencil.block_apply(op, xs, bs)
+    torch.cuda.synchronize()
+    after = (stencil.LAUNCHES, stencil.BLOCK_LAUNCHES, stencil.CROSS_LAUNCHES,
+             stencil.HALO_LAUNCHES, stencil.PLAIN_CALLS)
+    assert [a[key] - b[key] for a, b in zip(after, before)] == [2, 2, 0, 0,
+                                                                0]
+    y_old, r_old = _per_block_path(op, xs, bs, apply)
+    y_pl, r_pl = (stencil.block_apply_plain(op, xs, v) for v in (None, bs))
+    torch.cuda.synchronize()
+    for a, b in zip(y + r, y_old + r_old):
+        assert torch.equal(a, b)
+    for a, b in zip(y + r, y_pl + r_pl):
+        assert float((a - b).abs().max() / b.abs().max()) < tol
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64, np.complex64,
+                                   np.complex128])
+@pytest.mark.parametrize("dims,mixed", [((32, 32), True), ((32, 32), False),
+                                        ((8, 8, 8), True)])
+def test_block_form_matches_per_block_path(dims, mixed, dtype):
+    """Kernel D's block form on every level of a systems hierarchy set up
+    on the card (the Galerkin levels' 9-36 taps take splits 2-8): its
+    apply and residual, m = 1, 2, 5, one launch each, bitwise the per-block
+    cross applies, adds and subtraction; within 2e-5 / 1e-12 of the
+    plain version."""
+    _need_card()
+    import mgtpu_torch as mt
+    from mgtpu_torch.config import torch_dtype
+    from mgtpu_torch.ops.cuda import stencil
+    M, A = _elasticity_csr(dims, mixed)
+    if np.dtype(dtype).kind == "c":
+        A = (A + 1e-3j * abs(A).sum(0).max() * sp.identity(A.shape[0])
+             ).tocsr()
+    cfg, rp = mt.get_mg_param(
+        levels=3, relax_type="VankaFaces" if mixed else "SPAI",
+        relax_param=0.75, dtype=dtype, transfer_type=(
+            "SystemsFacesMixedLinear" if mixed else "SystemsFacesLinear"))
+    st = mt.mg_setup(A, M, cfg, rp)
+    dt = torch_dtype(dtype)
+    tol = 2e-5 if dt in (torch.float32, torch.complex64) else 1e-12
+    splits = set()
+    for l, lv in enumerate(st.hier.levels):
+        op = lv.A
+        splits |= set(stencil.block_table_parts(op.block_table)[1][:, 5])
+        for m in (1, 2, 5):
+            _check_block_form(op, _block_fields(op.grids, m, dt, l + m),
+                              _block_fields(op.grids, m, dt, 10 + l + m),
+                              stencil.cross_apply, tol)
+    assert max(splits) > 1
+
+
+@pytest.mark.parametrize("dtype,low", [(np.float64, torch.float32),
+                                       (np.complex128, torch.complex64)])
+def test_block_form_of_a_cast_copy(dtype, low):
+    """A cast_hierarchy copy (what solve_mg_refined(cycle_dtype=low)
+    cycles on) applies its own coefficients: its block residual on every
+    level is bitwise its own per-block path and within 2e-5 of its plain
+    version, and the original's block residual is unchanged."""
+    _need_card()
+    import mgtpu_torch as mt
+    from mgtpu_torch.config import torch_dtype
+    from mgtpu_torch.ops.cuda import stencil
+    from mgtpu_torch.solvers.mg_solver import cast_hierarchy
+    M, A = _elasticity_csr((32, 32), True)
+    if np.dtype(dtype).kind == "c":
+        A = (A + 1e-3j * abs(A).sum(0).max() * sp.identity(A.shape[0])
+             ).tocsr()
+    cfg, rp = mt.get_mg_param(levels=3, relax_type="VankaFaces",
+                              relax_param=0.75, dtype=dtype,
+                              transfer_type="SystemsFacesMixedLinear")
+    hi = mt.mg_setup(A, M, cfg, rp).hier
+    dt = torch_dtype(dtype)
+    for lv in hi.levels:
+        lv.A.block_table            # made before the copy, as in a solve
+    lo = cast_hierarchy(hi, low)
+    for l, (lh, ll) in enumerate(zip(hi.levels, lo.levels)):
+        assert ll.A.block_coeffs[0].dtype == low
+        _check_block_form(ll.A, _block_fields(ll.A.grids, 2, low, l),
+                          _block_fields(ll.A.grids, 2, low, 10 + l),
+                          stencil.cross_apply, 2e-5)
+        _check_block_form(lh.A, _block_fields(lh.A.grids, 2, dt, l),
+                          _block_fields(lh.A.grids, 2, dt, 10 + l),
+                          stencil.cross_apply, 1e-12)
+
+
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 @pytest.mark.parametrize("m", [1, 3])
 def test_lex_sweep_kernel_matches_plain(dtype, m, monkeypatch):
@@ -2083,6 +2200,17 @@ def test_staggered_halo_apply_matches_plain(dims, dtype, one_rank):
             err = float((y - ref).abs().max() / ref.abs().max())
             assert err < tol, ((ci, cj), m, err)
     assert staggered > 0
+    # the block form on every rank's blocks of 4, and of 1: one launch
+    # bitwise the per-block halo applies, adds and subtraction
+    for D in (1, 4):
+        for k in range(D):
+            sop = shard_block_operator(pad_block_operator(
+                op, padded_grids(op.grids, D)), _RankOf(D, k), "cuda")
+            for m in (1, 2, 5):
+                _check_block_form(
+                    sop, _block_fields(sop.in_grids, m, op.dtype, k + m),
+                    _block_fields(sop.grids, m, op.dtype, 10 + k + m),
+                    sk.halo_apply, tol)
     one = shard_block_operator(pad_block_operator(
         op, padded_grids(op.grids, 1)), one_rank, "cuda")
     xs = tuple(torch.tensor(np.random.RandomState(c).rand(2, *g),
