@@ -226,8 +226,17 @@ Phases, each of which raises on failure:
             1 (129 x 513), MG-pen's fine block and level 1 (513^2,
             257^2, halos on both axes) and MG-3d's fine block (33 x
             129^2), its times beside its bound, plain version and
-            torch.sparse.mm; then, spawned by parallel/launch.py after
-            the kernels are built, 1 NCCL rank and 4 gloo ranks sharing
+            torch.sparse.mm; kernel D's halo form (csrc/halo_stencil.cu)
+            on the same blocks: apply, residual and slab Jacobi update,
+            m = 1, 2, 5, with random neighbour planes and the ends'
+            zeros, bit for bit the old path (the planes catted,
+            halo_apply, torch's subtraction or update) and within 2e-5 /
+            1e-12 of its plain version, the overlapped slab's two
+            launches bitwise the whole; its residual's time on MS-2d's
+            slab and MG-3d's block beside its bound, the old path, its
+            plain version and b - torch.sparse.mm; then, spawned by
+            parallel/launch.py after the kernels are built, 1 NCCL rank
+            and 4 gloo ranks sharing
             the card (host-staged exchanges: those times say nothing of
             NVLink), each inside one window of kernel D's counters: (MS-2d)
             20 slab cycles at 1024^2 (one within 1e-5 of the
@@ -240,9 +249,13 @@ Phases, each of which raises on failure:
             outer (19 / 12), (DD-par) DD-256 under FGMRES(5) with the
             Schwarz sweep spread over the ranks (6 restarts); each at a
             true f64 relres below 1e-8, the 4-rank x within 1e-6 of the
-            1-rank x, the overlapped slab apply bitwise the fused one;
-            per row ms a solve and a cycle (host clock), bytes a cycle
-            by collective kind and kernel D's launches.
+            1-rank x, the overlapped slab apply, residual and Jacobi
+            update bitwise the fused ones; every sharded level's apply,
+            residual and slab sweep on the halo form, none on the cross
+            form; per row ms a solve and a cycle (host clock), bytes a
+            cycle by collective kind, kernel D's launches by form and, on
+            1 NCCL rank, the device operations of a cycle
+            (torch.profiler).
 
 20. multi-device 2 — the systems and row-sharded flat tiers
             (parallel/systems_sharded.py, sharded_amg.py, sharded_solve.py)
@@ -290,7 +303,8 @@ Phases, each of which raises on failure:
             its rounding differs 5e-3), its pad exactly zero, the 4-rank
             x within 1e-6 of the 1-rank x; per row ms a solve and a cycle,
             bytes a cycle by collective kind (PA-sa beside MA-sa's
-            replicated cycle), kernel D's halo launches (GK-2d) and block
+            replicated cycle), kernel D's halo-form launches (GK-2d, and
+            its device operations a cycle on 1 NCCL rank) and block
             launches (SK-2d).
 
 Every solve of phases 4, 5, 7, 8, 10, 11, 12, 13, 16, 17 and 18 runs
@@ -694,6 +708,16 @@ KERNELS = {
         "pallas_call at :76, on mgtpu/parallel/stencil.py:97 "
         "stencil_matvec_local's halo-extended slab",
         "mgtpu_torch/csrc/stencil.cu", 2) for c in ("float32", "float64")},
+    # phase 19: kernel D's halo form, a rank's block apply, residual or
+    # slab Jacobi update in one launch, reading the neighbours' planes
+    # where they arrived (the multi-device grid tier's main path)
+    **{f"stencil_halo_form.{c}": (
+        "mgtpu/ops/pallas/stencil_kernel.py:31 _stencil_kernel (K8), "
+        "pallas_call at :76, on mgtpu/parallel/stencil.py:97 "
+        "stencil_matvec_local's halo-extended slab, with b - A x and the "
+        "slab Jacobi update (mgtpu/parallel/sharded.py:109-123; "
+        "mgtpu/parallel/grid_sharded.py:95's GSPMD-sharded levels)",
+        "mgtpu_torch/csrc/halo_stencil.cu", 3) for c in ("float32", "float64")},
     # phase 20: the same halo apply between two staggered grids (the
     # systems tier's block operators; mgtpu lets GSPMD shard its XLA cross
     # apply, mgtpu/parallel/systems_sharded.py)
@@ -717,6 +741,7 @@ KERNELS = {
 STENCIL_KERNELS = [k for k in KERNELS       # kernels A and B
                    if not k.startswith(("tridiag", "stencil.",
                                         "stencil_cross.", "stencil_halo.",
+                                        "stencil_halo_form.",
                                         "stencil_halo_stag.",
                                         "stencil_block.", "vanka",
                                         "kaczmarz"))]
@@ -4664,11 +4689,158 @@ def halo_cases(L2, L3):
     return out
 
 
+def halo_form_case(op):
+    """A halo case in the halo form's terms: (axis, width, taps).  The
+    halo axis is the last one the case extends (the pencil's first axis
+    stays catted, as on the ranks); the taps are unshifted along it."""
+    shift = [(i - o) // 2 for i, o in zip(op.in_grid, op.out_grid)]
+    h = max(a for a, v in enumerate(shift) if v)
+    taps = tuple(tuple(v - (shift[h] if a == h else 0)
+                       for a, v in enumerate(off)) for off in op.offsets)
+    return h, shift[h], taps
+
+
+def halo_split(x, h, w, live=(True, True)):
+    """The extended input x (m, *in_grid) cut along axis h into (left,
+    owned, right) pieces of the halo form, a piece None where `live` says
+    there is no neighbour, and the old path's extended block (zero planes
+    there)."""
+    dim, n = 1 + h, x.shape[1 + h]
+    own = x.narrow(dim, w, n - 2 * w).contiguous()
+    left = x.narrow(dim, 0, w).contiguous() if live[0] else None
+    right = x.narrow(dim, n - w, w).contiguous() if live[1] else None
+    zero = torch.zeros_like(own.narrow(dim, 0, w))
+    xe = torch.cat([zero if left is None else left, own,
+                    zero if right is None else right], dim=dim)
+    return left, own, right, xe
+
+
+def check_halo_form(rows, label, op):
+    """Kernel D's halo form on a halo case: apply, residual and, where the
+    output is the owned block, the Jacobi update, m = 1, 2, 5, with random
+    neighbour planes, with one end's zeros and with both: bit for bit the
+    old path (the planes catted, halo_apply, torch's b - y or x + d (b -
+    y)); with live planes within 2e-5 / 1e-12 of its plain version (the
+    row stencil_halo_form.<type> keeps the largest errors) and, radius 1,
+    the overlapped slab's two launches (interior rows, then both edge rows
+    into the same tensor) bitwise the whole."""
+    from mgtpu_torch.ops.cuda import stencil
+    h, w, taps = halo_form_case(op)
+    dt = op.coeff.dtype
+    own_grid = tuple(g - (2 * w if a == h else 0)
+                     for a, g in enumerate(op.in_grid))
+    jac = own_grid == tuple(op.out_grid)
+    n = op.out_grid[h]
+    for m in (1, 2, 5):
+        rng = np.random.RandomState(SEED + 40 + m)
+        t = lambda *shape: torch.tensor(rng.rand(*shape), dtype=dt,
+                                        device="cuda")
+        x, b = t(m, *op.in_grid), t(m, *op.out_grid)
+        d = t(*op.out_grid) if jac else None
+        forms = [("apply", None, None), ("residual", b, None)]
+        forms += [("jacobi", b, d)] if jac else []
+        for live in ((True, True), (False, True), (False, False)):
+            left, own, right, xe = halo_split(x, h, w, live)
+            y = stencil.halo_apply(op.coeff, op.offsets, op.in_grid, xe)
+            for form, bb, dd in forms:
+                old = (y if bb is None else bb - y if dd is None
+                       else own + dd * (bb - y))
+                new = stencil.halo_stencil(op.coeff, taps, own, left, right,
+                                           h, b=bb, d=dd)
+                torch.cuda.synchronize()
+                require(torch.equal(new, old), f"halo form {form} {label} "
+                        f"m={m} planes {live}: not bitwise the old path")
+                if live != (True, True):
+                    continue
+                check_d(rows, f"halo form {form} {label} m={m}", new,
+                        stencil.halo_stencil_plain(op.coeff, taps, own, left,
+                                                   right, h, b=bb, d=dd),
+                        "stencil_halo_form")
+                if w == 1 and n > 2:
+                    part = stencil.halo_stencil(
+                        op.coeff, taps, own, None, None, h, b=bb, d=dd,
+                        rows=(1, n - 1, n - 1, n - 1))
+                    part = stencil.halo_stencil(
+                        op.coeff, taps, own, left, right, h, b=bb, d=dd,
+                        rows=(0, 1, n - 1, n), out=part)
+                    torch.cuda.synchronize()
+                    require(torch.equal(part, old), f"halo form {form} "
+                            f"{label} m={m}: interior and edge rows not "
+                            "bitwise the whole")
+    log(f"[kernel] D halo form, {label}, {dt}: apply, residual"
+        f"{', jacobi' if jac else ''} bit for bit the old path (cat, "
+        "halo_apply, torch) with live planes, one end's zeros and both, "
+        "m = 1, 2, 5; interior + edge rows bitwise the whole; within "
+        f"{D_TOLS[dt]:.0e} of its plain version")
+
+
+def time_halo_form(label, op, timer, card):
+    """Kernel D's halo form, the residual b - A x of a rank's block (m = 1,
+    four input sets, live planes): its device time by CUDA events and in a
+    CUDA graph, beside its least time (the coefficients, the owned block and
+    its planes once, b read and r written), the old path it replaces
+    (the planes catted, halo_apply, torch's b - y), its plain version and
+    b - torch.sparse.mm of the block's CSR on the extended block."""
+    from mgtpu_torch.ops.cuda import stencil
+    h, w, taps = halo_form_case(op)
+    dt = op.coeff.dtype
+    item = torch.empty((), dtype=dt).element_size()
+    sets = []
+    for j in range(4):
+        rng = np.random.RandomState(SEED + 60 + j)
+        x = torch.tensor(rng.rand(1, *op.in_grid), dtype=dt, device="cuda")
+        b = torch.tensor(rng.rand(1, *op.out_grid), dtype=dt, device="cuda")
+        left, own, right, _ = halo_split(x, h, w)
+        sets.append((own, left, right, b, x.reshape(-1, 1),
+                     b.reshape(-1, 1)))
+    calls = lambda fn: [lambda s=s: fn(*s[:4]) for s in sets]
+    new = lambda own, left, right, b: stencil.halo_stencil(
+        op.coeff, taps, own, left, right, h, b=b)
+    old = lambda own, left, right, b: b - stencil.halo_apply(
+        op.coeff, op.offsets, op.in_grid,
+        torch.cat([left, own, right], dim=1 + h))
+    plain = lambda own, left, right, b: stencil.halo_stencil_plain(
+        op.coeff, taps, own, left, right, h, b=b)
+    ms, host_ms = timer(calls(new))
+    g_ms = graph_ms(calls(new))
+    no, nd = int(np.prod(op.out_grid)), len(taps)
+    plan = stencil.halo_plan(box3(op.out_grid), no, nd, 1, dt)
+    old_ms, old_host_ms = timer(calls(old))
+    old_g_ms = graph_ms(calls(old))
+    plain_ms = timer(calls(plain))[0]
+    Tm = sparse_mm_yardstick(op.to_scipy(), dt)
+    lib_ms = timer([lambda s=s: s[5] - torch.sparse.mm(Tm, s[4])
+                    for s in sets])[0]
+    ni = int(np.prod(op.in_grid))
+    fbytes = (nd * no + ni + 2 * no) * item
+    flops = 2 * nd * no + no
+    peak = FP32_FLOPS if dt == torch.float32 else FP64_FLOPS
+    bound = max(fbytes / HBM_BYTES_PER_S, flops / peak) * 1e3
+    log(f"[time] D halo form {label} {dt} residual: kernel {ms:.4f} ms "
+        f"(graph {g_ms:.4f}; plan split {plan.split} blocks "
+        f"{plan.blocks})  "
+        f"old path {old_ms:.4f} ms (graph {old_g_ms:.4f}: cat, halo_apply, "
+        f"b - y)  plain {plain_ms:.4f} ms  sparse.mm + b - y {lib_ms:.4f} ms"
+        f"  bound {bound:.4f} ms ({fbytes / 1e6:.2f} MB)  kernel/bound "
+        f"{ms / bound:.1f}x  host per call {host_ms:.3f} ms (old "
+        f"{old_host_ms:.3f})  {op.in_grid} -> {op.out_grid} nd={nd} "
+        f"({card})")
+    return dict(shape=f"{op.in_grid} -> {op.out_grid} nd={nd}", ms=ms,
+                graph_ms=g_ms, plan=plan._asdict(),
+                old_path_ms=old_ms, old_path_graph_ms=old_g_ms,
+                old_path_host_ms=old_host_ms, plain_ms=plain_ms,
+                library_ms=lib_ms, bound_ms=bound, host_ms=host_ms,
+                bound_by="bytes" if fbytes / HBM_BYTES_PER_S >= flops / peak
+                else "operations")
+
+
 def phase_halo_kernels(L2, L3, rows, card):
-    """Kernel D's halo apply against its plain version (m = 1, 2; f32
-    2e-5, f64 1e-12) on every block of `halo_cases`, then its device time
-    there beside its byte bound, the plain version and
-    torch.sparse.mm of the block's CSR."""
+    """Kernel D's halo apply (the cross form on the extended block) against
+    its plain version (m = 1, 2; f32 2e-5, f64 1e-12) on every block of
+    `halo_cases`, then its device time there beside its byte bound, the
+    plain version and torch.sparse.mm of the block's CSR; kernel D's halo
+    form on every block (`check_halo_form`), and its residual's device
+    time on MS-2d's slab and MG-3d's block (`time_halo_form`)."""
     from mgtpu_torch.ops.cuda import stencil
     timer = Timer()
     for label, op in halo_cases(L2, L3):
@@ -4682,17 +4854,58 @@ def phase_halo_kernels(L2, L3, rows, card):
         log(f"[kernel] D halo apply, {label}, {op.in_grid} -> "
             f"{op.out_grid}, {len(op.offsets)} taps, {op.coeff.dtype}: "
             "matches its plain version, m = 1, 2")
+        check_halo_form(rows, label, op)
         entry, _ = time_d(f"halo {label}", "halo", op, op.to_scipy(),
                           timer, card)
-        name = f"stencil_halo.{str(op.coeff.dtype).split('.')[-1]}"
-        rows[name].setdefault("times", {})[label] = entry
+        dt = str(op.coeff.dtype).split('.')[-1]
+        rows[f"stencil_halo.{dt}"].setdefault("times", {})[label] = entry
         if label.startswith("MS-2d"):
-            rows[name].update(
+            rows[f"stencil_halo.{dt}"].update(
                 {k: entry[k] for k in ("ms", "plain_ms", "bound_ms",
                                        "bound_by", "library_ms", "host_ms",
                                        "plan")},
                 timed_shape=f"{label}: {entry['shape']} m=1",
                 library_call="torch.sparse.mm(CSR, x)")
+        if not label.startswith(("MS-2d", "MG-3d")):
+            continue
+        entry = time_halo_form(label, op, timer, card)
+        row = rows[f"stencil_halo_form.{dt}"]
+        row.setdefault("times", {})[label] = entry
+        if label.startswith("MS-2d"):
+            row.update({k: entry[k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "host_ms", "old_path_ms", "graph_ms", "plan")},
+                timed_shape=f"{label}: {entry['shape']}, residual, m=1",
+                library_call="b - torch.sparse.mm(CSR, x)",
+                ptxas=ptxas("halo_stencil", "halo_kernel"))
+
+
+def device_ops_note(ops) -> str:
+    """`cycle_kernels`'s result in a log line."""
+    if ops is None:
+        return "not measured (taken on 1 rank only)"
+    return (f"{ops['ops']} ({ops['copies']} copies), {ops['device_ms']:.3f} "
+            f"ms of device time, most {ops['most'][:3]}")
+
+
+def cycle_kernels(fn, device):
+    """Device operations of one call of `fn` by torch.profiler: kernels
+    and copies (count, by name) and their device ms; None when the
+    profiler saw no device events."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize(device)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize(device)
+    ev = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    if not ev:
+        return None
+    copies = sum(e.count for e in ev if e.key.startswith(("Memcpy",
+                                                          "Memset")))
+    top = sorted(ev, key=lambda e: -e.count)[:6]
+    return dict(ops=int(sum(e.count for e in ev)), copies=int(copies),
+                device_ms=sum(e.self_device_time_total for e in ev) / 1e3,
+                most=[(e.key[:60], int(e.count)) for e in top])
 
 
 def multi_rank(rank, world, device, transport):
@@ -4746,21 +4959,29 @@ def multi_rank(rank, world, device, transport):
     b3 = L3 @ np.random.RandomState(SEED).rand(L3.shape[0])
     b3 /= np.linalg.norm(b3)
     bf, bdd = rhs_of(Af), rhs_of(Ldd)
-    # the overlapped slab apply against the fused one, on real halos
+    # the overlapped slab apply (kernel D's halo form: interior rows, then
+    # both edge rows) against the fused one (the extended slab, the cross
+    # form), on real halos; its residual and Jacobi update against the
+    # fused apply and torch's subtraction or update
     mg, step, to_grid, from_grid = slab
     lvl = mg.levels[0]
     xs = to_grid(np.random.RandomState(SEED + 7).rand(L2.shape[0]))
-    fused = ps.stencil_matvec_local(lvl.coeff, lvl.di, lvl.dj,
-                                    ps.exchange_halo(xs, comm))
-    over = ps.stencil_matvec_overlapped(lvl.coeff, lvl.di, lvl.dj, xs,
-                                        comm, parts=lvl.parts)
-    bitwise = bool(torch.equal(fused, over))
+    bs = to_grid(np.random.RandomState(SEED + 8).rand(L2.shape[0]))
+    fused = lambda: ps.stencil_matvec_local(lvl.coeff, lvl.di, lvl.dj,
+                                            ps.exchange_halo(xs, comm))
+    over = lambda b=None, d=None: ps.stencil_matvec_overlapped(
+        lvl.coeff, lvl.di, lvl.dj, xs, comm, b=b, d=d)
+    y = fused()
+    bitwise = bool(torch.equal(y, over())
+                   and torch.equal(bs - y, over(bs))
+                   and torch.equal(xs + lvl.d * (bs - y), over(bs, lvl.d)))
     apply_ms = {}
     for form, fn in (
-            ("fused", lambda: ps.stencil_matvec_local(
-                lvl.coeff, lvl.di, lvl.dj, ps.exchange_halo(xs, comm))),
-            ("overlapped", lambda: ps.stencil_matvec_overlapped(
-                lvl.coeff, lvl.di, lvl.dj, xs, comm, parts=lvl.parts))):
+            ("fused", fused), ("overlapped", over),
+            ("residual, fused", lambda: bs - fused()),
+            ("residual, overlapped", lambda: over(bs)),
+            ("jacobi, fused", lambda: xs + lvl.d * (bs - fused())),
+            ("jacobi, overlapped", lambda: over(bs, lvl.d))):
         fn()
         torch.cuda.synchronize(device)
         t = time.perf_counter()
@@ -4781,24 +5002,30 @@ def multi_rank(rank, world, device, transport):
         return out, (time.perf_counter() - t) * 1e3
 
     def d_count():
-        return {"float32": sk.LAUNCHES["float32"],
-                "float64": sk.LAUNCHES["float64"],
-                "halo.float32": sk.HALO_LAUNCHES["float32"],
-                "halo.float64": sk.HALO_LAUNCHES["float64"]}
+        out = {t: sk.LAUNCHES[t] for t in ("float32", "float64")}
+        out.update({f"{k}.{t}": dct[t] for k, dct in (
+            ("halo", sk.HALO_LAUNCHES), ("cross", sk.CROSS_LAUNCHES))
+            for t in ("float32", "float64")})
+        out.update({f"form.{k}": v
+                    for k, v in sk.HALO_FORM_LAUNCHES.items()})
+        return out
 
     def one_cycle(c, fn):
-        """A cycle's host-clock ms (median of three) and bytes by kind."""
+        """A cycle's host-clock ms (median of three), bytes by kind and,
+        on one rank, its device operations (`cycle_kernels`)."""
         ms = []
         for _ in range(3):
             c.reset_counts()
             _, t = clock(fn)
             ms.append(t)
-        return float(np.median(ms)), dict(c.sent)
+        ops = cycle_kernels(fn, device) if world == 1 else None
+        return float(np.median(ms)), dict(c.sent), ops
 
     out = {"rank": rank, "setup_s": setup_s, "bitwise": bitwise,
            "apply_ms": apply_ms, "rows": {}}
     for dct in (sk.LAUNCHES, sk.PLAIN_CALLS, sk.HALO_LAUNCHES,
-                sk.CROSS_LAUNCHES, sk.BLOCK_LAUNCHES):
+                sk.HALO_FORM_LAUNCHES, sk.CROSS_LAUNCHES,
+                sk.BLOCK_LAUNCHES):
         for k in dct:
             dct[k] = 0
     d0 = d_count()
@@ -4807,7 +5034,7 @@ def multi_rank(rank, world, device, transport):
         after = d_count()
         out["rows"][label] = dict(
             iters=iters, solve_ms=solve_ms, cycle_ms=cycle[0],
-            bytes=cycle[1], x=x if rank == 0 else None,
+            bytes=cycle[1], device_ops=cycle[2], x=x if rank == 0 else None,
             launches={k: after[k] - before[k] for k in after}, **more)
 
     # MS-2d: 20 slab cycles (step_fn), one at a time
@@ -4910,18 +5137,29 @@ def phase_multi(L2, L3, card, layouts=MULTI_RUNS):
         r0 = outs[0]
         log(f"[multi] {label} ({transport}): {wall:.1f} s wall, setups "
             f"{max(o['setup_s'] for o in outs):.1f} s a rank; MS-2d's fine "
-            f"slab apply with its halo exchange, fused / overlapped, ms: "
-            + ", ".join(f"{o['apply_ms']['fused']:.3f} / "
-                        f"{o['apply_ms']['overlapped']:.3f}" for o in outs)
+            f"slab with its halo exchange, fused (cat, cross form, torch) / "
+            f"overlapped (the halo form), ms a rank: "
+            + "; ".join(", ".join(f"{k} {v:.3f}" for k, v in
+                                  o["apply_ms"].items()) for o in outs)
             + f" (host clock, synchronised, mean of 20; {card})")
         require(all(o["bitwise"] for o in outs), f"{label}: the overlapped "
-                "slab apply is not bitwise the fused one")
+                "slab apply, residual or Jacobi update is not bitwise the "
+                "fused one")
         require(all(not any(o["plain"].values()) for o in outs),
                 f"{label}: kernel D's plain version ran: "
                 f"{[o['plain'] for o in outs]}")
-        for key in ("halo.float32", "halo.float64"):
+        # every sharded level apply, residual and slab sweep on the halo
+        # form: the slab GMG's residual and Jacobi update, the grid
+        # engine's f32 residuals and the refined f64 residual; no cross
+        # form (the extended block) on the path
+        for key in ("halo.float32", "halo.float64", "form.residual.float32",
+                    "form.jacobi.float32", "form.residual.float64"):
             require(all(o["window"][key] > 0 for o in outs),
-                    f"{label}: kernel D's halo apply ({key}) never launched")
+                    f"{label}: kernel D's halo form ({key}) never launched")
+        require(all(not o["window"]["cross.float32"]
+                    and not o["window"]["cross.float64"] for o in outs),
+                f"{label}: kernel D's cross form ran on the path: "
+                f"{[o['window'] for o in outs]}")
         halo[label] = {k: sum(o["window"][k] for o in outs)
                        for k in r0["window"]}
         # MS-2d: one cycle against the single-device cycle; the reduced
@@ -4947,7 +5185,9 @@ def phase_multi(L2, L3, card, layouts=MULTI_RUNS):
             + ", ".join(f"{k}: {r_single[k]:.6e}" for k in MS_AT)
             + f"; {ms['solve_ms']:.1f} ms for 20, {ms['cycle_ms']:.2f} ms a "
             f"cycle, bytes a cycle {ms['bytes']}, kernel D "
-            f"{ms['launches']} (host clock, synchronised; {card})")
+            f"{ms['launches']}; device operations a cycle "
+            f"{device_ops_note(ms['device_ops'])} (host clock, "
+            f"synchronised; {card})")
         require(rel1 <= 1e-5, f"MS-2d {label}: one cycle {rel1:.2e} off")
         # the reduced norm is held only where f32's rounding bound is below
         # a tenth of it (cycle 1 at least); deeper it is printed, not held
@@ -4985,8 +5225,10 @@ def phase_multi(L2, L3, card, layouts=MULTI_RUNS):
                 f"{rw['solve_ms']:.1f} ms a solve, {rw['cycle_ms']:.2f} ms a "
                 f"{'sweep' if key == 'DD-par' else 'cycle'}, bytes a "
                 f"{'sweep' if key == 'DD-par' else 'cycle'} {rw['bytes']}, "
-                f"kernel D {rw['launches']} (host clock, synchronised; "
-                f"{card})")
+                f"kernel D {rw['launches']}; device operations a "
+                f"{'sweep' if key == 'DD-par' else 'cycle'} "
+                f"{device_ops_note(rw['device_ops'])} (host clock, "
+                f"synchronised; {card})")
             require(abs(rw["iters"] - want) <= 1 and rr < 1e-8,
                     f"{key} {label}: {rw['iters']} iterations (want {want} "
                     f"+- 1), relres {rr:.3e}")
@@ -5640,7 +5882,8 @@ def multi3_rank(rank, world, device, transport, paths, k_iters):
     def d_count():
         return {f"{kind}.{t}": dct[t] for kind, dct in (
             ("apply", sk.LAUNCHES), ("halo", sk.HALO_LAUNCHES),
-            ("block", sk.BLOCK_LAUNCHES)) for t in ("float32", "float64")}
+            ("cross", sk.CROSS_LAUNCHES), ("block", sk.BLOCK_LAUNCHES))
+            for t in ("float32", "float64")}
 
     def one_cycle(fn):
         """(a cycle's host-clock ms and bytes by kind, its output): one
@@ -5698,6 +5941,8 @@ def multi3_rank(rank, world, device, transport, paths, k_iters):
             run = lambda: solver.cycle(solver.gh, rv, torch.zeros_like(rv),
                                        True)
             cyc, y = one_cycle(run)
+            more["device_ops"] = (cycle_kernels(run, device) if world == 1
+                                  else None)
             full = _gather(y, comm, solver.gh.levels[0].A.shard, 1)
             n0 = solver.true_grid[0]
             pad_zero = bool((full[:, n0:] == 0).all())
@@ -5853,9 +6098,16 @@ def phase_multi3(card, layouts=MULTI_RUNS):
                         and rw["launches"][f"{kind}.float64"] > 0
                         and (kind == "halo"
                              or not rw["launches"]["halo.float32"]
-                             + rw["launches"]["halo.float64"]),
+                             + rw["launches"]["halo.float64"])
+                        and not rw["launches"]["cross.float32"]
+                        + rw["launches"]["cross.float64"],
                         f"{row} {label}: kernel D's {kind} form did not run "
-                        f"in both types: {rw['launches']}")
+                        f"in both types, or its cross form ran: "
+                        f"{rw['launches']}")
+                if row == "GK-2d":
+                    log(f"[multi3] (GK-2d) {label}: device operations a "
+                        f"cycle {device_ops_note(rw.get('device_ops'))} "
+                        f"({card})")
             runs[label][row] = dict(rw, relres=rr)
     one, four = (runs[k] for k in runs)
     for row in four:
@@ -6008,8 +6260,13 @@ def main() -> int:
             + sum(w["SK-2d"]["halo." + k.split(".")[1]]
                   for w in multi3_d.values())
             if k.startswith("stencil_halo_stag.") else
-            sum(w[k[len("stencil_"):]] for w in multi_d.values())
-            + sum(w["GK-2d"][k[len("stencil_"):]] for w in multi3_d.values())
+            sum(w["halo." + k.split(".")[1]] for w in multi_d.values())
+            + sum(w["GK-2d"]["halo." + k.split(".")[1]]
+                  for w in multi3_d.values())
+            if k.startswith("stencil_halo_form.") else
+            sum(w["cross." + k.split(".")[1]] for w in multi_d.values())
+            + sum(w["GK-2d"]["cross." + k.split(".")[1]]
+                  for w in multi3_d.values())
             if k.startswith("stencil_halo.") else
             rest[k] if k in REST_ROWS
             or k in ("stencil_cross.complex64", "stencil_cross.complex128")
@@ -6027,12 +6284,24 @@ def main() -> int:
             systems["vanka.float32"] if k == "vanka_lex" else
             f_launches["kaczmarz.float64"] if k == "kaczmarz" else
             launches[k])
-    for k in ("stencil_halo.float32", "stencil_halo.float64"):
+    for k in ("stencil_halo.float32", "stencil_halo.float64",
+              "stencil_halo_form.float32", "stencil_halo_form.float64"):
+        kind = "halo." if k.startswith("stencil_halo_form.") else "cross."
+        t = k.split(".")[1]
         rows[k]["launches_by_run"] = {
-            run: w[k[len("stencil_"):]] for run, w in multi_d.items()}
+            run: w[kind + t] for run, w in multi_d.items()}
         rows[k]["launches_by_run"].update({
-            f"GK-2d, {run}": w["GK-2d"][k[len("stencil_"):]]
+            f"GK-2d, {run}": w["GK-2d"][kind + t]
             for run, w in multi3_d.items()})
+    for t in ("float32", "float64"):
+        rows[f"stencil_halo_form.{t}"]["launches_by_form"] = {
+            f: sum(w[f"form.{f}.{t}"] for w in multi_d.values())
+            for f in ("apply", "residual", "jacobi")}
+        rows[f"stencil_halo.{t}"]["main_path"] = (
+            f"replaced by stencil_halo_form.{t}: a sharded level's apply, "
+            "residual or slab Jacobi update is one halo-form launch that "
+            "reads the neighbours' planes where they arrived; the cross "
+            "form on the extended block stays for halo_apply")
     for k in ("stencil_halo_stag.float32", "stencil_halo_stag.float64"):
         rows[k]["launches_by_run"] = {
             run: w["halo." + k.split(".")[1]] for run, w in multi2_d.items()}

@@ -73,8 +73,9 @@ def kernel_counters() -> list[dict]:
             fused3d.PLAIN_CALLS, fused3d.GRID_LAUNCHES, tridiag.LAUNCHES,
             tridiag.PLAIN_CALLS, stencil.LAUNCHES, stencil.PLAIN_CALLS,
             stencil.CROSS_LAUNCHES, stencil.HALO_LAUNCHES,
-            stencil.BLOCK_LAUNCHES, vanka.LAUNCHES, vanka.PLAIN_CALLS,
-            vanka.FORMS, kaczmarz.LAUNCHES, kaczmarz.PLAIN_CALLS]
+            stencil.HALO_FORM_LAUNCHES, stencil.BLOCK_LAUNCHES,
+            vanka.LAUNCHES, vanka.PLAIN_CALLS, vanka.FORMS,
+            kaczmarz.LAUNCHES, kaczmarz.PLAIN_CALLS]
 
 
 class Tally:

@@ -249,7 +249,7 @@ def _grid_smooth(cfg, lvl: GridLevel, r, x, b, nu: int,
     # jacobi / spai: x += d .* r with the residual refreshed between sweeps
     for _ in range(nu - 1):
         x = x + lvl.d * r
-        r = b - lvl.A.matvec(x)
+        r = lvl.A.residual(b, x)
     return x + lvl.d * r
 
 
@@ -281,7 +281,6 @@ def grid_cycle(cfg, gh: GridHierarchy, b, x, level: int = 0,
         return _coarse_solve(gh, b)
 
     lvl = gh.levels[level]
-    matvec = lvl.A.matvec
     fused = _fused3d(cfg, lvl)
     if fused:
         # every sweep recomputes its residual inside one kernel pass; the
@@ -303,10 +302,11 @@ def grid_cycle(cfg, gh: GridHierarchy, b, x, level: int = 0,
         elif cfg.nu_pre[level] == 0:
             r = b
     else:
-        r = b if x_zero else b - matvec(x)
+        r = b if x_zero else lvl.A.residual(b, x)
         x = _grid_smooth(cfg, lvl, r, x, b, cfg.nu_pre[level], x_zero,
                          gh.reduce)
-        r = b - matvec(x) if cfg.nu_pre[level] > 0 or not x_zero else b
+        r = (lvl.A.residual(b, x) if cfg.nu_pre[level] > 0 or not x_zero
+             else b)
     bc = grid_restrict(r, lvl.P1)
     if level == nlev - 2:
         xc = _coarse_solve(gh, bc)
@@ -335,7 +335,7 @@ def grid_cycle(cfg, gh: GridHierarchy, b, x, level: int = 0,
             x = x + p
     else:
         x = x + p
-        r = b - matvec(x)
+        r = lvl.A.residual(b, x)
         x = _grid_smooth(cfg, lvl, r, x, b, cfg.nu_post[level],
                          reduce=gh.reduce)
     return x

@@ -18,13 +18,20 @@ Entry points:
    on another grid than y's (..., *out_grid), coeff (nd, *out_grid); node
    r reads x at r + d_k, zero off in_grid.  A block of a staggered system,
    real or complex.
- * `halo_apply(coeff, offsets, in_grid, x, plan_box=)` — the cross apply
-   from a halo-extended block of the multi-device tier (parallel/): x
-   (..., *in_grid) holds y's block and its neighbours' planes, the taps
-   are shifted by the halo width.  Its launch plan is the one of
-   `plan_box` (default y's box), so that the pieces of one apply — the
-   overlapped slab's interior and edge rows — sum each node's taps as
-   the whole does.
+ * `halo_apply(coeff, offsets, in_grid, x)` — the cross apply from a
+   halo-extended block: x (..., *in_grid) holds y's block and its
+   neighbours' planes, the taps are shifted by the halo width.  The
+   multi-device paths ran it on a torch.cat of the planes before the
+   halo form.
+ * `halo_stencil(coeff, offsets, x, left, right, axis, b=, d=, rows=,
+   out=)` — the halo form (csrc/halo_stencil.cu): a rank's block apply,
+   residual b - A x or Jacobi update x + d (b - A x) in one launch,
+   reading the owned block x and its neighbours' planes `left` / `right`
+   where they lie (None: no neighbour); `rows` picks the output rows
+   along `axis` (the overlapped slab's interior, then both edge rows).
+   Each node's taps are sliced as `halo_apply` slices them, so each form
+   is bit for bit the cat, `halo_apply` and torch's subtraction or
+   update (`halo_plan`, cached).
  * `block_apply(op, xs, bs=None)` — a whole block operator of a staggered
    system in one launch (csrc/block_stencil.cu): every output component
    summed over its blocks in block order, or with `bs` the residual
@@ -49,7 +56,9 @@ Entry points:
    complex P: `pack_stride2` conjugates the restriction's table).
 
 The plain versions are `grid_stencil_matvec` (ops/grid_stencil.py),
-`cross_stencil_matvec` (ops/cross_stencil.py), `block_apply_plain` (the
+`cross_stencil_matvec` (ops/cross_stencil.py), `halo_stencil_plain` (the
+planes catted, zero where missing, the plain cross apply of each row
+range, torch's subtraction or update), `block_apply_plain` (the
 cross applies of the blocks, added, subtracted from b), the slab
 `stencil_matvec_plain`, `dia_apply_plain` and the strided
 `stride2_prolong_plain` / `stride2_restrict_plain`: the same
@@ -72,9 +81,11 @@ included) and takes the plain version only for a tensor on the CPU.
 device.  `LAUNCHES` counts kernel launches, `PLAIN_CALLS` calls of the plain
 version, per value type of x; a prolong or a restrict is one of either.
 `CROSS_LAUNCHES` counts, per value type, the launches of the cross form
-(a cross block between two different grids, and a halo apply);
-`HALO_LAUNCHES` those of `halo_apply` alone; `BLOCK_LAUNCHES` those of
-`block_apply` (which add to `LAUNCHES` too, not to the other two).
+(a cross block between two different grids, and a `halo_apply`);
+`HALO_LAUNCHES` those of the halo form (`halo_stencil`), and
+`HALO_FORM_LAUNCHES` them by form and type ("residual.float32");
+`BLOCK_LAUNCHES` those of `block_apply`.  The halo and block forms add
+to `LAUNCHES` too, not to `CROSS_LAUNCHES`.
 """
 from __future__ import annotations
 
@@ -89,6 +100,8 @@ from ..grid_stencil import grid_stencil_matvec
 from . import _build
 
 __all__ = ["LAUNCHES", "PLAIN_CALLS", "CROSS_LAUNCHES", "HALO_LAUNCHES",
+           "HALO_FORMS", "HALO_FORM_LAUNCHES", "HaloPlan", "halo_plan",
+           "halo_stencil", "halo_stencil_plain",
            "BLOCK_LAUNCHES", "MAX_TAPS", "block_table", "block_table_parts",
            "block_apply", "block_apply_plain",
            "FORMS", "StencilPlan", "stencil_plan", "plan_fits",
@@ -108,6 +121,11 @@ CROSS_LAUNCHES = {"float32": 0, "float64": 0, "complex64": 0,
                   "complex128": 0}
 HALO_LAUNCHES = {"float32": 0, "float64": 0, "complex64": 0,
                  "complex128": 0}
+HALO_FORMS = ("apply", "residual", "jacobi")
+HALO_FORM_LAUNCHES = {f"{f}.{t}": 0 for f in HALO_FORMS
+                      for t in ("float32", "float64", "complex64",
+                                "complex128") if f != "jacobi" or
+                      t in ("float32", "float64")}
 BLOCK_LAUNCHES = {"float32": 0, "float64": 0, "complex64": 0,
                   "complex128": 0}
 MAX_TAPS = 256                   # kMaxTaps of csrc/stencil.cu
@@ -399,12 +417,11 @@ def cross_apply(coeff, offsets, in_grid, x):
                    in_box=_box(in_grid), in_space=in_grid)
 
 
-def halo_apply(coeff, offsets, in_grid, x, plan_box=None):
+def halo_apply(coeff, offsets, in_grid, x):
     """y = A x for a block y (..., *out_grid), coeff (nd, *out_grid), from
     x (..., *in_grid): the block with its halo planes (the taps shifted
     by the halo width; zero off in_grid).  Kernel D's cross form on a
-    CUDA tensor, with the split of `plan_box`'s plan (default y's box);
-    `cross_apply_plain` on a CPU one."""
+    CUDA tensor, `cross_apply_plain` on a CPU one."""
     if x.device.type == "cpu":
         return cross_apply_plain(coeff, offsets, in_grid, x)
     _device_check(x)
@@ -418,16 +435,234 @@ def halo_apply(coeff, offsets, in_grid, x, plan_box=None):
     _check_taps(len(offsets))
     pad = 3 - len(out_grid)
     taps = tuple((0,) * pad + off for off in offsets)
-    box = _box(out_grid)
-    m = x.numel() // max(int(np.prod(in_grid)), 1)
-    split = stencil_plan(box if plan_box is None else _box(plan_box),
-                         len(taps), m, x.dtype, "cross").split
-    y = _launch(coeff, box, taps, x, "cross", in_box=_box(in_grid),
-                in_space=in_grid,
-                plan=stencil_plan(box, len(taps), m, x.dtype, "cross",
-                                  split))
-    HALO_LAUNCHES[_key(x.dtype)] += 1
+    return _launch(coeff, _box(out_grid), taps, x, "cross",
+                   in_box=_box(in_grid), in_space=in_grid)
+
+
+# ---------------------------------------------------------------------------
+# the halo form (csrc/halo_stencil.cu)
+# ---------------------------------------------------------------------------
+
+class HaloPlan(NamedTuple):
+    """How kernel D's halo form is launched (csrc/halo_stencil.cu,
+    plan_ok): `split` threads share a node (the split of `stencil_plan` of
+    the whole output block, so each node's taps are sliced as the cross
+    form slices them), `group` taps' loads issued together, `mb` right-hand sides
+    summed in registers, `blocks` CUDA blocks of THREADS / split nodes."""
+    split: int
+    group: int
+    mb: int
+    threads: int
+    blocks: int
+    per_slice: int
+    smem: int
+
+
+@functools.lru_cache(maxsize=512)
+def halo_plan(box, nodes: int, nd: int, m: int, dtype) -> HaloPlan:
+    """The halo form's launch plan for `nodes` output nodes of `nd` taps,
+    m right-hand sides of `dtype`: the split of `stencil_plan(box, ...,
+    "cross")`, `box` the whole output block whatever rows the launch
+    writes."""
+    split = stencil_plan(tuple(int(v) for v in box), nd, m, dtype,
+                         "cross").split
+    mb = _mb(m)
+    item = torch.empty((), dtype=dtype).element_size()
+    nb = THREADS // split
+    return HaloPlan(split, _group(mb), mb, THREADS, -(-nodes // nb),
+                    -(-nd // split),
+                    (split - 1) * nb * mb * item if split > 1 else 0)
+
+
+def _halo_reach(offsets, axis: int) -> tuple[int, int]:
+    """How far the taps reach past the block along `axis`: (left, right)."""
+    return (max(0, -min(int(off[axis]) for off in offsets)),
+            max(0, max(int(off[axis]) for off in offsets)))
+
+
+def _ranges(rows, extent: int):
+    return ([(0, extent)] if rows is None
+            else [(a, z) for a, z in ((rows[0], rows[1]), (rows[2], rows[3]))
+                  if z > a])
+
+
+def _halo_form(b, d) -> str:
+    if d is not None and b is None:
+        raise ValueError("the Jacobi form needs b")
+    return "apply" if b is None else "residual" if d is None else "jacobi"
+
+
+def halo_stencil_plain(coeff, offsets, x, left=None, right=None, axis=0, *,
+                       b=None, d=None, rows=None, out=None):
+    """The plain halo form: the block x extended along `axis` by the
+    neighbours' planes (zero planes for a missing one, and where the taps
+    reach past the planes given), the counted plain cross apply
+    (`cross_apply_plain`) of each row range on its window, then b - y or
+    x + d * (b - y) as torch rounds them."""
+    form = _halo_form(b, d)
+    g = coeff.ndim - 1
+    out_grid = tuple(int(v) for v in coeff.shape[1:])
+    dim = x.ndim - g + axis
+    lead = tuple(x.shape[:x.ndim - g])
+    reach = _halo_reach(offsets, axis)
+    wl = 0 if left is None else left.shape[dim]
+    wr = 0 if right is None else right.shape[dim]
+    pl, pr = max(reach[0], wl), max(reach[1], wr)
+
+    def zeros(w):
+        shape = list(x.shape)
+        shape[dim] = w
+        return x.new_zeros(shape)
+
+    xe = torch.cat([p for p in (zeros(pl - wl), left, x, right,
+                                zeros(pr - wr)) if p is not None], dim=dim)
+    taps = tuple(tuple(int(v) + (pl if a == axis else 0)
+                       for a, v in enumerate(off)) for off in offsets)
+    for lo, hi in _ranges(rows, out_grid[axis]):
+        win = xe.narrow(dim, lo, hi - lo + pl + pr)
+        y = cross_apply_plain(coeff.narrow(1 + axis, lo, hi - lo), taps,
+                              tuple(win.shape[win.ndim - g:]), win)
+        if form != "apply":
+            bw = b.narrow(dim, lo, hi - lo)
+            y = bw - y
+            if form == "jacobi":
+                y = x.narrow(dim, lo, hi - lo) + d.narrow(axis, lo,
+                                                          hi - lo) * y
+        if rows is None and out is None:
+            return y
+        if out is None:
+            out = x.new_empty(lead + out_grid)
+        out.narrow(dim, lo, hi - lo).copy_(y)
+    return out
+
+
+@functools.cache
+def _halo_lib() -> ctypes.CDLL:
+    lib = _build.library("halo_stencil")
+    fn = lib.mgt_halo_stencil
+    fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p]
+                   + [ctypes.c_int] * 9 + [ctypes.c_void_p, ctypes.c_int]
+                   + [ctypes.c_void_p] * 9)
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def halo_stencil(coeff, offsets, x, left=None, right=None, axis=0, *,
+                 b=None, d=None, rows=None, out=None):
+    """Kernel D's halo form on a rank's block: for each output node r of
+    coeff (nd, *out_grid), y = sum_k coeff[k, r] x[r + d_k], x the owned
+    block (..., *in_grid) extended along grid axis `axis` by `left` and
+    `right` (its neighbours' planes, read where they lie; None: no
+    neighbour, nothing read), zero off the extended block.  `offsets`:
+    the taps in x's frame (unshifted along `axis`).  Writes y (b None),
+    the residual b - y (b given) or the Jacobi update x + d * (b - y) (b
+    and d given, d (*out_grid), out_grid == in_grid), rounded as torch
+    rounds them.
+
+    rows: None (the whole block) or (r0, r1, r2, r3), the output rows
+    [r0, r1) and [r2, r3) along `axis`, written into `out` (allocated when
+    None) and the rest of `out` left alone.  The launch plan is
+    `halo_plan` of the output grid and the launch's nodes, whatever rows
+    it writes.
+
+    One launch of csrc/halo_stencil.cu on a CUDA tensor (counted in
+    LAUNCHES, HALO_LAUNCHES and HALO_FORM_LAUNCHES), `halo_stencil_plain`
+    on a CPU one."""
+    if x.device.type == "cpu":
+        return halo_stencil_plain(coeff, offsets, x, left, right, axis, b=b,
+                                  d=d, rows=rows, out=out)
+    _device_check(x)
+    form = _halo_form(b, d)
+    if form == "jacobi" and x.dtype.is_complex:
+        raise TypeError("the halo form's Jacobi update takes float32 or "
+                        f"float64, got {x.dtype}")
+    out_grid = tuple(int(v) for v in coeff.shape[1:])
+    g = len(out_grid)
+    offsets = tuple(tuple(int(v) for v in off) for off in offsets)
+    if not supports_stencil(offsets, out_grid, x.dtype) or not 0 <= axis < g:
+        raise ValueError(f"kernel D takes 1D-3D stencils (got {out_grid}, "
+                         f"axis {axis}, {x.dtype})")
+    _check_taps(len(offsets))
+    if x.ndim < g:
+        raise ValueError(f"x must be (..., *in_grid), got {tuple(x.shape)}")
+    in_grid = tuple(int(v) for v in x.shape[x.ndim - g:])
+    lead = tuple(x.shape[:x.ndim - g])
+    m = int(np.prod(lead))
+    if m < 1 or min(in_grid) < 1:
+        raise ValueError(f"empty field {tuple(x.shape)}")
+    widths = []
+    checks = [("coeff", coeff, (len(offsets),) + out_grid), ("x", x, None)]
+    for name, t in (("left", left), ("right", right)):
+        if t is None:
+            widths.append(0)
+            continue
+        w = int(t.shape[-g + axis]) if t.ndim == x.ndim else 0
+        shape = list(lead + in_grid)
+        shape[len(lead) + axis] = w
+        checks.append((name, t, tuple(shape)))
+        widths.append(w)
+    if b is not None:
+        checks.append(("b", b, lead + out_grid))
+    if d is not None:
+        if out_grid != in_grid:
+            raise ValueError("the Jacobi form writes the owned block: "
+                             f"output {out_grid}, block {in_grid}")
+        checks.append(("d", d, out_grid))
+    if out is not None:
+        checks.append(("out", out, lead + out_grid))
+    for name, t, shape in checks:
+        if t.device != x.device or t.dtype != x.dtype:
+            raise ValueError(f"{name} is {t.dtype} on {t.device}, x "
+                             f"{x.dtype} on {x.device}")
+        if (shape is not None and tuple(t.shape) != shape) \
+                or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous {shape}, got "
+                             f"{tuple(t.shape)}")
+    if min(widths) < 0 or (left is not None and widths[0] < 1) or \
+            (right is not None and widths[1] < 1) or \
+            max(widths) > in_grid[axis]:
+        raise ValueError(f"halo widths {widths} on a block of "
+                         f"{in_grid[axis]} planes")
+    if max(x.numel(), m * int(np.prod(out_grid)), coeff.numel()) >= 2 ** 31:
+        raise ValueError("kernel D indexes with 32-bit integers")
+    if x.device.index is not None and \
+            x.device.index != torch.cuda.current_device():
+        raise ValueError(f"x is on {x.device}, the current device is "
+                         f"cuda:{torch.cuda.current_device()}")
+    ext = out_grid[axis]
+    rr = (0, ext, ext, ext) if rows is None else tuple(int(v) for v in rows)
+    if not (len(rr) == 4 and 0 <= rr[0] <= rr[1] <= rr[2] <= rr[3] <= ext
+            and rr[1] - rr[0] + rr[3] - rr[2] >= 1):
+        raise ValueError(f"rows {rows} on an axis of {ext}")
+    if rows is not None and out is None:
+        out = x.new_empty(lead + out_grid)
+    y = x.new_empty(lead + out_grid) if out is None else out
+    nodes = int(np.prod(out_grid)) // ext * (rr[1] - rr[0] + rr[3] - rr[2])
+    plan = halo_plan(_box(out_grid), nodes, len(offsets), m, x.dtype)
+    pad = 3 - g
+    taps = tuple((0,) * pad + off for off in offsets)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    lib = _halo_lib()
+    rc = lib.mgt_halo_stencil(
+        _DTYPES[x.dtype], HALO_FORMS.index(form), len(taps),
+        _taps(taps).ctypes.data, *_box(out_grid), *_box(in_grid), pad + axis,
+        widths[0], widths[1], _rows_array(rr).ctypes.data, m,
+        coeff.data_ptr(), x.data_ptr(), ptr(left), ptr(right), ptr(b),
+        ptr(d), y.data_ptr(), _plan_array(plan).ctypes.data,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(lib, rc, "halo stencil")
+    key = _key(x.dtype)
+    LAUNCHES[key] += 1
+    HALO_LAUNCHES[key] += 1
+    HALO_FORM_LAUNCHES[f"{form}.{key}"] += 1
     return y
+
+
+@functools.lru_cache(maxsize=256)
+def _rows_array(rows) -> np.ndarray:
+    out = np.asarray(rows, dtype=np.int32)
+    out.setflags(write=False)
+    return out
 
 
 def stencil_matvec(coeff, di, dj, x):

@@ -91,6 +91,11 @@ class GridStencil:
             return grid_apply(self.coeff, self.offsets, x)
         return grid_apply_plain(self.coeff, self.offsets, x)
 
+    def residual(self, b: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        """b - A x (the grid cycle's residual; the sharded stencil folds
+        it into its launch)."""
+        return b - self.matvec(x)
+
     def to_scipy(self) -> sp.csr_matrix:
         """Stencil -> CSR via scipy's DIA container (one linear diagonal per
         offset; explicit zeros are dropped by the conversion)."""
@@ -510,6 +515,10 @@ class ConstGridStencil:
             sl = tuple(slice(s, s + z) for s, z in zip(start, size))
             coeff[(slice(None),) + sl] = strip
         return GridStencil(coeff, self.offsets, self.grid)
+
+    def residual(self, b: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        """b - A x (the grid cycle's residual)."""
+        return b - self.matvec(x)
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
         if _is_flat(x, self.grid):

@@ -15,7 +15,9 @@ row and per column.  Each mgtpu collective is one call here:
                      on either transport);
  * `broadcast`       from a rank of an axis;
  * `exchange_halo`   one batch_isend_irecv each way along an axis; edge
-                     ranks receive zero planes, as `ppermute` leaves them;
+                     ranks receive zero planes, as `ppermute` leaves them
+                     (`post_halo(zeros=False)`: none, for kernel D's halo
+                     form, which reads the planes where they arrive);
  * `shift`           one way along an axis (a `ppermute` by a fixed step);
  * `ring_permute`    around the ring of an axis, several steps at once
                      (the `ppermute`s of mgtpu's part_amg.py::_halo_concat).
@@ -63,8 +65,9 @@ def rank_device(device=None) -> torch.device:
 
 
 class _Halo:
-    """An exchange in flight: `wait()` returns the (left, right) planes
-    (zeros at an edge of the axis) on the field's device."""
+    """An exchange in flight: `wait()` returns the (left, right) planes on
+    the field's device (at an edge of the axis zeros, or None where the
+    exchange was posted with zeros=False)."""
 
     def __init__(self, works, recvs, like, staged, sends):
         self._works, self._recvs, self._like = works, recvs, like
@@ -220,12 +223,13 @@ class RankGrid:
         return self._back(buf, t)
 
     def post_halo(self, x: torch.Tensor, axis: int = 0, width: int = 1,
-                  dim: int = 0) -> _Halo:
+                  dim: int = 0, zeros: bool = True) -> _Halo:
         """Start the halo exchange of x along `dim` over the ranks of
         `axis`: this rank's last `width` planes go to the next rank, its
         first to the previous one.  Returns the exchange in flight; its
-        `wait()` gives (left, right), each `width` planes, zeros where
-        there is no neighbour."""
+        `wait()` gives (left, right), each `width` planes, where there is
+        no neighbour zeros, or None with zeros=False (kernel D's halo form
+        reads nothing there)."""
         dim = dim % x.ndim
         P, i = self.shape[axis], self.coords[axis]
         line = self._members[axis]
@@ -237,7 +241,7 @@ class RankGrid:
         ops, recvs, sends = [], [], []
         for nb, lo in ((i - 1, True), (i + 1, False)):
             if not 0 <= nb < P:
-                recvs.append(x.new_zeros(plane))
+                recvs.append(x.new_zeros(plane) if zeros else None)
                 continue
             mine = x.narrow(dim, 0 if lo else x.shape[dim] - width, width)
             send = self._out(mine)

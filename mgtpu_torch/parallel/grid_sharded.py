@@ -11,11 +11,12 @@ runs the unchanged `grid_cycle` on it:
    pad's coefficients, diagonals and transfer rows are zero, so the pad
    stays zero through the cycle; constant-interior levels are expanded to
    the dense form;
- * level applies (`ShardedGridStencil`): each rank's block is extended by
-   a halo of the stencil's radius along each sharded axis (the pencil in
-   two phases, axis 0 then axis 1 of the extended block, which carries the
-   corners the 9- and 27-point stencils read) and applied by kernel D's
-   halo apply;
+ * level applies and residuals (`ShardedGridStencil`): each rank's block
+   reads a halo of the stencil's radius along each sharded axis, one
+   launch of kernel D's halo form reading the neighbours' planes where
+   they arrived (the pencil in two phases: the axis-0 planes catted to the
+   block, whose axis-1 exchange then carries the corners the 9- and
+   27-point stencils read);
  * transfers (`ShardedTransfer`): the per-axis factors (fine x coarse) are
    contracted over a sharded axis in GSPMD's form — restriction as a local
    partial product, then `reduce_scatter` to the coarse blocks;
@@ -141,20 +142,40 @@ class ShardedGridStencil:
     def dtype(self):
         return self.coeff.dtype
 
-    def matvec(self, x: torch.Tensor) -> torch.Tensor:
-        """y = A x on this rank's block x (..., *grid): the block extended
-        by its neighbours' planes along each sharded axis in turn, then
-        kernel D's halo apply."""
-        from ..ops.cuda.stencil import halo_apply
+    def _apply(self, x: torch.Tensor, b=None) -> torch.Tensor:
+        """One launch of kernel D's halo form on this rank's block x (...,
+        *grid): along the last sharded axis its neighbours' planes are
+        read where they arrived (none at an end of the axis); on the
+        pencil the first axis's planes are catted first, since the second
+        exchange must carry the corners the 9- and 27-point stencils
+        read."""
+        from ..ops.cuda.stencil import halo_stencil
         g = len(self.grid)
+        x = x.contiguous()
+        halos = [(ga, ra, r) for (ga, ra), r in zip(self.shard, self.radius)
+                 if r]
         shift = [0] * g
-        for (ga, ra), r in zip(self.shard, self.radius):
-            if r:
-                x = self.comm.exchange_halo(x, ra, r, dim=x.ndim - g + ga)
-                shift[ga] = r
+        for ga, ra, r in halos[:-1]:
+            x = self.comm.exchange_halo(x, ra, r, dim=x.ndim - g + ga)
+            shift[ga] = r
+        left = right = None
+        axis = halos[-1][0] if halos else 0
+        if halos:
+            ga, ra, r = halos[-1]
+            left, right = self.comm.post_halo(x, ra, r, dim=x.ndim - g + ga,
+                                              zeros=False).wait()
         taps = tuple(tuple(d + s for d, s in zip(off, shift))
                      for off in self.offsets)
-        return halo_apply(self.coeff, taps, tuple(x.shape[-g:]), x)
+        return halo_stencil(self.coeff, taps, x, left, right, axis,
+                            b=None if b is None else b.contiguous())
+
+    def matvec(self, x: torch.Tensor) -> torch.Tensor:
+        """y = A x on this rank's block x (..., *grid)."""
+        return self._apply(x)
+
+    def residual(self, b: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        """b - A x on this rank's block, in the same launch."""
+        return self._apply(x, b)
 
 
 @dataclass(frozen=True, eq=False)

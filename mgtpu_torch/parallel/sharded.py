@@ -23,8 +23,8 @@ import torch
 from ..config import full_fp32, torch_dtype
 from .comm import rank_device
 from .stencil import (TransferPlan, exchange_halo, make_transfer_plan,
-                      prolong_local, restrict_local, split_rows,
-                      stencil_from_banded, stencil_matvec_overlapped)
+                      prolong_local, restrict_local, stencil_from_banded,
+                      stencil_matvec_overlapped)
 
 __all__ = ["ShardedLevel", "ShardedMG", "build_sharded_mg", "slab_sizes",
            "make_sharded_cycle", "make_sharded_solver"]
@@ -41,7 +41,6 @@ class ShardedLevel:
     dj: tuple
     plan: TransferPlan
     slab: int               # S, rows a rank at this level
-    parts: tuple            # split_rows(coeff), for the overlapped apply
 
 
 @dataclass(frozen=True, eq=False)
@@ -84,7 +83,7 @@ def level_from_arrays(coeff, d, masks, ds_map, di, dj, plan, slab, rank,
     return ShardedLevel(coeff, t(np.asarray(d)[rows]), t(masks),
                         t(ds_map, torch.int64),
                         tuple(int(v) for v in di), tuple(int(v) for v in dj),
-                        plan, int(slab), split_rows(coeff))
+                        plan, int(slab))
 
 
 def build_sharded_mg(state, num_ranks: int, rank: int, dtype=np.float32,
@@ -119,14 +118,18 @@ def build_sharded_mg(state, num_ranks: int, rank: int, dtype=np.float32,
                      tuple(cfg.nu_post), njs[-1], n_nodes[0])
 
 
-def _mv(lvl: ShardedLevel, x, comm, axis):
+def _residual(lvl: ShardedLevel, b, x, comm, axis):
+    """b - A x: kernel D's halo form, interior and edge rows."""
     return stencil_matvec_overlapped(lvl.coeff, lvl.di, lvl.dj, x, comm,
-                                     axis, lvl.parts)
+                                     axis, b)
 
 
 def _relax(lvl: ShardedLevel, x, b, nu: int, comm, axis):
+    """nu damped-Jacobi sweeps x + d * (b - A x), each one halo form
+    launch for the interior rows and one for both edge rows."""
     for _ in range(nu):
-        x = x + lvl.d * (b - _mv(lvl, x, comm, axis))
+        x = stencil_matvec_overlapped(lvl.coeff, lvl.di, lvl.dj, x, comm,
+                                      axis, b, lvl.d)
     return x
 
 
@@ -149,7 +152,7 @@ def _coarsest(mg: ShardedMG, bc, comm, axis):
 def _sharded_vcycle(mg: ShardedMG, b, x, level: int, comm, axis):
     lvl = mg.levels[level]
     x = _relax(lvl, x, b, mg.nu_pre[level], comm, axis)
-    r = b - _mv(lvl, x, comm, axis)
+    r = _residual(lvl, b, x, comm, axis)
     Sc = lvl.slab // 2
     bc = restrict_local(exchange_halo(r, comm, axis), lvl.plan, lvl.masks,
                         lvl.ds_map, Sc)
@@ -203,7 +206,7 @@ def make_sharded_solver(state, comm, axis: int = 0, dtype=np.float32,
 
     def step_fn(mg, b, x):
         x = cycle(mg, b, x)
-        r = b - _mv(mg.levels[0], x, comm, axis)
+        r = _residual(mg.levels[0], b, x, comm, axis)
         return x, torch.sqrt(comm.psum(torch.sum(torch.abs(r) ** 2)))
 
     return mg, step_fn, to_grid, from_grid

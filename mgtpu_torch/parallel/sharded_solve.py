@@ -129,7 +129,7 @@ class ShardedGridSolver:
         xv = (torch.zeros_like(bv) if x is None
               else self.to_grid(x, torch.float64)[0])
         res0 = max(self._norm(bv), 1e-300)
-        r = bv - A64.matvec(xv)
+        r = A64.residual(bv, xv)
         res = self._norm(r)
         resvec = [res]
         iters = 0
@@ -137,7 +137,7 @@ class ShardedGridSolver:
             rl = r.to(cd)
             z = self.cycle(gh, rl, torch.zeros_like(rl), True)
             xv = xv + z.to(torch.float64)
-            r = bv - A64.matvec(xv)
+            r = A64.residual(bv, xv)
             res = self._norm(r)
             resvec.append(res)
             iters += 1

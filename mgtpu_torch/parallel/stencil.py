@@ -10,12 +10,16 @@ m)).
  * `exchange_halo` gives a slab its neighbours' edge planes (comm.py's
    batch_isend_irecv; zero planes at the ends of the axis).
  * `stencil_matvec_local` applies the slab's rows from the halo-extended
-   slab: kernel D's halo apply (ops/cuda/stencil.py::halo_apply) with the
-   taps shifted by one plane.  `stencil_matvec_overlapped` posts the
-   exchange, applies the interior rows [1, S-1) from the local planes while
-   it is in flight, then the two edge rows: bitwise the fused form, since
-   each node sums the same taps in the same order under the same launch
-   plan.
+   slab: kernel D's cross form (ops/cuda/stencil.py::halo_apply) with the
+   taps shifted by one plane.
+ * `slab_apply` is kernel D's halo form (ops/cuda/stencil.py::
+   halo_stencil): the apply, the residual b - A x or the Jacobi update
+   x + d (b - A x) in one launch, reading the neighbours' planes where
+   they arrived (none at an end of the axis), no extended slab.
+   `stencil_matvec_overlapped` posts the exchange, writes the interior
+   rows [1, S-1) from the local planes while it is in flight, then both
+   edge rows in one launch: bitwise the fused form, since each node sums
+   the same taps in the same order under the same launch plan.
  * The matrix-free tensor-product full-weighting transfers on odd node
    counts, factored as S_J o S_I with S_* the separable [0.5, 1, 0.5]
    smoothing along the J axis / in the plane:
@@ -33,7 +37,7 @@ import scipy.sparse as sp
 import torch
 
 __all__ = ["StencilLevel", "stencil_from_banded", "exchange_halo",
-           "stencil_matvec_local", "stencil_matvec_overlapped",
+           "stencil_matvec_local", "slab_apply", "stencil_matvec_overlapped",
            "TransferPlan", "make_transfer_plan", "smooth_inplane",
            "smooth_j", "restrict_local", "prolong_local"]
 
@@ -97,54 +101,53 @@ def _halo_taps(di, dj):
     return tuple((int(j) + 1, int(i)) for i, j in zip(di, dj))
 
 
-def stencil_matvec_local(coeff_loc, di, dj, x_halo, plan_rows=None):
+def stencil_matvec_local(coeff_loc, di, dj, x_halo):
     """y = A x on a halo-extended slab: coeff_loc (nd, S, NI), x_halo
-    (..., S+2, NI) -> (..., S, NI).  Kernel D on a CUDA tensor (its launch
-    plan that of a slab of `plan_rows` rows, default S), the plain cross
-    apply on a CPU one."""
+    (..., S+2, NI) -> (..., S, NI).  Kernel D's cross form (`halo_apply`)
+    on a CUDA tensor, the plain cross apply on a CPU one.  The slab GMG
+    reads the planes where they lie instead (`slab_apply`)."""
     from ..ops.cuda.stencil import halo_apply
     S, NI = coeff_loc.shape[1:]
-    plan_box = None if plan_rows is None else (int(plan_rows), int(NI))
-    return halo_apply(coeff_loc, _halo_taps(di, dj), (S + 2, NI), x_halo,
-                      plan_box)
+    return halo_apply(coeff_loc, _halo_taps(di, dj), (S + 2, NI), x_halo)
 
 
-def split_rows(coeff_loc):
-    """The (top, interior, bottom) row pieces of a slab's coefficients,
-    contiguous, for `stencil_matvec_overlapped` (made once a level)."""
-    S = coeff_loc.shape[1]
-    return (coeff_loc[:, :1].contiguous(),
-            coeff_loc[:, 1:S - 1].contiguous(),
-            coeff_loc[:, S - 1:].contiguous())
+def slab_apply(coeff_loc, di, dj, x_loc, left, right, b=None, d=None,
+               rows=None, out=None):
+    """Kernel D's halo form on a slab x_loc (..., S, NI) and its
+    neighbours' planes left / right (..., 1, NI), None at an end of the
+    axis: y = A x, with b the residual b - A x, with b and d (S, NI) the
+    Jacobi update x + d * (b - A x) (ops/cuda/stencil.py::halo_stencil;
+    its plain version on a CPU tensor).  rows / out: the output rows
+    written (see halo_stencil)."""
+    from ..ops.cuda.stencil import halo_stencil
+    return halo_stencil(coeff_loc, tuple(zip(dj, di)), x_loc, left, right,
+                        0, b=b, d=d, rows=rows, out=out)
 
 
 def stencil_matvec_overlapped(coeff_loc, di, dj, x_loc, comm, axis: int = 0,
-                              parts=None):
-    """y = A x on a slab with the halo exchange split off the interior.
+                              b=None, d=None):
+    """y = A x on a slab with the halo exchange split off the interior;
+    with b the residual b - A x, with b and d the Jacobi update
+    x + d * (b - A x) (`slab_apply`).
 
     The exchange is posted first (under NCCL it runs on NCCL's stream);
-    the interior rows [1, S-1), which read only local planes, are applied
-    while it is in flight; then the two edge rows from their neighbour
-    planes.  Every launch takes the whole slab's plan, so the result is
-    bitwise the fused `exchange_halo` + `stencil_matvec_local`.  `parts`:
-    `split_rows(coeff_loc)`, else made here.  At S < 2 the edge windows
-    would read a duplicated local plane (mgtpu's note): the fused form."""
+    the interior rows [1, S-1), which read only local planes, are written
+    while it is in flight; then one launch writes both edge rows into the
+    same tensor from the planes where they arrived.  Every node sums the
+    same taps in the same order under the whole slab's plan, so the result
+    is bitwise the fused `exchange_halo` + `stencil_matvec_local` (and
+    torch's subtraction or update).  At S < 2 the edge windows would read a
+    duplicated local plane (mgtpu's note): the whole slab after the
+    exchange."""
     S = coeff_loc.shape[1]
+    halo = comm.post_halo(x_loc, axis, 1, dim=-2, zeros=False)
     if S < 2:
-        return stencil_matvec_local(coeff_loc, di, dj,
-                                    exchange_halo(x_loc, comm, axis))
-    top, mid, bot = split_rows(coeff_loc) if parts is None else parts
-    halo = comm.post_halo(x_loc, axis, 1, dim=-2)
-    y_int = (stencil_matvec_local(mid, di, dj, x_loc, S) if S > 2
-             else None)
-    from_left, from_right = halo.wait()
-    y_top = stencil_matvec_local(
-        top, di, dj, torch.cat([from_left, x_loc[..., :2, :]], dim=-2), S)
-    y_bot = stencil_matvec_local(
-        bot, di, dj, torch.cat([x_loc[..., S - 2:, :], from_right], dim=-2),
-        S)
-    pieces = [y_top] + ([y_int] if y_int is not None else []) + [y_bot]
-    return torch.cat(pieces, dim=-2)
+        return slab_apply(coeff_loc, di, dj, x_loc, *halo.wait(), b, d)
+    out = (slab_apply(coeff_loc, di, dj, x_loc, None, None, b, d,
+                      rows=(1, S - 1, S - 1, S - 1)) if S > 2 else None)
+    left, right = halo.wait()
+    return slab_apply(coeff_loc, di, dj, x_loc, left, right, b, d,
+                      rows=(0, 1, S - 1, S), out=out)
 
 
 # ---------------------------------------------------------------------------

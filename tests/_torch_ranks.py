@@ -119,8 +119,7 @@ def parallel_cases(rank, world, device):
                world, rank)
     fused = ps.stencil_matvec_local(lvl.coeff, lvl.di, lvl.dj,
                                     ps.exchange_halo(xs, comm))
-    over = ps.stencil_matvec_overlapped(lvl.coeff, lvl.di, lvl.dj, xs, comm,
-                                        parts=lvl.parts)
+    over = ps.stencil_matvec_overlapped(lvl.coeff, lvl.di, lvl.dj, xs, comm)
     out["apply_fused"], out["apply_over"] = fused.numpy(), over.numpy()
     c1 = lvl.coeff[:, :1].contiguous()
     x1 = xs[:, :1].contiguous()
@@ -815,4 +814,91 @@ def sharded_kcycle_cases(rank, world, device, shape):
     x, info = solver.solve_refined(rhs(As, seed=9), tol=1e-8)
     out["systems_refined"] = (x, int(info["iters"]))
     out["sent"] = dict(comm.sent)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# kernel D's halo form (tests/test_torch_halo_form.py)
+# ---------------------------------------------------------------------------
+
+HALO_GRIDS = {"2d": (32, 2), "3d": (16, 3)}   # cells a side, dimension
+HALO_LEVELS = 3
+HALO_MS = (1, 2, 5)
+HALO_DTYPES = (np.float64, np.float32)
+
+
+def halo_inputs(grid, m: int, seed: int, dtype):
+    """(x, b), each (m, *grid), from one seed."""
+    rng = np.random.RandomState(seed)
+    return (rng.rand(m, *grid).astype(dtype),
+            rng.rand(m, *grid).astype(dtype))
+
+
+def padded_block_grid(op, comm) -> tuple:
+    """The padded global grid of a rank's ShardedGridStencil."""
+    pad = list(op.grid)
+    for ga, ra in op.shard:
+        pad[ga] *= comm.axis_size(ra)
+    return tuple(pad)
+
+
+def halo_form_cases(rank, world, device, shape):
+    """tests/test_torch_halo_form.py: on the rank grid `shape`, every level
+    of the grid-sharded hierarchies of HALO_GRIDS (f64 and f32): the
+    ShardedGridStencil's residual and matvec of halo_inputs on this rank's
+    blocks, gathered back to the padded grid, and whether residual is
+    bitwise b - matvec; on a slab layout also the slab GMG's residual and
+    Jacobi sweep (parallel/sharded.py) on every level of the slab cases
+    poisson and poisson3d, gathered, and whether each is bitwise the fused
+    exchange + `stencil_matvec_local` and torch's subtraction or
+    update."""
+    from mgtpu_torch.parallel import sharded as psh
+    from mgtpu_torch.parallel import stencil as ps
+    from mgtpu_torch.parallel.comm import RankGrid
+    from mgtpu_torch.parallel.grid_sharded import (_gather, _local,
+                                                   make_grid_sharded_cycle)
+    comm = RankGrid(shape, "gloo")
+    axes = tuple(range(len(comm.shape)))
+    out = {}
+    for name, (n, dim) in HALO_GRIDS.items():
+        M, A = poisson(n, dim)
+        for dt in HALO_DTYPES:
+            st = setup(M, A, **params(HALO_LEVELS, dt))
+            gh = make_grid_sharded_cycle(st, comm, axes, device)[0]
+            for l, lvl in enumerate(gh.levels):
+                op = lvl.A
+                for m in HALO_MS:
+                    x, b = halo_inputs(padded_block_grid(op, comm), m,
+                                       10 * l + m, dt)
+                    xs = _local(torch.from_numpy(x), comm, op.shard, 1)
+                    bs = _local(torch.from_numpy(b), comm, op.shard, 1)
+                    r, y = op.residual(bs, xs), op.matvec(xs)
+                    out[("grid", name, np.dtype(dt).name, l, m)] = (
+                        _gather(r, comm, op.shard, 1).numpy(),
+                        _gather(y, comm, op.shard, 1).numpy(),
+                        bool(torch.equal(r, bs - y)))
+    if len(comm.shape) > 1:
+        return out
+
+    def gather(t):
+        return torch.cat(list(comm.all_gather(t, 0)), dim=-2).numpy()
+
+    for name in ("poisson", "poisson3d"):
+        M, A, levels, _ = slab_problem(name)
+        for dt in HALO_DTYPES:
+            st = setup(M, A, **params(levels, dt))
+            mg = psh.build_sharded_mg(st, world, rank, dt, device)
+            for l, lvl in enumerate(mg.levels):
+                for m in HALO_MS:
+                    x, b = halo_inputs((lvl.slab * world, lvl.plan.NI), m,
+                                       20 + 10 * l + m, dt)
+                    xs, bs = _slab(x, world, rank), _slab(b, world, rank)
+                    r = psh._residual(lvl, bs, xs, comm, 0)
+                    xj = psh._relax(lvl, xs, bs, 1, comm, 0)
+                    y = ps.stencil_matvec_local(lvl.coeff, lvl.di, lvl.dj,
+                                                ps.exchange_halo(xs, comm))
+                    out[("slab", name, np.dtype(dt).name, l, m)] = (
+                        gather(r), gather(xj),
+                        bool(torch.equal(r, bs - y)),
+                        bool(torch.equal(xj, xs + lvl.d * (bs - y))))
     return out

@@ -2075,8 +2075,8 @@ def _slab_problem(dims, dtype):
 def test_halo_apply_matches_plain(dims, dtype, one_rank):
     """The slab rows from a halo-extended slab (S + 2 planes in, S out):
     kernel D's cross form against its plain version; the overlapped apply
-    (interior, then edge rows, each under the whole slab's plan) bitwise
-    the fused one."""
+    (kernel D's halo form: the interior, then both edge rows, under the
+    whole slab's plan) bitwise the fused one."""
     from mgtpu_torch.ops.cuda import stencil as sk
     from mgtpu_torch.parallel import stencil as ps
     coeff, di, dj = _slab_problem(dims, dtype)
@@ -2088,16 +2088,155 @@ def test_halo_apply_matches_plain(dims, dtype, one_rank):
                          dtype=coeff.dtype, device="cuda")
         xh = ps.exchange_halo(x, one_rank)
         n0, h0 = sk.LAUNCHES[key], sk.HALO_LAUNCHES[key]
+        c0 = sk.CROSS_LAUNCHES[key]
         y = ps.stencil_matvec_local(coeff, di, dj, xh)
         ref = sk.cross_apply_plain(coeff, tuple((j + 1, i)
                                                 for i, j in zip(di, dj)),
                                    (S + 2, NI), xh)
         over = ps.stencil_matvec_overlapped(coeff, di, dj, x, one_rank)
         torch.cuda.synchronize()
-        assert sk.LAUNCHES[key] == n0 + 4 and sk.HALO_LAUNCHES[key] == h0 + 4
+        # the fused apply one cross-form launch, the overlapped two of the
+        # halo form
+        assert sk.LAUNCHES[key] == n0 + 3 and sk.HALO_LAUNCHES[key] == h0 + 2
+        assert sk.CROSS_LAUNCHES[key] == c0 + 1
         err = float((y - ref).abs().max() / ref.abs().max())
         assert err < tol, (dims, m, err)
         assert torch.equal(over, y)
+
+
+def _halo_old_path(coeff, taps, own, left, right, axis, r, b=None,
+                   d=None):
+    """What the multi-device paths ran before the halo form: the planes
+    catted to the block (zero planes for a missing neighbour), kernel D's
+    cross form on the extended block (taps shifted by r along `axis`),
+    torch's b - y or x + d * (b - y)."""
+    from mgtpu_torch.ops.cuda import stencil as sk
+    dim = own.ndim - (coeff.ndim - 1) + axis
+    zero = lambda t: (torch.zeros_like(own.narrow(dim, 0, r)) if t is None
+                      else t)
+    xe = torch.cat([zero(left), own, zero(right)], dim=dim)
+    ext = tuple(tuple(v + (r if a == axis else 0) for a, v in enumerate(o))
+                for o in taps)
+    y = sk.halo_apply(coeff, ext, tuple(xe.shape[own.ndim - coeff.ndim
+                                                 + 1:]), xe)
+    if b is None:
+        return y
+    return b - y if d is None else own + d * (b - y)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("dims", [(1024, 256), (64, 64, 64)])
+def test_halo_form_matches_old_path(dims, dtype, one_rank):
+    """Kernel D's halo form on a slab (csrc/halo_stencil.cu): apply,
+    residual and Jacobi update, with live neighbour planes and with none
+    (an end of the axis), whole and as the overlapped slab's two launches
+    (interior rows, then both edge rows into the same tensor): bit for bit the cat, kernel D's cross form and torch's
+    subtraction or update, and within 2e-5 / 1e-12 of the plain version;
+    the slab GMG's overlapped residual and sweep on one NCCL rank
+    likewise; each launch counted once, by form."""
+    from mgtpu_torch.ops.cuda import stencil as sk
+    from mgtpu_torch.parallel import stencil as ps
+    coeff, di, dj = _slab_problem(dims, dtype)
+    S, NI = coeff.shape[1:]
+    taps = tuple(zip(dj, di))
+    tol = 2e-5 if dtype == np.float32 else 1e-12
+    key = np.dtype(dtype).name
+    rng = np.random.RandomState(7)
+    t = lambda *shape: torch.tensor(rng.rand(*shape), dtype=coeff.dtype,
+                                    device="cuda")
+    d = t(S, NI)
+    for m in (1, 2, 5):
+        x, b = t(m, S, NI), t(m, S, NI)
+        for live in (True, False):
+            left, right = (t(m, 1, NI), t(m, 1, NI)) if live else (None,
+                                                                   None)
+            for bb, dd in ((None, None), (b, None), (b, d)):
+                form = ("apply" if bb is None else "residual" if dd is None
+                        else "jacobi")
+                h0 = sk.HALO_FORM_LAUNCHES[f"{form}.{key}"]
+                old = _halo_old_path(coeff, taps, x, left, right, 0, 1,
+                                     bb, dd)
+                new = sk.halo_stencil(coeff, taps, x, left, right, 0, b=bb,
+                                      d=dd)
+                part = sk.halo_stencil(coeff, taps, x, None, None, 0, b=bb,
+                                       d=dd, rows=(1, S - 1, S - 1, S - 1))
+                part = sk.halo_stencil(coeff, taps, x, left, right, 0, b=bb,
+                                       d=dd, rows=(0, 1, S - 1, S),
+                                       out=part)
+                plain = sk.halo_stencil_plain(coeff, taps, x, left, right, 0,
+                                              b=bb, d=dd)
+                torch.cuda.synchronize()
+                assert sk.HALO_FORM_LAUNCHES[f"{form}.{key}"] == h0 + 3
+                assert torch.equal(new, old), (dims, m, live, form)
+                assert torch.equal(part, old), (dims, m, live, form)
+                err = float((new - plain).abs().max() / plain.abs().max())
+                assert err < tol, (dims, m, live, form, err)
+        y = ps.stencil_matvec_local(coeff, di, dj, ps.exchange_halo(x,
+                                                                    one_rank))
+        assert torch.equal(ps.stencil_matvec_overlapped(
+            coeff, di, dj, x, one_rank, b=b), b - y)
+        assert torch.equal(ps.stencil_matvec_overlapped(
+            coeff, di, dj, x, one_rank, b=b, d=d), x + d * (b - y))
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_sharded_residual_matches_old_path(dtype, one_rank):
+    """ShardedGridStencil.residual and matvec on one NCCL rank, slab and
+    pencil, every DivSigGrad level: one halo-form launch each, bitwise the
+    extended block, kernel D's cross form and torch's subtraction; the
+    pencil's first phase catted, its second read in place."""
+    from mgtpu_torch.ops.cuda import stencil as sk
+    from mgtpu_torch.parallel.comm import RankGrid
+    from mgtpu_torch.parallel.grid_sharded import ShardedGridStencil
+    pencil = RankGrid((1, 1), "nccl")
+    key = np.dtype(dtype).name
+    for dims in [(64, 32), (32, 16, 24)]:
+        _, ops = _divsig_stencils(dims, dtype)
+        for A in ops:
+            for comm, shard, radius in ((one_rank, ((0, 0),), (1,)),
+                                        (pencil, ((0, 0), (1, 1)), (1, 1))):
+                sh = ShardedGridStencil(A.coeff, A.offsets, A.grid, comm,
+                                        shard, radius)
+                rng = np.random.RandomState(len(A.offsets))
+                x, b = (torch.tensor(rng.rand(2, *A.grid), dtype=A.dtype,
+                                     device="cuda") for _ in range(2))
+                h0 = sk.HALO_LAUNCHES[key]
+                r, y = sh.residual(b, x), sh.matvec(x)
+                xe = x
+                for ga, _ in shard:
+                    xe = comm.exchange_halo(xe, ga, 1, dim=1 + ga)
+                ext = tuple(tuple(v + (1 if a < len(shard) else 0)
+                                  for a, v in enumerate(o))
+                            for o in A.offsets)
+                old = sk.halo_apply(A.coeff, ext, tuple(xe.shape[1:]), xe)
+                torch.cuda.synchronize()
+                assert sk.HALO_LAUNCHES[key] == h0 + 2
+                assert torch.equal(y, old) and torch.equal(r, b - old), \
+                    (dims, len(A.offsets), len(shard))
+
+
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+def test_complex_halo_form_matches_old_path(dtype, one_rank):
+    """The halo form's complex apply and residual bitwise the old path
+    (live and missing planes); its Jacobi update takes real types only."""
+    from mgtpu_torch.ops.cuda import stencil as sk
+    _need_card()
+    rng = np.random.RandomState(3)
+    c = lambda *shape: torch.tensor(rng.rand(*shape) + 1j * rng.rand(*shape),
+                                    dtype=dtype, device="cuda")
+    taps = tuple((i, j) for i in (-1, 0, 1) for j in (-1, 0, 1))
+    coeff = c(9, 40, 33)
+    for m in (1, 2):
+        x, b = c(m, 40, 33), c(m, 40, 33)
+        for left, right in ((c(m, 1, 33), c(m, 1, 33)), (None, c(m, 1, 33))):
+            for bb in (None, b):
+                old = _halo_old_path(coeff, taps, x, left, right, 0, 1, bb)
+                new = sk.halo_stencil(coeff, taps, x, left, right, 0, b=bb)
+                torch.cuda.synchronize()
+                assert torch.equal(new, old), (m, bb is None)
+    with pytest.raises(TypeError):
+        sk.halo_stencil(coeff, taps, x, None, None, 0, b=b,
+                        d=c(40, 33))
 
 
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
@@ -2192,11 +2331,11 @@ def test_staggered_halo_apply_matches_plain(dims, dtype, one_rank):
         for m in (1, 2):
             x = torch.tensor(np.random.RandomState(m).rand(m, *in_grid),
                              dtype=coeff.dtype, device="cuda")
-            h0 = sk.HALO_LAUNCHES[key]
+            h0 = sk.CROSS_LAUNCHES[key]
             y = sk.halo_apply(coeff, taps, in_grid, x)
             ref = sk.cross_apply_plain(coeff, taps, in_grid, x)
             torch.cuda.synchronize()
-            assert sk.HALO_LAUNCHES[key] == h0 + 1
+            assert sk.CROSS_LAUNCHES[key] == h0 + 1
             err = float((y - ref).abs().max() / ref.abs().max())
             assert err < tol, ((ci, cj), m, err)
     assert staggered > 0
