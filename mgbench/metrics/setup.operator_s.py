@@ -1,0 +1,6 @@
+"""setup.operator_s: host seconds of the set-up's span "setup.operator" (the
+benchmark's own host clock around the call into the program)."""
+
+
+def read(record: dict):
+    return record["spans"].get("setup.operator")
