@@ -925,7 +925,6 @@ def reset_counters():
                 kaczmarz.PLAIN_CALLS, native.CALLS, native.PLAIN_CALLS):
         for k in dct:
             dct[k] = 0
-    fused3d.GRID_LAUNCHES.clear()
 
 
 def counters():
@@ -1347,16 +1346,10 @@ def phase_path3d(M3, L3, st_jac, card):
     require(info_s["relres"] < 1e-6, "3D SPAI solve_mg did not reach 1e-6")
     refined(st_spai, L3, b, None, "3D SPAI 1.0 V(2,2)", card)
     launches, plain = counters()           # ---- end of window ----
-    from mgtpu_torch.ops.cuda import fused3d
-    by_grid = {"x".join(map(str, g)): n
-               for g, n in sorted(fused3d.GRID_LAUNCHES.items())}
     log(f"[path] kernel launches: {launches}")
-    log(f"[path] kernel B calls by grid: {by_grid}")
     log(f"[path] plain-version calls on the card: {plain}")
     require(all(v > 0 for v in launches.values()),
             f"a kernel of the path was never launched: {launches}")
-    require(sum(by_grid.values()) == launches["jacobi_residual3d"],
-            f"kernel B calls by grid {by_grid} do not add up")
     require(not any(plain.values()), f"plain versions ran: {plain}")
 
     # timings after the window (they do not count toward the launches)

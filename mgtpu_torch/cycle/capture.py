@@ -27,7 +27,10 @@ CUDA graphs:
  * Launch counters.  The kernels' wrappers count launches in Python
    dicts; recording runs the wrappers once without launching anything, so
    `Tally` takes the recording's increments back and adds them at every
-   replay.
+   replay.  The host's own steps are spans (spans.py), not counters:
+   "program.record" (warm-up and capture, timed), "program.load" (the
+   inputs copied into the static buffers), "program.replay" and
+   "program.host_step".
  * `programs(owner)` keeps the programs of one owner (a hierarchy) in a
    `weakref.WeakKeyDictionary`, keyed by what they were recorded for
    (function, shapes, dtypes, static arguments), in one memory pool.
@@ -48,6 +51,8 @@ import weakref
 from dataclasses import dataclass, field, replace
 
 import torch
+
+from .. import spans
 
 __all__ = ["Captured", "Tally", "Programs", "programs", "forget", "run",
            "host_step", "gate", "kernel_counters", "static_config"]
@@ -70,8 +75,8 @@ def kernel_counters() -> list[dict]:
     from ..ops.cuda import (const3d, fused3d, kaczmarz, stencil, tridiag,
                             vanka)
     return [const3d.LAUNCHES, const3d.PLAIN_CALLS, fused3d.LAUNCHES,
-            fused3d.PLAIN_CALLS, fused3d.GRID_LAUNCHES, tridiag.LAUNCHES,
-            tridiag.PLAIN_CALLS, stencil.LAUNCHES, stencil.PLAIN_CALLS,
+            fused3d.PLAIN_CALLS, tridiag.LAUNCHES, tridiag.PLAIN_CALLS,
+            stencil.LAUNCHES, stencil.PLAIN_CALLS,
             stencil.CROSS_LAUNCHES, stencil.HALO_LAUNCHES,
             stencil.HALO_FORM_LAUNCHES, stencil.BLOCK_LAUNCHES,
             vanka.LAUNCHES, vanka.PLAIN_CALLS, vanka.FORMS,
@@ -117,13 +122,14 @@ class _HostStep:
     pin_flag: torch.Tensor
 
     def run(self) -> None:
-        self.pin_in.copy_(self.x, non_blocking=True)
-        if self.flag is not None:
-            self.pin_flag.copy_(self.flag, non_blocking=True)
-        torch.cuda.current_stream(self.x.device).synchronize()
-        if self.flag is None or bool(self.pin_flag):
-            self.pin_out.copy_(self.fn(self.pin_in))
-            self.out.copy_(self.pin_out, non_blocking=True)
+        with spans.span("program.host_step"):
+            self.pin_in.copy_(self.x, non_blocking=True)
+            if self.flag is not None:
+                self.pin_flag.copy_(self.flag, non_blocking=True)
+            torch.cuda.current_stream(self.x.device).synchronize()
+            if self.flag is None or bool(self.pin_flag):
+                self.pin_out.copy_(self.fn(self.pin_in))
+                self.out.copy_(self.pin_out, non_blocking=True)
 
 
 class _Recorder:
@@ -233,10 +239,15 @@ class Captured:
         return outs[0] if self._single else outs
 
     def _load(self, args) -> None:
-        for s, a in zip(self._inputs, args):
-            s.copy_(a)
+        with spans.span("program.load"):
+            for s, a in zip(self._inputs, args):
+                s.copy_(a)
 
     def _record(self, ctx, args) -> None:
+        with spans.span("program.record", timed=True):
+            self._warm_and_capture(ctx, args)
+
+    def _warm_and_capture(self, ctx, args) -> None:
         dev = args[0].device
         self._inputs = tuple(a.detach().clone() for a in args)
         if self.pool is None:
@@ -272,10 +283,11 @@ class Captured:
 
     def _replay(self) -> None:
         graphs, steps = self._rec.graphs, self._rec.steps
-        for i, g in enumerate(graphs):
-            g.replay()
-            if i < len(steps):
-                steps[i].run()
+        with spans.span("program.replay"):
+            for i, g in enumerate(graphs):
+                g.replay()
+                if i < len(steps):
+                    steps[i].run()
         self._tally.replay()
 
 

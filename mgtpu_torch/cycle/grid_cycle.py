@@ -40,6 +40,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from .. import spans
 from ..config import double_variant, full_fp32, torch_dtype
 from ..ops.grid_stencil import (ConstGridStencil, GridStencil,
                                 Stride2Transfer, compress_grid_stencil,
@@ -536,8 +537,10 @@ def build_grid_hierarchy(state, relax_states, device) -> GridHierarchy:
             if A is None:
                 A = gnp.to(device)
         else:
-            A = make_grid_stencil(state.As[l], nodes, dtype=cfg.dtype,
-                                  device=device)
+            with spans.span("setup.grid_convert", into=state.setup_times,
+                            timed=True):
+                A = make_grid_stencil(state.As[l], nodes, dtype=cfg.dtype,
+                                      device=device)
         d = P1 = lam = line = None
         if l < state.num_levels - 1:
             rs = _resolve_relax(relax_states[l])
@@ -558,8 +561,9 @@ def build_grid_hierarchy(state, relax_states, device) -> GridHierarchy:
             lam = getattr(rs, "lam_max", None)
         levels.append(GridLevel(A, d, P1, lam, line))
 
-    return GridHierarchy(tuple(levels), grid_coarsest(
-        state, levels[-1].A, levels[-1].A.grid, device))
+    with spans.span("setup.coarsest", into=state.setup_times):
+        coarse = grid_coarsest(state, levels[-1].A, levels[-1].A.grid, device)
+    return GridHierarchy(tuple(levels), coarse)
 
 
 def grid_coarsest(state, A, grid_c, device, host_inverse=_checked_inverse):

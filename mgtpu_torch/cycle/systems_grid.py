@@ -31,7 +31,6 @@ card.
 from __future__ import annotations
 
 import functools
-import time
 from dataclasses import dataclass
 from typing import Any
 
@@ -39,6 +38,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from .. import spans
 from ..config import full_fp32, single_variant, torch_dtype
 from ..ops.cross_stencil import cross_stencil_from_csr
 from .capture import run, static_config
@@ -543,19 +543,12 @@ def _component_transfer_factors(n, with_pressure, dtype, device):
     return tuple(P1s), tuple(R1s), Pkron, Rkron
 
 
-def _stage(times: dict, key: str, t0: float) -> float:
-    """Add the seconds since t0 to times[key]; returns the clock."""
-    now = time.perf_counter()
-    times[key] = times.get(key, 0.0) + now - t0
-    return now
-
-
 def build_systems_grid_hierarchy(state, relax_states,
                                  device) -> SystemsGridHierarchy:
     """Build the systems grid engine on `device` when eligible; ValueError
     otherwise (the caller may hand the hierarchy to the flat engine).  The
-    host seconds of each stage add to `state.setup_times` (cross_stencils,
-    smoother, transfers, coarse)."""
+    host seconds of each stage add to `state.setup_times` (spans
+    setup.cross_stencils, .smoother, .transfers, .coarse)."""
     from ..setup.hierarchy import _per_level_relax_param, _resolve_relax
 
     cfg = state.config
@@ -578,51 +571,50 @@ def build_systems_grid_hierarchy(state, relax_states,
     rp_arr = _per_level_relax_param(state.relax_param, state.num_levels)
     levels = []
     for l in range(state.num_levels):
-        t0 = time.perf_counter()
         mesh = state.meshes[l]
         n = [int(v) for v in np.asarray(mesh.n).ravel()]
-        A = block_operator_from_csr(state.As[l], n, with_p, dtype=cfg.dtype,
-                                    device=device)
-        t0 = _stage(times, "cross_stencils", t0)
+        with spans.span("setup.cross_stencils", into=times):
+            A = block_operator_from_csr(state.As[l], n, with_p,
+                                        dtype=cfg.dtype, device=device)
         d = vanka = P1 = R1 = None
         if l < state.num_levels - 1:
-            if cfg.relax_type in ("jacobi", "spai"):
-                rs = _resolve_relax(relax_states[l])
-                grids, offs = face_component_grids(n, with_p)
-                dd = np.asarray(rs.d)
-                d = tuple(torch.as_tensor(dd[offs[c]:offs[c + 1]].reshape(g),
-                                          device=device).to(dt)
-                          for c, g in enumerate(grids))
-            else:
-                vanka = build_grid_vanka(
-                    state.As[l], mesh, rp_arr[l], with_p, cfg.relax_type,
-                    np.dtype(cfg.dtype), single_variant(np.dtype(cfg.dtype)),
-                    device)
-            t0 = _stage(times, "smoother", t0)
-            P1, R1, Pk, Rk = _component_transfer_factors(n, with_p,
-                                                         cfg.dtype, device)
-            # the factored transfers must BE the assembled hierarchy's
-            Pfull = sp.block_diag(Pk, format="csr")
-            Rfull = sp.block_diag(Rk, format="csr")
-            if (Pfull != state.Ps[l]).nnz != 0:
-                raise ValueError("hierarchy P is not the Systems.jl factored "
-                                 "composite")
-            if ((0.5 ** mesh.dim) * Rfull != state.Rs[l]).nnz != 0:
-                raise ValueError("hierarchy R is not the Systems.jl factored "
-                                 "composite")
-            _stage(times, "transfers", t0)
+            with spans.span("setup.smoother", into=times):
+                if cfg.relax_type in ("jacobi", "spai"):
+                    rs = _resolve_relax(relax_states[l])
+                    grids, offs = face_component_grids(n, with_p)
+                    dd = np.asarray(rs.d)
+                    d = tuple(torch.as_tensor(
+                        dd[offs[c]:offs[c + 1]].reshape(g),
+                        device=device).to(dt) for c, g in enumerate(grids))
+                else:
+                    vanka = build_grid_vanka(
+                        state.As[l], mesh, rp_arr[l], with_p, cfg.relax_type,
+                        np.dtype(cfg.dtype),
+                        single_variant(np.dtype(cfg.dtype)), device)
+            with spans.span("setup.transfers", into=times):
+                P1, R1, Pk, Rk = _component_transfer_factors(
+                    n, with_p, cfg.dtype, device)
+                # the factored transfers must BE the assembled hierarchy's
+                Pfull = sp.block_diag(Pk, format="csr")
+                Rfull = sp.block_diag(Rk, format="csr")
+                if (Pfull != state.Ps[l]).nnz != 0:
+                    raise ValueError("hierarchy P is not the Systems.jl "
+                                     "factored composite")
+                if ((0.5 ** mesh.dim) * Rfull != state.Rs[l]).nnz != 0:
+                    raise ValueError("hierarchy R is not the Systems.jl "
+                                     "factored composite")
         levels.append(SystemsGridLevel(A, d, vanka, P1, R1))
 
-    t0 = time.perf_counter()
-    Ad = np.asarray(A_c.astype(
-        np.complex128 if np.iscomplexobj(A_c.data) else np.float64).todense())
-    if A_c.shape[0] <= 4096:
-        inv = _checked_inverse(Ad)
-    else:
-        shift = 1e-8 * np.abs(Ad).sum(axis=0).max()
-        inv = np.linalg.inv(Ad + shift * np.eye(Ad.shape[0], dtype=Ad.dtype))
-    coarse = BlockDenseInverse(
-        torch.as_tensor(inv.astype(cfg.dtype), device=device),
-        levels[-1].A.grids)
-    _stage(times, "coarse", t0)
+    with spans.span("setup.coarse", into=times):
+        Ad = np.asarray(A_c.astype(np.complex128 if np.iscomplexobj(A_c.data)
+                                   else np.float64).todense())
+        if A_c.shape[0] <= 4096:
+            inv = _checked_inverse(Ad)
+        else:
+            shift = 1e-8 * np.abs(Ad).sum(axis=0).max()
+            inv = np.linalg.inv(Ad + shift * np.eye(Ad.shape[0],
+                                                    dtype=Ad.dtype))
+        coarse = BlockDenseInverse(
+            torch.as_tensor(inv.astype(cfg.dtype), device=device),
+            levels[-1].A.grids)
     return SystemsGridHierarchy(tuple(levels), coarse)

@@ -9,13 +9,15 @@ first program holds `init` and the first CHUNK iterations, the second
 CHUNK more; each iteration is masked by `go`, so one past the stop
 leaves the `frozen` entries (the iterate, the residual history, the count
 and whatever `go` reads) exactly as they were (`torch.where`).  The host
-reads `go` once a chunk.  `device_loop=False` is the eager loop, one host
-read an iteration, kept for comparison.
+reads `go` once a chunk (`spans.read`); after the last chunk the solve
+driver's ``driver.finish`` span begins.  `device_loop=False` is the eager
+loop, one host read an iteration, kept for comparison.
 """
 from __future__ import annotations
 
 import torch
 
+from .. import spans
 from ..cycle.capture import gate, run
 
 CHUNK = 4       # iterations per recorded program, here and in the refined
@@ -71,15 +73,17 @@ def iterate(init, step, go, frozen, args, *, device_loop: bool = True,
     tensor arguments (method, sizes).  None records them for this call."""
     if not device_loop:
         state = init(*args)
-        while bool(go(state)):
+        while spans.read(bool, go(state)):
             state = step(state)
+        spans.tail("driver.finish")
         return state
     fns = (init, step, go, frozenset(frozen), CHUNK)
     owner, key, keep = cache if cache is not None else (None, (), ())
     key = (key, static, fns[-1])
     out = run(owner, key + ("first",), _first_program, fns, *args,
               keep=keep, clone=False)
-    while bool(out[-1]):
+    while spans.read(bool, out[-1]):
         out = run(owner, key + ("next",), _next_program, fns, *out[:-1],
                   keep=keep, clone=False)
+    spans.tail("driver.finish")
     return tuple(t.clone() for t in out[:-1])

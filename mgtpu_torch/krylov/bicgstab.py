@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import spans
 from ._layout import Layout, safe_div
 from ._loop import history, iterate, rows_where, scalars
 
@@ -64,5 +65,5 @@ def bicgstab(matvec, b, prec=None, x0=None, tol: float = 1e-6,
     s = iterate(init, step, go, (0, 8, 9, 10, 11),
                 scalars(b, X, tol, max_iter), device_loop=device_loop,
                 cache=cache, static=("bicgstab", max_iter))
-    X, resvec, k, bnorm = s[0], s[8], int(s[11]), s[12]
+    X, resvec, k, bnorm = s[0], s[8], spans.read(int, s[11]), s[12]
     return X, {"iters": k, "relres": resvec[k] / bnorm, "resvec": resvec}

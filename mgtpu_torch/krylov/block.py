@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import spans
 from ._layout import Layout
 from ._loop import history, iterate, rows_where, scalars
 
@@ -78,7 +79,7 @@ def block_pcg(matvec, b, prec=None, x0=None, tol: float = 1e-6,
     s = iterate(init, step, lambda s: _go(s, 6, 5, 7, 8, 9), (0, 4, 5, 6),
                 scalars(b, X, tol, max_iter), device_loop=device_loop,
                 cache=cache, static=("block_pcg", max_iter))
-    X, resvec, k, bnorm = s[0], s[4], int(s[6]), s[7]
+    X, resvec, k, bnorm = s[0], s[4], spans.read(int, s[6]), s[7]
     return X, {"iters": k, "relres": resvec[k] / bnorm, "resvec": resvec}
 
 
@@ -124,5 +125,5 @@ def block_bicgstab(matvec, b, prec=None, x0=None, tol: float = 1e-6,
     s = iterate(init, step, lambda s: _go(s, 6, 5, 7, 8, 9), (0, 4, 5, 6),
                 scalars(b, X, tol, max_iter), device_loop=device_loop,
                 cache=cache, static=("block_bicgstab", max_iter))
-    X, resvec, k, bnorm = s[0], s[4], int(s[6]), s[7]
+    X, resvec, k, bnorm = s[0], s[4], spans.read(int, s[6]), s[7]
     return X, {"iters": k, "relres": resvec[k] / bnorm, "resvec": resvec}

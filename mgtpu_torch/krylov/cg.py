@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import spans
 from ._layout import Layout, safe_div
 from ._loop import history, iterate, rows_where, scalars
 
@@ -60,5 +61,5 @@ def pcg(matvec, b, prec=None, x0=None, tol: float = 1e-6,
     s = iterate(init, step, go, (0, 4, 5, 6), scalars(b, X, tol, max_iter),
                 device_loop=device_loop, cache=cache,
                 static=("pcg", max_iter))
-    X, resvec, k, bnorm = s[0], s[4], int(s[6]), s[7]
+    X, resvec, k, bnorm = s[0], s[4], spans.read(int, s[6]), s[7]
     return X, {"iters": k, "relres": resvec[k] / bnorm, "resvec": resvec}

@@ -19,6 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import spans
 from ..cycle.capture import run
 from ._layout import Layout
 
@@ -106,8 +107,8 @@ def fgmres(matvec, b, restart: int = 5, prec=None, x0=None,
     X = torch.zeros_like(b) if x0 is None else x0
     lay = Layout(b, reduce)
     owner, key, keep = cache if cache is not None else (None, (), ())
-    bnorm = max(float(torch.max(lay.norm(b))), 1e-300)
-    resvec = [lay.norm(b - matvec(X)).cpu().numpy()]
+    bnorm = max(spans.read(float, torch.max(lay.norm(b))), 1e-300)
+    resvec = [spans.read(torch.Tensor.cpu, lay.norm(b - matvec(X))).numpy()]
     iters = 0
     rel = float("inf")
     ctx = (matvec, M, restart, flexible, reduce)
@@ -116,12 +117,13 @@ def fgmres(matvec, b, restart: int = 5, prec=None, x0=None,
                      _restart_program, ctx, X, b, keep=keep)
                  if device_loop else _restart_program(ctx, X, b))
         iters += 1
-        resvec.append(rn.cpu().numpy())
-        rel = float(torch.max(rn)) / bnorm
+        resvec.append(spans.read(torch.Tensor.cpu, rn).numpy())
+        rel = spans.read(float, torch.max(rn)) / bnorm
         if verbose:
             print(f"fgmres restart {outer + 1}: relres {rel:.3e}")
         if rel < tol:
             break
+    spans.tail("driver.finish")
     return X, {"iters": iters, "relres": rel, "resvec": np.array(resvec)}
 
 

@@ -21,8 +21,7 @@ a plan that does not fit.
 
 As in ops/cuda/const3d.py, a CUDA tensor launches the kernel or raises and a
 CPU tensor takes the plain version; `LAUNCHES` and `PLAIN_CALLS` count both
-(one launch count per call, though a call is two launches), and
-`GRID_LAUNCHES` counts kernel B's calls by grid.
+(one launch count per call, though a call is two launches).
 """
 from __future__ import annotations
 
@@ -37,13 +36,12 @@ from ..grid_stencil import const_grid_stencil_matvec
 from . import _build
 from .const3d import check_fields, kernel_meta, stencil3d_apply
 
-__all__ = ["LAUNCHES", "PLAIN_CALLS", "GRID_LAUNCHES", "JacresPlan",
+__all__ = ["LAUNCHES", "PLAIN_CALLS", "JacresPlan",
            "jacres_plan", "layer_boxes", "residual3d", "jacobi3d",
            "jacobi_corr3d", "jacobi_residual3d", "jacobi_residual_plain"]
 
 LAUNCHES = {"jacobi_residual3d": 0}
 PLAIN_CALLS = {"jacobi_residual3d": 0}
-GRID_LAUNCHES: dict[tuple[int, ...], int] = {}   # kernel B calls by grid
 TILE = (16, 32)            # (y, z) nodes of an interior tile
 THREADS = 256
 NSX, NEP = 6, 12           # ring slots: x planes; b, d and x' planes
@@ -189,8 +187,6 @@ def _launch(A, d, b, x, plan: np.ndarray):
         torch.cuda.current_stream(x.device).cuda_stream, plan.ctypes.data)
     _build.check(lib, rc, "jacobi_residual3d")
     LAUNCHES["jacobi_residual3d"] += 1
-    grid = tuple(A.grid)
-    GRID_LAUNCHES[grid] = GRID_LAUNCHES.get(grid, 0) + 1
     return x1.reshape(shape), r1.reshape(shape)
 
 

@@ -45,6 +45,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from .. import spans
 from ..config import resolve_device, torch_dtype
 from ..models.mesh import RegularMesh, get_regular_mesh
 from . import smoothers as sm
@@ -396,7 +397,8 @@ def _setup_coarse(state: MGState, verbose: bool = False):
                   "using the host SuperLU coarsest (a host round trip per "
                   "solve)")
         return co.sparse_lu_from_scipy(A_c, dtype=cfg.dtype)
-    return co.dense_lu_from_scipy(A_c, dtype=cfg.dtype, device=dev)
+    with spans.span("setup.coarsest", into=state.setup_times):
+        return co.dense_lu_from_scipy(A_c, dtype=cfg.dtype, device=dev)
 
 
 def build_device_hierarchy(state: MGState, relax_states: list,
@@ -447,6 +449,7 @@ def build_device_hierarchy(state: MGState, relax_states: list,
 # geometric multigrid setup (Galerkin RAP on the matrix path)
 # ---------------------------------------------------------------------------
 
+@spans.spanned("setup.mg_setup")
 def mg_setup(A_or_ctor, mesh: RegularMesh, cfg: MGConfig, relax_param=None,
              coarse_solver=None, verbose: bool = False,
              device=None) -> MGState:
@@ -460,7 +463,12 @@ def mg_setup(A_or_ctor, mesh: RegularMesh, cfg: MGConfig, relax_param=None,
     its mesh).  `coarse_solver` is an external coarsest solver with
     `setup_coarse(A_c, mesh_c, device=)` (DirectSolver, DDSolver,
     SchurComplementSolver); the grid engines refuse it, so under
-    ``engine="auto"`` such a hierarchy runs on the flat engine."""
+    ``engine="auto"`` such a hierarchy runs on the flat engine.
+
+    `MGState.setup_times` gets the host seconds of the stages (spans.py's
+    set-up spans): grid_convert (CSR to grid stencil), rap, device (the
+    device hierarchy) and within it coarsest on the grid engine; transfers,
+    rap, cross_stencils, smoother and coarse on the systems engine."""
     t_all = time.perf_counter()
     dev = resolve_device(device)
     _check_ported(cfg)
@@ -480,11 +488,14 @@ def mg_setup(A_or_ctor, mesh: RegularMesh, cfg: MGConfig, relax_param=None,
     n = np.asarray(mesh.n)
     levels = cfg.levels
     gs_cache: dict = {}
+    times: dict = {}
 
     def host_stencil(l):
         gs = gs_cache.get(l)
         if gs is None:
-            gs = gs_cache[l] = grid_stencil_from_csr(As[l], list(n + 1))
+            with spans.span("setup.grid_convert", into=times,
+                            timed=True):
+                gs = gs_cache[l] = grid_stencil_from_csr(As[l], list(n + 1))
         return gs
 
     def coarse_operator(l, mesh_c, galerkin):
@@ -496,28 +507,30 @@ def mg_setup(A_or_ctor, mesh: RegularMesh, cfg: MGConfig, relax_param=None,
         ctor = ctor.restricted(meshes[l], mesh_c, l)
         return sp.csr_matrix(ctor.operator(mesh_c))
 
-    times: dict = {}
     for l in range(cfg.levels - 1):
         t0 = time.perf_counter()
         A_l = As[l]
         sc_axes = None                   # mesh-axis coarsening flags (semi)
         if systems:
-            P, R, nc = tr.linear_operators_systems_faces(list(n), cfg.mixed)
-            if P.shape[0] == P.shape[1]:
+            with spans.span("setup.transfers", into=times):
+                P, R, nc = tr.linear_operators_systems_faces(list(n),
+                                                             cfg.mixed)
+                stop = P.shape[0] == P.shape[1]
+                if not stop:
+                    relax_states.append(_RelaxThunk(A_l, cfg, rp_arr[l],
+                                                    meshes[l]))
+                    Ps.append(P.tocsr())
+                    Rs.append(((0.5 ** mesh.dim) * R).tocsr())
+                    meshes.append(get_regular_mesh(meshes[l].domain, nc))
+            if stop:
                 if verbose:
                     print(f"mg_setup: stopped coarsening at level {l}")
                 levels = l + 1
                 break
-            relax_states.append(_RelaxThunk(A_l, cfg, rp_arr[l], meshes[l]))
-            Ps.append(P.tocsr())
-            Rs.append(((0.5 ** mesh.dim) * R).tocsr())
-            meshes.append(get_regular_mesh(meshes[l].domain, nc))
-            t1 = time.perf_counter()
-            times["transfers"] = times.get("transfers", 0.0) + t1 - t0
-            As.append(coarse_operator(
-                l, meshes[-1], lambda: (Rs[l] @ A_l @ Ps[l]).tocsr()
-            ).astype(cfg.dtype))
-            times["rap"] = times.get("rap", 0.0) + time.perf_counter() - t1
+            with spans.span("setup.rap", into=times, timed=True):
+                As.append(coarse_operator(
+                    l, meshes[-1], lambda: (Rs[l] @ A_l @ Ps[l]).tocsr()
+                ).astype(cfg.dtype))
             if verbose:
                 print(f"mg_setup: level {l} ({int(np.prod(n))} cells) took "
                       f"{time.perf_counter() - t0:.3f}s")
@@ -573,13 +586,15 @@ def mg_setup(A_or_ctor, mesh: RegularMesh, cfg: MGConfig, relax_param=None,
                 rap_axes = (None if sc_axes is None else
                             tuple(dim_g - 1 - a
                                   for a, c in enumerate(sc_axes) if c))
-                gs_c = structured_fw_rap(gs_f, axes=rap_axes)
-                gs_cache[l + 1] = gs_c
-                A_c = gs_c.to_scipy().tocsr()
-                A_c.eliminate_zeros()   # boundary non-entries
+                with spans.span("setup.rap", into=times, timed=True):
+                    gs_c = structured_fw_rap(gs_f, axes=rap_axes)
+                    gs_cache[l + 1] = gs_c
+                    A_c = gs_c.to_scipy().tocsr()
+                    A_c.eliminate_zeros()   # boundary non-entries
                 return A_c
             except ValueError:
-                return (Rs[l] @ A_l @ Ps[l]).tocsr()
+                with spans.span("setup.rap", into=times, timed=True):
+                    return (Rs[l] @ A_l @ Ps[l]).tocsr()
 
         As.append(coarse_operator(l, meshes[-1], galerkin).astype(cfg.dtype))
         if verbose:
@@ -600,7 +615,8 @@ def mg_setup(A_or_ctor, mesh: RegularMesh, cfg: MGConfig, relax_param=None,
     state._fw_separable = (cfg.transfer_type in ("full-weighting",
                                                  "semicoarsening")
                            and not geometric)
-    state.hier = build_device_hierarchy(state, relax_states, verbose)
+    with spans.span("setup.device", into=times, timed=True):
+        state.hier = build_device_hierarchy(state, relax_states, verbose)
     state.time_setup += time.perf_counter() - t_all
     return state
 

@@ -43,6 +43,7 @@ import time
 import numpy as np
 import torch
 
+from .. import spans
 from ..config import double_variant, is_complex, torch_dtype
 from ..cycle.capture import gate, run, static_config
 from ..cycle.cycle import cycle_jit, recursive_cycle
@@ -68,7 +69,7 @@ def _as_2d(v: torch.Tensor):
 
 
 def _norm(v: torch.Tensor) -> float:
-    return float(torch.linalg.vector_norm(v))
+    return spans.read(float, torch.linalg.vector_norm(v))
 
 
 def _rows(matvec):
@@ -109,6 +110,7 @@ def _runtime(state: MGState, captured: bool = True, hier=None):
             _rows(h.levels[0].A.matvec))
 
 
+@spans.spanned("driver.solve_mg")
 def solve_mg(state: MGState, b, x=None, verbose: bool = False):
     """Iterate cycles until ||r||/||r0|| < relative_tol or max_outer_iter.
 
@@ -118,11 +120,12 @@ def solve_mg(state: MGState, b, x=None, verbose: bool = False):
     t0 = time.perf_counter()
     cfg, dev = state.config, state.device
     dt = torch_dtype(cfg.dtype)
-    b2, squeeze = _as_2d(torch.as_tensor(b, dtype=dt, device=dev))
-    x2 = (torch.zeros_like(b2) if x is None
-          else _as_2d(torch.as_tensor(x, dtype=dt, device=dev))[0])
-    to_field, to_flat, cycle, matvec = _runtime(state)
-    bv, xv = to_field(b2), to_field(x2)
+    with spans.span("driver.prepare"):
+        b2, squeeze = _as_2d(torch.as_tensor(b, dtype=dt, device=dev))
+        x2 = (torch.zeros_like(b2) if x is None
+              else _as_2d(torch.as_tensor(x, dtype=dt, device=dev))[0])
+        to_field, to_flat, cycle, matvec = _runtime(state)
+        bv, xv = to_field(b2), to_field(x2)
 
     res0 = _norm(bv - matvec(xv)) if _norm(xv) > 0 else _norm(bv)
     res = res0
@@ -141,6 +144,7 @@ def solve_mg(state: MGState, b, x=None, verbose: bool = False):
             break
         if not np.isfinite(res) or res > 1e3 * max(res0, 1e-300):
             break              # diverging
+    spans.tail("driver.finish")
     state.n_iter += iters * b2.shape[1]
     state.time_solve += time.perf_counter() - t0
     x2 = to_flat(xv)
@@ -177,18 +181,22 @@ def solve_mg_jit(state: MGState, b, x=None, num_cycles: int | None = None):
 def _fine_operator(state: MGState, dtype):
     """The ORIGINAL fine operator (`A_input`) in `dtype` on the state's
     device, in the engine's form: a grid stencil, a `BlockGridOperator` of
-    cross stencils (systems), DIA or ELL (flat)."""
+    cross stencils (systems), DIA or ELL (flat).  The conversions from the
+    CSR add to the state's `setup_times` (grid_convert, cross_stencils)."""
     A_host = state.A_input if state.A_input is not None else state.As[0]
     if isinstance(state.hier, SystemsGridHierarchy):
-        return block_operator_from_csr(
-            A_host, list(state.meshes[0].n), state.config.mixed,
-            dtype=dtype, device=state.device)
+        with spans.span("setup.cross_stencils", into=state.setup_times):
+            return block_operator_from_csr(
+                A_host, list(state.meshes[0].n), state.config.mixed,
+                dtype=dtype, device=state.device)
     if isinstance(state.hier, GridHierarchy):
         grid = state.hier.fine_grid
-        return make_grid_stencil(
-            A_host, list(reversed(grid)), dtype=dtype,
-            max_shift=(min(grid) - 1) // 2 if min(grid) < 7 else 3,
-            device=state.device)
+        with spans.span("setup.grid_convert", into=state.setup_times,
+                        timed=True):
+            return make_grid_stencil(
+                A_host, list(reversed(grid)), dtype=dtype,
+                max_shift=(min(grid) - 1) // 2 if min(grid) < 7 else 3,
+                device=state.device)
     return _to_device_matrix(A_host, dtype, device=state.device)
 
 
@@ -252,6 +260,7 @@ def _cycle_hierarchy(state: MGState, cd: torch.dtype):
     return lo[1]
 
 
+@spans.spanned("driver.solve_mg_refined")
 def solve_mg_refined(state: MGState, b, x=None, tol: float = 1e-8,
                      max_iter: int | None = None, outer_dtype=None,
                      cycle_dtype=None, device_loop: bool = True,
@@ -287,16 +296,18 @@ def solve_mg_refined(state: MGState, b, x=None, tol: float = 1e-8,
         raise NotImplementedError(
             f"cycle_dtype {cd} for a complex hierarchy: torch has no complex "
             "bfloat16, and a real cycle would drop the imaginary part")
-    gh = _cycle_hierarchy(state, cd)
     if max_iter is None:
         max_iter = cfg.max_outer_iter
-    b2, squeeze = _as_2d(torch.as_tensor(b, dtype=outer, device=dev))
-    x2 = (torch.zeros_like(b2) if x is None
-          else _as_2d(torch.as_tensor(x, dtype=outer, device=dev))[0])
-    np_outer = np.dtype(str(outer).rsplit(".", 1)[-1])
-    matvec_hi = _hi_matvec(state, np_outer)
-    to_field, to_flat, cycle, _ = _runtime(state, captured=False, hier=gh)
-    bv, xv = to_field(b2), to_field(x2)
+    with spans.span("driver.prepare"):
+        gh = _cycle_hierarchy(state, cd)
+        b2, squeeze = _as_2d(torch.as_tensor(b, dtype=outer, device=dev))
+        x2 = (torch.zeros_like(b2) if x is None
+              else _as_2d(torch.as_tensor(x, dtype=outer, device=dev))[0])
+        np_outer = np.dtype(str(outer).rsplit(".", 1)[-1])
+        matvec_hi = _hi_matvec(state, np_outer)
+        to_field, to_flat, cycle, _ = _runtime(state, captured=False,
+                                               hier=gh)
+        bv, xv = to_field(b2), to_field(x2)
     use_fmg = bool(fmg and x is None and isinstance(gh, GridHierarchy))
     if device_loop:
         xv, iters, res, res0, resvec = _refined_device_loop(
@@ -323,6 +334,7 @@ def solve_mg_refined(state: MGState, b, x=None, tol: float = 1e-8,
             if verbose:
                 print(f"Refined cycle {iters} relres: {res / res0:.3e}. "
                       f"Factor: {res / max(res_prev, 1e-300):.3f}")
+        spans.tail("driver.finish")
         resvec = np.array(resvec)
     state.n_iter += iters * b2.shape[1]
     state.time_solve += time.perf_counter() - t0
@@ -384,13 +396,15 @@ def _refined_device_loop(state, ctx, bv, xv, tol, max_iter, outer):
     out = run(gh, key + ("first",), _refine_first, ctx, bv, xv,
               torch.zeros(max_iter + 1, dtype=rdt, device=dev),
               *scal, keep=(hi,), clone=False)
-    while bool(out[-1]):
+    while spans.read(bool, out[-1]):
         out = run(gh, key + ("next",), _refine_chunk, ctx, bv,
                   *out[:-1], *scal, keep=(hi,), clone=False)
+    spans.tail("driver.finish")
     xv, _, res, res0, it, resvec, _ = out
-    iters = int(it)
-    return (xv.clone(), iters, float(res), float(res0),
-            resvec[:iters + 1].cpu().numpy())
+    iters = spans.read(int, it)
+    return (xv.clone(), iters, spans.read(float, res),
+            spans.read(float, res0),
+            spans.read(torch.Tensor.cpu, resvec[:iters + 1]).numpy())
 
 
 def _print_resvec(resvec):
@@ -483,8 +497,9 @@ def _krylov_solve(state: MGState, name: str, fn, block_fn, block: bool, b,
     sides) on the Krylov operands of `_krylov_setup`; `device_loop=False`
     runs the eager loop with eager cycles (the comparison)."""
     t0 = time.perf_counter()
-    bv, xv, matvec, prec, to_flat, cache = _krylov_setup(state, b, x0,
-                                                         device_loop)
+    with spans.span("driver.prepare"):
+        bv, xv, matvec, prec, to_flat, cache = _krylov_setup(state, b, x0,
+                                                             device_loop)
     cfg = state.config
     if block and bv.shape[0] > 1:
         fn = block_fn
@@ -492,13 +507,14 @@ def _krylov_solve(state: MGState, name: str, fn, block_fn, block: bool, b,
                  max_iter=cfg.max_outer_iter, device_loop=device_loop,
                  cache=cache, **kw)
     if report:
-        rel = float(torch.as_tensor(info["relres"]).max())
+        rel = spans.read(float, torch.as_tensor(info["relres"]).max())
         print(f"{name}: {int(info['iters'])} iters, relres {rel:.3e}")
     state.n_iter += int(info["iters"]) * bv.shape[0]
     state.time_solve += time.perf_counter() - t0
     return to_flat(x), info
 
 
+@spans.spanned("driver.solve_cg_mg")
 def solve_cg_mg(state: MGState, b, x0=None, verbose: bool = False,
                 block: bool = False, device_loop: bool = True):
     """MG-preconditioned CG (reference solveCG_MG, SolveFuncs.jl:103-116);
@@ -509,6 +525,7 @@ def solve_cg_mg(state: MGState, b, x0=None, verbose: bool = False,
                          verbose, device_loop)
 
 
+@spans.spanned("driver.solve_bicgstab_mg")
 def solve_bicgstab_mg(state: MGState, b, x0=None, verbose: bool = False,
                       block: bool = False, device_loop: bool = True):
     """MG-preconditioned BiCGSTAB (reference solveBiCGSTAB_MG,
@@ -518,6 +535,7 @@ def solve_bicgstab_mg(state: MGState, b, x0=None, verbose: bool = False,
                          block_bicgstab, block, b, x0, verbose, device_loop)
 
 
+@spans.spanned("driver.solve_gmres_mg")
 def solve_gmres_mg(state: MGState, b, x0=None, flexible: bool = True,
                    inner: int = 5, verbose: bool = False,
                    block: bool = False, device_loop: bool = True):

@@ -1101,6 +1101,67 @@ def test_sparse_lu_cycle_records_in_segments(engine, ctype, segments,
     assert i1["iters"] == i0["iters"] and torch.equal(x1, x0r)
 
 
+@pytest.mark.parametrize("host_lu", [False, True])
+def test_program_spans_across_a_record_and_two_replays(host_lu, monkeypatch):
+    """mgtpu_torch.spans on the card: a recorded cycle's first call
+    records once and replays, two more calls replay; each replay runs its
+    graphs (two around a host SuperLU step).  A refined and a CG solve
+    after their recordings: ceil(k / CHUNK) graphs a call, ceil(k / CHUNK)
+    + 4 and + 1 host reads, no recording."""
+    _need_card()
+    import math
+    from collections import Counter
+
+    import torch
+    import mgtpu_torch as mt
+    from mgtpu_torch import spans
+    from mgtpu_torch.cycle import grid_cycle as gc
+    from mgtpu_torch.krylov import _loop
+    if host_lu:
+        monkeypatch.setattr(gc, "HOST_INV_MAX", 16)
+        monkeypatch.setattr(gc, "DENSE_LU_MAX", 16)
+    M, A = _rough_sigma(64)
+    cfg, rp = mt.get_mg_param(levels=3, relax_type="jacobi", relax_param=0.8,
+                              nu_pre=1, nu_post=1, relative_tol=1e-8,
+                              max_outer_iter=100, dtype=np.float32)
+    st = mt.mg_setup(A, M, cfg, rp)
+    seg = 2 if host_lu else 1
+    bf = torch.tensor(np.random.RandomState(2).rand(1, *st.hier.fine_grid),
+                      dtype=torch.float32, device="cuda")
+    x0 = torch.zeros_like(bf)
+    names = ("program.record", "program.replay", "program.host_step",
+             "host_read")
+
+    def counted():
+        c = Counter(r[0] for r in spans.drain())
+        return tuple(c[n] for n in names)
+
+    spans.drain()
+    spans.enable()
+    try:
+        gc.grid_cycle_jit(cfg, st.hier, bf, x0, True)
+        assert counted() == (1, 1, seg - 1, 0)
+        for _ in range(2):
+            gc.grid_cycle_jit(cfg, st.hier, bf, x0, True)
+        torch.cuda.synchronize()
+        assert counted() == (0, 2, 2 * (seg - 1), 0)
+        if host_lu:
+            return
+        b = A @ np.random.RandomState(4).rand(A.shape[0])
+        b /= np.linalg.norm(b)
+        for solve, extra in ((mt.solve_mg_refined, 4), (mt.solve_cg_mg, 1)):
+            solve(st, b)                                # records
+            spans.drain()
+            x, info = solve(st, b)
+            k = int(info["iters"])
+            chunks = math.ceil(k / _loop.CHUNK)
+            assert k > _loop.CHUNK
+            assert counted() == (0, chunks, 0, chunks + extra)
+    finally:
+        spans.disable()
+        spans.drain()
+
+
 def test_capture_failure_raises():
     """A function that reads the card's memory on the host cannot be
     recorded: the program raises with torch's message instead of running
