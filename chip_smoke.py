@@ -985,16 +985,21 @@ def compare_krylov(st, A, rh, label, solve, kw, x, info, first_ms, card):
     against its eager loop (device_loop=False: eager iterations, eager
     cycles): the same count, x bitwise; the warm recorded and the eager
     times per iteration and the preconditioner's cycle pair.  Adds a row
-    to CAPTURED."""
+    to CAPTURED.  The loop's form (`loop_form`) is read from the set_cond
+    launches of a recorded call; a recorded call after the profiled one
+    (the while form's executable instantiated anew) gives x again."""
     iters = int(info["iters"])
     with uncounted():
         times = {}
         for mode in (True, False):
             torch.cuda.synchronize()
+            n_cond = set_cond_launches()
             t0 = time.perf_counter()
             xm, im = solve(st, rh, device_loop=mode, **kw)
             torch.cuda.synchronize()
             times[mode] = (time.perf_counter() - t0) * 1e3
+            if mode:
+                form = loop_form(label, set_cond_launches() - n_cond, iters)
             require(int(im["iters"]) == iters, f"{label}: {im['iters']} "
                     f"iterations ({'recorded' if mode else 'eager'}), "
                     f"first recorded run {iters}")
@@ -1009,8 +1014,13 @@ def compare_krylov(st, A, rh, label, solve, kw, x, info, first_ms, card):
                relres=float(np.max(rr)), first_ms=first_ms,
                solve_ms=times[True], eager_ms=times[False],
                iter_ms=times[True] / iters, eager_iter_ms=times[False] / iters,
+               loop_form=form,
                **solve_profile(lambda: solve(st, rh, **kw), label, card),
                **cycle_pair(st, rh if rh.ndim == 1 else rh[:, 0], card))
+    with uncounted():
+        xa, _ = solve(st, rh, **kw)
+        require(torch.equal(xa, x), f"{label}: the recorded run after the "
+                "profiled one differs")
     CAPTURED.append(row)
     log_captured(row, card)
     log(f"[captured] {label}: {row['iter_ms']:.3f} ms an iteration "
@@ -1179,6 +1189,20 @@ def launches_of(run):
     return got, nplain
 
 
+def set_cond_launches() -> int:
+    from mgtpu_torch.ops.cuda import device_loop
+    return device_loop.LAUNCHES["set_cond"]
+
+
+def loop_form(label, n_cond, iters) -> str:
+    """The form a recorded loop took, from its set_cond launches: the
+    while form counts one after the start and one an iteration (k + 1),
+    the chunked form and FGMRES's restart programs none."""
+    require(n_cond in (0, iters + 1), f"{label}: {n_cond} set_cond launches "
+            f"for {iters} iterations")
+    return "while" if n_cond else "programs"
+
+
 def same_x(label, x_rec, x_eager):
     """x of the recorded run against the eager run's: bit for bit, or the
     stated 1e-12 relative bound (logged as such).  Returns the relative
@@ -1263,7 +1287,8 @@ def log_captured(row, card):
         f"{fmt(row['busy'], '.2f')} / {fmt(row['eager_busy'], '.2f')}, "
         f"{row['cycle_launches']} launches a cycle both ways, "
         f"{row['graphs']} graph(s), recorded in "
-        f"{fmt(row['record_ms'], '.1f')} ms ({card})")
+        f"{fmt(row['record_ms'], '.1f')} ms; loop "
+        f"{row.get('loop_form', 'not read')} ({card})")
 
 
 def compare_refined(st, L, b, label, info, x, first_ms, card, max_iter,
@@ -1271,18 +1296,23 @@ def compare_refined(st, L, b, label, info, x, first_ms, card, max_iter,
     """The recorded refined solve just run (x, info, its first call's
     time) against the eager loop: the same count, x bitwise, a true f64
     relres below 1e-8; then the warm recorded and the eager times and (with
-    `pair`) the cycle pair.  Adds a row to CAPTURED."""
+    `pair`) the cycle pair.  Adds a row to CAPTURED.  The loop's form and
+    the recorded call after the profiled one as in `compare_krylov`."""
     from mgtpu_torch import solve_mg_refined
     kw = kw or {}
     with uncounted():
         times = {}
         for mode in (True, False):
             torch.cuda.synchronize()
+            n_cond = set_cond_launches()
             t0 = time.perf_counter()
             xm, im = solve_mg_refined(st, b, tol=1e-8, max_iter=max_iter,
                                       fmg=fmg, device_loop=mode, **kw)
             torch.cuda.synchronize()
             times[mode] = (time.perf_counter() - t0) * 1e3
+            if mode:
+                form = loop_form(label, set_cond_launches() - n_cond,
+                                 info["iters"])
             require(im["iters"] == info["iters"], f"{label}: "
                     f"{im['iters']} iterations ({'recorded' if mode else 'eager'}"
                     f"), first recorded run {info['iters']}")
@@ -1293,11 +1323,16 @@ def compare_refined(st, L, b, label, info, x, first_ms, card, max_iter,
                 x_rel = same_x(label, x, xm)
     row = dict(label=label, iters=info["iters"], x_rel=x_rel,
                relres=true_relres(L, b, x), first_ms=first_ms,
-               solve_ms=times[True], eager_ms=times[False],
+               solve_ms=times[True], eager_ms=times[False], loop_form=form,
                **solve_profile(lambda: solve_mg_refined(
                    st, b, tol=1e-8, max_iter=max_iter, fmg=fmg, **kw),
                    label, card),
                **(cycle_pair(st, b, card) if pair else NO_PAIR))
+    with uncounted():
+        xa, _ = solve_mg_refined(st, b, tol=1e-8, max_iter=max_iter, fmg=fmg,
+                                 **kw)
+        require(torch.equal(xa, x), f"{label}: the recorded run after the "
+                "profiled one differs")
     CAPTURED.append(row)
     log_captured(row, card)
     return row
@@ -1357,7 +1392,7 @@ def phase_path3d(M3, L3, st_jac, card):
     vcycle_profile(st_jac, b, jac_ms, card)
     vcycle_ms(st_cheb, bc, card)
     per_cycle_launches(st_jac, b)
-    return launches, by_grid
+    return launches
 
 
 def phase_path2d(card):
@@ -6155,8 +6190,7 @@ def main() -> int:
     timed = phase_kernels(st_jac, rows)
     phase_timing(timed, rows)
     log(f"[elapsed] phases 1-3 done: {time.perf_counter() - t_start:.1f} s")
-    launches, b_by_grid = phase_path3d(M3, L3, st_jac, card)
-    rows["jacobi_residual3d"]["launches_by_grid"] = b_by_grid
+    launches = phase_path3d(M3, L3, st_jac, card)
     st2d = phase_path2d(card)
 
     t0 = time.perf_counter()
@@ -6326,6 +6360,11 @@ def main() -> int:
         rows[k]["launches_systems"] = systems[k]
     require(len(CAPTURED) == CAPTURED_PATHS, f"the captured phase "
             f"compared {len(CAPTURED)} paths, want {CAPTURED_PATHS}")
+    forms = [r.get("loop_form", "not read") for r in CAPTURED]
+    log("[captured] loop forms: " + ", ".join(
+        f"{forms.count(f)} {f}" for f in sorted(set(forms))) + "; programs: "
+        + "; ".join(r["label"] for r in CAPTURED
+                    if r.get("loop_form") == "programs"))
     log("[captured] " + json.dumps({"paths": CAPTURED, "chunks": sweep}))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

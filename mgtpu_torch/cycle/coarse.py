@@ -4,10 +4,13 @@ Counterpart of mgtpu/cycle/coarse.py.  Vectors are flat columns, (n,) or
 (n, m):
 
  * `DenseLU` — LU factors computed on the host (LAPACK getrf through
-   scipy, in the hierarchy's precision), triangular solves on the device
-   (`torch.linalg.lu_solve`).  scipy's pivots are 0-based row swaps;
-   LAPACK's, which torch takes, are 1-based: `dense_lu_from_scipy` adds
-   one.
+   scipy, in the hierarchy's precision), solved on the device as mgtpu's
+   `lu_solve` does: the pivots' row order taken by a gather, then two
+   triangular solves (`solve_triangular`, cuBLAS trsm on the card; no
+   library workspace is allocated inside a recording, so a recorded loop
+   around it can take the device-side while form).  scipy's pivots are
+   0-based row swaps; LAPACK's, which torch takes, are 1-based:
+   `dense_lu_from_scipy` adds one.
  * `IterativeCoarse` — one-shot Jacobi-preconditioned FGMRES on the ELL
    form of the coarsest operator (the reference's MGcycle.jl:152-168
    escape hatch).
@@ -25,7 +28,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
-from ..config import double_variant, full_fp32
+from ..config import double_variant
 from ..ops.ell import ell_from_scipy, ell_matvec
 from .capture import host_step
 from .relax import fgmres_relaxation
@@ -37,20 +40,38 @@ __all__ = ["DenseLU", "IterativeCoarse", "SparseLUCoarse",
 
 @dataclass(frozen=True, eq=False)
 class DenseLU:
-    """Replicated dense LU of the coarsest operator: packed L\\U and
-    LAPACK's 1-based int32 pivots."""
+    """Replicated dense LU of the coarsest operator: packed L\\U, LAPACK's
+    1-based int32 pivots, and the row order they apply (perm: (P^T b)[i] =
+    b[perm[i]]) with its inverse, made from the pivots where not given.
+    The factors are kept in row-major order whatever order they came in
+    (scipy's are column-major), so that every copy of one factorisation
+    solves to the same bits."""
     lu: torch.Tensor
     piv: torch.Tensor
+    perm: torch.Tensor | None = None
+    iperm: torch.Tensor | None = None
+
+    def __post_init__(self):
+        object.__setattr__(self, "lu", self.lu.contiguous())
+        if self.perm is None:
+            from ..solvers.direct import pivots_to_permutation
+            perm = pivots_to_permutation(
+                self.piv.cpu().numpy().astype(np.int64)[None])[0]
+            dev = self.lu.device
+            object.__setattr__(self, "perm", torch.as_tensor(perm, device=dev))
+            object.__setattr__(self, "iperm", torch.as_tensor(
+                np.argsort(perm), device=dev))
 
     def _solve(self, b, adjoint: bool):
+        from ..solvers.direct import lu_solve_batched
         b2 = b[:, None] if b.ndim == 1 else b
         lu = self.lu
         if lu.dtype.itemsize < 4:
             # a bfloat16 cycle: torch has no triangular solve below float32,
             # so the bfloat16 factors are solved in float32 arithmetic
             lu, b2 = lu.float(), b2.float()
-        with full_fp32():
-            x = torch.linalg.lu_solve(lu, self.piv, b2, adjoint=adjoint)
+        x = lu_solve_batched(lu[None], self.perm[None], self.iperm[None],
+                             b2[None], adjoint=adjoint)[0]
         x = x.to(b.dtype)
         return x[:, 0] if b.ndim == 1 else x
 

@@ -2,14 +2,13 @@
 
 Counterpart of mgtpu/krylov/bicgstab.py on (m, *space) fields: per-RHS
 scalar recurrences with convergence masking, left preconditioning (the
-multigrid cycle as M1).  The stop test runs on the card, the iterations in
-recorded chunks (krylov/_loop.py).
+multigrid cycle as M1).  The stop test runs on the card, the iterations as
+one recorded loop (krylov/_loop.py).
 """
 from __future__ import annotations
 
 import torch
 
-from .. import spans
 from ._layout import Layout, safe_div
 from ._loop import history, iterate, rows_where, scalars
 
@@ -62,8 +61,9 @@ def bicgstab(matvec, b, prec=None, x0=None, tol: float = 1e-6,
     def go(s):
         return (s[11] < s[14]) & s[10].any()
 
-    s = iterate(init, step, go, (0, 8, 9, 10, 11),
-                scalars(b, X, tol, max_iter), device_loop=device_loop,
-                cache=cache, static=("bicgstab", max_iter))
-    X, resvec, k, bnorm = s[0], s[8], spans.read(int, s[11]), s[12]
+    s, k = iterate(init, step, go, (0, 8, 9, 10, 11),
+                   scalars(b, X, tol, max_iter), count=11,
+                   device_loop=device_loop, cache=cache,
+                   static=("bicgstab", max_iter))
+    X, resvec, bnorm = s[0], s[8], s[12]
     return X, {"iters": k, "relres": resvec[k] / bnorm, "resvec": resvec}

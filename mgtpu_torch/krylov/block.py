@@ -11,14 +11,13 @@ make the Gram blocks singular.
  * block_bicgstab  — Bl-BiCGSTAB (El Guennouni, Jbilou, Sadok, ETNA 16,
                      2003), preconditioned in the same positions as
                      krylov.bicgstab.
-The stop test runs on the card, the iterations in recorded chunks
+The stop test runs on the card, the iterations as one recorded loop
 (krylov/_loop.py).
 """
 from __future__ import annotations
 
 import torch
 
-from .. import spans
 from ._layout import Layout
 from ._loop import history, iterate, rows_where, scalars
 
@@ -76,10 +75,11 @@ def block_pcg(matvec, b, prec=None, x0=None, tol: float = 1e-6,
         P = Z + lay.mix(P, beta)
         return X, R, P, S_new, resvec, cur, k + 1, bnorm, tol, maxit
 
-    s = iterate(init, step, lambda s: _go(s, 6, 5, 7, 8, 9), (0, 4, 5, 6),
-                scalars(b, X, tol, max_iter), device_loop=device_loop,
-                cache=cache, static=("block_pcg", max_iter))
-    X, resvec, k, bnorm = s[0], s[4], spans.read(int, s[6]), s[7]
+    s, k = iterate(init, step, lambda s: _go(s, 6, 5, 7, 8, 9), (0, 4, 5, 6),
+                   scalars(b, X, tol, max_iter), count=6,
+                   device_loop=device_loop, cache=cache,
+                   static=("block_pcg", max_iter))
+    X, resvec, bnorm = s[0], s[4], s[7]
     return X, {"iters": k, "relres": resvec[k] / bnorm, "resvec": resvec}
 
 
@@ -122,8 +122,9 @@ def block_bicgstab(matvec, b, prec=None, x0=None, tol: float = 1e-6,
         P = R + lay.mix(P - omega * V, beta)
         return X, R, Rhat, P, resvec, cur, k + 1, bnorm, tol, maxit
 
-    s = iterate(init, step, lambda s: _go(s, 6, 5, 7, 8, 9), (0, 4, 5, 6),
-                scalars(b, X, tol, max_iter), device_loop=device_loop,
-                cache=cache, static=("block_bicgstab", max_iter))
-    X, resvec, k, bnorm = s[0], s[4], spans.read(int, s[6]), s[7]
+    s, k = iterate(init, step, lambda s: _go(s, 6, 5, 7, 8, 9), (0, 4, 5, 6),
+                   scalars(b, X, tol, max_iter), count=6,
+                   device_loop=device_loop, cache=cache,
+                   static=("block_bicgstab", max_iter))
+    X, resvec, bnorm = s[0], s[4], s[7]
     return X, {"iters": k, "relres": resvec[k] / bnorm, "resvec": resvec}

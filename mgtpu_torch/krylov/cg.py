@@ -2,14 +2,13 @@
 
 Counterpart of mgtpu/krylov/cg.py on (m, *space) fields: every scalar of
 classical PCG becomes a per-RHS (m,) tensor, and converged columns are
-frozen by masking.  The stop test runs on the card: the iterations run in
-recorded chunks (krylov/_loop.py), as mgtpu runs a `lax.while_loop`.
+frozen by masking.  The stop test runs on the card: the iterations run as
+one recorded loop (krylov/_loop.py), as mgtpu runs a `lax.while_loop`.
 """
 from __future__ import annotations
 
 import torch
 
-from .. import spans
 from ._layout import Layout, safe_div
 from ._loop import history, iterate, rows_where, scalars
 
@@ -58,8 +57,9 @@ def pcg(matvec, b, prec=None, x0=None, tol: float = 1e-6,
     def go(s):
         return (s[6] < s[9]) & s[5].any()
 
-    s = iterate(init, step, go, (0, 4, 5, 6), scalars(b, X, tol, max_iter),
-                device_loop=device_loop, cache=cache,
-                static=("pcg", max_iter))
-    X, resvec, k, bnorm = s[0], s[4], spans.read(int, s[6]), s[7]
+    s, k = iterate(init, step, go, (0, 4, 5, 6),
+                   scalars(b, X, tol, max_iter), count=6,
+                   device_loop=device_loop, cache=cache,
+                   static=("pcg", max_iter))
+    X, resvec, bnorm = s[0], s[4], s[7]
     return X, {"iters": k, "relres": resvec[k] / bnorm, "resvec": resvec}

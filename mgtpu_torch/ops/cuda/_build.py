@@ -21,7 +21,7 @@ PKG = Path(__file__).resolve().parents[2]
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
 SOURCES = ("const3d", "fused3d", "tridiag", "stencil", "block_stencil",
-           "halo_stencil", "vanka", "kaczmarz", "probe")
+           "halo_stencil", "vanka", "kaczmarz", "probe", "device_loop")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

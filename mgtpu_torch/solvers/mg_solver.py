@@ -18,9 +18,9 @@ graphs on the card, the plain functions on the CPU):
    (`outer_dtype`, `cycle_dtype`: mgtpu's; a bfloat16 cycle runs a
    `cast_hierarchy` copy); `fmg=True` starts a grid-engine solve from one
    full-multigrid pass instead of zero.  With
-   `device_loop` (mgtpu's default) the loop runs as recorded chunks of
-   iterations masked by a device flag (mgtpu's `lax.while_loop`), else as
-   the eager host loop.
+   `device_loop` (mgtpu's default) the loop runs on the card with its stop
+   test there (mgtpu's `lax.while_loop`; krylov/_loop.py's two forms),
+   else as the eager host loop.
  * `solve_cg_mg`, `solve_bicgstab_mg`, `solve_gmres_mg` run the Krylov
    methods of krylov/ on those fields with one cycle from zero as the
    preconditioner (reference SolveFuncs.jl:74-133); `block=True` shares one
@@ -28,8 +28,8 @@ graphs on the card, the plain functions on the CPU):
    precision hierarchy runs the Krylov iteration in float64 against the
    original operator and the cycle in the hierarchy's precision (the
    mixed-precision shim, SolveFuncs.jl:52-58).  The iterations, matvec and
-   cycle included, run in recorded chunks with the stop test on the card
-   (`device_loop=False`: the eager loop, for comparison).
+   cycle included, run as one recorded loop with the stop test on the card
+   (krylov/_loop.py; `device_loop=False`: the eager loop, for comparison).
  * `get_mg_preconditioner` and `get_afun` are the closures the reference
    hands to Krylov methods (SolveFuncs.jl:43-71).
 
@@ -45,7 +45,7 @@ import torch
 
 from .. import spans
 from ..config import double_variant, is_complex, torch_dtype
-from ..cycle.capture import gate, run, static_config
+from ..cycle.capture import gate, loop, run, static_config
 from ..cycle.cycle import cycle_jit, recursive_cycle
 from ..cycle.grid_cycle import (GridHierarchy, grid_cycle, grid_cycle_jit,
                                 grid_fmg)
@@ -280,13 +280,16 @@ def solve_mg_refined(state: MGState, b, x=None, tol: float = 1e-8,
     `max_iter` (default max_outer_iter), or once the residual exceeds
     1e3 * ||b||.
 
-    `device_loop` (mgtpu's default) runs it as recorded programs of
-    krylov/_loop.py's CHUNK iterations, each masked by the device flag of
-    mgtpu's `cond`; the FMG start and the first residual run inside the
-    first program, `tol` and `max_iter` are device scalars, and the host
-    reads the flag once a chunk.  `device_loop=False` is the eager host
-    loop, one host read an iteration.  Returns (x, info) with x an
-    `outer_dtype` tensor on the state's device."""
+    `device_loop` (mgtpu's default) runs it on the card as mgtpu's
+    `lax.while_loop` with its `cond`, in krylov/_loop.py's two forms: one
+    CUDA graph whose WHILE node runs the iterations until the condition
+    fails (the host reads the count, the residuals and the history once
+    the device is done), or, where the cycle takes a host step and on the
+    CPU, recorded programs of CHUNK masked iterations, the flag read once
+    a chunk.  The FMG start and the first residual run inside the first
+    program; `tol` and `max_iter` are device scalars.  `device_loop=False`
+    is the eager host loop, one host read an iteration.  Returns (x, info)
+    with x an `outer_dtype` tensor on the state's device."""
     t0 = time.perf_counter()
     cfg, dev = state.config, state.device
     outer = torch_dtype(double_variant(cfg.dtype) if outer_dtype is None
@@ -348,30 +351,9 @@ def _refine_active(it, res, res0, tol, max_iter):
     return (it < max_iter) & (tol * res0 <= res) & (res < 1e3 * res0)
 
 
-def _refine_chunk(ctx, bv, xv, r, res, res0, it, resvec, tol, max_iter):
-    """CHUNK refinement iterations, each masked by the device flag: an
-    inactive one leaves x, res, it and resvec as they were (the residual r
-    is only read by active ones, and the flag never turns back on)."""
-    _, _, cycle, matvec_hi, cd, _, chunk = ctx
-    rows = torch.arange(resvec.shape[0], device=resvec.device)
-    for _ in range(chunk):
-        active = _refine_active(it, res, res0, tol, max_iter)
-        rl = r.to(cd)
-        with gate(active):              # a masked iteration skips host steps
-            z = cycle(rl, torch.zeros_like(rl), True)
-        xn = xv + z.to(xv.dtype)
-        r = bv - matvec_hi(xn)
-        rn = torch.linalg.vector_norm(r)
-        xv = torch.where(active, xn, xv)
-        res = torch.where(active, rn, res)
-        resvec = torch.where(active & (rows == it + 1), rn, resvec)
-        it = it + active.to(it.dtype)
-    return (xv, r, res, res0, it, resvec,
-            _refine_active(it, res, res0, tol, max_iter))
-
-
-def _refine_first(ctx, bv, xv, resvec, tol, max_iter):
-    """The first program: the FMG start, the first residual, a chunk."""
+def _refine_init(ctx, bv, xv, resvec, tol, max_iter):
+    """The loop's start: the FMG start, the first residual, the history's
+    row 0; the state (x, r, res, res0, it, resvec)."""
     cfg, gh, _, matvec_hi, cd, use_fmg, _ = ctx
     if use_fmg:
         xv = grid_fmg(cfg, gh, bv.to(cd)).to(bv.dtype)
@@ -379,29 +361,89 @@ def _refine_first(ctx, bv, xv, resvec, tol, max_iter):
     r = bv - matvec_hi(xv)
     res = torch.linalg.vector_norm(r)
     resvec = torch.cat([res[None], resvec[1:]])
-    return _refine_chunk(ctx, bv, xv, r, res, res0,
-                         torch.zeros_like(max_iter), resvec, tol, max_iter)
+    return xv, r, res, res0, torch.zeros_like(max_iter), resvec
+
+
+def _refine_step(ctx, bv, xv, r, res, res0, it, resvec, in_place=False):
+    """One refinement iteration as the eager loop runs it: x += Cycle(r),
+    r = b - A x, its norm into the history's row it + 1.  `in_place`
+    writes x and r into the tensors given (the while form's buffers: the
+    same arithmetic, no copy back)."""
+    _, _, cycle, matvec_hi, cd, _, _ = ctx
+    rl = r.to(cd)
+    z = cycle(rl, torch.zeros_like(rl), True).to(xv.dtype)
+    xv = xv.add_(z) if in_place else xv + z
+    ax = matvec_hi(xv)
+    r = torch.sub(bv, ax, out=r) if in_place else bv - ax
+    res = torch.linalg.vector_norm(r)
+    rows = torch.arange(resvec.shape[0], device=resvec.device)
+    resvec = torch.where(rows == it + 1, res, resvec)
+    return xv, r, res, res0, it + 1, resvec
+
+
+def _refine_chunk(ctx, bv, xv, r, res, res0, it, resvec, tol, max_iter):
+    """CHUNK refinement iterations, each masked by the device flag: an
+    inactive one leaves x, res, it and resvec as they were (the residual r
+    is only read by active ones, and the flag never turns back on)."""
+    for _ in range(ctx[-1]):
+        active = _refine_active(it, res, res0, tol, max_iter)
+        with gate(active):              # a masked iteration skips host steps
+            new = _refine_step(ctx, bv, xv, r, res, res0, it, resvec)
+        r = new[1]
+        xv, res, it, resvec = (torch.where(active, n, o) for n, o in zip(
+            (new[0], new[2], new[4], new[5]), (xv, res, it, resvec)))
+    return (xv, r, res, res0, it, resvec,
+            _refine_active(it, res, res0, tol, max_iter))
+
+
+def _refine_first(ctx, bv, xv, resvec, tol, max_iter):
+    """The chunked form's first program: the loop's start, a chunk."""
+    return _refine_chunk(ctx, bv, *_refine_init(ctx, bv, xv, resvec, tol,
+                                                max_iter), tol, max_iter)
+
+
+def _refine_start(ctx, bv, xv, resvec, tol, max_iter):
+    """The while form's start: the state and the condition."""
+    s = _refine_init(ctx, bv, xv, resvec, tol, max_iter)
+    return s + (_refine_active(s[4], s[2], s[3], tol, max_iter),)
+
+
+def _refine_iteration(ctx, args, s):
+    """The while form's iteration: the next state (x and r in place) and
+    the condition."""
+    bv, _, _, tol, max_iter = args
+    n = _refine_step(ctx, bv, *s, in_place=True)
+    return n + (_refine_active(n[4], n[2], n[3], tol, max_iter),)
 
 
 def _refined_device_loop(state, ctx, bv, xv, tol, max_iter, outer):
-    """The refinement loop as recorded chunks (mgtpu's
-    `_refined_device_loop`), kept with the cycle's hierarchy:
-    (x, iters, res, res0, resvec)."""
+    """The refinement loop on the card (mgtpu's `_refined_device_loop`),
+    its programs kept with the cycle's hierarchy: the while form
+    (capture.loop) where the cycle takes no host step, else recorded
+    chunks (krylov/_loop.py's two forms).  Returns (x, iters, res, res0,
+    resvec)."""
     cfg, gh, _, _, cd, use_fmg, chunk = ctx
     hi = high_precision_fine_operator(state, outer)
-    key = ("refine", static_config(cfg), cd, use_fmg, chunk, id(hi))
+    key = ("refine", static_config(cfg), cd, use_fmg, id(hi))
     dev, rdt = bv.device, bv.real.dtype         # norms are real
-    scal = (torch.tensor(tol, dtype=rdt, device=dev),
+    args = (bv, xv, torch.zeros(max_iter + 1, dtype=rdt, device=dev),
+            torch.tensor(tol, dtype=rdt, device=dev),
             torch.tensor(max_iter, dtype=torch.int64, device=dev))
-    out = run(gh, key + ("first",), _refine_first, ctx, bv, xv,
-              torch.zeros(max_iter + 1, dtype=rdt, device=dev),
-              *scal, keep=(hi,), clone=False)
-    while spans.read(bool, out[-1]):
-        out = run(gh, key + ("next",), _refine_chunk, ctx, bv,
-                  *out[:-1], *scal, keep=(hi,), clone=False)
-    spans.tail("driver.finish")
-    xv, _, res, res0, it, resvec, _ = out
-    iters = spans.read(int, it)
+    done = loop(gh, key + ("while",), _refine_start, _refine_iteration, ctx,
+                *args, count=4, keep=(hi,))
+    if done is not None:
+        out, iters = done
+        spans.tail("driver.finish")
+    else:
+        key += (chunk,)
+        out = run(gh, key + ("first",), _refine_first, ctx, *args,
+                  keep=(hi,), clone=False)
+        while spans.read(bool, out[-1]):
+            out = run(gh, key + ("next",), _refine_chunk, ctx, bv,
+                      *out[:-1], *args[3:], keep=(hi,), clone=False)
+        spans.tail("driver.finish")
+        iters = spans.read(int, out[4])
+    xv, _, res, res0, _, resvec = out[:6]
     return (xv.clone(), iters, spans.read(float, res),
             spans.read(float, res0),
             spans.read(torch.Tensor.cpu, resvec[:iters + 1]).numpy())

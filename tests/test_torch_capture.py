@@ -374,3 +374,215 @@ def test_programs_run_plainly_on_the_cpu():
     assert calls == ["ctx", "c2"]
     out = capture.host_step(lambda t: t * 3, a)
     assert out.device == a.device and torch.equal(out, a * 3)
+
+
+# ---------------------------------------------------------------------------
+# the while form (capture.loop): its programs in their plain form
+# ---------------------------------------------------------------------------
+
+def _loop_in_python(owner, key, first, body, ctx, *args, count, keep=()):
+    """capture.loop's graph, step for step, in Python on the CPU: the
+    start program, then the iteration program (its state written back in
+    place) while the condition holds; the count read once at the end."""
+    state, go = capture._loop_start(first, ctx, args)
+    while bool(go):
+        go = capture._loop_step(body, ctx, args, state)
+    return state, int(state[count])
+
+
+@pytest.fixture
+def while_form(monkeypatch):
+    """The solvers' loops in the while form's plain programs."""
+    from mgtpu_torch.solvers import mg_solver
+    monkeypatch.setattr(mt.krylov._loop, "loop", _loop_in_python)
+    monkeypatch.setattr(mg_solver, "loop", _loop_in_python)
+
+
+@pytest.mark.parametrize("nrhs", [1, 4])
+@pytest.mark.parametrize("method", sorted(KRYLOV) + ["block-bicgstab"])
+def test_while_form_is_the_eager_krylov_loop(method, nrhs, while_form):
+    """The while form's programs (the start, then the iteration written
+    back into the loop's buffers) give the eager loop's count, history
+    and x bit for bit: BiCGSTAB's start returns R three times (its
+    buffers are cloned apart), the iteration returns entries unchanged
+    (skipped)."""
+    M, A, b = _divsig(32)
+    B = b if nrhs == 1 else np.random.RandomState(4).rand(A.shape[0], nrhs)
+    cfg, rp = mt.get_mg_param(levels=3, relax_type="jacobi", relax_param=0.8,
+                              nu_pre=1, nu_post=1, max_outer_iter=60,
+                              relative_tol=1e-8, dtype=np.float32)
+    st = mt.mg_setup(A, M, cfg, rp, device="cpu")
+    solve, kw = KRYLOV.get(method, (mt.solve_bicgstab_mg, dict(block=True)))
+    x1, i1 = solve(st, B, **kw)
+    x0, i0 = solve(st, B, device_loop=False, **kw)
+    assert i1["iters"] == i0["iters"] > 1
+    assert torch.equal(i1["resvec"], i0["resvec"])
+    assert torch.equal(x1, x0)
+
+
+@pytest.mark.parametrize("name", ["jacobi-2d", "fmg", "w-cycle"])
+def test_while_form_is_the_eager_refined_loop(name, while_form):
+    st, A, b, kw = _state(name)
+    info = _same_refined(st, b, tol=1e-8, max_iter=60, **kw)
+    assert info["relres"] < 1e-8
+
+
+def test_while_form_stops_at_max_iter(while_form):
+    st, _, b, _ = _state("jacobi-2d")
+    assert _same_refined(st, b, tol=1e-14, max_iter=7)["iters"] == 7
+    _, A, _ = _divsig(16)
+    At = torch.from_numpy(A.toarray())
+    B = torch.from_numpy(np.random.RandomState(2).rand(2, A.shape[0]))
+    mv = lambda V: (At @ V.T).T
+    x1, i1 = mt.pcg(mv, B, tol=0.0, max_iter=7)
+    x0, i0 = mt.pcg(mv, B, tol=0.0, max_iter=7, device_loop=False)
+    assert i1["iters"] == i0["iters"] == 7
+    assert torch.equal(x1, x0) and torch.equal(i1["resvec"], i0["resvec"])
+
+
+def test_while_form_stops_on_divergence(while_form):
+    M, A, b = _laplacian([32, 32])
+    cfg, rp = mt.get_mg_param(levels=3, relax_type="jacobi", relax_param=2.6,
+                              nu_pre=2, nu_post=2, dtype=np.float32)
+    st = mt.mg_setup(A, M, cfg, rp, device="cpu")
+    info = _same_refined(st, b, tol=1e-8, max_iter=60)
+    assert info["iters"] < 60 and info["resvec"][-1] >= 1e3
+
+
+def test_loop_step_writes_back_through_aliases():
+    """An iteration that swaps two entries, keeps one and computes one:
+    the swapped values are cloned before the write-back, the kept entry is
+    not copied, and the buffers are the start's own."""
+    a, b = torch.arange(3.0), torch.arange(3.0) + 10
+
+    def first(ctx, a, b):
+        return a, b, a, torch.zeros((), dtype=torch.int64), torch.tensor(True)
+
+    def body(ctx, args, s):
+        x, y, z, k = s
+        return y, x, z, k + 1, k + 1 < 3
+
+    state, go = capture._loop_start(first, None, (a, b))
+    ptrs = [t.data_ptr() for t in state]
+    assert len(set(ptrs)) == 4 and not {a.data_ptr(), b.data_ptr()} & set(ptrs)
+    n = 0
+    while bool(go):
+        go = capture._loop_step(body, None, (a, b), state)
+        n += 1
+    assert n == 3 and [t.data_ptr() for t in state] == ptrs
+    assert torch.equal(state[0], b) and torch.equal(state[1], a)
+    assert torch.equal(state[2], a) and int(state[3]) == 3
+
+
+def test_loop_step_refuses_a_state_that_changes_type():
+    state = (torch.zeros(3), torch.zeros((), dtype=torch.int64))
+    with pytest.raises(ValueError, match="shapes and types"):
+        capture._loop_step(lambda ctx, args, s: (s[0].double(), s[1],
+                                                  torch.tensor(False)),
+                           None, (), state)
+
+
+@pytest.mark.parametrize("where", ["none", "start", "iteration"])
+def test_a_host_step_keeps_a_loop_on_chunks(where):
+    """The rule that picks a loop's form: its warm-up (the start and one
+    iteration) takes a host step (a SuperLU coarsest's `host_step`) or
+    not.  With one, the loop stays on chunks."""
+    lu = lambda t: t * 2
+
+    def first(ctx, x):
+        y = capture.host_step(lu, x) if where == "start" else x + 1
+        return (y, torch.tensor(True))
+
+    def body(ctx, args, s):
+        y = capture.host_step(lu, s[0]) if where == "iteration" else s[0]
+        return (y, torch.tensor(False))
+
+    assert capture._warm(first, body, None, (torch.ones(4),)) == (
+        where != "none")
+
+
+def test_loop_takes_no_while_form_on_the_cpu():
+    """On CPU tensors `loop` gives None: the caller's chunked form runs,
+    which the CPU tests above hold."""
+    def first(ctx, x):
+        return (x, torch.tensor(False))
+
+    assert capture.loop(object(), "k", first, None, None, torch.ones(2),
+                        count=0) is None
+
+
+@pytest.mark.parametrize("k", [0, 1, 7])
+def test_tally_adds_the_start_once_and_the_iteration_k_times(k):
+    """A loop's two tallies: the start's increments once, the iteration's
+    once for each of the k iterations run (k read from the count)."""
+    fake = {"d": 0}
+    start, step = capture.Tally([fake]), capture.Tally([fake])
+    for tally, inc in ((start, 3), (step, 2)):
+        tally.begin()
+        fake["d"] += inc
+        fake["new"] = fake.get("new", 0) + 1
+        tally.end()
+    assert fake == {"d": 0}
+    start.replay()
+    step.replay(k)
+    assert fake == {"d": 3 + 2 * k, "new": 1 + k}
+
+
+@pytest.mark.parametrize("counts,takes", [
+    ({"kernel": 591, "memcpy": 66, "memset": 17}, True),
+    ({"kernel": 14, "graph": 2, "empty": 1}, True),
+    ({"kernel": 591, "memcpy": 66, "mem_alloc": 8, "mem_free": 8}, False),
+    ({"kernel": 3, "memcpy": 1, "host_memcpy": 1}, False),
+    ({"kernel": 3, "event_record": 1}, False),
+    ({"kernel": 3, "host": 1}, False)])
+def test_the_loop_graph_takes_what_a_while_body_takes(counts, takes):
+    """The census rule that keeps a loop on chunks after its recording: a
+    memory-allocation node (a library's stream-ordered workspace, as the
+    K-cycles' recording held on the card), a host node or event, or a
+    copy to or from host memory, which a WHILE body refuses."""
+    from mgtpu_torch.ops.cuda import device_loop
+    assert device_loop.body_takes(counts) is takes
+
+
+def test_warm_up_leaves_the_inputs_alone():
+    """A start that returns an input as its state and an iteration that
+    writes its state in place (as the refined loop's does): the warm-up
+    runs them on the start's own buffers, so the program's static inputs
+    keep the call's values for the first launch."""
+    x = torch.arange(4.0)
+
+    def first(ctx, x):
+        return (x, torch.tensor(True))
+
+    def body(ctx, args, s):
+        return (s[0].add_(1.0), torch.tensor(False))
+
+    assert capture._warm(first, body, None, (x,)) is False
+    assert torch.equal(x, torch.arange(4.0))
+    state, go = capture._loop_start(first, None, (x,))
+    assert not bool(capture._loop_step(body, None, (x,), state))
+    assert torch.equal(state[0], torch.arange(4.0) + 1)
+    assert torch.equal(x, torch.arange(4.0))
+
+
+def test_loop_step_writes_back_by_size_and_dtype(monkeypatch):
+    """_loop_step's write-back: an entry above BIG elements by a `copy_` of
+    its own, the small ones by one `_foreach_copy_` a dtype; every entry
+    copied, an unchanged one left out."""
+    calls = []
+    real = torch._foreach_copy_
+    monkeypatch.setattr(torch, "_foreach_copy_", lambda d, s: (
+        calls.append([t.dtype for t in d]), real(d, s))[1])
+    state = (torch.zeros(capture.BIG + 1), torch.zeros(3),
+             torch.zeros((), dtype=torch.int64),
+             torch.zeros(2, dtype=torch.bool), torch.zeros(5),
+             torch.zeros(capture.BIG))
+    new = (torch.ones(capture.BIG + 1), torch.full((3,), 2.0),
+           torch.tensor(5), torch.tensor([True, False]), state[4],
+           torch.full((capture.BIG,), 3.0))
+    go = capture._loop_step(lambda ctx, args, s: new + (torch.tensor(True),),
+                            None, (), state)
+    assert bool(go)
+    assert calls == [[torch.float32] * 2, [torch.int64], [torch.bool]]
+    assert all(torch.equal(s, n) for s, n in zip(state, new))
+    assert all(s is not n for s, n in zip(state[:4], new[:4]))

@@ -6,6 +6,7 @@ and skips with a reason when there is none.  On the card:
     python -m pytest -m gpu tests/test_torch_gpu.py
 """
 import itertools
+import math
 
 import numpy as np
 import pytest
@@ -1019,34 +1020,68 @@ def test_captured_cycle_replays_the_eager_cycle(name):
         assert _plain_calls(got) == 0
 
 
+def _spans_of_a_call(solve):
+    """solve()'s result and the names of the spans it opened."""
+    from mgtpu_torch import spans
+    spans.drain()
+    spans.enable()
+    try:
+        out = solve()
+    finally:
+        spans.disable()
+    return out, [r[0] for r in spans.drain()]
+
+
+def _loop_forms(owner):
+    """The forms the recorded loops of `owner` took: "while" or
+    "chunks"."""
+    from mgtpu_torch.cycle import capture
+    return [("chunks" if p.chunked else "while")
+            for p in capture.programs(owner).table.values()
+            if isinstance(p, capture.Loop)]
+
+
 @pytest.mark.parametrize("chunk", [1, 4])
 @pytest.mark.parametrize("name", CAPTURE_CASES)
 def test_captured_refined_loop_is_the_eager_loop(name, chunk, monkeypatch):
-    """solve_mg_refined's device loop (recorded chunks) against the eager
-    loop on the card: count, residual history and x bit for bit."""
+    """solve_mg_refined's device loop against the eager loop on the card:
+    count, residual history and x bit for bit, at the recording and at a
+    replay.  Every engine's loop takes the while form (one graph, one
+    `program.device_loop` span a call; CHUNK changes nothing there): the
+    flat engine's DenseLU coarsest records no library workspace."""
     _need_card()
     import torch
     import mgtpu_torch as mt
     monkeypatch.setattr(mt.krylov._loop, "CHUNK", chunk)
     st, A, b = _capture_case(name)
     x1, i1 = mt.solve_mg_refined(st, b, tol=1e-8, max_iter=80)
-    x1b, _ = mt.solve_mg_refined(st, b, tol=1e-8, max_iter=80)
+    (x1b, i1b), names = _spans_of_a_call(
+        lambda: mt.solve_mg_refined(st, b, tol=1e-8, max_iter=80))
     x0, i0 = mt.solve_mg_refined(st, b, tol=1e-8, max_iter=80,
                                  device_loop=False)
-    assert i1["iters"] == i0["iters"]
+    assert i1["iters"] == i1b["iters"] == i0["iters"]
     assert np.array_equal(i1["resvec"], i0["resvec"])
+    assert np.array_equal(i1b["resvec"], i0["resvec"])
     assert torch.equal(x1, x0) and torch.equal(x1b, x0)
+    assert _loop_forms(st.hier) == ["while"]
+    assert names.count("program.device_loop") == 1
+    assert names.count("program.replay") == 1
+    assert "program.record" not in names
     assert np.linalg.norm(b - A @ x1.cpu().numpy()) < 1e-8
 
 
 @pytest.mark.parametrize("method", ["cg", "bicgstab", "block-cg", "gmres"])
 def test_captured_krylov_is_the_eager_loop(method):
-    """The Krylov solves' recorded chunks (GMRES: restarts) against their
-    eager loops on the 64^2 rough-sigma problem, f64 outer iteration over
-    an f32 hierarchy: count, history and x bit for bit."""
+    """The Krylov solves' recorded loops (CG, BiCGSTAB, block CG: the
+    while form, one `program.device_loop` span a call; GMRES: a program a
+    restart) against their eager loops on the 64^2 rough-sigma problem,
+    f64 outer iteration over an f32 hierarchy: count, history and x bit
+    for bit, at the recording and at a replay; each loop counts one
+    set_cond launch more than its iterations."""
     _need_card()
     import torch
     import mgtpu_torch as mt
+    from mgtpu_torch.ops.cuda import device_loop
     st, A, b = _capture_case("divsig")
     B = (np.random.RandomState(4).rand(A.shape[0], 4)
          if method == "block-cg" else b)
@@ -1055,14 +1090,67 @@ def test_captured_krylov_is_the_eager_loop(method):
              "gmres": mt.solve_gmres_mg}[method]
     kw = dict(block=True) if method == "block-cg" else {}
     x1, i1 = solve(st, B, **kw)
+    before = device_loop.LAUNCHES["set_cond"]
+    (x2, i2), names = _spans_of_a_call(lambda: solve(st, B, **kw))
     x0, i0 = solve(st, B, device_loop=False, **kw)
-    assert int(i1["iters"]) == int(i0["iters"])
-    r1, r0 = (np.asarray(torch.as_tensor(i["resvec"]).cpu())
-              for i in (i1, i0))
-    assert np.array_equal(r1, r0)
-    assert torch.equal(x1, x0)
+    k = int(i0["iters"])
+    assert int(i1["iters"]) == int(i2["iters"]) == k
+    r1, r2, r0 = (np.asarray(torch.as_tensor(i["resvec"]).cpu())
+                  for i in (i1, i2, i0))
+    assert np.array_equal(r1, r0) and np.array_equal(r2, r0)
+    assert torch.equal(x1, x0) and torch.equal(x2, x0)
+    loops = 0 if method == "gmres" else 1
+    assert _loop_forms(st.hier) == ["while"] * loops
+    assert names.count("program.device_loop") == loops
+    assert device_loop.LAUNCHES["set_cond"] - before == loops * (k + 1)
     rr = np.linalg.norm(B - A @ x1.cpu().numpy(), axis=0)
     assert np.all(rr < 1e-8 * np.linalg.norm(B, axis=0))
+
+
+@pytest.mark.parametrize("case", ["max_iter", "divergence"])
+def test_while_form_stops_where_the_eager_loop_stops(case):
+    """The while form stops on the eager loop's iteration: at a max_iter
+    short of convergence (refined, CG) and, over-relaxed Jacobi (omega
+    2.6), at the first residual above 1e3 ||b|| (refined); count, history
+    and x bit for bit, one `program.device_loop` a call."""
+    _need_card()
+    import torch
+    import mgtpu_torch as mt
+    if case == "max_iter":
+        st, A, b = _capture_case("divsig")
+        solves = [lambda **kw: mt.solve_mg_refined(st, b, tol=1e-14,
+                                                   max_iter=7, **kw)]
+        st.config = __import__("dataclasses").replace(st.config,
+                                                      max_outer_iter=5)
+        solves.append(lambda **kw: mt.solve_cg_mg(st, b, **kw))
+        want = [7, 5]
+    else:
+        from mgtpu_torch.models.operators import nodal_laplacian_matrix
+        M = mt.get_regular_mesh([0.0, 1.0, 0.0, 1.0], [32, 32])
+        A = nodal_laplacian_matrix(M)
+        A = (A + 1e-4 * abs(A).sum(0).max() * sp.identity(A.shape[0])).tocsr()
+        b = A @ np.random.RandomState(0).rand(A.shape[0])
+        b /= np.linalg.norm(b)
+        cfg, rp = mt.get_mg_param(levels=3, relax_type="jacobi",
+                                  relax_param=2.6, nu_pre=2, nu_post=2,
+                                  dtype=np.float32)
+        st = mt.mg_setup(A, M, cfg, rp)
+        solves = [lambda **kw: mt.solve_mg_refined(st, b, tol=1e-8,
+                                                   max_iter=60, **kw)]
+        want = [None]
+    for solve, k in zip(solves, want):
+        solve()                                         # records
+        (x1, i1), names = _spans_of_a_call(solve)
+        x0, i0 = solve(device_loop=False)
+        assert int(i1["iters"]) == int(i0["iters"])
+        if k is not None:
+            assert int(i0["iters"]) == k
+        else:
+            assert int(i0["iters"]) < 60 and i0["resvec"][-1] >= 1e3
+        r1, r0 = (np.asarray(torch.as_tensor(i["resvec"]).cpu())
+                  for i in (i1, i0))
+        assert np.array_equal(r1, r0) and torch.equal(x1, x0)
+        assert names.count("program.device_loop") == 1
 
 
 @pytest.mark.parametrize("ctype,segments", [("V", 2), ("W", 3)])
@@ -1071,7 +1159,9 @@ def test_sparse_lu_cycle_records_in_segments(engine, ctype, segments,
                                              monkeypatch):
     """A host SuperLU coarsest splits the recorded cycle: a V-cycle in two
     graphs around one host step, a W-cycle of three levels in three; the
-    replayed cycle equals the eager one bit for bit."""
+    replayed cycle equals the eager one bit for bit.  The refined loop
+    around it stays on chunks (a program of CHUNK iterations a chunk, no
+    `program.device_loop`)."""
     _need_card()
     import torch
     import mgtpu_torch as mt
@@ -1096,9 +1186,18 @@ def test_sparse_lu_cycle_records_in_segments(engine, ctype, segments,
     assert [c.segments for c in table.values()] == [segments]
     x1, i1 = mt.solve_mg_refined(st, A @ np.ones(A.shape[0]), tol=1e-8,
                                  max_iter=60)
+    (x1b, _), names = _spans_of_a_call(
+        lambda: mt.solve_mg_refined(st, A @ np.ones(A.shape[0]), tol=1e-8,
+                                    max_iter=60))
     x0r, i0 = mt.solve_mg_refined(st, A @ np.ones(A.shape[0]), tol=1e-8,
                                   max_iter=60, device_loop=False)
     assert i1["iters"] == i0["iters"] and torch.equal(x1, x0r)
+    assert torch.equal(x1b, x0r)
+    # a host step keeps the refined loop on chunks: no while form
+    assert _loop_forms(st.hier) == ["chunks"]
+    assert "program.device_loop" not in names
+    assert names.count("program.replay") == math.ceil(
+        i0["iters"] / mt.krylov._loop.CHUNK)
 
 
 @pytest.mark.parametrize("host_lu", [False, True])
@@ -1106,10 +1205,10 @@ def test_program_spans_across_a_record_and_two_replays(host_lu, monkeypatch):
     """mgtpu_torch.spans on the card: a recorded cycle's first call
     records once and replays, two more calls replay; each replay runs its
     graphs (two around a host SuperLU step).  A refined and a CG solve
-    after their recordings: ceil(k / CHUNK) graphs a call, ceil(k / CHUNK)
-    + 4 and + 1 host reads, no recording."""
+    after their recordings (the while form): one graph a call, 4 and 1
+    host reads (the count, and the refined solve's residuals and
+    history), no recording."""
     _need_card()
-    import math
     from collections import Counter
 
     import torch
@@ -1149,14 +1248,12 @@ def test_program_spans_across_a_record_and_two_replays(host_lu, monkeypatch):
             return
         b = A @ np.random.RandomState(4).rand(A.shape[0])
         b /= np.linalg.norm(b)
-        for solve, extra in ((mt.solve_mg_refined, 4), (mt.solve_cg_mg, 1)):
+        for solve, reads in ((mt.solve_mg_refined, 4), (mt.solve_cg_mg, 1)):
             solve(st, b)                                # records
             spans.drain()
             x, info = solve(st, b)
-            k = int(info["iters"])
-            chunks = math.ceil(k / _loop.CHUNK)
-            assert k > _loop.CHUNK
-            assert counted() == (0, chunks, 0, chunks + extra)
+            assert int(info["iters"]) > _loop.CHUNK
+            assert counted() == (0, 1, 0, reads)
     finally:
         spans.disable()
         spans.drain()
@@ -1189,16 +1286,24 @@ def test_capture_failure_raises():
 
 def test_new_tolerance_replays_the_recorded_loop():
     """tol and max_iter's bound are device scalars: a solve to a new
-    tolerance replays the programs recorded for the old one."""
+    tolerance replays the loop recorded for the old one (no recording, one
+    `program.device_loop`), and stops where the eager loop does."""
     _need_card()
     import mgtpu_torch as mt
     from mgtpu_torch.cycle import capture
     st, A, b = _capture_case("divsig")
     _, i1 = mt.solve_mg_refined(st, b, tol=1e-6, max_iter=80)
     keys = set(capture.programs(st.hier).table)
-    _, i2 = mt.solve_mg_refined(st, b, tol=1e-9, max_iter=80)
+    (_, i2), names = _spans_of_a_call(
+        lambda: mt.solve_mg_refined(st, b, tol=1e-9, max_iter=80))
+    _, i0 = mt.solve_mg_refined(st, b, tol=1e-9, max_iter=80,
+                                device_loop=False)
     assert set(capture.programs(st.hier).table) == keys
+    assert "program.record" not in names
+    assert names.count("program.device_loop") == 1
     assert i2["iters"] > i1["iters"] and i2["relres"] < 1e-9
+    assert i2["iters"] == i0["iters"]
+    assert np.array_equal(i2["resvec"], i0["resvec"])
 
 
 class _CountingFactor:
@@ -2420,3 +2525,75 @@ def test_staggered_halo_apply_matches_plain(dims, dtype, one_rank):
         torch.cuda.synchronize()
         err = float((y - ref).abs().max() / ref.abs().max())
         assert err < tol, err
+
+
+def test_loop_step_write_back_at_the_cells_shapes():
+    """_loop_step's write-back on the card at the benchmark cells' state
+    shapes (CG's f64 vectors of 18,513 nodes and its scalars, block CG's
+    8 x 18,513 fields and 8 x 8 Gram blocks, the refined loop's 257^3 f64
+    fields): every entry as `copy_` writes it, in one iteration of a
+    recorded loop body run eagerly."""
+    _need_card()
+    import torch
+    from mgtpu_torch.cycle import capture
+    g = torch.Generator(device="cuda").manual_seed(3)
+    shapes = [((18513, 1), torch.float64), ((), torch.int64),
+              ((20, 1), torch.float64), ((18513, 8), torch.float64),
+              ((8, 8), torch.float64), ((), torch.bool),
+              ((257,) * 3, torch.float64)]
+    new = tuple((torch.rand(sh, generator=g, device="cuda",
+                            dtype=torch.float64) > 0.5) if dt == torch.bool
+                else torch.rand(sh, generator=g, device="cuda",
+                                dtype=torch.float64).to(dt)
+                for sh, dt in shapes)
+    state = tuple(torch.zeros_like(t) for t in new)
+    go = capture._loop_step(lambda ctx, args, s: new + (torch.tensor(
+        True, device="cuda"),), None, (), state)
+    torch.cuda.synchronize()
+    assert bool(go)
+    for s_, n in zip(state, new):
+        assert torch.equal(s_, n)
+
+
+def test_profiled_loop_replays_its_recordings_from_the_host():
+    """While torch.profiler records (under its CUDA tracing, launches of
+    the loop graph faulted), a recorded loop replays its start's and its
+    iteration's graphs from the host: x and the count bit for bit the
+    eager loop's, 1 + k graphs, no `program.device_loop`, no recording and
+    no set_cond launch in a profiled call.  Outside the profile the loop
+    graph runs (one `program.device_loop` a call), also for a loop whose
+    first call, its recording, was profiled."""
+    _need_card()
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    import mgtpu_torch as mt
+    from mgtpu_torch.ops.cuda import device_loop
+    st, A, b = _capture_case("divsig")
+    x0, i0 = mt.solve_cg_mg(st, b, device_loop=False)
+    k = int(i0["iters"])
+
+    def profiled(solve):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]):
+            out = _spans_of_a_call(solve)
+            torch.cuda.synchronize()
+        return out
+
+    (x1, i1), names = profiled(lambda: mt.solve_cg_mg(st, b))   # records
+    assert torch.equal(x1, x0) and int(i1["iters"]) == k
+    assert "program.record" in names
+    assert "program.device_loop" not in names
+    for _ in range(2):
+        before = device_loop.LAUNCHES["set_cond"]
+        (x2, i2), names = profiled(lambda: mt.solve_cg_mg(st, b))
+        assert torch.equal(x2, x0) and int(i2["iters"]) == k
+        assert "program.record" not in names
+        assert "program.device_loop" not in names
+        assert names.count("program.replay") == k + 1
+        assert device_loop.LAUNCHES["set_cond"] == before
+        (x3, i3), names = _spans_of_a_call(lambda: mt.solve_cg_mg(st, b))
+        torch.cuda.synchronize()
+        assert torch.equal(x3, x0) and int(i3["iters"]) == k
+        assert names.count("program.device_loop") == 1
+        assert device_loop.LAUNCHES["set_cond"] == before + k + 1
+    assert _loop_forms(st.hier) == ["while"]
